@@ -1,0 +1,525 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port (pulseportraiture_tpu_torch) on one GPU.
+
+    python3 chip_smoke.py
+
+Phases, one JSON line each on stdout; any failure exits non-zero:
+
+  gpu         nvidia-smi name and power limit of the card
+  build       nvcc build of every kernel in pulseportraiture_tpu_torch/csrc
+  kernels     each hand kernel at the main path's full width against its
+              plain PyTorch version on the same inputs (error, tolerance,
+              kernel / plain / bound / library times from CUDA events)
+  pptoas      the port's pptoas CLI on a 256-subint x 512-channel x 2048-bin
+              archive (written by the port's make_fake_pulsar from
+              examples/; subint 3 has one live channel, so both fit-flag
+              groups run): 256 TOAs, injected phase and dDM recovered
+              within 5 sigma, every kernel launched; a 16-subint subset
+              re-run with the plain versions swapped in agrees within 1 ns
+  throughput  fit_portrait_full_batch at 1000 x 512 x 2048 (data made on
+              the card from a seeded torch.Generator): TOAs/s, K1 launches,
+              K1 ms per launch (torch.profiler, a separate run), peak
+              device memory
+
+Then a ``kernels`` line (every hand kernel with its launches on the pptoas
+path, errors and times), the card's name and power limit, and last
+``{"ok": true, "device": {...}}``.  Exits non-zero without a result when
+no CUDA device is available or the package is missing.
+
+Option (a diagnostic; the smoke itself takes none):
+  --profile DIR  also profile the pptoas CLI (cProfile for host time,
+                 torch.profiler for device time); the tables go to
+                 DIR/pptoas_profile.txt, a summary to stdout
+"""
+
+import contextlib
+import json
+import math
+import os
+import shutil
+import subprocess
+import sys
+import tempfile
+import time
+
+# published peaks of one H100 SXM (NVIDIA H100 data sheet, 700 W): HBM3
+# bandwidth, FP64 outside the tensor cores (trig, FMAs) and FP64 on the
+# tensor cores (a float64 matrix product)
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_FP64_PER_S = 34e12
+PEAK_FP64_TENSOR_PER_S = 67e12
+
+# model and north-star injections of the repo's benchmark configuration
+MODEL_PARAMS = [0.0, 0.0, 0.35, -0.05, 0.05, 0.1, 1.0, -1.2]
+P0, NOISE = 0.005, 0.05
+
+
+def emit(phase, **kw):
+    print(json.dumps(dict(phase=phase, **kw)), flush=True)
+
+
+def gpu_line():
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip().splitlines()[0]
+
+
+def cuda_ms(fn, reps=20, warm=3):
+    """Mean device time [ms] of fn() over ``reps`` back-to-back calls."""
+    import torch
+
+    for _ in range(warm):
+        fn()
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(reps):
+        fn()
+    b.record()
+    torch.cuda.synchronize()
+    return a.elapsed_time(b) / reps
+
+
+def bound_ms(nbytes, *work):
+    """Least time [ms] for moving ``nbytes`` or doing ``work``, a list of
+    (operations, peak rate per second); and which of the two bounds it."""
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = sum(n / rate for n, rate in work) * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else
+                                 "operations")
+
+
+def rel_err(a, b):
+    return float((a - b).abs().max() / b.abs().max().clamp_min(1e-300))
+
+
+def phase_kernels(dev, kern, K=128):
+    """K1 at [100, 512, K] and K2 at [1000, 1025] against their plain
+    versions, with times and bounds (``kern`` is the _kernels module)."""
+    import torch
+
+    gen = torch.Generator(device=dev).manual_seed(7)
+    rows = {}
+
+    # K1: moments.  ~18 FP64 operations per harmonic (incl. sincospi as 2)
+    n, nchan = 100, 512
+    cross = torch.complex(torch.randn((n, nchan, K), generator=gen,
+                                      device=dev, dtype=torch.float64),
+                          torch.randn((n, nchan, K), generator=gen,
+                                      device=dev, dtype=torch.float64))
+    shifts = (torch.rand((n, nchan), generator=gen, device=dev,
+                         dtype=torch.float64) - 0.5) * 4000.0
+    inv_err2 = torch.rand((n, nchan), generator=gen, device=dev,
+                          dtype=torch.float64) + 0.5
+    got = kern.moments(cross, shifts, inv_err2)
+    want = kern.moments_plain(cross, shifts, inv_err2)
+    torch.cuda.synchronize()
+    err = max(rel_err(got[..., i], want[..., i]) for i in range(3))
+    tol = 1e-12
+    nb = cross.numel() * 16 + shifts.numel() * 8 * 2 + got.numel() * 8
+    bms, by = bound_ms(nb, (cross.numel() * 18, PEAK_FP64_PER_S))
+    rows["moments"] = dict(
+        shape=[n, nchan, K], max_rel_err=err, tol=tol,
+        max_abs_err=float((got - want).abs().max()),
+        ms=cuda_ms(lambda: kern.moments(cross, shifts, inv_err2)),
+        plain_ms=cuda_ms(lambda: kern.moments_plain(cross, shifts, inv_err2),
+                         reps=5),
+        bound_ms=bms, bound_by=by, library_ms=None)
+    emit("kernels", kernel="moments", **rows["moments"])
+    if not err <= tol:
+        raise AssertionError("moments kernel disagrees: %g > %g"
+                             % (err, tol))
+    del cross, shifts, inv_err2, got, want
+
+    # K2: FFTFIT on realistic profiles (a pulse + noise, random phases)
+    from pulseportraiture_tpu_torch.fit.phase_shift import cross_spectrum
+    from pulseportraiture_tpu_torch.ops.fourier import rotate_profile
+
+    N, nbin, Ns, newton = 1000, 2048, 100, 6
+    x = (torch.arange(nbin, dtype=torch.float64, device=dev) + 0.5) / nbin
+    prof = torch.exp(-0.5 * ((x - 0.35) / 0.02) ** 2)
+    ph = (torch.rand(N, generator=gen, device=dev, dtype=torch.float64)
+          - 0.5) * 0.9
+    data = rotate_profile(prof.expand(N, nbin), -ph) + 0.05 * torch.randn(
+        (N, nbin), generator=gen, device=dev, dtype=torch.float64)
+    cr, _, _ = cross_spectrum(data, prof.expand(N, nbin))
+    cr = cr.contiguous()
+    w = torch.full((N,), 1.0 / (0.05 ** 2 * nbin / 2), dtype=torch.float64,
+                   device=dev)
+    got = kern.fftfit(cr, w, -0.5, 0.5, Ns, newton)
+    want = kern.fftfit_plain(cr, w, -0.5, 0.5, Ns, newton)
+    torch.cuda.synchronize()
+    dphase = float((got[0] - want[0]).abs().max())
+    err = max(rel_err(got[1], want[1]), rel_err(got[2], want[2]))
+    tol_phase, tol = 1e-9, 1e-12
+    nharm = cr.shape[-1]
+    grid = torch.arange(Ns, dtype=torch.float64, device=dev) / Ns - 0.5
+    k = torch.arange(nharm, dtype=torch.float64, device=dev)
+    table = torch.polar(torch.ones(nharm, Ns, dtype=torch.float64,
+                                   device=dev),
+                        2 * math.pi * torch.remainder(k[:, None] * grid, 1.0))
+    # the grid stage is one float64 product [N, nharm] x [nharm, Ns] with
+    # a table the profiles share (Re of the complex product: 4 operations
+    # per term, tensor cores); each Newton step and the final objective
+    # take ~18 FP64 operations (sincospi as 2) per harmonic
+    bms, by = bound_ms(cr.numel() * 16 + N * 8 + 3 * N * 8,
+                       (4 * N * nharm * Ns, PEAK_FP64_TENSOR_PER_S),
+                       (18 * N * nharm * (newton + 1), PEAK_FP64_PER_S))
+    rows["fftfit"] = dict(
+        shape=[N, nharm], max_phase_err=dphase, tol_phase=tol_phase,
+        max_rel_err=err, tol=tol,
+        max_abs_err=max(dphase, float((got[1] - want[1]).abs().max()),
+                        float((got[2] - want[2]).abs().max())),
+        ms=cuda_ms(lambda: kern.fftfit(cr, w, -0.5, 0.5, Ns, newton)),
+        plain_ms=cuda_ms(lambda: kern.fftfit_plain(cr, w, -0.5, 0.5, Ns,
+                                                newton), reps=5),
+        bound_ms=bms, bound_by=by,
+        library_ms=cuda_ms(lambda: torch.matmul(cr, table)))
+    emit("kernels", kernel="fftfit", **rows["fftfit"])
+    if not (dphase <= tol_phase and err <= tol):
+        raise AssertionError("fftfit kernel disagrees: phase %g, rel %g"
+                             % (dphase, err))
+    return rows
+
+
+def read_tim(path):
+    """[(mjd_day, mjd_frac_str, freq, flags dict, pp_dm, pp_dme)]."""
+    out = []
+    for ln in open(path):
+        tok = ln.split()
+        if not tok or tok[0] in ("FORMAT", "C"):
+            continue
+        flags = {}
+        i = 5
+        while i + 1 < len(tok):
+            flags[tok[i][1:]] = tok[i + 1]
+            i += 2
+        day, frac = tok[2].split(".")
+        out.append(dict(day=int(day), frac="0." + frac, freq=float(tok[1]),
+                        err_us=float(tok[3]), flags=flags))
+    return out
+
+
+@contextlib.contextmanager
+def plain_kernels(K):
+    """Swap the plain versions in for the kernels (the comparison run)."""
+    saved = K.moments, K.fftfit
+    K.moments, K.fftfit = K.moments_plain, K.fftfit_plain
+    try:
+        yield
+    finally:
+        K.moments, K.fftfit = saved
+
+
+def phase_pptoas(root, work, K, shape=(256, 512, 2048), subset=16,
+                 extra=(), profile_dir=None):
+    """The port's pptoas CLI on a ``shape`` (nsub, nchan, nbin) archive;
+    ``extra`` CLI arguments are appended to both runs."""
+    import numpy as np
+
+    from pulseportraiture_tpu_torch.cli import pptoas
+    from pulseportraiture_tpu_torch.config import Dconst
+    from pulseportraiture_tpu_torch.io.archive import make_fake_pulsar
+    from pulseportraiture_tpu_torch.io.parfile import read_par
+
+    gm = os.path.join(root, "examples", "example.gmodel")
+    par = os.path.join(root, "examples", "example.par")
+    (nsub, nchan, nbin), nu0 = shape, 1500.0
+    phase_inj, dDM_inj = 0.1234, 3.1e-3
+    weights = np.ones((nsub, nchan))
+    weights[:, [7, nchan // 5, nchan * 2 // 3]] = 0.0  # zapped channels
+    weights[3] = 0.0  # one live channel: fitted with flags (1,0,0,0,0)
+    weights[3, nchan // 2] = 1.0
+    kw = dict(nchan=nchan, nbin=nbin, nu0=nu0, bw=800.0, tsub=60.0,
+              phase=phase_inj, dDM=dDM_inj, noise_stds=0.5, seed=11)
+    t0 = time.perf_counter()
+    big = make_fake_pulsar(gm, par, os.path.join(work, "smoke256.fits"),
+                           nsub=nsub, weights=weights, **kw)
+    small = make_fake_pulsar(gm, par, os.path.join(work, "smoke16.fits"),
+                             nsub=subset, weights=weights[:subset], **kw)
+    t_make = time.perf_counter() - t0
+
+    tim = os.path.join(work, "smoke256.tim")
+    argv = ["-d", big, "-m", gm, "--no_bary", "--print_phase", *extra,
+            "--quiet", "-o", tim]
+    K.reset_launches()
+    t0 = time.perf_counter()
+    rc = pptoas.main(argv)
+    t_cli = time.perf_counter() - t0
+    launches = dict(K.LAUNCHES)
+    if rc != 0:
+        raise AssertionError("pptoas exited %d" % rc)
+    toas = read_tim(tim)
+    if len(toas) != nsub:
+        raise AssertionError("%d TOA lines, want %d" % (len(toas), nsub))
+    DM = float(read_par(par).get("DM")) + dDM_inj
+    P = 1.0 / float(read_par(par).F0)
+    zDM, zphi, no_dm = [], [], []
+    for isub, t in enumerate(toas):
+        f = t["flags"]
+        if "pp_dm" in f:
+            zDM.append((float(f["pp_dm"]) - DM) / float(f["pp_dme"]))
+        else:  # DM not fitted
+            no_dm.append(isub)
+        nu = t["freq"]
+        want = phase_inj + Dconst * DM * (nu ** -2 - nu0 ** -2) / P
+        d = (float(f["phs"]) - want + 0.5) % 1.0 - 0.5
+        zphi.append(d / float(f["phs_err"]))
+    if no_dm != [3]:
+        raise AssertionError("TOAs without a fitted DM: %s, want only the "
+                             "one-channel subint 3" % no_dm)
+    zDM, zphi = np.abs(zDM), np.abs(zphi)
+    if not (zDM.max() < 5 and zphi.max() < 5):
+        raise AssertionError("injection not recovered: max |z| DM %.2f, "
+                             "phase %.2f" % (zDM.max(), zphi.max()))
+    missing = [name for name, n in launches.items() if n == 0]
+    if missing:
+        raise AssertionError("kernels never launched on the pptoas path: %s"
+                             % missing)
+
+    tim_plain = os.path.join(work, "smoke16_plain.tim")
+    with plain_kernels(K):
+        rc = pptoas.main(["-d", small, "-m", gm, "-o", tim_plain,
+                          "--no_bary", "--print_phase", "--quiet", *extra])
+    if rc != 0:
+        raise AssertionError("plain pptoas exited %d" % rc)
+    plain = read_tim(tim_plain)
+    dt_ns = max(abs((a["day"] - b["day"]) * 86400e9
+                    + (float(a["frac"]) - float(b["frac"])) * 86400e9)
+                for a, b in zip(toas[:subset], plain))
+    if len(plain) != subset or not dt_ns < 1.0:
+        raise AssertionError("plain vs kernel TOAs differ by %.3g ns"
+                             % dt_ns)
+    if profile_dir is not None:
+        profile_cli(argv[:-2] + ["-o", os.path.join(work, "prof.tim")],
+                    profile_dir)
+    emit("pptoas", archive=[nsub, nchan, nbin], n_toas=len(toas),
+         make_s=t_make, cli_s=t_cli, toas_per_s=nsub / t_cli,
+         launches=launches, max_abs_z_DM=float(zDM.max()),
+         max_abs_z_phase=float(zphi.max()),
+         median_toa_err_us=float(np.median([t["err_us"] for t in toas])),
+         plain_vs_kernel_max_ns=dt_ns)
+    return launches
+
+
+def profile_cli(argv, outdir):
+    """Where the pptoas CLI's wall time goes: host functions (cProfile,
+    one run) and device time by kernel (torch.profiler, another run).
+    Emits a summary; writes the tables to ``outdir``."""
+    import cProfile
+    import io
+    import pstats
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from pulseportraiture_tpu_torch.cli import pptoas
+
+    pr = cProfile.Profile()
+    t0 = time.perf_counter()
+    pr.enable()
+    pptoas.main(argv)
+    pr.disable()
+    host_wall = time.perf_counter() - t0
+    st = pstats.Stats(pr)
+    host = sorted(((f"{fn[0].split('/')[-1]}:{fn[1]}({fn[2]})", v[3])
+                   for fn, v in st.stats.items()
+                   if "pulseportraiture_tpu_torch" in fn[0]),
+                  key=lambda r: -r[1])[:25]
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        pptoas.main(argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    rows = sorted(((key[:80], s, n) for key, s, n in device_rows(prof)),
+                  key=lambda r: -r[1])
+    busy = sum(r[1] for r in rows)
+    os.makedirs(outdir, exist_ok=True)
+    buf = io.StringIO()
+    pstats.Stats(pr, stream=buf).sort_stats("cumulative").print_stats(40)
+    with open(os.path.join(outdir, "pptoas_profile.txt"), "w") as f:
+        f.write(buf.getvalue())
+        f.write("\n" + prof.key_averages().table(
+            sort_by="cpu_time_total", row_limit=40))
+    emit("profile", cprofile_wall_s=host_wall, wall_s=wall,
+         device_busy_s=busy, device_idle_share=1.0 - busy / wall,
+         host_cumulative_s=host[:15],
+         device_top=[list(r) for r in rows[:10]])
+
+
+def device_rows(prof):
+    """(name, device seconds, count) of every device-side event (kernels,
+    copies) in a torch.profiler run."""
+    rows = []
+    for e in prof.key_averages():
+        if str(e.device_type).endswith("CUDA"):
+            dev_us = getattr(e, "self_device_time_total", None)
+            if dev_us is None:
+                dev_us = e.self_cuda_time_total
+            rows.append((e.key, dev_us / 1e6, e.count))
+    return rows
+
+
+def kernel_device_ms(fn, K):
+    """{kernel name: (launches, device ms in all)} of the hand kernels
+    over one call of fn(), from torch.profiler; a kernel the profiler
+    shows no device time for is left out."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    out = {}
+    for key, dev_s, count in device_rows(prof):
+        for name in K.KERNELS:
+            if name + "_kernel" in key and dev_s > 0:
+                n, ms = out.get(name, (0, 0.0))
+                out[name] = (n + count, ms + dev_s * 1e3)
+    return out
+
+
+def phase_throughput(dev, K):
+    """fit_portrait_full_batch at the north-star 1000 x 512 x 2048."""
+    import torch
+
+    from pulseportraiture_tpu_torch.config import Dconst
+    from pulseportraiture_tpu_torch.fit.phase_shift import fit_phase_shift
+    from pulseportraiture_tpu_torch.fit.portrait import (
+        fit_portrait_full_batch, model_kmax)
+    from pulseportraiture_tpu_torch.ops.fourier import (get_bin_centers,
+                                                        rotate_data)
+    from pulseportraiture_tpu_torch.ops.profiles import gen_gaussian_portrait
+
+    nsub, nchan, nbin = 1000, 512, 2048
+    freqs = torch.linspace(1300.0, 1700.0, nchan, dtype=torch.float64,
+                           device=dev) + 400.0 / nchan / 2
+    nu0 = float(freqs.mean())
+    model = gen_gaussian_portrait("000", MODEL_PARAMS, -4.0,
+                                  get_bin_centers(nbin), freqs, 1500.0,
+                                  device=dev)
+    kmax = model_kmax(model)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    phis = (torch.rand(nsub, generator=gen, device=dev,
+                       dtype=torch.float64) - 0.5) * 0.8
+    dDMs = (torch.rand(nsub, generator=gen, device=dev,
+                       dtype=torch.float64) - 0.5) * 4e-3
+    data = torch.empty((nsub, nchan, nbin), dtype=torch.float64, device=dev)
+    for i in range(0, nsub, 100):
+        s = slice(i, i + 100)
+        data[s] = rotate_data(model.expand(len(phis[s]), nchan, nbin),
+                              -phis[s][:, None], -dDMs[s][:, None], P0,
+                              freqs, nu0)
+        data[s] += NOISE * torch.randn(data[s].shape, generator=gen,
+                                       device=dev, dtype=torch.float64)
+    errs = torch.full((nsub, nchan), NOISE, dtype=torch.float64, device=dev)
+    torch.cuda.synchronize()
+
+    def run():
+        seed = fit_phase_shift(data.mean(dim=1), model.mean(dim=0),
+                               device=dev)
+        init = torch.zeros((nsub, 5), dtype=torch.float64, device=dev)
+        init[:, 0] = seed.phase
+        return fit_portrait_full_batch(
+            data, model, init, P0, freqs, errs=errs,
+            fit_flags=(1, 1, 0, 0, 0), log10_tau=False, max_iter=30,
+            kmax=kmax, device=dev)
+
+    t0 = time.perf_counter()
+    run()
+    torch.cuda.synchronize()
+    t_first = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    K.reset_launches()
+    t0 = time.perf_counter()
+    out = run()
+    torch.cuda.synchronize()
+    t_steady = time.perf_counter() - t0
+    launches = dict(K.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    per_kernel = kernel_device_ms(run, K)  # another run, under the profiler
+    # phi is reported at nu_DM; the injection is referenced to nu0
+    z = ((out.phi - phis - Dconst * dDMs * (out.nu_DM ** -2 - nu0 ** -2)
+          / P0) + 0.5) % 1.0 - 0.5
+    zphi = (z / out.phi_err).abs()
+    zDM = ((out.DM - dDMs) / out.DM_err).abs()
+    finite = bool(torch.isfinite(out.phi).all()
+                  and torch.isfinite(out.phi_err).all())
+    k1, k2 = per_kernel.get("moments"), per_kernel.get("fftfit")
+    res = dict(shape=[nsub, nchan, nbin], kmax=kmax, first_s=t_first,
+               steady_s=t_steady, toas_per_s=nsub / t_steady,
+               launches=launches,
+               k1_ms_per_launch=k1[1] / k1[0] if k1 else None,
+               k1_ms_total=k1[1] if k1 else None,
+               k2_ms=k2[1] / k2[0] if k2 else None,
+               peak_device_bytes=int(peak),
+               rc_counts={int(c): int((out.return_code == c).sum())
+                          for c in out.return_code.unique()},
+               nfev_max=int(out.nfeval.max()),
+               frac_phase_within_5sigma=float((zphi < 5).double().mean()),
+               frac_DM_within_5sigma=float((zDM < 5).double().mean()),
+               finite=finite)
+    emit("throughput", **res)
+    if not (finite and res["frac_phase_within_5sigma"] > 0.99
+            and res["frac_DM_within_5sigma"] > 0.99):
+        raise AssertionError("north-star fit did not recover the injection")
+    return res
+
+
+def main(argv):
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device is available", file=sys.stderr)
+        return 2
+    root = os.path.dirname(os.path.abspath(__file__))
+    sys.path.insert(0, root)
+    from pulseportraiture_tpu_torch import _kernels as K
+
+    profile_dir = argv[argv.index("--profile") + 1] \
+        if "--profile" in argv else None
+    dev = torch.device("cuda")
+    gpu = gpu_line()
+    print(gpu, flush=True)
+    emit("gpu", nvidia_smi=gpu, torch=torch.__version__,
+         cuda=torch.version.cuda, name=torch.cuda.get_device_name(0))
+
+    t0 = time.perf_counter()
+    K.build()
+    emit("build", seconds=time.perf_counter() - t0,
+         ptxas={name: [ln for ln in log.splitlines() if "Used" in ln
+                       or "spill" in ln] for name, log in
+                K.BUILD_LOG.items()})
+
+    rows = phase_kernels(dev, K)
+    work = tempfile.mkdtemp(prefix="pp_smoke_")
+    try:
+        launches = phase_pptoas(root, work, K, profile_dir=profile_dir)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    phase_throughput(dev, K)
+
+    kernels = []
+    for name, (src, _, replaces) in K.KERNELS.items():
+        r = rows[name]
+        kernels.append(dict(
+            name=name, route="cuda",
+            source="pulseportraiture_tpu_torch/csrc/" + src,
+            replaces=replaces, launches=launches[name],
+            max_abs_err=r["max_abs_err"], ms=r["ms"],
+            plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
+            bound_by=r["bound_by"], library_ms=r["library_ms"]))
+    print(json.dumps({"kernels": kernels}), flush=True)
+    print(gpu, flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main(sys.argv[1:]))

@@ -1,0 +1,297 @@
+"""The port's hand-written CUDA kernels: build, ctypes binding, wrappers.
+
+Two kernels, each a CUDA C++ source under ``csrc/`` compiled for Hopper
+(``sm_90a``) by ``nvcc`` into a shared library with a plain C interface
+and loaded with ``ctypes``:
+
+  K1 ``moments`` (csrc/moments.cu) — per-channel moments of the portrait
+     objective; replaces pulseportraiture_tpu/fit/portrait.py:118
+     ``_moments`` (scattering-free branch).
+  K2 ``fftfit``  (csrc/fftfit.cu)  — batched FFTFIT grid search + Newton
+     polish; replaces pulseportraiture_tpu/fit/phase_shift.py:64
+     ``_fit_phase_shift_core``.
+
+Each wrapper dispatches on its input's device: a CPU tensor takes the
+plain PyTorch version beside it (``moments_plain``/``fftfit_plain``,
+which the CPU tests use and ``chip_smoke.py`` holds the kernels
+against); a CUDA tensor launches the kernel — building it at first use —
+or raises.  Nothing falls back from the card to the plain version.  The
+wrapper checks device, dtype, shape and contiguity, checks the launch's
+``cudaGetLastError()`` and adds one to ``LAUNCHES[name]`` per launch.
+
+Build: ``build()`` starts one ``nvcc`` per source, all at once, writing
+``_build/lib<name>-<hash>.so`` (the hash covers the source and the
+flags, so an edited source never reuses a stale library).  No CUDA
+toolkit is needed to import this module.
+"""
+
+import ctypes
+import hashlib
+import math
+import os
+import shutil
+import subprocess
+import threading
+import time
+
+import torch
+
+__all__ = ["LAUNCHES", "reset_launches", "build", "moments",
+           "moments_plain", "fftfit", "fftfit_plain", "KERNELS"]
+
+_HERE = os.path.dirname(os.path.abspath(__file__))
+CSRC_DIR = os.path.join(_HERE, "csrc")
+BUILD_DIR = os.path.join(_HERE, "_build")
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+# kernel name -> (source file, C symbol, the JAX function it replaces)
+KERNELS = {
+    "moments": ("moments.cu", "pp_moments",
+                "pulseportraiture_tpu/fit/portrait.py:118"),
+    "fftfit": ("fftfit.cu", "pp_fftfit",
+               "pulseportraiture_tpu/fit/phase_shift.py:64"),
+}
+
+_VP, _I64, _INT, _DBL = (ctypes.c_void_p, ctypes.c_int64, ctypes.c_int,
+                         ctypes.c_double)
+_ARGTYPES = {
+    "pp_moments": [_VP, _VP, _VP, _VP, _I64, _INT, _INT, _VP, _VP],
+    "pp_fftfit": [_VP, _VP, _I64, _INT, _DBL, _DBL, _INT, _INT, _VP, _VP,
+                  _VP, _VP],
+}
+
+LAUNCHES = {name: 0 for name in KERNELS}
+BUILD_LOG = {}  # name -> nvcc output (register/shared-memory report)
+_LIBS = {}
+_LOCK = threading.Lock()
+
+
+def reset_launches():
+    """Set every launch count to 0."""
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+def _nvcc():
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH") \
+        or "/usr/local/cuda"
+    path = os.path.join(home, "bin", "nvcc")
+    if os.path.exists(path):
+        return path
+    path = shutil.which("nvcc")
+    if path is None:
+        raise RuntimeError("nvcc not found: the CUDA kernels are built "
+                           "from csrc/ with the CUDA toolkit.")
+    return path
+
+
+def _lib_path(name):
+    src = os.path.join(CSRC_DIR, KERNELS[name][0])
+    with open(src, "rb") as f:
+        h = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
+    return os.path.join(BUILD_DIR, "lib%s-%s.so" % (name, h.hexdigest()[:12]))
+
+
+def build(names=None):
+    """Compile (if needed) and load the named kernels, all by default.
+
+    One nvcc process per source, started together.  Returns the wall
+    seconds spent.  Raises RuntimeError with the compiler output when a
+    build fails."""
+    names = list(KERNELS) if names is None else list(names)
+    t0 = time.perf_counter()
+    with _LOCK:
+        todo = [n for n in names if n not in _LIBS]
+        if not todo:
+            return 0.0
+        os.makedirs(BUILD_DIR, exist_ok=True)
+        procs = {}
+        for name in todo:
+            path = _lib_path(name)
+            if os.path.exists(path):
+                continue
+            tmp = "%s.%d.tmp" % (path, os.getpid())
+            cmd = [_nvcc()] + NVCC_FLAGS + [
+                "-o", tmp, os.path.join(CSRC_DIR, KERNELS[name][0])]
+            procs[name] = (subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True), tmp, path)
+        failed = []
+        for name, (proc, tmp, path) in procs.items():
+            out, _ = proc.communicate()
+            BUILD_LOG[name] = out
+            if proc.returncode != 0:
+                failed.append("%s:\n%s" % (name, out))
+            else:
+                os.replace(tmp, path)
+        if failed:
+            raise RuntimeError("nvcc failed for " + "\n".join(failed))
+        for name in todo:
+            lib = ctypes.CDLL(_lib_path(name))
+            fn = getattr(lib, KERNELS[name][1])
+            fn.argtypes = _ARGTYPES[KERNELS[name][1]]
+            fn.restype = ctypes.c_int
+            _LIBS[name] = fn
+    return time.perf_counter() - t0
+
+
+def _launch(name, device, *args):
+    """Launch kernel ``name`` on the current stream of ``device``; raise
+    on a refused launch; count it."""
+    if name not in _LIBS:
+        build([name])
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device)
+        err = _LIBS[name](*args, stream.cuda_stream)
+    if err != 0:
+        raise RuntimeError("CUDA kernel %s failed to launch: cudaError_t %d"
+                           % (name, err))
+    LAUNCHES[name] += 1
+
+
+def _check(t, what, dtype, ndim):
+    if not isinstance(t, torch.Tensor):
+        raise TypeError("%s must be a tensor" % what)
+    if t.dtype != dtype:
+        raise TypeError("%s must be %s, got %s" % (what, dtype, t.dtype))
+    if t.ndim != ndim:
+        raise ValueError("%s must be %d-D, got shape %s"
+                         % (what, ndim, tuple(t.shape)))
+    if not t.is_contiguous():
+        raise ValueError("%s must be contiguous" % what)
+
+
+def _same_device(ref, *ts):
+    for t in ts:
+        if t is not None and t.device != ref.device:
+            raise ValueError("all inputs must be on %s, got %s"
+                             % (ref.device, t.device))
+
+
+# -- K1: moments ---------------------------------------------------------
+
+def moments_plain(cross, shifts, inv_err2, lanes=None):
+    """Plain PyTorch K1: (C, T1, T2) per row, the arithmetic of the JAX
+    reference's ``_moments`` (scattering-free branch): one sum over k,
+    then times inv_err2."""
+    if lanes is not None:
+        cross, inv_err2 = cross[lanes], inv_err2[lanes]
+    K = cross.shape[-1]
+    k = torch.arange(K, dtype=torch.float64, device=cross.device)
+    frac = torch.remainder(shifts[..., None] * k, 1.0)
+    ang = (2.0 * math.pi) * frac
+    core = cross * torch.complex(torch.cos(ang), torch.sin(ang))
+    core_re, core_im = core.real, core.imag
+    tpk = (2.0 * math.pi) * k
+    C = torch.sum(core_re, dim=-1) * inv_err2
+    T1 = -torch.sum(tpk * core_im, dim=-1) * inv_err2
+    T2 = -torch.sum((tpk * tpk) * core_re, dim=-1) * inv_err2
+    return torch.stack([C, T1, T2], dim=-1)
+
+
+def moments(cross, shifts, inv_err2, lanes=None):
+    """K1 wrapper: per-channel moments [n, nchan, 3] f64.
+
+    cross [B, nchan, K] complex128, inv_err2 [B, nchan] f64; shifts
+    [n, nchan] f64 are the phase shifts of the rows to evaluate, which
+    are subints ``lanes`` [n] int64 (all B subints when None)."""
+    _check(cross, "cross", torch.complex128, 3)
+    _check(shifts, "shifts", torch.float64, 2)
+    _check(inv_err2, "inv_err2", torch.float64, 2)
+    B, nchan, K = cross.shape
+    n = B if lanes is None else lanes.shape[0]
+    if lanes is not None:
+        _check(lanes, "lanes", torch.int64, 1)
+    if tuple(shifts.shape) != (n, nchan) or tuple(inv_err2.shape) != (
+            B, nchan):
+        raise ValueError("moments: shapes cross %s, shifts %s, inv_err2 %s"
+                         " disagree" % (tuple(cross.shape),
+                                        tuple(shifts.shape),
+                                        tuple(inv_err2.shape)))
+    _same_device(cross, shifts, inv_err2, lanes)
+    if cross.device.type == "cpu":
+        return moments_plain(cross, shifts, inv_err2, lanes)
+    if cross.device.type != "cuda":
+        raise ValueError("moments: unsupported device %s" % cross.device)
+    out = torch.empty((n, nchan, 3), dtype=torch.float64,
+                      device=cross.device)
+    if n * nchan == 0:
+        return out
+    _launch("moments", cross.device, cross.data_ptr(), shifts.data_ptr(),
+            inv_err2.data_ptr(), None if lanes is None else lanes.data_ptr(),
+            n, nchan, K, out.data_ptr())
+    return out
+
+
+# -- K2: FFTFIT ------------------------------------------------------------
+
+def _phase_objective(phase, cross, inv_err2):
+    """(C, dC, d2C) at ``phase`` [N] — the JAX reference's
+    phase_shift_objective (phase_shift.py:40) with inv_err2 given."""
+    nharm = cross.shape[-1]
+    k = torch.arange(nharm, dtype=torch.float64, device=cross.device)
+    frac = torch.remainder(phase[..., None] * k, 1.0)
+    ang = (2.0 * math.pi) * frac
+    w = cross * torch.complex(torch.cos(ang), torch.sin(ang))
+    C = -torch.sum(w, dim=-1).real * inv_err2
+    dC = (2.0 * math.pi) * torch.sum(k * w.imag, dim=-1) * inv_err2
+    d2C = (4.0 * math.pi ** 2) * torch.sum((k * k) * w.real, dim=-1) \
+        * inv_err2
+    return C, dC, d2C
+
+
+def fftfit_plain(cross, inv_err2, lo, hi, Ns, newton_iter):
+    """Plain PyTorch K2: (phase, C, d2C) [N] for cross [N, nharm]."""
+    N, nharm = cross.shape
+    dev = cross.device
+    k = torch.arange(nharm, dtype=torch.float64, device=dev)
+    grid = lo + (hi - lo) * torch.arange(Ns, dtype=torch.float64,
+                                         device=dev) / Ns
+    # grid stage, a few grid points at a time (bounded temporaries)
+    chunk = max(1, min(Ns, (1 << 24) // max(N * nharm, 1)))
+    cgrid = []
+    for g0 in range(0, Ns, chunk):
+        ang = (2.0 * math.pi) * torch.remainder(
+            grid[g0:g0 + chunk, None] * k[None, :], 1.0)
+        cgrid.append(-torch.sum(
+            cross.real[:, None, :] * torch.cos(ang)
+            - cross.imag[:, None, :] * torch.sin(ang), dim=-1))
+    phase = grid[torch.argmin(torch.cat(cgrid, dim=-1), dim=-1)]
+    cell = (hi - lo) / Ns
+    for _ in range(newton_iter):
+        _, dC, d2C = _phase_objective(phase, cross, inv_err2)
+        pos = d2C > 0.0
+        step = torch.where(pos, -dC / torch.where(pos, d2C,
+                                                  torch.ones_like(d2C)),
+                           torch.zeros_like(d2C))
+        phase = phase + torch.clamp(step, -cell, cell)
+    phase = torch.remainder(phase + 0.5, 1.0) - 0.5
+    C, _, d2C = _phase_objective(phase, cross, inv_err2)
+    return phase, C, d2C
+
+
+def fftfit(cross, inv_err2, lo, hi, Ns, newton_iter):
+    """K2 wrapper: (phase, C, d2C) [N] f64 for cross [N, nharm]
+    complex128 and inv_err2 [N] f64 (see csrc/fftfit.cu)."""
+    _check(cross, "cross", torch.complex128, 2)
+    _check(inv_err2, "inv_err2", torch.float64, 1)
+    N, nharm = cross.shape
+    if inv_err2.shape[0] != N:
+        raise ValueError("fftfit: inv_err2 has %d rows, cross %d"
+                         % (inv_err2.shape[0], N))
+    if int(Ns) < 1 or int(newton_iter) < 0:
+        raise ValueError("fftfit: need Ns >= 1 and newton_iter >= 0")
+    _same_device(cross, inv_err2)
+    lo, hi, Ns, newton_iter = float(lo), float(hi), int(Ns), int(newton_iter)
+    if cross.device.type == "cpu":
+        return fftfit_plain(cross, inv_err2, lo, hi, Ns, newton_iter)
+    if cross.device.type != "cuda":
+        raise ValueError("fftfit: unsupported device %s" % cross.device)
+    out = torch.empty((3, N), dtype=torch.float64, device=cross.device)
+    if N == 0:
+        return out[0], out[1], out[2]
+    _launch("fftfit", cross.device, cross.data_ptr(), inv_err2.data_ptr(),
+            N, nharm, lo, hi, Ns, newton_iter, out[0].data_ptr(),
+            out[1].data_ptr(), out[2].data_ptr())
+    return out[0], out[1], out[2]

@@ -1,0 +1,137 @@
+"""pptoas command-line tool: measure wideband TOAs and DMs.
+
+Port of the JAX package's ``cli/pptoas.py`` (reference
+pptoas.py:1415-1618) for wideband (phase, DM) TOAs.
+Run as ``python -m pulseportraiture_tpu_torch.cli.pptoas``.  The fits
+run on the CUDA device unless ``--device cpu`` is given; with no CUDA
+device and no ``--device cpu`` the tool fails.
+"""
+
+import argparse
+import sys
+
+import numpy as np
+
+# flags of modes that later slices of the port bring (dest, option)
+_NOT_PORTED = [
+    ("narrowband", "--narrowband"), ("psrchive", "--psrchive"),
+    ("fit_GM", "--fit_dt4"), ("fit_scat", "--fit_scat"),
+    ("checkpoint", "--checkpoint"), ("print_flux", "--print_flux"),
+    ("show_plot", "--showplot"),
+]
+
+
+def build_parser():
+    p = argparse.ArgumentParser(
+        prog="pptoas",
+        description="Simultaneously measure TOAs and DMs in broadband "
+                    "data.")
+    p.add_argument("-d", "--datafiles", metavar="archive",
+                   help="PSRFITS archive to measure TOAs/DMs from, or a "
+                        "metafile listing archive filenames. Recommended: "
+                        "files should not be dedispersed.")
+    p.add_argument("-m", "--modelfile", metavar="model",
+                   help="Gaussian model file (.gmodel) from ppgauss.")
+    p.add_argument("-o", "--outfile", metavar="timfile", default=None,
+                   help="Output .tim file (appends). [default=stdout]")
+    p.add_argument("--errfile", metavar="errfile", default=None,
+                   help="Write fitted DM errors to this file (for "
+                        "princeton-format TOAs). Appends.")
+    p.add_argument("-T", "--tscrunch", action="store_true",
+                   help="tscrunch archives before measurement.")
+    p.add_argument("-f", "--format", default=None,
+                   help="Output format: 'princeton' or 'ipta' "
+                        "[default=IPTA-like].")
+    p.add_argument("--nu_ref", dest="nu_ref_DM", default=None,
+                   help="Topocentric frequency [MHz] the output TOAs are "
+                        "referenced to ('inf' allowed). [default="
+                        "zero-covariance frequency]")
+    p.add_argument("--DM", dest="DM0", default=None,
+                   help="Nominal DM [cm**-3 pc] to reference DM offsets "
+                        "from. [default=archive DM]")
+    p.add_argument("--no_bary", dest="bary", action="store_false",
+                   help="Do not Doppler-correct DMs.")
+    p.add_argument("--one_DM", action="store_true",
+                   help="Write one DM (the epoch mean) per archive in the "
+                        "output .tim file.")
+    p.add_argument("--fix_DM", dest="fit_DM", action="store_false",
+                   help="Do not fit for DM.")
+    p.add_argument("--print_phase", action="store_true",
+                   help="Write the fitted phase (-phs flag) on TOA lines.")
+    p.add_argument("--print_parangle", action="store_true",
+                   help="Write the parallactic angle on TOA lines.")
+    p.add_argument("--flags", dest="toa_flags", default="",
+                   help="Comma-separated key,value pairs added to all "
+                        "TOA lines, e.g. pta,NANOGrav,version,0.1")
+    p.add_argument("--snr_cut", dest="snr_cutoff", default=0.0, type=float,
+                   help="S/N cutoff for written TOAs.")
+    p.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
+                   help="Device the fits run on. [default=cuda]")
+    p.add_argument("--quiet", action="store_true", help="Suppress output.")
+    # accepted so that they fail loudly instead of being misparsed
+    p.add_argument("--narrowband", action="store_true",
+                   help=argparse.SUPPRESS)
+    p.add_argument("--psrchive", action="store_true", help=argparse.SUPPRESS)
+    p.add_argument("--fit_dt4", dest="fit_GM", action="store_true",
+                   help=argparse.SUPPRESS)
+    p.add_argument("--fit_scat", action="store_true", help=argparse.SUPPRESS)
+    p.add_argument("--checkpoint", default=None, help=argparse.SUPPRESS)
+    p.add_argument("--print_flux", action="store_true",
+                   help=argparse.SUPPRESS)
+    p.add_argument("--showplot", dest="show_plot", action="store_true",
+                   help=argparse.SUPPRESS)
+    return p
+
+
+def main(argv=None):
+    args = build_parser().parse_args(argv)
+    if args.datafiles is None or args.modelfile is None:
+        build_parser().print_help()
+        return 1
+    unported = [opt for dest, opt in _NOT_PORTED if getattr(args, dest)]
+    if unported:
+        print("pptoas: %s: not yet ported to pulseportraiture_tpu_torch."
+              % ", ".join(unported), file=sys.stderr)
+        return 2
+    return _run_pipeline(args)
+
+
+def _run_pipeline(args):
+    from ..io.timfile import write_TOAs
+    from ..pipelines.toas import GetTOAs
+
+    nu_refs = None
+    nu_ref_DM = args.nu_ref_DM
+    if nu_ref_DM is not None:
+        nu_ref_DM = np.inf if nu_ref_DM == "inf" else np.float64(nu_ref_DM)
+        nu_refs = (nu_ref_DM, None)
+    DM0 = np.float64(args.DM0) if args.DM0 is not None else None
+    kv = args.toa_flags.split(",")
+    addtnl_toa_flags = dict(zip(kv[::2], kv[1::2])) if args.toa_flags \
+        else {}
+
+    gt = GetTOAs(datafiles=args.datafiles, modelfile=args.modelfile,
+                 quiet=args.quiet, device=args.device)
+    gt.get_TOAs(tscrunch=args.tscrunch, nu_refs=nu_refs, DM0=DM0,
+                bary=args.bary, fit_DM=args.fit_DM,
+                print_phase=args.print_phase,
+                print_parangle=args.print_parangle,
+                addtnl_toa_flags=addtnl_toa_flags, quiet=args.quiet)
+
+    if args.format == "princeton":
+        gt.write_princeton_TOAs(outfile=args.outfile, one_DM=args.one_DM,
+                                dmerrfile=args.errfile)
+        return 0
+    if args.one_DM:
+        for toa in gt.TOA_list:
+            ifile = gt.order.index(toa.archive)
+            toa.DM = gt.DeltaDM_means[ifile] + gt.DM0s[ifile]
+            toa.DM_error = gt.DeltaDM_errs[ifile]
+            toa.flags["DM_mean"] = True
+    write_TOAs(gt.TOA_list, inf_is_zero=True, SNR_cutoff=args.snr_cutoff,
+               outfile=args.outfile, append=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,42 @@
+"""Small batched solves: float32 LU + float64 iterative refinement.
+
+Port of the JAX package's ``fit/smallsolve.py``: the same arithmetic —
+one float32 LU, then two float64 refinement passes — so that the solver's
+accept/reject decisions match the reference's.  The ``_ex`` variants are
+used on purpose: ``torch.linalg.lu_factor`` raises on a zero pivot,
+whereas the reference yields inf/NaN, which the Levenberg loop then
+rejects (raising its damping).  Here a singular system likewise yields
+non-finite steps instead of an exception.
+"""
+
+import torch
+
+__all__ = ["solve_refined", "inv_refined"]
+
+
+def solve_refined(A, b, refinements=2):
+    """x = A^-1 b for A [..., n, n], b [..., n]: f32 LU + f64 refinement
+    (r = b - A x; x += A_f32^-1 r)."""
+    A32 = A.to(torch.float32)
+    lu, piv, _ = torch.linalg.lu_factor_ex(A32)
+
+    def solve32(rhs):
+        return torch.linalg.lu_solve(
+            lu, piv, rhs.to(torch.float32)[..., None])[..., 0].to(A.dtype)
+
+    x = solve32(b)
+    for _ in range(refinements):
+        r = b - torch.einsum("...ij,...j->...i", A, x)
+        x = x + solve32(r)
+    return x
+
+
+def inv_refined(A, refinements=2):
+    """A^-1 for A [..., n, n]: f32 inverse + f64 Newton refinement
+    (X <- X (2 I - A X))."""
+    X = torch.linalg.inv_ex(A.to(torch.float32)).inverse.to(A.dtype)
+    n = A.shape[-1]
+    eye = torch.eye(n, dtype=A.dtype, device=A.device)
+    for _ in range(refinements):
+        X = X @ (2.0 * eye - A @ X)
+    return X

@@ -1,0 +1,132 @@
+"""Fourier-domain portrait primitives: bin centers, phasors, rotation.
+
+Port of the JAX package's ``ops/fourier.py`` (reference
+pplib.py:2338-2575 and pptoaslib.py:181-238) for the
+functions the wideband pptoas path uses.  Conventions are unchanged:
+
+* data ``[..., nchan, nbin]`` with per-channel phase shifts ``[..., nchan]``;
+* the phasor argument ``shift * k`` is reduced mod 1 in float64 before
+  the trig (k ~ 2048 harmonics times thousands of DM rotations would
+  otherwise cost phase precision);
+* positive phase/DM rotate data to *earlier* phases (multiplication by
+  exp(+2 pi i k shift)).
+"""
+
+import math
+
+import torch
+
+from ..config import Dconst, real_dtype
+
+__all__ = ["ipow", "get_bin_centers", "phasor", "apply_phasor",
+           "rotate_data", "rotate_profile"]
+
+TWO_PI = 2.0 * math.pi
+
+
+def ipow(x, n):
+    """``x ** n`` for a Python int ``n`` by binary exponentiation, with a
+    reciprocal for negative ``n`` — the arithmetic the JAX reference's
+    ``x ** -2`` / ``x ** -4`` (lax.integer_pow) performs, so both
+    packages round the dispersion terms identically."""
+    m = abs(int(n))
+    acc = None
+    while m:
+        if m & 1:
+            acc = x if acc is None else acc * x
+        m >>= 1
+        if m:
+            x = x * x
+    if acc is None:
+        acc = x * 0 + 1
+    return 1.0 / acc if n < 0 else acc
+
+
+def get_bin_centers(nbin, lo=0.0, hi=1.0, device="cpu"):
+    """nbin bin centers with bin edges spanning [lo, hi] (float64).
+
+    Evaluated as start*(1 - i/div) + stop*(i/div) with the endpoint set
+    exactly (reference pplib.py:671-684)."""
+    diff = hi - lo
+    start = lo + diff / (2 * nbin)
+    stop = hi - diff / (2 * nbin)
+    if nbin == 1:
+        return torch.full((1,), start, dtype=real_dtype, device=device)
+    div = nbin - 1
+    step = torch.arange(div, dtype=real_dtype, device=device) / div
+    out = start * (1 - step) + stop * step
+    return torch.cat([out, torch.full((1,), stop, dtype=real_dtype,
+                                      device=device)])
+
+
+def phasor(shifts, nharm, sign=+1.0):
+    """exp(sign * 2j*pi * shifts[..., None] * k) for k = 0..nharm-1.
+
+    ``shifts * k`` is reduced mod 1 (floor-mod, like the reference's
+    ``%``) in float64 before the trig."""
+    shifts = torch.as_tensor(shifts, dtype=real_dtype)
+    k = torch.arange(nharm, dtype=real_dtype, device=shifts.device)
+    frac = torch.remainder(shifts[..., None] * k, 1.0)
+    ang = (TWO_PI * sign) * frac
+    return torch.complex(torch.cos(ang), torch.sin(ang))
+
+
+def apply_phasor(port_FT, shifts):
+    """Multiply an rFFT'd portrait [..., nchan, nharm] by the rotation
+    phasor for ``shifts`` [..., nchan] (rotations)."""
+    return port_FT * phasor(shifts, port_FT.shape[-1])
+
+
+def _neg2(nu_ref):
+    """nu_ref ** -2 evaluated the way the caller's type evaluates it."""
+    if isinstance(nu_ref, torch.Tensor):
+        return ipow(nu_ref, -2)
+    return nu_ref ** -2  # Python float / numpy: the reference's host pow
+
+
+def rotate_data(data, phase=0.0, DM=0.0, Ps=None, freqs=None,
+                nu_ref=math.inf):
+    """Rotate and/or dedisperse data of shape [..., nchan, nbin] or [nbin].
+
+    ``Ps`` may be scalar or [...], ``freqs`` [nchan] or [..., nchan],
+    ``nu_ref`` scalar or broadcastable against ``freqs``.  Positive
+    phase/DM rotate to earlier phases.  Runs on ``data``'s device."""
+    data = torch.as_tensor(data)
+    dev = data.device
+    if data.ndim == 1:
+        if freqs is None:
+            return rotate_profile(data, phase)
+        P = 1.0 if Ps is None else Ps
+        shift = phase + (Dconst * DM / P) * (
+            ipow(torch.as_tensor(freqs, dtype=real_dtype, device=dev), -2)
+            - _neg2(nu_ref))
+        return rotate_profile(data, shift)
+    if freqs is None:
+        shifts = torch.broadcast_to(
+            torch.as_tensor(phase, dtype=real_dtype, device=dev),
+            data.shape[:-1])
+    else:
+        freqs = torch.as_tensor(freqs, dtype=real_dtype, device=dev)
+        P = 1.0 if Ps is None else torch.as_tensor(Ps, dtype=real_dtype,
+                                                   device=dev)
+        if data.ndim > 2 and isinstance(P, torch.Tensor) and P.ndim > 0:
+            P = P.reshape(P.shape + (1,) * (data.ndim - 1 - P.ndim))
+        D = Dconst * DM / P
+        nu_term = _neg2(nu_ref)
+        if not isinstance(nu_term, (float, int)):
+            nu_term = torch.as_tensor(nu_term, dtype=real_dtype, device=dev)
+        shifts = phase + D * (ipow(freqs, -2) - nu_term)
+        shifts = torch.broadcast_to(torch.as_tensor(shifts, device=dev),
+                                    data.shape[:-1])
+    data_FT = torch.fft.rfft(data.to(real_dtype), dim=-1)
+    return torch.fft.irfft(apply_phasor(data_FT, shifts), n=data.shape[-1],
+                           dim=-1)
+
+
+def rotate_profile(profile, phase=0.0):
+    """Rotate a profile [..., nbin] by phase [rot]; positive = earlier."""
+    profile = torch.as_tensor(profile)
+    prof_FT = torch.fft.rfft(profile.to(real_dtype), dim=-1)
+    phase = torch.as_tensor(phase, dtype=real_dtype, device=profile.device)
+    prof_FT = prof_FT * phasor(phase, prof_FT.shape[-1])
+    return torch.fft.irfft(prof_FT, n=profile.shape[-1], dim=-1)

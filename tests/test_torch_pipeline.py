@@ -1,0 +1,147 @@
+"""The whole wideband pptoas slice: the port's CLI against the JAX one.
+
+Two 4-subint x 32-channel x 256-bin archives written by the JAX package's
+make_fake_pulsar (one zapped channel, one subint with a single live
+channel) go through both packages' ``pptoas`` command lines — the port
+with ``--device cpu`` — with and without ``--no_bary`` and under the
+other supported options.  The .tim files must agree: TOA MJDs within
+1 ns, identical flag sets, and the same values for every flag.
+"""
+
+import os
+
+import numpy as np
+import pytest
+
+from pulseportraiture_tpu.cli import pptoas as jcli
+from pulseportraiture_tpu.io.archive import make_fake_pulsar
+from pulseportraiture_tpu_torch.cli import pptoas as tcli
+
+EXAMPLES = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        os.pardir, "examples")
+GMODEL = os.path.join(EXAMPLES, "example.gmodel")
+PAR = os.path.join(EXAMPLES, "example.par")
+
+
+@pytest.fixture(scope="module")
+def archives(tmp_path_factory):
+    tmp = tmp_path_factory.mktemp("torch_pptoas")
+    files = []
+    for i, (phase, dDM) in enumerate([(0.123, 2e-3), (-0.31, -1e-3)]):
+        w = np.ones((4, 32))
+        w[:, 11] = 0.0
+        if i == 1:
+            w[2] = 0.0
+            w[2, 17] = 1.0  # a subint with one live channel
+        out = str(tmp / ("a%d.fits" % i))
+        make_fake_pulsar(GMODEL, PAR, out, nsub=4, nchan=32, nbin=256,
+                         tsub=60.0, phase=phase, dDM=dDM, weights=w,
+                         noise_stds=0.05, seed=20 + i, quiet=True)
+        files.append(out)
+    meta = str(tmp / "archives.meta")
+    with open(meta, "w") as f:
+        f.write("\n".join(files) + "\n")
+    return tmp, meta
+
+
+def _lines(path):
+    return [ln.split() for ln in open(path).read().splitlines()
+            if ln and not ln.startswith("FORMAT")]
+
+
+def _flags(tok):
+    return dict(zip(tok[5::2], tok[6::2]))
+
+
+def _assert_same_tim(tport, tref, n):
+    port, ref = _lines(tport), _lines(tref)
+    assert len(port) == len(ref) == n
+    for p, r in zip(port, ref):
+        assert p[0] == r[0] and p[4] == r[4]          # archive, site
+        day_p, frac_p = p[2].split(".")
+        day_r, frac_r = r[2].split(".")
+        dt_ns = ((int(day_p) - int(day_r))
+                 + float("0." + frac_p) - float("0." + frac_r)) * 86400e9
+        assert abs(dt_ns) < 1.0, (p[2], r[2])
+        np.testing.assert_allclose(float(p[1]), float(r[1]), rtol=1e-9)
+        np.testing.assert_allclose(float(p[3]), float(r[3]), atol=1.5e-3)
+        fp, fr = _flags(p), _flags(r)
+        assert list(fp) == list(fr)
+        for key in fp:
+            try:
+                vp, vr = float(fp[key]), float(fr[key])
+            except ValueError:
+                assert fp[key] == fr[key], key
+                continue
+            if np.isnan(vr):  # e.g. the error of a degenerate fit
+                assert np.isnan(vp), key
+                continue
+            # printed values: agree to the last printed digit
+            last = 10.0 ** -(len(fr[key].split(".")[1])
+                             if "." in fr[key] else 0)
+            assert abs(vp - vr) <= 1.5 * last * max(1.0, abs(vr) * 1e-6), \
+                (key, fp[key], fr[key])
+
+
+@pytest.mark.parametrize("extra", [
+    [], ["--no_bary"], ["--nu_ref", "1400", "--print_parangle"],
+    ["--nu_ref", "inf", "--no_bary"], ["--fix_DM"],
+    ["-T", "--DM", "34.5", "--flags", "pta,TEST"]],
+    ids=["bary", "topo", "nu_ref", "nu_ref_inf", "fix_DM", "tscrunch"])
+def test_pptoas_tim_matches_reference(archives, extra):
+    tmp, meta = archives
+    tag = "_".join(a.strip("-") for a in extra) or "bary"
+    args = ["-d", meta, "-m", GMODEL, "--print_phase", "--quiet"] + extra
+    tref = str(tmp / ("ref_%s.tim" % tag))
+    tport = str(tmp / ("port_%s.tim" % tag))
+    assert jcli.main(args + ["-o", tref]) == 0
+    assert tcli.main(args + ["-o", tport, "--device", "cpu"]) == 0
+    _assert_same_tim(tport, tref, 2 if "-T" in extra else 8)
+
+
+def test_pptoas_per_subint_frequencies_match_reference(tmp_path):
+    """A foreign archive whose channel frequencies drift between subints
+    (one model per subint).  The template does not fit it (red chi2
+    ~1e3, one non-finite DM error): the two packages must still agree
+    on every printed value."""
+    fits = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "data", "t2pred_style.fits")
+    args = ["-d", fits, "-m", GMODEL, "--no_bary", "--quiet"]
+    tref, tport = str(tmp_path / "r.tim"), str(tmp_path / "p.tim")
+    assert jcli.main(args + ["-o", tref]) == 0
+    assert tcli.main(args + ["-o", tport, "--device", "cpu"]) == 0
+    _assert_same_tim(tport, tref, 3)
+
+
+def test_pptoas_princeton_and_one_DM(archives):
+    tmp, meta = archives
+    base = ["-d", meta, "-m", GMODEL, "--no_bary", "--quiet"]
+    for flags in (["-f", "princeton"], ["--one_DM"]):
+        name = "_".join(f.strip("-") for f in flags)
+        tref = str(tmp / ("ref_%s.out" % name))
+        tport = str(tmp / ("port_%s.out" % name))
+        extra = ["--errfile", tport + ".err"] if "princeton" in flags \
+            else []
+        assert jcli.main(base + flags + ["-o", tref] + (
+            ["--errfile", tref + ".err"] if extra else [])) == 0
+        assert tcli.main(base + flags + ["-o", tport, "--device", "cpu"]
+                         + extra) == 0
+        ref = open(tref).read().splitlines()
+        port = open(tport).read().splitlines()
+        assert len(port) == len(ref)
+        if extra:
+            np.testing.assert_allclose(
+                np.loadtxt(tport + ".err"), np.loadtxt(tref + ".err"),
+                rtol=1e-5)
+        else:
+            assert all("-DM_mean" in ln for ln in port[1:])
+
+
+@pytest.mark.parametrize("flag", ["--fit_scat", "--fit_dt4", "--narrowband",
+                                  "--psrchive", "--print_flux",
+                                  "--showplot"])
+def test_unported_cli_flags_fail(archives, flag, capsys):
+    tmp, meta = archives
+    rc = tcli.main(["-d", meta, "-m", GMODEL, "--device", "cpu", flag])
+    assert rc != 0
+    assert "not yet ported" in capsys.readouterr().err
