@@ -7,9 +7,16 @@ Phases, one JSON line each on stdout; any failure exits non-zero:
 
   gpu         nvidia-smi name and power limit of the card
   build       nvcc build of every kernel in pulseportraiture_tpu_torch/csrc
-  kernels     each hand kernel at the main path's full width against its
-              plain PyTorch version on the same inputs (error, tolerance,
-              kernel / plain / bound / library times from CUDA events)
+  kernels     each hand kernel against its plain PyTorch version on the
+              same inputs (error, tolerance, kernel / plain / bound /
+              library times): K1 at the main path's width, K2 at
+              [256, 1025] (the pptoas archive's guess), [1000, 1025] and
+              [131072, 1025] with Ns 100 and [1000, 1025] with Ns 2048,
+              grid-argmin mismatches, its time split
+              by stage and its first call (phasor table built).  Kernel
+              and library times are device times from CUDA-graph replay;
+              ``call_ms`` is the wrapper's time per call, host included
+              (back-to-back CUDA events)
   pptoas      the port's pptoas CLI on a 256-subint x 512-channel x 2048-bin
               archive (written by the port's make_fake_pulsar from
               examples/; subint 3 has one live channel, so both fit-flag
@@ -22,7 +29,8 @@ Phases, one JSON line each on stdout; any failure exits non-zero:
               device memory
 
 Then a ``kernels`` line (every hand kernel with its launches on the pptoas
-path, errors and times), the card's name and power limit, and last
+path, errors and times; K2 with its [1000, 1025] numbers and a ``shapes``
+list of all four cases), the card's name and power limit, and last
 ``{"ok": true, "device": {...}}``.  Exits non-zero without a result when
 no CUDA device is available or the package is missing.
 
@@ -82,6 +90,33 @@ def cuda_ms(fn, reps=20, warm=3):
     return a.elapsed_time(b) / reps
 
 
+def graph_ms(fn, reps=20):
+    """Device time [ms] per fn() call: ``reps`` calls captured in one CUDA
+    graph and replayed, so the host's time to launch them is left out."""
+    import torch
+
+    fn()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    graph.replay()
+    b.record()
+    torch.cuda.synchronize()
+    del graph
+    return a.elapsed_time(b) / reps
+
+
 def bound_ms(nbytes, *work):
     """Least time [ms] for moving ``nbytes`` or doing ``work``, a list of
     (operations, peak rate per second); and which of the two bounds it."""
@@ -96,7 +131,7 @@ def rel_err(a, b):
 
 
 def phase_kernels(dev, kern, K=128):
-    """K1 at [100, 512, K] and K2 at [1000, 1025] against their plain
+    """K1 at [100, 512, K] and K2 at each of K2_CASES against their plain
     versions, with times and bounds (``kern`` is the _kernels module)."""
     import torch
 
@@ -123,7 +158,8 @@ def phase_kernels(dev, kern, K=128):
     rows["moments"] = dict(
         shape=[n, nchan, K], max_rel_err=err, tol=tol,
         max_abs_err=float((got - want).abs().max()),
-        ms=cuda_ms(lambda: kern.moments(cross, shifts, inv_err2)),
+        ms=graph_ms(lambda: kern.moments(cross, shifts, inv_err2)),
+        call_ms=cuda_ms(lambda: kern.moments(cross, shifts, inv_err2)),
         plain_ms=cuda_ms(lambda: kern.moments_plain(cross, shifts, inv_err2),
                          reps=5),
         bound_ms=bms, bound_by=by, library_ms=None)
@@ -133,55 +169,146 @@ def phase_kernels(dev, kern, K=128):
                              % (err, tol))
     del cross, shifts, inv_err2, got, want
 
-    # K2: FFTFIT on realistic profiles (a pulse + noise, random phases)
+    rows["fftfit"] = [phase_k2(dev, kern, gen, N, Ns, lo, hi,
+                               time_plain=N <= 1000)
+                      for N, Ns, lo, hi in K2_CASES]
+    return rows
+
+
+# K2 cases: (N profiles, Ns grid points, bounds); nharm 1025 (nbin 2048)
+K2_CASES = [
+    (256, 100, -0.5, 0.5),     # the pptoas archive's guess (main path)
+    (1000, 100, -0.5, 0.5),    # the north-star seed
+    (131072, 100, -0.5, 0.5),  # one profile per (subint, channel)
+    (1000, 2048, -0.5, 0.5),   # the Ns = nbin callers (align)
+]
+K2_MAIN = 1  # the case whose numbers stand in the kernels line
+
+
+def k2_inputs(dev, gen, N, nbin=2048, chunk=16384):
+    """Cross-spectra [N, nbin/2+1] of a pulse + noise at random phases,
+    made on the card in chunks, and inv_err2 [N]."""
+    import torch
+
     from pulseportraiture_tpu_torch.fit.phase_shift import cross_spectrum
     from pulseportraiture_tpu_torch.ops.fourier import rotate_profile
 
-    N, nbin, Ns, newton = 1000, 2048, 100, 6
     x = (torch.arange(nbin, dtype=torch.float64, device=dev) + 0.5) / nbin
     prof = torch.exp(-0.5 * ((x - 0.35) / 0.02) ** 2)
-    ph = (torch.rand(N, generator=gen, device=dev, dtype=torch.float64)
-          - 0.5) * 0.9
-    data = rotate_profile(prof.expand(N, nbin), -ph) + 0.05 * torch.randn(
-        (N, nbin), generator=gen, device=dev, dtype=torch.float64)
-    cr, _, _ = cross_spectrum(data, prof.expand(N, nbin))
-    cr = cr.contiguous()
+    cr = torch.empty((N, nbin // 2 + 1), dtype=torch.complex128, device=dev)
+    for i in range(0, N, chunk):
+        n = min(chunk, N - i)
+        ph = (torch.rand(n, generator=gen, device=dev,
+                         dtype=torch.float64) - 0.5) * 0.9
+        data = rotate_profile(prof.expand(n, nbin), -ph) + 0.05 * torch.randn(
+            (n, nbin), generator=gen, device=dev, dtype=torch.float64)
+        cr[i:i + n] = cross_spectrum(data, prof.expand(n, nbin))[0]
     w = torch.full((N,), 1.0 / (0.05 ** 2 * nbin / 2), dtype=torch.float64,
                    device=dev)
-    got = kern.fftfit(cr, w, -0.5, 0.5, Ns, newton)
-    want = kern.fftfit_plain(cr, w, -0.5, 0.5, Ns, newton)
+    return cr, w
+
+
+def k2_grid_argmin(kern, cr, w, lo, hi, Ns):
+    """The kernel's grid argmin [N]: its per-group partials merged by the
+    first-minimum rule (a NaN first, then the least value, then the
+    lowest index)."""
+    import torch
+
+    _, scratch = kern._fftfit_launch(cr, w, lo, hi, Ns, 0, stages=1,
+                                     count=False)
+    pval, pidx = kern.fftfit_partials(scratch, cr.shape[0], Ns)
+    pidx = pidx.long()
+    nan = torch.isnan(pval)
+    big = torch.iinfo(torch.int64).max
+    m = torch.where(nan, math.inf, pval).amin(dim=1, keepdim=True)
+    return torch.where(nan.any(dim=1),
+                       torch.where(nan, pidx, big).amin(dim=1),
+                       torch.where(pval == m, pidx, big).amin(dim=1))
+
+
+def phase_k2(dev, kern, gen, N, Ns, lo, hi, newton=6, time_plain=True):
+    """K2 at [N, 1025] against fftfit_plain: errors, grid-argmin
+    mismatches, device times by stage (CUDA graphs), the wrapper's time
+    per call, bound, library."""
+    import torch
+
+    cr, w = k2_inputs(dev, gen, N)
+    nharm = cr.shape[-1]
+    kern._TABLES.clear()
     torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got = kern.fftfit(cr, w, lo, hi, Ns, newton)
+    torch.cuda.synchronize()
+    first_ms = (time.perf_counter() - t0) * 1e3
+    want = kern.fftfit_plain(cr, w, lo, hi, Ns, newton)
+    torch.cuda.synchronize()
+    tol_phase, tol = 1e-9, 1e-12
     dphase = float((got[0] - want[0]).abs().max())
     err = max(rel_err(got[1], want[1]), rel_err(got[2], want[2]))
-    tol_phase, tol = 1e-9, 1e-12
-    nharm = cr.shape[-1]
-    grid = torch.arange(Ns, dtype=torch.float64, device=dev) / Ns - 0.5
+    cg, _ = kern.fftfit_grid_plain(cr, lo, hi, Ns)
+    ip, ik = torch.argmin(cg, dim=-1), k2_grid_argmin(kern, cr, w, lo, hi, Ns)
+    diff = ip != ik
+    rows = torch.arange(N, device=dev)
+    gap = ((cg[rows, ik] - cg[rows, ip]).abs()
+           / cg.abs().amax(dim=1).clamp_min(1e-300))[diff]
+    n_mismatch = int(diff.sum())
+    max_gap = float(gap.max()) if n_mismatch else 0.0
+    del cg
+
+    # device time of each stage alone (the table already cached)
+    T = kern.fftfit_table(nharm, lo, hi, Ns, dev)
+    _, scratch = kern._fftfit_launch(cr, w, lo, hi, Ns, newton, stages=1,
+                                     count=False)
+
+    def stage(stages):
+        return graph_ms(lambda: kern._fftfit_launch(
+            cr, w, lo, hi, Ns, newton, stages=stages, scratch=scratch,
+            count=False))
+
+    stage_ms = dict(
+        table=graph_ms(lambda: kern._launch(
+            "fftfit", dev, T.data_ptr(), nharm, Ns, lo, hi,
+            symbol="pp_fftfit_table", count=False)),
+        grid=stage(1), newton=stage(2))
+    del T, scratch
+    ms = graph_ms(lambda: kern.fftfit(cr, w, lo, hi, Ns, newton))
+    call_ms = cuda_ms(lambda: kern.fftfit(cr, w, lo, hi, Ns, newton))
+    plain_ms = cuda_ms(lambda: kern.fftfit_plain(cr, w, lo, hi, Ns, newton),
+                       reps=3, warm=1) if time_plain else None
+    grid = lo + (hi - lo) * torch.arange(Ns, dtype=torch.float64,
+                                         device=dev) / Ns
     k = torch.arange(nharm, dtype=torch.float64, device=dev)
     table = torch.polar(torch.ones(nharm, Ns, dtype=torch.float64,
                                    device=dev),
                         2 * math.pi * torch.remainder(k[:, None] * grid, 1.0))
-    # the grid stage is one float64 product [N, nharm] x [nharm, Ns] with
-    # a table the profiles share (Re of the complex product: 4 operations
-    # per term, tensor cores); each Newton step and the final objective
-    # take ~18 FP64 operations (sincospi as 2) per harmonic
+    library_ms = graph_ms(lambda: torch.matmul(cr, table))
+    del table
+    # the grid stage is one float64 product [N, 2 nharm] x [2 nharm, Ns]
+    # with a table the profiles share (4 operations per complex term, FP64
+    # tensor cores); each Newton step and the final objective take ~18 FP64
+    # operations (sincospi as 2) per harmonic
     bms, by = bound_ms(cr.numel() * 16 + N * 8 + 3 * N * 8,
                        (4 * N * nharm * Ns, PEAK_FP64_TENSOR_PER_S),
                        (18 * N * nharm * (newton + 1), PEAK_FP64_PER_S))
-    rows["fftfit"] = dict(
-        shape=[N, nharm], max_phase_err=dphase, tol_phase=tol_phase,
-        max_rel_err=err, tol=tol,
+    row = dict(
+        shape=[N, nharm], Ns=Ns, bounds=[lo, hi], newton_iter=newton,
+        max_phase_err=dphase, tol_phase=tol_phase, max_rel_err=err, tol=tol,
         max_abs_err=max(dphase, float((got[1] - want[1]).abs().max()),
                         float((got[2] - want[2]).abs().max())),
-        ms=cuda_ms(lambda: kern.fftfit(cr, w, -0.5, 0.5, Ns, newton)),
-        plain_ms=cuda_ms(lambda: kern.fftfit_plain(cr, w, -0.5, 0.5, Ns,
-                                                newton), reps=5),
-        bound_ms=bms, bound_by=by,
-        library_ms=cuda_ms(lambda: torch.matmul(cr, table)))
-    emit("kernels", kernel="fftfit", **rows["fftfit"])
+        argmin_mismatches=n_mismatch, argmin_max_rel_gap=max_gap,
+        ms=ms, call_ms=call_ms, first_call_ms=first_ms, stage_ms=stage_ms,
+        plain_ms=plain_ms,
+        plain_note=None if time_plain else "plain timing skipped for time",
+        bound_ms=bms, bound_by=by, share_of_bound=bms / ms,
+        library_ms=library_ms)
+    emit("kernels", kernel="fftfit", **row)
     if not (dphase <= tol_phase and err <= tol):
-        raise AssertionError("fftfit kernel disagrees: phase %g, rel %g"
-                             % (dphase, err))
-    return rows
+        raise AssertionError("fftfit kernel disagrees at %s: phase %g, rel %g"
+                             % ([N, nharm, Ns], dphase, err))
+    if not max_gap <= tol:
+        raise AssertionError("fftfit grid argmin differs at %s by %g of the "
+                             "row's |Cgrid|" % ([N, nharm, Ns], max_gap))
+    return row
 
 
 def read_tim(path):
@@ -365,8 +492,9 @@ def device_rows(prof):
 
 def kernel_device_ms(fn, K):
     """{kernel name: (launches, device ms in all)} of the hand kernels
-    over one call of fn(), from torch.profiler; a kernel the profiler
-    shows no device time for is left out."""
+    over one call of fn(), from torch.profiler (a launch of K2 runs two
+    CUDA kernels: its launches are the larger count of the two); a kernel
+    the profiler shows no device time for is left out."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -376,10 +504,10 @@ def kernel_device_ms(fn, K):
         torch.cuda.synchronize()
     out = {}
     for key, dev_s, count in device_rows(prof):
-        for name in K.KERNELS:
-            if name + "_kernel" in key and dev_s > 0:
+        for name in K.KERNELS:  # moments_kernel; fftfit_{grid,newton}_kernel
+            if name + "_" in key and "_kernel" in key and dev_s > 0:
                 n, ms = out.get(name, (0, 0.0))
-                out[name] = (n + count, ms + dev_s * 1e3)
+                out[name] = (max(n, count), ms + dev_s * 1e3)
     return out
 
 
@@ -506,13 +634,20 @@ def main(argv):
     kernels = []
     for name, (src, _, replaces) in K.KERNELS.items():
         r = rows[name]
+        extra = {}
+        if name == "fftfit":
+            r, extra = r[K2_MAIN], dict(shapes=[
+                {key: c[key] for key in (
+                    "shape", "Ns", "ms", "call_ms", "first_call_ms", "stage_ms",
+                    "bound_ms", "share_of_bound", "library_ms", "plain_ms",
+                    "argmin_mismatches", "max_abs_err")} for c in r])
         kernels.append(dict(
             name=name, route="cuda",
             source="pulseportraiture_tpu_torch/csrc/" + src,
             replaces=replaces, launches=launches[name],
             max_abs_err=r["max_abs_err"], ms=r["ms"],
             plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
-            bound_by=r["bound_by"], library_ms=r["library_ms"]))
+            bound_by=r["bound_by"], library_ms=r["library_ms"], **extra))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(gpu, flush=True)
     print(json.dumps({"ok": True, "device": {

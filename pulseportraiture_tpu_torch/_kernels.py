@@ -9,7 +9,14 @@ and loaded with ``ctypes``:
      ``_moments`` (scattering-free branch).
   K2 ``fftfit``  (csrc/fftfit.cu)  — batched FFTFIT grid search + Newton
      polish; replaces pulseportraiture_tpu/fit/phase_shift.py:64
-     ``_fit_phase_shift_core``.
+     ``_fit_phase_shift_core``.  Bound by operations: its grid stage is a
+     float64 product [N, 2 nharm] x [2 nharm, Ns] against a phasor table
+     every profile shares.  So the table is built once per (nharm, lo,
+     hi, Ns) by a small kernel and cached here (``fftfit_table``), the
+     grid + first-minimum runs on the FP64 tensor cores (``mma.sync``)
+     without writing the [N, Ns] grid, and one to four warps per
+     profile do the Newton polish.  Two launches per call (one more when
+     the table is new); LAUNCHES counts one.
 
 Each wrapper dispatches on its input's device: a CPU tensor takes the
 plain PyTorch version beside it (``moments_plain``/``fftfit_plain``,
@@ -25,6 +32,7 @@ flags, so an edited source never reuses a stale library).  No CUDA
 toolkit is needed to import this module.
 """
 
+import collections
 import ctypes
 import hashlib
 import math
@@ -37,7 +45,8 @@ import time
 import torch
 
 __all__ = ["LAUNCHES", "reset_launches", "build", "moments",
-           "moments_plain", "fftfit", "fftfit_plain", "KERNELS"]
+           "moments_plain", "fftfit", "fftfit_plain", "fftfit_table",
+           "fftfit_table_plain", "KERNELS"]
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC_DIR = os.path.join(_HERE, "csrc")
@@ -55,10 +64,13 @@ KERNELS = {
 
 _VP, _I64, _INT, _DBL = (ctypes.c_void_p, ctypes.c_int64, ctypes.c_int,
                          ctypes.c_double)
-_ARGTYPES = {
-    "pp_moments": [_VP, _VP, _VP, _VP, _I64, _INT, _INT, _VP, _VP],
-    "pp_fftfit": [_VP, _VP, _I64, _INT, _DBL, _DBL, _INT, _INT, _VP, _VP,
-                  _VP, _VP],
+# kernel name -> {C symbol: argument types}; each returns a cudaError_t
+_SYMBOLS = {
+    "moments": {"pp_moments": [_VP, _VP, _VP, _VP, _I64, _INT, _INT, _VP,
+                               _VP]},
+    "fftfit": {"pp_fftfit": [_VP, _VP, _VP, _I64, _INT, _DBL, _DBL, _INT,
+                             _INT, _INT, _VP, _VP, _VP, _VP, _VP, _VP],
+               "pp_fftfit_table": [_VP, _INT, _INT, _DBL, _DBL, _VP]},
 }
 
 LAUNCHES = {name: 0 for name in KERNELS}
@@ -129,25 +141,32 @@ def build(names=None):
             raise RuntimeError("nvcc failed for " + "\n".join(failed))
         for name in todo:
             lib = ctypes.CDLL(_lib_path(name))
-            fn = getattr(lib, KERNELS[name][1])
-            fn.argtypes = _ARGTYPES[KERNELS[name][1]]
-            fn.restype = ctypes.c_int
-            _LIBS[name] = fn
+            fns = {}
+            for sym, argtypes in _SYMBOLS[name].items():
+                fns[sym] = fn = getattr(lib, sym)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+            _LIBS[name] = fns
     return time.perf_counter() - t0
 
 
-def _launch(name, device, *args):
-    """Launch kernel ``name`` on the current stream of ``device``; raise
-    on a refused launch; count it."""
+def _launch(name, device, *args, symbol=None, count=True):
+    """Call C entry ``symbol`` (the kernel's own by default) of kernel
+    ``name`` on the current stream of ``device``; raise on a refused
+    launch; count it in LAUNCHES unless ``count`` is false."""
     if name not in _LIBS:
         build([name])
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device)
-        err = _LIBS[name](*args, stream.cuda_stream)
+    fn = _LIBS[name][symbol or KERNELS[name][1]]
+    if torch.cuda.current_device() == device.index:
+        err = fn(*args, torch.cuda.current_stream(device).cuda_stream)
+    else:
+        with torch.cuda.device(device):
+            err = fn(*args, torch.cuda.current_stream(device).cuda_stream)
     if err != 0:
         raise RuntimeError("CUDA kernel %s failed to launch: cudaError_t %d"
                            % (name, err))
-    LAUNCHES[name] += 1
+    if count:
+        LAUNCHES[name] += 1
 
 
 def _check(t, what, dtype, ndim):
@@ -241,14 +260,14 @@ def _phase_objective(phase, cross, inv_err2):
     return C, dC, d2C
 
 
-def fftfit_plain(cross, inv_err2, lo, hi, Ns, newton_iter):
-    """Plain PyTorch K2: (phase, C, d2C) [N] for cross [N, nharm]."""
+def fftfit_grid_plain(cross, lo, hi, Ns):
+    """Plain K2 grid stage: (Cgrid [N, Ns], grid [Ns]) for cross [N,
+    nharm], a few grid points at a time (bounded temporaries)."""
     N, nharm = cross.shape
     dev = cross.device
     k = torch.arange(nharm, dtype=torch.float64, device=dev)
     grid = lo + (hi - lo) * torch.arange(Ns, dtype=torch.float64,
                                          device=dev) / Ns
-    # grid stage, a few grid points at a time (bounded temporaries)
     chunk = max(1, min(Ns, (1 << 24) // max(N * nharm, 1)))
     cgrid = []
     for g0 in range(0, Ns, chunk):
@@ -257,7 +276,13 @@ def fftfit_plain(cross, inv_err2, lo, hi, Ns, newton_iter):
         cgrid.append(-torch.sum(
             cross.real[:, None, :] * torch.cos(ang)
             - cross.imag[:, None, :] * torch.sin(ang), dim=-1))
-    phase = grid[torch.argmin(torch.cat(cgrid, dim=-1), dim=-1)]
+    return torch.cat(cgrid, dim=-1), grid
+
+
+def fftfit_plain(cross, inv_err2, lo, hi, Ns, newton_iter):
+    """Plain PyTorch K2: (phase, C, d2C) [N] for cross [N, nharm]."""
+    cgrid, grid = fftfit_grid_plain(cross, lo, hi, Ns)
+    phase = grid[torch.argmin(cgrid, dim=-1)]
     cell = (hi - lo) / Ns
     for _ in range(newton_iter):
         _, dC, d2C = _phase_objective(phase, cross, inv_err2)
@@ -269,6 +294,92 @@ def fftfit_plain(cross, inv_err2, lo, hi, Ns, newton_iter):
     phase = torch.remainder(phase + 0.5, 1.0) - 0.5
     C, _, d2C = _phase_objective(phase, cross, inv_err2)
     return phase, C, d2C
+
+
+# The table's padding and the grid's column groups, as in csrc/fftfit.cu
+# (kBK, kNsAlign, kColGroup).
+FFTFIT_K_ALIGN, FFTFIT_NS_ALIGN, FFTFIT_GROUP = 32, 128, 32
+FFTFIT_TABLES_MAX = 8  # phasor tables kept, least recently used dropped
+_TABLES = collections.OrderedDict()
+
+
+def _padded(n, align):
+    return -(-n // align) * align
+
+
+def fftfit_table_plain(nharm, lo, hi, Ns, device="cpu"):
+    """Plain K2 phasor table [2 nharm, Ns] f64: row 2k holds
+    cos(theta_gk) and row 2k+1 -sin(theta_gk), theta_gk = 2 pi ((v_g k)
+    mod 1), v_g = lo + (hi - lo) g / Ns: the reference's grid phasors
+    (phase_shift.py:74-80) laid out so that the grid stage is the real
+    product view_as_real(cross).reshape(N, 2 nharm) @ T = -Cgrid."""
+    k = torch.arange(nharm, dtype=torch.float64, device=device)
+    grid = lo + (hi - lo) * torch.arange(Ns, dtype=torch.float64,
+                                         device=device) / Ns
+    ang = (2.0 * math.pi) * torch.remainder(k[:, None] * grid[None, :], 1.0)
+    return torch.stack([torch.cos(ang), -torch.sin(ang)],
+                       dim=1).reshape(2 * nharm, Ns)
+
+
+def fftfit_table(nharm, lo, hi, Ns, device):
+    """K2's phasor table for (nharm, lo, hi, Ns) on ``device``, zero-padded
+    to [Kp, Nsp] (2 nharm rounded up to FFTFIT_K_ALIGN, Ns to
+    FFTFIT_NS_ALIGN); built once per key and cached (the
+    FFTFIT_TABLES_MAX most recently used).  On the card the table kernel
+    builds it; on the CPU fftfit_table_plain does."""
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    key = (device, int(nharm), float(lo), float(hi), int(Ns))
+    T = _TABLES.get(key)
+    if T is not None:
+        _TABLES.move_to_end(key)
+        return T
+    nharm, lo, hi, Ns = key[1:]
+    Kp = _padded(2 * nharm, FFTFIT_K_ALIGN)
+    Nsp = _padded(Ns, FFTFIT_NS_ALIGN)
+    if device.type == "cuda":
+        T = torch.empty((Kp, Nsp), dtype=torch.float64, device=device)
+        _launch("fftfit", device, T.data_ptr(), nharm, Ns, lo, hi,
+                symbol="pp_fftfit_table", count=False)
+    else:
+        T = torch.zeros((Kp, Nsp), dtype=torch.float64, device=device)
+        T[:2 * nharm, :Ns] = fftfit_table_plain(nharm, lo, hi, Ns, device)
+    _TABLES[key] = T
+    while len(_TABLES) > FFTFIT_TABLES_MAX:
+        _TABLES.popitem(last=False)
+    return T
+
+
+def _fftfit_launch(cross, inv_err2, lo, hi, Ns, newton_iter, stages=3,
+                   scratch=None, count=True):
+    """Run K2's stages on the card: 1 grid + argmin partials, 2 Newton,
+    3 both.  Returns (out [3, N], scratch): one buffer holds the outputs
+    and the grid's partials (pval [N, G] f64, then pidx [N, G] int32,
+    G = Nsp / FFTFIT_GROUP), so a stage-2 call can reuse a stage-1
+    call's grid."""
+    N, nharm = cross.shape
+    table = fftfit_table(nharm, lo, hi, Ns, cross.device)
+    ng = N * (table.shape[1] // FFTFIT_GROUP)
+    if scratch is None:
+        scratch = torch.empty(3 * N + ng + (ng + 1) // 2,
+                              dtype=torch.float64, device=cross.device)
+    out = scratch[:3 * N].view(3, N)
+    pval = scratch.data_ptr() + 3 * N * 8
+    _launch("fftfit", cross.device, cross.data_ptr(), inv_err2.data_ptr(),
+            table.data_ptr(), N, nharm, lo, hi, Ns, newton_iter, stages,
+            pval, pval + ng * 8, out.data_ptr(), out[1].data_ptr(),
+            out[2].data_ptr(), count=count)
+    return out, scratch
+
+
+def fftfit_partials(scratch, N, Ns):
+    """The grid's per-group first minima (pval [N, G] f64, pidx [N, G]
+    int32) held in a ``_fftfit_launch`` scratch buffer."""
+    G = _padded(Ns, FFTFIT_NS_ALIGN) // FFTFIT_GROUP
+    pval = scratch[3 * N:3 * N + N * G].view(N, G)
+    pidx = scratch[3 * N + N * G:].view(torch.int32)[:N * G].view(N, G)
+    return pval, pidx
 
 
 def fftfit(cross, inv_err2, lo, hi, Ns, newton_iter):
@@ -288,10 +399,8 @@ def fftfit(cross, inv_err2, lo, hi, Ns, newton_iter):
         return fftfit_plain(cross, inv_err2, lo, hi, Ns, newton_iter)
     if cross.device.type != "cuda":
         raise ValueError("fftfit: unsupported device %s" % cross.device)
-    out = torch.empty((3, N), dtype=torch.float64, device=cross.device)
     if N == 0:
+        out = torch.empty((3, 0), dtype=torch.float64, device=cross.device)
         return out[0], out[1], out[2]
-    _launch("fftfit", cross.device, cross.data_ptr(), inv_err2.data_ptr(),
-            N, nharm, lo, hi, Ns, newton_iter, out[0].data_ptr(),
-            out[1].data_ptr(), out[2].data_ptr())
+    out, _ = _fftfit_launch(cross, inv_err2, lo, hi, Ns, newton_iter)
     return out[0], out[1], out[2]

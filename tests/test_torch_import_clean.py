@@ -6,6 +6,7 @@ must not initialize CUDA; and the entry points must refuse to run when
 no CUDA device exists unless the caller asked for the CPU.
 """
 
+import math
 import os
 import subprocess
 import sys
@@ -131,3 +132,75 @@ def test_kernels_match_plain_versions_on_the_card():
     want = _kernels.fftfit_plain(cr, w[:, 0].contiguous(), -0.5, 0.5, 50, 4)
     for g, p in zip(got, want):
         torch.testing.assert_close(g, p, rtol=1e-10, atol=1e-12)
+    # grids that tie (harmonic 2 only: ties at 0/32 and 16/48 of 64 over
+    # [-0.5, 0.5)), a NaN row, and over [-0.25, 0.25) a grid that holds a
+    # NaN after -inf values (harmonic 1 = i*inf: sin = 0 exactly at point 32
+    # only; over [-0.5, 0.5) sincospi and cos(2 pi x) disagree on whether
+    # sin(pi) is 0, so that row is left out there)
+    hand = torch.zeros((4, 3), dtype=torch.complex128, device="cuda")
+    hand[0, 2], hand[1, 2] = 1.0, -1.0
+    hand[2] = math.nan
+    hand[3, 1] = complex(0.0, math.inf)
+    ones = torch.ones(4, dtype=torch.float64, device="cuda")
+    for lo, hi, rows in ((-0.5, 0.5, 3), (-0.25, 0.25, 4)):
+        for it in (0, 6):
+            got = _kernels.fftfit(hand[:rows], ones[:rows], lo, hi, 64, it)
+            want = _kernels.fftfit_plain(hand[:rows], ones[:rows], lo, hi,
+                                         64, it)
+            for g, p in zip(got, want):
+                torch.testing.assert_close(g, p, rtol=1e-12, atol=1e-12,
+                                           equal_nan=True)
+
+
+def _pulses(N, nbin, seed):
+    """N noisy copies of one pulse at random phases (numpy, seeded)."""
+    rng = np.random.default_rng(seed)
+    x = (np.arange(nbin) + 0.5) / nbin
+    prof = np.exp(-0.5 * ((x - 0.35) / 0.02) ** 2)
+    k = np.arange(nbin // 2 + 1)
+    ph = rng.uniform(-0.45, 0.45, N)
+    data = np.fft.irfft(np.fft.rfft(prof) * np.exp(
+        2j * np.pi * ph[:, None] * k), nbin, axis=-1)
+    data += 0.05 * rng.standard_normal((N, nbin))
+    cross = np.fft.rfft(data, axis=-1) * np.conj(np.fft.rfft(prof))
+    cross[:, 0] = 0.0
+    return cross, np.full(N, 1.0 / (0.05 ** 2 * nbin / 2))
+
+
+# N picks K2's launch shapes: 128 x 128 grid tiles (1000 at Ns 2048),
+# 64 x 64 tiles with K over clusters of 8 (1, 17, 1000), 4 (3000), 2 (5000)
+# or 1 (9000) blocks; 4 (N <= 528), 2 or 1 (N > 2112) warps per profile.
+@pytest.mark.cuda
+@pytest.mark.parametrize("N,nharm,Ns,lo,hi,newton_iter,nan_row", [
+    (1, 1025, 100, -0.5, 0.5, 6, False),
+    (17, 65, 100, -0.25, 0.25, 6, True),
+    (1000, 1025, 100, -0.5, 0.5, 6, False),
+    (1000, 1025, 2048, -0.5, 0.5, 6, False),
+    (17, 1025, 2048, -0.25, 0.25, 0, True),
+    (1000, 65, 100, -0.25, 0.25, 0, False),
+    (3000, 129, 100, -0.5, 0.5, 6, True),
+    (5000, 129, 100, -0.25, 0.25, 6, False),
+    (9000, 129, 100, -0.5, 0.5, 6, False),
+])
+def test_fftfit_kernel_matches_plain_on_the_card(N, nharm, Ns, lo, hi,
+                                                 newton_iter, nan_row):
+    """K2 at ragged N, three widths, two grids, the narrowband bounds,
+    with and without Newton steps, against its plain version."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    from pulseportraiture_tpu_torch import _kernels
+
+    cross, w = _pulses(N, 2 * (nharm - 1), seed=N + nharm)
+    if nan_row:
+        cross[N // 2] = np.nan
+    cr = torch.as_tensor(cross, device="cuda")
+    w = torch.as_tensor(w, device="cuda")
+    want = _kernels.fftfit_plain(cr, w, lo, hi, Ns, newton_iter)
+    got = _kernels.fftfit(cr, w, lo, hi, Ns, newton_iter)
+    torch.testing.assert_close(got[0], want[0], rtol=0, atol=1e-9,
+                               equal_nan=True)
+    for g, p in zip(got[1:], want[1:]):
+        ok = torch.isfinite(p)
+        assert torch.equal(torch.isnan(g), torch.isnan(p))
+        err = (g[ok] - p[ok]).abs().max() / p[ok].abs().max()
+        assert float(err) <= 1e-12, float(err)
