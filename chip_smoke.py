@@ -13,7 +13,9 @@ Phases, one JSON line each on stdout; any failure exits non-zero:
               [256, 1025] (the pptoas archive's guess), [1000, 1025] and
               [131072, 1025] with Ns 100 and [1000, 1025] with Ns 2048,
               grid-argmin mismatches, its time split
-              by stage and its first call (phasor table built).  Kernel
+              by stage and its first call (phasor table built); K3 at
+              [1000, 512, 128] with one shared |m|^2 and at [64, 512, 128]
+              with per-subint |m|^2 and a lane subset.  Kernel
               and library times are device times from CUDA-graph replay;
               ``call_ms`` is the wrapper's time per call, host included
               (back-to-back CUDA events)
@@ -21,18 +23,34 @@ Phases, one JSON line each on stdout; any failure exits non-zero:
               archive (written by the port's make_fake_pulsar from
               examples/; subint 3 has one live channel, so both fit-flag
               groups run): 256 TOAs, injected phase and dDM recovered
-              within 5 sigma, every kernel launched; a 16-subint subset
+              within 5 sigma, K1 and K2 launched; a 16-subint subset
               re-run with the plain versions swapped in agrees within 1 ns
-  throughput  fit_portrait_full_batch at 1000 x 512 x 2048 (data made on
-              the card from a seeded torch.Generator): TOAs/s, K1 launches,
-              K1 ms per launch (torch.profiler, a separate run), peak
-              device memory
+  pptoas_scat the same archive with --fit_scat (the model scatters with
+              TAU = 20 us at 1500 MHz, alpha -4): 256 TOAs, phase, dDM
+              and the scattering time at scat_ref_freq recovered within
+              5 sigma, K2 and K3 launched (the one-channel subint fits phase
+              alone at the model's fixed tau: K3 too); the 16-subint
+              subset against the plain versions (1 ns; tau and alpha
+              within 5e-7 / 1e-5 plus the printed digit); then --fit_dt4
+              on the 16-subint archive, kernels against plain (the
+              (1,1,1,0,0) roots path, K1 and K2 launched)
+  throughput  fit_portrait_full_batch(init_params=None) at 1000 x 512 x
+              2048 (data made on the card from a seeded torch.Generator;
+              the phases seeded through K2): TOAs/s, K1 launches, K1 ms
+              per launch (torch.profiler, a separate run), peak device
+              memory
+  throughput_scat  the north-star scattering fit at 1000 x 512 x 2048:
+              tau 3e-3 rot at nu0, alpha -4, started at 1.5 x tau,
+              flags (1,1,0,1,1), log10 tau, nu_fits = nu_outs = nu0,
+              max_iter 30: TOAs/s, K3 launches and ms per launch, nfeval,
+              return codes, tau recovery, peak device memory
 
-Then a ``kernels`` line (every hand kernel with its launches on the pptoas
-path, errors and times; K2 with its [1000, 1025] numbers and a ``shapes``
-list of all four cases), the card's name and power limit, and last
-``{"ok": true, "device": {...}}``.  Exits non-zero without a result when
-no CUDA device is available or the package is missing.
+Then a ``kernels`` line (every hand kernel with its launches on its
+path — K1 and K2 on pptoas, K3 on pptoas_scat — errors and times; K2 with
+its [1000, 1025] numbers and K3 with its [1000, 512, 128] ones, each with a
+``shapes`` list of all its cases), the card's name and power limit, and
+last ``{"ok": true, "device": {...}}``.  Exits non-zero without a result
+when no CUDA device is available or the package is missing.
 
 Option (a diagnostic; the smoke itself takes none):
   --profile DIR  also profile the pptoas CLI (cProfile for host time,
@@ -60,6 +78,11 @@ PEAK_FP64_TENSOR_PER_S = 67e12
 # model and north-star injections of the repo's benchmark configuration
 MODEL_PARAMS = [0.0, 0.0, 0.35, -0.05, 0.05, 0.1, 1.0, -1.2]
 P0, NOISE = 0.005, 0.05
+TAU_INJ = 3e-3  # the scattering configuration's tau [rot] at nu0
+
+# K3's FP64 operations per harmonic (sincospi counted as 2, the division
+# as 1), counted from csrc/moments_scat.cu
+K3_OPS = 81
 
 
 def emit(phase, **kw):
@@ -172,7 +195,70 @@ def phase_kernels(dev, kern, K=128):
     rows["fftfit"] = [phase_k2(dev, kern, gen, N, Ns, lo, hi,
                                time_plain=N <= 1000)
                       for N, Ns, lo, hi in K2_CASES]
+    rows["moments_scat"] = [phase_k3(dev, kern, gen, *case)
+                            for case in K3_CASES]
     return rows
+
+
+# K3 cases: (subints, channels, harmonics, one |m|^2 shared by the batch,
+# rows evaluated: a lane subset of that many subints, or all when None)
+K3_CASES = [
+    (1000, 512, 128, True, None),   # throughput_scat: the batch, one model
+    (64, 512, 128, False, 40),      # pptoas chunks: per-subint models, lanes
+]
+K3_MAIN = 0
+
+
+def phase_k3(dev, kern, gen, n, nchan, K, shared, nlanes):
+    """K3 against moments_scat_plain: each sum's error relative to its
+    largest magnitude over the rows, device times, bound."""
+    import torch
+
+    def rand(*shape):
+        return torch.rand(shape, generator=gen, device=dev,
+                          dtype=torch.float64)
+
+    cross = torch.complex(torch.randn((n, nchan, K), generator=gen,
+                                      device=dev, dtype=torch.float64),
+                          torch.randn((n, nchan, K), generator=gen,
+                                      device=dev, dtype=torch.float64))
+    abs_m2 = rand(1 if shared else n, nchan, K) * 2.0
+    inv_err2 = rand(n, nchan) + 0.5
+    m = n if nlanes is None else nlanes
+    lanes = None if nlanes is None else torch.sort(torch.randperm(
+        n, generator=gen, device=dev)[:nlanes]).values
+    shifts = (rand(m, nchan) - 0.5) * 4000.0
+    taus = rand(m, nchan) * 0.02  # up to ~40 bins of 2048
+
+    def k3():
+        return kern.moments_scat(cross, abs_m2, shifts, taus, inv_err2, lanes)
+
+    def plain():
+        return kern.moments_scat_plain(cross, abs_m2, shifts, taus, inv_err2,
+                                       lanes)
+
+    got, want = k3(), plain()
+    torch.cuda.synchronize()
+    errs = {name: rel_err(got[..., j], want[..., j])
+            for j, name in enumerate(kern.MOMENTS_SCAT_SUMS)}
+    err, tol = max(errs.values()), 1e-12
+    # bytes: the rows' cross (and per-subint |m|^2) read once, the shared
+    # |m|^2 once, shifts/taus/inv_err2 per row, nine sums out
+    nb = m * nchan * K * 16 + (nchan * K if shared else m * nchan * K) * 8 \
+        + m * nchan * 8 * 3 + got.numel() * 8
+    bms, by = bound_ms(nb, (m * nchan * K * K3_OPS, PEAK_FP64_PER_S))
+    row = dict(shape=[n, nchan, K], shared_abs_m2=shared, lanes=nlanes,
+               max_rel_err=err, rel_err_by_sum=errs, tol=tol,
+               max_abs_err=float((got - want).abs().max()),
+               ms=graph_ms(k3), call_ms=cuda_ms(k3),
+               plain_ms=cuda_ms(plain, reps=3, warm=1),
+               bound_ms=bms, bound_by=by, library_ms=None)
+    row["share_of_bound"] = bms / row["ms"]
+    emit("kernels", kernel="moments_scat", **row)
+    if not err <= tol:
+        raise AssertionError("moments_scat kernel disagrees at %s: %s"
+                             % ([n, nchan, K], errs))
+    return row
 
 
 # K2 cases: (N profiles, Ns grid points, bounds); nharm 1025 (nbin 2048)
@@ -332,21 +418,49 @@ def read_tim(path):
 @contextlib.contextmanager
 def plain_kernels(K):
     """Swap the plain versions in for the kernels (the comparison run)."""
-    saved = K.moments, K.fftfit
-    K.moments, K.fftfit = K.moments_plain, K.fftfit_plain
+    saved = K.moments, K.fftfit, K.moments_scat
+    K.moments, K.fftfit, K.moments_scat = (K.moments_plain, K.fftfit_plain,
+                                           K.moments_scat_plain)
     try:
         yield
     finally:
-        K.moments, K.fftfit = saved
+        K.moments, K.fftfit, K.moments_scat = saved
+
+
+def run_cli(K, argv):
+    """The port's pptoas CLI with every launch count set to 0 just before
+    it: (TOA lines, wall seconds, launches of that run)."""
+    from pulseportraiture_tpu_torch.cli import pptoas
+
+    K.reset_launches()
+    t0 = time.perf_counter()
+    rc = pptoas.main(argv)
+    wall = time.perf_counter() - t0
+    launches = dict(K.LAUNCHES)
+    if rc != 0:
+        raise AssertionError("pptoas %s exited %d" % (" ".join(argv), rc))
+    return read_tim(argv[argv.index("-o") + 1]), wall, launches
+
+
+def max_dt_ns(a_toas, b_toas):
+    return max(abs((a["day"] - b["day"]) * 86400e9
+                   + (float(a["frac"]) - float(b["frac"])) * 86400e9)
+               for a, b in zip(a_toas, b_toas))
+
+
+def flag_gap(a_toas, b_toas, key):
+    """Largest difference of a printed flag between two .tim files."""
+    return max(abs(float(a["flags"][key]) - float(b["flags"][key]))
+               for a, b in zip(a_toas, b_toas) if key in b["flags"])
 
 
 def phase_pptoas(root, work, K, shape=(256, 512, 2048), subset=16,
                  extra=(), profile_dir=None):
     """The port's pptoas CLI on a ``shape`` (nsub, nchan, nbin) archive;
-    ``extra`` CLI arguments are appended to both runs."""
+    ``extra`` CLI arguments are appended to both runs.  Returns the
+    launches of the main run and the two archives' paths."""
     import numpy as np
 
-    from pulseportraiture_tpu_torch.cli import pptoas
     from pulseportraiture_tpu_torch.config import Dconst
     from pulseportraiture_tpu_torch.io.archive import make_fake_pulsar
     from pulseportraiture_tpu_torch.io.parfile import read_par
@@ -368,17 +482,9 @@ def phase_pptoas(root, work, K, shape=(256, 512, 2048), subset=16,
                              nsub=subset, weights=weights[:subset], **kw)
     t_make = time.perf_counter() - t0
 
-    tim = os.path.join(work, "smoke256.tim")
     argv = ["-d", big, "-m", gm, "--no_bary", "--print_phase", *extra,
-            "--quiet", "-o", tim]
-    K.reset_launches()
-    t0 = time.perf_counter()
-    rc = pptoas.main(argv)
-    t_cli = time.perf_counter() - t0
-    launches = dict(K.LAUNCHES)
-    if rc != 0:
-        raise AssertionError("pptoas exited %d" % rc)
-    toas = read_tim(tim)
+            "--quiet", "-o", os.path.join(work, "smoke256.tim")]
+    toas, t_cli, launches = run_cli(K, argv)
     if len(toas) != nsub:
         raise AssertionError("%d TOA lines, want %d" % (len(toas), nsub))
     DM = float(read_par(par).get("DM")) + dDM_inj
@@ -401,21 +507,15 @@ def phase_pptoas(root, work, K, shape=(256, 512, 2048), subset=16,
     if not (zDM.max() < 5 and zphi.max() < 5):
         raise AssertionError("injection not recovered: max |z| DM %.2f, "
                              "phase %.2f" % (zDM.max(), zphi.max()))
-    missing = [name for name, n in launches.items() if n == 0]
+    missing = [name for name in ("moments", "fftfit") if launches[name] == 0]
     if missing:
         raise AssertionError("kernels never launched on the pptoas path: %s"
                              % missing)
 
-    tim_plain = os.path.join(work, "smoke16_plain.tim")
     with plain_kernels(K):
-        rc = pptoas.main(["-d", small, "-m", gm, "-o", tim_plain,
-                          "--no_bary", "--print_phase", "--quiet", *extra])
-    if rc != 0:
-        raise AssertionError("plain pptoas exited %d" % rc)
-    plain = read_tim(tim_plain)
-    dt_ns = max(abs((a["day"] - b["day"]) * 86400e9
-                    + (float(a["frac"]) - float(b["frac"])) * 86400e9)
-                for a, b in zip(toas[:subset], plain))
+        plain, _, _ = run_cli(K, ["-d", small] + argv[2:-1] + [
+            os.path.join(work, "smoke16_plain.tim")])
+    dt_ns = max_dt_ns(toas[:subset], plain)
     if len(plain) != subset or not dt_ns < 1.0:
         raise AssertionError("plain vs kernel TOAs differ by %.3g ns"
                              % dt_ns)
@@ -428,6 +528,95 @@ def phase_pptoas(root, work, K, shape=(256, 512, 2048), subset=16,
          max_abs_z_phase=float(zphi.max()),
          median_toa_err_us=float(np.median([t["err_us"] for t in toas])),
          plain_vs_kernel_max_ns=dt_ns)
+    return launches, big, small
+
+
+def phase_pptoas_scat(root, work, K, big, small, shape=(256, 512, 2048),
+                      subset=16, nu0=1500.0):
+    """--fit_scat on the pptoas archive (recovery, K2 + K3 launched), the
+    16-subint one against the plain versions, then --fit_dt4 on it,
+    kernels against plain.  Returns the launches of the --fit_scat run."""
+    import numpy as np
+
+    from pulseportraiture_tpu_torch.config import Dconst
+    from pulseportraiture_tpu_torch.io.gmodel import read_model
+    from pulseportraiture_tpu_torch.io.parfile import read_par
+
+    gm = os.path.join(root, "examples", "example.gmodel")
+    par = os.path.join(root, "examples", "example.par")
+    nsub = shape[0]
+    _, _, nu_tau0, _, gparams, _, alpha0, _ = read_model(gm)
+    tau0 = float(gparams[1])  # [s] at nu_tau0: what make_fake_pulsar injected
+    DM = float(read_par(par).get("DM")) + 3.1e-3
+    P = 1.0 / float(read_par(par).F0)
+    phase_inj = 0.1234
+    base = ["-m", gm, "--no_bary", "--print_phase", "--quiet"]
+
+    toas, t_cli, launches = run_cli(K, ["-d", big, "--fit_scat"] + base
+                                    + ["-o", os.path.join(work, "s256.tim")])
+    if len(toas) != nsub:
+        raise AssertionError("%d scattering TOA lines, want %d"
+                             % (len(toas), nsub))
+    z = dict(DM=[], phase=[], tau=[], alpha=[])
+    for t in toas:
+        f = t["flags"]
+        if "pp_dm" in f:
+            z["DM"].append((float(f["pp_dm"]) - DM) / float(f["pp_dme"]))
+        want = phase_inj + Dconst * DM * (t["freq"] ** -2 - nu0 ** -2) / P
+        d = (float(f["phs"]) - want + 0.5) % 1.0 - 0.5
+        z["phase"].append(d / float(f["phs_err"]))
+        if "log10_scat_time_err" in f:
+            nu = float(f["scat_ref_freq"])
+            inj = math.log10(tau0 * (nu / nu_tau0) ** alpha0)
+            z["tau"].append((float(f["log10_scat_time"]) - inj)
+                            / float(f["log10_scat_time_err"]))
+            z["alpha"].append((float(f["scat_ind"]) - alpha0)
+                              / float(f["scat_ind_err"]))
+    zmax = {k: float(np.abs(v).max()) for k, v in z.items()}
+    if len(z["tau"]) != nsub - 1 or not max(zmax.values()) < 5:
+        raise AssertionError("scattering injection not recovered: max |z| "
+                             "%s over %d tau fits" % (zmax, len(z["tau"])))
+    missing = [n for n in ("fftfit", "moments_scat") if launches[n] == 0]
+    if missing:
+        raise AssertionError("kernels never launched on the --fit_scat path:"
+                             " %s" % missing)
+
+    # the 16-subint archive: kernels, then plain versions
+    def pair(flags, tag):
+        argv = ["-d", small] + flags + base
+        kern, _, kl = run_cli(K, argv + ["-o", os.path.join(
+            work, tag + "_k.tim")])
+        with plain_kernels(K):
+            plain, _, _ = run_cli(K, argv + ["-o", os.path.join(
+                work, tag + "_p.tim")])
+        return kern, plain, kl
+
+    kern, plain, _ = pair(["--fit_scat"], "s16")
+    scat_dt = max_dt_ns(kern, plain)
+    gaps = {key: flag_gap(kern, plain, key) for key in (
+        "log10_scat_time", "scat_ind", "scat_ind_err")}
+    # printed with 3 decimals: the printed digit plus the tau/alpha bounds
+    if not (scat_dt < 1.0 and gaps["log10_scat_time"] <= 1e-3 + 5e-7
+            and gaps["scat_ind"] <= 1e-3 + 1e-5):
+        raise AssertionError("--fit_scat plain vs kernel: %.3g ns, %s"
+                             % (scat_dt, gaps))
+    kern, plain, dt4_launches = pair(["--fit_dt4"], "g16")
+    dt4_dt = max_dt_ns(kern, plain)
+    if not dt4_dt < 1.0:
+        raise AssertionError("--fit_dt4 plain vs kernel: %.3g ns" % dt4_dt)
+    missing = [n for n in ("moments", "fftfit") if dt4_launches[n] == 0]
+    if missing:
+        raise AssertionError("kernels never launched on the --fit_dt4 path:"
+                             " %s" % missing)
+    emit("pptoas_scat", archive=list(shape), n_toas=len(toas),
+         cli_s=t_cli, toas_per_s=len(toas) / t_cli, launches=launches,
+         max_abs_z=zmax, n_tau_fits=len(z["tau"]),
+         median_toa_err_us=float(np.median([t["err_us"] for t in toas])),
+         plain_vs_kernel_max_ns=scat_dt, plain_vs_kernel_flag_gaps=gaps,
+         fit_dt4=dict(archive=[subset] + list(shape[1:]),
+                      launches=dt4_launches,
+                      plain_vs_kernel_max_ns=dt4_dt,
+                      gm_gap=flag_gap(kern, plain, "gm")))
     return launches
 
 
@@ -491,47 +680,47 @@ def device_rows(prof):
 
 
 def kernel_device_ms(fn, K):
-    """{kernel name: (launches, device ms in all)} of the hand kernels
-    over one call of fn(), from torch.profiler (a launch of K2 runs two
-    CUDA kernels: its launches are the larger count of the two); a kernel
-    the profiler shows no device time for is left out."""
+    """({kernel name: (launches, device ms in all)}, device profile) of
+    one call of fn(), from torch.profiler.  A launch of K2 runs two CUDA
+    kernels: its launches are the larger count of the two; a kernel the
+    profiler shows no device time for is left out.  The device profile
+    holds the wall, the device-busy seconds and the eight device rows
+    that took longest."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
     out = {}
-    for key, dev_s, count in device_rows(prof):
-        for name in K.KERNELS:  # moments_kernel; fftfit_{grid,newton}_kernel
-            if name + "_" in key and "_kernel" in key and dev_s > 0:
+    rows = device_rows(prof)
+    top = sorted(rows, key=lambda r: -r[1])[:8]
+    busy = sum(r[1] for r in rows)
+    profile_ = dict(wall_s=wall, device_busy_s=busy,
+                    device_top=[[key[:60], dev_s * 1e3, n]
+                                for key, dev_s, n in top])
+    for key, dev_s, count in rows:
+        for name in K.KERNELS:  # moments(_scat)_kernel; fftfit_*_kernel
+            hit = (name + "_kernel" in key) if name.startswith("moments") \
+                else (name + "_" in key and "_kernel" in key)
+            if hit and dev_s > 0:
                 n, ms = out.get(name, (0, 0.0))
                 out[name] = (max(n, count), ms + dev_s * 1e3)
-    return out
+    return out, profile_
 
 
-def phase_throughput(dev, K):
-    """fit_portrait_full_batch at the north-star 1000 x 512 x 2048."""
+def north_star_data(dev, model, freqs, nu0, seed, nsub=1000):
+    """``nsub`` subints of ``model`` at seeded phases and dDMs, plus
+    noise, made on the card: (data, phis, dDMs)."""
     import torch
 
-    from pulseportraiture_tpu_torch.config import Dconst
-    from pulseportraiture_tpu_torch.fit.phase_shift import fit_phase_shift
-    from pulseportraiture_tpu_torch.fit.portrait import (
-        fit_portrait_full_batch, model_kmax)
-    from pulseportraiture_tpu_torch.ops.fourier import (get_bin_centers,
-                                                        rotate_data)
-    from pulseportraiture_tpu_torch.ops.profiles import gen_gaussian_portrait
+    from pulseportraiture_tpu_torch.ops.fourier import rotate_data
 
-    nsub, nchan, nbin = 1000, 512, 2048
-    freqs = torch.linspace(1300.0, 1700.0, nchan, dtype=torch.float64,
-                           device=dev) + 400.0 / nchan / 2
-    nu0 = float(freqs.mean())
-    model = gen_gaussian_portrait("000", MODEL_PARAMS, -4.0,
-                                  get_bin_centers(nbin), freqs, 1500.0,
-                                  device=dev)
-    kmax = model_kmax(model)
-    gen = torch.Generator(device=dev).manual_seed(0)
+    nchan, nbin = model.shape
+    gen = torch.Generator(device=dev).manual_seed(seed)
     phis = (torch.rand(nsub, generator=gen, device=dev,
                        dtype=torch.float64) - 0.5) * 0.8
     dDMs = (torch.rand(nsub, generator=gen, device=dev,
@@ -544,16 +733,42 @@ def phase_throughput(dev, K):
                               freqs, nu0)
         data[s] += NOISE * torch.randn(data[s].shape, generator=gen,
                                        device=dev, dtype=torch.float64)
+    return data, phis, dDMs
+
+
+def north_star_model(dev, nchan=512, nbin=2048):
+    import torch
+
+    from pulseportraiture_tpu_torch.ops.fourier import get_bin_centers
+    from pulseportraiture_tpu_torch.ops.profiles import gen_gaussian_portrait
+
+    freqs = torch.linspace(1300.0, 1700.0, nchan, dtype=torch.float64,
+                           device=dev) + 400.0 / nchan / 2
+    model = gen_gaussian_portrait("000", MODEL_PARAMS, -4.0,
+                                  get_bin_centers(nbin), freqs, 1500.0,
+                                  device=dev)
+    return model, freqs, float(freqs.mean())
+
+
+def phase_throughput(dev, K):
+    """fit_portrait_full_batch at the north-star 1000 x 512 x 2048, the
+    phases seeded in the fit (init_params=None)."""
+    import torch
+
+    from pulseportraiture_tpu_torch.config import Dconst
+    from pulseportraiture_tpu_torch.fit.portrait import (
+        fit_portrait_full_batch, model_kmax)
+
+    nsub, nchan, nbin = 1000, 512, 2048
+    model, freqs, nu0 = north_star_model(dev, nchan, nbin)
+    kmax = model_kmax(model)
+    data, phis, dDMs = north_star_data(dev, model, freqs, nu0, 0)
     errs = torch.full((nsub, nchan), NOISE, dtype=torch.float64, device=dev)
     torch.cuda.synchronize()
 
     def run():
-        seed = fit_phase_shift(data.mean(dim=1), model.mean(dim=0),
-                               device=dev)
-        init = torch.zeros((nsub, 5), dtype=torch.float64, device=dev)
-        init[:, 0] = seed.phase
         return fit_portrait_full_batch(
-            data, model, init, P0, freqs, errs=errs,
+            data, model, None, P0, freqs, errs=errs,
             fit_flags=(1, 1, 0, 0, 0), log10_tau=False, max_iter=30,
             kmax=kmax, device=dev)
 
@@ -569,7 +784,8 @@ def phase_throughput(dev, K):
     t_steady = time.perf_counter() - t0
     launches = dict(K.LAUNCHES)
     peak = torch.cuda.max_memory_allocated()
-    per_kernel = kernel_device_ms(run, K)  # another run, under the profiler
+    # another run, under the profiler
+    per_kernel, device = kernel_device_ms(run, K)
     # phi is reported at nu_DM; the injection is referenced to nu0
     z = ((out.phi - phis - Dconst * dDMs * (out.nu_DM ** -2 - nu0 ** -2)
           / P0) + 0.5) % 1.0 - 0.5
@@ -590,11 +806,96 @@ def phase_throughput(dev, K):
                nfev_max=int(out.nfeval.max()),
                frac_phase_within_5sigma=float((zphi < 5).double().mean()),
                frac_DM_within_5sigma=float((zDM < 5).double().mean()),
-               finite=finite)
+               finite=finite, profiled=device)
     emit("throughput", **res)
     if not (finite and res["frac_phase_within_5sigma"] > 0.99
             and res["frac_DM_within_5sigma"] > 0.99):
         raise AssertionError("north-star fit did not recover the injection")
+    if launches["moments"] == 0 or launches["fftfit"] == 0:
+        raise AssertionError("throughput fit launched %s" % launches)
+    return res
+
+
+def phase_throughput_scat(dev, K):
+    """The north-star scattering fit (bench_common.py's fit_scat) at
+    1000 x 512 x 2048: tau TAU_INJ at nu0, alpha -4, flags (1,1,0,1,1)."""
+    import torch
+
+    from pulseportraiture_tpu_torch.fit.portrait import (
+        fit_portrait_full_batch, model_kmax)
+    from pulseportraiture_tpu_torch.ops.scattering import (
+        scattering_portrait_FT, scattering_times)
+
+    nsub, nchan, nbin = 1000, 512, 2048
+    model, freqs, nu0 = north_star_model(dev, nchan, nbin)
+    kmax = model_kmax(model)
+    spFT = scattering_portrait_FT(scattering_times(TAU_INJ, -4.0, freqs, nu0),
+                                  nbin)
+    smodel = torch.fft.irfft(spFT * torch.fft.rfft(model, dim=-1), n=nbin,
+                             dim=-1)
+    data, phis, dDMs = north_star_data(dev, smodel, freqs, nu0, 3)
+    del smodel, spFT
+    errs = torch.full((nsub, nchan), NOISE, dtype=torch.float64, device=dev)
+    init = torch.zeros((nsub, 5), dtype=torch.float64, device=dev)
+    init[:, 0], init[:, 1] = phis, dDMs
+    init[:, 3], init[:, 4] = math.log10(TAU_INJ * 1.5), -4.0
+    nus = torch.full((nsub,), nu0, dtype=torch.float64, device=dev)
+    torch.cuda.synchronize()
+
+    def run():
+        return fit_portrait_full_batch(
+            data, model, init, P0, freqs, errs=errs,
+            fit_flags=(1, 1, 0, 1, 1), nu_fits=(nus, nus, nus),
+            nu_outs=(nus, nus, nus), log10_tau=True, max_iter=30, kmax=kmax,
+            device=dev)
+
+    t0 = time.perf_counter()
+    run()
+    torch.cuda.synchronize()
+    t_first = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    K.reset_launches()
+    t0 = time.perf_counter()
+    out = run()
+    torch.cuda.synchronize()
+    t_steady = time.perf_counter() - t0
+    launches = dict(K.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    per_kernel, device = kernel_device_ms(run, K)
+    zphi = ((((out.phi - phis) + 0.5) % 1.0 - 0.5) / out.phi_err).abs()
+    zDM = ((out.DM - dDMs) / out.DM_err).abs()
+    ztau = ((out.tau - math.log10(TAU_INJ)) / out.tau_err).abs()
+    zalpha = ((out.alpha + 4.0) / out.alpha_err).abs()
+    finite = bool(torch.isfinite(out.params).all()
+                  and torch.isfinite(out.param_errs).all())
+    k3 = per_kernel.get("moments_scat")
+    nfev = out.nfeval.double()
+
+    def within(z):
+        return float((z < 5).double().mean())
+
+    res = dict(shape=[nsub, nchan, nbin], kmax=kmax, first_s=t_first,
+               steady_s=t_steady, toas_per_s=nsub / t_steady,
+               launches=launches,
+               k3_ms_per_launch=k3[1] / k3[0] if k3 else None,
+               k3_ms_total=k3[1] if k3 else None,
+               peak_device_bytes=int(peak),
+               rc_counts={int(c): int((out.return_code == c).sum())
+                          for c in out.return_code.unique()},
+               nfev_max=int(nfev.max()), nfev_median=float(nfev.median()),
+               frac_phase_within_5sigma=within(zphi),
+               frac_DM_within_5sigma=within(zDM),
+               frac_tau_within_5sigma=within(ztau),
+               frac_alpha_within_5sigma=within(zalpha),
+               median_tau_err=float(out.tau_err.median()), finite=finite,
+               profiled=device)
+    emit("throughput_scat", **res)
+    if not (finite and min(res[k] for k in res if k.startswith("frac_"))
+            > 0.99):
+        raise AssertionError("north-star scattering fit did not recover the "
+                             "injection")
+    if launches["moments_scat"] == 0:
+        raise AssertionError("scattering fit launched %s" % launches)
     return res
 
 
@@ -626,10 +927,14 @@ def main(argv):
     rows = phase_kernels(dev, K)
     work = tempfile.mkdtemp(prefix="pp_smoke_")
     try:
-        launches = phase_pptoas(root, work, K, profile_dir=profile_dir)
+        launches, big, small = phase_pptoas(root, work, K,
+                                            profile_dir=profile_dir)
+        launches["moments_scat"] = phase_pptoas_scat(
+            root, work, K, big, small)["moments_scat"]
     finally:
         shutil.rmtree(work, ignore_errors=True)
     phase_throughput(dev, K)
+    phase_throughput_scat(dev, K)
 
     kernels = []
     for name, (src, _, replaces) in K.KERNELS.items():
@@ -641,6 +946,12 @@ def main(argv):
                     "shape", "Ns", "ms", "call_ms", "first_call_ms", "stage_ms",
                     "bound_ms", "share_of_bound", "library_ms", "plain_ms",
                     "argmin_mismatches", "max_abs_err")} for c in r])
+        elif name == "moments_scat":
+            r, extra = r[K3_MAIN], dict(shapes=[
+                {key: c[key] for key in (
+                    "shape", "shared_abs_m2", "lanes", "ms", "call_ms",
+                    "bound_ms", "share_of_bound", "plain_ms", "max_rel_err",
+                    "max_abs_err")} for c in r])
         kernels.append(dict(
             name=name, route="cuda",
             source="pulseportraiture_tpu_torch/csrc/" + src,

@@ -1,12 +1,15 @@
 """The port's hand-written CUDA kernels: build, ctypes binding, wrappers.
 
-Two kernels, each a CUDA C++ source under ``csrc/`` compiled for Hopper
-(``sm_90a``) by ``nvcc`` into a shared library with a plain C interface
-and loaded with ``ctypes``:
+Three kernels, each a CUDA C++ source under ``csrc/`` compiled for
+Hopper (``sm_90a``) by ``nvcc`` into a shared library with a plain C
+interface and loaded with ``ctypes``:
 
   K1 ``moments`` (csrc/moments.cu) — per-channel moments of the portrait
      objective; replaces pulseportraiture_tpu/fit/portrait.py:118
      ``_moments`` (scattering-free branch).
+  K3 ``moments_scat`` (csrc/moments_scat.cu) — the nine per-channel
+     harmonic sums of the scattering branch of the same ``_moments``
+     (:191-323); the (tau, alpha) chain rule on top stays torch.
   K2 ``fftfit``  (csrc/fftfit.cu)  — batched FFTFIT grid search + Newton
      polish; replaces pulseportraiture_tpu/fit/phase_shift.py:64
      ``_fit_phase_shift_core``.  Bound by operations: its grid stage is a
@@ -19,7 +22,8 @@ and loaded with ``ctypes``:
      the table is new); LAUNCHES counts one.
 
 Each wrapper dispatches on its input's device: a CPU tensor takes the
-plain PyTorch version beside it (``moments_plain``/``fftfit_plain``,
+plain PyTorch version beside it (``moments_plain``/``fftfit_plain``/
+``moments_scat_plain``,
 which the CPU tests use and ``chip_smoke.py`` holds the kernels
 against); a CUDA tensor launches the kernel — building it at first use —
 or raises.  Nothing falls back from the card to the plain version.  The
@@ -45,7 +49,8 @@ import time
 import torch
 
 __all__ = ["LAUNCHES", "reset_launches", "build", "moments",
-           "moments_plain", "fftfit", "fftfit_plain", "fftfit_table",
+           "moments_plain", "moments_scat", "moments_scat_plain",
+           "MOMENTS_SCAT_SUMS", "fftfit", "fftfit_plain", "fftfit_table",
            "fftfit_table_plain", "KERNELS"]
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
@@ -60,6 +65,8 @@ KERNELS = {
                 "pulseportraiture_tpu/fit/portrait.py:118"),
     "fftfit": ("fftfit.cu", "pp_fftfit",
                "pulseportraiture_tpu/fit/phase_shift.py:64"),
+    "moments_scat": ("moments_scat.cu", "pp_moments_scat",
+                     "pulseportraiture_tpu/fit/portrait.py:191"),
 }
 
 _VP, _I64, _INT, _DBL = (ctypes.c_void_p, ctypes.c_int64, ctypes.c_int,
@@ -71,6 +78,8 @@ _SYMBOLS = {
     "fftfit": {"pp_fftfit": [_VP, _VP, _VP, _I64, _INT, _DBL, _DBL, _INT,
                              _INT, _INT, _VP, _VP, _VP, _VP, _VP, _VP],
                "pp_fftfit_table": [_VP, _INT, _INT, _DBL, _DBL, _VP]},
+    "moments_scat": {"pp_moments_scat": [_VP, _VP, _I64, _VP, _VP, _VP, _VP,
+                                         _I64, _INT, _INT, _VP, _VP]},
 }
 
 LAUNCHES = {name: 0 for name in KERNELS}
@@ -238,6 +247,96 @@ def moments(cross, shifts, inv_err2, lanes=None):
     if n * nchan == 0:
         return out
     _launch("moments", cross.device, cross.data_ptr(), shifts.data_ptr(),
+            inv_err2.data_ptr(), None if lanes is None else lanes.data_ptr(),
+            n, nchan, K, out.data_ptr())
+    return out
+
+
+# -- K3: scattering moments ------------------------------------------------
+
+# K3's nine sums, in the order of its output's last axis
+MOMENTS_SCAT_SUMS = ("C", "S", "T1", "T2", "Q0", "Q1", "W2", "S1", "S2")
+
+
+def moments_scat_plain(cross, abs_m2, shifts, taus, inv_err2, lanes=None):
+    """Plain PyTorch K3: the nine sums (MOMENTS_SCAT_SUMS) per row, each
+    with the order of operations of the JAX reference's complex
+    scattering branch (fit/portrait.py:270-323): B built per element,
+    z = cross conj(B) phasor, dB/dtau = -2 pi i k B**2, d2B/dtau**2 =
+    2 (-2 pi i k)**2 B**3; one sum over k, then times inv_err2."""
+    if lanes is not None:
+        cross, inv_err2 = cross[lanes], inv_err2[lanes]
+        if abs_m2.shape[0] != 1:
+            abs_m2 = abs_m2[lanes]
+    K = cross.shape[-1]
+    k = torch.arange(K, dtype=torch.float64, device=cross.device)
+    frac = torch.remainder(shifts[..., None] * k, 1.0)
+    ang = (2.0 * math.pi) * frac
+    phsr = torch.complex(torch.cos(ang), torch.sin(ang))
+    tpk = (2.0 * math.pi) * k
+    x = 2.0 * math.pi * k * taus[..., None]
+    denom = 1.0 + x * x
+    B = torch.complex(1.0 / denom, -x / denom)
+    u = torch.complex(torch.zeros_like(k), -2.0 * math.pi * k)
+    dB = u * B ** 2
+    d2B = 2.0 * (u ** 2) * B ** 3
+    core = cross * torch.conj(B) * phsr
+    z1 = cross * torch.conj(dB) * phsr
+    C = torch.sum(core.real, dim=-1) * inv_err2
+    S = torch.sum(torch.abs(B) ** 2 * abs_m2, dim=-1) * inv_err2
+    T1 = -torch.sum(tpk * core.imag, dim=-1) * inv_err2
+    T2 = -torch.sum(tpk ** 2 * core.real, dim=-1) * inv_err2
+    Q0 = torch.sum(z1.real, dim=-1) * inv_err2
+    Q1 = -torch.sum(tpk * z1.imag, dim=-1) * inv_err2
+    W2 = torch.sum(torch.real(cross * torch.conj(d2B) * phsr),
+                   dim=-1) * inv_err2
+    S1 = torch.sum(2.0 * torch.real(B * torch.conj(dB)) * abs_m2,
+                   dim=-1) * inv_err2
+    S2 = torch.sum(2.0 * torch.real(dB * torch.conj(dB)
+                                    + B * torch.conj(d2B)) * abs_m2,
+                   dim=-1) * inv_err2
+    return torch.stack([C, S, T1, T2, Q0, Q1, W2, S1, S2], dim=-1)
+
+
+def moments_scat(cross, abs_m2, shifts, taus, inv_err2, lanes=None):
+    """K3 wrapper: the nine per-channel scattering sums [n, nchan, 9] f64
+    (order MOMENTS_SCAT_SUMS; see csrc/moments_scat.cu).
+
+    cross [B, nchan, K] complex128; abs_m2 [B or 1, nchan, K] f64 (one
+    set of rows shared by the batch when its first dimension is 1);
+    inv_err2 [B, nchan] f64; shifts and taus [n, nchan] f64 are the phase
+    shifts and channel scattering times [rot] of the rows to evaluate,
+    which are subints ``lanes`` [n] int64 (all B subints when None)."""
+    _check(cross, "cross", torch.complex128, 3)
+    _check(abs_m2, "abs_m2", torch.float64, 3)
+    _check(shifts, "shifts", torch.float64, 2)
+    _check(taus, "taus", torch.float64, 2)
+    _check(inv_err2, "inv_err2", torch.float64, 2)
+    B, nchan, K = cross.shape
+    n = B if lanes is None else lanes.shape[0]
+    if lanes is not None:
+        _check(lanes, "lanes", torch.int64, 1)
+    if (abs_m2.shape[0] not in (1, B) or tuple(abs_m2.shape[1:]) != (nchan, K)
+            or tuple(shifts.shape) != (n, nchan)
+            or tuple(taus.shape) != (n, nchan)
+            or tuple(inv_err2.shape) != (B, nchan)):
+        raise ValueError("moments_scat: shapes cross %s, abs_m2 %s, shifts "
+                         "%s, taus %s, inv_err2 %s disagree"
+                         % tuple(tuple(t.shape) for t in (
+                             cross, abs_m2, shifts, taus, inv_err2)))
+    _same_device(cross, abs_m2, shifts, taus, inv_err2, lanes)
+    if cross.device.type == "cpu":
+        return moments_scat_plain(cross, abs_m2, shifts, taus, inv_err2,
+                                  lanes)
+    if cross.device.type != "cuda":
+        raise ValueError("moments_scat: unsupported device %s" % cross.device)
+    out = torch.empty((n, nchan, len(MOMENTS_SCAT_SUMS)),
+                      dtype=torch.float64, device=cross.device)
+    if n * nchan == 0:
+        return out
+    m_bstride = 0 if abs_m2.shape[0] == 1 else nchan * K
+    _launch("moments_scat", cross.device, cross.data_ptr(), abs_m2.data_ptr(),
+            m_bstride, shifts.data_ptr(), taus.data_ptr(),
             inv_err2.data_ptr(), None if lanes is None else lanes.data_ptr(),
             n, nchan, K, out.data_ptr())
     return out

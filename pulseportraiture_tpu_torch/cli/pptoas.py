@@ -1,7 +1,8 @@
 """pptoas command-line tool: measure wideband TOAs and DMs.
 
 Port of the JAX package's ``cli/pptoas.py`` (reference
-pptoas.py:1415-1618) for wideband (phase, DM) TOAs.
+pptoas.py:1415-1618) for wideband TOAs with DM, nu**-4 (GM) and
+scattering fits.
 Run as ``python -m pulseportraiture_tpu_torch.cli.pptoas``.  The fits
 run on the CUDA device unless ``--device cpu`` is given; with no CUDA
 device and no ``--device cpu`` the tool fails.
@@ -15,7 +16,6 @@ import numpy as np
 # flags of modes that later slices of the port bring (dest, option)
 _NOT_PORTED = [
     ("narrowband", "--narrowband"), ("psrchive", "--psrchive"),
-    ("fit_GM", "--fit_dt4"), ("fit_scat", "--fit_scat"),
     ("checkpoint", "--checkpoint"), ("print_flux", "--print_flux"),
     ("show_plot", "--showplot"),
 ]
@@ -24,8 +24,8 @@ _NOT_PORTED = [
 def build_parser():
     p = argparse.ArgumentParser(
         prog="pptoas",
-        description="Simultaneously measure TOAs and DMs in broadband "
-                    "data.")
+        description="Simultaneously measure TOAs, DMs, and scattering "
+                    "in broadband data.")
     p.add_argument("-d", "--datafiles", metavar="archive",
                    help="PSRFITS archive to measure TOAs/DMs from, or a "
                         "metafile listing archive filenames. Recommended: "
@@ -50,12 +50,27 @@ def build_parser():
                    help="Nominal DM [cm**-3 pc] to reference DM offsets "
                         "from. [default=archive DM]")
     p.add_argument("--no_bary", dest="bary", action="store_false",
-                   help="Do not Doppler-correct DMs.")
+                   help="Do not Doppler-correct DMs/GMs/taus/nu_tau.")
     p.add_argument("--one_DM", action="store_true",
                    help="Write one DM (the epoch mean) per archive in the "
                         "output .tim file.")
     p.add_argument("--fix_DM", dest="fit_DM", action="store_false",
                    help="Do not fit for DM.")
+    p.add_argument("--fit_dt4", dest="fit_GM", action="store_true",
+                   help="Fit for nu**-4 delays (GM parameters).")
+    p.add_argument("--fit_scat", action="store_true",
+                   help="Fit scattering timescale and index per TOA.")
+    p.add_argument("--no_logscat", dest="log10_tau", action="store_false",
+                   help="Fit tau linearly instead of log10(tau).")
+    p.add_argument("--scat_guess", metavar="tau,freq,alpha", default=None,
+                   help="Initial guess triplet: tau [s], reference freq "
+                        "[MHz], alpha.")
+    p.add_argument("--fix_alpha", action="store_true",
+                   help="Fix the scattering index to the config/.gmodel "
+                        "value.")
+    p.add_argument("--nu_tau", dest="nu_ref_tau", default=None,
+                   help="Frequency [MHz] the output scattering times are "
+                        "referenced to.")
     p.add_argument("--print_phase", action="store_true",
                    help="Write the fitted phase (-phs flag) on TOA lines.")
     p.add_argument("--print_parangle", action="store_true",
@@ -72,9 +87,6 @@ def build_parser():
     p.add_argument("--narrowband", action="store_true",
                    help=argparse.SUPPRESS)
     p.add_argument("--psrchive", action="store_true", help=argparse.SUPPRESS)
-    p.add_argument("--fit_dt4", dest="fit_GM", action="store_true",
-                   help=argparse.SUPPRESS)
-    p.add_argument("--fit_scat", action="store_true", help=argparse.SUPPRESS)
     p.add_argument("--checkpoint", default=None, help=argparse.SUPPRESS)
     p.add_argument("--print_flux", action="store_true",
                    help=argparse.SUPPRESS)
@@ -104,8 +116,14 @@ def _run_pipeline(args):
     nu_ref_DM = args.nu_ref_DM
     if nu_ref_DM is not None:
         nu_ref_DM = np.inf if nu_ref_DM == "inf" else np.float64(nu_ref_DM)
-        nu_refs = (nu_ref_DM, None)
+    if args.nu_ref_tau is not None or nu_ref_DM is not None:
+        nu_ref_tau = None if args.nu_ref_tau is None \
+            else np.float64(args.nu_ref_tau)
+        nu_refs = (nu_ref_DM, nu_ref_tau)
     DM0 = np.float64(args.DM0) if args.DM0 is not None else None
+    scat_guess = None
+    if args.scat_guess:
+        scat_guess = [float(s) for s in args.scat_guess.split(",")]
     kv = args.toa_flags.split(",")
     addtnl_toa_flags = dict(zip(kv[::2], kv[1::2])) if args.toa_flags \
         else {}
@@ -113,7 +131,9 @@ def _run_pipeline(args):
     gt = GetTOAs(datafiles=args.datafiles, modelfile=args.modelfile,
                  quiet=args.quiet, device=args.device)
     gt.get_TOAs(tscrunch=args.tscrunch, nu_refs=nu_refs, DM0=DM0,
-                bary=args.bary, fit_DM=args.fit_DM,
+                bary=args.bary, fit_DM=args.fit_DM, fit_GM=args.fit_GM,
+                fit_scat=args.fit_scat, log10_tau=args.log10_tau,
+                scat_guess=scat_guess, fix_alpha=args.fix_alpha,
                 print_phase=args.print_phase,
                 print_parangle=args.print_parangle,
                 addtnl_toa_flags=addtnl_toa_flags, quiet=args.quiet)

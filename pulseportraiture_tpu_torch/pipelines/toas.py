@@ -1,17 +1,18 @@
 """Wideband TOA measurement pipeline (pptoas equivalent).
 
 Port of the JAX package's ``pipelines/toas.py`` (reference
-pptoas.py:75-738) for wideband (phase, DM) TOAs from
-.gmodel templates: per archive, every subint is fit in one batched call
-on the pipeline's device — the FFTFIT phase guesses through kernel K2,
-the portrait fits through kernel K1 — with zapped channels handled as
+pptoas.py:75-738) for wideband TOAs from .gmodel templates, with DM, GM
+(nu**-4) and scattering (tau, alpha) fits: per archive, every subint is
+fit in one batched call per fit-flag group on the pipeline's device —
+the FFTFIT phase guesses through kernel K2, the portrait fits through
+kernel K1 (B = 1) or K3 (scattering) — with zapped channels handled as
 dense weight masks.  Result attributes keep the reference's names and
 per-archive list structure.
 
-Not ported yet: scattering and GM fits, narrowband TOAs, spline/FITS
-templates, instrumental responses, flux estimates, plots, and the JAX
-package's observability, fault-injection, prefetch and checkpoint hooks.
-Device errors are not caught per archive: a kernel fault surfaces.
+Not ported yet: narrowband TOAs, spline/FITS templates, instrumental
+responses, flux estimates, plots, and the JAX package's observability,
+fault-injection, prefetch and checkpoint hooks.  Device errors are not
+caught per archive: a kernel fault surfaces.
 """
 
 import time
@@ -19,7 +20,7 @@ import time
 import numpy as np
 import torch
 
-from ..config import resolve_device
+from ..config import resolve_device, scattering_alpha
 from ..fit.phase_shift import fit_phase_shift
 from ..fit.portrait import fit_portrait_full_batch
 from ..fit.transforms import guess_fit_freq, phase_transform
@@ -27,6 +28,8 @@ from ..io.archive import file_is_type, load_data, parse_metafile
 from ..io.gmodel import read_model
 from ..io.timfile import TOA, write_TOAs
 from ..ops.fourier import rotate_data
+from ..ops.profiles import gen_gaussian_portrait
+from ..ops.scattering import scattering_portrait_FT, scattering_times
 from ..utils.databunch import DataBunch
 
 __all__ = ["GetTOAs", "load_archive_data"]
@@ -128,25 +131,39 @@ class GetTOAs:
         self.TOA_list = []
 
     # -- model construction --------------------------------------------
-    def _build_model(self, freqs, phases, P):
+    def _build_model(self, freqs, phases, P, fit_scat):
         """Model portrait [nchan, nbin] (numpy) at the given channel
-        frequencies, built on the pipeline's device."""
-        name, ngauss, model = read_model(self.modelfile, phases, freqs, P,
-                                         quiet=True, device=self.device)
-        self.model_name, self.ngauss = name, ngauss
-        return _host(model)
+        frequencies, built on the pipeline's device.  For fit_scat the
+        model's own scattering is stripped — the fit measures it — and
+        its TAU/ALPHA kept for the guesses (reference pptoas.py:355-374)."""
+        if not fit_scat:
+            name, ngauss, model = read_model(self.modelfile, phases, freqs,
+                                             P, quiet=True,
+                                             device=self.device)
+            self.model_name, self.ngauss = name, ngauss
+            return _host(model)
+        (self.model_name, self.model_code, self.model_nu_ref, self.ngauss,
+         self.gparams, _, self.alpha, _) = read_model(self.modelfile,
+                                                      quiet=True)
+        unscat = np.copy(self.gparams)
+        unscat[1] = 0.0
+        return _host(gen_gaussian_portrait(self.model_code, unscat, 0.0,
+                                           phases, freqs, self.model_nu_ref,
+                                           device=self.device))
 
-    def _prepare_models(self, d, ports, freqs_b, Ps_b):
+    def _prepare_models(self, d, ports, freqs_b, Ps_b, fit_scat):
         """(models_b [B, nchan, nbin], same_freqs): one model broadcast
         over the batch when every subint has the same channel
         frequencies, else one model per subint."""
         same_freqs = np.allclose(freqs_b, freqs_b[0])
         if same_freqs:
-            model = self._build_model(freqs_b[0], d.phases, float(Ps_b[0]))
+            model = self._build_model(freqs_b[0], d.phases, float(Ps_b[0]),
+                                      fit_scat)
             models_b = np.broadcast_to(model, ports.shape)
         else:
             models_b = np.stack([
-                self._build_model(freqs_b[i], d.phases, float(Ps_b[i]))
+                self._build_model(freqs_b[i], d.phases, float(Ps_b[i]),
+                                  fit_scat)
                 for i in range(len(ports))])
         return models_b, same_freqs
 
@@ -160,12 +177,15 @@ class GetTOAs:
                  nu_fits=None, show_plot=False, quiet=None,
                  max_iter=50, nonfinite_max_frac=0.5):
         """Measure wideband TOAs; results accumulate on self
-        (reference-named).  Equivalent of pptoas.py:150-738
-        for (phase, DM) fits; ``method`` is accepted for API parity."""
-        if fit_GM:
-            raise _not_ported("GM (nu**-4 delay) fitting")
-        if fit_scat or scat_guess is not None:
-            raise _not_ported("scattering fitting")
+        (reference-named).  Equivalent of pptoas.py:150-738;
+        ``method`` is accepted for API parity.
+
+        fit_GM adds a nu**-4 delay (GM) to the fit; fit_scat fits the
+        scattering time (log10 of it unless ``log10_tau`` is False) and
+        index (held at the model's or ``scat_guess``'s when
+        ``fix_alpha``); ``scat_guess`` = (tau [s], reference frequency
+        [MHz], alpha); ``nu_refs`` = (nu_ref_DM, nu_ref_tau) output
+        reference frequencies (None = zero-covariance ones)."""
         if print_flux:
             raise _not_ported("flux estimates (print_flux)")
         if add_instrumental_response:
@@ -174,10 +194,14 @@ class GetTOAs:
             raise _not_ported("plotting")
         if quiet is None:
             quiet = self.quiet
-        self.nfit = 1 + int(fit_DM)
-        self.fit_flags = [1, int(fit_DM), 0, 0, 0]
-        log10_tau = False
+        self.nfit = 1 + int(fit_DM) + int(fit_GM) + \
+            (2 if fit_scat else 0) - int(fit_scat and fix_alpha)
+        self.fit_flags = [1, int(fit_DM), int(fit_GM), int(fit_scat),
+                          int(fit_scat and not fix_alpha)]
+        if not fit_scat:
+            log10_tau = False
         self.log10_tau = log10_tau
+        self.scat_guess = scat_guess
         self.DM0 = DM0
         self.bary = bary
         self.tscrunch = tscrunch
@@ -234,7 +258,7 @@ class GetTOAs:
                         continue
 
             models_b, same_freqs = self._prepare_models(d, ports, freqs_b,
-                                                        Ps_b)
+                                                        Ps_b, fit_scat)
             self.ok_idatafiles.append(iarch)
 
             # reference frequencies for fit and output
@@ -252,9 +276,18 @@ class GetTOAs:
                 nu_outs_b = None
             else:
                 nu_ref_DM = nu_ref_tuple[0]
+                nu_ref_tau = nu_ref_tuple[-1]
+                # bary: the requested (barycentric) tau reference maps to
+                # a per-subint topocentric one (pptoas.py:410-415)
+                if bary and nu_ref_tau:
+                    taus_ref = nu_ref_tau / d.doppler_factors[ok]
+                else:
+                    taus_ref = np.full(B, np.nan if nu_ref_tau is None
+                                       else nu_ref_tau)
                 col = np.full(B, np.nan if nu_ref_DM is None else nu_ref_DM)
                 nu_outs_b = (None if nu_ref_DM is None else col,
-                             None if nu_ref_DM is None else col, None)
+                             None if nu_ref_DM is None else col,
+                             None if nu_ref_tau is None else taus_ref)
 
             # -- initial guesses (batched, on the device) ---------------
             # the data go to the device once; the fits below index them
@@ -270,6 +303,30 @@ class GetTOAs:
             # (einsum: no [B, nchan, nbin] product of the broadcast model)
             model_profs = np.einsum("bc,bcn->bn", wok, models_b) / \
                 wok.sum(-1)[:, None]
+            tau_guess = np.zeros(B)
+            alpha_guess = np.zeros(B)
+            if fit_scat:
+                if self.scat_guess is not None:
+                    tg_s, tg_ref, ag = self.scat_guess
+                    tau_guess[:] = (tg_s / Ps_b) * \
+                        (nu_fits_b[:, 2] / tg_ref) ** ag
+                    alpha_guess[:] = ag
+                else:
+                    alpha_guess[:] = getattr(self, "alpha", scattering_alpha)
+                    if hasattr(self, "gparams"):
+                        tau_guess[:] = (self.gparams[1] / Ps_b) * \
+                            (nu_fits_b[:, 2] / self.model_nu_ref) \
+                            ** alpha_guess
+                # scatter the model mean profile for the phase guess (host)
+                taus_g = _host(scattering_times(
+                    torch.as_tensor(tau_guess), torch.as_tensor(alpha_guess),
+                    nu_fits_b[:, 2], torch.as_tensor(nu_fits_b[:, 2])))
+                spFT = _host(scattering_portrait_FT(taus_g, nbin))
+                model_profs = np.fft.irfft(
+                    spFT * np.fft.rfft(model_profs, axis=-1), nbin, axis=-1)
+                if log10_tau:
+                    tau_guess = np.log10(np.where(tau_guess == 0.0,
+                                                  1.0 / nbin, tau_guess))
             guess = fit_phase_shift(rot_profs, model_profs,
                                     noise=np.median(errs_b, axis=-1),
                                     Ns=100, device=self.device)
@@ -277,15 +334,27 @@ class GetTOAs:
                 _host(guess.phase), DM_guess, nu_means, nu_fits_b[:, 0],
                 Ps_b, mod=True))
             init = np.stack([phi_guess, np.full(B, DM_guess), np.zeros(B),
-                             np.zeros(B), np.zeros(B)], axis=1)
+                             tau_guess, alpha_guess], axis=1)
+
+            if bounds is None:
+                tau_lo = np.log10(1.0 / (10 * nbin)) if log10_tau else 0.0
+                bounds_eff = [(None, None), (None, None), (None, None),
+                              (tau_lo, None), (-10.0, 10.0)] \
+                    if fit_scat else None
+            else:
+                bounds_eff = bounds
 
             # -- degraded modes: group subints by effective fit flags ---
             nchanx = wok.sum(-1).astype(int)
             flags_groups = {}
             flags_used = [None] * B
             for i in range(B):
-                fl = (1, 0, 0, 0, 0) if nchanx[i] == 1 \
-                    else tuple(self.fit_flags)
+                if nchanx[i] == 1:
+                    fl = (1, 0, 0, 0, 0)
+                elif nchanx[i] == 2 and fit_DM and fit_GM:
+                    fl = (1, 1, 0, self.fit_flags[3], self.fit_flags[4])
+                else:
+                    fl = tuple(self.fit_flags)
                 flags_used[i] = fl
                 flags_groups.setdefault(fl, []).append(i)
 
@@ -301,7 +370,7 @@ class GetTOAs:
                     nu_outs=None if nu_outs_b is None else tuple(
                         None if col is None else col[sel]
                         for col in nu_outs_b),
-                    bounds=bounds, log10_tau=log10_tau,
+                    bounds=bounds_eff, log10_tau=log10_tau,
                     max_iter=max_iter, device=self.device)
                 out = {key: _host(val) for key, val in out.items()}
                 for j, i in enumerate(idxs):
@@ -341,10 +410,14 @@ class GetTOAs:
                     float(r["phi"]) * P + d.backend_delay)
                 TOA_err_us = float(r["phi_err"]) * P * 1e6
                 DM_fit = float(r["DM"])
+                GM_fit = float(r["GM"])
                 df = float(d.doppler_factors[isub]) if bary else 1.0
                 fl = list(flags_used[j])
-                if bary and fl[1]:
-                    DM_fit *= df  # barycentric DM
+                if bary:
+                    if fl[1]:
+                        DM_fit *= df  # barycentric DM
+                    if fl[2]:
+                        GM_fit *= df ** 3
 
                 nu_refs_arr[isub] = [float(r["nu_DM"]), float(r["nu_GM"]),
                                      float(r["nu_tau"])]
@@ -355,7 +428,7 @@ class GetTOAs:
                 TOA_errs_arr[isub] = TOA_err_us
                 DMs[isub] = DM_fit
                 DM_errs[isub] = float(r["DM_err"])
-                GMs[isub] = float(r["GM"])
+                GMs[isub] = GM_fit
                 GM_errs[isub] = float(r["GM_err"])
                 taus_a[isub] = float(r["tau"])
                 tau_errs[isub] = float(r["tau_err"])
@@ -379,6 +452,26 @@ class GetTOAs:
                 DM_out, DM_err_out = DM_fit, float(r["DM_err"])
                 if not fl[1]:
                     DM_out = DM_err_out = None
+                if fl[2]:
+                    toa_flags["gm"] = GM_fit
+                    toa_flags["gm_err"] = float(r["GM_err"])
+                if fl[3]:
+                    if log10_tau:
+                        toa_flags["scat_time"] = \
+                            10 ** float(r["tau"]) * P / df * 1e6
+                        toa_flags["log10_scat_time"] = float(r["tau"]) + \
+                            np.log10(P / df)
+                        toa_flags["log10_scat_time_err"] = \
+                            float(r["tau_err"])
+                    else:
+                        toa_flags["scat_time"] = \
+                            float(r["tau"]) * P / df * 1e6
+                        toa_flags["scat_time_err"] = \
+                            float(r["tau_err"]) * P / df * 1e6
+                    toa_flags["scat_ref_freq"] = float(r["nu_tau"]) * df
+                    toa_flags["scat_ind"] = float(r["alpha"])
+                if fl[4]:
+                    toa_flags["scat_ind_err"] = float(r["alpha_err"])
                 freqsx = freqs_b[j][okc]
                 toa_flags.update(
                     be=d.backend, fe=d.frontend,
