@@ -14,8 +14,10 @@ Phases, one JSON line each on stdout; any failure exits non-zero:
               [131072, 1025] with Ns 100 and [1000, 1025] with Ns 2048,
               grid-argmin mismatches, its time split
               by stage and its first call (phasor table built); K3 at
-              [1000, 512, 128] with one shared |m|^2 and at [64, 512, 128]
-              with per-subint |m|^2 and a lane subset.  Kernel
+              [1000, 512, 128] with one shared |m|^2, at [64, 512, 128]
+              with per-subint |m|^2 and a lane subset, and at
+              [7636, 1, 128] (narrowband --fit_scat: one channel and one
+              |m|^2 per lane).  Kernel
               and library times are device times from CUDA-graph replay;
               ``call_ms`` is the wrapper's time per call, host included
               (back-to-back CUDA events)
@@ -34,6 +36,28 @@ Phases, one JSON line each on stdout; any failure exits non-zero:
               within 5e-7 / 1e-5 plus the printed digit); then --fit_dt4
               on the 16-subint archive, kernels against plain (the
               (1,1,1,0,0) roots path, K1 and K2 launched)
+  narrowband  pptoas --narrowband --print_phase --print_flux on the
+              256-subint archive: one TOA per live (subint, channel)
+              (129,796, all in one K2 launch), the injected phase
+              dispersed to each channel recovered (max |z| < 6, |mean z|
+              < 0.05), K2 launched; CLI wall, fit and TOA-assembly seconds,
+              K2 device time at this M (torch.profiler on the fit), peak
+              device memory; the 16-subint archive through GetTOAs with
+              the plain versions swapped in (1 ns, fluxes 1e-9 relative)
+  narrowband_scat  --narrowband --fit_scat on the 16-subint archive (one
+              one-channel K3 fit per live channel): K2 and K3 launched,
+              every rc a code of the JAX package, kernels against plain
+              (1 ns; log10 tau within 5e-7 plus the printed digit), the
+              median z of log10 tau against the injected tau
+  templates   wideband pptoas --print_flux on the 16-subint archive with a
+              spline template (the .gmodel portrait: numpy SVD to six
+              eigenprofiles, scipy splprep, the port's write_spline_model)
+              and a FITS template (the port's make_fake_pulsar, one
+              subint, no noise): phase and DM within 5 sigma, K1 and K2
+              launched, kernels against plain (1 ns)
+  ppzap       ppzap -m -R 1.05 on the 16-subint archive: kernel and plain
+              runs list the same channels; --apply (no --modify) zeroes
+              exactly the listed weights in the .zap copy
   throughput  fit_portrait_full_batch(init_params=None) at 1000 x 512 x
               2048 (data made on the card from a seeded torch.Generator;
               the phases seeded through K2): TOAs/s, K1 launches, K1 ms
@@ -46,7 +70,9 @@ Phases, one JSON line each on stdout; any failure exits non-zero:
               return codes, tau recovery, peak device memory
 
 Then a ``kernels`` line (every hand kernel with its launches on its
-path — K1 and K2 on pptoas, K3 on pptoas_scat — errors and times; K2 with
+paths — K1 and K2 on pptoas, K3 on pptoas_scat, each plus the narrowband,
+narrowband_scat, templates and ppzap runs, with ``launches_by_path`` —
+errors and times; K2 with
 its [1000, 1025] numbers and K3 with its [1000, 512, 128] ones, each with a
 ``shapes`` list of all its cases), the card's name and power limit, and
 last ``{"ok": true, "device": {...}}``.  Exits non-zero without a result
@@ -205,6 +231,8 @@ def phase_kernels(dev, kern, K=128):
 K3_CASES = [
     (1000, 512, 128, True, None),   # throughput_scat: the batch, one model
     (64, 512, 128, False, 40),      # pptoas chunks: per-subint models, lanes
+    (7636, 1, 128, False, None),    # narrowband --fit_scat, 16 subints:
+                                    # one channel and one model per lane
 ]
 K3_MAIN = 0
 
@@ -454,6 +482,22 @@ def flag_gap(a_toas, b_toas, key):
                for a, b in zip(a_toas, b_toas) if key in b["flags"])
 
 
+# the pptoas archives' injection (at nu0 = 1500 MHz)
+PHASE_INJ, DDM_INJ, NU0 = 0.1234, 3.1e-3, 1500.0
+
+
+def smoke_weights(nsub, nchan):
+    """The pptoas archives' channel weights: three channels zapped, and
+    subint 3 with one live channel (fitted with flags (1,0,0,0,0))."""
+    import numpy as np
+
+    weights = np.ones((nsub, nchan))
+    weights[:, [7, nchan // 5, nchan * 2 // 3]] = 0.0
+    weights[3] = 0.0
+    weights[3, nchan // 2] = 1.0
+    return weights
+
+
 def phase_pptoas(root, work, K, shape=(256, 512, 2048), subset=16,
                  extra=(), profile_dir=None):
     """The port's pptoas CLI on a ``shape`` (nsub, nchan, nbin) archive;
@@ -468,11 +512,8 @@ def phase_pptoas(root, work, K, shape=(256, 512, 2048), subset=16,
     gm = os.path.join(root, "examples", "example.gmodel")
     par = os.path.join(root, "examples", "example.par")
     (nsub, nchan, nbin), nu0 = shape, 1500.0
-    phase_inj, dDM_inj = 0.1234, 3.1e-3
-    weights = np.ones((nsub, nchan))
-    weights[:, [7, nchan // 5, nchan * 2 // 3]] = 0.0  # zapped channels
-    weights[3] = 0.0  # one live channel: fitted with flags (1,0,0,0,0)
-    weights[3, nchan // 2] = 1.0
+    phase_inj, dDM_inj = PHASE_INJ, DDM_INJ
+    weights = smoke_weights(nsub, nchan)
     kw = dict(nchan=nchan, nbin=nbin, nu0=nu0, bw=800.0, tsub=60.0,
               phase=phase_inj, dDM=dDM_inj, noise_stds=0.5, seed=11)
     t0 = time.perf_counter()
@@ -620,6 +661,391 @@ def phase_pptoas_scat(root, work, K, big, small, shape=(256, 512, 2048),
     return launches
 
 
+@contextlib.contextmanager
+def clocked(cls, names, profiled=()):
+    """Wrap methods of ``cls`` for the block: each call's wall seconds
+    (after a device synchronize) go to clock[name], the instance it ran
+    on to clock["self"]; the methods in ``profiled`` run under
+    torch.profiler, whose runs go to clock["prof"]."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    clock = dict(self=[], prof=[], **{n: [] for n in names})
+    saved = {n: getattr(cls, n) for n in names}
+
+    def wrap(name, fn):
+        def timed(self, *a, **kw):
+            clock["self"].append(self)
+            ctx = profile(activities=[ProfilerActivity.CPU,
+                                      ProfilerActivity.CUDA]) \
+                if name in profiled else contextlib.nullcontext()
+            with ctx as prof:
+                t0 = time.perf_counter()
+                out = fn(self, *a, **kw)
+                torch.cuda.synchronize()
+                clock[name].append(time.perf_counter() - t0)
+            if prof is not None:
+                clock["prof"].append(prof)
+            return out
+        return timed
+
+    for n, fn in saved.items():
+        setattr(cls, n, wrap(n, fn))
+    try:
+        yield clock
+    finally:
+        for n, fn in saved.items():
+            setattr(cls, n, fn)
+
+
+def max_dt_ns_list(a, b):
+    """Largest TOA difference [ns] between two TOA_lists of one order."""
+    if len(a) != len(b):
+        raise AssertionError("%d TOAs against %d" % (len(a), len(b)))
+    return max(abs((x.MJD.day - y.MJD.day) * 86400.0 + x.MJD.secs
+                   - y.MJD.secs) * 1e9 for x, y in zip(a, b))
+
+
+def gettoas_pair(K, datafile, model, method, **kw):
+    """GetTOAs.<method> on the card with the kernels, then with the plain
+    versions swapped in: (kernel run, plain run)."""
+    from pulseportraiture_tpu_torch.pipelines.toas import GetTOAs
+
+    runs = []
+    for plain in (False, True):
+        gt = GetTOAs(datafile, model, quiet=True, device="cuda")
+        with plain_kernels(K) if plain else contextlib.nullcontext():
+            getattr(gt, method)(**kw)
+        runs.append(gt)
+    return runs
+
+
+def z_phase(toas, DM, P, nu0=NU0):
+    """(phs - injected phase dispersed to each TOA's frequency) / phs_err
+    of .tim TOAs with phs flags."""
+    import numpy as np
+
+    from pulseportraiture_tpu_torch.config import Dconst
+
+    z = []
+    for t in toas:
+        f = t["flags"]
+        want = PHASE_INJ + Dconst * DM * (t["freq"] ** -2 - nu0 ** -2) / P
+        z.append(((float(f["phs"]) - want + 0.5) % 1.0 - 0.5)
+                 / float(f["phs_err"]))
+    return np.array(z)
+
+
+def phase_narrowband(root, work, K, big, small, shape=(256, 512, 2048),
+                     subset=16):
+    """pptoas --narrowband --print_phase --print_flux on the pptoas
+    archive: one TOA per live (subint, channel), the injected phase
+    dispersed to each channel recovered (max |z| < 6 over ~130k draws,
+    |mean z| < 0.05), K2 launched; wall, fit and TOA-assembly seconds,
+    the device-busy seconds of the run and K2's device time at this M
+    (torch.profiler over get_narrowband_TOAs), peak device memory; the
+    16-subint archive against the plain versions (1 ns, fluxes 1e-9).
+    Returns the launches of the main run."""
+    import numpy as np
+    import torch
+
+    from pulseportraiture_tpu_torch.io.parfile import read_par
+    from pulseportraiture_tpu_torch.pipelines.toas import GetTOAs
+
+    gm = os.path.join(root, "examples", "example.gmodel")
+    par = os.path.join(root, "examples", "example.par")
+    nsub, nchan, _ = shape
+    n_live = int((smoke_weights(nsub, nchan) > 0).sum())
+    argv = ["-d", big, "-m", gm, "--narrowband", "--print_phase",
+            "--print_flux", "--quiet", "-o", os.path.join(work, "nb.tim")]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with clocked(GetTOAs, ("get_narrowband_TOAs", "_narrowband_fit",
+                           "_narrowband_toas"),
+                 profiled=("get_narrowband_TOAs",)) as clock:
+        toas, t_cli, launches = run_cli(K, argv)
+    peak = torch.cuda.max_memory_allocated()
+    if len(toas) != n_live:
+        raise AssertionError("%d narrowband TOAs, want %d live channels"
+                             % (len(toas), n_live))
+    DM = float(read_par(par).get("DM")) + DDM_INJ
+    P = 1.0 / float(read_par(par).F0)
+    z = z_phase(toas, DM, P)
+    if not (np.abs(z).max() < 6.0 and abs(z.mean()) < 0.05):
+        raise AssertionError("narrowband phases not recovered: max |z| %.2f,"
+                             " mean z %.4f" % (np.abs(z).max(), z.mean()))
+    if launches["fftfit"] == 0:
+        raise AssertionError("K2 never launched on the narrowband path")
+    k2 = kernel_times(clock["prof"][0], K).get("fftfit")
+    # every device operation of the CLI runs inside get_narrowband_TOAs
+    # (outside it: argument parsing and the .tim write, on the host)
+    rows = device_rows(clock["prof"][0])
+    busy = sum(r[1] for r in rows)
+
+    kern, plain = gettoas_pair(K, small, gm, "get_narrowband_TOAs",
+                               print_flux=True)
+    dt_ns = max_dt_ns_list(kern.TOA_list, plain.TOA_list)
+    f, g = kern.profile_fluxes[0], plain.profile_fluxes[0]
+    flux_rel = float(np.abs(f - g).max() / np.abs(g).max())
+    if not (dt_ns < 1.0 and flux_rel <= 1e-9):
+        raise AssertionError("narrowband plain vs kernel: %.3g ns, flux "
+                             "%.3g" % (dt_ns, flux_rel))
+    emit("narrowband", archive=list(shape), n_toas=len(toas),
+         n_live_channels=n_live, cli_s=t_cli, toas_per_s=len(toas) / t_cli,
+         fit_s=clock["_narrowband_fit"][0],
+         toa_assembly_s=clock["_narrowband_toas"][0],
+         method_s=clock["get_narrowband_TOAs"][0], profiled=True,
+         device_busy_s=busy, device_idle_share=1.0 - busy / t_cli,
+         device_top=[[key[:60], dev_s * 1e3, n] for key, dev_s, n in
+                     sorted(rows, key=lambda r: -r[1])[:8]],
+         launches=launches,
+         k2_device_ms=k2[1] / k2[0] if k2 else None,
+         k2_launches_profiled=k2[0] if k2 else 0,
+         peak_device_bytes=int(peak), max_abs_z_phase=float(np.abs(z).max()),
+         mean_z_phase=float(z.mean()), std_z_phase=float(z.std()),
+         median_toa_err_us=float(np.median([t["err_us"] for t in toas])),
+         plain_vs_kernel=dict(archive=[subset] + list(shape[1:]),
+                              max_ns=dt_ns, flux_max_rel=flux_rel))
+    return launches
+
+
+def phase_narrowband_scat(root, work, K, small, shape=(256, 512, 2048),
+                          subset=16):
+    """pptoas --narrowband --fit_scat on the 16-subint archive (one K3
+    fit per live channel): K2 and K3 launched, every rc one of the JAX
+    package's codes, kernels against plain versions (1 ns; log10 tau
+    within 5e-7 plus the printed digit), the median z of log10 tau
+    against the injected tau at each channel's frequency; the fit's
+    device-busy seconds from a second, profiled kernel run.  Returns the
+    launches of the kernel run."""
+    import numpy as np
+
+    from pulseportraiture_tpu_torch.config import RCSTRINGS
+    from pulseportraiture_tpu_torch.io.gmodel import read_model
+    from pulseportraiture_tpu_torch.io.psrfits import read_archive
+    from pulseportraiture_tpu_torch.pipelines.toas import GetTOAs
+
+    gm = os.path.join(root, "examples", "example.gmodel")
+    _, _, nu_tau0, _, gparams, _, alpha0, _ = read_model(gm)
+    tau0 = float(gparams[1])
+    base = ["-d", small, "-m", gm, "--narrowband", "--fit_scat",
+            "--print_phase", "--quiet"]
+    with clocked(GetTOAs, ("_narrowband_fit",)) as clock:
+        kern, t_cli, launches = run_cli(
+            K, base + ["-o", os.path.join(work, "nbs_k.tim")])
+    gt = clock["self"][0]
+    with plain_kernels(K):
+        plain, _, _ = run_cli(K, base + ["-o", os.path.join(work,
+                                                            "nbs_p.tim")])
+    # a second kernel run with the fit under torch.profiler: where the
+    # fit's wall goes (the first run's fit_s is unprofiled)
+    with clocked(GetTOAs, ("_narrowband_fit",),
+                 profiled=("_narrowband_fit",)) as pclock:
+        run_cli(K, base + ["-o", os.path.join(work, "nbs_prof.tim")])
+    rows = device_rows(pclock["prof"][0])
+    k3 = kernel_times(pclock["prof"][0], K).get("moments_scat")
+    dt_ns = max_dt_ns(kern, plain)
+    gap = flag_gap(kern, plain, "log10_scat_time")
+    rcs = gt.rcs[0][np.asarray(gt.TOA_errs[0] != 0)]
+    codes = sorted(int(c) for c in np.unique(rcs))
+    bad = [c for c in codes if str(c) not in RCSTRINGS]
+    missing = [n for n in ("fftfit", "moments_scat") if launches[n] == 0]
+    if missing or bad or len(kern) != len(plain) or \
+            not (dt_ns < 1.0 and gap <= 1e-3 + 5e-7):
+        raise AssertionError("narrowband --fit_scat: launches %s, rc %s, "
+                             "plain vs kernel %.3g ns, log10 tau gap %.3g"
+                             % (launches, codes, dt_ns, gap))
+    dfs = read_archive(small).doppler_factors
+    ztau = [(float(t["flags"]["log10_scat_time"]) - math.log10(
+        tau0 * (t["freq"] / nu_tau0) ** alpha0
+        / dfs[int(t["flags"]["subint"])]))
+        / float(t["flags"]["log10_scat_time_err"]) for t in kern]
+    emit("narrowband_scat", archive=[subset] + list(shape[1:]),
+         n_toas=len(kern),
+         cli_s=t_cli, fit_s=clock["_narrowband_fit"][0], launches=launches,
+         fit_profiled_s=pclock["_narrowband_fit"][0],
+         fit_device_busy_s=sum(r[1] for r in rows),
+         k3_device_ms_total=k3[1] if k3 else None,
+         k3_launches_profiled=k3[0] if k3 else 0,
+         fit_device_top=[[key[:60], dev_s * 1e3, n] for key, dev_s, n in
+                         sorted(rows, key=lambda r: -r[1])[:8]],
+         rc_counts={c: int((rcs == c).sum()) for c in codes},
+         nfev_max=int(gt.nfevals[0].max()),
+         median_z_log10_tau=float(np.median(ztau)),
+         plain_vs_kernel_max_ns=dt_ns, log10_tau_gap=gap)
+    return launches
+
+
+def spline_template(path, gm, P, nbin=2048, nchan=128, neig=6,
+                    band=(1100.0, 1900.0)):
+    """A spline model of the .gmodel: its portrait at ``nchan``
+    frequencies over the band, a numpy SVD to ``neig`` eigenprofiles,
+    their coordinates fit by scipy's splprep, written by the port's
+    write_spline_model."""
+    import numpy as np
+    from scipy.interpolate import splprep
+
+    from pulseportraiture_tpu_torch.io.gmodel import read_model
+    from pulseportraiture_tpu_torch.io.splmodel import write_spline_model
+    from pulseportraiture_tpu_torch.ops.fourier import get_bin_centers
+
+    freqs = np.linspace(band[0], band[1], nchan)
+    _, _, port = read_model(gm, get_bin_centers(nbin).numpy(), freqs, P)
+    port = port.numpy()
+    mean_prof = port.mean(axis=0)
+    _, _, vt = np.linalg.svd(port - mean_prof, full_matrices=False)
+    eigvec = vt[:neig].T
+    tck, _ = splprep(((port - mean_prof) @ eigvec).T, u=freqs, k=3, s=0.0)
+    write_spline_model(path, "example", "FAKE", gm, mean_prof, eigvec, tck)
+    return path
+
+
+def phase_templates(root, work, K, small, shape=(256, 512, 2048),
+                    subset=16):
+    """Wideband pptoas --print_flux on the 16-subint archive with a spline
+    template built from the .gmodel and with a FITS template (the port's
+    make_fake_pulsar, one subint, no noise): phase and DM recovered
+    within 5 sigma, K1 and K2 launched, kernels against plain (1 ns).
+    Returns the launches of the kernel runs, summed."""
+    import numpy as np
+
+    from pulseportraiture_tpu_torch.io.archive import make_fake_pulsar
+    from pulseportraiture_tpu_torch.io.parfile import read_par
+
+    gm = os.path.join(root, "examples", "example.gmodel")
+    par = os.path.join(root, "examples", "example.par")
+    P = 1.0 / float(read_par(par).F0)
+    DM = float(read_par(par).get("DM")) + DDM_INJ
+    _, nchan, nbin = shape
+    templates = dict(
+        spline=spline_template(os.path.join(work, "example.spl"), gm, P,
+                               nbin=nbin),
+        fits=make_fake_pulsar(gm, par, os.path.join(work, "tmpl.fits"),
+                              nsub=1, nchan=nchan, nbin=nbin, nu0=NU0,
+                              bw=800.0, tsub=60.0, noise_stds=0.0,
+                              dedispersed=True, seed=0))
+    total = {name: 0 for name in K.KERNELS}
+    rows = {}
+    for kind, model in templates.items():
+        argv = ["-d", small, "-m", model, "--no_bary", "--print_phase",
+                "--print_flux", "--quiet"]
+        kern, t_cli, launches = run_cli(
+            K, argv + ["-o", os.path.join(work, kind + "_k.tim")])
+        with plain_kernels(K):
+            plain, _, _ = run_cli(K, argv + ["-o", os.path.join(
+                work, kind + "_p.tim")])
+        dt_ns = max_dt_ns(kern, plain)
+        zphi = np.abs(z_phase(kern, DM, P))
+        zDM = np.abs([(float(t["flags"]["pp_dm"]) - DM)
+                      / float(t["flags"]["pp_dme"]) for t in kern
+                      if "pp_dm" in t["flags"]])
+        missing = [n for n in ("moments", "fftfit") if launches[n] == 0]
+        if len(kern) != subset or missing or not (
+                dt_ns < 1.0 and zphi.max() < 5 and zDM.max() < 5):
+            raise AssertionError(
+                "%s template: %d TOAs, launches %s, plain vs kernel %.3g "
+                "ns, max |z| phase %.2f DM %.2f" % (
+                    kind, len(kern), launches, dt_ns, zphi.max(),
+                    zDM.max()))
+        for name in total:
+            total[name] += launches[name]
+        rows[kind] = dict(cli_s=t_cli, launches=launches,
+                          max_abs_z_phase=float(zphi.max()),
+                          max_abs_z_DM=float(zDM.max()),
+                          flux_median=float(np.median(
+                              [float(t["flags"]["flux"]) for t in kern])),
+                          plain_vs_kernel_max_ns=dt_ns)
+    emit("templates", archive=[subset] + list(shape[1:]), **rows)
+    return total
+
+
+def run_ppzap(K, argv):
+    """The port's ppzap CLI, counts zeroed just before it: launches."""
+    from pulseportraiture_tpu_torch.cli import ppzap
+
+    K.reset_launches()
+    rc = ppzap.main(argv)
+    launches = dict(K.LAUNCHES)
+    if rc != 0:
+        raise AssertionError("ppzap %s exited %d" % (" ".join(argv), rc))
+    return launches
+
+
+def phase_ppzap(root, work, K, small, shape=(256, 512, 2048), subset=16):
+    """ppzap -m on the 16-subint archive: identical paz commands from
+    the kernel and plain runs; --apply (no --modify) zero-weights exactly
+    the (channel, subint) pairs listed.  Returns the kernel run's
+    launches."""
+    import numpy as np
+
+    from pulseportraiture_tpu_torch.io.psrfits import read_archive
+    from pulseportraiture_tpu_torch.pipelines.toas import GetTOAs
+
+    gm = os.path.join(root, "examples", "example.gmodel")
+    # a clean archive: -R 1.05 (reduced chi2 above 1.05) gives it channels
+    # to zap, about 28% of them: its reduced chi2 reads ~1.02 with a 5%
+    # spread (the stats emitted below)
+    base = ["-d", small, "-m", gm, "-R", "1.05", "--quiet"]
+    cmds = [os.path.join(work, "zap_k.cmds"), os.path.join(work,
+                                                           "zap_p.cmds")]
+    t0 = time.perf_counter()
+    with clocked(GetTOAs, ("get_channels_to_zap",)) as clock:
+        launches = run_ppzap(K, base + ["-o", cmds[0], "--device", "cuda"])
+    t_zap = time.perf_counter() - t0
+    rchi2 = rchi2_stats(clock["self"][0], 1.05)
+    with plain_kernels(K):
+        run_ppzap(K, base + ["-o", cmds[1]])
+    text = [open(c).read() for c in cmds]
+    listed = {(int(t[4]), int(t[6])) for t in (
+        ln.split() for ln in text[0].splitlines()) if t[:4] == [
+            "paz", "-m", "-I", "-z"]}
+    run_ppzap(K, base + ["--apply"])
+    before = read_archive(small).weights
+    after = read_archive(small[:-len("fits")] + "zap").weights
+    zeroed = {(int(c), int(i)) for i, c in zip(*np.nonzero(
+        (before > 0) & (after == 0)))}
+    missing = [n for n in ("moments", "fftfit") if launches[n] == 0]
+    if text[0] != text[1] or zeroed != listed or missing or not listed:
+        raise AssertionError("ppzap -m: kernel and plain lists %s, %d "
+                             "listed, %d zeroed, launches %s" % (
+                                 "agree" if text[0] == text[1] else
+                                 "differ", len(listed), len(zeroed),
+                                 launches))
+    emit("ppzap", archive=[subset] + list(shape[1:]), cli_s=t_zap,
+         launches=launches,
+         n_zapped=len(listed), lists_identical=True,
+         apply_zeroed_exactly_listed=True, channel_red_chi2=rchi2)
+    return launches
+
+
+def rchi2_stats(gt, threshold):
+    """The post-fit channel reduced chi2s of a GetTOAs run after
+    get_channels_to_zap: mean, spread, share above ``threshold``; the
+    residual's mean per channel over the same noise estimate (its DC,
+    which the fit leaves free) and the mean reduced chi2 without it."""
+    import numpy as np
+    import torch
+
+    rc2 = np.array([c for s in gt.channel_red_chi2s[0] for c in s])
+    dc, rc2_dc = [], []
+    for isub in gt.ok_isubs[0]:
+        port, model, ok, _, noise = gt._fitted_subint(0, isub)
+        ok = torch.as_tensor(ok, device=port.device)
+        r = (port[ok] - model[ok]) / torch.as_tensor(noise).to(
+            port.device)[ok][:, None]
+        mean = r.mean(dim=-1, keepdim=True)
+        dc.append(mean[:, 0].cpu().numpy())
+        rc2_dc.append((((r - mean) ** 2).sum(-1)
+                       / (r.shape[-1] - 2)).cpu().numpy())
+    dc = np.concatenate(dc)
+    return dict(n=int(rc2.size), mean=float(rc2.mean()),
+                std=float(rc2.std()),
+                share_above=float((rc2 > threshold).mean()),
+                resid_dc_over_noise=float(dc.mean()),
+                mean_without_dc=float(np.concatenate(rc2_dc).mean()))
+
+
+
 def profile_cli(argv, outdir):
     """Where the pptoas CLI's wall time goes: host functions (cProfile,
     one run) and device time by kernel (torch.profiler, another run).
@@ -679,13 +1105,27 @@ def device_rows(prof):
     return rows
 
 
+def kernel_times(prof, K):
+    """{kernel name: (launches, device ms in all)} of a torch.profiler
+    run.  A launch of K2 runs two CUDA kernels: its launches are the
+    larger count of the two; a kernel the profiler shows no device time
+    for is left out."""
+    out = {}
+    for key, dev_s, count in device_rows(prof):
+        for name in K.KERNELS:  # moments(_scat)_kernel; fftfit_*_kernel
+            hit = (name + "_kernel" in key) if name.startswith("moments") \
+                else (name + "_" in key and "_kernel" in key)
+            if hit and dev_s > 0:
+                n, ms = out.get(name, (0, 0.0))
+                out[name] = (max(n, count), ms + dev_s * 1e3)
+    return out
+
+
 def kernel_device_ms(fn, K):
     """({kernel name: (launches, device ms in all)}, device profile) of
-    one call of fn(), from torch.profiler.  A launch of K2 runs two CUDA
-    kernels: its launches are the larger count of the two; a kernel the
-    profiler shows no device time for is left out.  The device profile
-    holds the wall, the device-busy seconds and the eight device rows
-    that took longest."""
+    one call of fn(), from torch.profiler.  The device profile holds the
+    wall, the device-busy seconds and the eight device rows that took
+    longest."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -695,21 +1135,13 @@ def kernel_device_ms(fn, K):
         fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    out = {}
     rows = device_rows(prof)
     top = sorted(rows, key=lambda r: -r[1])[:8]
     busy = sum(r[1] for r in rows)
     profile_ = dict(wall_s=wall, device_busy_s=busy,
                     device_top=[[key[:60], dev_s * 1e3, n]
                                 for key, dev_s, n in top])
-    for key, dev_s, count in rows:
-        for name in K.KERNELS:  # moments(_scat)_kernel; fftfit_*_kernel
-            hit = (name + "_kernel" in key) if name.startswith("moments") \
-                else (name + "_" in key and "_kernel" in key)
-            if hit and dev_s > 0:
-                n, ms = out.get(name, (0, 0.0))
-                out[name] = (max(n, count), ms + dev_s * 1e3)
-    return out, profile_
+    return kernel_times(prof, K), profile_
 
 
 def north_star_data(dev, model, freqs, nu0, seed, nsub=1000):
@@ -926,15 +1358,29 @@ def main(argv):
 
     rows = phase_kernels(dev, K)
     work = tempfile.mkdtemp(prefix="pp_smoke_")
+    # each path's launches, from its main run (counts zeroed just before)
+    by_path = {}
     try:
-        launches, big, small = phase_pptoas(root, work, K,
-                                            profile_dir=profile_dir)
-        launches["moments_scat"] = phase_pptoas_scat(
-            root, work, K, big, small)["moments_scat"]
+        by_path["pptoas"], big, small = phase_pptoas(
+            root, work, K, profile_dir=profile_dir)
+        by_path["pptoas_scat"] = phase_pptoas_scat(root, work, K, big, small)
+        by_path["narrowband"] = phase_narrowband(root, work, K, big, small)
+        by_path["narrowband_scat"] = phase_narrowband_scat(root, work, K,
+                                                           small)
+        by_path["templates"] = phase_templates(root, work, K, small)
+        by_path["ppzap"] = phase_ppzap(root, work, K, small)
     finally:
         shutil.rmtree(work, ignore_errors=True)
     phase_throughput(dev, K)
     phase_throughput_scat(dev, K)
+    # K1's and K2's main path is pptoas, K3's pptoas_scat (their own
+    # fit-flag groups), each with this slice's paths
+    own = dict(moments="pptoas", fftfit="pptoas",
+               moments_scat="pptoas_scat")
+    paths = {name: [own[name], "narrowband", "narrowband_scat",
+                    "templates", "ppzap"] for name in own}
+    launches = {name: sum(by_path[p][name] for p in paths[name])
+                for name in own}
 
     kernels = []
     for name, (src, _, replaces) in K.KERNELS.items():
@@ -956,6 +1402,7 @@ def main(argv):
             name=name, route="cuda",
             source="pulseportraiture_tpu_torch/csrc/" + src,
             replaces=replaces, launches=launches[name],
+            launches_by_path={p: by_path[p][name] for p in paths[name]},
             max_abs_err=r["max_abs_err"], ms=r["ms"],
             plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
             bound_by=r["bound_by"], library_ms=r["library_ms"], **extra))

@@ -1,24 +1,24 @@
-"""pptoas command-line tool: measure wideband TOAs and DMs.
+"""pptoas command-line tool: measure wideband TOAs and DMs, or
+narrowband (per-channel) TOAs.
 
 Port of the JAX package's ``cli/pptoas.py`` (reference
-pptoas.py:1415-1618) for wideband TOAs with DM, nu**-4 (GM) and
-scattering fits.
+pptoas.py:1415-1618): wideband TOAs with DM, nu**-4 (GM) and scattering
+fits, narrowband TOAs, flux estimates and crash-resume checkpoints, from
+.gmodel, spline or FITS templates.  ``--psrchive`` and ``--showplot`` are
+not ported yet and fail.
 Run as ``python -m pulseportraiture_tpu_torch.cli.pptoas``.  The fits
 run on the CUDA device unless ``--device cpu`` is given; with no CUDA
 device and no ``--device cpu`` the tool fails.
 """
 
 import argparse
+import os
 import sys
 
 import numpy as np
 
 # flags of modes that later slices of the port bring (dest, option)
-_NOT_PORTED = [
-    ("narrowband", "--narrowband"), ("psrchive", "--psrchive"),
-    ("checkpoint", "--checkpoint"), ("print_flux", "--print_flux"),
-    ("show_plot", "--showplot"),
-]
+_NOT_PORTED = [("psrchive", "--psrchive"), ("show_plot", "--showplot")]
 
 
 def build_parser():
@@ -31,9 +31,12 @@ def build_parser():
                         "metafile listing archive filenames. Recommended: "
                         "files should not be dedispersed.")
     p.add_argument("-m", "--modelfile", metavar="model",
-                   help="Gaussian model file (.gmodel) from ppgauss.")
+                   help="Model file from ppgauss/ppspline, or PSRFITS "
+                        "template archive.")
     p.add_argument("-o", "--outfile", metavar="timfile", default=None,
                    help="Output .tim file (appends). [default=stdout]")
+    p.add_argument("--narrowband", action="store_true",
+                   help="Make narrowband (per-channel) TOAs instead.")
     p.add_argument("--errfile", metavar="errfile", default=None,
                    help="Write fitted DM errors to this file (for "
                         "princeton-format TOAs). Appends.")
@@ -73,6 +76,8 @@ def build_parser():
                         "referenced to.")
     p.add_argument("--print_phase", action="store_true",
                    help="Write the fitted phase (-phs flag) on TOA lines.")
+    p.add_argument("--print_flux", action="store_true",
+                   help="Write a flux-density estimate on TOA lines.")
     p.add_argument("--print_parangle", action="store_true",
                    help="Write the parallactic angle on TOA lines.")
     p.add_argument("--flags", dest="toa_flags", default="",
@@ -80,16 +85,19 @@ def build_parser():
                         "TOA lines, e.g. pta,NANOGrav,version,0.1")
     p.add_argument("--snr_cut", dest="snr_cutoff", default=0.0, type=float,
                    help="S/N cutoff for written TOAs.")
+    p.add_argument("--checkpoint", metavar="timfile", default=None,
+                   help="Crash-resume mode: append TOAs to this .tim "
+                        "file after EVERY archive and skip archives "
+                        "already in it on a re-run.  The checkpoint "
+                        "file IS the output (-o is ignored); "
+                        "incompatible with --snr_cut/--one_DM/"
+                        "-f princeton/--narrowband, which post-process "
+                        "the full TOA list.")
     p.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
                    help="Device the fits run on. [default=cuda]")
     p.add_argument("--quiet", action="store_true", help="Suppress output.")
     # accepted so that they fail loudly instead of being misparsed
-    p.add_argument("--narrowband", action="store_true",
-                   help=argparse.SUPPRESS)
     p.add_argument("--psrchive", action="store_true", help=argparse.SUPPRESS)
-    p.add_argument("--checkpoint", default=None, help=argparse.SUPPRESS)
-    p.add_argument("--print_flux", action="store_true",
-                   help=argparse.SUPPRESS)
     p.add_argument("--showplot", dest="show_plot", action="store_true",
                    help=argparse.SUPPRESS)
     return p
@@ -105,6 +113,25 @@ def main(argv=None):
         print("pptoas: %s: not yet ported to pulseportraiture_tpu_torch."
               % ", ".join(unported), file=sys.stderr)
         return 2
+    if args.narrowband and args.one_DM:
+        print("--one_DM applies to wideband (per-subint DM) TOAs only.")
+        return 1
+    if args.checkpoint is not None:
+        incompatible = [flag for flag, on in [
+            ("--narrowband", args.narrowband),
+            ("--snr_cut", args.snr_cutoff > 0.0),
+            ("--one_DM", args.one_DM),
+            ("-f princeton", args.format == "princeton")] if on]
+        if incompatible:
+            print("--checkpoint writes raw TOA lines incrementally and "
+                  "cannot be combined with post-processing flags: "
+                  + ", ".join(incompatible), file=sys.stderr)
+            return 1
+        if args.outfile is not None and \
+                os.path.realpath(args.outfile) != \
+                os.path.realpath(args.checkpoint):
+            print("--checkpoint supersedes -o: TOAs go to %s only."
+                  % args.checkpoint, file=sys.stderr)
     return _run_pipeline(args)
 
 
@@ -130,13 +157,28 @@ def _run_pipeline(args):
 
     gt = GetTOAs(datafiles=args.datafiles, modelfile=args.modelfile,
                  quiet=args.quiet, device=args.device)
-    gt.get_TOAs(tscrunch=args.tscrunch, nu_refs=nu_refs, DM0=DM0,
-                bary=args.bary, fit_DM=args.fit_DM, fit_GM=args.fit_GM,
-                fit_scat=args.fit_scat, log10_tau=args.log10_tau,
-                scat_guess=scat_guess, fix_alpha=args.fix_alpha,
-                print_phase=args.print_phase,
-                print_parangle=args.print_parangle,
-                addtnl_toa_flags=addtnl_toa_flags, quiet=args.quiet)
+    if not args.narrowband:
+        gt.get_TOAs(tscrunch=args.tscrunch, nu_refs=nu_refs, DM0=DM0,
+                    bary=args.bary, fit_DM=args.fit_DM, fit_GM=args.fit_GM,
+                    fit_scat=args.fit_scat, log10_tau=args.log10_tau,
+                    scat_guess=scat_guess, fix_alpha=args.fix_alpha,
+                    print_phase=args.print_phase,
+                    print_flux=args.print_flux,
+                    print_parangle=args.print_parangle,
+                    addtnl_toa_flags=addtnl_toa_flags, quiet=args.quiet,
+                    checkpoint=args.checkpoint)
+        if args.checkpoint is not None:
+            return 0  # the checkpoint file is the output
+    else:
+        gt.get_narrowband_TOAs(tscrunch=args.tscrunch,
+                               fit_scat=args.fit_scat,
+                               log10_tau=args.log10_tau,
+                               scat_guess=scat_guess,
+                               print_phase=args.print_phase,
+                               print_flux=args.print_flux,
+                               print_parangle=args.print_parangle,
+                               addtnl_toa_flags=addtnl_toa_flags,
+                               quiet=args.quiet)
 
     if args.format == "princeton":
         gt.write_princeton_TOAs(outfile=args.outfile, one_DM=args.one_DM,

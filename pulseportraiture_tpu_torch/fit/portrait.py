@@ -656,11 +656,17 @@ def _scat_hint(fit_flags, init_params, log10_tau):
     return bool(np.any(tau0 != 0.0))
 
 
-def _spectra(data, model, inv_err2, kmax, sub=64):
+# profiles (subint x channel rows) per chunk of _spectra: 64 subints of
+# 512 channels, or as many one-channel lanes
+SPECTRA_ROWS = 64 * 512
+
+
+def _spectra(data, model, inv_err2, kmax, rows=SPECTRA_ROWS):
     """(cross [b, nchan, K], abs_m2 [1 or b, nchan, K], Sd [b]) from data
     [b, nchan, nbin] and model [nchan, nbin] or [b, nchan, nbin], with the
     DC harmonic weighted by F0_fact.  The full-nharm data spectra exist
-    for ``sub`` subints at a time only."""
+    for about ``rows`` profiles at a time only (whole subints, at least
+    one); the arithmetic of each row does not depend on the chunks."""
     def rfft0(x):
         X = torch.fft.rfft(x, dim=-1)
         X[..., 0] *= F0_fact
@@ -669,6 +675,7 @@ def _spectra(data, model, inv_err2, kmax, sub=64):
     shared = model.ndim == 2
     if shared:
         mFFT = rfft0(model)[None]
+    sub = max(1, rows // data.shape[1])
     crosses, Sds, absm = [], [], []
     for i in range(0, data.shape[0], sub):
         dFFT = rfft0(data[i:i + sub])

@@ -15,8 +15,9 @@ from ..config import real_dtype
 from .fourier import get_bin_centers
 from .scattering import scattering_portrait_FT, scattering_times
 
-__all__ = ["FWHM_FACT", "power_law_evolution", "linear_evolution",
-           "evolve_parameter", "gen_gaussian_portrait"]
+__all__ = ["FWHM_FACT", "gaussian_profile", "gaussian_profile_FT",
+           "power_law_evolution", "linear_evolution", "evolve_parameter",
+           "gen_gaussian_portrait"]
 
 # FWHM = 2*sqrt(2*ln 2) * sigma
 FWHM_FACT = 2.0 * math.sqrt(2.0 * math.log(2.0))
@@ -37,6 +38,42 @@ def linear_evolution(freqs, nu_ref, parameter, slope):
     (reference pplib.py:1013-1028)."""
     freqs = torch.as_tensor(freqs, dtype=real_dtype)
     return torch.outer(freqs - nu_ref, slope) + parameter[None, :]
+
+
+def gaussian_profile(nbin, loc, wid, norm=False, device="cpu"):
+    """Circularly wrapped Gaussian profile [nbin] of FWHM ``wid`` at
+    ``loc`` [rot], with peak amplitude 1 (or unit area when ``norm``);
+    zeros for wid <= 0 (reference pplib.py:770-825)."""
+    locval = get_bin_centers(nbin, device=device)
+    mean = loc % 1.0
+    locval = torch.where(locval - mean > 0.5, locval - 1.0, locval)
+    locval = torch.where(locval - mean < -0.5, locval + 1.0, locval)
+    if not wid > 0.0:
+        return torch.zeros(nbin, dtype=real_dtype, device=device)
+    sigma = wid / FWHM_FACT
+    zs = (locval - mean) / sigma
+    zs = torch.where(torch.abs(zs) < 20.0, zs, torch.full_like(zs, 20.0))
+    dens = torch.exp(-0.5 * zs ** 2) / (sigma * math.sqrt(2.0 * math.pi))
+    if norm:
+        return dens
+    imax = torch.argmax(dens)
+    z_peak = (locval[imax] - loc) / sigma
+    fact = torch.exp(-0.5 * z_peak ** 2) / torch.clamp(
+        dens[imax], min=torch.finfo(dens.dtype).tiny)
+    return fact * dens
+
+
+def gaussian_profile_FT(nbin, loc, wid, amp, device="cpu"):
+    """rFFT [nbin/2+1] of an ``amp``-scaled peak-1 Gaussian profile of
+    FWHM ``wid`` at ``loc``: the exact DFT of the wrapped, bin-sampled
+    Gaussian, times the half-bin phase factor of the reference's
+    t=0-anchored convention (pptoaslib.py:14-50; the JAX package's
+    ops/profiles.py:207)."""
+    prof = amp * gaussian_profile(nbin, loc, wid, device=device)
+    k = torch.arange(nbin // 2 + 1, dtype=real_dtype, device=device)
+    ang = math.pi * k / nbin
+    return torch.fft.rfft(prof) * torch.complex(torch.cos(ang),
+                                                -torch.sin(ang))
 
 
 _EVOLUTION_FUNCTIONS = {"0": power_law_evolution, "1": linear_evolution}

@@ -1,0 +1,214 @@
+"""The port's per-channel and template paths on the card: kernels against
+their plain versions.
+
+Each test runs a path of pulseportraiture_tpu_torch on the CUDA device
+twice — through the hand kernels (K1 csrc/moments.cu, K2 csrc/fftfit.cu,
+K3 csrc/moments_scat.cu), then with their plain PyTorch versions swapped
+in on the same device — and holds the two runs to the port's parity bar:
+TOAs within 1 ns, equal rc and nfeval, equal zap lists, fluxes within
+1e-9 relative (1e-7 with the narrowband scattering fits, whose scales
+move with the ~1e-8 differences in tau of fits the data barely
+constrain, as between the port and the JAX package), post-fit channel
+reduced chi2 within 2e-9 relative (each moves to first order with the
+fitted phase, DM and scales, which converged fits leave ~1e-11 apart);
+K3 alone at one channel per lane within 1e-12 of each sum's largest
+magnitude.
+
+Readings on an H100 80GB HBM3 (700 W), kernels against plain: the
+scattering fluxes 1.48e-8 (log10 tau) and 2.03e-8 (linear tau), the
+template fluxes <= 9.5e-15, the reduced chi2 2.48e-10, the same in two
+runs.  With the phasors of K1 and K3 taken in single precision (a wrong
+kernel) they read 3.7e-5 and 3.2e-5, 7.7e-9 and 2.44e-7, and the
+narrowband rc and nfeval differ; the zap lists stay equal, so only the
+chi2 bound catches that fault on the zap path.  The archives are written by the port's
+make_fake_pulsar.  Marked ``cuda``: they skip without a card.  This file
+imports no JAX, so it runs on a machine without it:
+
+    python -m pytest -m cuda --noconftest tests/test_torch_cuda_paths.py
+"""
+
+import contextlib
+import os
+
+import numpy as np
+import pytest
+import torch
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+GMODEL = os.path.join(ROOT, "examples", "example.gmodel")
+PAR = os.path.join(ROOT, "examples", "example.par")
+
+pytestmark = pytest.mark.cuda
+DEVICE = "cuda"
+
+
+@pytest.fixture(scope="module")
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    from pulseportraiture_tpu_torch import _kernels
+
+    return _kernels
+
+
+@contextlib.contextmanager
+def plain_kernels(K):
+    """The plain versions in place of the kernels, on the card."""
+    saved = K.moments, K.fftfit, K.moments_scat
+    K.moments, K.fftfit, K.moments_scat = (K.moments_plain, K.fftfit_plain,
+                                           K.moments_scat_plain)
+    try:
+        yield
+    finally:
+        K.moments, K.fftfit, K.moments_scat = saved
+
+
+@pytest.fixture(scope="module")
+def archive(card, tmp_path_factory):
+    from pulseportraiture_tpu_torch.io.archive import make_fake_pulsar
+
+    tmp = tmp_path_factory.mktemp("cuda_paths")
+    w = np.ones((4, 64))
+    w[:, 11] = 0.0
+    w[2] = 0.0
+    w[2, 17] = 1.0
+    out = str(tmp / "d.fits")
+    make_fake_pulsar(GMODEL, PAR, out, nsub=4, nchan=64, nbin=512,
+                     tsub=60.0, phase=0.123, dDM=2e-3, weights=w,
+                     noise_stds=0.05, seed=5, quiet=True)
+    return tmp, out
+
+
+def spline_model_from_gmodel(path, nchan=64, nbin=512, neig=3):
+    """A spline model of examples/example.gmodel: its portrait over the
+    band, an SVD to ``neig`` eigenprofiles, their coordinates fit by
+    scipy's splprep, written by the port's write_spline_model."""
+    from scipy.interpolate import splprep
+
+    from pulseportraiture_tpu_torch.io.gmodel import read_model
+    from pulseportraiture_tpu_torch.io.splmodel import write_spline_model
+    from pulseportraiture_tpu_torch.ops.fourier import get_bin_centers
+
+    freqs = np.linspace(1050.0, 1950.0, nchan)
+    _, _, port = read_model(GMODEL, get_bin_centers(nbin).numpy(), freqs,
+                            0.00289, quiet=True)
+    port = port.numpy()
+    mean_prof = port.mean(axis=0)
+    _, _, vt = np.linalg.svd(port - mean_prof, full_matrices=False)
+    eigvec = vt[:neig].T                                   # [nbin, neig]
+    proj = (port - mean_prof) @ eigvec                     # [nchan, neig]
+    tck, _ = splprep(proj.T, u=freqs, k=3, s=0.0)
+    write_spline_model(path, "example", "J0000+0000", GMODEL, mean_prof,
+                       eigvec, tck)
+    return path
+
+
+def _toas(gt):
+    return [(t.MJD.day, t.MJD.secs, t.frequency) for t in gt.TOA_list]
+
+
+def _max_dt_ns(a, b):
+    assert len(a) == len(b)
+    return max(abs((x[0] - y[0]) * 86400.0 + x[1] - y[1]) * 1e9
+               for x, y in zip(a, b))
+
+
+def _run(K, model, method, archive, ird=None, **kw):
+    """GetTOAs ``method`` on the card with the kernels, then with the
+    plain versions: (kernel run, plain run, launches of the kernel run)."""
+    from pulseportraiture_tpu_torch.pipelines.toas import GetTOAs
+
+    runs = []
+    for plain in (False, True):
+        gt = GetTOAs(archive, model, quiet=True, device=DEVICE)
+        gt.ird.update(ird or {})
+        K.reset_launches()
+        with plain_kernels(K) if plain else contextlib.nullcontext():
+            getattr(gt, method)(**kw)
+        runs.append((gt, dict(K.LAUNCHES)))
+    return runs[0][0], runs[1][0], runs[0][1]
+
+
+@pytest.mark.parametrize("kw", [dict(), dict(fit_scat=True),
+                                dict(fit_scat=True, log10_tau=False)],
+                         ids=["phase", "scat", "scat_linear"])
+def test_narrowband_kernels_match_plain(card, archive, kw):
+    _, arch = archive
+    kern, plain, launches = _run(card, GMODEL, "get_narrowband_TOAs",
+                                 archive=arch, print_flux=True, **kw)
+    assert launches["fftfit"] >= 1
+    if kw:
+        assert launches["moments_scat"] >= 1
+    assert len(kern.TOA_list) == 3 * 63 + 1
+    assert _max_dt_ns(_toas(kern), _toas(plain)) < 1.0
+    np.testing.assert_array_equal(kern.rcs[0], plain.rcs[0])
+    np.testing.assert_array_equal(kern.nfevals[0], plain.nfevals[0])
+    f, g = kern.profile_fluxes[0], plain.profile_fluxes[0]
+    rtol = 1e-7 if kw else 1e-9
+    assert np.abs(f - g).max() <= rtol * np.abs(g).max()
+
+
+@pytest.mark.parametrize("template", ["spline", "fits"])
+def test_templates_flux_and_response_kernels_match_plain(card, archive,
+                                                         template):
+    from pulseportraiture_tpu_torch.io.archive import make_fake_pulsar
+
+    tmp, arch = archive
+    if template == "spline":
+        model = spline_model_from_gmodel(str(tmp / "m.spl"))
+    else:
+        model = make_fake_pulsar(GMODEL, PAR, str(tmp / "t.fits"), nsub=1,
+                                 nchan=64, nbin=512, tsub=60.0,
+                                 noise_stds=0.0, seed=0, quiet=True)
+    kern, plain, launches = _run(
+        card, model, "get_TOAs", archive=arch, bary=False, print_flux=True,
+        add_instrumental_response=True,
+        ird=dict(DM=1.0, wids=[0.002], irf_types=["rect"]))
+    assert launches["moments"] >= 1 and launches["fftfit"] >= 1
+    assert len(kern.TOA_list) == 4
+    assert _max_dt_ns(_toas(kern), _toas(plain)) < 1.0
+    for key in ("fluxes", "flux_errs", "flux_freqs"):
+        a, b = getattr(kern, key)[0], getattr(plain, key)[0]
+        assert np.abs(a - b).max() <= 1e-9 * np.abs(b).max(), key
+
+
+def test_channels_to_zap_kernels_match_plain(card, archive):
+    from pulseportraiture_tpu_torch.pipelines.toas import GetTOAs
+
+    _, arch = archive
+    zaps, chi2s = [], []
+    for plain in (False, True):
+        gt = GetTOAs(arch, GMODEL, quiet=True, device=DEVICE)
+        with plain_kernels(card) if plain else contextlib.nullcontext():
+            gt.get_TOAs(quiet=True)
+            zaps.append(gt.get_channels_to_zap())
+        chi2s.append([c for s in gt.channel_red_chi2s[0] for c in s])
+    assert zaps[0] == zaps[1]
+    np.testing.assert_allclose(chi2s[0], chi2s[1], rtol=2e-9)
+
+
+def test_moments_scat_one_channel_per_lane(card):
+    """K3 at nchan = 1 with a separate |m|^2 per lane and a lane subset:
+    the narrowband fit_scat shape."""
+    K = card
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    n, K_ = 3000, 129
+
+    def rand(*shape):
+        return torch.rand(shape, generator=gen, device="cuda",
+                          dtype=torch.float64)
+
+    cross = torch.complex(rand(n, 1, K_) - 0.5, rand(n, 1, K_) - 0.5)
+    abs_m2 = rand(n, 1, K_)
+    inv_err2 = rand(n, 1) + 0.5
+    for lanes in (None, torch.sort(torch.randperm(
+            n, generator=gen, device="cuda")[:777]).values):
+        m = n if lanes is None else len(lanes)
+        shifts = (rand(m, 1) - 0.5) * 100.0
+        taus = rand(m, 1) * 0.02
+        got = K.moments_scat(cross, abs_m2, shifts, taus, inv_err2, lanes)
+        want = K.moments_scat_plain(cross, abs_m2, shifts, taus, inv_err2,
+                                    lanes)
+        err = (got - want).abs().amax(dim=(0, 1)) / \
+            want.abs().amax(dim=(0, 1)).clamp_min(1e-300)
+        assert float(err.max()) <= 1e-12, err

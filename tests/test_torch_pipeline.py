@@ -21,6 +21,7 @@ from pulseportraiture_tpu.cli import pptoas as jcli
 from pulseportraiture_tpu.fit import portrait as jfp
 from pulseportraiture_tpu.io.archive import make_fake_pulsar
 from pulseportraiture_tpu_torch.cli import pptoas as tcli
+from torch_tim import assert_same_tim as _assert_same_tim
 
 EXAMPLES = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                         os.pardir, "examples")
@@ -57,59 +58,6 @@ def archives(tmp_path_factory):
     with open(meta, "w") as f:
         f.write("\n".join(files) + "\n")
     return tmp, meta
-
-
-def _lines(path):
-    return [ln.split() for ln in open(path).read().splitlines()
-            if ln and not ln.startswith("FORMAT")]
-
-
-def _flags(tok):
-    return dict(zip(tok[5::2], tok[6::2]))
-
-
-# scattering flags: the fits agree within 5e-7 in log10 tau and 1e-5 in
-# alpha (tests/test_torch_fit.py), so these may differ in the last digit
-# printed by more than its rounding; bounds on the printed values
-SCAT_TOL = {"scat_time": 1e-5, "scat_time_err": 1e-5,
-            "log10_scat_time": 5e-7, "log10_scat_time_err": 1e-5,
-            "scat_ind": 1e-5, "scat_ind_err": 1e-5}
-
-
-def _assert_same_tim(tport, tref, n, freq_rtol=1e-9):
-    """``freq_rtol``: the reference-frequency column; the zero-covariance
-    frequency of a GM or scattering fit is a ratio of sums that cancel,
-    and moves by ~1e-9 relative with rounding (its TOA moving with it, so
-    the MJDs still agree within 1 ns)."""
-    port, ref = _lines(tport), _lines(tref)
-    assert len(port) == len(ref) == n
-    for p, r in zip(port, ref):
-        assert p[0] == r[0] and p[4] == r[4]          # archive, site
-        day_p, frac_p = p[2].split(".")
-        day_r, frac_r = r[2].split(".")
-        dt_ns = ((int(day_p) - int(day_r))
-                 + float("0." + frac_p) - float("0." + frac_r)) * 86400e9
-        assert abs(dt_ns) < 1.0, (p[2], r[2])
-        np.testing.assert_allclose(float(p[1]), float(r[1]), rtol=freq_rtol)
-        np.testing.assert_allclose(float(p[3]), float(r[3]), atol=1.5e-3)
-        fp, fr = _flags(p), _flags(r)
-        assert list(fp) == list(fr)
-        for key in fp:
-            try:
-                vp, vr = float(fp[key]), float(fr[key])
-            except ValueError:
-                assert fp[key] == fr[key], key
-                continue
-            if np.isnan(vr):  # e.g. the error of a degenerate fit
-                assert np.isnan(vp), key
-                continue
-            # printed values: agree to the last printed digit
-            last = 10.0 ** -(len(fr[key].split(".")[1])
-                             if "." in fr[key] else 0)
-            tol = 1.5 * last * max(1.0, abs(vr) * 1e-6)
-            if key in SCAT_TOL:
-                tol = max(tol, last + SCAT_TOL[key] * max(1.0, abs(vr)))
-            assert abs(vp - vr) <= tol, (key, fp[key], fr[key])
 
 
 @pytest.mark.parametrize("extra", [
@@ -166,8 +114,7 @@ def test_pptoas_princeton_and_one_DM(archives):
             assert all("-DM_mean" in ln for ln in port[1:])
 
 
-@pytest.mark.parametrize("flag", ["--fit_scat", "--fit_dt4", "--narrowband",
-                                  "--psrchive", "--print_flux",
+@pytest.mark.parametrize("flag", ["--fit_scat", "--fit_dt4", "--psrchive",
                                   "--showplot"])
 def test_unported_cli_flags_fail(archives, flag, capsys):
     """Options still to port fail and say so; --fit_scat and --fit_dt4
