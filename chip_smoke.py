@@ -58,6 +58,29 @@ Phases, one JSON line each on stdout; any failure exits non-zero:
   ppzap       ppzap -m -R 1.05 on the 16-subint archive: kernel and plain
               runs list the same channels; --apply (no --modify) zeroes
               exactly the listed weights in the .zap copy
+  ppalign     the port's ppalign --niter 2 on 8 epochs of 16 x 512 x 2048
+              (make_fake_pulsar, noise 0.5, each with its own seed, phase
+              in +-0.3 rot and dDM in +-3e-3) against the noiseless
+              one-subint FITS template: one 128-row block per iteration;
+              K1 and K2 launched and held against their plain versions on
+              the inputs the path gave them; the aligned portrait against
+              the noiseless model (one amplitude per channel, DC left
+              out: residual rms within 1.5 x noise/sqrt(rows)); load and
+              fit seconds; one block's device time (torch.profiler) and
+              its rotation's (B8, with its bound); a 2-epoch subset with
+              the plain versions swapped in (within 1e-9 of the peak)
+  ppspline    ppspline -s on the aligned archive: eigenprofiles, the
+              eigensolve and smart_smooth at its shapes (B9, with their
+              bounds); pptoas with the .spl on the 16-subint archive:
+              phase and DM within 5 sigma, plain vs kernel 1 ns
+  ppgauss     ppgauss --autogauss 0.05 --niter 2 on the aligned archive:
+              components, LM nfev and rc, the Jacobian pass's device time
+              (B9), a plain-versions run (parameters within 1e-6 of their
+              errors); pptoas with the .gmodel: plain vs kernel 1 ns,
+              phase and DM within 5 sigma once referred to the initial
+              template's phase zero and DM reference (the model's own
+              offsets against the template, a fit of one noiseless
+              portrait to the other, are added to each TOA)
   throughput  fit_portrait_full_batch(init_params=None) at 1000 x 512 x
               2048 (data made on the card from a seeded torch.Generator;
               the phases seeded through K2): TOAs/s, K1 launches, K1 ms
@@ -71,7 +94,8 @@ Phases, one JSON line each on stdout; any failure exits non-zero:
 
 Then a ``kernels`` line (every hand kernel with its launches on its
 paths — K1 and K2 on pptoas, K3 on pptoas_scat, each plus the narrowband,
-narrowband_scat, templates and ppzap runs, with ``launches_by_path`` —
+narrowband_scat, templates and ppzap runs, K1 and K2 also on ppalign,
+ppspline and ppgauss, with ``launches_by_path`` —
 errors and times; K2 with
 its [1000, 1025] numbers and K3 with its [1000, 512, 128] ones, each with a
 ``shapes`` list of all its cases), the card's name and power limit, and
@@ -662,40 +686,50 @@ def phase_pptoas_scat(root, work, K, big, small, shape=(256, 512, 2048),
 
 
 @contextlib.contextmanager
-def clocked(cls, names, profiled=()):
-    """Wrap methods of ``cls`` for the block: each call's wall seconds
-    (after a device synchronize) go to clock[name], the instance it ran
-    on to clock["self"]; the methods in ``profiled`` run under
-    torch.profiler, whose runs go to clock["prof"]."""
+def clocked(owner, names, profiled=(), keep_args=(), keep_out=()):
+    """Wrap functions of ``owner`` (a class's methods or a module's
+    functions) for the block: each call's wall seconds (after a device
+    synchronize) go to clock[name], and for a class the instance it ran
+    on to clock["self"]; the functions in ``profiled`` run under
+    torch.profiler, whose runs go to clock["prof"]; the arguments of the
+    first call of each function in ``keep_args`` go to
+    clock[name + "_args"], the results of those in ``keep_out`` to
+    clock[name + "_out"]."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     clock = dict(self=[], prof=[], **{n: [] for n in names})
-    saved = {n: getattr(cls, n) for n in names}
+    clock.update({n + "_out": [] for n in keep_out})
+    saved = {n: getattr(owner, n) for n in names}
 
     def wrap(name, fn):
-        def timed(self, *a, **kw):
-            clock["self"].append(self)
+        def timed(*a, **kw):
+            if isinstance(owner, type):
+                clock["self"].append(a[0])
+            if name in keep_args and name + "_args" not in clock:
+                clock[name + "_args"] = (a, kw)
             ctx = profile(activities=[ProfilerActivity.CPU,
                                       ProfilerActivity.CUDA]) \
                 if name in profiled else contextlib.nullcontext()
             with ctx as prof:
                 t0 = time.perf_counter()
-                out = fn(self, *a, **kw)
+                out = fn(*a, **kw)
                 torch.cuda.synchronize()
                 clock[name].append(time.perf_counter() - t0)
             if prof is not None:
                 clock["prof"].append(prof)
+            if name in keep_out:
+                clock[name + "_out"].append(out)
             return out
         return timed
 
     for n, fn in saved.items():
-        setattr(cls, n, wrap(n, fn))
+        setattr(owner, n, wrap(n, fn))
     try:
         yield clock
     finally:
         for n, fn in saved.items():
-            setattr(cls, n, fn)
+            setattr(owner, n, fn)
 
 
 def max_dt_ns_list(a, b):
@@ -1046,6 +1080,479 @@ def rchi2_stats(gt, threshold):
 
 
 
+# -- the template-building paths: ppalign, ppspline, ppgauss --------------
+
+ALIGN_ARCHIVES = 8          # epochs aligned; 16 subints each: 128 rows
+
+
+@contextlib.contextmanager
+def first_kernel_inputs(K):
+    """Copies of the tensor arguments of the first K1 and K2 calls in the
+    block (the shapes the path gives them): name -> (args, kwargs)."""
+    import torch
+
+    seen = {}
+    saved = K.moments, K.fftfit
+
+    def keep(name, fn):
+        def call(*a, **kw):
+            if name not in seen:
+                seen[name] = (tuple(x.clone() if isinstance(
+                    x, torch.Tensor) else x for x in a), dict(kw))
+            return fn(*a, **kw)
+        return call
+
+    K.moments, K.fftfit = keep("moments", saved[0]), keep("fftfit", saved[1])
+    try:
+        yield seen
+    finally:
+        K.moments, K.fftfit = saved
+
+
+def path_kernels_vs_plain(K, seen):
+    """K1 and K2 on the inputs a path gave them, against their plain
+    versions (not counted): {name: dict(shape, max_rel_err,
+    max_abs_err)}; raises beyond 1e-12 relative (K2's phase: 1e-9 rot)."""
+    import torch
+
+    rows = {}
+    for name, plain in (("moments", K.moments_plain),
+                        ("fftfit", K.fftfit_plain)):
+        if name not in seen:
+            raise AssertionError("%s was never called on this path" % name)
+        a, kw = seen[name]
+        n0 = K.LAUNCHES[name]
+        got = getattr(K, name)(*a, **kw)
+        K.LAUNCHES[name] = n0               # a comparison launch: not counted
+        want = plain(*a, **kw)
+        torch.cuda.synchronize()
+        if name == "moments":
+            err = max(rel_err(got[..., i], want[..., i]) for i in range(3))
+            abs_err, ok = float((got - want).abs().max()), err <= 1e-12
+            shape = list(a[0].shape)
+        else:
+            ph = float((got[0] - want[0]).abs().max())
+            err = max(rel_err(got[1], want[1]), rel_err(got[2], want[2]))
+            abs_err = max(ph, float((got[1] - want[1]).abs().max()))
+            ok = ph <= 1e-9 and err <= 1e-12
+            shape = list(a[0].shape) + [a[4]]        # [N, nharm] and Ns
+        rows[name] = dict(shape=shape, max_rel_err=err, max_abs_err=abs_err)
+        if not ok:
+            raise AssertionError("%s disagrees with its plain version on "
+                                 "the path's inputs: %s" % (name, rows[name]))
+    return rows
+
+
+def align_inputs(root, work, shape, narch=ALIGN_ARCHIVES, nu0=NU0):
+    """``narch`` epochs of ``shape`` (nsub, nchan, nbin) written by the
+    port's make_fake_pulsar (noise 0.5, own seed, phase in +-0.3 rot, dDM
+    in +-3e-3) and the noiseless one-subint FITS template: (metafile,
+    archive paths, template path, injections)."""
+    import numpy as np
+
+    from pulseportraiture_tpu_torch.io.archive import make_fake_pulsar
+
+    gm = os.path.join(root, "examples", "example.gmodel")
+    par = os.path.join(root, "examples", "example.par")
+    nsub, nchan, nbin = shape
+    rng = np.random.default_rng(2024)
+    inj = [(float(rng.uniform(-0.3, 0.3)), float(rng.uniform(-3e-3, 3e-3)))
+           for _ in range(narch)]
+    files = [make_fake_pulsar(
+        gm, par, os.path.join(work, "epoch%d.fits" % i), nsub=nsub,
+        nchan=nchan, nbin=nbin, nu0=nu0, bw=800.0, tsub=60.0, phase=ph,
+        dDM=dDM, noise_stds=0.5, seed=500 + i) for i, (ph, dDM) in
+        enumerate(inj)]
+    # the templates phase's FITS template, at this shape
+    tmpl = make_fake_pulsar(gm, par, os.path.join(work, "tmpl.fits"),
+                            nsub=1, nchan=nchan, nbin=nbin, nu0=nu0,
+                            bw=800.0, tsub=60.0, noise_stds=0.0,
+                            dedispersed=True, seed=0)
+    meta = os.path.join(work, "epochs.meta")
+    with open(meta, "w") as f:
+        f.write("\n".join(files) + "\n")
+    return meta, files, tmpl, inj
+
+
+def run_tool(K, module, argv):
+    """A port CLI (``module.main``) with every launch count set to 0 just
+    before it: (wall seconds, launches of that run)."""
+    K.reset_launches()
+    t0 = time.perf_counter()
+    rc = module.main(argv)
+    wall = time.perf_counter() - t0
+    launches = dict(K.LAUNCHES)
+    if rc != 0:
+        raise AssertionError("%s %s exited %d" % (module.__name__,
+                                                  " ".join(argv), rc))
+    return wall, launches
+
+
+def rotate_bound_ms(B, npol, nchan, nbin):
+    """B8's least time: the block read once and written once (float64);
+    the rFFT and irFFT at 2.5 N log2 N FP64 operations each per row."""
+    rows = B * npol * nchan
+    return bound_ms(2 * rows * nbin * 8 + 4 * B * 8,
+                    (2 * 2.5 * rows * nbin * math.log2(nbin),
+                     PEAK_FP64_PER_S))
+
+
+def fit_shift_gap(a, b, freqs, P):
+    """Largest difference [rot] between the rotations two (phi, DM) fit
+    results apply, phi + Dconst DM (nu^-2 - nu_DM^-2) / P, over the band
+    edges and the subints with finite fits."""
+    import torch
+
+    from pulseportraiture_tpu_torch.config import Dconst
+
+    nu = torch.stack([freqs.min(), freqs.max()])[None]
+
+    def shift(r):
+        return r.phi[:, None] + Dconst * r.DM[:, None] / P * (
+            nu ** -2 - r.nu_DM[:, None] ** -2)
+
+    d = (shift(a) - shift(b)).abs()
+    d = d[torch.isfinite(d)]
+    return float(d.max()) if d.numel() else 0.0
+
+
+def phase_ppalign(root, work, K, dev, shape=(16, 512, 2048), niter=2,
+                  subset=2):
+    """The port's ppalign CLI on ALIGN_ARCHIVES epochs against the
+    noiseless FITS template: K1 and K2 launched (and held against their
+    plain versions on the inputs the path gave them), the aligned
+    portrait against the noiseless model, the device time of one block
+    (torch.profiler) and of its rotation; then a ``subset``-archive run
+    with the kernels and with the plain versions.  Returns the main run's
+    launches and the aligned archive."""
+    import numpy as np
+    import torch
+
+    from pulseportraiture_tpu_torch.cli import ppalign
+    from pulseportraiture_tpu_torch.io.archive import load_data
+    from pulseportraiture_tpu_torch.pipelines import align
+
+    nsub, nchan, nbin = shape
+    t0 = time.perf_counter()
+    meta, files, tmpl, _ = align_inputs(root, work, shape)
+    t_make = time.perf_counter() - t0
+    avg = os.path.join(work, "aligned.fits")
+    torch.cuda.reset_peak_memory_stats()
+    with clocked(align, ("load_data", "_align_fit_accumulate"),
+                           keep_args=("_align_fit_accumulate",)) as clock, \
+            first_kernel_inputs(K) as seen:
+        wall, launches = run_tool(K, ppalign, [
+            "-M", meta, "-I", tmpl, "-o", avg, "--niter", str(niter),
+            "--device", str(dev)])
+    peak = torch.cuda.max_memory_allocated()
+    missing = [n for n in ("moments", "fftfit") if launches[n] == 0]
+    if missing:
+        raise AssertionError("kernels never launched on the ppalign path: "
+                             "%s" % missing)
+    vs_plain = path_kernels_vs_plain(K, seen)
+    del seen
+
+    # the aligned portrait against the noiseless model: one amplitude per
+    # channel, the DC left out (the fits weight harmonic 0 by F0_fact = 0)
+    rows = ALIGN_ARCHIVES * nsub
+    port = load_data(avg, quiet=True).subints[0, 0]
+    model = load_data(tmpl, quiet=True).subints[0, 0]
+    port = port - port.mean(-1, keepdims=True)
+    model = model - model.mean(-1, keepdims=True)
+    amp = (port * model).sum(-1) / (model * model).sum(-1)
+    resid_rms = float(np.sqrt(((port - amp[:, None] * model) ** 2).mean()))
+    want_rms = 0.5 / math.sqrt(rows)
+
+    # one block again under the profiler; its rotation alone (B8)
+    (full, model_b, freqs_b, errs_b, nu_fit, Ps_b, wok, DMg), kw = \
+        clock.pop("_align_fit_accumulate_args")
+    npol = full.shape[1]
+
+    def block():
+        align._align_fit_accumulate(
+            full, model_b, freqs_b, errs_b, nu_fit, Ps_b, wok, DMg,
+            **dict(kw, aligned_port=torch.zeros_like(kw["aligned_port"]),
+                   total_weights=torch.zeros_like(kw["total_weights"])))
+
+    n0 = dict(K.LAUNCHES)
+    ktimes, prof = kernel_device_ms(block, K)
+    K.LAUNCHES.update(n0)                   # a measurement: not counted
+    phis = torch.zeros_like(Ps_b)
+    rot_ms = cuda_ms(lambda: align._rotate_batch(full, phis, DMg, Ps_b,
+                                                 freqs_b, nu_fit), reps=5)
+    rot_bound, rot_by = rotate_bound_ms(*full.shape[:3], nbin)
+    freqs_b, Ps_b = freqs_b[0], Ps_b[0]     # every subint's: one band, P
+    del full, model_b, kw
+
+    # the kernels against their plain versions, end to end on a subset:
+    # the fits stop at the f64 floor of their objective, so the two runs'
+    # subint rotations differ by ~1e-9 rot, which moves the portrait by
+    # ~1e-8 of its peak; they are held to the bound of the CPU parity
+    # tests against the JAX package (tests/test_torch_align.py)
+    outs, fits = [], []
+    for plain in (False, True):
+        with plain_kernels(K) if plain else contextlib.nullcontext(), \
+                clocked(align, ("fit_portrait_full_batch",),
+                                  keep_out=("fit_portrait_full_batch",)) \
+                as fclock:
+            outs.append(align.align_archives(
+                files[:subset], tmpl, niter=niter, device=dev,
+                outfile=os.path.join(work, "subset%d.fits" % plain))[1])
+        fits.append(fclock["fit_portrait_full_batch_out"])
+    gap = float(np.abs(outs[0] - outs[1]).max() / np.abs(outs[1]).max())
+    shift_gap = max(fit_shift_gap(a, b, freqs_b, Ps_b)
+                    for a, b in zip(*fits))
+    emit("ppalign", archives=ALIGN_ARCHIVES, archive=list(shape),
+         rows=rows, niter=niter, make_s=t_make, cli_s=wall,
+         load_s=sum(clock["load_data"]), n_loads=len(clock["load_data"]),
+         fit_s=sum(clock["_align_fit_accumulate"]),
+         n_blocks=len(clock["_align_fit_accumulate"]), launches=launches,
+         kernels_vs_plain=vs_plain, peak_device_bytes=peak,
+         resid_rms=resid_rms, noise_over_sqrt_rows=want_rms,
+         b8_block=dict(shape=[int(x) for x in (rows, npol, nchan, nbin)],
+                       kernels={n: list(v) for n, v in ktimes.items()},
+                       **prof),
+         b8_rotate=dict(ms=rot_ms, bound_ms=rot_bound, bound_by=rot_by,
+                        share_of_bound=rot_bound / rot_ms),
+         plain_vs_kernel_subset=dict(archives=subset, max_rel_gap=gap,
+                                     max_shift_gap_rot=shift_gap))
+    if not (np.isfinite(port).all() and resid_rms <= 1.5 * want_rms):
+        raise AssertionError("aligned portrait: residual rms %.4g against "
+                             "noise/sqrt(rows) %.4g" % (resid_rms, want_rms))
+    if not gap <= 5e-8:
+        raise AssertionError("ppalign subset: plain vs kernel portraits "
+                             "differ by %.3g of the peak" % gap)
+    return launches, avg
+
+
+def recovery(toas, DM, P, frame=(0.0, 0.0, NU0)):
+    """(max |z| of phase, of DM) of .tim TOAs against the pptoas
+    archives' injection; ``frame`` = (phase, DM, frequency) of the
+    timing model against the initial template, added to each TOA's phase
+    and DM so that they are referred to the template's phase zero and DM
+    reference."""
+    import numpy as np
+
+    from pulseportraiture_tpu_torch.config import Dconst
+
+    phi_m, DM_m, nu_m = frame
+    zphi, zDM = [], []
+    for t in toas:
+        f, nu = t["flags"], t["freq"]
+        phs = float(f["phs"]) + phi_m + Dconst * DM_m * (
+            nu ** -2 - nu_m ** -2) / P
+        want = PHASE_INJ + Dconst * DM * (nu ** -2 - NU0 ** -2) / P
+        zphi.append(((phs - want + 0.5) % 1.0 - 0.5) / float(f["phs_err"]))
+        if "pp_dm" in f:
+            zDM.append((float(f["pp_dm"]) + DM_m - DM) / float(f["pp_dme"]))
+    return float(np.abs(zphi).max()), float(np.abs(zDM).max())
+
+
+def template_frame(model, tmpl, dev):
+    """(phase, DM, frequency) of a .gmodel's portrait against the FITS
+    template it was built from, at the template's channels: the (phase,
+    DM) fit of one noiseless portrait to the other (K1; the model was
+    rotated by its builder's convergence iterations)."""
+    import numpy as np
+
+    from pulseportraiture_tpu_torch.fit.portrait import fit_portrait
+    from pulseportraiture_tpu_torch.io.archive import load_data
+    from pulseportraiture_tpu_torch.io.gmodel import read_model
+
+    t = load_data(tmpl, quiet=True)
+    P = float(t.Ps[0])
+    port = read_model(model, t.phases, t.freqs[0], P, device=dev)[2]
+    r = fit_portrait(port, t.subints[0, 0], [0.0, 0.0], P, t.freqs[0],
+                     errs=np.ones(t.nchan), device=dev)
+    return float(r.phase), float(r.DM), float(r.nu_ref)
+
+
+def time_with_template(K, dev, work, small, model, tag, subset=16,
+                       gate=True, frame=(0.0, 0.0, NU0)):
+    """pptoas on the 16-subint archive with ``model``: kernels, then the
+    plain versions (1 ns); the injection recovered within 5 sigma, in the
+    initial template's ``frame`` (see recovery), when ``gate``.  Returns
+    a dict of the run's numbers."""
+    from pulseportraiture_tpu_torch.io.parfile import read_par
+
+    par = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                       "examples", "example.par")
+    P = 1.0 / float(read_par(par).F0)
+    DM = float(read_par(par).get("DM")) + DDM_INJ
+    argv = ["-d", small, "-m", model, "--no_bary", "--print_phase",
+            "--quiet", "--device", str(dev)]
+    kern, t_cli, launches = run_cli(K, argv + ["-o", os.path.join(
+        work, tag + "_k.tim")])
+    with plain_kernels(K):
+        plain, _, _ = run_cli(K, argv + ["-o", os.path.join(
+            work, tag + "_p.tim")])
+    dt_ns = max_dt_ns(kern, plain)
+    zphi, zDM = recovery(kern, DM, P, frame)
+    missing = [n for n in ("moments", "fftfit") if launches[n] == 0]
+    if len(kern) != subset or missing or not dt_ns < 1.0 or (
+            gate and not (zphi < 5 and zDM < 5)):
+        raise AssertionError("pptoas with the %s template: %d TOAs, "
+                             "launches %s, plain vs kernel %.3g ns, max |z| "
+                             "phase %.2f DM %.2f" % (tag, len(kern),
+                                                     launches, dt_ns, zphi,
+                                                     zDM))
+    return dict(cli_s=t_cli, launches=launches, max_abs_z_phase=zphi,
+                max_abs_z_DM=zDM, plain_vs_kernel_max_ns=dt_ns)
+
+
+def phase_ppspline(root, work, K, dev, avg, small):
+    """The port's ppspline -s on the aligned archive; B9's eigh and
+    smart_smooth at the path's shapes; pptoas with the .spl on the
+    16-subint archive (5 sigma, 1 ns).  Returns the launches of the
+    ppspline and pptoas runs, summed."""
+    import torch
+
+    from pulseportraiture_tpu_torch.cli import ppspline
+    from pulseportraiture_tpu_torch.dataportrait import DataPortrait
+    from pulseportraiture_tpu_torch.io.splmodel import read_spline_model
+    from pulseportraiture_tpu_torch.ops.pca import pca
+    from pulseportraiture_tpu_torch.ops.wavelet import smart_smooth
+
+    spl = os.path.join(work, "aligned.spl")
+    wall, launches = run_tool(K, ppspline, ["-d", avg, "-o", spl, "-s",
+                                            "--quiet", "--device", str(dev)])
+    if launches["fftfit"] == 0:
+        raise AssertionError("K2 never launched by ppspline -N prof")
+    ncomp = read_spline_model(spl)[4].shape[1]
+
+    # B9 at this path's shapes: the eigensolve of the [nbin, nbin]
+    # covariance and the smoothing of the ten candidate eigenvectors
+    dp = DataPortrait(avg, quiet=True, device=dev)
+    dp.normalize_portrait("prof")
+    port = torch.as_tensor(dp.portx, device=dev)
+    w = torch.as_tensor(dp.SNRsxs / dp.SNRsxs.sum(), device=dev)
+    mean = (port * w[:, None]).sum(0) / w.sum()
+    d = port - mean
+    d = d - (d * w[:, None]).sum(0) / w.sum()
+    cov = torch.einsum("i,ij,ik->jk", w, d, d)
+    n = cov.shape[0]
+    eigh_ms = cuda_ms(lambda: torch.linalg.eigh(cov), reps=3, warm=1)
+    # symmetric eigendecomposition with vectors, ~9 n^3 (Golub & Van Loan)
+    eigh_bound, eigh_by = bound_ms(2 * n * n * 8 + n * 8,
+                                   (9 * n ** 3, PEAK_FP64_PER_S))
+    cand = pca(port, mean, w)[1][:, :10].T.contiguous()
+    nbin = cand.shape[-1]
+    nlev = int(math.log2(nbin))
+    ss_ms = cuda_ms(lambda: smart_smooth(cand), reps=3, warm=1)
+    # per level l: l+3 complex FFTs (and a real one) of nfact x 10 rows
+    ffts = sum(l + 4 for l in range(1, nlev + 1)) * 30 * cand.shape[0]
+    ss_bound, ss_by = bound_ms(2 * cand.numel() * 8,
+                               (ffts * 5 * nbin * math.log2(nbin),
+                                PEAK_FP64_PER_S))
+    del dp, port, d, cov, cand
+
+    toas = time_with_template(K, dev, work, small, spl, "spline_built")
+    total = {name: launches[name] + toas["launches"][name]
+             for name in launches}
+    emit("ppspline", cli_s=wall, launches=launches, n_eigenprofiles=ncomp,
+         b9_eigh=dict(shape=[n, n], ms=eigh_ms, bound_ms=eigh_bound,
+                      bound_by=eigh_by),
+         b9_smart_smooth=dict(shape=[10, nbin], nlevels=nlev, nfact=30,
+                              ms=ss_ms, bound_ms=ss_bound, bound_by=ss_by),
+         pptoas=toas)
+    return total
+
+
+def jacobian_pass(dp, dev):
+    """One forward-mode Jacobian of the Gaussian portrait fit's residual
+    at its solution, as fit_gaussian_portrait's lm_solve takes it:
+    (device ms, bound ms, bound_by, shape [N, nparam])."""
+    import numpy as np
+    import torch
+
+    from pulseportraiture_tpu_torch.ops.profiles import gen_gaussian_portrait
+
+    data = torch.as_tensor(dp.portx, device=dev)
+    errs = torch.as_tensor(dp.portx_noise, device=dev)
+    freqs = torch.as_tensor(dp.freqsxs[0], device=dev)
+    x = torch.as_tensor(np.concatenate([dp.model_params,
+                                        [dp.scattering_index]]),
+                        device=dev)
+    nparam = len(dp.model_params)
+
+    def residual(v):
+        model = gen_gaussian_portrait(dp.model_code, v[:nparam], v[nparam],
+                                      dp.phases, freqs, dp.nu_ref,
+                                      device=dev)
+        return ((data - model) / errs).reshape(-1)
+
+    jac = torch.func.jacfwd(residual)
+    ms = cuda_ms(lambda: jac(x), reps=3, warm=1)
+    N, npar = data.numel(), x.numel()
+    nchan, nbin = data.shape
+    ngauss = (nparam - 2) // 6
+    # data and errs read, J written; per tangent the components over the
+    # portrait (~30 operations per bin and component) and the scattered
+    # branch's rFFT and irFFT (2.5 N log2 nbin each)
+    flops = npar * (30 * ngauss * N + 5 * N * math.log2(nbin))
+    bms, by = bound_ms(2 * N * 8 + N * npar * 8, (flops, PEAK_FP64_PER_S))
+    return ms, bms, by, [N, npar]
+
+
+def phase_ppgauss(root, work, K, dev, avg, small):
+    """The port's ppgauss --autogauss 0.05 --niter 2 on the aligned
+    archive: components, LM nfev and rc, wall, the Jacobian pass's device
+    ms; a run with the plain versions (parameters within 1e-6 of their
+    errors); pptoas with the .gmodel on the 16-subint archive (1 ns
+    against plain; the injection within 5 sigma, referred to the initial
+    template's phase zero and DM reference).  Returns the launches of the
+    ppgauss and pptoas runs, summed."""
+    import numpy as np
+
+    from pulseportraiture_tpu_torch.cli import ppgauss
+    from pulseportraiture_tpu_torch.io.gmodel import read_model
+    from pulseportraiture_tpu_torch.models import gauss
+
+    out = os.path.join(work, "aligned.gmodel")
+    argv = ["-d", avg, "--autogauss", "0.05", "--niter", "2", "--device",
+            str(dev)]
+    with clocked(gauss, ("fit_gaussian_portrait",),
+                 keep_out=("fit_gaussian_portrait",)) as clock, \
+            clocked(gauss.GaussianModelPortrait,
+                    ("check_convergence",)) as conv:
+        wall, launches = run_tool(K, ppgauss, argv + ["-o", out])
+    fits = clock["fit_gaussian_portrait_out"]
+    dp = conv["self"][-1]
+    _, _, _, ngauss, params, _, _, _ = read_model(out)
+    errs = read_model(out + "_errs")[4]
+    jms, jb, jby, jshape = jacobian_pass(dp, dev)
+
+    plain_out = os.path.join(work, "aligned_plain.gmodel")
+    with plain_kernels(K):
+        run_tool(K, ppgauss, argv + ["-o", plain_out])
+    fin = np.isfinite(errs) & (errs > 0)
+    gap = float(np.max(np.abs(read_model(plain_out)[4] - params)[fin]
+                       / errs[fin]))
+    # the builder rotates the data by its convergence fits, so its model's
+    # phase zero and DM reference are referred back to the initial
+    # template's before the injection is compared
+    frame = template_frame(out, os.path.join(work, "tmpl.fits"), dev)
+    toas = time_with_template(K, dev, work, small, out, "gmodel_built",
+                              frame=frame)
+    emit("ppgauss", cli_s=wall, launches=launches, n_components=ngauss,
+         fit_s=clock["fit_gaussian_portrait"],
+         lm_nfev=[f.nfev for f in fits], lm_rc=[f.return_code for f in fits],
+         red_chi2=fits[-1].chi2 / fits[-1].dof, converged=int(dp.cnvrgnc),
+         jacobian=dict(shape=jshape, ms=jms, bound_ms=jb, bound_by=jby),
+         plain_vs_kernel_params_over_errs=gap,
+         template_frame=dict(zip(("phase", "DM", "nu"), frame)),
+         pptoas=toas)
+    if launches["moments"] == 0 or launches["fftfit"] == 0:
+        raise AssertionError("ppgauss launched %s" % launches)
+    if not (np.isfinite(params).all() and fits[-1].return_code in (1, 2)):
+        raise AssertionError("ppgauss: params %s, rc %d"
+                             % (params, fits[-1].return_code))
+    if not gap <= 1e-6:
+        raise AssertionError("ppgauss: plain vs kernel parameters differ "
+                             "by %.3g of their errors" % gap)
+    return {name: launches[name] + toas["launches"][name]
+            for name in launches}
+
 def profile_cli(argv, outdir):
     """Where the pptoas CLI's wall time goes: host functions (cProfile,
     one run) and device time by kernel (torch.profiler, another run).
@@ -1369,16 +1876,22 @@ def main(argv):
                                                            small)
         by_path["templates"] = phase_templates(root, work, K, small)
         by_path["ppzap"] = phase_ppzap(root, work, K, small)
+        by_path["ppalign"], avg = phase_ppalign(root, work, K, dev)
+        by_path["ppspline"] = phase_ppspline(root, work, K, dev, avg, small)
+        by_path["ppgauss"] = phase_ppgauss(root, work, K, dev, avg, small)
     finally:
         shutil.rmtree(work, ignore_errors=True)
     phase_throughput(dev, K)
     phase_throughput_scat(dev, K)
     # K1's and K2's main path is pptoas, K3's pptoas_scat (their own
-    # fit-flag groups), each with this slice's paths
+    # fit-flag groups), each with the later paths; K1 and K2 also with the
+    # template builders
     own = dict(moments="pptoas", fftfit="pptoas",
                moments_scat="pptoas_scat")
     paths = {name: [own[name], "narrowband", "narrowband_scat",
                     "templates", "ppzap"] for name in own}
+    for name in ("moments", "fftfit"):
+        paths[name] += ["ppalign", "ppspline", "ppgauss"]
     launches = {name: sum(by_path[p][name] for p in paths[name])
                 for name in own}
 

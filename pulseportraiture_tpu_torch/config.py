@@ -35,6 +35,12 @@ Dconst = Dconst_trad
 # (reference: pplib.py:53-54).
 scattering_alpha = -4.0
 
+# Upper bound on Gaussian component FWHM [rot] in the Gaussian fits, and
+# the default evolution code of a Gaussian portrait, one digit per (loc,
+# wid, amp): '0' power law, '1' linear (reference: pplib.py:68-79).
+wid_max = 0.25
+default_model = "000"
+
 # Weight applied to the DC (k=0) harmonic in all Fourier-domain fits.
 # 0 removes the baseline term from the fit (reference: pplib.py:64-66).
 F0_fact = 0
@@ -87,6 +93,8 @@ __all__ = [
     "Dconst_exact",
     "Dconst_trad",
     "scattering_alpha",
+    "wid_max",
+    "default_model",
     "F0_fact",
     "RCSTRINGS",
     "real_dtype",

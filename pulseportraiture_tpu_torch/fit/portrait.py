@@ -624,12 +624,12 @@ def model_kmax(model_port, tail=1e-18):
     (rounded up to a multiple of 128, capped at nharm) such that the model
     power in harmonics >= K is below ``tail`` of the total (reference
     fit/portrait.py:759).  Host numpy; None for an all-zero model."""
-    m = model_port
+    m = model_port if isinstance(model_port, torch.Tensor) \
+        else np.asarray(model_port)
+    while m.ndim > 2:  # the first model of a batch, before any copy
+        m = m[0]
     if isinstance(m, torch.Tensor):
         m = m.detach().cpu().numpy()
-    m = np.asarray(m)
-    while m.ndim > 2:
-        m = m[0]
     mFT = np.fft.rfft(m.reshape(-1, m.shape[-1]), axis=-1)
     mFT[:, 0] = 0.0
     p = np.abs(mFT) ** 2

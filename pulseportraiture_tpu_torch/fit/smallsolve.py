@@ -7,6 +7,13 @@ used on purpose: ``torch.linalg.lu_factor`` raises on a zero pivot,
 whereas the reference yields inf/NaN, which the Levenberg loop then
 rejects (raising its damping).  Here a singular system likewise yields
 non-finite steps instead of an exception.
+
+Float32 subnormals in the matrix and the right-hand side are flushed to
+zero before the float32 stage, as the reference's CPU backend runs with
+denormals-are-zero: a damping term mu * 1e-30 on a parameter whose
+Jacobian column vanishes (tau at its 0 bound in the Gaussian fits) is
+then a zero pivot, the step is non-finite and the Levenberg loop rejects
+it and raises its damping, exactly as in the reference.
 """
 
 import torch
@@ -14,15 +21,21 @@ import torch
 __all__ = ["solve_refined", "inv_refined"]
 
 
+def _f32(x):
+    """float32 with subnormals flushed to zero (denormals-are-zero)."""
+    x = x.to(torch.float32)
+    return torch.where(torch.abs(x) < torch.finfo(torch.float32).tiny,
+                       torch.zeros_like(x), x)
+
+
 def solve_refined(A, b, refinements=2):
     """x = A^-1 b for A [..., n, n], b [..., n]: f32 LU + f64 refinement
     (r = b - A x; x += A_f32^-1 r)."""
-    A32 = A.to(torch.float32)
-    lu, piv, _ = torch.linalg.lu_factor_ex(A32)
+    lu, piv, _ = torch.linalg.lu_factor_ex(_f32(A))
 
     def solve32(rhs):
         return torch.linalg.lu_solve(
-            lu, piv, rhs.to(torch.float32)[..., None])[..., 0].to(A.dtype)
+            lu, piv, _f32(rhs)[..., None])[..., 0].to(A.dtype)
 
     x = solve32(b)
     for _ in range(refinements):
@@ -34,7 +47,7 @@ def solve_refined(A, b, refinements=2):
 def inv_refined(A, refinements=2):
     """A^-1 for A [..., n, n]: f32 inverse + f64 Newton refinement
     (X <- X (2 I - A X))."""
-    X = torch.linalg.inv_ex(A.to(torch.float32)).inverse.to(A.dtype)
+    X = torch.linalg.inv_ex(_f32(A)).inverse.to(A.dtype)
     n = A.shape[-1]
     eye = torch.eye(n, dtype=A.dtype, device=A.device)
     for _ in range(refinements):

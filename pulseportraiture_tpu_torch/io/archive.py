@@ -23,8 +23,8 @@ from .gmodel import read_model
 from .polyco import polyco_from_spin
 from .psrfits import Archive, read_archive
 
-__all__ = ["load_data", "make_fake_pulsar", "file_is_type",
-           "parse_metafile"]
+__all__ = ["load_data", "unload_new_archive", "make_fake_pulsar",
+           "file_is_type", "parse_metafile"]
 
 _HOST = torch.device("cpu")
 
@@ -155,6 +155,23 @@ def load_data(filename, state=None, dedisperse=False, dededisperse=False,
         source=source, state=state, subints=subints, subtimes=subtimes,
         telescope=telescope, telescope_code=telescope_code,
         weights=weights)
+
+
+def unload_new_archive(data, arch, outfile, DM=None, dmc=0, weights=None,
+                       quiet=True):
+    """Write ``data`` into a copy of an existing Archive (or the archive
+    at that path) and unload it (reference pplib.py:3039-3075).
+    ``dmc=0`` stores the archive dispersed (dedispersed=False)."""
+    new = arch.copy() if isinstance(arch, Archive) else \
+        read_archive(arch).copy()
+    new.data = np.asarray(data, dtype=np.float64).reshape(new.data.shape)
+    if DM is not None:
+        new.DM = float(DM)
+    new.dedispersed = bool(dmc)
+    if weights is not None:
+        new.weights = np.asarray(weights, dtype=np.float64)
+    new.unload(outfile, quiet=quiet)
+    return new
 
 
 def make_fake_pulsar(modelfile, ephemeris, outfile="fake_pulsar.fits",

@@ -19,7 +19,7 @@ import torch
 from ..config import Dconst, real_dtype
 
 __all__ = ["ipow", "get_bin_centers", "phasor", "apply_phasor",
-           "rotate_data", "rotate_profile"]
+           "phase_shifts", "rotate_data", "rotate_profile"]
 
 TWO_PI = 2.0 * math.pi
 
@@ -77,11 +77,34 @@ def apply_phasor(port_FT, shifts):
     return port_FT * phasor(shifts, port_FT.shape[-1])
 
 
-def _neg2(nu_ref):
-    """nu_ref ** -2 evaluated the way the caller's type evaluates it."""
-    if isinstance(nu_ref, torch.Tensor):
-        return ipow(nu_ref, -2)
-    return nu_ref ** -2  # Python float / numpy: the reference's host pow
+def _negpow(nu, n):
+    """nu ** -n: the reference's integer power for a tensor, its host pow
+    for a Python float or numpy value."""
+    if isinstance(nu, torch.Tensor):
+        return ipow(nu, -n)
+    return nu ** -n
+
+
+def phase_shifts(phi, DM, GM, freqs, nu_DM=math.inf, nu_GM=math.inf, P=None,
+                 mod=False):
+    """Per-frequency phase delays [rot] for (phi, DM, GM):
+    phi + Dconst DM (nu^-2 - nu_DM^-2)/P + Dconst^2 GM (nu^-4 - nu_GM^-4)/P
+    (reference pptoaslib.py:181-214).  phi [rot] (or [s] when P is None),
+    freqs/nu_DM/nu_GM [MHz], P [s]; ``mod`` wraps |delay| >= 0.5 onto
+    [-0.5, 0.5) and is honoured only with P given."""
+    if P is None:
+        P = 1.0
+        mod = False
+    freqs = torch.as_tensor(freqs, dtype=real_dtype)
+    dispersive = Dconst * DM * (ipow(freqs, -2) - _negpow(nu_DM, 2)) / P
+    refractive = (Dconst ** 2) * GM * (ipow(freqs, -4)
+                                       - _negpow(nu_GM, 4)) / P
+    delays = phi + dispersive + refractive
+    if mod:
+        delays = torch.where(torch.abs(delays) >= 0.5,
+                             torch.remainder(delays, 1.0), delays)
+        delays = torch.where(delays >= 0.5, delays - 1.0, delays)
+    return delays
 
 
 def rotate_data(data, phase=0.0, DM=0.0, Ps=None, freqs=None,
@@ -99,7 +122,7 @@ def rotate_data(data, phase=0.0, DM=0.0, Ps=None, freqs=None,
         P = 1.0 if Ps is None else Ps
         shift = phase + (Dconst * DM / P) * (
             ipow(torch.as_tensor(freqs, dtype=real_dtype, device=dev), -2)
-            - _neg2(nu_ref))
+            - _negpow(nu_ref, 2))
         return rotate_profile(data, shift)
     if freqs is None:
         shifts = torch.broadcast_to(
@@ -112,7 +135,7 @@ def rotate_data(data, phase=0.0, DM=0.0, Ps=None, freqs=None,
         if data.ndim > 2 and isinstance(P, torch.Tensor) and P.ndim > 0:
             P = P.reshape(P.shape + (1,) * (data.ndim - 1 - P.ndim))
         D = Dconst * DM / P
-        nu_term = _neg2(nu_ref)
+        nu_term = _negpow(nu_ref, 2)
         if not isinstance(nu_term, (float, int)):
             nu_term = torch.as_tensor(nu_term, dtype=real_dtype, device=dev)
         shifts = phase + D * (ipow(freqs, -2) - nu_term)

@@ -12,7 +12,8 @@ import torch
 from ..config import real_dtype
 from .noise import get_noise
 
-__all__ = ["count_crossings", "weighted_mean", "get_WRMS", "get_red_chi2"]
+__all__ = ["count_crossings", "weighted_mean", "get_WRMS", "get_red_chi2",
+           "median"]
 
 
 def _tensor(x, device=None):
@@ -70,3 +71,15 @@ def get_red_chi2(data, model, errs=None, dof=None):
     if data.ndim == 1:
         return torch.sum((resids / errs) ** 2) / dof
     return torch.sum((resids / errs[..., None]) ** 2) / dof
+
+
+def median(x):
+    """Median over the last axis as numpy (and the JAX package) take it:
+    the mean of the two middle values for an even count (torch.median
+    returns the lower one)."""
+    x = _tensor(x)
+    n = x.shape[-1]
+    s = torch.sort(x, dim=-1).values
+    if n % 2:
+        return s[..., n // 2]
+    return (s[..., n // 2 - 1] + s[..., n // 2]) * 0.5

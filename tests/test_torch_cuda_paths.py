@@ -1,5 +1,5 @@
-"""The port's per-channel and template paths on the card: kernels against
-their plain versions.
+"""The port's per-channel and template paths and its template builders on
+the card: kernels against their plain versions.
 
 Each test runs a path of pulseportraiture_tpu_torch on the CUDA device
 twice — through the hand kernels (K1 csrc/moments.cu, K2 csrc/fftfit.cu,
@@ -12,7 +12,13 @@ constrain, as between the port and the JAX package), post-fit channel
 reduced chi2 within 2e-9 relative (each moves to first order with the
 fitted phase, DM and scales, which converged fits leave ~1e-11 apart);
 K3 alone at one channel per lane within 1e-12 of each sum's largest
-magnitude.
+magnitude; the template builders (align, spline, Gaussian) with aligned
+portraits within 5e-8 of their peak and weights within 1e-9 (the bound
+of the CPU parity tests against the JAX package: the (phase, DM) fits
+stop at the f64 floor of their objective, ~1e-9 rot apart, and a subint
+rotated that much differently moves the portrait by ~1e-8 of its peak;
+read on the card: 1.5e-9), spline models within 1e-10 and Gaussian model
+parameters within 1e-6 of their errors.
 
 Readings on an H100 80GB HBM3 (700 W), kernels against plain: the
 scattering fluxes 1.48e-8 (log10 tau) and 2.03e-8 (linear tau), the
@@ -212,3 +218,65 @@ def test_moments_scat_one_channel_per_lane(card):
         err = (got - want).abs().amax(dim=(0, 1)) / \
             want.abs().amax(dim=(0, 1)).clamp_min(1e-300)
         assert float(err.max()) <= 1e-12, err
+
+
+@pytest.fixture(scope="module")
+def epochs(card, tmp_path_factory):
+    """Two 4-subint x 64-channel x 512-bin epochs with their own phase and
+    DM offsets, and a noiseless one-subint template."""
+    from pulseportraiture_tpu_torch.io.archive import make_fake_pulsar
+
+    tmp = tmp_path_factory.mktemp("cuda_builders")
+    files = [make_fake_pulsar(GMODEL, PAR, str(tmp / ("e%d.fits" % i)),
+                              nsub=4, nchan=64, nbin=512, tsub=60.0,
+                              phase=ph, dDM=dDM, noise_stds=0.1, seed=20 + i,
+                              quiet=True)
+             for i, (ph, dDM) in enumerate(((0.12, 1e-3), (-0.21, -2e-3)))]
+    tmpl = make_fake_pulsar(GMODEL, PAR, str(tmp / "tmpl.fits"), nsub=1,
+                            nchan=64, nbin=512, tsub=60.0, noise_stds=0.0,
+                            dedispersed=True, seed=0, quiet=True)
+    return tmp, files, tmpl
+
+
+def test_template_builders_kernels_match_plain(card, epochs):
+    """align_archives (niter 2), then from one aligned archive
+    make_spline_model (-N prof: K2) and make_gaussian_model (--autogauss,
+    niter 1: K2 seeds, K1 convergence test) on the card, through the
+    kernels and then the plain versions: aligned portraits within 5e-8 of
+    their peak and weights within 1e-9 (the fits' floor, as in
+    tests/test_torch_align.py), spline model portraits within 1e-10,
+    Gaussian model parameters within 1e-6 of their errors."""
+    from pulseportraiture_tpu_torch.dataportrait import DataPortrait
+    from pulseportraiture_tpu_torch.models.gauss import make_gaussian_model
+    from pulseportraiture_tpu_torch.models.spline import make_spline_model
+    from pulseportraiture_tpu_torch.pipelines.align import align_archives
+
+    K = card
+    tmp, files, tmpl = epochs
+    aligned, spline, gauss = [], [], []
+    for plain in (False, True):
+        K.reset_launches()
+        with plain_kernels(K) if plain else contextlib.nullcontext():
+            out = str(tmp / ("aligned%d.fits" % plain))
+            aligned.append(align_archives(files, tmpl, niter=2, outfile=out,
+                                          device=DEVICE)[1:])
+            if not plain:
+                launches = dict(K.LAUNCHES)
+            source = str(tmp / "aligned0.fits")   # both builders: one input
+            dp = DataPortrait(source, quiet=True, device=DEVICE)
+            dp.normalize_portrait("prof")
+            spline.append(make_spline_model(dp, max_ncomp=4, smooth=True,
+                                            snr_cutoff=50.0).model)
+            gauss.append(make_gaussian_model(source, auto_gauss=0.05,
+                                             niter=1, device=DEVICE))
+    (pk, wk), (pp, wp) = aligned
+    assert launches["moments"] > 0 and launches["fftfit"] > 0
+    assert np.isfinite(pk).all() and np.isfinite(gauss[0].model_params).all()
+    assert np.abs(pk - pp).max() <= 5e-8 * np.abs(pp).max()
+    assert np.abs(wk - wp).max() <= 1e-9 * np.abs(wp).max()
+    assert np.abs(spline[0] - spline[1]).max() <= \
+        1e-10 * np.abs(spline[1]).max()
+    errs = gauss[1].model_param_errs
+    fin = np.isfinite(errs) & (errs > 0)
+    assert np.all(np.abs(gauss[0].model_params - gauss[1].model_params)[fin]
+                  <= 1e-6 * errs[fin])

@@ -204,3 +204,40 @@ def test_fftfit_kernel_matches_plain_on_the_card(N, nharm, Ns, lo, hi,
         assert torch.equal(torch.isnan(g), torch.isnan(p))
         err = (g[ok] - p[ok]).abs().max() / p[ok].abs().max()
         assert float(err) <= 1e-12, float(err)
+
+
+def test_template_builders_walked_and_refuse_without_cuda(monkeypatch,
+                                                          tmp_path):
+    """The template-building modules are among those the import check
+    walks, and their entry points refuse to run without a CUDA device
+    unless asked for the CPU."""
+    import pkgutil
+
+    import pulseportraiture_tpu_torch
+    from pulseportraiture_tpu_torch.cli import ppalign, ppgauss, ppspline
+    from pulseportraiture_tpu_torch.dataportrait import DataPortrait
+    from pulseportraiture_tpu_torch.fit.lm import lm_solve
+    from pulseportraiture_tpu_torch.pipelines.align import align_archives
+
+    names = {m.name for m in pkgutil.walk_packages(
+        pulseportraiture_tpu_torch.__path__, "pulseportraiture_tpu_torch.")}
+    prefix = "pulseportraiture_tpu_torch."
+    assert {prefix + m for m in (
+        "pipelines.align", "ops.wavelet", "ops.pca", "ops.powlaw",
+        "fit.lm", "fit.powlaw", "fit.gauss", "dataportrait",
+        "models.spline", "models.gauss", "cli.ppalign", "cli.ppspline",
+        "cli.ppgauss")} <= names
+    _no_cuda(monkeypatch)
+    gm = os.path.join(ROOT, "examples", "example.gmodel")
+    meta = tmp_path / "m.meta"
+    meta.write_text(gm + "\n")
+    for cli, argv in ((ppalign, ["-M", str(meta), "-I", gm]),
+                      (ppspline, ["-d", gm]), (ppgauss, ["-d", gm])):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            cli.main(argv)
+    with pytest.raises(RuntimeError):
+        align_archives([gm], gm)
+    with pytest.raises(RuntimeError):
+        DataPortrait(gm)
+    with pytest.raises(RuntimeError):
+        lm_solve(lambda x: x, np.zeros(2))
