@@ -81,11 +81,30 @@ Phases, one JSON line each on stdout; any failure exits non-zero:
               template's phase zero and DM reference (the model's own
               offsets against the template, a fit of one noiseless
               portrait to the other, are added to each TOA)
+  walkthrough examples/example.py through the port at full width: 5
+              scintillated, dispersed epochs of 10 x 512 x 2048 (noise
+              1.5, own seeds, dDM ~ N(3e-4, 2e-4), the spin perturbation
+              dF0 2e-9 Hz, dF1 4e-17 Hz/s injected as phase) -> align
+              (niter 1) -> spline model -> wideband TOAs -> .tim -> the
+              DMDATA 1 + DMX GLS fit of F0 and F1: example.py's own DM
+              and GLS criteria, K1 and K2 launched, the pptoas step rerun
+              with the plain versions (1 ns); seconds per step and in
+              load_data, the GLS's wrms and reduced chi2
+  synth       make_fake_dataset (B11) making the throughput data on the
+              card: seconds, bound, peak device memory
   throughput  fit_portrait_full_batch(init_params=None) at 1000 x 512 x
-              2048 (data made on the card from a seeded torch.Generator;
-              the phases seeded through K2): TOAs/s, K1 launches, K1 ms
+              2048 (data made on the card by the port's make_fake_dataset
+              at phases and dDMs from a seeded torch.Generator; the
+              phases seeded through K2): TOAs/s, K1 launches, K1 ms
               per launch (torch.profiler, a separate run), peak device
               memory
+  noise_fit   get_noise_fit (B10) on the first 256 subints of the
+              throughput data (131,072 channels, three zeroed in every
+              subint): ms, bound, extra peak memory; the Wiener and
+              brickwall smoothing of one subint's 512 profiles; that
+              subint against the port on the CPU (k_crit and brickwall
+              cutoffs equal, noise within 1e-12 relative, zeroed
+              channels 0)
   throughput_scat  the north-star scattering fit at 1000 x 512 x 2048:
               tau 3e-3 rot at nu0, alpha -4, started at 1.5 x tau,
               flags (1,1,0,1,1), log10 tau, nu_fits = nu_outs = nu0,
@@ -95,7 +114,7 @@ Phases, one JSON line each on stdout; any failure exits non-zero:
 Then a ``kernels`` line (every hand kernel with its launches on its
 paths — K1 and K2 on pptoas, K3 on pptoas_scat, each plus the narrowband,
 narrowband_scat, templates and ppzap runs, K1 and K2 also on ppalign,
-ppspline and ppgauss, with ``launches_by_path`` —
+ppspline, ppgauss and the walkthrough, with ``launches_by_path`` —
 errors and times; K2 with
 its [1000, 1025] numbers and K3 with its [1000, 512, 128] ones, each with a
 ``shapes`` list of all its cases), the card's name and power limit, and
@@ -1553,6 +1572,197 @@ def phase_ppgauss(root, work, K, dev, avg, small):
     return {name: launches[name] + toas["launches"][name]
             for name in launches}
 
+
+# examples/example.py's walkthrough: epochs, their first MJD and spacing,
+# the injected spin perturbation (dF0 [Hz], dF1 [Hz/s], referred to the
+# par's PEPOCH) and the DMX range of its GLS fit [days]
+WALK_EPOCHS, WALK_MJD0, WALK_DAYS = 5, 57202.0, 20.0
+WALK_DF0, WALK_DF1, WALK_DMX = 2e-9, 4e-17, 6.5
+
+
+def walkthrough_inputs(root, work, shape):
+    """examples/example.py's fake epochs, written by the port's
+    make_fake_pulsar: WALK_EPOCHS epochs of ``shape`` (nsub, nchan,
+    nbin), scintillated, dispersed, noise 1.5, each with its own seed,
+    dDM ~ N(3e-4, 2e-4) from default_rng(42) and the spin perturbation
+    injected as phase.  Returns (metafile, archive paths, injected
+    dDMs)."""
+    import numpy as np
+
+    from pulseportraiture_tpu_torch.io.archive import make_fake_pulsar
+    from pulseportraiture_tpu_torch.io.parfile import read_par
+    from pulseportraiture_tpu_torch.utils.mjd import MJD
+
+    gm = os.path.join(root, "examples", "example.gmodel")
+    par = os.path.join(root, "examples", "example.par")
+    nsub, nchan, nbin = shape
+    dDMs = np.random.default_rng(42).normal(3e-4, 2e-4, WALK_EPOCHS)
+    dts = (WALK_MJD0 + np.arange(WALK_EPOCHS) * WALK_DAYS
+           - float(read_par(par).PEPOCH)) * 86400.0
+    phases = WALK_DF0 * dts + 0.5 * WALK_DF1 * dts ** 2
+    files = [make_fake_pulsar(
+        gm, par, os.path.join(work, "walk-%d.fits" % (i + 1)), nsub=nsub,
+        nchan=nchan, nbin=nbin, nu0=1500.0, bw=800.0, tsub=60.0,
+        phase=float(phases[i] % 1.0), dDM=float(dDMs[i]),
+        start_MJD=MJD.from_mjd(WALK_MJD0 + i * WALK_DAYS),
+        noise_stds=1.5, dedispersed=False, scint=True, seed=i)
+        for i in range(WALK_EPOCHS)]
+    meta = os.path.join(work, "walk.meta")
+    with open(meta, "w") as f:
+        f.write("\n".join(files) + "\n")
+    return meta, files, dDMs
+
+
+def walkthrough_run(root, work, meta, files, device):
+    """examples/example.py through the port, step for step: align (niter
+    1, tscrunch, pscrunch) -> spline model (max_ncomp 3, smooth,
+    snr_cutoff 150, rchi2_tol 0.1, k 3, sfac 1) -> wideband TOAs (DM0 the
+    par's, no barycentring) -> .tim -> GLS on the ephemeris with DMDATA 1,
+    DMX and F0/F1 fitted (walk-fit.par).
+    Returns dict(walls per step, gt, tim, spl, gls)."""
+    from pulseportraiture_tpu_torch.io.parfile import read_par, write_par
+    from pulseportraiture_tpu_torch.io.timfile import write_TOAs
+    from pulseportraiture_tpu_torch.models.spline import SplineModelPortrait
+    from pulseportraiture_tpu_torch.pipelines.align import align_archives
+    from pulseportraiture_tpu_torch.pipelines.timing import (
+        parse_tim, wideband_gls_fit)
+    from pulseportraiture_tpu_torch.pipelines.toas import GetTOAs
+
+    par = os.path.join(root, "examples", "example.par")
+    avg = os.path.join(work, "walk.port")
+    spl = os.path.join(work, "walk-fit.spl")
+    tim = os.path.join(work, "walk.tim")
+    walls = {}
+    t0 = time.perf_counter()
+    align_archives(meta, initial_guess=files[0], tscrunch=True,
+                   pscrunch=True, outfile=avg, niter=1, quiet=True,
+                   device=device)
+    walls["align"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    dp = SplineModelPortrait(avg, quiet=True, device=device)
+    dp.normalize_portrait("prof")
+    dp.make_spline_model(max_ncomp=3, smooth=True, snr_cutoff=150.0,
+                         rchi2_tol=0.1, k=3, sfac=1.0, quiet=True)
+    dp.write_model(spl, quiet=True)
+    walls["spline"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    gt = GetTOAs(meta, spl, quiet=True, device=device)
+    gt.get_TOAs(DM0=float(read_par(par).DM), bary=False)
+    write_TOAs(gt.TOA_list, SNR_cutoff=0.0, outfile=tim, append=False)
+    walls["toas"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    fields = dict(read_par(par).items())
+    fields.pop("fit_flags", None)
+    fields.pop("uncertainties", None)
+    fields.update(DMDATA=1, DMX=WALK_DMX)
+    fields.setdefault("F1", 0.0)
+    fit_par = os.path.join(work, "walk-fit.par")
+    write_par(fit_par, fields, fit_flags={"F0": 1, "F1": 1}, quiet=True)
+    gls = wideband_gls_fit(parse_tim(tim), fit_par)
+    walls["gls"] = time.perf_counter() - t0
+    return dict(walls=walls, gt=gt, tim=tim, spl=spl, gls=gls)
+
+
+def walkthrough_criteria(gt, gls, dDMs):
+    """example.py's own pass criteria: the DM offsets relative to their
+    mean within 5 sigma + 1e-5 of the injections; the GLS's dF0 and dF1
+    within 5 sigma of theirs and its DMX wander within 5 sigma + 2e-5.
+    Returns (dict of the compared values, passed)."""
+    import numpy as np
+
+    dDM_fit = np.array(gt.DeltaDM_means)
+    dDM_err = np.array(gt.DeltaDM_errs)
+    diff = dDMs[np.asarray(gt.ok_idatafiles)] - dDM_fit
+    rel = diff - diff.mean()
+    ok_dm = bool(np.all(np.abs(rel) < 5 * dDM_err + 1e-5))
+    p, e = gls["params"], gls["errors"]
+    ok_spin = bool(abs(p["dF0_hz"] - WALK_DF0) < 5 * e["dF0_hz"]
+                   and abs(p["dF1_hz_s"] - WALK_DF1) < 5 * e["dF1_hz_s"])
+    dmx = np.array([d["dDM"] for d in gls["dmx"]])
+    dmx_err = np.array([d["err"] for d in gls["dmx"]])
+    ok_dmx = len(dmx) == len(dDMs) and bool(np.all(
+        np.abs((dmx - dmx.mean()) - (dDMs - dDMs.mean()))
+        < 5 * dmx_err + 2e-5))
+    out = dict(
+        dDM_injected=dDMs.tolist(), dDM_fit=dDM_fit.tolist(),
+        dDM_err=dDM_err.tolist(),
+        max_abs_rel_dDM_over_err=float(np.max(np.abs(rel) / dDM_err)),
+        dF0=[p["dF0_hz"], e["dF0_hz"], WALK_DF0],
+        dF1=[p["dF1_hz_s"], e["dF1_hz_s"], WALK_DF1],
+        dmx_rel_fit=(dmx - dmx.mean()).tolist(),
+        dmx_rel_injected=(dDMs - dDMs.mean()).tolist(),
+        dmx_err=dmx_err.tolist(), ok_dm=ok_dm, ok_spin=ok_spin,
+        ok_dmx=ok_dmx)
+    return out, ok_dm and ok_spin and ok_dmx
+
+
+def phase_walkthrough(root, work, K, dev, shape=(10, 512, 2048)):
+    """examples/example.py end to end through the port at full width
+    (WALK_EPOCHS epochs of ``shape``): its DM and GLS criteria, K1 and K2
+    launched and held against their plain versions on the first inputs
+    the path gave them, the pptoas step rerun with the plain versions
+    (1 ns).  Returns the launches of the walkthrough's run."""
+    import numpy as np
+
+    from pulseportraiture_tpu_torch import dataportrait
+    from pulseportraiture_tpu_torch.io.timfile import write_TOAs
+    from pulseportraiture_tpu_torch.io.parfile import read_par
+    from pulseportraiture_tpu_torch.pipelines import align, toas
+    from pulseportraiture_tpu_torch.pipelines.toas import GetTOAs
+
+    t0 = time.perf_counter()
+    meta, files, dDMs = walkthrough_inputs(root, work, shape)
+    t_make = time.perf_counter() - t0
+    K.reset_launches()
+    with clocked(align, ("load_data",)) as c1, \
+            clocked(dataportrait, ("load_data",)) as c2, \
+            clocked(toas, ("load_data",)) as c3, \
+            first_kernel_inputs(K) as seen:
+        run = walkthrough_run(root, work, meta, files, dev)
+    launches = dict(K.LAUNCHES)
+    vs_plain = path_kernels_vs_plain(K, seen)
+    del seen
+    loads = c1["load_data"] + c2["load_data"] + c3["load_data"]
+    gls, gt = run["gls"], run["gt"]
+    crit, ok = walkthrough_criteria(gt, gls, dDMs)
+
+    plain_tim = os.path.join(work, "walk_plain.tim")
+    with plain_kernels(K):
+        gp = GetTOAs(meta, run["spl"], quiet=True, device=dev)
+        gp.get_TOAs(DM0=float(read_par(os.path.join(
+            root, "examples", "example.par")).DM), bary=False)
+    write_TOAs(gp.TOA_list, SNR_cutoff=0.0, outfile=plain_tim, append=False)
+    kern, plain = read_tim(run["tim"]), read_tim(plain_tim)
+    dt_ns = max_dt_ns(kern, plain)
+    emit("walkthrough", epochs=len(files), archive=list(shape),
+         make_s=t_make, step_s=run["walls"],
+         load_data_s=sum(loads), n_loads=len(loads), launches=launches,
+         n_toas=len(kern), gls=dict(
+             ntoa=gls["ntoa"], n_dmx=len(gls["dmx"]),
+             prefit_wrms_us=gls["prefit_wrms_us"],
+             postfit_wrms_us=gls["postfit_wrms_us"],
+             red_chi2=gls["red_chi2"]),
+         criteria=crit, kernels_vs_plain=vs_plain,
+         plain_vs_kernel_max_ns=dt_ns)
+    if len(kern) != len(files) * shape[0] or len(plain) != len(kern):
+        raise AssertionError("walkthrough: %d TOAs (plain run %d), want %d"
+                             % (len(kern), len(plain),
+                                len(files) * shape[0]))
+    if not ok:
+        raise AssertionError("walkthrough: example.py's criteria failed: "
+                             "DM %s, spin %s, DMX %s" % (
+                                 crit["ok_dm"], crit["ok_spin"],
+                                 crit["ok_dmx"]))
+    if not dt_ns < 1.0:
+        raise AssertionError("walkthrough: plain vs kernel TOAs differ by "
+                             "%.3g ns" % dt_ns)
+    if launches["moments"] == 0 or launches["fftfit"] == 0:
+        raise AssertionError("walkthrough launched %s" % launches)
+    if not np.isfinite([gls["postfit_wrms_us"], gls["red_chi2"]]).all():
+        raise AssertionError("walkthrough: GLS %s" % gls)
+    return launches
+
+
 def profile_cli(argv, outdir):
     """Where the pptoas CLI's wall time goes: host functions (cProfile,
     one run) and device time by kernel (torch.profiler, another run).
@@ -1651,42 +1861,55 @@ def kernel_device_ms(fn, K):
     return kernel_times(prof, K), profile_
 
 
-def north_star_data(dev, model, freqs, nu0, seed, nsub=1000):
-    """``nsub`` subints of ``model`` at seeded phases and dDMs, plus
-    noise, made on the card: (data, phis, dDMs)."""
+def north_star_data(dev, seed, nsub=1000, nchan=512, nbin=2048,
+                    t_scat=0.0):
+    """The north-star data, made on the card by the port's
+    make_fake_dataset (B11): ``nsub`` subints of MODEL_PARAMS across
+    1300-1700 MHz at phases and dDMs drawn from a seeded generator,
+    noise NOISE, scattered by ``t_scat`` [s].  Returns (subints, freqs,
+    nu_ref, injected phases, injected dDMs, the model portrait, make
+    seconds, peak device bytes while making, of them above what was
+    allocated before)."""
     import torch
 
-    from pulseportraiture_tpu_torch.ops.fourier import rotate_data
+    from pulseportraiture_tpu_torch.ops.fourier import get_bin_centers
+    from pulseportraiture_tpu_torch.ops.profiles import gen_gaussian_portrait
+    from pulseportraiture_tpu_torch.pipelines.synth import make_fake_dataset
 
-    nchan, nbin = model.shape
     gen = torch.Generator(device=dev).manual_seed(seed)
     phis = (torch.rand(nsub, generator=gen, device=dev,
                        dtype=torch.float64) - 0.5) * 0.8
     dDMs = (torch.rand(nsub, generator=gen, device=dev,
                        dtype=torch.float64) - 0.5) * 4e-3
-    data = torch.empty((nsub, nchan, nbin), dtype=torch.float64, device=dev)
-    for i in range(0, nsub, 100):
-        s = slice(i, i + 100)
-        data[s] = rotate_data(model.expand(len(phis[s]), nchan, nbin),
-                              -phis[s][:, None], -dDMs[s][:, None], P0,
-                              freqs, nu0)
-        data[s] += NOISE * torch.randn(data[s].shape, generator=gen,
-                                       device=dev, dtype=torch.float64)
-    return data, phis, dDMs
-
-
-def north_star_model(dev, nchan=512, nbin=2048):
-    import torch
-
-    from pulseportraiture_tpu_torch.ops.fourier import get_bin_centers
-    from pulseportraiture_tpu_torch.ops.profiles import gen_gaussian_portrait
-
-    freqs = torch.linspace(1300.0, 1700.0, nchan, dtype=torch.float64,
-                           device=dev) + 400.0 / nchan / 2
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    ds = make_fake_dataset(gen, MODEL_PARAMS, nsub=nsub, nchan=nchan,
+                           nbin=nbin, lofreq=1300.0, bw=400.0, P=P0,
+                           phases=phis, dDMs=dDMs, noise_std=NOISE,
+                           t_scat=t_scat, device=dev)
+    torch.cuda.synchronize()
+    t_make = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
     model = gen_gaussian_portrait("000", MODEL_PARAMS, -4.0,
-                                  get_bin_centers(nbin), freqs, 1500.0,
+                                  get_bin_centers(nbin), ds.freqs, ds.nu_ref,
                                   device=dev)
-    return model, freqs, float(freqs.mean())
+    out = (ds.subints, ds.freqs, ds.nu_ref, ds.phases_inj, ds.dDMs_inj,
+           model, t_make, peak, peak - base)
+    # a DataBunch refers to itself (attribute access), so only the cyclic
+    # collector would free it: empty it, and the 8.4 GB go with the caller
+    ds.clear()
+    return out
+
+
+def synth_bound_ms(nsub, nchan, nbin):
+    """make_fake_dataset's least time: its output written once, against
+    one rFFT and one irFFT (2.5 n log2 n each) and the phasor per
+    (subint, channel) row."""
+    rows = nsub * nchan
+    ops = rows * (5.0 * nbin * math.log2(nbin) + 8.0 * (nbin // 2 + 1))
+    return bound_ms(rows * nbin * 8, (ops, PEAK_FP64_PER_S))
 
 
 def phase_throughput(dev, K):
@@ -1699,11 +1922,18 @@ def phase_throughput(dev, K):
         fit_portrait_full_batch, model_kmax)
 
     nsub, nchan, nbin = 1000, 512, 2048
-    model, freqs, nu0 = north_star_model(dev, nchan, nbin)
+    data, freqs, nu0, phis, dDMs, model, t_make, make_peak, make_extra = \
+        north_star_data(dev, 0, nsub, nchan, nbin)
     kmax = model_kmax(model)
-    data, phis, dDMs = north_star_data(dev, model, freqs, nu0, 0)
     errs = torch.full((nsub, nchan), NOISE, dtype=torch.float64, device=dev)
     torch.cuda.synchronize()
+    b11_bound, b11_by = synth_bound_ms(nsub, nchan, nbin)
+    emit("synth", shape=[nsub, nchan, nbin], make_s=t_make,
+         ms=t_make * 1e3, bound_ms=b11_bound, bound_by=b11_by,
+         share_of_bound=b11_bound / (t_make * 1e3),
+         peak_device_bytes=int(make_peak),
+         peak_above_prior_bytes=int(make_extra),
+         output_bytes=int(data.numel() * 8))
 
     def run():
         return fit_portrait_full_batch(
@@ -1752,6 +1982,94 @@ def phase_throughput(dev, K):
         raise AssertionError("north-star fit did not recover the injection")
     if launches["moments"] == 0 or launches["fftfit"] == 0:
         raise AssertionError("throughput fit launched %s" % launches)
+    del out, errs
+    phase_noise_fit(data[:256])
+    return res
+
+
+NOISE_ZEROED = (7, 102, 341)   # channels zeroed in the noise_fit cube
+
+
+def noise_fit_bound_ms(rows, nbin, Ns=20):
+    """get_noise_fit's least time over ``rows`` profiles of ``nbin``: the
+    cube read once, against per row one rFFT (2.5 n log2 n), the power,
+    the [nharm] x [nharm, Ns] shape product and the Ns^3 grid (3 adds and
+    a compare per point)."""
+    nharm = nbin // 2 + 1
+    ops = rows * (2.5 * nbin * math.log2(nbin) + 3 * nharm
+                  + 2 * nharm * Ns + 4 * Ns ** 3)
+    return bound_ms(rows * nbin * 8 + rows * 8, (ops, PEAK_FP64_PER_S))
+
+
+def phase_noise_fit(cube):
+    """The "fit" noise estimators on the card (B10): get_noise_fit on the
+    channels of ``cube`` [nsub, nchan, nbin] with NOISE_ZEROED zeroed in
+    every subint (time, peak memory, bound), the Wiener and brickwall
+    filters on one subint's profiles; the first subint held against the
+    port on the CPU (k_crit equal, noise within 1e-12 relative, the
+    filters within 1e-12 of their peak, zeroed channels 0)."""
+    import torch
+
+    from pulseportraiture_tpu_torch import _kernels as K
+    from pulseportraiture_tpu_torch.ops import noise
+
+    nsub, nchan, nbin = cube.shape
+    cube[:, list(NOISE_ZEROED)] = 0.0
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    sig = noise.get_noise_fit(cube)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() - base
+    ms = cuda_ms(lambda: noise.get_noise_fit(cube), reps=3, warm=0)
+    bound, by = noise_fit_bound_ms(nsub * nchan, nbin)
+    _, profiled = kernel_device_ms(lambda: noise.get_noise_fit(cube), K)
+
+    sub = cube[0]
+    host = sub.cpu()
+    pows = noise._power(sub)[1]
+    kc_card = noise.find_kc(pows).cpu()
+    kc_cpu = noise.find_kc(noise._power(host)[1])
+    n_card, n_cpu = sig[0].cpu(), noise.get_noise_fit(host)
+    ok = n_cpu != 0
+    noise_rel = float(((n_card - n_cpu).abs()[ok] / n_cpu[ok]).max())
+    ps = noise.get_noise(sub)[:, None]
+    wiener_ms = cuda_ms(lambda: noise.wiener_smooth(sub, ps), reps=5)
+    brick_ms = cuda_ms(lambda: noise.wiener_smooth(sub, ps, brickwall=True),
+                       reps=5)
+    smooth = noise.wiener_smooth(sub, ps, brickwall=True).cpu()
+    smooth_cpu = noise.wiener_smooth(host, ps.cpu(), brickwall=True)
+    smooth_gap = rel_err(smooth, smooth_cpu)
+    bw_card = noise.fit_brickwall(sub, ps).cpu()
+    bw_cpu = noise.fit_brickwall(host, ps.cpu())
+    wb_bound, wb_by = bound_ms(2 * sub.numel() * 8, (
+        nchan * 5.0 * nbin * math.log2(nbin), PEAK_FP64_PER_S))
+    kc_counts = torch.unique(kc_card, return_counts=True)
+    res = dict(shape=[nsub, nchan, nbin], channels=nsub * nchan,
+               zeroed_channels=list(NOISE_ZEROED), first_call_s=first_s,
+               ms=ms, bound_ms=bound, bound_by=by, share_of_bound=bound / ms,
+               peak_extra_device_bytes=int(peak),
+               k_crit_counts={int(k): int(c) for k, c in zip(*kc_counts)},
+               cpu_check=dict(
+                   channels=nchan,
+                   k_crit_mismatches=int((kc_card != kc_cpu).sum()),
+                   noise_max_rel_err=noise_rel,
+                   zeroed_noise=n_card[list(NOISE_ZEROED)].tolist(),
+                   brickwall_kc_mismatches=int((bw_card != bw_cpu).sum()),
+                   wiener_brickwall_smooth_rel_err=smooth_gap),
+               wiener_smooth_ms=wiener_ms, brickwall_smooth_ms=brick_ms,
+               filters_bound_ms=wb_bound, filters_bound_by=wb_by,
+               filters_shape=[nchan, nbin], profiled=profiled)
+    emit("noise_fit", **res)
+    c = res["cpu_check"]
+    if c["k_crit_mismatches"] or c["brickwall_kc_mismatches"] or \
+            not noise_rel <= 1e-12 or not smooth_gap <= 1e-12 or \
+            any(v != 0.0 for v in c["zeroed_noise"]) or \
+            not bool(torch.isfinite(sig).all()):
+        raise AssertionError("noise_fit: the card disagrees with the CPU: "
+                             "%s" % c)
     return res
 
 
@@ -1762,18 +2080,11 @@ def phase_throughput_scat(dev, K):
 
     from pulseportraiture_tpu_torch.fit.portrait import (
         fit_portrait_full_batch, model_kmax)
-    from pulseportraiture_tpu_torch.ops.scattering import (
-        scattering_portrait_FT, scattering_times)
 
     nsub, nchan, nbin = 1000, 512, 2048
-    model, freqs, nu0 = north_star_model(dev, nchan, nbin)
+    data, freqs, nu0, phis, dDMs, model = north_star_data(
+        dev, 3, nsub, nchan, nbin, t_scat=TAU_INJ * P0)[:6]
     kmax = model_kmax(model)
-    spFT = scattering_portrait_FT(scattering_times(TAU_INJ, -4.0, freqs, nu0),
-                                  nbin)
-    smodel = torch.fft.irfft(spFT * torch.fft.rfft(model, dim=-1), n=nbin,
-                             dim=-1)
-    data, phis, dDMs = north_star_data(dev, smodel, freqs, nu0, 3)
-    del smodel, spFT
     errs = torch.full((nsub, nchan), NOISE, dtype=torch.float64, device=dev)
     init = torch.zeros((nsub, 5), dtype=torch.float64, device=dev)
     init[:, 0], init[:, 1] = phis, dDMs
@@ -1879,19 +2190,20 @@ def main(argv):
         by_path["ppalign"], avg = phase_ppalign(root, work, K, dev)
         by_path["ppspline"] = phase_ppspline(root, work, K, dev, avg, small)
         by_path["ppgauss"] = phase_ppgauss(root, work, K, dev, avg, small)
+        by_path["walkthrough"] = phase_walkthrough(root, work, K, dev)
     finally:
         shutil.rmtree(work, ignore_errors=True)
     phase_throughput(dev, K)
     phase_throughput_scat(dev, K)
     # K1's and K2's main path is pptoas, K3's pptoas_scat (their own
     # fit-flag groups), each with the later paths; K1 and K2 also with the
-    # template builders
+    # template builders and the walkthrough
     own = dict(moments="pptoas", fftfit="pptoas",
                moments_scat="pptoas_scat")
     paths = {name: [own[name], "narrowband", "narrowband_scat",
                     "templates", "ppzap"] for name in own}
     for name in ("moments", "fftfit"):
-        paths[name] += ["ppalign", "ppspline", "ppgauss"]
+        paths[name] += ["ppalign", "ppspline", "ppgauss", "walkthrough"]
     launches = {name: sum(by_path[p][name] for p in paths[name])
                 for name in own}
 

@@ -44,6 +44,7 @@ import torch
 
 from .. import _kernels
 from ..config import Dconst, F0_fact, real_dtype, resolve_device
+from ..debug import check_fit_result
 from ..ops.fourier import ipow
 from ..ops.noise import get_noise
 from ..ops.scattering import (scattering_times, scattering_times_2deriv,
@@ -915,10 +916,11 @@ def fit_portrait_full_batch(data_ports, model_ports, init_params, Ps,
             freqs[s], errs[s], weights[s], nu_fits_b[s], nu_outs_b[s],
             nu_outs_mask, flags, lo, hi, int(max_iter), int(kmax),
             bool(log10_tau), scat, int(option), bool(is_toa)))
-    if len(outs) == 1:
-        return DataBunch(**outs[0])
-    return DataBunch(**{k: torch.cat([o[k] for o in outs])
-                        for k in RESULT_KEYS})
+    out = DataBunch(**outs[0]) if len(outs) == 1 else DataBunch(
+        **{k: torch.cat([o[k] for o in outs]) for k in RESULT_KEYS})
+    # opt-in NaN hook (PPTPU_SANITIZE): fail at the fit that produced a
+    # non-finite solution, not pipelines later
+    return check_fit_result(out, where="fit_portrait_full_batch")
 
 
 def fit_portrait_full(data_port, model_port, init_params, P, freqs,
@@ -947,7 +949,8 @@ def fit_portrait_full(data_port, model_port, init_params, P, freqs,
         nu_outs=tuple(nu_outs), bounds=bounds, log10_tau=log10_tau,
         max_iter=max_iter, kmax=kmax, option=option, is_toa=is_toa,
         device=device)
-    return DataBunch(**{k: v[0] for k, v in out.items()})
+    return check_fit_result(DataBunch(**{k: v[0] for k, v in out.items()}),
+                            where="fit_portrait_full")
 
 
 def get_scales_full(params, data_port, model_port, P, freqs, nu_DM, nu_GM,

@@ -1,6 +1,13 @@
-"""Small batched solves: float32 LU + float64 iterative refinement.
+"""Small batched solves: unrolled Cholesky, and float32 LU + float64
+iterative refinement.
 
-Port of the JAX package's ``fit/smallsolve.py``: the same arithmetic —
+Port of the JAX package's ``fit/smallsolve.py``.  ``chol_factor``,
+``chol_solve``, ``solve_sym`` and ``inv_sym`` unroll the Cholesky
+factorization over the (static, tiny) n as elementwise ops batched over
+the leading dimensions; a non-positive-definite input gives NaN (the
+square root of a negative pivot), as in the reference.
+
+``solve_refined`` and ``inv_refined`` keep the reference's arithmetic —
 one float32 LU, then two float64 refinement passes — so that the solver's
 accept/reject decisions match the reference's.  The ``_ex`` variants are
 used on purpose: ``torch.linalg.lu_factor`` raises on a zero pivot,
@@ -18,7 +25,56 @@ it and raises its damping, exactly as in the reference.
 
 import torch
 
-__all__ = ["solve_refined", "inv_refined"]
+__all__ = ["chol_factor", "chol_solve", "solve_sym", "inv_sym",
+           "solve_refined", "inv_refined"]
+
+
+def chol_factor(A):
+    """Lower-triangular Cholesky factor of symmetric A [..., n, n]."""
+    n = A.shape[-1]
+    L = [[None] * n for _ in range(n)]
+    for i in range(n):
+        for j in range(i + 1):
+            s = A[..., i, j]
+            for p in range(j):
+                s = s - L[i][p] * L[j][p]
+            L[i][j] = torch.sqrt(s) if i == j else s / L[j][j]
+    zero = torch.zeros_like(A[..., 0, 0])
+    return torch.stack([torch.stack([L[i][j] if j <= i else zero
+                                     for j in range(n)], dim=-1)
+                        for i in range(n)], dim=-2)
+
+
+def chol_solve(L, b):
+    """x with A x = b, given L = chol_factor(A); b [..., n]."""
+    n = L.shape[-1]
+    y = [None] * n
+    for i in range(n):                   # forward substitution: L y = b
+        s = b[..., i]
+        for p in range(i):
+            s = s - L[..., i, p] * y[p]
+        y[i] = s / L[..., i, i]
+    x = [None] * n
+    for i in reversed(range(n)):         # back substitution: L^T x = y
+        s = y[i]
+        for p in range(i + 1, n):
+            s = s - L[..., p, i] * x[p]
+        x[i] = s / L[..., i, i]
+    return torch.stack(x, dim=-1)
+
+
+def solve_sym(A, b):
+    """x = A^-1 b for symmetric (positive-definite) A [..., n, n]."""
+    return chol_solve(chol_factor(A), b)
+
+
+def inv_sym(A):
+    """Inverse of symmetric (positive-definite) A [..., n, n]."""
+    n = A.shape[-1]
+    L = chol_factor(A)
+    eye = torch.eye(n, dtype=A.dtype, device=A.device)
+    return torch.stack([chol_solve(L, torch.broadcast_to(
+        eye[i], A.shape[:-2] + (n,))) for i in range(n)], dim=-1)
 
 
 def _f32(x):

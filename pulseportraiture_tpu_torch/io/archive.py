@@ -179,18 +179,28 @@ def make_fake_pulsar(modelfile, ephemeris, outfile="fake_pulsar.fits",
                      bw=800.0, tsub=300.0, phase=0.0, dDM=0.0,
                      start_MJD=None, weights=None, noise_stds=1.0,
                      scales=1.0, dedispersed=False, t_scat=0.0,
-                     alpha=-4.0, state="Stokes", telescope="GBT",
+                     alpha=-4.0, scint=False, xs=None, Cs=None,
+                     nu_DM=np.inf, state="Stokes", telescope="GBT",
                      frontend="unknown", seed=0, quiet=True):
     """Generate a fake-pulsar PSRFITS archive from a .gmodel file.
 
-    File-producing equivalent of pplib.py:3189-3384 (no
-    scintillation or non-nu**-2 dispersion laws yet).  The noise comes
-    from ``numpy.random.default_rng(seed)``, one (npol, nchan, nbin)
-    draw per subint in order — so the first n subints of an archive do
-    not depend on ``nsub``, and the files differ from the JAX package's
-    (which draws from jax.random).  The array math runs on CPU tensors.
+    File-producing equivalent of pplib.py:3189-3384.  ``scint`` True
+    scintillates each subint with three random triplets (amax 1, wmax 5);
+    a list gives the flat triplets for every subint.  ``xs`` (with
+    ``Cs``, which must then be given, as in the JAX package) injects the
+    (phase, dDM) rotation through the power-law dispersion law of
+    ``add_DM_nu`` referred to ``nu_DM``, in place of the nu**-2 rotation.
+    The random numbers come from ``numpy.random.default_rng(seed)``: per
+    subint in order, the scintillation triplets (with ``scint=True``),
+    then one (npol, nchan, nbin) noise draw — so the first n subints of
+    an archive do not depend on ``nsub``, and the files differ from the
+    JAX package's (which draws from jax.random).  The array math runs on
+    CPU tensors.
     """
+    from ..config import Dconst
+    from ..ops.fourier import add_DM_nu
     from ..ops.scattering import scattering_portrait_FT, scattering_times
+    from ..pipelines.synth import add_scintillation, scintillation_params
     from .parfile import read_par
 
     chanwidth = bw / nchan
@@ -235,6 +245,10 @@ def make_fake_pulsar(modelfile, ephemeris, outfile="fake_pulsar.fits",
     if weights is None:
         weights = np.ones([nsub, nchan])
 
+    if xs is not None and Cs is None:
+        # the JAX package fails here too (jnp.asarray(None))
+        raise ValueError("xs needs Cs: give the coefficient of each "
+                         "exponent")
     rng = np.random.default_rng(seed)
     data = np.zeros([nsub, npol, nchan, nbin])
     models = {}
@@ -243,6 +257,11 @@ def make_fake_pulsar(modelfile, ephemeris, outfile="fake_pulsar.fits",
         if P not in models:
             _, _, model = read_model(modelfile, phases_arr, freqs, P,
                                      quiet=True)
+            if xs is not None:
+                ph = phase + Dconst * (DM + dDM) * \
+                    (nu_DM ** -2 - nu0 ** -2) / P
+                model = add_DM_nu(model, -ph, -dDM, P, freqs, xs=xs, Cs=Cs,
+                                  nu_ref=nu_DM)
             model = model.numpy()
             if t_scat:
                 taus = scattering_times(t_scat / P, alpha, freqs, nu0)
@@ -250,8 +269,14 @@ def make_fake_pulsar(modelfile, ephemeris, outfile="fake_pulsar.fits",
                 model = np.fft.irfft(sp_FT * np.fft.rfft(model, axis=-1),
                                      nbin, axis=-1)
             models[P] = model
+        model = models[P]
+        if scint is not False:
+            params = scintillation_params(rng, nsin=3, amax=1.0, wmax=5.0) \
+                if scint is True else scint
+            model = add_scintillation(torch.as_tensor(model),
+                                      params=params).numpy()
         noise = rng.standard_normal((npol, nchan, nbin))
-        data[isub] = scales[:, None] * models[P][None] + \
+        data[isub] = scales[:, None] * model[None] + \
             noise * noise_stds[:, None]
 
     with open(ephemeris) as f:
@@ -264,8 +289,9 @@ def make_fake_pulsar(modelfile, ephemeris, outfile="fake_pulsar.fits",
                    bw=bw, ephemeris_text=ephem_text, polyco=polyco)
     # the model is built at its intrinsic (aligned) phases = the
     # dedispersed frame; inject the (phase, dDM) rotation one subint at
-    # a time (bounded memory), then store dispersed or dedispersed
-    if phase != 0.0 or dDM != 0.0:
+    # a time (bounded memory; with xs it is in the model already), then
+    # store dispersed or dedispersed
+    if (phase != 0.0 or dDM != 0.0) and xs is None:
         for isub in range(nsub):
             arch.data[isub] = rotate_data(
                 torch.as_tensor(arch.data[isub]), -phase, -dDM,

@@ -18,13 +18,26 @@ from .fourier import get_bin_centers, rotate_data
 from .scattering import (scattering_portrait_FT, scattering_profile_FT,
                          scattering_times)
 
-__all__ = ["FWHM_FACT", "gaussian_profile", "gen_gaussian_profile",
-           "gaussian_profile_FT",
+__all__ = ["FWHM_FACT", "gaussian_function", "gaussian_profile",
+           "gen_gaussian_profile", "gaussian_profile_FT",
+           "gaussian_portrait_FT",
            "power_law_evolution", "linear_evolution", "evolve_parameter",
            "gen_gaussian_portrait"]
 
 # FWHM = 2*sqrt(2*ln 2) * sigma
 FWHM_FACT = 2.0 * math.sqrt(2.0 * math.log(2.0))
+
+
+def gaussian_function(xs, loc, wid, norm=False):
+    """Gaussian of FWHM ``wid`` at ``loc`` evaluated at ``xs`` (peak 1, or
+    unit area with ``norm``; reference pplib.py:752-768)."""
+    xs = torch.as_tensor(xs, dtype=real_dtype)
+    sigma = wid / FWHM_FACT
+    zs = (xs - loc) / sigma
+    ys = torch.exp(-0.5 * zs ** 2)
+    if norm:
+        ys = ys * (sigma ** 2 * 2.0 * math.pi) ** -0.5
+    return ys
 
 
 def power_law_evolution(freqs, nu_ref, parameter, index):
@@ -175,3 +188,13 @@ def gen_gaussian_portrait(model_code, params, scattering_index, phases,
             gport[ichans], join_params[2 * ij], join_params[2 * ij + 1], P,
             freqs[ichans], nu_ref))
     return gport
+
+
+def gaussian_portrait_FT(model_code, params, scattering_index, nbin, freqs,
+                         nu_ref, device="cpu"):
+    """rFFT [nchan, nbin/2+1] of gen_gaussian_portrait's portrait (no join
+    groups): the model in the harmonic domain."""
+    port = gen_gaussian_portrait(model_code, params, scattering_index,
+                                 get_bin_centers(nbin, device=device),
+                                 freqs, nu_ref, device=device)
+    return torch.fft.rfft(port, dim=-1)

@@ -27,7 +27,10 @@ runs.  With the phasors of K1 and K3 taken in single precision (a wrong
 kernel) they read 3.7e-5 and 3.2e-5, 7.7e-9 and 2.44e-7, and the
 narrowband rc and nfeval differ; the zap lists stay equal, so only the
 chi2 bound catches that fault on the zap path.  The archives are written by the port's
-make_fake_pulsar.  Marked ``cuda``: they skip without a card.  This file
+make_fake_pulsar.  The "fit" noise estimators and make_fake_dataset
+are held to the port on the CPU: cutoffs equal, noise within 1e-12
+relative, synthetic portraits within 1e-12 of their peak.  Marked
+``cuda``: they skip without a card.  This file
 imports no JAX, so it runs on a machine without it:
 
     python -m pytest -m cuda --noconftest tests/test_torch_cuda_paths.py
@@ -280,3 +283,66 @@ def test_template_builders_kernels_match_plain(card, epochs):
     fin = np.isfinite(errs) & (errs > 0)
     assert np.all(np.abs(gauss[0].model_params - gauss[1].model_params)[fin]
                   <= 1e-6 * errs[fin])
+
+
+def _noise_profiles(nbin=2048, n=300, seed=8):
+    """Pulses of random height and width on white noise, white noise
+    alone, and three all-zero channels."""
+    rng = np.random.default_rng(seed)
+    ph = (np.arange(nbin) + 0.5) / nbin
+    x = rng.standard_normal((n, nbin))
+    x[:200] += rng.uniform(1.0, 50.0, (200, 1)) * np.exp(
+        -0.5 * ((ph - 0.4) / rng.uniform(0.002, 0.05, (200, 1))) ** 2)
+    x[[3, 150, n - 1]] = 0.0
+    return torch.as_tensor(x)
+
+
+@pytest.mark.parametrize("fn", ["exp_dc", "half_tri"])
+def test_noise_fit_card_matches_cpu(card, fn):
+    """find_kc, get_noise_fit and the brickwall cutoffs on the card
+    against the CPU on the same profiles: cutoffs equal (the first-index
+    choice on ties holds on both devices), noise within 1e-12 relative,
+    zeroed channels 0 on both."""
+    from pulseportraiture_tpu_torch.ops import noise
+
+    host = _noise_profiles()
+    dev = host.to(DEVICE)
+    assert torch.equal(noise.find_kc(noise._power(dev)[1], fn=fn).cpu(),
+                       noise.find_kc(noise._power(host)[1], fn=fn))
+    n_h = noise.get_noise_fit(host, fn=fn)
+    n_d = noise.get_noise_fit(dev, fn=fn).cpu()
+    assert torch.equal(n_h == 0, n_d == 0) and int((n_h == 0).sum()) == 3
+    ok = n_h != 0
+    assert float(((n_d - n_h).abs()[ok] / n_h[ok]).max()) <= 1e-12
+    ps = noise.get_noise(host)[:, None]
+    assert torch.equal(noise.fit_brickwall(dev, ps.to(DEVICE)).cpu(),
+                       noise.fit_brickwall(host, ps))
+
+
+def test_make_fake_dataset_card_matches_cpu(card, monkeypatch):
+    """make_fake_dataset on the card against the CPU: noiseless, with
+    explicit phases and dDMs, scattering and drawn scintillation (one
+    numpy seed on both devices), in blocks of 3 subints — within 1e-12 of
+    the peak; with noise, reproducible from the seed, of the asked
+    standard deviation."""
+    from pulseportraiture_tpu_torch.pipelines import synth
+
+    monkeypatch.setattr(synth, "BLOCK_BYTES", 3 * 128 * 1024 * 8)
+    rng = np.random.default_rng(2)
+    kw = dict(nsub=8, nchan=128, nbin=1024, P=0.004, t_scat=1e-4,
+              phases=rng.uniform(-0.4, 0.4, 8), dDMs=rng.normal(0, 1e-3, 8),
+              scint=True, noise_std=0.0)
+    MODEL = [0.0, 0.0, 0.35, -0.05, 0.05, 0.1, 1.0, -1.2]
+    host = synth.make_fake_dataset(torch.Generator().manual_seed(5), MODEL,
+                                   device="cpu", **kw)
+    dev = synth.make_fake_dataset(
+        torch.Generator(device=DEVICE).manual_seed(5), MODEL, device=DEVICE,
+        **kw)
+    want = host.subints
+    assert float((dev.subints.cpu() - want).abs().max()) <= \
+        1e-12 * float(want.abs().max())
+    clean, a, b = (synth.make_fake_dataset(
+        torch.Generator(device=DEVICE).manual_seed(6), MODEL, device=DEVICE,
+        **dict(kw, noise_std=sd)).subints for sd in (0.0, 0.3, 0.3))
+    assert torch.equal(a, b)
+    assert abs(float((a - clean).std()) - 0.3) < 0.01

@@ -241,3 +241,30 @@ def test_template_builders_walked_and_refuse_without_cuda(monkeypatch,
         DataPortrait(gm)
     with pytest.raises(RuntimeError):
         lm_solve(lambda x: x, np.zeros(2))
+
+
+def test_leftover_modules_walked_and_refuse_without_cuda(monkeypatch):
+    """The synthetic-data factory, the timing stage, the sanitizer and the
+    "fit" noise estimators are among the modules the import check walks;
+    the factory's entry points refuse to run without a CUDA device unless
+    asked for the CPU."""
+    import pkgutil
+
+    import pulseportraiture_tpu_torch
+    from pulseportraiture_tpu_torch.pipelines import synth
+
+    names = {m.name for m in pkgutil.walk_packages(
+        pulseportraiture_tpu_torch.__path__, "pulseportraiture_tpu_torch.")}
+    prefix = "pulseportraiture_tpu_torch."
+    assert {prefix + m for m in ("pipelines.synth", "pipelines.timing",
+                                 "debug", "ops.noise")} <= names
+    _no_cuda(monkeypatch)
+    model = [0.0, 0.0, 0.35, -0.05, 0.05, 0.1, 1.0, -1.2]
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        synth.make_fake_dataset(torch.Generator(), model, nsub=1, nchan=2,
+                                nbin=16)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        synth.make_fake_portrait(model, 2, 16, [1400.0, 1500.0], 0.004)
+    assert synth.make_fake_dataset(torch.Generator(), model, nsub=1,
+                                   nchan=2, nbin=16,
+                                   device="cpu").subints.shape == (1, 2, 16)
