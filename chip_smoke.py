@@ -105,11 +105,26 @@ Phases, one JSON line each on stdout; any failure exits non-zero:
               subint against the port on the CPU (k_crit and brickwall
               cutoffs equal, noise within 1e-12 relative, zeroed
               channels 0)
+  obs         the observability layer (obs/, testing/faults): pptoas on
+              the 16-subint archive with PPTPU_OBS_DIR and PPTPU_TRACE_DIR
+              (CLI walls with obs on and off, in turns), --fit_scat, ppalign
+              --niter 1 over two of the ppalign epochs (obs only), the
+              seeded throughput fit (1000 x 512 x 2048) captured in an obs
+              run (its time with obs on and off): every run directory and
+              its manifest (platform gpu, the card), one devtime event per
+              captured fit region (device total > 0 and within the
+              region's wall), each hand kernel's rows in the traces equal
+              to its launches over the region, the pp_seed / pp_solve /
+              pp_scatter stages, pps_device_peak_bytes equal to
+              max_memory_allocated, tools/obs_report.py on every run, and
+              a PPTPU_FAULTS="site:dispatch@nth=1" run raising the port's
+              InjectedFault
   throughput_scat  the north-star scattering fit at 1000 x 512 x 2048:
               tau 3e-3 rot at nu0, alpha -4, started at 1.5 x tau,
               flags (1,1,0,1,1), log10 tau, nu_fits = nu_outs = nu0,
               max_iter 30: TOAs/s, K3 launches and ms per launch, nfeval,
               return codes, tau recovery, peak device memory
+  failed_datafiles  no archive of any GetTOAs run failed on a device error
 
 Then a ``kernels`` line (every hand kernel with its launches on its
 paths — K1 and K2 on pptoas, K3 on pptoas_scat, each plus the narrowband,
@@ -1811,10 +1826,15 @@ def profile_cli(argv, outdir):
 
 def device_rows(prof):
     """(name, device seconds, count) of every device-side event (kernels,
-    copies) in a torch.profiler run."""
+    copies) in a torch.profiler run.  The solver's pp_* record_function
+    ranges (obs/devtime.py) show as device rows spanning their kernels:
+    they are not device work and are left out."""
+    from pulseportraiture_tpu_torch.obs.devtime import SCOPE_PREFIX
+
     rows = []
     for e in prof.key_averages():
-        if str(e.device_type).endswith("CUDA"):
+        if str(e.device_type).endswith("CUDA") and \
+                not e.key.startswith(SCOPE_PREFIX):
             dev_us = getattr(e, "self_device_time_total", None)
             if dev_us is None:
                 dev_us = e.self_cuda_time_total
@@ -2149,6 +2169,358 @@ def phase_throughput_scat(dev, K):
     return res
 
 
+# -- the observability layer (obs/, testing/faults) -------------------------
+
+def track_failed_datafiles():
+    """Keep the ``failed_datafiles`` list of every GetTOAs made from now
+    on (the CLIs' too); returns the list of those lists."""
+    from pulseportraiture_tpu_torch.pipelines import toas
+
+    lists = []
+    init = toas.GetTOAs.__init__
+
+    def tracked(self, *args, **kw):
+        init(self, *args, **kw)
+        lists.append(self.failed_datafiles)
+
+    toas.GetTOAs.__init__ = tracked
+    return lists
+
+
+# tools/obs_report.py reads a run through helpers of the JAX package's obs
+# layer (pulseportraiture_tpu.obs: list_event_files, quality, metrics,
+# flight, usage).  The smoke imports nothing of the JAX package, so its
+# subprocess serves those imports from the port's copies of the same
+# modules, then runs the unchanged script's main() on each run directory
+# and prints its exit code after the report.
+OBS_REPORT = """
+import runpy, sys
+sys.path.insert(0, %r)
+import pulseportraiture_tpu_torch as port
+import pulseportraiture_tpu_torch.obs
+sys.modules["pulseportraiture_tpu"] = port
+for name, mod in list(sys.modules.items()):
+    if name.startswith("pulseportraiture_tpu_torch.obs"):
+        sys.modules["pulseportraiture_tpu" + name[len(port.__name__):]] = mod
+tool = runpy.run_path(%r, run_name="obs_report")
+for run_dir in sys.argv[1:]:
+    rc = tool["main"]([run_dir])
+    print("%s %%s %%d" %% (run_dir, rc), flush=True)
+"""
+OBS_REPORT_RC = "obs_report exit code:"
+
+
+def obs_reports(root, run_dirs):
+    """{run dir: (exit code, report text)} of tools/obs_report.py, one
+    subprocess for all of them (exit code None where none was printed)."""
+    proc = subprocess.run(
+        [sys.executable, "-c", OBS_REPORT % (
+            root, os.path.join(root, "tools", "obs_report.py"),
+            OBS_REPORT_RC)] + list(run_dirs),
+        capture_output=True, text=True, timeout=600, cwd=root)
+    out, text = {}, []
+    for ln in proc.stdout.splitlines():
+        tok = ln.split()
+        if ln.startswith(OBS_REPORT_RC) and len(tok) >= 2:
+            out[tok[-2]] = (int(tok[-1]), "\n".join(text))
+            text = []
+        else:
+            text.append(ln)
+    for rd in run_dirs:
+        out.setdefault(rd, (None, "\n".join(text) + proc.stderr[-2000:]))
+    return out
+
+
+def obs_run_dir(base):
+    """The one run directory under an obs base directory."""
+    runs = [os.path.join(base, d) for d in sorted(os.listdir(base))]
+    if len(runs) != 1:
+        raise AssertionError("%d obs runs under %s, want 1" % (len(runs),
+                                                                base))
+    return runs[0]
+
+
+def obs_events(run_dir):
+    with open(os.path.join(run_dir, "events.jsonl")) as f:
+        return [json.loads(ln) for ln in f if ln.strip()]
+
+
+@contextlib.contextmanager
+def counted_captures(K, regions):
+    """Record, per obs.trace_capture region, the wall of its body and the
+    rise of every launch count over it (appended to ``regions``)."""
+    from pulseportraiture_tpu_torch import obs
+
+    capture = obs.trace_capture
+
+    @contextlib.contextmanager
+    def counted(name, base_dir=None):
+        with capture(name, base_dir=base_dir) as path:
+            before = dict(K.LAUNCHES)
+            t0 = time.perf_counter()
+            yield path
+            regions.append(dict(
+                region=name, wall_s=time.perf_counter() - t0,
+                launches={k: K.LAUNCHES[k] - before[k] for k in before}))
+
+    obs.trace_capture = counted
+    try:
+        yield
+    finally:
+        obs.trace_capture = capture
+
+
+def trace_kernel_counts(K, trace):
+    """{kernel name: its rows in a Chrome trace} for the hand kernels."""
+    from pulseportraiture_tpu_torch.obs import devtime
+
+    rows = [e["name"] for e in devtime.parse_chrome_trace(trace)
+            if e["cat"] == "kernel"]
+    return {name: sum(1 for r in rows if fn in r)
+            for name, fn in K.TRACE_NAMES.items()}
+
+
+@contextlib.contextmanager
+def environ(**kw):
+    """Set (str) or unset (None) environment variables for a block."""
+    saved = {k: os.environ.get(k) for k in kw}
+    for k, v in kw.items():
+        if v is None:
+            os.environ.pop(k, None)
+        else:
+            os.environ[k] = v
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def phase_obs(root, work, K, dev, small, fit_shape=(1000, 512, 2048)):
+    """The observability layer on the card: pptoas on the 16-subint
+    archive with PPTPU_OBS_DIR and PPTPU_TRACE_DIR (walls with obs on and
+    off, in turns), then --fit_scat, then ppalign --niter 1 over two
+    epochs (obs only), then the seeded throughput fit captured inside an
+    obs run (its time with obs on and off), then a PPTPU_FAULTS run.
+    Checks every run directory, one devtime event per captured fit region
+    (device total > 0 and within the region's wall), each hand kernel's
+    rows in the traces against its launches over the region, the pp_*
+    stages, pps_device_peak_bytes against max_memory_allocated, the
+    manifest's platform, tools/obs_report.py and the injected fault.
+    Returns the launches of its runs."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from pulseportraiture_tpu_torch import obs
+    from pulseportraiture_tpu_torch.cli import ppalign
+    from pulseportraiture_tpu_torch.fit.portrait import (
+        fit_portrait_full_batch, model_kmax)
+    from pulseportraiture_tpu_torch.testing import faults
+
+    gm = os.path.join(root, "examples", "example.gmodel")
+    base = os.path.join(work, "obs")
+    trace = os.path.join(work, "trace")
+    argv = ["-d", small, "-m", gm, "--no_bary", "--print_phase", "--quiet"]
+    # CUPTI's first start takes seconds: outside every timed region
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+        torch.ones(8, device=dev).sum().item()
+    launches = {name: 0 for name in K.LAUNCHES}
+    step_s = {}  # seconds of each step of the phase
+    t_step = time.perf_counter()
+
+    def lap(step):
+        nonlocal t_step
+        now = time.perf_counter()
+        step_s[step] = now - t_step
+        t_step = now
+
+    def add(run_launches):
+        for k, v in run_launches.items():
+            launches[k] += v
+
+    # wideband: obs off / on / on / off (the first "on" is the run checked)
+    walls = {"off": [], "on": []}
+    regions, runs = [], {}
+    peak = None
+    for i, mode in enumerate(("off", "on", "on", "off")):
+        tim = os.path.join(work, "obs_wb%d.tim" % i)
+        on = mode == "on"
+        sub = os.path.join(base, "wb%d" % i)
+        with environ(PPTPU_OBS_DIR=sub if on else None,
+                     PPTPU_TRACE_DIR=trace if on else None), \
+                counted_captures(K, regions if i == 1 else []):
+            torch.cuda.reset_peak_memory_stats()
+            toas, wall, run_launches = run_cli(K, argv + ["-o", tim])
+            if i == 1:
+                peak = torch.cuda.max_memory_allocated()
+        walls[mode].append(wall)
+        add(run_launches)
+        if len(toas) != 16:
+            raise AssertionError("obs %s run: %d TOAs" % (mode, len(toas)))
+        if on and i == 1:
+            runs["pptoas"] = obs_run_dir(sub)
+    n_wb = len(regions)
+    lap("wideband_x4")
+    # --fit_scat, obs and trace on
+    sub = os.path.join(base, "scat")
+    with environ(PPTPU_OBS_DIR=sub, PPTPU_TRACE_DIR=trace), \
+            counted_captures(K, regions):
+        toas, _, run_launches = run_cli(
+            K, argv + ["--fit_scat", "-o", os.path.join(work, "obs_sc.tim")])
+    add(run_launches)
+    runs["pptoas_scat"] = obs_run_dir(sub)
+    lap("fit_scat")
+    # ppalign --niter 1 over two epochs, obs only
+    meta = os.path.join(work, "obs_epochs.meta")
+    with open(meta, "w") as f:
+        f.write("\n".join(os.path.join(work, "epoch%d.fits" % i)
+                          for i in range(2)) + "\n")
+    sub = os.path.join(base, "align")
+    with environ(PPTPU_OBS_DIR=sub, PPTPU_TRACE_DIR=None):
+        _, run_launches = run_tool(K, ppalign, [
+            "-M", meta, "-I", os.path.join(work, "tmpl.fits"),
+            "-o", os.path.join(work, "obs_aligned.fits"), "--niter", "1"])
+    add(run_launches)
+    runs["ppalign"] = obs_run_dir(sub)
+    lap("ppalign")
+
+    # the seeded throughput fit (1000 x 512 x 2048), obs off and on
+    nsub, nchan, nbin = fit_shape
+    data, freqs, _, _, _, model, _, _, _ = north_star_data(dev, 0, nsub,
+                                                            nchan, nbin)
+    kmax = model_kmax(model)
+    errs = torch.full((nsub, nchan), NOISE, dtype=torch.float64, device=dev)
+
+    def fit():
+        out = fit_portrait_full_batch(
+            data, model, None, P0, freqs, errs=errs,
+            fit_flags=(1, 1, 0, 0, 0), log10_tau=False, max_iter=30,
+            kmax=kmax, device=dev)
+        torch.cuda.synchronize()
+        return out
+
+    fit()  # warm
+    # the fit's seconds with obs off, and under the capture (the capture's
+    # own start, stop, export and ingestion in capture_s)
+    fit_s = {"off": [], "on": [], "capture_s": []}
+    sub = os.path.join(base, "throughput")
+    for mode in ("off", "on", "off"):
+        K.reset_launches()
+        if mode == "on":
+            with environ(PPTPU_OBS_DIR=sub, PPTPU_TRACE_DIR=trace), \
+                    counted_captures(K, regions), obs.run("throughput"):
+                t0 = time.perf_counter()
+                with obs.trace_capture("throughput"):
+                    fit()
+                fit_s["capture_s"].append(time.perf_counter() - t0)
+                fit_s["on"].append(regions[-1]["wall_s"])
+        else:
+            t0 = time.perf_counter()
+            fit()
+            fit_s["off"].append(time.perf_counter() - t0)
+        add(dict(K.LAUNCHES))
+    runs["throughput"] = obs_run_dir(sub)
+    del data, errs, model
+    lap("throughput")
+
+    # every run directory, its manifest and its devtime events
+    name = torch.cuda.get_device_name(0)
+    devtimes, problems = [], []
+    for key, rd in runs.items():
+        for f in ("events.jsonl", "manifest.json"):
+            if not os.path.isfile(os.path.join(rd, f)):
+                problems.append("%s: no %s" % (key, f))
+        with open(os.path.join(rd, "manifest.json")) as f:
+            man = json.load(f)
+        if man.get("platform") != "gpu" or man.get("device_kind") != name:
+            problems.append("%s: manifest says %s / %s" % (
+                key, man.get("platform"), man.get("device_kind")))
+        devtimes += [(key, e) for e in obs_events(rd)
+                     if e["kind"] == "devtime"]
+    if len(devtimes) != len(regions):
+        problems.append("%d devtime events for %d captured regions"
+                        % (len(devtimes), len(regions)))
+    rows, stages = [], {}
+    for (key, e), reg in zip(devtimes, regions):
+        counts = trace_kernel_counts(K, e["trace"])
+        rows.append(dict(run=key, region=e["region"],
+                         device_total_s=e["device_total_s"],
+                         unattributed_s=e["unattributed_s"],
+                         wall_s=reg["wall_s"], scopes=e["scopes"],
+                         phases=e["phases"], n_ops=e["n_ops"],
+                         trace_kernel_rows=counts,
+                         launches=reg["launches"]))
+        stages.setdefault(key, set()).update(
+            seg for path in e["scopes"] for seg in path.split("/"))
+        if not 0 < e["device_total_s"] <= reg["wall_s"]:
+            problems.append("%s: device %.6f s against a %.6f s region"
+                            % (key, e["device_total_s"], reg["wall_s"]))
+        if counts != reg["launches"]:
+            problems.append("%s: kernel rows %s, launches %s"
+                            % (key, counts, reg["launches"]))
+    seen = {k: sum(r["trace_kernel_rows"][k] for r in rows)
+            for k in K.TRACE_NAMES}
+    if not all(seen.values()):
+        problems.append("kernels absent from every trace: %s" % seen)
+    all_stages = set().union(*stages.values()) if stages else set()
+    if not {"pp_seed", "pp_solve"} <= all_stages or \
+            "pp_scatter" not in stages.get("pptoas_scat", ()):
+        problems.append("stages %s" % {k: sorted(v)
+                                       for k, v in stages.items()})
+
+    # the allocator's peak, read by the obs gauge and by the caller
+    with open(os.path.join(runs["pptoas"], "metrics.jsonl")) as f:
+        gauges = json.loads(f.read().splitlines()[-1])["gauges"]
+    gauge_peak = gauges.get("pps_device_peak_bytes")
+    if gauge_peak != peak:
+        problems.append("pps_device_peak_bytes %s, max_memory_allocated %s"
+                        % (gauge_peak, peak))
+
+    lap("checks")
+    # tools/obs_report.py on every run
+    report = {}
+    done = obs_reports(root, list(runs.values()))
+    for key, rd in runs.items():
+        rc, text = done[rd]
+        report[key] = [rc] + [ln for ln in text.splitlines()
+                              if ln.startswith("## ")]
+        if rc != 0:
+            problems.append("obs_report %s exited %s: %s" % (key, rc,
+                                                              text[-500:]))
+    lap("obs_report")
+
+    # an injected dispatch fault raises the port's InjectedFault
+    fault = None
+    faults.reset()
+    try:
+        with environ(PPTPU_FAULTS="site:dispatch@nth=1"):
+            run_cli(K, argv + ["-o", os.path.join(work, "obs_fault.tim")])
+    except faults.InjectedFault as e:
+        fault = dict(error=str(e), fired=[
+            (r["site"], os.path.basename(str(r["key"])), r["action"])
+            for r in faults.fired()])
+    finally:
+        faults.reset()
+    if fault is None or fault["fired"] != [
+            ("dispatch", os.path.basename(small), "fail")]:
+        problems.append("dispatch fault: %s" % fault)
+    lap("fault")
+
+    emit("obs", runs={k: os.path.basename(v) for k, v in runs.items()},
+         wideband_wall_s=walls, throughput_fit_s=fit_s,
+         wideband_overhead=min(walls["on"]) / min(walls["off"]) - 1.0,
+         throughput_overhead=min(fit_s["on"]) / min(fit_s["off"]) - 1.0,
+         regions=rows, stages={k: sorted(v) for k, v in stages.items()},
+         pps_device_peak_bytes=gauge_peak, max_memory_allocated=peak,
+         obs_report=report, fault=fault, step_s=step_s, problems=problems)
+    if problems:
+        raise AssertionError("obs: " + "; ".join(problems))
+    return launches
+
+
 def main(argv):
     import torch
 
@@ -2175,6 +2547,7 @@ def main(argv):
                 K.BUILD_LOG.items()})
 
     rows = phase_kernels(dev, K)
+    failed_lists = track_failed_datafiles()
     work = tempfile.mkdtemp(prefix="pp_smoke_")
     # each path's launches, from its main run (counts zeroed just before)
     by_path = {}
@@ -2191,6 +2564,7 @@ def main(argv):
         by_path["ppspline"] = phase_ppspline(root, work, K, dev, avg, small)
         by_path["ppgauss"] = phase_ppgauss(root, work, K, dev, avg, small)
         by_path["walkthrough"] = phase_walkthrough(root, work, K, dev)
+        by_path["obs"] = phase_obs(root, work, K, dev, small)
     finally:
         shutil.rmtree(work, ignore_errors=True)
     phase_throughput(dev, K)
@@ -2204,6 +2578,13 @@ def main(argv):
                     "templates", "ppzap"] for name in own}
     for name in ("moments", "fftfit"):
         paths[name] += ["ppalign", "ppspline", "ppgauss", "walkthrough"]
+    for name in own:
+        paths[name].append("obs")
+    # no archive of any path failed on a device error
+    failed = [f for made in failed_lists for f in made]
+    emit("failed_datafiles", gettoas_runs=len(failed_lists), failed=failed)
+    if failed:
+        raise AssertionError("archives failed on the card: %s" % failed)
     launches = {name: sum(by_path[p][name] for p in paths[name])
                 for name in own}
 

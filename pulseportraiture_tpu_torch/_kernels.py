@@ -32,8 +32,14 @@ wrapper checks device, dtype, shape and contiguity, checks the launch's
 
 Build: ``build()`` starts one ``nvcc`` per source, all at once, writing
 ``_build/lib<name>-<hash>.so`` (the hash covers the source and the
-flags, so an edited source never reuses a stale library).  No CUDA
-toolkit is needed to import this module.
+flags, so an edited source never reuses a stale library).  Each source
+is published on the obs compile bridge (``obs.monitor``): a library
+already built as a cache hit, one it compiles as a cache miss and a
+compile event with the nvcc seconds.  No CUDA toolkit is needed to
+import this module.
+
+A launch the CUDA runtime refuses raises :class:`KernelLaunchError`, the
+narrow error the pipelines' per-archive device-error handling catches.
 """
 
 import collections
@@ -48,7 +54,10 @@ import time
 
 import torch
 
-__all__ = ["LAUNCHES", "reset_launches", "build", "moments",
+from .obs import monitor
+
+__all__ = ["KernelLaunchError", "LAUNCHES", "reset_launches", "build",
+           "moments",
            "moments_plain", "moments_scat", "moments_scat_plain",
            "MOMENTS_SCAT_SUMS", "fftfit", "fftfit_plain", "fftfit_table",
            "fftfit_table_plain", "KERNELS"]
@@ -82,10 +91,24 @@ _SYMBOLS = {
                                          _I64, _INT, _INT, _VP, _VP]},
 }
 
+# kernel name -> the CUDA function that runs once per counted launch, as
+# it is named in a profiler trace (K2's grid stage; its Newton stage
+# runs as often)
+TRACE_NAMES = {"moments": "moments_kernel", "fftfit": "fftfit_grid_kernel",
+               "moments_scat": "moments_scat_kernel"}
+
 LAUNCHES = {name: 0 for name in KERNELS}
 BUILD_LOG = {}  # name -> nvcc output (register/shared-memory report)
 _LIBS = {}
 _LOCK = threading.Lock()
+
+
+class KernelLaunchError(RuntimeError):
+    """A hand kernel's launch was refused by the CUDA runtime."""
+
+    def __init__(self, name, code):
+        super().__init__("CUDA kernel %s failed to launch: cudaError_t %d"
+                         % (name, code))
 
 
 def reset_launches():
@@ -131,21 +154,28 @@ def build(names=None):
         for name in todo:
             path = _lib_path(name)
             if os.path.exists(path):
+                monitor.publish(monitor.CACHE_HIT_EVENT, kernel=name)
                 continue
+            monitor.publish(monitor.CACHE_MISS_EVENT, kernel=name)
             tmp = "%s.%d.tmp" % (path, os.getpid())
             cmd = [_nvcc()] + NVCC_FLAGS + [
                 "-o", tmp, os.path.join(CSRC_DIR, KERNELS[name][0])]
             procs[name] = (subprocess.Popen(
                 cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                text=True), tmp, path)
+                text=True), tmp, path, time.perf_counter())
         failed = []
-        for name, (proc, tmp, path) in procs.items():
+        for name, (proc, tmp, path, t_start) in procs.items():
             out, _ = proc.communicate()
             BUILD_LOG[name] = out
             if proc.returncode != 0:
                 failed.append("%s:\n%s" % (name, out))
             else:
                 os.replace(tmp, path)
+                # seconds from this nvcc's start to its end being read
+                # (the builds run together, so they overlap)
+                monitor.publish(monitor.COMPILE_EVENT,
+                                time.perf_counter() - t_start,
+                                kernel=name, source=KERNELS[name][0])
         if failed:
             raise RuntimeError("nvcc failed for " + "\n".join(failed))
         for name in todo:
@@ -172,8 +202,7 @@ def _launch(name, device, *args, symbol=None, count=True):
         with torch.cuda.device(device):
             err = fn(*args, torch.cuda.current_stream(device).cuda_stream)
     if err != 0:
-        raise RuntimeError("CUDA kernel %s failed to launch: cudaError_t %d"
-                           % (name, err))
+        raise KernelLaunchError(name, err)
     if count:
         LAUNCHES[name] += 1
 

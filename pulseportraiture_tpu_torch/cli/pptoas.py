@@ -8,7 +8,9 @@ fits, narrowband TOAs, flux estimates and crash-resume checkpoints, from
 not ported yet and fail.
 Run as ``python -m pulseportraiture_tpu_torch.cli.pptoas``.  The fits
 run on the CUDA device unless ``--device cpu`` is given; with no CUDA
-device and no ``--device cpu`` the tool fails.
+device and no ``--device cpu`` the tool fails.  ``PPTPU_OBS_DIR``,
+``PPTPU_TRACE_DIR`` and ``PPTPU_FAULTS`` act as for the JAX CLI: one obs
+run spans the invocation.
 """
 
 import argparse
@@ -132,10 +134,17 @@ def main(argv=None):
                 os.path.realpath(args.checkpoint):
             print("--checkpoint supersedes -o: TOAs go to %s only."
                   % args.checkpoint, file=sys.stderr)
-    return _run_pipeline(args)
+
+    from .. import obs
+
+    # one observability run spans the whole invocation (fit AND the
+    # final .tim write); the pipeline's own @obs.scoped_run joins it
+    with obs.run("pptoas"):
+        return _run_pipeline(args)
 
 
 def _run_pipeline(args):
+    from .. import obs
     from ..io.timfile import write_TOAs
     from ..pipelines.toas import GetTOAs
 
@@ -181,8 +190,10 @@ def _run_pipeline(args):
                                quiet=args.quiet)
 
     if args.format == "princeton":
-        gt.write_princeton_TOAs(outfile=args.outfile, one_DM=args.one_DM,
-                                dmerrfile=args.errfile)
+        with obs.span("write", outfile=args.outfile, format="princeton"):
+            gt.write_princeton_TOAs(outfile=args.outfile,
+                                    one_DM=args.one_DM,
+                                    dmerrfile=args.errfile)
         return 0
     if args.one_DM:
         for toa in gt.TOA_list:
@@ -190,8 +201,10 @@ def _run_pipeline(args):
             toa.DM = gt.DeltaDM_means[ifile] + gt.DM0s[ifile]
             toa.DM_error = gt.DeltaDM_errs[ifile]
             toa.flags["DM_mean"] = True
-    write_TOAs(gt.TOA_list, inf_is_zero=True, SNR_cutoff=args.snr_cutoff,
-               outfile=args.outfile, append=True)
+    with obs.span("write", outfile=args.outfile, n_toas=len(gt.TOA_list)):
+        write_TOAs(gt.TOA_list, inf_is_zero=True,
+                   SNR_cutoff=args.snr_cutoff, outfile=args.outfile,
+                   append=True)
     return 0
 
 

@@ -35,14 +35,23 @@ Design, against the reference's vmapped ``lax.while_loop``:
 * ``init_params=None`` seeds the phases from live-channel band-average
   profiles through kernel K2 (``fit.phase_shift``), as the reference's
   in-graph seeding does.
+* The stages run inside ``torch.profiler.record_function`` ranges named
+  as the reference's ``jax.named_scope``s — ``pp_seed`` (the seeding),
+  ``pp_solve`` (the Newton solve), ``pp_polish`` (nu-zero frequencies,
+  covariance and scales) and ``pp_scatter`` (the scattering sums of
+  K3) — so a profiler capture attributes the card's time by stage
+  (obs/devtime.py).  The reference's f32 coarse stage (``pp_coarse``)
+  has no counterpart.  With an obs run open, each batched fit logs its
+  per-subint convergence statistics (``obs.fit_telemetry``).
 """
 
 import math
 
 import numpy as np
 import torch
+from torch.profiler import record_function
 
-from .. import _kernels
+from .. import _kernels, obs
 from ..config import Dconst, F0_fact, real_dtype, resolve_device
 from ..debug import check_fit_result
 from ..ops.fourier import ipow
@@ -190,10 +199,12 @@ class _Spectra:
         """K3: ({sum name: [n, nchan]}, taus [n, nchan], tau [n, 1])."""
         freqs, P, _ = self._rows(lanes)
         sh = _shifts(params, freqs, P, nus[0], nus[1]).contiguous()
-        tau = _tau_lin(params[:, 3:4], self.log10_tau)
-        taus = scattering_times(tau, params[:, 4:5], freqs, nus[2])
-        m = _kernels.moments_scat(self.cross, self.abs_m2, sh,
-                                  taus.contiguous(), self.inv_err2, lanes)
+        with record_function("pp_scatter"):
+            tau = _tau_lin(params[:, 3:4], self.log10_tau)
+            taus = scattering_times(tau, params[:, 4:5], freqs, nus[2])
+            m = _kernels.moments_scat(self.cross, self.abs_m2, sh,
+                                      taus.contiguous(), self.inv_err2,
+                                      lanes)
         return dict(zip(_kernels.MOMENTS_SCAT_SUMS, m.unbind(-1))), taus, tau
 
     def evaluate(self, params, nus, lanes=None, order=2):
@@ -735,7 +746,21 @@ def _fit_chunk(data, model, init, P, freqs, errs, weights, nu_fits,
     fq_mean = (freqs * wok).sum(-1) / torch.clamp(wok.sum(-1), min=1.0)
     nu_fit = tuple(torch.where(torch.isnan(nu_fits[:, i]), fq_mean,
                                nu_fits[:, i])[:, None] for i in range(3))
-    sol = _solve(sp, init, nu_fit, flags, lo, hi, max_iter)
+    with record_function("pp_solve"):
+        sol = _solve(sp, init, nu_fit, flags, lo, hi, max_iter)
+    with record_function("pp_polish"):
+        return _finish(sp, sol, nu_fit, nu_outs, nu_outs_mask, flags, option,
+                       is_toa, log10_tau, Sd, dof, ifit)
+
+
+def _finish(sp, sol, nu_fit, nu_outs, nu_outs_mask, flags, option, is_toa,
+            log10_tau, Sd, dof, ifit):
+    """The fit's finish from the solution ``sol``: output reference
+    frequencies, output-frame parameters, covariance, scales and the
+    result fields of :func:`_fit_chunk`."""
+    P = sp.P[:, 0]
+    b = P.shape[0]
+    dev = P.device
     x = sol["x"]
     phi_fit, DM_fit, GM_fit, tau_fit, alpha_fit = (x[:, i] for i in range(5))
 
@@ -766,8 +791,8 @@ def _fit_chunk(data, model, init, P, freqs, errs, weights, nu_fits,
     H5, cross_hess, S_ok, C, scales, ok = _hess_with_scales(
         sp, params_out, tuple(nu[:, None] for nu in nu_out), flags)
     cov_fit, scale_errs = _covariance_with_scales(
-        H5, cross_hess, S_ok, torch.as_tensor(ifit, device=data.device), ok)
-    param_errs = torch.zeros((b, 5), dtype=real_dtype, device=data.device)
+        H5, cross_hess, S_ok, torch.as_tensor(ifit, device=dev), ok)
+    param_errs = torch.zeros((b, 5), dtype=real_dtype, device=dev)
     param_errs[:, ifit] = torch.sqrt(torch.diagonal(cov_fit, dim1=-2,
                                                     dim2=-1))
     channel_snrs = scales * torch.sqrt(S_ok)
@@ -881,7 +906,8 @@ def fit_portrait_full_batch(data_ports, model_ports, init_params, Ps,
         weights = torch.ones((B, nchan), dtype=real_dtype, device=device)
     weights = torch.broadcast_to(_to_dev(weights, device), (B, nchan))
     if seed:
-        init[:, 0] = _seed_phases(data, model, errs, weights)
+        with record_function("pp_seed"):
+            init[:, 0] = _seed_phases(data, model, errs, weights)
     if nu_fits is None or isinstance(nu_fits, (tuple, list)):
         nu_fits = (None, None, None) if nu_fits is None else nu_fits
         nu_fits_b = torch.stack([_per_batch(nf, B, device)
@@ -920,7 +946,13 @@ def fit_portrait_full_batch(data_ports, model_ports, init_params, Ps,
         **{k: torch.cat([o[k] for o in outs]) for k in RESULT_KEYS})
     # opt-in NaN hook (PPTPU_SANITIZE): fail at the fit that produced a
     # non-finite solution, not pipelines later
-    return check_fit_result(out, where="fit_portrait_full_batch")
+    out = check_fit_result(out, where="fit_portrait_full_batch")
+    # opt-in fit telemetry (PPTPU_OBS_DIR + an open obs.run): per-subint
+    # nfeval / chi2 / return-code statistics, copied to the host; the
+    # eager solver pads no batch and casts nothing
+    return obs.fit_telemetry(
+        out, where="fit_portrait_full_batch", fit_flags=list(flags),
+        batch_padded=int(B), scan_size=scan_size, cast=None)
 
 
 def fit_portrait_full(data_port, model_port, init_params, P, freqs,

@@ -7,15 +7,24 @@ make_fake_pulsar) on the in-repo PSRFITS layer (io.psrfits).
 Placement: ``load_data`` is host I/O.  Its per-archive noise and S/N
 estimates are computed on explicit CPU tensors — a stated placement
 (the load path never touches the accelerator), not a fallback.
+
+Hooks, as in the JAX module: the ``archive_read`` fault-injection site
+(testing/faults.py) at the top of ``load_data``, and its decode seconds
+observed into the ``pps_phase_seconds`` histogram (``phase="decode"``)
+of an open obs run.
 """
 
 import os
+import time
 
 import numpy as np
 import torch
 
+from ..obs import metrics
+from ..obs.metrics import PHASE_HISTOGRAM
 from ..ops.fourier import get_bin_centers, rotate_data
 from ..ops.noise import get_SNR, get_noise
+from ..testing import faults
 from ..utils.databunch import DataBunch
 from ..utils.mjd import MJD
 from ..utils.telescopes import telescope_code_dict
@@ -63,6 +72,11 @@ def load_data(filename, state=None, dedisperse=False, dededisperse=False,
     epochs, phases, prof, flux_prof, plus observation metadata — all
     numpy.
     """
+    # chaos site: an injected read fault surfaces exactly like a
+    # truncated payload or NFS blip (testing/faults.py)
+    faults.check("archive_read", key=getattr(filename, "filename",
+                                             None) or str(filename))
+    t_decode0 = time.perf_counter()
     arch = filename if isinstance(filename, Archive) \
         else read_archive(filename)
     if refresh_arch:
@@ -139,6 +153,8 @@ def load_data(filename, state=None, dedisperse=False, dededisperse=False,
     prof_noise = float(_host_stat(get_noise, prof))
     prof_SNR = float(_host_stat(get_SNR, prof))
 
+    metrics.observe(PHASE_HISTOGRAM, time.perf_counter() - t_decode0,
+                    phase="decode")
     return DataBunch(
         arch=arch if return_arch else None, backend=arch.backend,
         backend_delay=arch.backend_delay, bw=bw,

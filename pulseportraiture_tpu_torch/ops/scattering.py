@@ -12,11 +12,16 @@ derivatives with respect to (tau or log10 tau, alpha) use dB/dtau =
 Layouts follow the JAX module: first derivatives stack as [2, ...],
 second derivatives as [2, 2, ...] ahead of the channel (and harmonic)
 axes; tau, nu_tau and the like broadcast against freqs.
+
+The Fourier kernels run inside a ``pp_scatter``
+``torch.profiler.record_function`` range, the JAX module's named scope,
+so a profiler capture attributes their device time (obs/devtime.py).
 """
 
 import math
 
 import torch
+from torch.profiler import record_function
 
 from ..config import real_dtype
 
@@ -92,13 +97,14 @@ def scattering_profile_FT(tau, nbin):
 def scattering_portrait_FT(taus, nbin, nharm=None):
     """Per-channel scattering FT [..., nchan, nharm] (reference
     pplib.py:4086-4101); ``nharm`` builds only the lowest harmonics."""
-    taus = torch.as_tensor(taus, dtype=real_dtype)
-    if nharm is None:
-        nharm = nbin // 2 + 1
-    k = torch.arange(nharm, dtype=real_dtype, device=taus.device)
-    x = 2.0 * math.pi * k * taus[..., None]
-    denom = 1.0 + x * x
-    return torch.complex(1.0 / denom, -x / denom)
+    with record_function("pp_scatter"):
+        taus = torch.as_tensor(taus, dtype=real_dtype)
+        if nharm is None:
+            nharm = nbin // 2 + 1
+        k = torch.arange(nharm, dtype=real_dtype, device=taus.device)
+        x = 2.0 * math.pi * k * taus[..., None]
+        denom = 1.0 + x * x
+        return torch.complex(1.0 / denom, -x / denom)
 
 
 def _minus_2pi_i_k(nharm, device):
@@ -109,10 +115,11 @@ def _minus_2pi_i_k(nharm, device):
 def scattering_portrait_FT_deriv(taus, taus_deriv, scat_port_FT):
     """d scat_FT / d(tau, alpha): [2, ..., nchan, nharm], from dB/dtaus =
     -2 pi i k B**2 and the chain rule (reference pptoaslib.py:318-330)."""
-    mjk = _minus_2pi_i_k(scat_port_FT.shape[-1], scat_port_FT.device)
-    dB_dtaus = mjk * scat_port_FT ** 2
-    return torch.stack([dB_dtaus * taus_deriv[0][..., None],
-                        dB_dtaus * taus_deriv[1][..., None]])
+    with record_function("pp_scatter"):
+        mjk = _minus_2pi_i_k(scat_port_FT.shape[-1], scat_port_FT.device)
+        dB_dtaus = mjk * scat_port_FT ** 2
+        return torch.stack([dB_dtaus * taus_deriv[0][..., None],
+                            dB_dtaus * taus_deriv[1][..., None]])
 
 
 def scattering_portrait_FT_2deriv(taus, taus_deriv, taus_2deriv,
@@ -120,14 +127,15 @@ def scattering_portrait_FT_2deriv(taus, taus_deriv, taus_2deriv,
     """d2 scat_FT / d(tau, alpha)2: [2, 2, ..., nchan, nharm].  With u =
     -2 pi i k: d2B/dp_i dp_j = 2 u**2 B**3 dtaus_i dtaus_j + u B**2
     d2taus_ij (reference pptoaslib.py:332-356)."""
-    u = _minus_2pi_i_k(scat_port_FT.shape[-1], scat_port_FT.device)
-    B = scat_port_FT
-    dB = u * B ** 2
-    d2B = 2.0 * (u ** 2) * B ** 3
-    dti = taus_deriv[:, None, ..., None]
-    dtj = taus_deriv[None, :, ..., None]
-    d2t = taus_2deriv[..., None]
-    return d2B * dti * dtj + dB * d2t
+    with record_function("pp_scatter"):
+        u = _minus_2pi_i_k(scat_port_FT.shape[-1], scat_port_FT.device)
+        B = scat_port_FT
+        dB = u * B ** 2
+        d2B = 2.0 * (u ** 2) * B ** 3
+        dti = taus_deriv[:, None, ..., None]
+        dtj = taus_deriv[None, :, ..., None]
+        d2t = taus_2deriv[..., None]
+        return d2B * dti * dtj + dB * d2t
 
 
 def abs_scattering_portrait_FT(scat_port_FT):

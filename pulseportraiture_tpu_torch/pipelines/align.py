@@ -10,7 +10,9 @@ portrait fit runs through kernel K1, one batched rFFT -> phasor -> irFFT
 (``_rotate_batch``, cuFFT) rotates every subint by its fit, and the
 scale/noise**2-weighted sum builds the next template.  The template and
 the sums stay on the device until the iteration ends; archives are
-decoded on the host (numpy), and the output is written there.
+decoded on the host (numpy), and the output is written there.  With
+``PPTPU_OBS_DIR`` set, a call is a ``ppalign`` obs run with ``load``,
+``solve`` (one per block) and ``write`` spans, as in the JAX package.
 """
 
 import math
@@ -19,6 +21,7 @@ import sys
 import numpy as np
 import torch
 
+from .. import obs
 from ..config import real_dtype, resolve_device
 from ..fit.phase_shift import fit_phase_shift
 from ..fit.portrait import fit_portrait_full_batch
@@ -283,6 +286,7 @@ def _align_fit_accumulate(full, model_b, freqs_b, errs_b, nu_fit, Ps_b,
         total_weights.index_add_(0, tchan, wcol[:, None].expand(-1, nbin))
 
 
+@obs.scoped_run("ppalign")
 def align_archives(metafile, initial_guess, fit_dm=True, tscrunch=False,
                    pscrunch=True, SNR_cutoff=0.0, outfile=None, norm=None,
                    rot_phase=0.0, place=None, niter=1, quiet=True,
@@ -319,6 +323,9 @@ def align_archives(metafile, initial_guess, fit_dm=True, tscrunch=False,
     nchan, nbin = model_data.nchan, model_data.nbin
     model_port = torch.as_tensor(
         (model_data.masks * model_data.subints)[0, 0], device=device)
+    obs.configure(pipeline="align_archives", n_datafiles=len(datafiles),
+                  nchan=int(nchan), nbin=int(nbin), niter=int(niter),
+                  fit_dm=bool(fit_dm), outfile=outfile)
 
     def dev(x):
         return torch.as_tensor(x, dtype=real_dtype, device=device)
@@ -356,20 +363,24 @@ def align_archives(metafile, initial_guess, fit_dm=True, tscrunch=False,
                     model_b = model_port[torch.as_tensor(tmpl_chans,
                                                          device=device)]
                 nu_fit = _guess_fit_freqs_np(freqs_b, SNRs_b, wok_b)
-                _align_fit_accumulate(
-                    dev(full), model_b, *(dev(a) for a in (
-                        freqs_b, errs_b, nu_fit, Ps_b, wok_b, DMg)),
-                    chan_maps=cmaps, fit_dm=fit_dm, max_iter=max_iter,
-                    nbin=nbin, npol=npol, aligned_port=aligned_port,
-                    total_weights=total_weights)
+                with obs.span("solve", iteration=count, nchan=dnchan,
+                              rows=len(take)) as sp:
+                    _align_fit_accumulate(
+                        dev(full), model_b, *(dev(a) for a in (
+                            freqs_b, errs_b, nu_fit, Ps_b, wok_b, DMg)),
+                        chan_maps=cmaps, fit_dm=fit_dm, max_iter=max_iter,
+                        nbin=nbin, npol=npol, aligned_port=aligned_port,
+                        total_weights=total_weights)
+                    sp.block(aligned_port)  # the block's device boundary
             pending[dnchan] = rows
 
         for datafile in use_files:
             try:
-                d = load_data(datafile, state=state, dedisperse=False,
-                              tscrunch=tscrunch, pscrunch=pscrunch,
-                              rm_baseline=True, refresh_arch=False,
-                              return_arch=False, quiet=True)
+                with obs.span("load", archive=datafile):
+                    d = load_data(datafile, state=state, dedisperse=False,
+                                  tscrunch=tscrunch, pscrunch=pscrunch,
+                                  rm_baseline=True, refresh_arch=False,
+                                  return_arch=False, quiet=True)
             except NotImplementedError as e:
                 print(f"Skipping {datafile}: cannot convert to {state} "
                       f"({e})", file=sys.stderr)
@@ -436,5 +447,6 @@ def align_archives(metafile, initial_guess, fit_dm=True, tscrunch=False,
     arch.data = aligned_port[None]
     arch.weights = np.where(total_weights.sum(axis=-1) > 0.0, 1.0,
                             0.0)[None, :]
-    arch.unload(outfile, quiet=quiet)
+    with obs.span("write", outfile=outfile):
+        arch.unload(outfile, quiet=quiet)
     return outfile, aligned_port, total_weights

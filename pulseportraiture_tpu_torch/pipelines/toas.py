@@ -13,18 +13,33 @@ there.  Result attributes keep the reference's names and per-archive
 list structure.  ``checkpoint`` appends each archive's TOAs to a .tim
 file with a ``C pp_done`` marker, the JAX package's crash-resume format.
 
-Not ported yet: PSRCHIVE cross-check TOAs, plots, and the JAX package's
-observability, fault-injection and prefetch hooks.  Device errors are
-not caught per archive: a kernel fault surfaces.
+Observability and fault injection follow the JAX package's drivers at
+the same sites: an obs run per call (``PPTPU_OBS_DIR``) with
+load/guess/solve/polish/write phase spans per archive, ``archive`` and
+``nonfinite_guard`` events, the fit-quality record, an opt-in profiler
+capture of the fit dispatches (``PPTPU_TRACE_DIR``), and the
+``dispatch`` and ``checkpoint_flush`` fault sites (``PPTPU_FAULTS``).
+A device error while fitting an archive — CUDA out of memory, a CUDA
+error torch raises (``torch.AcceleratorError``) or a refused kernel
+launch (``_kernels.KernelLaunchError``) — is caught per archive, as the
+JAX package catches ``JaxRuntimeError``: the archive goes on
+``failed_datafiles`` with the error text, the ``device_errors`` counter
+rises, and the next archive is fitted.  Nothing is refitted another
+way, and no other exception is caught.
+
+Not ported yet: PSRCHIVE cross-check TOAs, plots and the prefetch hand-off.
 """
 
 import os
+import sys
 import threading
 import time
 
 import numpy as np
 import torch
 
+from .. import obs
+from .._kernels import KernelLaunchError
 from ..config import resolve_device, scattering_alpha
 from ..fit.phase_shift import fit_phase_shift
 from ..fit.portrait import fit_portrait_full_batch
@@ -33,11 +48,14 @@ from ..io.archive import file_is_type, load_data, parse_metafile
 from ..io.gmodel import read_model
 from ..io.splmodel import read_spline_model
 from ..io.timfile import TOA, filter_TOAs, format_toa_line, write_TOAs
+from ..obs import metrics, tracing
+from ..obs.metrics import PHASE_HISTOGRAM
 from ..ops.fourier import rotate_data
 from ..ops.instrumental import instrumental_response_port_FT
 from ..ops.profiles import gen_gaussian_portrait
 from ..ops.scattering import scattering_portrait_FT, scattering_times
 from ..ops.stats import weighted_mean
+from ..testing import faults
 from ..utils.databunch import DataBunch
 
 __all__ = ["GetTOAs", "drop_checkpoint_blocks", "checkpoint_traces",
@@ -48,6 +66,10 @@ __all__ = ["GetTOAs", "drop_checkpoint_blocks", "checkpoint_traces",
 # interleave when several threads share a checkpoint
 _CKPT_LOCKS = {}
 _CKPT_LOCKS_GUARD = threading.Lock()
+
+# the device errors a driver records per archive and survives
+DEVICE_ERRORS = (torch.cuda.OutOfMemoryError, KernelLaunchError) + (
+    (torch.AcceleratorError,) if hasattr(torch, "AcceleratorError") else ())
 
 
 def _not_ported(what):
@@ -68,10 +90,19 @@ def _is_marker(tok):
     return len(tok) >= 4 and tok[0] == "C" and tok[1] == "pp_done"
 
 
+def _trace_marker():
+    """`` trace=<id>`` suffix for the ``pp_done`` marker line when a
+    trace context is ambient (obs/tracing.py), so a replayed block
+    names the trace that produced it; both marker parsers tolerate the
+    extra token."""
+    tid = tracing.current_trace_id()
+    return " trace=%s" % tid if tid else ""
+
+
 def checkpoint_traces(checkpoint):
     """{realpath(archive): trace_id} for every marked block of a
-    checkpoint whose marker carries a ``trace=`` token (markers the JAX
-    package writes under an ambient trace; the port writes none)."""
+    checkpoint whose marker carries a ``trace=`` token (written under an
+    ambient trace context)."""
     out = {}
     try:
         with open(checkpoint) as cf:
@@ -211,11 +242,16 @@ def drop_checkpoint_blocks(checkpoint, archives):
 def _append_checkpoint(checkpoint, toas, datafile):
     """Append one archive's TOA lines (S/N-flagged ones, as the JAX
     package writes) and their ``pp_done`` marker in one write."""
+    # chaos site: a flush failure here (full disk, kill) leaves the
+    # archive without a block, so a rerun refits it without duplicating
+    faults.check("checkpoint_flush", key=datafile)
     arch_toas = filter_TOAs([t for t in toas if t.archive == datafile],
                             "snr", 0.0, ">=", pass_unflagged=False)
     blk = [format_toa_line(t) for t in arch_toas]
-    blk.append("C pp_done %s %d" % (datafile, len(blk)))
-    with _checkpoint_lock(checkpoint):
+    blk.append("C pp_done %s %d%s" % (datafile, len(blk), _trace_marker()))
+    with metrics.timed(PHASE_HISTOGRAM, phase="checkpoint"), \
+            obs.span("checkpoint", checkpoint=checkpoint), \
+            _checkpoint_lock(checkpoint):
         with open(checkpoint, "a") as cf:
             cf.write("".join(line + "\n" for line in blk))
 
@@ -333,6 +369,8 @@ class GetTOAs:
         self.quiet = quiet
         self.instrumental_response_dict = self.ird = \
             {"DM": 0.0, "wids": [], "irf_types": []}
+        # archives a device error stopped: (datafile, error text)
+        self.failed_datafiles = []
         # archives the non-finite guard refused to fit: (datafile, reason)
         self.poisoned_datafiles = []
         for attr in self.RESULT_ATTRS:
@@ -405,14 +443,23 @@ class GetTOAs:
             nbin, torch.as_tensor(freqs).to(self.device), self.ird["DM"], P,
             self.ird["wids"], self.ird["irf_types"])
 
-    def _checked_batch(self, d, datafile, nonfinite_max_frac, quiet):
+    def _checked_batch(self, d, datafile, nonfinite_max_frac, quiet,
+                       **event):
         """The archive's fit batch after the non-finite guard:
         (ok, ports, freqs_b, weights_b, errs_b, SNRs_b, Ps_b, bad_chan,
-        n_zap), or None when the archive is refused."""
+        n_zap), or None when the archive is refused.  A guard that zaps
+        channels emits a ``nonfinite_guard`` obs event (``event`` adds
+        its fields)."""
         ok = np.asarray(d.ok_isubs)
         ports, errs_b, weights_b, bad_chan, n_zap, n_live = \
             _nonfinite_guard(d.subints[ok, 0], d.noise_stds[ok, 0],
                              d.weights[ok])
+        if n_zap:
+            frac = n_zap / max(n_live, 1)
+            obs.event("nonfinite_guard", datafile=datafile,
+                      n_zapped=n_zap, n_live=n_live, frac=round(frac, 4),
+                      quarantined=bool(frac > nonfinite_max_frac), **event)
+            obs.counter("n_nonfinite_zapped", n_zap)
         if n_zap and n_zap / max(n_live, 1) > nonfinite_max_frac:
             reason = ("non-finite data: %d/%d live channels NaN/Inf "
                       "(> nonfinite_max_frac=%.2f)"
@@ -452,6 +499,7 @@ class GetTOAs:
         return tuple(_host(x) for x in (pf, pfe, flux, flux_err, flux_freq))
 
     # -- the wideband pipeline -----------------------------------------
+    @obs.scoped_run("pptoas")
     def get_TOAs(self, datafile=None, tscrunch=False, nu_refs=None,
                  DM0=None, bary=True, fit_DM=True, fit_GM=False,
                  fit_scat=False, log10_tau=True, scat_guess=None,
@@ -497,6 +545,13 @@ class GetTOAs:
         dev = self.device
 
         datafiles = self.datafiles if datafile is None else [datafile]
+        obs.configure(pipeline="get_TOAs", modelfile=self.modelfile,
+                      model_type=self.model_type,
+                      n_datafiles=len(datafiles),
+                      fit_flags=list(self.fit_flags),
+                      log10_tau=log10_tau, max_iter=max_iter,
+                      bary=bary, tscrunch=tscrunch,
+                      checkpoint=checkpoint)
         done_archives = set()
         if checkpoint is not None and os.path.isfile(checkpoint):
             done_archives = _resume_checkpoint(checkpoint, quiet)
@@ -506,9 +561,14 @@ class GetTOAs:
                     print(f"{datafile} already in checkpoint "
                           f"{checkpoint}; skipping it.")
                 continue
+            # per-archive phase spans: load / guess / solve / polish /
+            # write — no-ops unless a run is open (PPTPU_OBS_DIR)
             n_toa0 = len(self.TOA_list)
+            ph = obs.phases(archive=datafile)
+            ph.enter("load")
             d = load_archive_data(datafile, tscrunch, quiet)
             if d is None:
+                ph.done(skipped="load_failed")
                 continue
             nsub, nchan, nbin = d.nsub, d.nchan, d.nbin
             fit_start = time.time()
@@ -517,6 +577,7 @@ class GetTOAs:
             batch = self._checked_batch(d, datafile, nonfinite_max_frac,
                                         quiet)
             if batch is None:
+                ph.done(skipped="nonfinite_poison")
                 continue
             ok, ports, freqs_b, weights_b, errs_b, SNRs_b, Ps_b, bad_chan, \
                 n_zap = batch
@@ -534,132 +595,161 @@ class GetTOAs:
                         self.poisoned_datafiles.append(
                             (datafile, "non-finite data: every subint "
                                        "lost all live channels"))
+                        ph.done(skipped="nonfinite_poison")
                         continue
             B = len(ok)
 
-            models, same_freqs = self._prepare_models(
-                d, ports.shape, freqs_b, Ps_b, fit_scat,
-                add_instrumental_response, datafile)
-            if models is None:
+            # a device error fails this archive, not the run: it is
+            # recorded on failed_datafiles and the next archive is fitted
+            n_okid = len(self.ok_idatafiles)
+            try:
+                models, same_freqs = self._prepare_models(
+                    d, ports.shape, freqs_b, Ps_b, fit_scat,
+                    add_instrumental_response, datafile)
+                if models is None:
+                    ph.done(skipped="model_mismatch")
+                    continue
+                self.ok_idatafiles.append(iarch)
+                obs.event("archive", datafile=datafile, nsub=int(nsub),
+                          nchan=int(nchan), nbin=int(nbin), B=int(B),
+                          dtype=str(ports.dtype))
+
+                ph.enter("guess")
+
+                # reference frequencies for fit and output
+                nu_means = (freqs_b * wok).sum(-1) / wok.sum(-1)
+                if nu_fit_tuple is None:
+                    nu_fit = np.array([
+                        float(guess_fit_freq(freqs_b[i][wok[i] > 0],
+                                             SNRs_b[i][wok[i] > 0]))
+                        for i in range(B)])
+                    nu_fits_b = np.stack([nu_fit, nu_fit, nu_fit], axis=1)
+                else:
+                    nu_fits_b = np.tile([nu_fit_tuple[0], nu_fit_tuple[0],
+                                         nu_fit_tuple[-1]], (B, 1))
+                if nu_ref_tuple is None:
+                    nu_outs_b = None
+                else:
+                    nu_ref_DM = nu_ref_tuple[0]
+                    nu_ref_tau = nu_ref_tuple[-1]
+                    # bary: the requested (barycentric) tau reference maps to
+                    # a per-subint topocentric one (pptoas.py:410-415)
+                    if bary and nu_ref_tau:
+                        taus_ref = nu_ref_tau / d.doppler_factors[ok]
+                    else:
+                        taus_ref = np.full(B, np.nan if nu_ref_tau is None
+                                           else nu_ref_tau)
+                    col = np.full(B, np.nan if nu_ref_DM is None else nu_ref_DM)
+                    nu_outs_b = (None if nu_ref_DM is None else col,
+                                 None if nu_ref_DM is None else col,
+                                 None if nu_ref_tau is None else taus_ref)
+
+                # -- initial guesses (batched, on the device) ---------------
+                # the data go to the device once; the fits below index them
+                ports_dev = torch.as_tensor(ports).to(dev)
+                wok_dev = torch.as_tensor(wok).to(dev)
+                wsum = wok_dev.sum(-1)[:, None]
+                DM_guess = DM_stored
+                rot_ports = rotate_data(ports_dev, 0.0, DM_guess, Ps_b, freqs_b,
+                                        nu_means[:, None])
+                # weighted band-average profiles
+                rot_profs = (rot_ports * wok_dev[..., None]).sum(1) / wsum
+                del rot_ports
+                # (a product: no [B, nchan, nbin] copy of a shared model)
+                model_profs = (wok_dev @ models if same_freqs else torch.matmul(
+                    wok_dev[:, None, :], models)[:, 0]) / wsum
+                tau_guess = np.zeros(B)
+                alpha_guess = np.zeros(B)
+                if fit_scat:
+                    if self.scat_guess is not None:
+                        tg_s, tg_ref, ag = self.scat_guess
+                        tau_guess[:] = (tg_s / Ps_b) * \
+                            (nu_fits_b[:, 2] / tg_ref) ** ag
+                        alpha_guess[:] = ag
+                    else:
+                        alpha_guess[:] = getattr(self, "alpha", scattering_alpha)
+                        if hasattr(self, "gparams"):
+                            tau_guess[:] = (self.gparams[1] / Ps_b) * \
+                                (nu_fits_b[:, 2] / self.model_nu_ref) \
+                                ** alpha_guess
+                    # scatter the model mean profile for the phase guess
+                    nu_tau = torch.as_tensor(nu_fits_b[:, 2]).to(dev)
+                    model_profs = _scatter(model_profs, scattering_times(
+                        torch.as_tensor(tau_guess).to(dev),
+                        torch.as_tensor(alpha_guess).to(dev), nu_tau, nu_tau))
+                    if log10_tau:
+                        tau_guess = np.log10(np.where(tau_guess == 0.0,
+                                                      1.0 / nbin, tau_guess))
+                guess = fit_phase_shift(rot_profs, model_profs,
+                                        noise=np.median(errs_b, axis=-1),
+                                        Ns=100, device=dev)
+                phi_guess = np.asarray(phase_transform(
+                    _host(guess.phase), DM_guess, nu_means, nu_fits_b[:, 0],
+                    Ps_b, mod=True))
+                init = np.stack([phi_guess, np.full(B, DM_guess), np.zeros(B),
+                                 tau_guess, alpha_guess], axis=1)
+
+                if bounds is None:
+                    tau_lo = np.log10(1.0 / (10 * nbin)) if log10_tau else 0.0
+                    bounds_eff = [(None, None), (None, None), (None, None),
+                                  (tau_lo, None), (-10.0, 10.0)] \
+                        if fit_scat else None
+                else:
+                    bounds_eff = bounds
+
+                # -- degraded modes: group subints by effective fit flags ---
+                nchanx = wok.sum(-1).astype(int)
+                flags_groups = {}
+                flags_used = [None] * B
+                for i in range(B):
+                    if nchanx[i] == 1:
+                        fl = (1, 0, 0, 0, 0)
+                    elif nchanx[i] == 2 and fit_DM and fit_GM:
+                        fl = (1, 1, 0, self.fit_flags[3], self.fit_flags[4])
+                    else:
+                        fl = tuple(self.fit_flags)
+                    flags_used[i] = fl
+                    flags_groups.setdefault(fl, []).append(i)
+
+                ph.enter("solve", batch=int(B))
+                # chaos site: an injected dispatch fault/hang stands in for a
+                # wedged device right before the batched fit
+                faults.check("dispatch", key=datafile)
+                results = [None] * B
+                # opt-in device profile of the fit dispatches
+                # (PPTPU_TRACE_DIR; a no-op context otherwise)
+                with obs.trace_capture("pptoas_arch%03d" % iarch):
+                    for fl, idxs in flags_groups.items():
+                        sel = np.asarray(idxs)
+                        sel_dev = torch.as_tensor(sel, device=dev)
+                        out = fit_portrait_full_batch(
+                            ports_dev[sel_dev],
+                            models if same_freqs else models[sel_dev],
+                            init[sel], Ps_b[sel], freqs_b[sel],
+                            errs=errs_b[sel], weights=weights_b[sel],
+                            fit_flags=fl, nu_fits=nu_fits_b[sel],
+                            nu_outs=None if nu_outs_b is None else tuple(
+                                None if col is None else col[sel]
+                                for col in nu_outs_b),
+                            bounds=bounds_eff, log10_tau=log10_tau,
+                            max_iter=max_iter, device=dev)
+                        # the host copy is the solve phase's device boundary
+                        out = {key: _host(val) for key, val in out.items()}
+                        for j, i in enumerate(idxs):
+                            results[i] = {key: val[j]
+                                          for key, val in out.items()}
+                fit_duration = time.time() - fit_start
+            except DEVICE_ERRORS as e:
+                del self.ok_idatafiles[n_okid:]
+                self.failed_datafiles.append((datafile, str(e)))
+                obs.counter("device_errors")
+                ph.done(error=type(e).__name__)
+                print(f"Device error fitting {datafile}: {e}; "
+                      "skipping it.", file=sys.stderr)
                 continue
-            self.ok_idatafiles.append(iarch)
-
-            # reference frequencies for fit and output
-            nu_means = (freqs_b * wok).sum(-1) / wok.sum(-1)
-            if nu_fit_tuple is None:
-                nu_fit = np.array([
-                    float(guess_fit_freq(freqs_b[i][wok[i] > 0],
-                                         SNRs_b[i][wok[i] > 0]))
-                    for i in range(B)])
-                nu_fits_b = np.stack([nu_fit, nu_fit, nu_fit], axis=1)
-            else:
-                nu_fits_b = np.tile([nu_fit_tuple[0], nu_fit_tuple[0],
-                                     nu_fit_tuple[-1]], (B, 1))
-            if nu_ref_tuple is None:
-                nu_outs_b = None
-            else:
-                nu_ref_DM = nu_ref_tuple[0]
-                nu_ref_tau = nu_ref_tuple[-1]
-                # bary: the requested (barycentric) tau reference maps to
-                # a per-subint topocentric one (pptoas.py:410-415)
-                if bary and nu_ref_tau:
-                    taus_ref = nu_ref_tau / d.doppler_factors[ok]
-                else:
-                    taus_ref = np.full(B, np.nan if nu_ref_tau is None
-                                       else nu_ref_tau)
-                col = np.full(B, np.nan if nu_ref_DM is None else nu_ref_DM)
-                nu_outs_b = (None if nu_ref_DM is None else col,
-                             None if nu_ref_DM is None else col,
-                             None if nu_ref_tau is None else taus_ref)
-
-            # -- initial guesses (batched, on the device) ---------------
-            # the data go to the device once; the fits below index them
-            ports_dev = torch.as_tensor(ports).to(dev)
-            wok_dev = torch.as_tensor(wok).to(dev)
-            wsum = wok_dev.sum(-1)[:, None]
-            DM_guess = DM_stored
-            rot_ports = rotate_data(ports_dev, 0.0, DM_guess, Ps_b, freqs_b,
-                                    nu_means[:, None])
-            # weighted band-average profiles
-            rot_profs = (rot_ports * wok_dev[..., None]).sum(1) / wsum
-            del rot_ports
-            # (a product: no [B, nchan, nbin] copy of a shared model)
-            model_profs = (wok_dev @ models if same_freqs else torch.matmul(
-                wok_dev[:, None, :], models)[:, 0]) / wsum
-            tau_guess = np.zeros(B)
-            alpha_guess = np.zeros(B)
-            if fit_scat:
-                if self.scat_guess is not None:
-                    tg_s, tg_ref, ag = self.scat_guess
-                    tau_guess[:] = (tg_s / Ps_b) * \
-                        (nu_fits_b[:, 2] / tg_ref) ** ag
-                    alpha_guess[:] = ag
-                else:
-                    alpha_guess[:] = getattr(self, "alpha", scattering_alpha)
-                    if hasattr(self, "gparams"):
-                        tau_guess[:] = (self.gparams[1] / Ps_b) * \
-                            (nu_fits_b[:, 2] / self.model_nu_ref) \
-                            ** alpha_guess
-                # scatter the model mean profile for the phase guess
-                nu_tau = torch.as_tensor(nu_fits_b[:, 2]).to(dev)
-                model_profs = _scatter(model_profs, scattering_times(
-                    torch.as_tensor(tau_guess).to(dev),
-                    torch.as_tensor(alpha_guess).to(dev), nu_tau, nu_tau))
-                if log10_tau:
-                    tau_guess = np.log10(np.where(tau_guess == 0.0,
-                                                  1.0 / nbin, tau_guess))
-            guess = fit_phase_shift(rot_profs, model_profs,
-                                    noise=np.median(errs_b, axis=-1),
-                                    Ns=100, device=dev)
-            phi_guess = np.asarray(phase_transform(
-                _host(guess.phase), DM_guess, nu_means, nu_fits_b[:, 0],
-                Ps_b, mod=True))
-            init = np.stack([phi_guess, np.full(B, DM_guess), np.zeros(B),
-                             tau_guess, alpha_guess], axis=1)
-
-            if bounds is None:
-                tau_lo = np.log10(1.0 / (10 * nbin)) if log10_tau else 0.0
-                bounds_eff = [(None, None), (None, None), (None, None),
-                              (tau_lo, None), (-10.0, 10.0)] \
-                    if fit_scat else None
-            else:
-                bounds_eff = bounds
-
-            # -- degraded modes: group subints by effective fit flags ---
-            nchanx = wok.sum(-1).astype(int)
-            flags_groups = {}
-            flags_used = [None] * B
-            for i in range(B):
-                if nchanx[i] == 1:
-                    fl = (1, 0, 0, 0, 0)
-                elif nchanx[i] == 2 and fit_DM and fit_GM:
-                    fl = (1, 1, 0, self.fit_flags[3], self.fit_flags[4])
-                else:
-                    fl = tuple(self.fit_flags)
-                flags_used[i] = fl
-                flags_groups.setdefault(fl, []).append(i)
-
-            results = [None] * B
-            for fl, idxs in flags_groups.items():
-                sel = np.asarray(idxs)
-                sel_dev = torch.as_tensor(sel, device=dev)
-                out = fit_portrait_full_batch(
-                    ports_dev[sel_dev],
-                    models if same_freqs else models[sel_dev],
-                    init[sel], Ps_b[sel], freqs_b[sel], errs=errs_b[sel],
-                    weights=weights_b[sel], fit_flags=fl,
-                    nu_fits=nu_fits_b[sel],
-                    nu_outs=None if nu_outs_b is None else tuple(
-                        None if col is None else col[sel]
-                        for col in nu_outs_b),
-                    bounds=bounds_eff, log10_tau=log10_tau,
-                    max_iter=max_iter, device=dev)
-                out = {key: _host(val) for key, val in out.items()}
-                for j, i in enumerate(idxs):
-                    results[i] = {key: val[j] for key, val in out.items()}
-            fit_duration = time.time() - fit_start
 
             # -- assemble per-archive outputs ---------------------------
+            ph.enter("polish")
             nu_refs_arr = np.zeros([nsub, 3])
             nu_fits_arr = np.zeros([nsub, 3])
             phis = np.zeros(nsub)
@@ -872,10 +962,20 @@ class GetTOAs:
             self.rcs.append(rcs)
             self.fit_durations.append(fit_duration)
             self.n_nonfinite_zapped.append(n_zap)
+            # fit-quality fingerprint (obs/quality.py): one record per
+            # archive, from the host arrays the TOA lines were built from
+            obs.quality.record_archive(
+                datafile, red_chi2s[ok], phi_errs[ok] * Ps_b * 1e6,
+                snrs=snrs[ok], rcs=rcs[ok], phis=phis[ok],
+                phi_errs=phi_errs[ok], n_zapped=int(n_zap), isubs=ok,
+                nsub=int(nsub), nchan=int(nchan))
             if checkpoint is not None:
+                ph.enter("write", checkpoint=checkpoint)
                 # block + marker in one append; only this call's TOAs
                 _append_checkpoint(checkpoint, self.TOA_list[n_toa0:],
                                    datafile)
+            ph.done(fit_duration_s=round(fit_duration, 6),
+                    n_toas=len(ok), n_nonfinite_zapped=n_zap)
             if not quiet:
                 print("--------------------------")
                 print(datafile)
@@ -890,6 +990,7 @@ class GetTOAs:
                   % (tot, tot / max(ntoa, 1)))
 
     # -- narrowband (per-channel) TOAs ----------------------------------
+    @obs.scoped_run("pptoas")
     def get_narrowband_TOAs(self, datafile=None, tscrunch=False,
                             fit_scat=False, log10_tau=True,
                             scat_guess=None, print_phase=False,
@@ -927,6 +1028,11 @@ class GetTOAs:
         start = time.time()
 
         datafiles = self.datafiles if datafile is None else [datafile]
+        obs.configure(pipeline="get_narrowband_TOAs",
+                      modelfile=self.modelfile,
+                      n_datafiles=len(datafiles), fit_scat=fit_scat,
+                      log10_tau=log10_tau, max_iter=max_iter,
+                      checkpoint=checkpoint)
         done_archives = set()
         if checkpoint is not None and os.path.isfile(checkpoint):
             done_archives = _resume_checkpoint(checkpoint, quiet)
@@ -937,36 +1043,66 @@ class GetTOAs:
                           f"{checkpoint}; skipping it.")
                 continue
             n_toa0 = len(self.TOA_list)
+            ph = obs.phases(archive=datafile)
+            ph.enter("load")
             d = load_archive_data(datafile, tscrunch, quiet)
             if d is None:
+                ph.done(skipped="load_failed")
                 continue
             nsub, nchan = d.nsub, d.nchan
             fit_start = time.time()
             batch = self._checked_batch(d, datafile, nonfinite_max_frac,
-                                        quiet)
+                                        quiet, narrowband=True)
             if batch is None:
+                ph.done(skipped="nonfinite_poison")
                 continue
             ok, ports, freqs_b, weights_b, errs_b, _, Ps_b, _, n_zap = batch
             wok = (weights_b > 0.0).astype(np.float64)
 
-            models, same_freqs = self._prepare_models(
-                d, ports.shape, freqs_b, Ps_b, fit_scat,
-                add_instrumental_response, datafile)
-            if models is None:
+            # a device error fails this archive, not the run (get_TOAs)
+            n_okid = len(self.ok_idatafiles)
+            try:
+                models, same_freqs = self._prepare_models(
+                    d, ports.shape, freqs_b, Ps_b, fit_scat,
+                    add_instrumental_response, datafile)
+                if models is None:
+                    ph.done(skipped="model_mismatch")
+                    continue
+                self.ok_idatafiles.append(iarch)
+                obs.event("archive", datafile=datafile, nsub=int(nsub),
+                          nchan=int(nchan), nbin=int(d.nbin),
+                          B=int(len(ok)), dtype=str(ports.dtype),
+                          narrowband=True)
+                # flatten live (subint, channel) pairs into one fit batch
+                jj, cc = np.nonzero(wok)                      # [M], [M]
+                if len(jj) == 0:  # the guard zapped every live channel
+                    self.poisoned_datafiles.append(
+                        (datafile, "non-finite data: every live channel "
+                                   "zapped"))
+                    del self.ok_idatafiles[n_okid:]
+                    ph.done(skipped="nonfinite_poison")
+                    continue
+                ph.enter("solve", batch=int(len(jj)))
+                # chaos site: the same dispatch stand-in as get_TOAs
+                faults.check("dispatch", key=datafile)
+                # opt-in device profile of the narrowband fit dispatches
+                with obs.trace_capture("ppnbtoas_arch%03d" % iarch):
+                    fit = self._narrowband_fit(
+                        ports, models, same_freqs, jj, cc, errs_b, freqs_b,
+                        Ps_b, d.DM, fit_scat, log10_tau, bounds, max_iter,
+                        print_flux)
+                fit_duration = time.time() - fit_start
+            except DEVICE_ERRORS as e:
+                del self.ok_idatafiles[n_okid:]
+                self.failed_datafiles.append((datafile, str(e)))
+                obs.counter("device_errors")
+                ph.done(error=type(e).__name__)
+                print(f"Device error fitting {datafile}: {e}; "
+                      "skipping it.", file=sys.stderr)
                 continue
-            # flatten live (subint, channel) pairs into one fit batch
-            jj, cc = np.nonzero(wok)                      # [M], [M]
-            if len(jj) == 0:  # the guard zapped every live channel
-                self.poisoned_datafiles.append(
-                    (datafile, "non-finite data: every live channel "
-                               "zapped"))
-                continue
-            self.ok_idatafiles.append(iarch)
-            fit = self._narrowband_fit(ports, models, same_freqs, jj, cc,
-                                       errs_b, freqs_b, Ps_b, d.DM,
-                                       fit_scat, log10_tau, bounds,
-                                       max_iter, print_flux)
-            fit_duration = time.time() - fit_start
+
+            # -- assemble per-archive [nsub, nchan] outputs -------------
+            ph.enter("polish")
             fit.update(sub_idx=ok[jj], cc=cc, nusx=freqs_b[jj, cc],
                        Psx=Ps_b[jj])
             arrays = self._narrowband_arrays(fit, nsub, nchan, fit_scat)
@@ -994,11 +1130,23 @@ class GetTOAs:
             self.channel_red_chi2s.append(arrays["channel_red_chi2s"])
             self.fit_durations.append(fit_duration)
             self.n_nonfinite_zapped.append(n_zap)
+            # fit-quality fingerprint: the per-channel fits are the
+            # quality subunits; isubs names each fit's archive subint
+            obs.quality.record_archive(
+                datafile, fit["red_chi2s"], fit["phi_errs"] * fit["Psx"]
+                * 1e6, snrs=fit["snrs"],
+                rcs=arrays["rcs"][fit["sub_idx"], cc], phis=fit["phis"],
+                phi_errs=fit["phi_errs"], n_zapped=int(n_zap),
+                isubs=fit["sub_idx"], narrowband=True, nsub=int(nsub),
+                nchan=int(nchan))
             if checkpoint is not None:
+                ph.enter("write", checkpoint=checkpoint)
                 _append_checkpoint(checkpoint, self.TOA_list[n_toa0:],
                                    datafile)
+            M = len(jj)
+            ph.done(fit_duration_s=round(fit_duration, 6), n_toas=M,
+                    n_nonfinite_zapped=n_zap)
             if not quiet:
-                M = len(jj)
                 print("--------------------------")
                 print(datafile)
                 print("~%.4f sec/TOA" % (fit_duration / max(M, 1)))
@@ -1184,8 +1332,10 @@ class GetTOAs:
     def write_TOAs(self, outfile=None, nu_ref=None, format="tempo2",
                    SNR_cutoff=0.0, append=True):
         """Write the accumulated TOA_list to a .tim file."""
-        write_TOAs(self.TOA_list, SNR_cutoff=SNR_cutoff, outfile=outfile,
-                   append=append)
+        with obs.span("write", outfile=outfile,
+                      n_toas=len(self.TOA_list)):
+            write_TOAs(self.TOA_list, SNR_cutoff=SNR_cutoff,
+                       outfile=outfile, append=append)
 
     def write_princeton_TOAs(self, outfile=None, one_DM=False,
                              dmerrfile=None):

@@ -268,3 +268,21 @@ def test_leftover_modules_walked_and_refuse_without_cuda(monkeypatch):
     assert synth.make_fake_dataset(torch.Generator(), model, nsub=1,
                                    nchan=2, nbin=16,
                                    device="cpu").subints.shape == (1, 2, 16)
+
+
+def test_obs_and_fault_modules_walked():
+    """The observability layer, the fault-injection harness and the
+    ppusage CLI are among the modules the import check walks (no JAX,
+    no CUDA initialized by importing them)."""
+    import pkgutil
+
+    import pulseportraiture_tpu_torch
+
+    names = {m.name for m in pkgutil.walk_packages(
+        pulseportraiture_tpu_torch.__path__, "pulseportraiture_tpu_torch.")}
+    prefix = "pulseportraiture_tpu_torch."
+    assert {prefix + m for m in (
+        "obs", "obs.core", "obs.devtime", "obs.flight", "obs.health",
+        "obs.manifest", "obs.memory", "obs.merge", "obs.metrics",
+        "obs.monitor", "obs.quality", "obs.trace", "obs.tracing",
+        "obs.usage", "testing", "testing.faults", "cli.ppusage")} <= names
