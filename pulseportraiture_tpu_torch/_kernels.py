@@ -32,10 +32,12 @@ wrapper checks device, dtype, shape and contiguity, checks the launch's
 
 Build: ``build()`` starts one ``nvcc`` per source, all at once, writing
 ``_build/lib<name>-<hash>.so`` (the hash covers the source and the
-flags, so an edited source never reuses a stale library).  Each source
-is published on the obs compile bridge (``obs.monitor``): a library
-already built as a cache hit, one it compiles as a cache miss and a
-compile event with the nvcc seconds.  No CUDA toolkit is needed to
+flags, so an edited source never reuses a stale library);
+``set_build_dir`` moves that directory (``ppsurvey --compile-cache``),
+so several processes or restarts share one set of built libraries.
+Each source is published on the obs compile bridge (``obs.monitor``): a
+library already built as a cache hit, one it compiles as a cache miss
+and a compile event with the nvcc seconds.  No CUDA toolkit is needed to
 import this module.
 
 A launch the CUDA runtime refuses raises :class:`KernelLaunchError`, the
@@ -57,6 +59,7 @@ import torch
 from .obs import monitor
 
 __all__ = ["KernelLaunchError", "LAUNCHES", "reset_launches", "build",
+           "set_build_dir",
            "moments",
            "moments_plain", "moments_scat", "moments_scat_plain",
            "MOMENTS_SCAT_SUMS", "fftfit", "fftfit_plain", "fftfit_table",
@@ -127,6 +130,18 @@ def _nvcc():
     if path is None:
         raise RuntimeError("nvcc not found: the CUDA kernels are built "
                            "from csrc/ with the CUDA toolkit.")
+    return path
+
+
+def set_build_dir(path):
+    """Build the kernels into, and load them from, ``path`` (created
+    when missing).  Libraries already loaded stay loaded; returns the
+    absolute directory."""
+    global BUILD_DIR
+    path = os.path.abspath(str(path))
+    os.makedirs(path, exist_ok=True)
+    with _LOCK:
+        BUILD_DIR = path
     return path
 
 

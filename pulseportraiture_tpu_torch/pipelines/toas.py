@@ -297,9 +297,16 @@ def _load(datafile, tscrunch, quiet):
     return data
 
 
+# preload-table miss sentinel (None is a valid load outcome, so a
+# plain dict.get default cannot stand in for "nothing was prefetched")
+_PRELOAD_MISS = object()
+
+
 def load_archive_data(datafile, tscrunch=False, quiet=True):
     """load_data with the reference's dmc-reload; returns the DataBunch,
-    or None when the archive cannot be used."""
+    or None when the archive cannot be used.  ``GetTOAs._load_archive``
+    and the survey's prefetch stage (runner/prefetch.py) both run it, so
+    a prefetched buffer equals a serial load."""
     try:
         data = _load(datafile, tscrunch, quiet)
         if not len(data.ok_isubs):
@@ -373,9 +380,50 @@ class GetTOAs:
         self.failed_datafiles = []
         # archives the non-finite guard refused to fit: (datafile, reason)
         self.poisoned_datafiles = []
+        # batched-fit entry override (None = the module-level
+        # fit_portrait_full_batch, resolved at call time)
+        self.fit_batch = None
+        # prefetched load outcomes keyed by realpath, installed by
+        # preload() and consumed (once) by _load_archive — the hand-off
+        # end of the survey's host prefetch stage (runner/prefetch.py)
+        self._preloaded = {}
         for attr in self.RESULT_ATTRS:
             setattr(self, attr, [])
         self.TOA_list = []
+
+    # -- archive loading, with the survey's prefetched outcomes ---------
+    def _load_archive(self, datafile, tscrunch, quiet):
+        """load_archive_data, with a prefetched outcome replayed
+        verbatim (see preload)."""
+        hit = self._take_preloaded(datafile)
+        if hit is not _PRELOAD_MISS:
+            kind, val = hit
+            if kind == "raise":
+                raise val
+            return val
+        return self._load_fresh(datafile, tscrunch, quiet)
+
+    def _load_fresh(self, datafile, tscrunch, quiet):
+        """The load a ``_load_archive`` miss runs (subclasses that load
+        otherwise, as the survey's bucketed driver does, override it)."""
+        return load_archive_data(datafile, tscrunch=tscrunch,
+                                 quiet=quiet)
+
+    def preload(self, datafile, outcome):
+        """Install a prefetched load outcome for ``datafile``:
+        ``("data", DataBunch_or_None)`` or ``("raise", exc)``.  The next
+        ``_load_archive(datafile)`` replays it instead of touching the
+        filesystem, returning or raising exactly what the serial load
+        would have, from the same call site."""
+        self._preloaded[os.path.realpath(datafile)] = tuple(outcome)
+
+    def _take_preloaded(self, datafile):
+        """Pop the prefetched outcome for ``datafile`` (consume-once),
+        or the module sentinel _PRELOAD_MISS when none was installed."""
+        if not self._preloaded:
+            return _PRELOAD_MISS
+        return self._preloaded.pop(os.path.realpath(datafile),
+                                   _PRELOAD_MISS)
 
     # -- model construction --------------------------------------------
     def _build_model(self, freqs, phases, P, fit_scat):
@@ -566,7 +614,7 @@ class GetTOAs:
             n_toa0 = len(self.TOA_list)
             ph = obs.phases(archive=datafile)
             ph.enter("load")
-            d = load_archive_data(datafile, tscrunch, quiet)
+            d = self._load_archive(datafile, tscrunch, quiet)
             if d is None:
                 ph.done(skipped="load_failed")
                 continue
@@ -722,7 +770,8 @@ class GetTOAs:
                     for fl, idxs in flags_groups.items():
                         sel = np.asarray(idxs)
                         sel_dev = torch.as_tensor(sel, device=dev)
-                        out = fit_portrait_full_batch(
+                        fit = self.fit_batch or fit_portrait_full_batch
+                        out = fit(
                             ports_dev[sel_dev],
                             models if same_freqs else models[sel_dev],
                             init[sel], Ps_b[sel], freqs_b[sel],
@@ -1045,7 +1094,7 @@ class GetTOAs:
             n_toa0 = len(self.TOA_list)
             ph = obs.phases(archive=datafile)
             ph.enter("load")
-            d = load_archive_data(datafile, tscrunch, quiet)
+            d = self._load_archive(datafile, tscrunch, quiet)
             if d is None:
                 ph.done(skipped="load_failed")
                 continue
@@ -1220,7 +1269,8 @@ class GetTOAs:
             else:
                 bounds_eff = [tuple(bounds[0]), (None, None), (None, None),
                               tuple(bounds[1]), (-10.0, 10.0)]
-            r = fit_portrait_full_batch(
+            fit = self.fit_batch or fit_portrait_full_batch
+            r = fit(
                 profs[:, None, :], mods[:, None, :], init, Psx,
                 nusx[:, None], errs=errsx[:, None], fit_flags=(1, 0, 0, 1, 0),
                 nu_fits=np.stack([nusx] * 3, axis=1), bounds=bounds_eff,

@@ -21,14 +21,17 @@ site               where it fires
 ``obs_write``      ``obs/core.Recorder.emit`` and the usage ledger
                    append (the injected failure must DROP the event,
                    never crash)
+``header_scan``    ``runner/plan.scan_archive_header`` (plan time)
+``archive_pad``    ``runner/plan.pad_databunch`` (bucket padding)
+``ledger_append``  ``runner/queue`` ledger appends
+``ledger_scan``    ``runner/queue`` ledger replay
+``lease_renew``    ``runner/queue.WorkQueue.renew`` (the heartbeat)
+``barrier``        ``parallel/multihost.barrier``
+``compile_cache``  ``runner/warm.enable_persistent_cache``
+``supervisor_spawn``  ``runner/supervisor`` worker spawns
 =================  ====================================================
 
-The other names of :data:`SITES` (``header_scan``, ``archive_pad``,
-``ledger_append``, ``ledger_scan``, ``lease_renew``, ``barrier``,
-``compile_cache``, ``supervisor_spawn``) are the JAX package's survey
-runner, multihost and supervisor sites.  They parse here, so one spec
-serves both packages, and fire once the modules that check them are
-ported.
+The sites are the JAX package's, so one spec serves both packages.
 
 Spec grammar (``PPTPU_FAULTS`` or :func:`configure`)::
 

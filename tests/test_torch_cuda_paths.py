@@ -346,3 +346,48 @@ def test_make_fake_dataset_card_matches_cpu(card, monkeypatch):
         **dict(kw, noise_std=sd)).subints for sd in (0.0, 0.3, 0.3))
     assert torch.equal(a, b)
     assert abs(float((a - clean).std()) - 0.3) < 0.01
+
+
+def _survey(K, archives, wd, plain=False, **kw):
+    """run_survey of the port on the card over ``archives``; the
+    checkpoint's TOA lines and the kernels' launches."""
+    from pulseportraiture_tpu_torch.runner.execute import run_survey
+    from pulseportraiture_tpu_torch.runner.plan import plan_survey
+
+    K.reset_launches()
+    with plain_kernels(K) if plain else contextlib.nullcontext():
+        s = run_survey(plan_survey(archives, modelfile=GMODEL), wd,
+                       process_index=0, process_count=1, bary=False,
+                       device=DEVICE, **kw)
+    assert s["counts"]["done"] == len(archives)
+    toas = [ln.split() for ln in open(s["checkpoint"])
+            if ln.split() and ln.split()[0] not in ("FORMAT", "C")]
+    return toas, dict(K.LAUNCHES)
+
+
+def _tim_dt_ns(a, b):
+    assert len(a) == len(b)
+    out = 0.0
+    for x, y in zip(a, b):
+        assert x[0] == y[0]
+        dx, fx = x[2].split(".")
+        dy, fy = y[2].split(".")
+        out = max(out, abs((int(dx) - int(dy)) + float("0." + fx)
+                           - float("0." + fy)) * 86400e9)
+    return out
+
+
+@pytest.mark.parametrize("kw", [dict(), dict(fit_scat=True)],
+                         ids=["phase", "scat"])
+def test_survey_archive_goes_through_kernels(card, archive, tmp_path, kw):
+    """A CUDA-tensor survey archive (run_survey, device cuda) launches K2
+    and K1 (K3 with fit_scat) — no plain fallback on the card — and its
+    TOAs equal those of the plain versions within 1 ns."""
+    _, path = archive
+    got, launches = _survey(card, [path], str(tmp_path / "k"), **kw)
+    assert launches["fftfit"] > 0
+    assert launches["moments_scat" if kw else "moments"] > 0
+    ref, plain_launches = _survey(card, [path], str(tmp_path / "p"),
+                                  plain=True, **kw)
+    assert sum(plain_launches.values()) == 0
+    assert _tim_dt_ns(got, ref) < 1.0

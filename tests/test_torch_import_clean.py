@@ -3,9 +3,13 @@
 Importing every module of pulseportraiture_tpu_torch (and chip_smoke.py)
 in a fresh interpreter must pull in neither JAX nor the JAX package, and
 must not initialize CUDA; and the entry points must refuse to run when
-no CUDA device exists unless the caller asked for the CPU.
+no CUDA device exists unless the caller asked for the CPU.  The survey
+runner's modules (runner/, parallel/, cli/ppsurvey) are also imported by
+name, and the worker command line ``ppsurvey supervise`` builds runs the
+port's ppsurvey without importing JAX.
 """
 
+import json
 import math
 import os
 import subprocess
@@ -286,3 +290,118 @@ def test_obs_and_fault_modules_walked():
         "obs.manifest", "obs.memory", "obs.merge", "obs.metrics",
         "obs.monitor", "obs.quality", "obs.trace", "obs.tracing",
         "obs.usage", "testing", "testing.faults", "cli.ppusage")} <= names
+
+
+# the survey runner, its process layer and its CLI: imported by name, so
+# a module that failed to exist would fail here, not just be skipped
+_SURVEY_MODULES = [
+    "pulseportraiture_tpu_torch.runner",
+    "pulseportraiture_tpu_torch.runner.plan",
+    "pulseportraiture_tpu_torch.runner.queue",
+    "pulseportraiture_tpu_torch.runner.execute",
+    "pulseportraiture_tpu_torch.runner.workloads",
+    "pulseportraiture_tpu_torch.runner.prefetch",
+    "pulseportraiture_tpu_torch.runner.warm",
+    "pulseportraiture_tpu_torch.runner.respawn",
+    "pulseportraiture_tpu_torch.runner.supervisor",
+    "pulseportraiture_tpu_torch.parallel",
+    "pulseportraiture_tpu_torch.parallel.multihost",
+    "pulseportraiture_tpu_torch.cli.ppsurvey",
+]
+
+_CHECK_SURVEY = """
+import importlib, sys
+sys.path.insert(0, %r)
+for name in %r:
+    importlib.import_module(name)
+bad = sorted(m for m in sys.modules
+             if m == 'jax' or m.startswith('jax.') or m == 'jaxlib'
+             or m == 'pulseportraiture_tpu'
+             or m.startswith('pulseportraiture_tpu.'))
+assert not bad, bad
+import torch
+assert not torch.cuda.is_initialized()
+assert not torch.distributed.is_initialized()
+print("ok")
+"""
+
+
+def test_survey_modules_import_no_jax():
+    env = dict(os.environ)
+    env.pop("PYTHONPATH", None)
+    proc = subprocess.run(
+        [sys.executable, "-c", _CHECK_SURVEY % (ROOT, _SURVEY_MODULES)],
+        capture_output=True, text=True, timeout=300, env=env, cwd=ROOT)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.split()[-1] == "ok"
+
+
+# run a supervise worker's command line (argv after "-m module") inside
+# this interpreter and report whether it pulled in JAX or the JAX package
+_CHECK_WORKER = """
+import json, runpy, sys
+sys.path.insert(0, %r)
+module, argv = sys.argv[1], sys.argv[2:]
+sys.argv = [module] + argv
+try:
+    runpy.run_module(module, run_name="__main__")
+except SystemExit as e:
+    rc = e.code
+else:
+    rc = 0
+bad = sorted(m for m in sys.modules
+             if m == 'jax' or m.startswith('jax.') or m == 'jaxlib'
+             or m == 'pulseportraiture_tpu'
+             or m.startswith('pulseportraiture_tpu.'))
+print(json.dumps({"rc": rc, "bad": bad}))
+"""
+
+
+def test_supervise_worker_command_imports_no_jax(tmp_path):
+    """The command line ``ppsurvey supervise`` gives each worker runs the
+    port's ppsurvey, with the supervisor's --device, and the worker
+    imports nothing of JAX while it fits."""
+    from pulseportraiture_tpu_torch.io.archive import make_fake_pulsar
+    from pulseportraiture_tpu_torch.runner.plan import plan_survey
+    from pulseportraiture_tpu_torch.runner.supervisor import Supervisor
+
+    gm = os.path.join(ROOT, "examples", "example.gmodel")
+    arch = str(tmp_path / "a.fits")
+    make_fake_pulsar(gm, os.path.join(ROOT, "examples", "example.par"),
+                     arch, nsub=2, nchan=8, nbin=64, noise_stds=0.05,
+                     seed=3, quiet=True)
+    wd = str(tmp_path / "wd")
+    os.makedirs(wd)
+    plan_survey([arch], modelfile=gm).save(os.path.join(wd, "plan.json"))
+    sup = Supervisor(wd, max_workers=1, device="cpu")
+    cmd = sup._worker_cmd(sup.slots[0]) + ["--no_bary"]
+    assert cmd[0] == sys.executable and cmd[1] == "-m"
+    assert cmd[2] == "pulseportraiture_tpu_torch.cli.ppsurvey"
+    assert cmd[cmd.index("--device") + 1] == "cpu"
+    env = dict(os.environ)
+    env.pop("PYTHONPATH", None)
+    proc = subprocess.run(
+        [sys.executable, "-c", _CHECK_WORKER % ROOT] + cmd[2:],
+        capture_output=True, text=True, timeout=300, env=env, cwd=ROOT)
+    assert proc.returncode == 0, proc.stderr
+    out = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert out == {"rc": 0, "bad": []}
+
+
+def test_ppsurvey_without_device_raises_without_cuda(monkeypatch, tmp_path):
+    from pulseportraiture_tpu_torch.cli import ppsurvey
+    from pulseportraiture_tpu_torch.runner.execute import run_survey
+    from pulseportraiture_tpu_torch.runner.warm import warm_plan
+
+    _no_cuda(monkeypatch)
+    gm = os.path.join(ROOT, "examples", "example.gmodel")
+    wd = str(tmp_path / "wd")
+    assert ppsurvey.main(["plan", "-d", gm, "-m", gm, "-w", wd]) == 0
+    plan = os.path.join(wd, "plan.json")
+    for argv in (["run", "-w", wd], ["warm", "-w", wd]):
+        with pytest.raises(RuntimeError):
+            ppsurvey.main(argv)
+    with pytest.raises(RuntimeError):
+        run_survey(plan, wd)
+    with pytest.raises(RuntimeError):
+        warm_plan(plan, gm)
