@@ -128,15 +128,15 @@ Phases, one JSON line each on stdout; any failure exits non-zero:
               of 16 x 512 x 2048, 2 of 16 x 500 x 2000 (padded into the
               512 x 2048 bucket), 2 of 16 x 256 x 1024 and a truncated
               file (make_fake_pulsar, noise 0.5, own seeds): plan; warm
-              on a fresh kernel build directory and on the primed one
-              (a process each: nvcc builds 3, then 0 with 3 hits; every
-              warm program ran); run --prefetch 0 and 2, then 2 with
-              --trace-bucket (walls, the load / fit / write split from
+              on a fresh kernel build directory (a process of its own:
+              nvcc builds 3; every warm program ran); run --prefetch 2,
+              then again with --trace-bucket (walls, the load / fit /
+              write split from
               the obs spans, per-bucket archive seconds, device busy
               from the bucket traces, the capture's cost); run
-              --max_archives 4 then resume over 6 archives of both
-              buckets; --fit_scat on 4 archives of the 512 x 2048 bucket
-              (K3); supervise with two worker processes sharing the
+              --max_archives 4 --prefetch 0 (serial loads) then resume
+              over 6 archives of both buckets; --fit_scat on 4 archives
+              of the 512 x 2048 bucket (K3); supervise with two worker processes sharing the
               card; the zap -> align -> toas chain on 4 archives of 4 x
               512 x 2048.  Every good archive done once per workdir with
               one checkpoint block, the truncated one quarantined with a
@@ -149,11 +149,37 @@ Phases, one JSON line each on stdout; any failure exits non-zero:
               relative, 1e-6 with --fit_scat); K1, K2 and K3 against
               their plain versions on the inputs the survey gave them at
               each shape; K1, K2 and K3 launched
+  serve       the TOA service on the survey's archives (8 of 16 x 512 x
+              2048, 2 of 16 x 256 x 1024): an in-process TOAService
+              (batch_max 4, window 0.25 s, the plan warmed with coalesce
+              2..4) behind its socket, driven by pploadgen's closed loop
+              (40 requests from two tenants on fresh spooled copies,
+              concurrency 4: requests/s, client p50/p90/p99 and each
+              latency, the server's queue_wait / park / dispatch / fit
+              p50s), then over the
+              socket the 256 x 1024 archives, a fit_scat request (K3), a
+              duplicate (replayed, no launch) and two requests under
+              PPTPU_FAULTS="site:dispatch@nth=1" (one retries, its
+              sibling completes), and a traced closed loop of 8 (device
+              busy); at least one coalesced dispatch; every served
+              archive once in its tenant's toas.tim and within 1 ns of
+              the port's pptoas on the same archive; no kernel built
+              after warm (request manifests: backend_compiles 0); K1, K2
+              and K3 against their plain versions and timed (with their
+              bounds) at every shape the path gave them; peak memory.
+              Then ppserve start as a process (--plan --warm on the
+              survey's primed kernel build directory: 0 builds, 3 hits),
+              ppserve submit --wait and status, SIGTERM -> exit 0; and
+              pprouter start with 2 spawned daemons, 4 requests over
+              both buckets through the router (each once, pptoas's
+              TOAs), each daemon's device memory (its allocator, and
+              the card memory the daemons added by nvidia-smi, their
+              CUDA contexts included), SIGTERM -> exit 0
   failed_datafiles  no archive of any GetTOAs run failed on a device error
 
 Then a ``kernels`` line (every hand kernel with its launches on its
 paths — K1 and K2 on pptoas, K3 on pptoas_scat, each plus the narrowband,
-narrowband_scat, templates, ppzap, obs and survey runs, K1 and K2 also
+narrowband_scat, templates, ppzap, obs, survey and serve runs, K1 and K2 also
 on ppalign, ppspline, ppgauss and the walkthrough, with
 ``launches_by_path`` —
 errors and times; K2 with
@@ -259,6 +285,37 @@ def bound_ms(nbytes, *work):
                                  "operations")
 
 
+def moments_bound_ms(n, nchan, K):
+    """K1's least time for ``n`` evaluated rows of [nchan, K]: their
+    cross read once, shifts and inv_err2 per row, three sums out
+    (float64); ~18 FP64 operations per harmonic (sincospi as 2)."""
+    rows = n * nchan
+    return bound_ms(rows * K * 16 + rows * 8 * 2 + rows * 3 * 8,
+                    (rows * K * 18, PEAK_FP64_PER_S))
+
+
+def moments_scat_bound_ms(n, nchan, K, shared):
+    """K3's least time for ``n`` evaluated rows: their cross (and, unless
+    ``shared``, their |m|^2) read once, a shared |m|^2 once, shifts /
+    taus / inv_err2 per row, nine sums out; K3_OPS per harmonic."""
+    rows = n * nchan
+    return bound_ms(rows * K * 16 + (nchan if shared else rows) * K * 8
+                    + rows * 8 * 3 + rows * 9 * 8,
+                    (rows * K * K3_OPS, PEAK_FP64_PER_S))
+
+
+def fftfit_bound_ms(N, nharm, Ns, newton):
+    """K2's least time at [N, nharm]: cross and inv_err2 read once,
+    (phase, C, d2C) written; the grid stage is one float64 product [N,
+    2 nharm] x [2 nharm, Ns] with a table the profiles share (4
+    operations per complex term, FP64 tensor cores), and each Newton
+    step and the final objective take ~18 FP64 operations (sincospi as
+    2) per harmonic."""
+    return bound_ms(N * nharm * 16 + N * 8 + 3 * N * 8,
+                    (4 * N * nharm * Ns, PEAK_FP64_TENSOR_PER_S),
+                    (18 * N * nharm * (newton + 1), PEAK_FP64_PER_S))
+
+
 def rel_err(a, b):
     return float((a - b).abs().max() / b.abs().max().clamp_min(1e-300))
 
@@ -271,7 +328,7 @@ def phase_kernels(dev, kern, K=128):
     gen = torch.Generator(device=dev).manual_seed(7)
     rows = {}
 
-    # K1: moments.  ~18 FP64 operations per harmonic (incl. sincospi as 2)
+    # K1: moments
     n, nchan = 100, 512
     cross = torch.complex(torch.randn((n, nchan, K), generator=gen,
                                       device=dev, dtype=torch.float64),
@@ -286,8 +343,7 @@ def phase_kernels(dev, kern, K=128):
     torch.cuda.synchronize()
     err = max(rel_err(got[..., i], want[..., i]) for i in range(3))
     tol = 1e-12
-    nb = cross.numel() * 16 + shifts.numel() * 8 * 2 + got.numel() * 8
-    bms, by = bound_ms(nb, (cross.numel() * 18, PEAK_FP64_PER_S))
+    bms, by = moments_bound_ms(n, nchan, K)
     rows["moments"] = dict(
         shape=[n, nchan, K], max_rel_err=err, tol=tol,
         max_abs_err=float((got - want).abs().max()),
@@ -354,11 +410,7 @@ def phase_k3(dev, kern, gen, n, nchan, K, shared, nlanes):
     errs = {name: rel_err(got[..., j], want[..., j])
             for j, name in enumerate(kern.MOMENTS_SCAT_SUMS)}
     err, tol = max(errs.values()), 1e-12
-    # bytes: the rows' cross (and per-subint |m|^2) read once, the shared
-    # |m|^2 once, shifts/taus/inv_err2 per row, nine sums out
-    nb = m * nchan * K * 16 + (nchan * K if shared else m * nchan * K) * 8 \
-        + m * nchan * 8 * 3 + got.numel() * 8
-    bms, by = bound_ms(nb, (m * nchan * K * K3_OPS, PEAK_FP64_PER_S))
+    bms, by = moments_scat_bound_ms(m, nchan, K, shared)
     row = dict(shape=[n, nchan, K], shared_abs_m2=shared, lanes=nlanes,
                max_rel_err=err, rel_err_by_sum=errs, tol=tol,
                max_abs_err=float((got - want).abs().max()),
@@ -481,13 +533,7 @@ def phase_k2(dev, kern, gen, N, Ns, lo, hi, newton=6, time_plain=True):
                         2 * math.pi * torch.remainder(k[:, None] * grid, 1.0))
     library_ms = graph_ms(lambda: torch.matmul(cr, table))
     del table
-    # the grid stage is one float64 product [N, 2 nharm] x [2 nharm, Ns]
-    # with a table the profiles share (4 operations per complex term, FP64
-    # tensor cores); each Newton step and the final objective take ~18 FP64
-    # operations (sincospi as 2) per harmonic
-    bms, by = bound_ms(cr.numel() * 16 + N * 8 + 3 * N * 8,
-                       (4 * N * nharm * Ns, PEAK_FP64_TENSOR_PER_S),
-                       (18 * N * nharm * (newton + 1), PEAK_FP64_PER_S))
+    bms, by = fftfit_bound_ms(N, nharm, Ns, newton)
     row = dict(
         shape=[N, nharm], Ns=Ns, bounds=[lo, hi], newton_iter=newton,
         max_phase_err=dphase, tol_phase=tol_phase, max_rel_err=err, tol=tol,
@@ -2866,10 +2912,10 @@ def survey_column_gaps(a, b):
 
 def phase_survey(root, work, K, device="cuda"):
     """The survey runner (ppsurvey) at full width: plan and warm (a fresh
-    kernel build directory, then the primed one, each in its own
-    process); run with --prefetch 0 and 2 untraced (walls, the load / fit
-    / write split), then 2 with --trace-bucket (device busy); run
-    --max_archives 4 then resume; --fit_scat on four archives of the 512
+    kernel build directory, in its own process); run with --prefetch 2
+    untraced (walls, the load / fit / write split), then with
+    --trace-bucket (device busy); run
+    --max_archives 4 --prefetch 0 (serial loads) then resume; --fit_scat on four archives of the 512
     x 2048 bucket (K3); supervise with two worker processes sharing the
     card; the zap -> align -> toas chain at 4 subints.  Every good
     archive done once per workdir, the truncated one quarantined with a
@@ -2882,8 +2928,10 @@ def phase_survey(root, work, K, device="cuda"):
     relative on every other number; K1, K2 and K3 held against their plain versions on the
     inputs the main and --fit_scat runs gave them at each shape.
     Returns the survey path's launches (the main run's and the
-    --fit_scat run's).  ``device`` "cpu" rehearses the phase at a small
-    ``SURVEY_SHAPES`` on the CPU (no kernel builds there)."""
+    --fit_scat run's) and what the serve phase reuses (the archives,
+    pptoas's TOAs of the 512 x 2048 bucket, the kernel build directory).
+    ``device`` "cpu" rehearses the phase at a small ``SURVEY_SHAPES`` on
+    the CPU (no kernel builds there)."""
     from pulseportraiture_tpu_torch.cli import pptoas
     from pulseportraiture_tpu_torch.io.parfile import read_par
     from pulseportraiture_tpu_torch.runner.execute import run_survey
@@ -2920,38 +2968,35 @@ def phase_survey(root, work, K, device="cuda"):
             or p["buckets"] != want:
         raise AssertionError("plan: %s, want buckets %s" % (p, want))
     out["plan"] = p
-    # warm on a fresh kernel build directory, then on the primed one:
-    # each a process of its own (nvcc runs in the first only)
+    # warm on a fresh kernel build directory, in a process of its own
+    # (nvcc runs there); the serve phase's ppserve daemon warms on the
+    # primed directory (no build, a hit per kernel)
     kdir = os.path.join(work, "kernels")
-    warm = {}
-    for tag in ("fresh", "primed"):
-        wall, w = survey_subprocess(root, ["warm", "-w", wd("warm"),
-                                           "--no_bary", "--compile-cache",
-                                           kdir, "--device", device,
-                                           "--quiet"])
-        warm[tag] = dict(w, process_s=wall)
+    wall, w = survey_subprocess(root, ["warm", "-w", wd("warm"),
+                                       "--no_bary", "--compile-cache",
+                                       kdir, "--device", device, "--quiet"])
+    warm = dict(fresh=dict(w, process_s=wall))
     progs = [e for d in sorted(os.listdir(os.path.join(wd("warm"), "obs")))
              for e in map(json.loads, open(os.path.join(
                  wd("warm"), "obs", d, "events.jsonl")))
              if e.get("name") == "warm_program"]
     n_specs = len(program_specs(os.path.join(wd("warm"), "plan.json")))
-    if len(progs) != 2 * n_specs or not all(e["ok"] for e in progs):
+    if len(progs) != n_specs or not all(e["ok"] for e in progs):
         raise AssertionError("warm programs: %s" % progs)
-    if device == "cuda" and (
-            warm["fresh"]["backend_compiles"] != len(K.KERNELS)
-            or warm["primed"]["backend_compiles"] != 0
-            or warm["primed"]["compile_cache_hits"] != len(K.KERNELS)):
-        raise AssertionError("warm did not build once: %s" % warm)
+    if device == "cuda" and \
+            warm["fresh"]["backend_compiles"] != len(K.KERNELS):
+        raise AssertionError("warm did not build the kernels: %s" % warm)
     out["warm"] = warm
 
-    # the survey with --prefetch 0, then 2, untraced (the walls, the
-    # load / fit / write split), then 2 again with --trace-bucket (device
-    # busy; the capture's own cost against the untraced run).  The
-    # --prefetch 2 run is the main path's: its launches, each kernel's
-    # first inputs at each shape it was given (both buckets), and its
-    # TOAs at full precision
+    # the survey with --prefetch 2 untraced (the wall, the load / fit /
+    # write split), then again with --trace-bucket (device busy; the
+    # capture's own cost against the untraced run).  The untraced run is
+    # the main path's: its launches, each kernel's first inputs at each
+    # shape it was given (both buckets), and its TOAs at full precision.
+    # (One depth: --prefetch 0 and 2 ran 0.99-1.00x of each other,
+    # load-bound; the serial branch runs in the --max_archives pass.)
     runs = {}
-    for depth, traced in ((0, False), (2, False), (2, True)):
+    for depth, traced in ((2, False), (2, True)):
         name = "prefetch%d%s" % (depth, "_traced" if traced else "")
         plan(name)
         argv = ["run", "-w", wd(name), "--no_bary", "--prefetch",
@@ -3035,15 +3080,17 @@ def phase_survey(root, work, K, device="cuda"):
                              "(max |z|, max |dDM|): %s" % pad_gap)
 
     # stop after 4 archives (both of the small bucket, 2 of the large
-    # one), then resume the rest: 6 archives and the truncated file
+    # one), then resume the rest: 6 archives and the truncated file.  The
+    # first pass loads serially (--prefetch 0: run_survey's serial load
+    # branch on the card), the resume with the default prefetch
     resumed = canon[:4] + files[-2:]
     meta_resume = os.path.join(work, "resume.meta")
     with open(meta_resume, "w") as f:
         f.write("\n".join(resumed + [bad]) + "\n")
     plan("resume", meta=meta_resume)
     w1, _, r1 = survey_cli(K, ["run", "-w", wd("resume"), "--no_bary",
-                               "--max_archives", "4", "--device", device,
-                               "--quiet"])
+                               "--max_archives", "4", "--prefetch", "0",
+                               "--device", device, "--quiet"])
     w2, _, r2 = survey_cli(K, ["resume", "-w", wd("resume"), "--no_bary",
                                "--device", device, "--quiet"])
     if r1["counts"]["done"] != 4:
@@ -3132,8 +3179,6 @@ def phase_survey(root, work, K, device="cuda"):
     emit("survey", archives=len(files), shapes=sorted(set(
         "%dx%dx%d" % s for s in SURVEY_SHAPES)), make_s=make_s,
          plan=out["plan"], warm=warm, runs=runs,
-         prefetch_wall_ratio=runs["prefetch2"]["wall_s"]
-         / runs["prefetch0"]["wall_s"],
          trace_cost_s=runs["prefetch2_traced"]["wall_s"]
          - runs["prefetch2"]["wall_s"],
          resume=dict(run_s=w1, resume_s=w2, done_first=r1["counts"]["done"]),
@@ -3149,6 +3194,502 @@ def phase_survey(root, work, K, device="cuda"):
          prefetch_vs_serial_max_ns=prefetch_gap, resume_max_ns=resume_gap,
          supervise_max_ns=sup_gap,
          path_kernels_vs_plain=dict(main=path_rows, fit_scat=scat_rows),
+         launches=launches, phase_s=time.perf_counter() - t_phase)
+    # what the serve phase reuses: the archives, pptoas's TOAs of the
+    # 512 x 2048 bucket and the primed kernel build directory
+    return launches, dict(gm=gm, par=inp["par"], canon=canon,
+                          small=files[-2:], native=native, kernel_dir=kdir)
+
+
+SERVE_TENANTS = ("alice", "bob")
+SERVE_LOAD = 40         # closed-loop requests on the 512 x 2048 bucket
+SERVE_TRACED = 8        # the traced closed loop's requests (device busy)
+SERVE_CONCURRENCY = 4   # pploadgen workers; the daemon's batch_max too
+SERVE_WINDOW_S = 0.25   # the daemon's micro-batch window
+
+
+def serve_pptoas(K, work, tag, files, gm, device, *extra):
+    """The port's pptoas CLI in this process on ``files`` (not counted on
+    any path): {archive: [TOA tokens]}."""
+    from pulseportraiture_tpu_torch.cli import pptoas
+
+    meta = os.path.join(work, tag + ".meta")
+    with open(meta, "w") as f:
+        f.write("\n".join(files) + "\n")
+    tim = os.path.join(work, tag + ".tim")
+    n0 = dict(K.LAUNCHES)
+    if pptoas.main(["-d", meta, "-m", gm, "--no_bary", "--quiet",
+                    "--device", device, "-o", tim] + list(extra)) != 0:
+        raise AssertionError("pptoas %s failed" % tag)
+    K.LAUNCHES.update(n0)
+    out = {}
+    for ln in open(tim):
+        tok = ln.split()
+        if tok and tok[0] not in ("FORMAT", "C"):
+            out.setdefault(tok[0], []).append(tok)
+    return out
+
+
+def path_kernel_times(K, seen):
+    """Each kernel on the inputs a path gave it (``first_kernel_inputs``
+    with ``per_shape``): device ms by CUDA-graph replay, the plain
+    version's by CUDA events, and the bound of the same work (the
+    kernels phase's ``*_bound_ms``).  The timing launches are not
+    counted."""
+    import torch
+
+    plains = dict(moments=K.moments_plain, fftfit=K.fftfit_plain,
+                  moments_scat=K.moments_scat_plain)
+    n0 = dict(K.LAUNCHES)
+    rows = {}
+    for (name, _), (a, kw) in sorted(seen.items(), key=str):
+        fn = getattr(K, name)
+        ms = graph_ms(lambda: fn(*a, **kw))
+        plain_ms = cuda_ms(lambda: plains[name](*a, **kw), reps=3, warm=1)
+        shape = list(a[0].shape)
+        if name == "fftfit":
+            Ns, newton = a[4], a[5]
+            shape.append(Ns)
+            bms, by = fftfit_bound_ms(*shape[:2], Ns, newton)
+        elif name == "moments":
+            # the evaluated rows: all, or the lanes given
+            bms, by = moments_bound_ms(a[1].shape[0], *shape[1:])
+        else:
+            bms, by = moments_scat_bound_ms(a[2].shape[0], *shape[1:],
+                                            shared=a[1].shape[0] == 1)
+        rows["%s@%s" % (name, "x".join(map(str, shape)))] = dict(
+            ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
+            share_of_bound=bms / ms)
+    torch.cuda.synchronize()
+    K.LAUNCHES.update(n0)
+    return rows
+
+
+class _Marker:
+    """Read a subprocess's stdout on a thread (so its pipe never fills)
+    and wait for a line starting with ``mark``: the readiness markers
+    PPSERVE_READY / PPROUTER_READY."""
+
+    def __init__(self, proc, mark):
+        import threading
+
+        self.proc, self.mark, self.info = proc, mark, None
+        self.lines = []
+        self.ready = threading.Event()
+        self.thread = threading.Thread(target=self._read, daemon=True)
+        self.thread.start()
+
+    def _read(self):
+        for ln in self.proc.stdout:
+            self.lines.append(ln.rstrip("\n"))
+            if self.info is None and ln.startswith(self.mark):
+                self.info = json.loads(ln[len(self.mark):].strip())
+                self.ready.set()
+
+    def wait(self, timeout, log):
+        t0 = time.time()
+        while not self.ready.wait(0.5):
+            if self.proc.poll() is not None or time.time() - t0 > timeout:
+                tail = open(log).read()[-3000:] if os.path.exists(log) \
+                    else ""
+                raise AssertionError("no %s (exit %s): %s" % (
+                    self.mark, self.proc.poll(), tail))
+        return self.info
+
+
+def serve_start(root, argv, log):
+    """``python -m pulseportraiture_tpu_torch.cli.<argv>`` as a process
+    of its own (stdout piped, stderr to ``log``)."""
+    env = dict(os.environ, PYTHONPATH=root)
+    env.pop("PPTPU_FAULTS", None)
+    with open(log, "w") as errf:
+        return subprocess.Popen(
+            [sys.executable, "-m", "pulseportraiture_tpu_torch.cli." + argv[0]]
+            + argv[1:], stdout=subprocess.PIPE, stderr=errf, text=True,
+            cwd=root, env=env)
+
+
+def serve_stop(proc, timeout=300):
+    """SIGTERM, then the exit code (a process still running at the
+    timeout is killed and fails the phase)."""
+    import signal
+
+    proc.send_signal(signal.SIGTERM)
+    try:
+        return proc.wait(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait(timeout=60)
+        raise AssertionError("%s did not drain in %d s" % (proc.args[2],
+                                                          timeout))
+
+
+def serve_tenant_toas(wd):
+    """{archive: (tenant, [TOA tokens], checkpoint blocks)} over every
+    tenant ledger of a daemon (or fleet) workdir; an archive found under
+    two tenants or daemons fails."""
+    out = {}
+    for dirpath, _, names in os.walk(wd):
+        if "toas.tim" not in names or \
+                os.path.basename(os.path.dirname(dirpath)) != "tenants":
+            continue
+        toas, blocks = survey_toas(dirpath)
+        for f in set(toas) | set(blocks):
+            if f in out:
+                raise AssertionError("%s served twice: %s and %s"
+                                     % (f, out[f][0], dirpath))
+            out[f] = (dirpath, toas.get(f, []), blocks.get(f, 0))
+    return out
+
+
+def serve_check_toas(served, source, native, nsub):
+    """Every served archive once, ``nsub`` TOAs, within 1 ns of pptoas's
+    on its source archive and the printed error and DM columns within
+    one printed unit: the largest MJD gap [ns] and column gaps."""
+    gap, cols = 0.0, dict(err_us=0.0, pp_dm=0.0, pp_dme=0.0)
+    for f, (where, toas, blocks) in served.items():
+        if blocks != 1 or len(toas) != nsub:
+            raise AssertionError("%s: %d blocks, %d TOAs in %s"
+                                 % (f, blocks, len(toas), where))
+        ref = native[source[f]]
+        gap = max(gap, survey_tim_gap_ns(toas, ref))
+        for k, v in survey_column_gaps(toas, ref).items():
+            cols[k] = max(cols[k], v)
+    if not (gap < 1.0 and cols["err_us"] <= 1.0005e-3
+            and cols["pp_dm"] <= 1.0005e-7 and cols["pp_dme"] <= 1.0005e-7):
+        raise AssertionError("served TOAs differ from pptoas's: %.3g ns, "
+                             "%s" % (gap, cols))
+    return gap, cols
+
+
+def gpu_used_mib():
+    """The card's used memory [MiB] by nvidia-smi: every process's CUDA
+    context and allocations.  (Its per-process list cannot tell this
+    machine's processes apart: they share one PID namespace entry.)"""
+    return int(subprocess.run(
+        ["nvidia-smi", "--query-gpu=memory.used",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.split()[0])
+
+
+def phase_serve(root, work, K, survey, device="cuda"):
+    """The TOA service (ppserve, pprouter, pploadgen) at full width, on
+    the survey phase's archives: an in-process TOAService (batch_max 4,
+    window 0.25 s, the plan's two buckets warmed with coalesce 2..4)
+    behind its socket; pploadgen's closed loop of SERVE_LOAD requests
+    from two tenants on 512 x 2048 (fresh spooled copies, concurrency
+    4): requests/s and the client latencies over ten cycles; then
+    over the socket the two 256 x 1024 archives, a fit_scat request, a
+    duplicate (a replay: no launch) and two requests under a dispatch
+    fault (PPTPU_FAULTS: one retries, its cycle sibling completes); a
+    traced closed loop of SERVE_TRACED more (device busy).  Every served
+    archive once in its tenant's toas.tim, within 1 ns of pptoas's on the same
+    archive; at least one coalesced dispatch; no kernel built after
+    warm; K1, K2 and K3 held against their plain versions at every
+    shape the path gave them, and timed there.  Then ppserve start as a
+    process (--plan --warm on the survey's primed kernel build
+    directory: no build), one ``ppserve submit --wait``, ``status``,
+    SIGTERM -> exit 0; pprouter start with 2 spawned daemons, 4 requests
+    over both buckets (pploadgen against the router), each answered once
+    with pptoas's TOAs, each daemon's allocator and the card memory the
+    daemons added (contexts included), SIGTERM -> exit 0.  Returns the path's launches (the load and the socket requests)."""
+    import io
+    import shutil
+
+    import torch
+
+    from pulseportraiture_tpu_torch import obs
+    from pulseportraiture_tpu_torch.cli import pploadgen, ppserve
+    from pulseportraiture_tpu_torch.runner.plan import plan_survey
+    from pulseportraiture_tpu_torch.service import (ServiceServer,
+                                                    TOAService,
+                                                    client_request)
+
+    t_phase = time.perf_counter()
+    work = os.path.join(work, "serve")
+    os.makedirs(work)
+    gm, canon, small = survey["gm"], survey["canon"], survey["small"]
+    nsub = SURVEY_SHAPES[0][0]
+    t0 = time.perf_counter()
+    native = dict(survey["native"])
+    native.update(serve_pptoas(K, work, "small", small, gm, device))
+    scat_src = canon[0]
+    native_scat = serve_pptoas(K, work, "scat", [scat_src], gm, device,
+                               "--fit_scat")
+    pptoas_s = time.perf_counter() - t0
+    plan = plan_survey(canon + small, modelfile=gm)
+    plan_path = os.path.join(work, "plan.json")
+    plan.save(plan_path)
+
+    def copy(src, name):
+        dst = os.path.join(work, name)
+        shutil.copyfile(src, dst)
+        return dst
+
+    # -- the in-process daemon and its socket --------------------------
+    wd = os.path.join(work, "daemon")
+    svc = TOAService(gm, wd, plan=plan, batch_window_s=SERVE_WINDOW_S,
+                     batch_max=SERVE_CONCURRENCY, backoff_s=0.0,
+                     get_toas_kw=dict(bary=False), quiet=True,
+                     device=device).start()
+    sock = os.path.join(wd, "ppserve.sock")
+    server = ServiceServer(svc, sock).start()
+    try:
+        run_dir = obs.current().dir
+        t0 = time.perf_counter()
+        warm = svc.warm(coalesce=(2, 3, 4))
+        warm_s = time.perf_counter() - t0
+        if not warm["programs"] or not all(p["ok"]
+                                           for p in warm["programs"]):
+            raise AssertionError("serve warm: %s" % warm["programs"])
+        rec = obs.current()
+        builds0 = int(rec.counters.get("backend_compiles", 0))
+        source = {}
+        requests = pploadgen.build_requests(
+            canon, SERVE_LOAD, list(SERVE_TENANTS),
+            os.path.join(work, "spool"), seed=9)
+        for i, (_, dst) in enumerate(requests):
+            source[dst] = canon[i % len(canon)]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        with first_kernel_inputs(K, tuple(K.KERNELS), per_shape=True) \
+                as seen:
+            K.reset_launches()
+            results, load_wall = pploadgen.run_load(
+                sock, requests, mode="closed",
+                concurrency=SERVE_CONCURRENCY, seed=9, timeout=600)
+            snap = client_request(sock, {"op": "metrics"},
+                                  timeout=60)["snapshot"]
+            report = pploadgen.summarize_load(results, load_wall,
+                                              server_snapshot=snap)
+            if report["n_ok"] != SERVE_LOAD or report["n_cached"]:
+                raise AssertionError("serve load: %s" % report["errors"])
+
+            def submit(tenant, path, config=None):
+                r = client_request(sock, {"op": "submit", "tenant": tenant,
+                                          "archive": path,
+                                          "config": config}, timeout=60)
+                if not r.get("ok"):
+                    raise AssertionError("submit %s: %s" % (path, r))
+                return r["request_id"]
+
+            def wait(rid):
+                return client_request(sock, {"op": "wait", "request_id": rid,
+                                             "timeout_s": 600}, timeout=660)
+
+            # the 256 x 1024 bucket, one request per tenant
+            for f in small:
+                source[f] = f
+            small_res = [wait(r) for r in [
+                submit(t, f) for t, f in zip(SERVE_TENANTS, small)]]
+            # a scattering fit (K3) of a fresh copy
+            scat = copy(scat_src, "scat_req.fits")
+            scat_res = wait(submit("alice", scat, {"fit_scat": True}))
+            # a duplicate of a served request: replayed, nothing launched
+            n_dup = dict(K.LAUNCHES)
+            dup = client_request(sock, {"op": "submit",
+                                        "tenant": requests[0][0],
+                                        "archive": requests[0][1],
+                                        "wait": True, "timeout_s": 60},
+                                 timeout=90)
+            dup_launches = {k: K.LAUNCHES[k] - n_dup[k] for k in n_dup}
+            # two requests of one cycle under a dispatch fault: the first
+            # to reach the fit's dispatch site raises, retries, completes
+            fault = [copy(canon[1], "fault_a.fits"),
+                     copy(canon[2], "fault_b.fits")]
+            source.update({fault[0]: canon[1], fault[1]: canon[2]})
+            with environ(PPTPU_FAULTS="site:dispatch@nth=1"):
+                fault_res = [wait(r) for r in [
+                    submit(t, f) for t, f in zip(SERVE_TENANTS, fault)]]
+            launches = dict(K.LAUNCHES)
+        peak = torch.cuda.max_memory_allocated()
+        for r in small_res + [scat_res] + fault_res:
+            if r.get("state") != "done":
+                raise AssertionError("serve request: %s" % r)
+        if not dup.get("cached") or dup.get("state") != "done" \
+                or any(dup_launches.values()):
+            raise AssertionError("duplicate: %s, launches %s"
+                                 % (dup, dup_launches))
+        failed = {}
+        for f in fault:
+            t = [r["tenant"] for r in fault_res if r["archive"] == f][0]
+            for ln in open(os.path.join(wd, "tenants", t, "ledger.0.jsonl")):
+                e = json.loads(ln)
+                if e["archive"] == f and e["state"] == "failed":
+                    failed[f] = e.get("reason")
+        if len(failed) != 1 or "InjectedFault" not in \
+                str(list(failed.values())[0]):
+            raise AssertionError("dispatch fault: failed records %s"
+                                 % failed)
+        if launches["moments"] == 0 or launches["fftfit"] == 0 \
+                or launches["moments_scat"] == 0:
+            raise AssertionError("serve launches %s" % launches)
+        path_rows = path_kernels_vs_plain(
+            K, seen, required=("moments", "fftfit", "moments_scat"))
+        times = path_kernel_times(K, seen)
+        # a traced closed loop of one cycle: the device's busy seconds
+        traced = pploadgen.build_requests(
+            canon, SERVE_TRACED, list(SERVE_TENANTS),
+            os.path.join(work, "spool_traced"), seed=10)
+        for i, (_, dst) in enumerate(traced):
+            source[dst] = canon[i % len(canon)]
+        n0 = dict(K.LAUNCHES)
+        _, busy = kernel_device_ms(lambda: pploadgen.run_load(
+            sock, traced, mode="closed", concurrency=SERVE_CONCURRENCY,
+            seed=10, timeout=600), K)
+        K.LAUNCHES.update(n0)
+        status = svc.status()
+        builds_after = int(rec.counters.get("backend_compiles", 0))
+    finally:
+        server.stop()
+        drained = svc.shutdown(timeout=300)
+    if not drained:
+        raise AssertionError("the serve daemon did not drain")
+    events = obs_events(run_dir)
+    sizes = [e["n_requests"] for e in events
+             if e.get("name") == "microbatch_dispatch"]
+    if not sizes or max(sizes) < 2:
+        raise AssertionError("no coalesced dispatch: %s" % sizes)
+    manifests = [json.load(open(os.path.join(wd, "obs_requests", d,
+                                             "manifest.json")))
+                 for d in sorted(os.listdir(os.path.join(wd,
+                                                         "obs_requests")))]
+    req_builds = sorted({int((m.get("counters") or {}).get(
+        "backend_compiles", 0)) for m in manifests})
+    if builds_after != builds0 or req_builds != [0]:
+        raise AssertionError("kernel builds after warm: %d -> %d, request "
+                             "manifests %s" % (builds0, builds_after,
+                                               req_builds))
+    served = serve_tenant_toas(wd)
+    if set(served) != set(source) | {scat}:
+        raise AssertionError("served archives %s" % sorted(served))
+    gap, cols = serve_check_toas(
+        {f: v for f, v in served.items() if f != scat}, source, native, nsub)
+    scat_gap, scat_cols = serve_check_toas(
+        {scat: served[scat]}, {scat: scat_src}, native_scat, nsub)
+    server_phases = {p: report["server"]["phases"][p]["p50_s"]
+                     for p in ("queue_wait", "park", "dispatch", "fit",
+                               "total") if p in report["server"]["phases"]}
+    daemon = dict(
+        warm_s=warm_s, warm_programs=warm["n_programs"],
+        load=dict(requests=SERVE_LOAD, wall_s=load_wall,
+                  requests_per_s=report["client"]["throughput_rps"],
+                  client_p50_s=report["client"]["p50_s"],
+                  client_p90_s=report["client"]["p90_s"],
+                  client_p99_s=report["client"]["p99_s"],
+                  client_max_s=report["client"]["max_s"],
+                  latencies_s=sorted(r.latency_s for r in results),
+                  server_p50_s=server_phases),
+        dispatch_sizes=sizes, buckets=status["buckets"],
+        device_busy=busy, peak_bytes=peak,
+        device_memory=status.get("device_memory"),
+        dup_launches=dup_launches, fault_failed=failed,
+        fault_attempts=[r.get("attempts") for r in fault_res],
+        toas_vs_pptoas_max_ns=gap, column_gaps=cols,
+        fit_scat_vs_pptoas_max_ns=scat_gap, fit_scat_column_gaps=scat_cols,
+        path_kernels_vs_plain=path_rows, path_kernel_times=times)
+
+    # -- ppserve start as a process of its own -------------------------
+    cli_wd = os.path.join(work, "cli")
+    log = os.path.join(work, "ppserve.log")
+    torch.cuda.empty_cache()
+    used0 = gpu_used_mib()
+    t0 = time.perf_counter()
+    proc = serve_start(root, [
+        "ppserve", "start", "-w", cli_wd, "-m", gm, "--plan", plan_path,
+        "--warm", "--compile-cache", survey["kernel_dir"], "--batch", "4",
+        "--window", str(SERVE_WINDOW_S), "--no_bary", "--quiet",
+        "--device", device], log)
+    try:
+        ready = _Marker(proc, "PPSERVE_READY").wait(600, log)
+        ready_s = time.perf_counter() - t0
+        cli_arch = copy(canon[3], "cli_req.fits")
+        source[cli_arch] = canon[3]
+        outs = {}
+        for op, argv in (("submit", ["-t", "cli", "--wait", cli_arch]),
+                         ("status", [])):
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf):
+                rc = ppserve.main([op, "-w", cli_wd] + argv)
+            if rc != 0:
+                raise AssertionError("ppserve %s: %s" % (op, buf.getvalue()))
+            outs[op] = json.loads(buf.getvalue())
+        cli_used = gpu_used_mib() - used0
+        cli_rc = serve_stop(proc)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(timeout=60)
+    cli_s = time.perf_counter() - t0
+    sub, st = outs["submit"], outs["status"]
+    cli_gap = survey_tim_gap_ns([ln.split() for ln in sub["toa_lines"]],
+                                native[canon[3]])
+    cw = st.get("warm") or {}
+    if cli_rc != 0 or sub.get("state") != "done" or not cli_gap < 1.0 \
+            or not ready.get("warmed") or cw.get("backend_compiles") != 0 \
+            or device == "cuda" and \
+            cw.get("compile_cache_hits") != len(K.KERNELS):
+        raise AssertionError("ppserve CLI: rc %s, %s, %.3g ns, warm %s"
+                             % (cli_rc, sub.get("state"), cli_gap, cw))
+    cli = dict(ready_s=ready_s, process_s=cli_s, exit_code=cli_rc,
+               warm=cw, toas_vs_pptoas_max_ns=cli_gap,
+               device_memory=st.get("device_memory"),
+               card_used_mib_added=cli_used)
+
+    # -- pprouter start with two spawned daemons -----------------------
+    fleet_wd = os.path.join(work, "fleet")
+    log = os.path.join(work, "pprouter.log")
+    used0 = gpu_used_mib()
+    t0 = time.perf_counter()
+    proc = serve_start(root, [
+        "pprouter", "start", "-w", fleet_wd, "-m", gm, "--plan",
+        plan_path, "-n", "2", "--warm", "--compile-cache",
+        survey["kernel_dir"], "--batch", "4", "--window",
+        str(SERVE_WINDOW_S), "--daemon-arg=--no_bary", "--quiet",
+        "--device", device], log)
+    try:
+        ready = _Marker(proc, "PPROUTER_READY").wait(900, log)
+        ready_s = time.perf_counter() - t0
+        if ready.get("ready") != 2:
+            raise AssertionError("pprouter: %s" % ready)
+        fleet_reqs = [("alice", canon[4]), ("bob", canon[5]),
+                      ("alice", small[0]), ("bob", small[1])]
+        fres, fwall = pploadgen.run_load(
+            os.path.join(fleet_wd, "pprouter.sock"), fleet_reqs,
+            mode="closed", concurrency=4, timeout=600)
+        fstatus = client_request(os.path.join(fleet_wd, "pprouter.sock"),
+                                 {"op": "status"}, timeout=60)
+        footprint = {}
+        for name in sorted(fstatus["daemons"]):
+            st = client_request(os.path.join(fleet_wd, name,
+                                             "ppserve.sock"),
+                                {"op": "status"}, timeout=60)
+            footprint[name] = dict(pid=fstatus["daemons"][name]["pid"],
+                                   buckets=fstatus["daemons"][name]
+                                   ["buckets"],
+                                   device_memory=st.get("device_memory"))
+        fleet_used = gpu_used_mib() - used0
+        fleet_rc = serve_stop(proc)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(timeout=60)
+    fleet_s = time.perf_counter() - t0
+    if fleet_rc != 0 or not all(r.ok and not r.cached for r in fres):
+        raise AssertionError("pprouter: rc %s, %s" % (fleet_rc, [
+            (r.archive, r.state, r.error) for r in fres]))
+    fserved = serve_tenant_toas(fleet_wd)
+    if set(fserved) != {f for _, f in fleet_reqs}:
+        raise AssertionError("fleet served %s" % sorted(fserved))
+    fgap, _ = serve_check_toas(fserved, {f: f for _, f in fleet_reqs},
+                               native, nsub)
+    fleet = dict(ready_s=ready_s, process_s=fleet_s, exit_code=fleet_rc,
+                 requests=len(fleet_reqs), wall_s=fwall,
+                 assignment=fstatus.get("assignment"),
+                 daemons=footprint, card_used_mib_added=fleet_used,
+                 toas_vs_pptoas_max_ns=fgap)
+    emit("serve", archives=dict(canon=len(canon), small=len(small)),
+         pptoas_s=pptoas_s, daemon=daemon, cli=cli, fleet=fleet,
          launches=launches, phase_s=time.perf_counter() - t_phase)
     return launches
 
@@ -3197,7 +3738,8 @@ def main(argv):
         by_path["ppgauss"] = phase_ppgauss(root, work, K, dev, avg, small)
         by_path["walkthrough"] = phase_walkthrough(root, work, K, dev)
         by_path["obs"] = phase_obs(root, work, K, dev, small)
-        by_path["survey"] = phase_survey(root, work, K)
+        by_path["survey"], survey = phase_survey(root, work, K)
+        by_path["serve"] = phase_serve(root, work, K, survey)
     finally:
         shutil.rmtree(work, ignore_errors=True)
     phase_throughput(dev, K)
@@ -3212,7 +3754,7 @@ def main(argv):
     for name in ("moments", "fftfit"):
         paths[name] += ["ppalign", "ppspline", "ppgauss", "walkthrough"]
     for name in own:
-        paths[name] += ["obs", "survey"]
+        paths[name] += ["obs", "survey", "serve"]
     # no archive of any path failed on a device error
     failed = [f for made in failed_lists for f in made]
     emit("failed_datafiles", gettoas_runs=len(failed_lists), failed=failed)

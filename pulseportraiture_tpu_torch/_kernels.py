@@ -104,6 +104,9 @@ LAUNCHES = {name: 0 for name in KERNELS}
 BUILD_LOG = {}  # name -> nvcc output (register/shared-memory report)
 _LIBS = {}
 _LOCK = threading.Lock()
+# launch counts and the K2 table cache are updated from several threads
+# at once by the service's fit workers (service/daemon.py)
+_STATE_LOCK = threading.Lock()
 
 
 class KernelLaunchError(RuntimeError):
@@ -219,6 +222,12 @@ def _launch(name, device, *args, symbol=None, count=True):
     if err != 0:
         raise KernelLaunchError(name, err)
     if count:
+        _count(name)
+
+
+def _count(name):
+    """Add one launch of kernel ``name`` to LAUNCHES (thread-safe)."""
+    with _STATE_LOCK:
         LAUNCHES[name] += 1
 
 
@@ -474,10 +483,11 @@ def fftfit_table(nharm, lo, hi, Ns, device):
     if device.type == "cuda" and device.index is None:
         device = torch.device("cuda", torch.cuda.current_device())
     key = (device, int(nharm), float(lo), float(hi), int(Ns))
-    T = _TABLES.get(key)
-    if T is not None:
-        _TABLES.move_to_end(key)
-        return T
+    with _STATE_LOCK:
+        T = _TABLES.get(key)
+        if T is not None:
+            _TABLES.move_to_end(key)
+            return T
     nharm, lo, hi, Ns = key[1:]
     Kp = _padded(2 * nharm, FFTFIT_K_ALIGN)
     Nsp = _padded(Ns, FFTFIT_NS_ALIGN)
@@ -488,9 +498,10 @@ def fftfit_table(nharm, lo, hi, Ns, device):
     else:
         T = torch.zeros((Kp, Nsp), dtype=torch.float64, device=device)
         T[:2 * nharm, :Ns] = fftfit_table_plain(nharm, lo, hi, Ns, device)
-    _TABLES[key] = T
-    while len(_TABLES) > FFTFIT_TABLES_MAX:
-        _TABLES.popitem(last=False)
+    with _STATE_LOCK:
+        _TABLES[key] = T
+        while len(_TABLES) > FFTFIT_TABLES_MAX:
+            _TABLES.popitem(last=False)
     return T
 
 

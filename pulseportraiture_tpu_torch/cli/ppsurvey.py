@@ -520,6 +520,7 @@ def _cmd_status(args):
         # replay of every ledger shard (which a large live survey
         # would pay per refresh)
         from ..obs import metrics
+        from .ppserve import watch_loop
 
         base = os.path.join(args.workdir, "obs")
 
@@ -558,34 +559,6 @@ def _cmd_status(args):
               "over" % len(status["expired_unreclaimed"]),
               file=sys.stderr)
     return 0
-
-
-def watch_loop(fetch, interval, ticks, title):
-    """The --watch driver (the JAX package's ``cli/ppserve.watch_loop``):
-    render one frame per tick from ``fetch()``'s metrics snapshot, rates
-    from the previous tick's — no ledger scans, just snapshot reads.
-    Bounded by ``ticks`` when nonzero; Ctrl-C exits 0."""
-    import time
-
-    from ..obs import metrics
-
-    prev = None
-    tick = 0
-    try:
-        while True:
-            snap = fetch()
-            frame = metrics.render_watch(snap, prev, title=title)
-            if sys.stdout.isatty():
-                sys.stdout.write("\x1b[2J\x1b[H")  # clear + home
-            print(frame)
-            sys.stdout.flush()
-            prev = snap
-            tick += 1
-            if ticks and tick >= ticks:
-                return 0
-            time.sleep(max(0.05, interval))
-    except KeyboardInterrupt:
-        return 0
 
 
 # tools/obs_report.py (the repo's report renderer) reads a run through

@@ -63,7 +63,33 @@ from .smallsolve import inv_refined, solve_refined
 
 __all__ = ["fit_portrait_full", "fit_portrait_full_batch", "fit_portrait",
            "get_scales_full", "get_scales", "portrait_objective",
-           "portrait_grad_hess", "get_nu_zeros", "model_kmax"]
+           "portrait_grad_hess", "get_nu_zeros", "model_kmax",
+           "auto_scan_size", "bucket_batch_size"]
+
+# The reference's subint batch policy (its config.py:84-91): a batch
+# above 128 rows runs as a scan over chunks of 100; a smaller one is
+# padded to the next power of two (at least 4).
+SUBINT_SCAN_THRESHOLD, SUBINT_SCAN_SIZE, BUCKET_MIN = 128, 100, 4
+
+
+def auto_scan_size(batch_size):
+    """The reference's chunked-scan policy for subint batches
+    (fit/portrait.py:65): the ``scan_size`` for a batch of
+    ``batch_size`` rows, or None below the threshold.  The port's fit
+    takes it as a chunk size; its results do not depend on it."""
+    return SUBINT_SCAN_SIZE if batch_size > SUBINT_SCAN_THRESHOLD else None
+
+
+def bucket_batch_size(batch_size):
+    """The reference's shape-bucketed batch size (fit/portrait.py:87):
+    the next power of two, at least 4.  It names the reference's
+    compiled programs (the warm specs' labels); the port's eager fit
+    pads nothing."""
+    b = int(batch_size)
+    if b <= BUCKET_MIN:
+        return BUCKET_MIN
+    return 1 << (b - 1).bit_length()
+
 
 RESULT_KEYS = ("params", "param_errs", "phi", "phi_err", "DM", "DM_err",
                "GM", "GM_err", "tau", "tau_err", "alpha", "alpha_err",

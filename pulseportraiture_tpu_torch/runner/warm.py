@@ -1,7 +1,8 @@
 """Bucket warm-up: build the kernels and prime every planned fit shape.
 
 The PyTorch port of the JAX package's ``runner/warm.py``: the ONE warm
-implementation of the batch engine (``ppsurvey warm`` / ``ppsurvey run
+implementation shared by the daemon (``ppserve warm``; service/warm.py
+re-exports it) and the batch engine (``ppsurvey warm`` / ``ppsurvey run
 --warm``).  It turns a :class:`~.plan.SurveyPlan` bucket enumeration
 into the set of *programs* the pipeline will dispatch and makes each
 one warm before the first real archive:
@@ -48,6 +49,7 @@ import time
 import numpy as np
 
 from .. import obs
+from ..fit.portrait import auto_scan_size, bucket_batch_size
 from ..testing import faults
 from ..utils.databunch import DataBunch
 from ..utils.mjd import MJD
@@ -90,33 +92,13 @@ def enable_persistent_cache(cache_dir):
         return False
 
 
-# The reference's batch policy (its config.py:84-91 and
-# fit/portrait.py:65-100), which names its compiled solver programs: a
-# batch above 128 subints runs as a scan over chunks of 100, a smaller
-# one is padded to the next power of two (at least 4).  The port's
-# eager fit compiles nothing per shape and fits each batch whole, so
-# the policy only labels the specs, which equal the reference's.
-_SCAN_THRESHOLD, _SCAN_SIZE, _PAD_MIN = 128, 100, 4
-
-
-def _scan_size(nsub):
-    """The reference's ``auto_scan_size`` for subint batches."""
-    return _SCAN_SIZE if nsub > _SCAN_THRESHOLD else None
-
-
-def _padded_batch(nsub):
-    """The reference's ``bucket_batch_size``: the next power of two."""
-    b = int(nsub)
-    return _PAD_MIN if b <= _PAD_MIN else 1 << (b - 1).bit_length()
-
-
 def solver_program(nsub):
     """(scan_size, padded_batch) identity of the batched-solver program
     the reference dispatches for a ``nsub``-row fit (its pipelines/toas.py
     + fit_portrait_full_batch's target logic); the spec labels."""
-    scan = _scan_size(nsub)
+    scan = auto_scan_size(nsub)
     if scan is None:
-        return None, max(nsub, _padded_batch(nsub))
+        return None, max(nsub, bucket_batch_size(nsub))
     if nsub <= scan:
         return None, nsub
     return scan, -(-nsub // scan) * scan
@@ -386,10 +368,10 @@ def _warm_archive_spec(spec, modelfile, get_toas_kw, narrowband, quiet,
 def _warm_coalesced_spec(spec, modelfile, get_toas_kw, device):
     """Warm a combined-batch fit directly, as the pipeline calls the
     batched fit (the guess stage stays per-archive and is covered by the
-    archive specs).  No path of the port dispatches a combined batch
-    yet — the micro-batcher is not ported — so this primes the kernels
-    and cuFFT plans at that batch shape for nothing the port runs; the
-    spec is kept so the enumeration equals the reference's."""
+    archive specs): the batch the service's micro-batcher
+    (service/batcher.py) dispatches when several requests share a
+    cycle, primed at that shape on ``device`` (kernels, cuFFT plans,
+    the caching allocator's blocks)."""
     from ..fit.portrait import fit_portrait_full_batch, model_kmax
     from .execute import _BucketedGetTOAs
 

@@ -391,3 +391,78 @@ def test_survey_archive_goes_through_kernels(card, archive, tmp_path, kw):
                                   plain=True, **kw)
     assert sum(plain_launches.values()) == 0
     assert _tim_dt_ns(got, ref) < 1.0
+
+
+def _serve(K, archives, wd, plain=False, **kw):
+    """The port's TOAService on the card, four requests from two tenants
+    in one cycle: {archive: TOA line tokens}, the launches, the batched
+    fits' argument devices and the microbatch_dispatch sizes."""
+    import json as _json
+    import shutil
+
+    from pulseportraiture_tpu_torch import obs
+    from pulseportraiture_tpu_torch.service import TOAService
+
+    seen = []
+    K.build()           # before the cycle: an nvcc run would outlast it
+    K.reset_launches()
+    svc = TOAService(GMODEL, wd, batch_window_s=30.0, batch_max=4,
+                     backoff_s=0.0, get_toas_kw=dict(bary=False, **kw),
+                     device=DEVICE).start()
+    run_dir = obs.current().dir
+    try:
+        # each request's own copy: the ledger would replay a known one
+        paths = []
+        for i, src in enumerate(archives):
+            paths.append(os.path.join(wd, "req%d.fits" % i))
+            shutil.copyfile(src, paths[-1])
+        bucket = svc._bucket((64, 512))
+        fit = bucket.batcher._resolve_fit()
+
+        def spy(*a, **k):
+            seen.append([x.device.type for x in a[:2]] + [
+                k[n].device.type for n in ("errs", "weights", "nu_fits")])
+            return fit(*a, **k)
+
+        bucket.batcher._fit = spy
+        with plain_kernels(K) if plain else contextlib.nullcontext():
+            ids = [svc.submit(("alice", "bob")[i % 2], p)["request_id"]
+                   for i, p in enumerate(paths)]
+            res = [svc.wait(r, timeout=600) for r in ids]
+    finally:
+        assert svc.shutdown(timeout=300)
+    assert [r["state"] for r in res] == ["done"] * len(paths), res
+    # keyed and named by the copy's file name (the runs' directories
+    # differ)
+    toas = {os.path.basename(r["archive"]): [
+        [os.path.basename(r["archive"])] + ln.split()[1:]
+        for ln in r["toa_lines"]] for r in res}
+    sizes = [e["n_requests"] for e in map(
+        _json.loads, open(os.path.join(run_dir, "events.jsonl")))
+        if e.get("name") == "microbatch_dispatch"]
+    return toas, dict(K.LAUNCHES), seen, sizes
+
+
+@pytest.mark.parametrize("kw", [dict(), dict(fit_scat=True)],
+                         ids=["phase", "scat"])
+def test_service_coalesced_dispatch_on_the_card(card, archive, tmp_path,
+                                                kw):
+    """Four requests of one bucket from two tenants share each batched
+    fit on the card (one per fit-flag group: the archive's subint 2 has
+    one live channel): the joined data, models, errs, weights and nu
+    columns reach it as CUDA tensors, K2 runs per request and K1 (K3
+    with fit_scat) in the combined fits, and every request's TOAs equal
+    the plain versions' within 1 ns."""
+    _, path = archive
+    got, launches, seen, sizes = _serve(card, [path] * 4,
+                                        str(tmp_path / "k"), **kw)
+    assert sizes == [4, 4] and len(seen) == 2
+    assert all(s == ["cuda"] * 5 for s in seen)
+    assert launches["fftfit"] >= 4
+    assert launches["moments_scat" if kw else "moments"] > 0
+    ref, plain_launches, _, _ = _serve(card, [path] * 4,
+                                       str(tmp_path / "p"), plain=True,
+                                       **kw)
+    assert sum(plain_launches.values()) == 0
+    for name in got:
+        assert _tim_dt_ns(got[name], ref[name]) < 1.0

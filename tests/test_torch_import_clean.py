@@ -405,3 +405,131 @@ def test_ppsurvey_without_device_raises_without_cuda(monkeypatch, tmp_path):
         run_survey(plan, wd)
     with pytest.raises(RuntimeError):
         warm_plan(plan, gm)
+
+
+# the TOA service, its fleet router and their CLIs: imported by name
+_SERVICE_MODULES = [
+    "pulseportraiture_tpu_torch.service",
+    "pulseportraiture_tpu_torch.service.batcher",
+    "pulseportraiture_tpu_torch.service.daemon",
+    "pulseportraiture_tpu_torch.service.server",
+    "pulseportraiture_tpu_torch.service.router",
+    "pulseportraiture_tpu_torch.service.warm",
+    "pulseportraiture_tpu_torch.cli.ppserve",
+    "pulseportraiture_tpu_torch.cli.pprouter",
+    "pulseportraiture_tpu_torch.cli.pploadgen",
+]
+
+
+def test_service_modules_import_no_jax():
+    """The service modules and the ppserve / pprouter / pploadgen CLIs
+    import no JAX and touch no device on import."""
+    env = dict(os.environ)
+    env.pop("PYTHONPATH", None)
+    proc = subprocess.run(
+        [sys.executable, "-c", _CHECK_SURVEY % (ROOT, _SERVICE_MODULES)],
+        capture_output=True, text=True, timeout=300, env=env, cwd=ROOT)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.split()[-1] == "ok"
+
+
+def test_service_entry_points_raise_without_cuda(monkeypatch, tmp_path):
+    """TOAService, ``ppserve start`` / ``warm`` and ``pprouter start``
+    (and the FleetRouter under it) refuse to run without a CUDA device
+    unless asked for the CPU, before they serve or spawn anything."""
+    from pulseportraiture_tpu_torch.cli import ppserve, pprouter
+    from pulseportraiture_tpu_torch.runner.plan import plan_survey
+    from pulseportraiture_tpu_torch.service import FleetRouter, TOAService
+
+    _no_cuda(monkeypatch)
+    gm = os.path.join(ROOT, "examples", "example.gmodel")
+    wd = str(tmp_path / "wd")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        TOAService(gm, wd)
+    with pytest.raises(RuntimeError):
+        FleetRouter(gm, str(tmp_path / "fleet"), n_daemons=1)
+    plan = str(tmp_path / "plan.json")
+    plan_survey([], modelfile=gm).save(plan)
+    for argv in (["start", "-w", wd, "-m", gm],
+                 ["warm", "-w", wd, "-m", gm, "--plan", plan]):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            ppserve.main(argv)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        pprouter.main(["start", "-w", str(tmp_path / "fleet"), "-m", gm,
+                       "-n", "1"])
+    assert not os.path.exists(os.path.join(wd, "ppserve.sock"))
+    assert not os.path.exists(str(tmp_path / "fleet" / "d0"))
+    # asking for the CPU is honoured
+    svc = TOAService(gm, wd, device="cpu")
+    assert svc.device == torch.device("cpu")
+    assert FleetRouter(gm, str(tmp_path / "f2"), n_daemons=1,
+                       device="cpu").device == torch.device("cpu")
+
+
+# run the router's daemon command line (argv after "-m module") inside
+# this interpreter: a helper thread submits one archive over the
+# daemon's socket and then asks it to drain; report the exit code, the
+# request's state and whether JAX or the JAX package was imported
+_CHECK_DAEMON = """
+import json, os, runpy, sys, threading, time
+sys.path.insert(0, %r)
+module, sock, archive = sys.argv[1:4]
+sys.argv = [module] + sys.argv[4:]
+seen = {}
+
+def drive():
+    from pulseportraiture_tpu_torch.service import client_request
+    t0 = time.time()
+    while not os.path.exists(sock) and time.time() - t0 < 120:
+        time.sleep(0.05)
+    r = client_request(sock, {"op": "submit", "tenant": "t",
+                              "archive": archive, "wait": True,
+                              "timeout_s": 120}, timeout=150)
+    seen["state"] = r.get("state")
+    client_request(sock, {"op": "shutdown"}, timeout=30)
+
+th = threading.Thread(target=drive, daemon=True)
+th.start()
+try:
+    runpy.run_module(module, run_name="__main__")
+except SystemExit as e:
+    rc = e.code
+else:
+    rc = 0
+th.join(30)
+bad = sorted(m for m in sys.modules
+             if m == 'jax' or m.startswith('jax.') or m == 'jaxlib'
+             or m == 'pulseportraiture_tpu'
+             or m.startswith('pulseportraiture_tpu.'))
+print(json.dumps({"rc": rc, "bad": bad, "state": seen.get("state")}))
+"""
+
+
+def test_router_daemon_command_imports_no_jax(tmp_path):
+    """The command line a FleetRouter spawns each daemon with runs the
+    port's ppserve with the router's --device; that daemon serves a
+    request and drains to exit 0 without importing JAX."""
+    from pulseportraiture_tpu_torch.io.archive import make_fake_pulsar
+    from pulseportraiture_tpu_torch.service import FleetRouter
+
+    gm = os.path.join(ROOT, "examples", "example.gmodel")
+    arch = str(tmp_path / "a.fits")
+    make_fake_pulsar(gm, os.path.join(ROOT, "examples", "example.par"),
+                     arch, nsub=2, nchan=8, nbin=64, noise_stds=0.05,
+                     seed=3, quiet=True)
+    router = FleetRouter(gm, str(tmp_path / "fleet"), n_daemons=1,
+                         daemon_args=["--no_bary"], device="cpu")
+    wd = router._daemons[0].workdir
+    cmd = router._daemon_cmd() + ["-w", wd]
+    assert cmd[0] == sys.executable and cmd[1] == "-m"
+    assert cmd[2] == "pulseportraiture_tpu_torch.cli.ppserve"
+    assert cmd[cmd.index("--device") + 1] == "cpu"
+    env = dict(os.environ, OMP_NUM_THREADS="1")
+    env.pop("PYTHONPATH", None)
+    proc = subprocess.run(
+        [sys.executable, "-c", _CHECK_DAEMON % ROOT, cmd[2],
+         router._daemons[0].socket, arch] + cmd[3:],
+        capture_output=True, text=True, timeout=300, env=env, cwd=ROOT)
+    assert proc.returncode == 0, proc.stderr
+    out = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert out == {"rc": 0, "bad": [], "state": "done"}, proc.stderr

@@ -23,6 +23,7 @@ from pulseportraiture_tpu.io.gmodel import write_model
 from pulseportraiture_tpu.runner import plan as jplan
 from pulseportraiture_tpu.runner import warm as jwarm
 from pulseportraiture_tpu_torch import _kernels, obs
+from pulseportraiture_tpu_torch.fit import portrait as tfp
 from pulseportraiture_tpu_torch.obs import monitor
 from pulseportraiture_tpu_torch.runner import execute as texe
 from pulseportraiture_tpu_torch.runner import plan as tplan
@@ -82,10 +83,11 @@ def test_solver_program_equal(nsub):
                                    (129, 200, 2048, 2049, 5000)],
                          ids=["padded", "scanned"])
 def test_batch_size_policy_equal(sizes):
-    """warm's private copy of the reference's subint batch policy."""
+    """The reference's subint batch policy in the port's fit/portrait.py
+    (the warm specs' labels and the micro-batcher's sizing)."""
     for b in sizes:
-        assert twarm._scan_size(b) == jfp.auto_scan_size(b)
-        assert twarm._padded_batch(b) == jfp.bucket_batch_size(b)
+        assert tfp.auto_scan_size(b) == jfp.auto_scan_size(b)
+        assert tfp.bucket_batch_size(b) == jfp.bucket_batch_size(b)
 
 
 @pytest.fixture(scope="module")
