@@ -153,7 +153,7 @@ Phases, one JSON line each on stdout; any failure exits non-zero:
               2048, 2 of 16 x 256 x 1024): an in-process TOAService
               (batch_max 4, window 0.25 s, the plan warmed with coalesce
               2..4) behind its socket, driven by pploadgen's closed loop
-              (40 requests from two tenants on fresh spooled copies,
+              (24 requests from two tenants on fresh spooled copies,
               concurrency 4: requests/s, client p50/p90/p99 and each
               latency, the server's queue_wait / park / dispatch / fit
               p50s), then over the
@@ -175,12 +175,29 @@ Phases, one JSON line each on stdout; any failure exits non-zero:
               TOAs), each daemon's device memory (its allocator, and
               the card memory the daemons added by nvidia-smi, their
               CUDA contexts included), SIGTERM -> exit 0
+  mesh        the device-mesh layer on the one card named repeatedly: the
+              north-star fit (1000 x 512 x 2048, made by B11) on meshes
+              (1,1,1), (2,1,1), (1,2,1), (1,1,2) and (2,2,2) with a given
+              init (TOAs bit-equal to the unsharded kernel fit, every other
+              field within 1e-12 relative, rc and nfeval equal) and seeded
+              (TOAs within 1 ns): wall, device busy (torch.profiler), peak
+              memory and launches per mesh; single-process
+              distributed_sweep_fit; the throughput_scat fit on (1,2,1)
+              (K3 per channel shard, equal to the unsharded fit);
+              run_survey(use_mesh=True) over a (2,2,1) mesh and ppsurvey
+              run --mesh (1,1,1) on 4 of the survey's 512 x 2048 archives
+              (each once, TOAs within 1 ns and the printed columns of the
+              survey's unmeshed run); two processes on gloo sharing the
+              card, each fitting half the batch through
+              distributed_sweep_fit (rows reassembled: equal given init,
+              1 ns seeded); K1, K2 and K3 against their plain versions and
+              timed at every shape the phase gave them
   failed_datafiles  no archive of any GetTOAs run failed on a device error
 
 Then a ``kernels`` line (every hand kernel with its launches on its
 paths — K1 and K2 on pptoas, K3 on pptoas_scat, each plus the narrowband,
-narrowband_scat, templates, ppzap, obs, survey and serve runs, K1 and K2 also
-on ppalign, ppspline, ppgauss and the walkthrough, with
+narrowband_scat, templates, ppzap, obs, survey, serve and mesh runs, K1
+and K2 also on ppalign, ppspline, ppgauss and the walkthrough, with
 ``launches_by_path`` —
 errors and times; K2 with
 its [1000, 1025] numbers and K3 with its [1000, 512, 128] ones, each with a
@@ -1975,19 +1992,15 @@ def kernel_device_ms(fn, K):
     return kernel_times(prof, K), profile_
 
 
-def north_star_data(dev, seed, nsub=1000, nchan=512, nbin=2048,
-                    t_scat=0.0):
-    """The north-star data, made on the card by the port's
+def north_star_draw(dev, seed, nsub=1000, nchan=512, nbin=2048, t_scat=0.0):
+    """The north-star dataset, made on ``dev`` by the port's
     make_fake_dataset (B11): ``nsub`` subints of MODEL_PARAMS across
-    1300-1700 MHz at phases and dDMs drawn from a seeded generator,
-    noise NOISE, scattered by ``t_scat`` [s].  Returns (subints, freqs,
-    nu_ref, injected phases, injected dDMs, the model portrait, make
-    seconds, peak device bytes while making, of them above what was
-    allocated before)."""
+    1300-1700 MHz at phases and dDMs drawn from a generator seeded with
+    ``seed``, noise NOISE, scattered by ``t_scat`` [s]; the same on every
+    process that draws it.  Returns (the DataBunch, injected phases,
+    injected dDMs)."""
     import torch
 
-    from pulseportraiture_tpu_torch.ops.fourier import get_bin_centers
-    from pulseportraiture_tpu_torch.ops.profiles import gen_gaussian_portrait
     from pulseportraiture_tpu_torch.pipelines.synth import make_fake_dataset
 
     gen = torch.Generator(device=dev).manual_seed(seed)
@@ -1995,22 +2008,42 @@ def north_star_data(dev, seed, nsub=1000, nchan=512, nbin=2048,
                        dtype=torch.float64) - 0.5) * 0.8
     dDMs = (torch.rand(nsub, generator=gen, device=dev,
                        dtype=torch.float64) - 0.5) * 4e-3
-    torch.cuda.synchronize()
-    base = torch.cuda.memory_allocated()
-    torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
     ds = make_fake_dataset(gen, MODEL_PARAMS, nsub=nsub, nchan=nchan,
                            nbin=nbin, lofreq=1300.0, bw=400.0, P=P0,
                            phases=phis, dDMs=dDMs, noise_std=NOISE,
                            t_scat=t_scat, device=dev)
+    return ds, phis, dDMs
+
+
+def north_star_model(dev, ds):
+    """The model portrait of a north-star DataBunch ``ds``."""
+    from pulseportraiture_tpu_torch.ops.fourier import get_bin_centers
+    from pulseportraiture_tpu_torch.ops.profiles import gen_gaussian_portrait
+
+    return gen_gaussian_portrait("000", MODEL_PARAMS, -4.0,
+                                 get_bin_centers(ds.nbin), ds.freqs,
+                                 ds.nu_ref, device=dev)
+
+
+def north_star_data(dev, seed, nsub=1000, nchan=512, nbin=2048,
+                    t_scat=0.0):
+    """The north-star data (:func:`north_star_draw`), with the make's
+    seconds and memory.  Returns (subints, freqs, nu_ref, injected
+    phases, injected dDMs, the model portrait, make seconds, peak device
+    bytes while making, of them above what was allocated before)."""
+    import torch
+
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    ds, phis, dDMs = north_star_draw(dev, seed, nsub, nchan, nbin, t_scat)
     torch.cuda.synchronize()
     t_make = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated()
-    model = gen_gaussian_portrait("000", MODEL_PARAMS, -4.0,
-                                  get_bin_centers(nbin), ds.freqs, ds.nu_ref,
-                                  device=dev)
-    out = (ds.subints, ds.freqs, ds.nu_ref, ds.phases_inj, ds.dDMs_inj,
-           model, t_make, peak, peak - base)
+    model = north_star_model(dev, ds)
+    out = (ds.subints, ds.freqs, ds.nu_ref, phis, dDMs, model, t_make, peak,
+           peak - base)
     # a DataBunch refers to itself (attribute access), so only the cyclic
     # collector would free it: empty it, and the 8.4 GB go with the caller
     ds.clear()
@@ -3198,7 +3231,8 @@ def phase_survey(root, work, K, device="cuda"):
     # what the serve phase reuses: the archives, pptoas's TOAs of the
     # 512 x 2048 bucket and the primed kernel build directory
     return launches, dict(gm=gm, par=inp["par"], canon=canon,
-                          small=files[-2:], native=native, kernel_dir=kdir)
+                          small=files[-2:], native=native, kernel_dir=kdir,
+                          main_wd=wd("prefetch2"))
 
 
 SERVE_TENANTS = ("alice", "bob")
@@ -3694,6 +3728,341 @@ def phase_serve(root, work, K, survey, device="cuda"):
     return launches
 
 
+# -- the device-mesh layer (parallel/mesh, sharded_fit, multihost) ----------
+
+MESH_SHAPES = [(1, 1, 1), (2, 1, 1), (1, 2, 1), (1, 1, 2), (2, 2, 2)]
+MESH_SURVEY = 4        # the survey's 512 x 2048 archives fit on a mesh
+MESH_ONES = 64         # subints fit in groups of one, on a (64, 1, 1) mesh
+
+# one process of the two-process distributed_sweep_fit: a gloo group,
+# the north-star data drawn from the same seed as the parent's, this
+# rank's half fit on a one-device mesh (given init, then seeded); its
+# rows saved as an .npz beside a JSON line of walls and launches
+MESH_WORKER = r"""
+import json, sys, time
+root, rank, port, device, shape, out = (sys.argv[1], int(sys.argv[2]),
+    int(sys.argv[3]), sys.argv[4], json.loads(sys.argv[5]), sys.argv[6])
+sys.path.insert(0, root)
+import numpy as np
+import torch
+import chip_smoke as cs
+from pulseportraiture_tpu_torch import _kernels as K
+from pulseportraiture_tpu_torch.fit.portrait import model_kmax
+from pulseportraiture_tpu_torch.parallel import multihost
+t0 = time.perf_counter()
+multihost.initialize("127.0.0.1:%d" % port, num_processes=2,
+                     process_id=rank, backend="gloo", timeout_s=600)
+dev = torch.device(device)
+ds, phis, _ = cs.north_star_draw(dev, 0, *shape)
+model = cs.north_star_model(dev, ds)
+half = shape[0] // 2
+data = ds.subints[rank * half:(rank + 1) * half].clone()
+freqs = ds.freqs
+ds.clear()
+del ds
+init = torch.zeros((shape[0], 5), dtype=torch.float64, device=dev)
+init[:, 0] = phis
+mesh = multihost.global_mesh(devices=[device])
+kw = dict(fit_flags=(1, 1, 0, 0, 0), log10_tau=False, max_iter=30,
+          kmax=model_kmax(model))
+res, walls = {}, {}
+K.reset_launches()
+for tag, x in (("given", init), ("seeded", None)):
+    t1 = time.perf_counter()
+    r = multihost.distributed_sweep_fit(mesh, data, model, x, cs.P0, freqs,
+                                        **kw)
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    walls[tag] = time.perf_counter() - t1
+    for k in ("global_rows", "phi", "DM", "phi_err", "nfeval",
+              "return_code"):
+        res["%s_%s" % (tag, k)] = r[k].cpu().numpy()
+np.savez(out, **res)
+print(json.dumps(dict(rank=rank, walls=walls, launches=dict(K.LAUNCHES),
+                      process_s=time.perf_counter() - t0)), flush=True)
+"""
+
+
+def mesh_gaps(got, want, P):
+    """A sharded fit against the unsharded one: TOAs (phi, DM, nu_DM)
+    bit-equal, rc and nfeval equal per lane, the largest relative
+    difference of any other field (its largest magnitude), and the
+    largest TOA difference [ns]."""
+    import torch
+
+    from pulseportraiture_tpu_torch.fit.portrait import RESULT_KEYS
+
+    rel = {k: rel_err(got[k], want[k]) for k in RESULT_KEYS
+           if k not in ("nfeval", "return_code")}
+    worst = max(rel, key=rel.get)
+    dphi = ((got.phi - want.phi + 0.5) % 1.0 - 0.5).abs().max()
+    return dict(
+        toas_equal=all(torch.equal(got[k], want[k])
+                       for k in ("phi", "DM", "nu_DM")),
+        fields_equal=sum(torch.equal(got[k], want[k]) for k in RESULT_KEYS),
+        fields=len(RESULT_KEYS),
+        rc_nfev_equal=bool(torch.equal(got.return_code, want.return_code)
+                           and torch.equal(got.nfeval, want.nfeval)),
+        max_rel=rel[worst], worst_field=worst,
+        max_dt_ns=float(dphi) * P * 1e9)
+
+
+def mesh_two_process(root, work, shape, device, ref, timeout=600):
+    """Two processes of a gloo group on the one card, each fitting its
+    half of the north-star data through distributed_sweep_fit: their rows
+    reassembled by their global indices against the single-process fit
+    ``ref`` ({"given", "seeded": DataBunch}): given init equal, seeded
+    within 1 ns."""
+    import socket
+
+    import numpy as np
+
+    with socket.socket() as so:
+        so.bind(("127.0.0.1", 0))
+        port = so.getsockname()[1]
+    env = dict(os.environ, PYTHONPATH=root)
+    outs = [os.path.join(work, "mesh_rank%d.npz" % r) for r in (0, 1)]
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", MESH_WORKER, root, str(r), str(port), device,
+         json.dumps(list(shape)), outs[r]], stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True, env=env, cwd=root)
+        for r in (0, 1)]
+    lines = []
+    try:
+        for p in procs:
+            so, se = p.communicate(timeout=timeout)
+            if p.returncode != 0:
+                raise AssertionError("mesh worker exited %d: %s"
+                                     % (p.returncode, se[-3000:]))
+            lines.append(json.loads(so.strip().splitlines()[-1]))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    wall = time.perf_counter() - t0
+    res = {}
+    for tag in ("given", "seeded"):
+        z = [np.load(o) for o in outs]
+        rows = np.concatenate([x[tag + "_global_rows"] for x in z])
+        if sorted(rows.tolist()) != list(range(shape[0])):
+            raise AssertionError("two-process rows: %s" % rows)
+        order = np.argsort(rows)
+        got = {k: np.concatenate([x["%s_%s" % (tag, k)] for x in z])[order]
+               for k in ("phi", "DM", "phi_err", "nfeval", "return_code")}
+        want = {k: ref[tag][k].cpu().numpy() for k in got}
+        dphi = np.abs((got["phi"] - want["phi"] + 0.5) % 1.0 - 0.5).max()
+        res[tag] = dict(
+            fields_equal=[k for k in got if np.array_equal(got[k], want[k])],
+            max_dt_ns=float(dphi) * P0 * 1e9)
+    # given init: the TOAs, rc and nfeval equal; seeded: within 1 ns
+    ok = {"phi", "DM", "nfeval", "return_code"} <= set(
+        res["given"]["fields_equal"]) and res["seeded"]["max_dt_ns"] < 1.0
+    return dict(wall_s=wall, workers=lines, **res), ok
+
+
+def phase_mesh(root, work, K, survey, shape=(1000, 512, 2048),
+               device="cuda"):
+    """The device-mesh layer on the one card named repeatedly: the
+    north-star fit (``shape``, data made on the card by B11) on meshes
+    MESH_SHAPES, with a given init (the injected phases; TOAs bit-equal
+    to the unsharded kernel fit's, every other field within 1e-12
+    relative, rc and nfeval equal) and seeded (TOAs within 1 ns); the
+    first MESH_ONES subints in groups of one (within 1 ns); the
+    throughput_scat fit on a (1, 2, 1) mesh (K3 per channel shard; equal
+    to the unsharded fit); single-process distributed_sweep_fit;
+    run_survey(use_mesh=True) on MESH_SURVEY of the survey's 512 x 2048
+    archives over a (2, 2, 1) mesh and ``ppsurvey run --mesh`` (a 1 x 1 x
+    1 mesh) on them, TOAs against the unmeshed survey's main run; then
+    two processes on gloo, each fitting half the batch, their rows
+    reassembled against the single-process fit.  Walls, device busy and
+    peak memory per mesh; K1, K2 and K3 against their plain versions at
+    every shape the phase gave them, with their times and bounds.
+    Returns the path's launches (every count set to 0 before each
+    segment of the path, summed after it)."""
+    import torch
+
+    from pulseportraiture_tpu_torch.fit.portrait import (
+        fit_portrait_full_batch, model_kmax)
+    from pulseportraiture_tpu_torch.parallel import multihost
+    from pulseportraiture_tpu_torch.parallel.mesh import make_mesh
+    from pulseportraiture_tpu_torch.runner.execute import run_survey
+    from pulseportraiture_tpu_torch.runner.plan import plan_survey
+
+    t_phase = time.perf_counter()
+    work = os.path.join(work, "mesh")
+    os.makedirs(work)
+    dev = torch.device(device)
+    nsub = shape[0]
+    launches = {name: 0 for name in K.KERNELS}
+
+    def counted(fn):
+        K.reset_launches()
+        out = fn()
+        for name, n in K.LAUNCHES.items():
+            launches[name] += n
+        return out
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    def mesh_of(shp):
+        return None if shp is None else make_mesh(
+            *shp, devices=[device] * (shp[0] * shp[1] * shp[2]))
+
+    data, freqs, nu0, phis, dDMs, model = north_star_data(dev, 0, *shape)[:6]
+    kmax = model_kmax(model)
+    init = torch.zeros((nsub, 5), dtype=torch.float64, device=dev)
+    init[:, 0] = phis
+    kw = dict(fit_flags=(1, 1, 0, 0, 0), log10_tau=False, max_iter=30,
+              kmax=kmax)
+
+    def fit(shp, x):
+        return fit_portrait_full_batch(data, model, x, P0, freqs,
+                                       mesh=mesh_of(shp), device=dev, **kw)
+
+    # the unsharded kernel fits (each run twice: the second is timed)
+    ref, ref_walls = {}, {}
+    for tag, x in (("given", init), ("seeded", None)):
+        fit(None, x)
+        ref[tag], ref_walls[tag] = timed(lambda: fit(None, x))
+    meshes, ok = [], True
+    with first_kernel_inputs(K, tuple(K.KERNELS), per_shape=True) as seen:
+        for shp in MESH_SHAPES:
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            before = dict(launches)
+            row = dict(mesh=list(shp))
+            for tag, x in (("given", init), ("seeded", None)):
+                out, wall = counted(lambda: timed(lambda: fit(shp, x)))
+                row[tag] = dict(wall_s=wall, **mesh_gaps(out, ref[tag], P0))
+            peak = torch.cuda.max_memory_allocated()
+            row["peak_device_bytes"] = int(peak)
+            row["peak_above_prior_bytes"] = int(peak - base)
+            row["launches"] = {n: launches[n] - before[n]
+                               for n in launches}
+            g, sd = row["given"], row["seeded"]
+            ok &= g["toas_equal"] and g["rc_nfev_equal"] \
+                and g["max_rel"] <= 1e-12 and sd["max_dt_ns"] < 1.0
+            meshes.append(row)
+        # subint groups of one: on the card some kernels (cuFFT, small
+        # reductions) take another summation order for a handful of rows,
+        # so these are held to 1 ns only
+        nb = min(MESH_ONES, nsub)
+        ones_ref = fit_portrait_full_batch(data[:nb], model, init[:nb], P0,
+                                           freqs, device=dev, **kw)
+        ones, ones_wall = counted(lambda: timed(
+            lambda: fit_portrait_full_batch(
+                data[:nb], model, init[:nb], P0, freqs,
+                mesh=mesh_of((nb, 1, 1)), **kw)))
+        ones_row = dict(mesh=[nb, 1, 1], wall_s=ones_wall,
+                        **mesh_gaps(ones, ones_ref, P0))
+        ok &= ones_row["rc_nfev_equal"] and ones_row["max_dt_ns"] < 1.0
+        # the multihost entry point, one process: its rows are the
+        # two-process run's reference
+        gmesh = multihost.global_mesh(devices=[device])
+        single = {tag: counted(lambda: multihost.distributed_sweep_fit(
+            gmesh, data, model, x, P0, freqs, **kw))
+            for tag, x in (("given", init), ("seeded", None))}
+        single_gaps = {tag: mesh_gaps(single[tag], ref[tag], P0)
+                       for tag in single}
+        ok &= single_gaps["given"]["toas_equal"]
+        # device busy per mesh (torch.profiler; not counted)
+        for row in meshes:
+            row["profiled"] = kernel_device_ms(
+                lambda: fit(tuple(row["mesh"]), init), K)[1]
+        del data
+        # the throughput_scat configuration on a (1, 2, 1) mesh: K3 once
+        # per channel shard
+        sdata, sfreqs, _, sphis, sdDMs, smodel = north_star_data(
+            dev, 3, *shape, t_scat=TAU_INJ * P0)[:6]
+        sinit = torch.zeros((nsub, 5), dtype=torch.float64, device=dev)
+        sinit[:, 0], sinit[:, 1] = sphis, sdDMs
+        sinit[:, 3], sinit[:, 4] = math.log10(TAU_INJ * 1.5), -4.0
+        nus = torch.full((nsub,), nu0, dtype=torch.float64, device=dev)
+
+        def fit_scat(shp):
+            return fit_portrait_full_batch(
+                sdata, smodel, sinit, P0, sfreqs, fit_flags=(1, 1, 0, 1, 1),
+                nu_fits=(nus, nus, nus), nu_outs=(nus, nus, nus),
+                log10_tau=True, max_iter=30, kmax=model_kmax(smodel),
+                mesh=mesh_of(shp), device=dev)
+
+        scat_ref = fit_scat(None)
+        scat, scat_wall = counted(lambda: timed(lambda: fit_scat((1, 2, 1))))
+        scat_row = dict(mesh=[1, 2, 1], wall_s=scat_wall,
+                        **mesh_gaps(scat, scat_ref, P0))
+        ok &= scat_row["toas_equal"] and scat_row["rc_nfev_equal"] \
+            and scat_row["max_rel"] <= 1e-12
+        del sdata, scat, scat_ref
+        torch.cuda.empty_cache()
+
+        # surveys on a mesh: the survey's main run is the unmeshed one
+        files = survey["canon"][:MESH_SURVEY]
+        main_toas, _ = survey_toas(survey["main_wd"])
+        swd = os.path.join(work, "survey_mesh")
+        t0 = time.perf_counter()
+        sres = counted(lambda: run_survey(
+            plan_survey(files, modelfile=survey["gm"]), swd,
+            process_index=0, process_count=1, bary=False, use_mesh=True,
+            mesh=mesh_of((2, 2, 1)), device=device))
+        survey_row = dict(mesh=[2, 2, 1], wall_s=time.perf_counter() - t0,
+                          counts=sres["counts"])
+        meta = os.path.join(work, "mesh.meta")
+        with open(meta, "w") as f:
+            f.write("\n".join(files) + "\n")
+        cwd = os.path.join(work, "cli_mesh")
+        survey_cli(K, ["plan", "-d", meta, "-m", survey["gm"], "-w", cwd])
+        wall, cli_launches, cres = survey_cli(
+            K, ["run", "-w", cwd, "--no_bary", "--mesh", "--device", device,
+                "--quiet"])
+        for name, n in cli_launches.items():
+            launches[name] += n
+        cli_row = dict(mesh=[1, 1, 1], wall_s=wall, counts=cres["counts"])
+        for row, wd in ((survey_row, swd), (cli_row, cwd)):
+            toas, blocks = survey_toas(wd)
+            row["blocks"] = sorted(blocks.values())
+            row["max_dt_ns"] = max(survey_tim_gap_ns(main_toas[f], toas[f])
+                                   for f in files)
+            row["lines_equal"] = all(main_toas[f] == toas[f] for f in files)
+            row["column_gaps"] = {k: max(v) for k, v in zip(
+                ("err_us", "pp_dm", "pp_dme"), zip(*(survey_column_gaps(
+                    main_toas[f], toas[f]).values() for f in files)))}
+            c = row["column_gaps"]
+            ok &= row["counts"]["done"] == len(files) \
+                and row["blocks"] == [1] * len(files) \
+                and row["max_dt_ns"] < 1.0 and c["err_us"] <= 1.0005e-3 \
+                and c["pp_dm"] <= 1.0005e-7 and c["pp_dme"] <= 1.0005e-7
+    path_rows = path_kernels_vs_plain(K, seen, required=tuple(K.KERNELS))
+    times = path_kernel_times(K, seen)
+    del seen
+    torch.cuda.empty_cache()
+    two, two_ok = mesh_two_process(root, work, shape, device, single)
+    ok &= two_ok
+    res = dict(shape=list(shape), kmax=kmax, unsharded_wall_s=ref_walls,
+               meshes=meshes, groups_of_one=ones_row,
+               single_process=single_gaps, fit_scat=scat_row,
+               survey=survey_row, cli=cli_row, two_process=two,
+               path_kernels_vs_plain=path_rows, path_kernel_times=times,
+               launches=launches, phase_s=time.perf_counter() - t_phase)
+    emit("mesh", **res)
+    if not ok:
+        raise AssertionError("a sharded fit or survey disagrees with the "
+                             "unsharded one (the mesh line above)")
+    missing = [n for n, c in launches.items() if c == 0]
+    if missing:
+        raise AssertionError("kernels never launched on the mesh path: %s"
+                             % missing)
+    return launches
+
+
+
 def main(argv):
     import torch
 
@@ -3740,6 +4109,7 @@ def main(argv):
         by_path["obs"] = phase_obs(root, work, K, dev, small)
         by_path["survey"], survey = phase_survey(root, work, K)
         by_path["serve"] = phase_serve(root, work, K, survey)
+        by_path["mesh"] = phase_mesh(root, work, K, survey)
     finally:
         shutil.rmtree(work, ignore_errors=True)
     phase_throughput(dev, K)
@@ -3754,7 +4124,7 @@ def main(argv):
     for name in ("moments", "fftfit"):
         paths[name] += ["ppalign", "ppspline", "ppgauss", "walkthrough"]
     for name in own:
-        paths[name] += ["obs", "survey", "serve"]
+        paths[name] += ["obs", "survey", "serve", "mesh"]
     # no archive of any path failed on a device error
     failed = [f for made in failed_lists for f in made]
     emit("failed_datafiles", gettoas_runs=len(failed_lists), failed=failed)

@@ -22,8 +22,11 @@ and no ``--device cpu`` ``run``, ``warm`` and ``supervise``'s workers
 fail.  On a multi-process job (``torchrun``) every process runs the same
 command; the plan is partitioned deterministically and process 0 merges
 the obs shards.  ``--compile-cache DIR`` names the directory the hand
-kernels are built into and loaded from.  ``--mesh`` (one fit sharded
-over a device mesh) is not ported yet and fails.  Arguments and outputs
+kernels are built into and loaded from.  ``--mesh`` shards each bucket
+batch over a device mesh of every visible CUDA device (one CPU device
+with ``--device cpu``; parallel/mesh.py); under ``torchrun`` with several
+processes on a host, give each process its own cards by
+``CUDA_VISIBLE_DEVICES``.  Arguments and outputs
 are the JAX package's ``ppsurvey``'s, so a workdir planned by either
 package runs in the other.
 """
@@ -149,7 +152,10 @@ def build_parser():
                             "corrupt/unwritable dir degrades to the "
                             "package's own build directory.")
         r.add_argument("--mesh", action="store_true", dest="use_mesh",
-                       help=argparse.SUPPRESS)
+                       help="Shard each bucket batch over the local "
+                            "device mesh (every visible card: with "
+                            "several processes per host, give each its "
+                            "own by CUDA_VISIBLE_DEVICES).")
         r.add_argument("--no_merge", action="store_false", dest="merge",
                        help="Skip the process-0 obs-shard merge.")
         r.add_argument("--trace-bucket", action="store_true",
@@ -401,10 +407,6 @@ def _cmd_run(args):
     from ..runner.queue import DEFAULT_WORKLOAD
 
     resolve_device(args.device)  # no CUDA and no --device cpu: fail now
-    if args.use_mesh:
-        from ..runner.execute import make_mesh_fitter
-
-        make_mesh_fitter(None)  # raises: not ported yet
     if args.process is None and args.processes is None:
         # a torchrun job: join its process group (no-op single-process)
         from ..parallel import multihost

@@ -45,6 +45,7 @@ Design, against the reference's vmapped ``lax.while_loop``:
   per-subint convergence statistics (``obs.fit_telemetry``).
 """
 
+import collections
 import math
 
 import numpy as np
@@ -58,6 +59,7 @@ from ..ops.fourier import ipow
 from ..ops.noise import get_noise
 from ..ops.scattering import (scattering_times, scattering_times_2deriv,
                               scattering_times_deriv)
+from ..parallel.mesh import AXES, shard
 from ..utils.databunch import DataBunch
 from .smallsolve import inv_refined, solve_refined
 
@@ -213,12 +215,19 @@ class _Spectra:
             return self.freqs, self.P, self.S
         return self.freqs[lanes], self.P[lanes], self.S[lanes]
 
+    def _k1(self, sh, lanes):
+        return _kernels.moments(self.cross, sh, self.inv_err2, lanes)
+
+    def _k3(self, sh, taus, lanes):
+        return _kernels.moments_scat(self.cross, self.abs_m2, sh,
+                                     taus.contiguous(), self.inv_err2, lanes)
+
     def moments(self, params, nus, lanes=None):
         """K1: (C, S, T1, T2) [n, nchan] at params [n, 5] for subints
         ``lanes`` (all when None); nus = (nu_DM, nu_GM, nu_tau) [n, 1]."""
         freqs, P, S = self._rows(lanes)
         sh = _shifts(params, freqs, P, nus[0], nus[1]).contiguous()
-        m = _kernels.moments(self.cross, sh, self.inv_err2, lanes)
+        m = self._k1(sh, lanes)
         return m[..., 0], S, m[..., 1], m[..., 2]
 
     def moments_scat(self, params, nus, lanes=None):
@@ -228,9 +237,7 @@ class _Spectra:
         with record_function("pp_scatter"):
             tau = _tau_lin(params[:, 3:4], self.log10_tau)
             taus = scattering_times(tau, params[:, 4:5], freqs, nus[2])
-            m = _kernels.moments_scat(self.cross, self.abs_m2, sh,
-                                      taus.contiguous(), self.inv_err2,
-                                      lanes)
+            m = self._k3(sh, taus, lanes)
         return dict(zip(_kernels.MOMENTS_SCAT_SUMS, m.unbind(-1))), taus, tau
 
     def evaluate(self, params, nus, lanes=None, order=2):
@@ -286,6 +293,45 @@ class _Spectra:
         freqs, P, _ = self._rows(lanes)
         pd = _phase_shift_derivs(freqs, nus[0], nus[1], P)   # [n, 3, nchan]
         return _derivs(C, S, T1, T2, pd, flags, per_channel)
+
+
+# one (subint group, channel shard) cell of a sharded fit: its channels of
+# the cross-spectrum, |m|^2 and inv_err2 on its device
+_Cell = collections.namedtuple("_Cell", "device chans cross abs_m2 inv_err2")
+
+
+class _ShardedSpectra(_Spectra):
+    """A subint group's fit operands over channel shards: the heavy arrays
+    (cross-spectrum, |m|^2) stay on their cells (``_Cell``); the
+    per-channel vectors (S, inv_err2, freqs) and P are whole on the lead
+    device.  K1 and K3 launch once per cell, each on its own device, at
+    the shifts (and taus) of the cell's channels; their per-channel
+    outputs are joined along channels on the lead device, so every
+    channel sum after them is the unsharded one."""
+
+    def __init__(self, cells, S, inv_err2, freqs, P, scat=False,
+                 log10_tau=False):
+        super().__init__(None, None, S, inv_err2, freqs, P, scat=scat,
+                         log10_tau=log10_tau)
+        self.cells = cells
+
+    def _join(self, outs):
+        return torch.cat([o.to(self.S.device) for o in outs], dim=1)
+
+    def _k1(self, sh, lanes):
+        # every cell's launch is queued before the first copy back, so
+        # the cells' devices run at once
+        return self._join([_kernels.moments(
+            c.cross, sh[:, c.chans].to(c.device).contiguous(), c.inv_err2,
+            None if lanes is None else lanes.to(c.device))
+            for c in self.cells])
+
+    def _k3(self, sh, taus, lanes):
+        return self._join([_kernels.moments_scat(
+            c.cross, c.abs_m2, sh[:, c.chans].to(c.device).contiguous(),
+            taus[:, c.chans].to(c.device).contiguous(), c.inv_err2,
+            None if lanes is None else lanes.to(c.device))
+            for c in self.cells])
 
 
 # -- JAX-shaped single-fit views (tests, interactive use) ----------------
@@ -732,21 +778,40 @@ def _spectra(data, model, inv_err2, kmax, rows=SPECTRA_ROWS):
         torch.cat(Sds)
 
 
+def _band_sums(data, model, wok):
+    """Live-channel sums [b, nbin] of the data and model profiles: the
+    products with the live-channel mask ``wok`` [b, nchan], so no
+    weighted [b, nchan, nbin] copy is made."""
+    prof = torch.matmul(wok[:, None, :], data)[:, 0]
+    mprof = wok @ model if model.ndim == 2 else \
+        torch.matmul(wok[:, None, :], model)[:, 0]
+    return prof, mprof
+
+
+def _seed_from_sums(prof, mprof, errs, wok):
+    """FFTFIT phase seeds [b] from the live-channel sums of
+    :func:`_band_sums`, in kernel K2."""
+    from .phase_shift import _fit_phase_shift_core
+
+    wsum = torch.clamp(wok.sum(dim=1), min=1.0)
+    err = torch.sqrt(((errs * wok) ** 2).sum(dim=1)) / wsum
+    return _fit_phase_shift_core(prof / wsum[:, None], mprof / wsum[:, None],
+                                 err, -0.5, 0.5, 100, 6).phase
+
+
 def _seed_phases(data, model, errs, weights):
     """FFTFIT phase seeds [B] from live-channel band-average profiles,
     the model averaged over the same live channels (reference
-    fit/portrait.py:1070-1098); the batched fit runs in kernel K2.  The
-    channel sums are products with the live-channel mask, so no weighted
-    [B, nchan, nbin] copy is made."""
-    from .phase_shift import _fit_phase_shift_core
-
+    fit/portrait.py:1070-1098); the batched fit runs in kernel K2."""
     wok = (weights > 0.0).to(data.dtype)
-    wsum = torch.clamp(wok.sum(dim=1), min=1.0)
-    prof = torch.matmul(wok[:, None, :], data)[:, 0] / wsum[:, None]
-    mprof = (wok @ model if model.ndim == 2 else
-             torch.matmul(wok[:, None, :], model)[:, 0]) / wsum[:, None]
-    err = torch.sqrt(((errs * wok) ** 2).sum(dim=1)) / wsum
-    return _fit_phase_shift_core(prof, mprof, err, -0.5, 0.5, 100, 6).phase
+    return _seed_from_sums(*_band_sums(data, model, wok), errs, wok)
+
+
+def _inv_err2(errs, weights, nbin):
+    """1 / sigma_FT^2 per (subint, channel) [b, nchan], 0 where zapped."""
+    errs_FT = errs * math.sqrt(nbin / 2.0)
+    return torch.where(weights > 0.0, errs_FT ** -2.0,
+                       torch.zeros_like(errs_FT)).contiguous()
 
 
 def _fit_chunk(data, model, init, P, freqs, errs, weights, nu_fits,
@@ -754,29 +819,79 @@ def _fit_chunk(data, model, init, P, freqs, errs, weights, nu_fits,
                log10_tau, scat, option, is_toa):
     """The batched fit of one chunk; every argument is a device tensor
     with the chunk's leading batch dimension (model may be shared)."""
-    b, nchan, nbin = data.shape
-    ifit = np.flatnonzero(np.asarray(flags))
-    nfit = len(ifit)
-    errs_FT = errs * math.sqrt(nbin / 2.0)
-    wmask = weights > 0.0
-    inv_err2 = torch.where(wmask, errs_FT ** -2.0,
-                           torch.zeros_like(errs_FT)).contiguous()
-    nchan_ok = wmask.sum(dim=-1)
-    dof = nbin * nchan_ok - (nfit + nchan_ok)
+    nbin = data.shape[-1]
+    inv_err2 = _inv_err2(errs, weights, nbin)
     cross, abs_m2, Sd = _spectra(data, model, inv_err2, kmax)
     S = (torch.sum(abs_m2, dim=-1) * inv_err2).contiguous()
     sp = _Spectra(cross, abs_m2, S, inv_err2, freqs, P[:, None], scat=scat,
                   log10_tau=log10_tau)
+    return _fit_solve(sp, Sd, nbin, init, weights, nu_fits, nu_outs,
+                      nu_outs_mask, flags, lo, hi, max_iter, option, is_toa)
 
+
+def _fit_solve(sp, Sd, nbin, init, weights, nu_fits, nu_outs, nu_outs_mask,
+               flags, lo, hi, max_iter, option, is_toa):
+    """Solve and finish the fit of the batch ``sp`` (data power Sd [b])."""
+    ifit = np.flatnonzero(np.asarray(flags))
+    nfit = len(ifit)
+    wmask = weights > 0.0
+    nchan_ok = wmask.sum(dim=-1)
+    dof = nbin * nchan_ok - (nfit + nchan_ok)
     wok = wmask.to(real_dtype)
-    fq_mean = (freqs * wok).sum(-1) / torch.clamp(wok.sum(-1), min=1.0)
+    fq_mean = (sp.freqs * wok).sum(-1) / torch.clamp(wok.sum(-1), min=1.0)
     nu_fit = tuple(torch.where(torch.isnan(nu_fits[:, i]), fq_mean,
                                nu_fits[:, i])[:, None] for i in range(3))
     with record_function("pp_solve"):
         sol = _solve(sp, init, nu_fit, flags, lo, hi, max_iter)
     with record_function("pp_polish"):
         return _finish(sp, sol, nu_fit, nu_outs, nu_outs_mask, flags, option,
-                       is_toa, log10_tau, Sd, dof, ifit)
+                       is_toa, sp.log10_tau, Sd, dof, ifit)
+
+
+def _fit_group(mesh, i, data, model, init, P, freqs, errs, weights, seed,
+               nu_fits, nu_outs, nu_outs_mask, flags, lo, hi, max_iter, kmax,
+               log10_tau, scat, option, is_toa):
+    """Subint group ``i`` of a sharded fit.  ``data`` and ``model`` are
+    ShardedTensors on ``mesh``; every other tensor holds the group's rows
+    on its lead device (``errs`` None: measured on each cell).  Each
+    (group, channel shard) cell joins its bin shards on its device and
+    forms its noise, band sums and spectra there; the lead device takes
+    the per-channel vectors whole and runs the seeding (K2), the solver
+    and the finish, with K1 or K3 on the cells."""
+    lead = mesh.lead(i)
+    nbin = data.shape[-1]
+    cells, noise, ie2, S, Sd, bands = [], [], [], [], None, None
+    for j in range(mesh.devices.shape[1]):
+        dev = mesh.devices[i, j, 0]
+        chans = data.block((i, j, 0)).index[1]
+        d, m = data.cell(i, j), model.cell(i, j)
+        e = get_noise(d) if errs is None else errs[:, chans].to(dev)
+        w = weights[:, chans].to(dev)
+        inv_err2 = _inv_err2(e, w, nbin)
+        if seed:
+            with record_function("pp_seed"):
+                part = [x.to(lead) for x in _band_sums(d, m, (w > 0.0).to(
+                    d.dtype))]
+            bands = part if bands is None else [a + b for a, b in
+                                                zip(bands, part)]
+        cross, abs_m2, sd = _spectra(d, m, inv_err2, kmax)
+        del d, m
+        cells.append(_Cell(dev, chans, cross, abs_m2, inv_err2))
+        noise.append(e.to(lead))
+        ie2.append(inv_err2.to(lead))
+        S.append((torch.sum(abs_m2, dim=-1) * inv_err2).to(lead))
+        Sd = sd.to(lead) if Sd is None else Sd + sd.to(lead)
+    if errs is None:
+        errs = torch.cat(noise, dim=1)
+    if seed:
+        with record_function("pp_seed"):
+            init[:, 0] = _seed_from_sums(*bands, errs, (weights > 0.0).to(
+                real_dtype))
+    sp = _ShardedSpectra(cells, torch.cat(S, dim=1).contiguous(),
+                         torch.cat(ie2, dim=1).contiguous(), freqs,
+                         P[:, None], scat=scat, log10_tau=log10_tau)
+    return _fit_solve(sp, Sd, nbin, init, weights, nu_fits, nu_outs,
+                      nu_outs_mask, flags, lo, hi, max_iter, option, is_toa)
 
 
 def _finish(sp, sol, nu_fit, nu_outs, nu_outs_mask, flags, option, is_toa,
@@ -868,7 +983,8 @@ def fit_portrait_full_batch(data_ports, model_ports, init_params, Ps,
                             nu_outs=(None, None, None), bounds=None,
                             log10_tau=True, max_iter=50, kmax=None,
                             scan_size=None, pad_to=None, seed=None,
-                            option=0, is_toa=True, device=None):
+                            option=0, is_toa=True, device=None,
+                            scat_hint=None, mesh=None):
     """Batched portrait fit over subints: data [B, nchan, nbin].
 
     model_ports [nchan, nbin] (shared; also a 3-D array whose rows are one
@@ -884,19 +1000,32 @@ def fit_portrait_full_batch(data_ports, model_ports, init_params, Ps,
     the zero-covariance frequency, found with ``option`` where the flag
     set has two); ``is_toa`` references phi to one frequency when DM and
     GM are both fitted.  A fitted or nonzero fixed tau takes the
-    scattering moments (kernel K3), otherwise B = 1 (kernel K1).
-    ``scan_size`` fits the batch in chunks of that many subints and
-    ``pad_to`` is accepted for interface parity; neither changes the
-    results.  Runs on ``device`` (None = the CUDA device).
+    scattering moments (kernel K3), otherwise B = 1 (kernel K1);
+    ``scat_hint`` overrides that choice (callers whose processes must
+    agree on it, parallel/multihost.py).  ``scan_size`` fits the batch in
+    chunks of that many subints and ``pad_to`` is accepted for interface
+    parity; neither changes the results.  Runs on ``device`` (None = the
+    CUDA device).
+
+    ``mesh`` (parallel/mesh.py) shards the fit: data and model are split
+    over its ('subint', 'chan', 'bin') axes — B, nchan and nbin must
+    divide over them — and each subint group is solved on its lead device
+    with K1 or K3 on every channel shard (:func:`_fit_group`); ``device`` and ``scan_size`` are
+    then ignored.  For a given init the results are the unsharded fit's:
+    the kernels' per-channel outputs are gathered before any channel sum
+    (summing per-shard partials instead, as the reference's all-reduce
+    does, would change the sums' order); only chi2's data power is a sum
+    of per-shard partials.
 
     Returns a DataBunch of stacked per-subint result tensors on
-    ``device`` (fields as the reference's fit_portrait_full): params,
-    param_errs, phi(_err), DM(_err), GM(_err), tau(_err), alpha(_err),
-    scales, scale_errs, nu_DM, nu_GM, nu_tau, covariance_matrix, chi2,
-    red_chi2, snr, channel_snrs, nfeval, return_code.
+    ``device`` (the mesh's first device with ``mesh``; fields as the
+    reference's fit_portrait_full): params, param_errs, phi(_err),
+    DM(_err), GM(_err), tau(_err), alpha(_err), scales, scale_errs, nu_DM,
+    nu_GM, nu_tau, covariance_matrix, chi2, red_chi2, snr, channel_snrs,
+    nfeval, return_code.
     """
     del pad_to  # bucketing exists for compiled programs; eager needs none
-    device = resolve_device(device)
+    device = mesh.first if mesh is not None else resolve_device(device)
     flags = _check_flags(fit_flags)
     if seed is None:
         seed = init_params is None
@@ -907,31 +1036,45 @@ def fit_portrait_full_batch(data_ports, model_ports, init_params, Ps,
         init_params = np.zeros(5)
         if log10_tau:
             init_params[3] = -np.inf  # 10**-inf == 0: no scattering
-    scat = _scat_hint(flags, init_params, log10_tau)
+    scat = _scat_hint(flags, init_params, log10_tau) if scat_hint is None \
+        else bool(scat_hint)
     if getattr(model_ports, "ndim", 0) == 3 and (
             model_ports.shape[0] == 1 or _batch_stride(model_ports) == 0):
         model_ports = model_ports[0]  # one model broadcast over the batch
-    if kmax is None:
-        kmax = model_kmax(model_ports)
-    data = _to_dev(data_ports, device)
+    if mesh is not None:
+        # data over ('subint', 'chan', 'bin'); a shared model over
+        # ('chan', 'bin') on every subint group
+        data = shard(mesh, data_ports, AXES, dtype=real_dtype)
+        model = shard(mesh, model_ports, AXES[3 - model_ports.ndim:],
+                      dtype=real_dtype)
+        if kmax is None:
+            kmax = model_kmax(torch.cat([  # the first subint's model
+                model.cell(0, j)[(0,) * (model.ndim - 2)].cpu()
+                for j in range(mesh.devices.shape[1])]))
+    else:
+        if kmax is None:
+            kmax = model_kmax(model_ports)
+        data = _to_dev(data_ports, device)
     B, nchan, nbin = data.shape
     if kmax is None:
         kmax = nbin // 2 + 1
-    model = _to_dev(model_ports, device)
-    if model.ndim == 3 and model.shape[0] == 1:
-        model = model[0]
-    elif model.ndim == 3 and model.shape[0] != B:
-        model = torch.broadcast_to(model, data.shape)
+    if mesh is None:
+        model = _to_dev(model_ports, device)
+        if model.ndim == 3 and model.shape[0] == 1:
+            model = model[0]
+        elif model.ndim == 3 and model.shape[0] != B:
+            model = torch.broadcast_to(model, data.shape)
     freqs = torch.broadcast_to(_to_dev(freqs, device), (B, nchan))
     P = _per_batch(Ps, B, device)
     init = torch.broadcast_to(_to_dev(init_params, device), (B, 5)).clone()
-    if errs is None:
+    if errs is None and mesh is None:
         errs = get_noise(data)
-    errs = torch.broadcast_to(_to_dev(errs, device), (B, nchan))
+    if errs is not None:
+        errs = torch.broadcast_to(_to_dev(errs, device), (B, nchan))
     if weights is None:
         weights = torch.ones((B, nchan), dtype=real_dtype, device=device)
     weights = torch.broadcast_to(_to_dev(weights, device), (B, nchan))
-    if seed:
+    if seed and mesh is None:
         with record_function("pp_seed"):
             init[:, 0] = _seed_phases(data, model, errs, weights)
     if nu_fits is None or isinstance(nu_fits, (tuple, list)):
@@ -959,15 +1102,32 @@ def fit_portrait_full_batch(data_ports, model_ports, init_params, Ps,
         hi = torch.tensor([math.inf if bd[1] is None else float(bd[1])
                            for bd in bounds], dtype=real_dtype,
                           device=device)
-    chunk = B if scan_size is None else max(1, int(scan_size))
     outs = []
-    for i in range(0, B, chunk):
-        s = slice(i, i + chunk)
-        outs.append(_fit_chunk(
-            data[s], model if model.ndim == 2 else model[s], init[s], P[s],
-            freqs[s], errs[s], weights[s], nu_fits_b[s], nu_outs_b[s],
-            nu_outs_mask, flags, lo, hi, int(max_iter), int(kmax),
-            bool(log10_tau), scat, int(option), bool(is_toa)))
+    if mesh is not None:
+        b = B // mesh.devices.shape[0]
+        for i in range(mesh.devices.shape[0]):
+            lead = mesh.lead(i)
+
+            def rows(x):
+                return None if x is None else x[i * b:(i + 1) * b].to(lead)
+
+            out = _fit_group(
+                mesh, i, data, model, rows(init), rows(P), rows(freqs),
+                rows(errs), rows(weights), bool(seed), rows(nu_fits_b),
+                rows(nu_outs_b), nu_outs_mask, flags, lo.to(lead),
+                hi.to(lead), int(max_iter), int(kmax), bool(log10_tau),
+                scat, int(option), bool(is_toa))
+            outs.append({k: v.to(device) for k, v in out.items()})
+    else:
+        chunk = B if scan_size is None else max(1, int(scan_size))
+        for i in range(0, B, chunk):
+            s = slice(i, i + chunk)
+            outs.append(_fit_chunk(
+                data[s], model if model.ndim == 2 else model[s], init[s],
+                P[s], freqs[s], errs[s], weights[s], nu_fits_b[s],
+                nu_outs_b[s], nu_outs_mask, flags, lo, hi, int(max_iter),
+                int(kmax), bool(log10_tau), scat, int(option),
+                bool(is_toa)))
     out = DataBunch(**outs[0]) if len(outs) == 1 else DataBunch(
         **{k: torch.cat([o[k] for o in outs]) for k in RESULT_KEYS})
     # opt-in NaN hook (PPTPU_SANITIZE): fail at the fit that produced a

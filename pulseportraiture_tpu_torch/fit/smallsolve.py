@@ -26,7 +26,7 @@ it and raises its damping, exactly as in the reference.
 import torch
 
 __all__ = ["chol_factor", "chol_solve", "solve_sym", "inv_sym",
-           "solve_refined", "inv_refined"]
+           "matvec", "solve_refined", "inv_refined"]
 
 
 def chol_factor(A):
@@ -84,6 +84,20 @@ def _f32(x):
                        torch.zeros_like(x), x)
 
 
+def matvec(A, x):
+    """A x for A [..., n, n], x [..., n].  On a CUDA device each element
+    is summed over j in index order by elementwise ops: cuBLAS picks its
+    batched kernel by the batch count, so a product batched over a
+    solver's lanes would give a lane bits that depend on how many lanes
+    share the call (and a sharded fit's subint groups share fewer)."""
+    if not A.is_cuda:
+        return torch.einsum("...ij,...j->...i", A, x)
+    out = A[..., 0] * x[..., None, 0]
+    for j in range(1, A.shape[-1]):
+        out = out + A[..., j] * x[..., None, j]
+    return out
+
+
 def solve_refined(A, b, refinements=2):
     """x = A^-1 b for A [..., n, n], b [..., n]: f32 LU + f64 refinement
     (r = b - A x; x += A_f32^-1 r)."""
@@ -95,7 +109,7 @@ def solve_refined(A, b, refinements=2):
 
     x = solve32(b)
     for _ in range(refinements):
-        r = b - torch.einsum("...ij,...j->...i", A, x)
+        r = b - matvec(A, x)
         x = x + solve32(r)
     return x
 

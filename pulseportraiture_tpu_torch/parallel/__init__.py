@@ -1,8 +1,6 @@
-"""Process-level scale-out of the port (``multihost``: process group,
-deterministic work partitioning, bounded barriers).
-
-The reference's device-mesh modules (``mesh.py``, ``sharded_fit.py``,
-``multihost.global_mesh`` / ``distributed_sweep_fit``) are not ported
-yet: they shard one fit's channel and bin axes with collectives inside
-the solver, a design of its own.
+"""Scale-out of the port: ``mesh`` (a ('subint', 'chan', 'bin') grid of
+devices and the placement of a fit batch on it), ``sharded_fit`` (the
+batched portrait fit sharded over a mesh, and IPTA sweeps) and
+``multihost`` (the process group: deterministic work partitioning,
+bounded barriers, and sweeps whose batch spans processes).
 """

@@ -1,21 +1,25 @@
-"""Multi-process survey runs: the process layer of the JAX package's
-``parallel/multihost.py`` on ``torch.distributed``.
+"""Multi-process scale-out on ``torch.distributed``: the port of the JAX
+package's ``parallel/multihost.py``.
 
 A survey scales by running one ``ppsurvey run`` process per card (or
 per host); the processes share nothing but the workdir's ledger shards,
 split the plan round-robin (:func:`partition_indices`) and meet once,
 at a bounded barrier before process 0 merges the obs shards
-(:func:`barrier`).  Typical use on each process of a job started by
-``torchrun`` (which sets ``RANK``, ``WORLD_SIZE``, ``MASTER_ADDR`` and
-``MASTER_PORT``):
+(:func:`barrier`).  One sharded sweep spans processes the way the
+reference spans hosts: each process fits its own block of the batch on
+its local device mesh (:func:`global_mesh`), so the process group
+carries only the batch axis and no inner-loop communication crosses
+processes (:func:`distributed_sweep_fit`).  Typical use on each process
+of a job started by ``torchrun`` (which sets ``RANK``, ``WORLD_SIZE``,
+``MASTER_ADDR`` and ``MASTER_PORT``):
 
     from pulseportraiture_tpu_torch.parallel import multihost
     multihost.initialize()                   # no-op when single-process
     mine = multihost.partition_indices(n)    # this process's share
     multihost.barrier("done", timeout_s=60)  # BarrierTimeout names stragglers
-
-Not ported here: ``global_mesh`` and ``distributed_sweep_fit`` (one fit
-sharded over devices; see the package docstring).
+    mesh = multihost.global_mesh()           # this process's devices
+    out = multihost.distributed_sweep_fit(   # this process's block in,
+        mesh, local_data, model, ...)        # its rows + global indices out
 """
 
 import datetime
@@ -25,9 +29,9 @@ import threading
 
 from ..testing import faults
 
-__all__ = ["initialize", "process_count", "process_index",
-           "partition_indices", "barrier", "BarrierTimeout",
-           "straggler_ids"]
+__all__ = ["initialize", "global_mesh", "distributed_sweep_fit",
+           "process_count", "process_index", "partition_indices",
+           "barrier", "BarrierTimeout", "straggler_ids"]
 
 # the gloo group monitored_barrier runs on (created beside an NCCL
 # default group when needed: monitored_barrier is gloo-only)
@@ -262,3 +266,103 @@ def barrier(name="pptpu_barrier", timeout_s=None):
         raise BarrierTimeout(name, timeout_s)
     if "err" in box:
         raise box["err"]
+
+
+def global_mesh(n_chan=1, n_bin=1, devices=None):
+    """('subint', 'chan', 'bin') mesh over this process's devices (every
+    visible CUDA device by default; on a host running several processes,
+    give each its own, by ``devices`` or ``CUDA_VISIBLE_DEVICES``).
+
+    The reference's global mesh spans the devices of every host; here the
+    process group carries the batch axis (:func:`distributed_sweep_fit`)
+    and each process's mesh splits its own block, so the 'chan' and 'bin'
+    gathers never leave a process.
+    """
+    from .mesh import make_mesh
+
+    return make_mesh(n_chan=n_chan, n_bin=n_bin, devices=devices)
+
+
+def _all_gather(value):
+    """Every process's ``value`` (a picklable object), in rank order."""
+    dist = _dist()
+    if dist is None or dist.get_world_size() == 1:
+        return [value]
+    out = [None] * dist.get_world_size()
+    dist.all_gather_object(out, value)
+    return out
+
+
+def distributed_sweep_fit(mesh, local_data, model_port, init_params, Ps,
+                          freqs, errs=None, weights=None,
+                          fit_flags=(1, 1, 0, 0, 0), **kw):
+    """Fit a process-local block as part of one global batch.
+
+    Every process passes its own [B_local, nchan, nbin] block (epochs /
+    pulsars assigned to it — e.g. a slice of a metafile) and fits it on
+    its ``mesh`` (:func:`global_mesh`); process p's rows are rows
+    ``p * B_local`` to ``(p + 1) * B_local`` of the global batch.  Returns
+    this process's DataBunch (on the mesh's first device) with
+    ``global_rows``, the rows' global indices: the counterpart of the
+    reference's addressable shards.  Single-process it equals
+    :func:`~.sharded_fit.sharded_fit_portrait_batch` on the same mesh.
+
+    Every process must pass the SAME block size (pad the last block —
+    e.g. with zero-weight rows — when the split is uneven); an all-gather
+    over the process group checks it.  Per-row metadata (Ps, freqs, init,
+    errs, weights) may be this process's block (leading dimension
+    B_local), the global batch's (leading dimension B: its rows are
+    taken) or anything broadcastable.  ``init_params=None`` seeds the
+    phases in the fit (K2 per subint group); errs=None estimates the
+    noise on this process's block.  The scattering kernel's choice is
+    all-gathered and OR-ed, so one process with a nonzero tau turns K3 on
+    everywhere, as in the reference.
+    """
+    import numpy as np
+    import torch
+
+    from ..fit.portrait import _scat_hint, fit_portrait_full_batch
+
+    B_local = int(local_data.shape[0])
+    sizes = _all_gather(B_local)
+    if any(n != B_local for n in sizes):
+        raise ValueError(
+            "distributed_sweep_fit needs identical per-process "
+            f"block sizes; got {sizes} — pad the "
+            "short blocks with zero-weight rows.")
+    nproc, pid = len(sizes), process_index()
+    B = B_local * nproc
+    mine = slice(pid * B_local, (pid + 1) * B_local)
+
+    def local(x, shape):
+        """This process's rows of per-row metadata of global ``shape``."""
+        if x is None:
+            return None
+        arr = x if isinstance(x, torch.Tensor) else np.asarray(x)
+        if arr.ndim == len(shape) and arr.shape[1:] == shape[1:] \
+                and arr.shape[0] in (B_local, B):
+            return arr if arr.shape[0] == B_local else arr[mine]
+        return arr
+
+    nchan = local_data.shape[1]
+    seed = init_params is None
+    if seed:
+        init_params = np.zeros(5)
+        if kw.get("log10_tau", True):
+            init_params[3] = -np.inf
+    init_params = local(init_params, (B, 5))
+    if "scat_hint" not in kw:
+        # every process must take the same moments kernel: one process
+        # with a nonzero tau turns the scattering chain on everywhere
+        hint = _scat_hint(tuple(fit_flags), init_params,
+                          kw.get("log10_tau", True))
+        kw["scat_hint"] = any(_all_gather(bool(hint)))
+    out = fit_portrait_full_batch(
+        local_data, local(model_port, (B,) + tuple(local_data.shape[1:])),
+        init_params, local(Ps, (B,)),
+        local(freqs, (B, nchan)), errs=local(errs, (B, nchan)),
+        weights=local(weights, (B, nchan)), fit_flags=fit_flags,
+        seed=seed, mesh=mesh, **kw)
+    out["global_rows"] = torch.arange(mine.start, mine.stop,
+                                      device=mesh.first)
+    return out

@@ -46,9 +46,9 @@ through the port's ``GetTOAs`` on ``device`` (the CUDA device unless
 ``device="cpu"`` is given).  Device errors the pipeline isolates per
 archive (``pipelines.toas.DEVICE_ERRORS``: CUDA out-of-memory,
 ``torch.AcceleratorError``, a refused hand-kernel launch) take the
-same retry and quarantine paths as the reference's.  Sharding one
-bucket's fit over a device mesh (``use_mesh``, the reference's
-:func:`make_mesh_fitter`) is not ported yet and raises.
+same retry and quarantine paths as the reference's.  ``use_mesh``
+shards each bucket's fit over a device mesh (:func:`make_mesh_fitter`,
+parallel/mesh.py), as the reference's does.
 """
 
 import collections
@@ -126,17 +126,76 @@ class _BucketedGetTOAs(GetTOAs):
 
 
 def make_mesh_fitter(mesh):
-    """The reference's mesh-sharded ``fit_portrait_full_batch`` drop-in
-    (one bucket batch sharded over a ('subint', 'chan') device mesh).
+    """A ``fit_portrait_full_batch`` drop-in that shards each bucket
+    batch over ``mesh`` (parallel/mesh.py: 'subint' data-parallel, 'chan'
+    model-parallel, 'bin' gathered per cell; fit/portrait.py
+    ``_fit_group``).
 
-    Not ported yet: sharding a fit's channel and bin axes needs
-    collectives inside the solver, a design of its own that comes with
-    the port of ``parallel/mesh.py`` and ``parallel/sharded_fit.py``.
+    The batch is padded to a multiple of the mesh's subint axis with
+    copies of its last subint (live weights — all-dead rows would NaN
+    the weighted reductions) and the padding is sliced off the
+    outputs.  ``scan_size``/``pad_to`` are dropped, and so is ``device``:
+    the fit runs on the mesh and returns on its first device.  A shared
+    model stays one [nchan, nbin] portrait.
     """
-    raise NotImplementedError(
-        "mesh-sharded survey fits (use_mesh / ppsurvey run --mesh) are "
-        "not ported yet: they come with the port of parallel/mesh.py "
-        "and parallel/sharded_fit.py.")
+    import torch
+
+    from ..fit.portrait import _batch_stride, fit_portrait_full_batch
+    from ..utils.databunch import DataBunch
+
+    n_sub = mesh.shape["subint"]
+
+    def fitter(data, models, init, Ps, freqs, errs=None, weights=None,
+               nu_fits=None, nu_outs=None, **kw):
+        kw.pop("scan_size", None)
+        kw.pop("pad_to", None)
+        kw.pop("device", None)
+        B = data.shape[0]
+        Bp = -(-B // n_sub) * n_sub
+
+        def padrow(x, shape=None):
+            if isinstance(x, torch.Tensor):
+                x = x if shape is None else torch.broadcast_to(x, shape)
+                if Bp == B:
+                    return x
+                return torch.cat([x, x[-1:].expand(
+                    (Bp - B,) + tuple(x.shape[1:]))])
+            x = np.asarray(x) if shape is None else \
+                np.broadcast_to(np.asarray(x), shape)
+            if Bp == B:
+                return x
+            return np.concatenate(
+                [x, np.repeat(x[-1:], Bp - B, axis=0)], axis=0)
+
+        rows = tuple(data.shape[:-1])
+        if getattr(models, "ndim", 0) == 3 and models.shape[0] != 1 \
+                and _batch_stride(models) != 0:
+            models = padrow(models)
+        if weights is None:
+            weights = np.ones(rows)
+        args = [padrow(data), models,
+                padrow(init if isinstance(init, torch.Tensor)
+                       else np.asarray(init, np.float64), (B, 5)),
+                padrow(Ps, (B,)), padrow(freqs, rows)]
+        if errs is not None:
+            errs = padrow(errs, rows)
+        weights = padrow(weights, rows)
+        if nu_fits is not None and not isinstance(nu_fits, tuple):
+            nu_fits = padrow(nu_fits)
+        if nu_outs is not None and isinstance(nu_outs, tuple):
+            nu_outs = tuple(None if col is None else padrow(col)
+                            for col in nu_outs)
+        out = fit_portrait_full_batch(
+            *args, errs=errs, weights=weights, nu_fits=nu_fits,
+            nu_outs=nu_outs, mesh=mesh, **kw)
+        if Bp == B:
+            return out
+        return DataBunch(**{
+            k: (v[:B] if getattr(v, "ndim", 0) >= 1
+                and v.shape[0] == Bp else v)
+            for k, v in out.items()})
+
+    return fitter
 
 
 def _resolve_process(process_index, process_count):
@@ -753,13 +812,15 @@ def run_survey(plan, workdir, modelfile=None, process_index=None,
 
     ``device`` is where the fits run (None = the CUDA device; with no
     CUDA device this raises — pass ``"cpu"`` to run on the CPU).
-    ``use_mesh``/``mesh`` raise NotImplementedError (module docstring).
+    ``use_mesh`` fits each bucket batch sharded over ``mesh``
+    (:func:`make_mesh_fitter`); ``mesh=None`` takes every visible CUDA
+    device, or a one-device mesh of ``device`` when that is the CPU or a
+    CUDA device with its index.  Several processes on one host each take
+    every card they see: give each its own by ``CUDA_VISIBLE_DEVICES``.
     """
     from ..config import resolve_device
 
     device = resolve_device(device)
-    if use_mesh or mesh is not None:
-        make_mesh_fitter(mesh)
     if isinstance(plan, str):
         plan = SurveyPlan.load(plan)
     modelfile = modelfile or plan.modelfile
@@ -791,6 +852,13 @@ def run_survey(plan, workdir, modelfile=None, process_index=None,
                         if i not in in_pref]
 
     fitter = None
+    if use_mesh:
+        if mesh is None:
+            from ..parallel.mesh import make_mesh
+
+            one = device.type == "cpu" or device.index is not None
+            mesh = make_mesh(devices=[device] if one else None)
+        fitter = make_mesh_fitter(mesh)
 
     # per-bucket profiler capture (--trace-bucket): region directories
     # named by bucket shape; a capture spans every consecutive archive

@@ -1,5 +1,5 @@
-"""The port's per-channel and template paths and its template builders on
-the card: kernels against their plain versions.
+"""The port's per-channel and template paths, its template builders and
+its sharded fit on the card: kernels against their plain versions.
 
 Each test runs a path of pulseportraiture_tpu_torch on the CUDA device
 twice — through the hand kernels (K1 csrc/moments.cu, K2 csrc/fftfit.cu,
@@ -466,3 +466,51 @@ def test_service_coalesced_dispatch_on_the_card(card, archive, tmp_path,
     assert sum(plain_launches.values()) == 0
     for name in got:
         assert _tim_dt_ns(got[name], ref[name]) < 1.0
+
+
+@pytest.mark.parametrize("shape", [(2, 2, 2), (1, 4, 1)],
+                         ids=["2x2x2", "1x4x1"])
+def test_sharded_fit_on_the_card(card, shape):
+    """A given-init fit of 64 subints of 128 x 512 (make_fake_dataset on
+    the card) sharded over a mesh of the card named eight (four) times:
+    its TOAs (phi, DM and their reference frequency), rc and nfeval equal
+    the unsharded kernel fit's, K1 launched once per channel shard and
+    solver evaluation; the same sharded fit through the plain versions
+    within 1 ns."""
+    from pulseportraiture_tpu_torch.fit.portrait import \
+        fit_portrait_full_batch
+    from pulseportraiture_tpu_torch.ops.fourier import get_bin_centers
+    from pulseportraiture_tpu_torch.ops.profiles import gen_gaussian_portrait
+    from pulseportraiture_tpu_torch.parallel.mesh import make_mesh
+    from pulseportraiture_tpu_torch.pipelines.synth import make_fake_dataset
+
+    mp = [0.0, 0.0, 0.35, -0.05, 0.05, 0.1, 1.0, -1.2]
+    gen = torch.Generator(device=DEVICE).manual_seed(5)
+    ds = make_fake_dataset(gen, mp, nsub=64, nchan=128, nbin=512,
+                           lofreq=1300.0, bw=400.0, P=0.005, noise_std=0.05,
+                           device=DEVICE)
+    model = gen_gaussian_portrait("000", mp, -4.0, get_bin_centers(512),
+                                  ds.freqs, ds.nu_ref, device=DEVICE)
+    init = torch.zeros((64, 5), dtype=torch.float64, device=DEVICE)
+    init[:, 0] = ds.phases_inj
+    mesh = make_mesh(*shape, devices=[DEVICE] * 8 if shape[0] > 1
+                     else [DEVICE] * 4)
+
+    def fit(m):
+        return fit_portrait_full_batch(
+            ds.subints, model, init, 0.005, ds.freqs, fit_flags=(1, 1, 0,
+                                                                 0, 0),
+            log10_tau=False, max_iter=30, mesh=m, device=DEVICE)
+
+    want = fit(None)
+    card.reset_launches()
+    got = fit(mesh)
+    assert card.LAUNCHES["moments"] % shape[1] == 0
+    assert card.LAUNCHES["moments"] > 0
+    for key in ("phi", "DM", "nu_DM", "nfeval", "return_code"):
+        assert torch.equal(got[key], want[key]), key
+    with plain_kernels(card):
+        plain = fit(mesh)
+    dphi = ((plain.phi - got.phi + 0.5) % 1.0 - 0.5).abs().max()
+    assert float(dphi) * 0.005 < 1e-9
+    assert torch.equal(plain.return_code, got.return_code)

@@ -2,9 +2,10 @@
 
 Every subcommand takes the reference's options plus ``--device``; a
 plan/run/resume/status/report round trip on the CPU; the device policy
-(no CUDA and no ``--device cpu``: the command fails) and the refusal of
-``--mesh``; ``supervise`` running two worker subprocesses of the port
-over one workdir, every archive done once.
+(no CUDA and no ``--device cpu``: the command fails) and ``--mesh``
+(refused without CUDA, the unmeshed TOAs on a CPU mesh); ``supervise``
+running two worker subprocesses of the port over one workdir, every
+archive done once.
 """
 
 import json
@@ -174,11 +175,30 @@ def test_no_cuda_and_no_device_cpu_fails(ws, tmp_path, capsys, monkeypatch,
     assert not [n for n in os.listdir(wd) if n.startswith("ledger.")]
 
 
-def test_mesh_is_refused(ws, tmp_path, capsys):
-    wd = str(tmp_path / "wd")
-    assert tcli.main(["plan", "-d", ws.meta, "-m", ws.gm, "-w", wd]) == 0
-    with pytest.raises(NotImplementedError, match="not ported"):
-        tcli.main(["run", "-w", wd, "--device", "cpu", "--mesh"])
+def test_mesh_is_refused(ws, tmp_path, capsys, monkeypatch):
+    """``run --mesh`` is refused without a CUDA device (as here; made so
+    on a machine with one) and without ``--device cpu``: its default
+    mesh is every visible CUDA device.  With ``--device cpu`` (a
+    one-device CPU mesh) it writes the TOAs of the same run without
+    ``--mesh``."""
+    from torch_tim import lines
+
+    tims = []
+    for name, extra in (("plain", []), ("mesh", ["--mesh"])):
+        wd = str(tmp_path / name)
+        assert tcli.main(["plan", "-d", ws.meta, "-m", ws.gm, "-w", wd]) == 0
+        if extra:
+            with monkeypatch.context() as m, pytest.raises(
+                    RuntimeError, match="CUDA is not available"):
+                m.setattr(torch.cuda, "is_available", lambda: False)
+                tcli.main(["run", "-w", wd, "--no_bary"] + extra)
+        capsys.readouterr()
+        assert tcli.main(["run", "-w", wd, "--device", "cpu", "--no_bary",
+                          "--quiet"] + extra) == 0
+        summary = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+        assert summary["counts"]["done"] == len(ws.files)
+        tims.append(lines(summary["checkpoint"], skip_comments=True))
+    assert tims[0] == tims[1]
 
 
 def test_supervise_two_workers(ws, tmp_path, capsys, monkeypatch):

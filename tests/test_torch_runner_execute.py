@@ -381,20 +381,86 @@ def test_two_simulated_processes_merge_one_obs_report(survey, tmp_path):
 
 def test_device_policy_and_refusals(survey, tmp_path):
     """No CUDA device and no device="cpu": the survey raises before it
-    fits anything; the mesh fitter is refused with a reason."""
+    fits anything, with and without ``use_mesh`` (whose default mesh is
+    every visible CUDA device)."""
     import torch
 
     plan = tplan.plan_survey(survey.files[:1], modelfile=survey.gm)
     if not torch.cuda.is_available():
-        with pytest.raises(RuntimeError, match="no CUDA device"):
-            texe.run_survey(plan, str(tmp_path / "a"), process_index=0,
-                            process_count=1)
-        assert not os.path.exists(str(tmp_path / "a"))
-    with pytest.raises(NotImplementedError, match="not ported"):
-        texe.run_survey(plan, str(tmp_path / "b"), process_index=0,
-                        process_count=1, use_mesh=True, device="cpu")
-    with pytest.raises(NotImplementedError, match="not ported"):
-        texe.make_mesh_fitter(None)
+        for name, kw in (("a", {}), ("b", {"use_mesh": True})):
+            with pytest.raises(RuntimeError, match="no CUDA device"):
+                texe.run_survey(plan, str(tmp_path / name), process_index=0,
+                                process_count=1, **kw)
+            assert not os.path.exists(str(tmp_path / name))
+
+
+def test_mesh_fitter_matches_unsharded():
+    """make_mesh_fitter on a (4, 2, 1) mesh of CPU devices, B = 3 padded
+    to the 4-wide subint axis (the reference's
+    test_mesh_fitter_matches_unsharded inputs): the unsharded port's fit
+    on every field (chi2 within 1e-12), the reference's within its own
+    tolerances; scan_size, pad_to and device are ignored."""
+    import torch
+
+    from pulseportraiture_tpu.ops.fourier import (get_bin_centers,
+                                                  rotate_data)
+    from pulseportraiture_tpu.ops.profiles import gen_gaussian_portrait
+    from pulseportraiture_tpu_torch.fit import portrait as tfp
+    from pulseportraiture_tpu_torch.parallel.mesh import make_mesh
+
+    B, nchan, nbin = 3, 16, 128
+    freqs = np.linspace(1300.0, 1700.0, nchan)
+    model = np.asarray(gen_gaussian_portrait(
+        "000", np.array([0.0, 0.0, 0.35, -0.05, 0.05, 0.1, 1.0, -1.2]),
+        -4.0, np.asarray(get_bin_centers(nbin)), freqs, 1500.0))
+    rng = np.random.default_rng(7)
+    P0 = 0.005
+    phis = rng.uniform(-0.1, 0.1, B)
+    data = np.stack([
+        np.asarray(rotate_data(model, -phis[i], 0.0, P0, freqs,
+                               freqs.mean()))
+        for i in range(B)]) + rng.normal(0, 0.005, (B, nchan, nbin))
+    init = np.zeros((B, 5))
+    init[:, 0] = phis
+    errs = np.full((B, nchan), 0.005)
+    kw = dict(errs=errs, fit_flags=(1, 1, 0, 0, 0), log10_tau=False)
+
+    ref = jfp.fit_portrait_full_batch(data, model[None], init, P0, freqs,
+                                      **kw)
+    want = tfp.fit_portrait_full_batch(data, model[None], init, P0, freqs,
+                                       device="cpu", **kw)
+    fitter = texe.make_mesh_fitter(make_mesh(4, 2, 1, devices=["cpu"] * 8))
+    out = fitter(data, model[None], init, P0, freqs, scan_size=64,
+                 pad_to=8, device="cuda", **kw)  # all three ignored
+    assert out.phi.shape == (B,) and out.scales.shape == (B, nchan)
+    for key in tfp.RESULT_KEYS:
+        tol = 1e-12 if key in ("chi2", "red_chi2") else 0
+        torch.testing.assert_close(out[key], want[key], rtol=tol, atol=0)
+    np.testing.assert_allclose(out.phi.numpy(), np.asarray(ref.phi),
+                               atol=1e-8)
+    np.testing.assert_allclose(out.DM.numpy(), np.asarray(ref.DM),
+                               atol=1e-8)
+    np.testing.assert_allclose(out.snr.numpy(), np.asarray(ref.snr),
+                               rtol=1e-6)
+
+
+def test_run_survey_use_mesh_matches_unmeshed(survey, tmp_path):
+    """``run_survey(use_mesh=True)`` with a (2, 2, 1) mesh of CPU devices
+    over the native and padded archives: every archive once, its TOAs
+    within 1 ns of the unmeshed survey's (the fixture's port run)."""
+    from pulseportraiture_tpu_torch.parallel.mesh import make_mesh
+
+    s = texe.run_survey(
+        tplan.plan_survey(survey.files, modelfile=survey.gm),
+        str(tmp_path / "wd"), process_index=0, process_count=1,
+        bary=False, use_mesh=True,
+        mesh=make_mesh(2, 2, 1, devices=["cpu"] * 4), device="cpu")
+    assert s["counts"]["done"] == len(survey.files)
+    for arch in survey.files:
+        assert_same_tim(
+            _archive_tim(s["checkpoint"], arch, str(tmp_path / "m.tim")),
+            _archive_tim(survey.port["checkpoint"], arch,
+                         str(tmp_path / "u.tim")), 2)
 
 
 @pytest.mark.parametrize("error,state,reason", [
