@@ -58,6 +58,20 @@ Phases, one JSON line each on stdout; any failure exits non-zero:
   ppzap       ppzap -m -R 1.05 on the 16-subint archive: kernel and plain
               runs list the same channels; --apply (no --modify) zeroes
               exactly the listed weights in the .zap copy
+  viz         the plotting layer's device numbers on the 16-subint archive
+              (viz and viz.figdata only: no matplotlib): GetTOAs with
+              show_plot=True, then for every subint show_fit's numbers
+              (the fitted subint on the card, each live channel's
+              reduced chi2 in one reduction), show_stacked_profiles
+              (fit=True)'s FFTFIT of subint 0's fitted channels (one K2
+              launch at [nchan, 1025], Ns 100) and ppzap --hist's
+              numbers: K1 and K2 launched; the reduction against the
+              CPU on the same fitted subints (1e-12 relative); against
+              the same path with the plain versions (TOAs 1 ns, reduced
+              chi2 2e-9 relative, stacked-fit phases 1e-9 rot) and the
+              port on the CPU (TOAs 1 ns, reduced chi2 2e-9 relative);
+              the figure numbers' wall and CUDA-event ms; K1 and K2
+              against plain and timed at the path's shapes
   ppalign     the port's ppalign --niter 2 on 8 epochs of 16 x 512 x 2048
               (make_fake_pulsar, noise 0.5, each with its own seed, phase
               in +-0.3 rot and dDM in +-3e-3) against the noiseless
@@ -197,7 +211,7 @@ Phases, one JSON line each on stdout; any failure exits non-zero:
 Then a ``kernels`` line (every hand kernel with its launches on its
 paths — K1 and K2 on pptoas, K3 on pptoas_scat, each plus the narrowband,
 narrowband_scat, templates, ppzap, obs, survey, serve and mesh runs, K1
-and K2 also on ppalign, ppspline, ppgauss and the walkthrough, with
+and K2 also on viz, ppalign, ppspline, ppgauss and the walkthrough, with
 ``launches_by_path`` —
 errors and times; K2 with
 its [1000, 1025] numbers and K3 with its [1000, 512, 128] ones, each with a
@@ -1204,6 +1218,158 @@ def rchi2_stats(gt, threshold):
                 resid_dc_over_noise=float(dc.mean()),
                 mean_without_dc=float(np.concatenate(rc2_dc).mean()))
 
+
+
+# -- the plotting layer's numbers (viz, viz.figdata) -----------------------
+
+def viz_path(small, gm, device):
+    """The numbers of the port's figures, once on ``device``: GetTOAs
+    with show_plot=True (which draws nothing), then show_fit's numbers
+    for every fitted subint (figdata.fitted_subint: the rotated port and
+    scaled model, return_fit kept on the device; residual_payload: each
+    live channel's reduced chi2 in one reduction), show_stacked_profiles
+    (fit=True)'s FFTFIT over subint 0's fitted channels (one K2 launch)
+    and ppzap --hist's (get_channels_to_zap, figdata.zap_hist).  No
+    matplotlib: the card's machine has none.  Returns host results and
+    the figure numbers' wall and CUDA-event milliseconds."""
+    import numpy as np
+    import torch
+
+    from pulseportraiture_tpu_torch import viz  # noqa: F401 (no matplotlib)
+    from pulseportraiture_tpu_torch.pipelines.toas import GetTOAs
+    from pulseportraiture_tpu_torch.viz import figdata
+
+    gt = GetTOAs(small, gm, quiet=True, device=device)
+    gt.get_TOAs(bary=False, show_plot=True, quiet=True)
+    cuda = torch.device(device).type == "cuda"
+    if cuda:
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        torch.cuda.synchronize()
+        ev[0].record()
+    t0 = time.perf_counter()
+    rchi2, live = [], 0
+    for isub in gt.ok_isubs[0]:
+        f = figdata.fitted_subint(gt, 0, isub)
+        pay = figdata.residual_payload(f.port, f.model, f.noise_stds,
+                                       gt.nfit)
+        rchi2.append(pay.rchi2.cpu().numpy())
+        live += int(pay.live.sum())
+        if len(rchi2) == 1:     # the archive is read again for the first
+            t_first = time.perf_counter() - t0
+    f = figdata.fitted_subint(gt, 0, 0)
+    ok = list(f.ok_ichans)
+    fits = figdata.stacked_fits(f.port[ok], f.model[ok])
+    phase = fits.phase.cpu().numpy()
+    gt.get_channels_to_zap()
+    hist, nzap = figdata.zap_hist(gt.channel_red_chi2s, 1.3)
+    ms = None
+    if cuda:
+        ev[1].record()
+        torch.cuda.synchronize()
+        ms = ev[0].elapsed_time(ev[1])
+    return dict(gt=gt, rchi2=np.concatenate(rchi2), n_live=live,
+                n_fitted=int(fits.fitted.sum()), nchan_stacked=len(ok),
+                phase=phase, hist=hist, nzap=nzap,
+                figdata_s=time.perf_counter() - t0, first_subint_s=t_first,
+                figdata_event_ms=ms)
+
+
+def phase_viz(root, work, K, small, shape=PPTOAS_SHAPE, subset=16):
+    """The plotting layer's device numbers on the 16-subint archive (see
+    ``viz_path``), every count set to 0 just before it: K1 and K2
+    launched, the subints' channel reduced chi2s finite; the reduction
+    on the card against the CPU on the same fitted subints (1e-12
+    relative); the path against the same path through the plain
+    versions (TOAs within 1 ns, reduced chi2 2e-9 relative, stacked-fit
+    phases 1e-9 rot, the --hist counts equal) and against the port on
+    the CPU (TOAs 1 ns, reduced chi2 2e-9 relative); K1 (its first call)
+    and K2 (each shape) against their plain versions on the inputs the
+    path gave them, timed with their bounds.  Returns the launches.
+
+    A channel's reduced chi2 moves to first order with the fitted phase,
+    DM and scales, which two converged fits leave ~1e-11 apart: it is
+    held to 2e-9 between runs, as tests/test_torch_cuda_paths.py holds
+    the post-fit channel reduced chi2s (1e-10 does not hold: 2.1e-10
+    against the plain versions, 6.7e-10 against the CPU on the H100)."""
+    import numpy as np
+
+    from pulseportraiture_tpu_torch.viz import figdata
+
+    gm = os.path.join(root, "examples", "example.gmodel")
+    t_phase = t0 = time.perf_counter()
+    with first_kernel_inputs(K, names=("moments",)) as k1, \
+            first_kernel_inputs(K, names=("fftfit",), per_shape=True) as k2:
+        K.reset_launches()
+        run = viz_path(small, gm, "cuda")
+        launches = dict(K.LAUNCHES)
+    wall = time.perf_counter() - t0
+    # K1 on its first call's inputs, as on the pptoas and ppzap paths: the
+    # one-live-channel subint's first evaluation is at its FFTFIT optimum,
+    # where its gradient sum cancels to ~1e-9 of its terms, so a bound
+    # relative to that sum reads float64 rounding as error (1e-3 of it,
+    # 1.1e-12 absolute, on the H100); K2 at every shape
+    seen = dict(k2)
+    seen["moments", tuple(k1["moments"][0][0].shape)] = k1["moments"]
+    path_rows = path_kernels_vs_plain(K, seen)
+    times = path_kernel_times(K, seen)
+    del seen
+    same = 0.0          # the reduction alone: card and CPU, same inputs
+    for isub in run["gt"].ok_isubs[0]:
+        f = figdata.fitted_subint(run["gt"], 0, isub)
+        got = figdata.residual_payload(f.port, f.model, f.noise_stds,
+                                       run["gt"].nfit).rchi2.cpu()
+        want = figdata.residual_payload(f.port.cpu(), f.model.cpu(),
+                                        f.noise_stds.cpu(),
+                                        run["gt"].nfit).rchi2
+        same = max(same, float(((got - want) / want).abs().max()))
+    del f
+    with plain_kernels(K):
+        plain = viz_path(small, gm, "cuda")
+    t_cpu = time.perf_counter()
+    cpu = viz_path(small, gm, "cpu")
+    t_cpu = time.perf_counter() - t_cpu
+
+    def rel(a, b):
+        return float(np.max(np.abs(a - b) / np.maximum(np.abs(b), 1e-300)))
+
+    res = dict(
+        archive=[subset] + list(shape[1:]), wall_s=wall,
+        figdata_s=run["figdata_s"], first_subint_s=run["first_subint_s"],
+        figdata_event_ms=run["figdata_event_ms"],
+        same_inputs_rchi2_max_rel=same,
+        cpu_wall_s=t_cpu, launches=launches, n_toas=len(run["gt"].TOA_list),
+        n_live_channels=run["n_live"], nchan_stacked=run["nchan_stacked"],
+        n_stacked_fitted=run["n_fitted"], nzap_hist=run["nzap"],
+        rchi2_mean=float(run["rchi2"].mean()),
+        plain_max_dt_ns=max_dt_ns_list(run["gt"].TOA_list,
+                                       plain["gt"].TOA_list),
+        plain_rchi2_max_rel=rel(run["rchi2"], plain["rchi2"]),
+        plain_phase_max_abs=float(np.abs(run["phase"]
+                                         - plain["phase"]).max()),
+        plain_hist_max_rel=rel(run["hist"], plain["hist"]),
+        cpu_rchi2_max_rel=rel(run["rchi2"], cpu["rchi2"]),
+        cpu_max_dt_ns=max_dt_ns_list(run["gt"].TOA_list,
+                                     cpu["gt"].TOA_list),
+        path_kernels_vs_plain=path_rows, path_kernel_times=times,
+        phase_s=time.perf_counter() - t_phase)
+    emit("viz", **res)
+    missing = [n for n in ("moments", "fftfit") if launches[n] == 0]
+    ok = (not missing and np.isfinite(run["rchi2"]).all()
+          and run["n_fitted"] == run["nchan_stacked"] > 0
+          and len(run["rchi2"]) == run["n_live"] > 0
+          and same <= 1e-12
+          and res["plain_max_dt_ns"] < 1.0
+          and res["plain_rchi2_max_rel"] <= 2e-9
+          and res["plain_phase_max_abs"] <= 1e-9
+          and res["plain_hist_max_rel"] <= 2e-9
+          and run["nzap"] == plain["nzap"]
+          and res["cpu_max_dt_ns"] < 1.0
+          and res["cpu_rchi2_max_rel"] <= 2e-9)
+    if not ok:
+        raise AssertionError("the viz path's numbers disagree or a kernel "
+                             "never launched (the viz line above; missing "
+                             "%s)" % missing)
+    return launches
 
 
 # -- the template-building paths: ppalign, ppspline, ppgauss --------------
@@ -3732,7 +3898,7 @@ def phase_serve(root, work, K, survey, device="cuda"):
 
 MESH_SHAPES = [(1, 1, 1), (2, 1, 1), (1, 2, 1), (1, 1, 2), (2, 2, 2)]
 MESH_SURVEY = 4        # the survey's 512 x 2048 archives fit on a mesh
-MESH_ONES = 64         # subints fit in groups of one, on a (64, 1, 1) mesh
+MESH_ONES = 16         # subints fit in groups of one, on a (16, 1, 1) mesh
 
 # one process of the two-process distributed_sweep_fit: a gloo group,
 # the north-star data drawn from the same seed as the parent's, this
@@ -4102,6 +4268,7 @@ def main(argv):
                                                            small)
         by_path["templates"] = phase_templates(root, work, K, small)
         by_path["ppzap"] = phase_ppzap(root, work, K, small)
+        by_path["viz"] = phase_viz(root, work, K, small)
         by_path["ppalign"], avg = phase_ppalign(root, work, K, dev)
         by_path["ppspline"] = phase_ppspline(root, work, K, dev, avg, small)
         by_path["ppgauss"] = phase_ppgauss(root, work, K, dev, avg, small)
@@ -4122,7 +4289,8 @@ def main(argv):
     paths = {name: [own[name], "narrowband", "narrowband_scat",
                     "templates", "ppzap"] for name in own}
     for name in ("moments", "fftfit"):
-        paths[name] += ["ppalign", "ppspline", "ppgauss", "walkthrough"]
+        paths[name] += ["viz", "ppalign", "ppspline", "ppgauss",
+                        "walkthrough"]
     for name in own:
         paths[name] += ["obs", "survey", "serve", "mesh"]
     # no archive of any path failed on a device error

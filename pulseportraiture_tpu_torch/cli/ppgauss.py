@@ -2,9 +2,10 @@
 
 Port of the JAX package's ``cli/ppgauss.py`` (reference
 ppgauss.py:658-800).  Seeding is automatic (peak-pick, or --autogauss
-for one component); the fits run on the CUDA device unless
-``--device cpu`` is given.  ``--interactive`` (the matplotlib
-GaussianSelector) and ``--figure`` are not ported yet and fail.
+for one component, or --interactive through the matplotlib
+GaussianSelector of viz.selector, which exits 1 on a headless backend);
+the fits run on the CUDA device unless ``--device cpu`` is given.
+``--figure`` saves the final fit's data/model/residual figure.
 Run as ``python -m pulseportraiture_tpu_torch.cli.ppgauss``.
 """
 
@@ -69,13 +70,16 @@ def build_parser():
                            help="Fit one automatic Gaussian with this "
                                 "initial width [rot].")
     seed_mode.add_argument("--interactive", action="store_true",
-                           help="Hand-fit the seed components (not yet "
-                                "ported).")
+                           help="Hand-fit the seed components in the "
+                                "matplotlib GaussianSelector GUI "
+                                "(left-drag to sketch, middle-click to "
+                                "fit, right-click to remove, 'q' to "
+                                "finish).")
     p.add_argument("--norm", dest="normalize", default=None,
                    help="Per-channel normalization: 'mean', 'max', "
                         "'prof', 'rms', or 'abs'.")
     p.add_argument("--figure", default=False, metavar="figurename",
-                   help="Save a PNG of the final fit (not yet ported).")
+                   help="Save a PNG of the final fit.")
     p.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
                    help="Device the fits run on. [default=cuda]")
     p.add_argument("--verbose", dest="quiet", action="store_false",
@@ -88,13 +92,6 @@ def main(argv=None):
     if args.datafile is None and args.metafile is None:
         build_parser().print_help()
         return 1
-    for flag, on in (("--interactive", args.interactive),
-                     ("--figure", args.figure)):
-        if on:
-            print("ppgauss: %s: not yet ported to "
-                  "pulseportraiture_tpu_torch." % flag, file=sys.stderr)
-            return 2
-
     from ..config import resolve_device
     from ..models.gauss import GaussianModelPortrait
 
@@ -126,18 +123,30 @@ def main(argv=None):
         outfile = args.outfile
         if outfile is None:
             outfile = datafile + ".gmodel"
-        dp.make_gaussian_model(modelfile=None, ref_prof=(nu_ref, bw_ref),
-                               tau=tau, fixloc=args.fixloc,
-                               fixwid=args.fixwid, fixamp=args.fixamp,
-                               fixscat=fixscat, fixalpha=args.fixalpha,
-                               model_code=args.model_code,
-                               niter=args.niter,
-                               fiducial_gaussian=args.fgauss,
-                               auto_gauss=args.auto_gauss,
-                               writemodel=True, outfile=outfile,
-                               writeerrfile=True, errfile=args.errfile,
-                               model_name=args.model_name,
-                               quiet=args.quiet)
+        try:
+            dp.make_gaussian_model(modelfile=None,
+                                   ref_prof=(nu_ref, bw_ref),
+                                   tau=tau, fixloc=args.fixloc,
+                                   fixwid=args.fixwid, fixamp=args.fixamp,
+                                   fixscat=fixscat, fixalpha=args.fixalpha,
+                                   model_code=args.model_code,
+                                   niter=args.niter,
+                                   fiducial_gaussian=args.fgauss,
+                                   auto_gauss=args.auto_gauss,
+                                   interactive=args.interactive,
+                                   writemodel=True, outfile=outfile,
+                                   writeerrfile=True, errfile=args.errfile,
+                                   model_name=args.model_name,
+                                   quiet=args.quiet)
+        except RuntimeError as e:
+            # e.g. --interactive on a headless matplotlib backend, or a
+            # selector session closed with nothing sketched
+            print(str(e), file=sys.stderr)
+            return 1
+    if args.figure:
+        from ..viz import show_model_fit
+
+        show_model_fit(dp, savefig=str(args.figure))
     return 0
 
 

@@ -3,8 +3,8 @@
 Port of the JAX package's ``cli/ppspline.py`` (reference
 ppspline.py:277-381).  The PCA, the eigenvector smoothing and the model
 evaluation run on the CUDA device unless ``--device cpu`` is given; the
-spline fit and the writes are host.  ``--plots`` (matplotlib) is not
-ported yet and fails.
+spline fit and the writes are host.  ``--plots`` saves the eigenprofile,
+spline-projection and residual figures (viz) under the model name.
 Run as ``python -m pulseportraiture_tpu_torch.cli.ppspline``.
 """
 
@@ -49,7 +49,7 @@ def build_parser():
     p.add_argument("-t", "--knots", dest="max_nbreak", default=None,
                    help="Maximum number of unique knots.")
     p.add_argument("--plots", dest="make_plots", action="store_true",
-                   help="Save model-related plots (not yet ported).")
+                   help="Save model-related plots (basename -l).")
     p.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
                    help="Device the model build runs on. [default=cuda]")
     p.add_argument("--quiet", action="store_true", help="Suppress output.")
@@ -61,11 +61,6 @@ def main(argv=None):
     if args.datafile is None:
         build_parser().print_help()
         return 1
-    if args.make_plots:
-        print("ppspline: --plots: not yet ported to "
-              "pulseportraiture_tpu_torch.", file=sys.stderr)
-        return 2
-
     from ..config import resolve_device
     from ..models.spline import SplineModelPortrait
 
@@ -86,6 +81,15 @@ def main(argv=None):
     dp.write_model(modelfile, quiet=args.quiet)
     if args.archive is not None and len(dp.datafiles) == 1:
         dp.write_model_archive(args.archive, quiet=args.quiet)
+    if args.make_plots:
+        from ..viz import (show_eigenprofiles, show_model_fit,
+                           show_spline_curve_projections)
+
+        name = dp.spline_model.model_name
+        show_eigenprofiles(dp, title=name, savefig=name + ".eigs.png")
+        show_spline_curve_projections(dp, title=name,
+                                      savefig=name + ".proj.png")
+        show_model_fit(dp, savefig=name + ".resids.png")
     return 0
 
 

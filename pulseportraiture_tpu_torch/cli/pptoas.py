@@ -4,8 +4,9 @@ narrowband (per-channel) TOAs.
 Port of the JAX package's ``cli/pptoas.py`` (reference
 pptoas.py:1415-1618): wideband TOAs with DM, nu**-4 (GM) and scattering
 fits, narrowband TOAs, flux estimates and crash-resume checkpoints, from
-.gmodel, spline or FITS templates.  ``--psrchive`` and ``--showplot`` are
-not ported yet and fail.
+.gmodel, spline or FITS templates.  ``--showplot`` is accepted and draws
+nothing, as in the JAX CLI; ``--psrchive`` (PSRCHIVE's Python bindings)
+is not ported and fails.
 Run as ``python -m pulseportraiture_tpu_torch.cli.pptoas``.  The fits
 run on the CUDA device unless ``--device cpu`` is given; with no CUDA
 device and no ``--device cpu`` the tool fails.  ``PPTPU_OBS_DIR``,
@@ -18,10 +19,6 @@ import os
 import sys
 
 import numpy as np
-
-# flags of modes that later slices of the port bring (dest, option)
-_NOT_PORTED = [("psrchive", "--psrchive"), ("show_plot", "--showplot")]
-
 
 def build_parser():
     p = argparse.ArgumentParser(
@@ -95,13 +92,13 @@ def build_parser():
                         "incompatible with --snr_cut/--one_DM/"
                         "-f princeton/--narrowband, which post-process "
                         "the full TOA list.")
+    p.add_argument("--showplot", dest="show_plot", action="store_true",
+                   help="Show fitted data/model/residual plots.")
     p.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
                    help="Device the fits run on. [default=cuda]")
     p.add_argument("--quiet", action="store_true", help="Suppress output.")
-    # accepted so that they fail loudly instead of being misparsed
+    # accepted so that it fails loudly instead of being misparsed
     p.add_argument("--psrchive", action="store_true", help=argparse.SUPPRESS)
-    p.add_argument("--showplot", dest="show_plot", action="store_true",
-                   help=argparse.SUPPRESS)
     return p
 
 
@@ -110,10 +107,9 @@ def main(argv=None):
     if args.datafiles is None or args.modelfile is None:
         build_parser().print_help()
         return 1
-    unported = [opt for dest, opt in _NOT_PORTED if getattr(args, dest)]
-    if unported:
-        print("pptoas: %s: not yet ported to pulseportraiture_tpu_torch."
-              % ", ".join(unported), file=sys.stderr)
+    if args.psrchive:
+        print("pptoas: --psrchive: not yet ported to "
+              "pulseportraiture_tpu_torch.", file=sys.stderr)
         return 2
     if args.narrowband and args.one_DM:
         print("--one_DM applies to wideband (per-subint DM) TOAs only.")
@@ -174,7 +170,8 @@ def _run_pipeline(args):
                     print_phase=args.print_phase,
                     print_flux=args.print_flux,
                     print_parangle=args.print_parangle,
-                    addtnl_toa_flags=addtnl_toa_flags, quiet=args.quiet,
+                    addtnl_toa_flags=addtnl_toa_flags,
+                    show_plot=args.show_plot, quiet=args.quiet,
                     checkpoint=args.checkpoint)
         if args.checkpoint is not None:
             return 0  # the checkpoint file is the output

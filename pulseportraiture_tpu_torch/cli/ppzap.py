@@ -4,7 +4,8 @@ Port of the JAX package's ``cli/ppzap.py`` (reference ppzap.py:98-241):
 the model-free median-noise cut, or — with -m — the post-fit
 reduced-chi2/S-N cut through the TOA pipeline.  The fits (and -N's
 normalization) run on the CUDA device unless ``--device cpu`` is given.
-``--hist`` (a matplotlib histogram) is not ported yet and fails.
+With -m, ``--hist`` saves the histogram of the channel reduced chi2s
+(viz.figdata.zap_hist) as ``<datafiles>_ppzap_hist.png``.
 Run as ``python -m pulseportraiture_tpu_torch.cli.ppzap``.
 """
 
@@ -54,11 +55,12 @@ def build_parser():
                         "instead of emitting paz commands. Without "
                         "--modify, writes '.zap' copies like paz -e "
                         "zap.")
+    p.add_argument("--hist", action="store_true",
+                   help="Save a histogram of channel reduced-chi2 "
+                        "values.")
     p.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
                    help="Device the fits run on. [default=cuda]")
     p.add_argument("--quiet", action="store_true", help="Suppress output.")
-    # accepted so that it fails loudly instead of being misparsed
-    p.add_argument("--hist", action="store_true", help=argparse.SUPPRESS)
     return p
 
 
@@ -78,15 +80,34 @@ def _normalize(data, method, device):
         data.noise_stds[isub, 0] = get_noise(port).cpu().numpy()
 
 
+def _save_hist(args, channel_red_chi2s, nchan):
+    """The JAX CLI's histogram of the channel reduced chi2s, saved as
+    ``<datafiles>_ppzap_hist.png``."""
+    import matplotlib
+
+    matplotlib.use("Agg")
+    import matplotlib.pyplot as plt
+
+    from ..viz.figdata import zap_hist
+
+    red_chi2s, nzap_rchi2 = zap_hist(channel_red_chi2s, args.rchi2_threshold)
+    plt.hist(red_chi2s, bins=min(50, max(len(red_chi2s), 1)), log=True)
+    ymin, ymax = plt.ylim()
+    plt.vlines(args.rchi2_threshold, ymin, ymax, linestyles="dashed")
+    plt.ylim(ymin, ymax)
+    plt.xlabel(r"Reduced $\chi^2$")
+    plt.ylabel("#")
+    plt.title("%s\n" % args.datafiles +
+              r"%d / %d channels w/ $\chi^2_{red}$ > %.1f"
+              % (nzap_rchi2, nchan, args.rchi2_threshold))
+    plt.savefig(args.datafiles + "_ppzap_hist.png")
+
+
 def main(argv=None):
     args = build_parser().parse_args(argv)
     if args.datafiles is None:
         build_parser().print_help()
         return 1
-    if args.hist:
-        print("ppzap: --hist: not yet ported to pulseportraiture_tpu_torch.",
-              file=sys.stderr)
-        return 2
     if args.apply and args.outfile is not None:
         print("ppzap: --apply applies zaps natively and emits no paz "
               "command file; -o/--outfile cannot be combined with it.",
@@ -119,6 +140,8 @@ def main(argv=None):
                            outfile=args.outfile, quiet=args.quiet)
         nchan = sum(len(s) for arch in gt.channel_red_chi2s for s in arch)
         nzap = sum(len(s) for arch in gt.zap_channels for s in arch)
+        if args.hist:
+            _save_hist(args, gt.channel_red_chi2s, nchan)
     else:
         if file_is_type(args.datafiles) == "ASCII":
             all_datafiles = parse_metafile(args.datafiles)

@@ -342,16 +342,20 @@ class DataPortrait:
             self.model_masked = self.model * self.masks[0, 0]
             self.modelx = self.model[self.ok_ichans[0]]
 
-    # -- visualization (ref pplib.py:617-649; the viz slice) ---------------
+    # -- visualization (ref pplib.py:617-649) ------------------------------
 
     def show_data_portrait(self, **kwargs):
-        raise NotImplementedError("show_data_portrait is not yet ported.")
+        from .viz import show_data_portrait
+        return show_data_portrait(self, **kwargs)
 
     def show_model_portrait(self, **kwargs):
-        raise NotImplementedError("show_model_portrait is not yet ported.")
+        from .viz import show_portrait
+        return show_portrait(self.modelx, phases=self.phases,
+                             freqs=self.freqsxs[0], **kwargs)
 
     def show_model_fit(self, **kwargs):
-        raise NotImplementedError("show_model_fit is not yet ported.")
+        from .viz import show_model_fit
+        return show_model_fit(self, **kwargs)
 
     # -- output ------------------------------------------------------------
 

@@ -6,8 +6,9 @@ ppgauss.py:55-372 ``make_gaussian_model``/``model_iteration``/
 non-interactive (fit.gauss ``auto_gauss_seed`` with FFTFIT, kernel K2,
 or ``peak_pick_seed``); the portrait fit is the port's Levenberg-Marquardt
 with ``torch.func.jacfwd`` Jacobians on the device; the convergence check
-is the (phase, DM) portrait fit (kernel K1) seeded by FFTFIT (K2).  The
-interactive GaussianSelector (viz) is not ported yet.
+is the (phase, DM) portrait fit (kernel K1) seeded by FFTFIT (K2).
+``interactive=True`` seeds by hand in the matplotlib GaussianSelector
+(viz.selector), its fits on the same device.
 """
 
 import numpy as np
@@ -33,15 +34,19 @@ class GaussianModelPortrait(DataPortrait):
                     auto_gauss=0.0, max_ngauss=6, interactive=False,
                     quiet=True):
         """Seed Gaussian components from an averaged profile:
-        ``auto_gauss`` != 0 fits one component of that width guess,
+        ``auto_gauss`` != 0 fits one component of that width guess;
+        ``interactive`` opens the matplotlib picker (viz.selector);
         otherwise iterative peak-pick-fit-subtract finds up to
         ``max_ngauss`` components (ref ppgauss.py:28-53)."""
-        if interactive:
-            raise NotImplementedError(
-                "the interactive Gaussian selector is not yet ported.")
         if errs is None:
             errs = float(np.median(self.noise_stdsxs))
-        if auto_gauss:
+        if interactive:
+            from ..viz.selector import select_gaussians
+
+            fit = select_gaussians(profile, errs, tau=tau,
+                                   fixscat=fixscat, quiet=quiet,
+                                   device=self.device)
+        elif auto_gauss:
             fit = auto_gauss_seed(profile, errs, wid_guess=auto_gauss,
                                   tau=tau, fit_scattering=not fixscat,
                                   device=self.device)

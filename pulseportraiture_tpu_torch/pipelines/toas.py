@@ -27,7 +27,9 @@ JAX package catches ``JaxRuntimeError``: the archive goes on
 rises, and the next archive is fitted.  Nothing is refitted another
 way, and no other exception is caught.
 
-Not ported yet: PSRCHIVE cross-check TOAs, plots and the prefetch hand-off.
+``show_plot`` is accepted and draws nothing, as in the JAX package; the
+figures of a fit are ``show_fit`` / ``show_subint`` (viz).  Not ported:
+the PSRCHIVE cross-check TOAs, which need PSRCHIVE's Python bindings.
 """
 
 import os
@@ -70,11 +72,6 @@ _CKPT_LOCKS_GUARD = threading.Lock()
 # the device errors a driver records per archive and survives
 DEVICE_ERRORS = (torch.cuda.OutOfMemoryError, KernelLaunchError) + (
     (torch.AcceleratorError,) if hasattr(torch, "AcceleratorError") else ())
-
-
-def _not_ported(what):
-    return NotImplementedError(
-        "%s is not yet ported to pulseportraiture_tpu_torch." % what)
 
 
 def _checkpoint_lock(checkpoint):
@@ -570,9 +567,8 @@ class GetTOAs:
         ``flux_freqs``, ``profile_fluxes``) and TOA flags.
         ``checkpoint``: a .tim file that each archive's TOAs are appended
         to as soon as it is done; archives already in it are skipped, so a
-        killed run resumes where it stopped."""
-        if show_plot:
-            raise _not_ported("plotting")
+        killed run resumes where it stopped.  ``show_plot`` is accepted
+        and draws nothing, as in the JAX package."""
         if quiet is None:
             quiet = self.quiet
         self.nfit = 1 + int(fit_DM) + int(fit_GM) + \
@@ -1059,9 +1055,7 @@ class GetTOAs:
         (kernel K3) with flags (phi, tau), from per-channel tau guesses
         and an FFTFIT phase guess against the scattered model; alpha and
         DM stay fixed.  ``checkpoint``: the crash-resume .tim protocol of
-        :meth:`get_TOAs`."""
-        if show_plot:
-            raise _not_ported("plotting")
+        :meth:`get_TOAs`.  ``show_plot`` is accepted and draws nothing."""
         if quiet is None:
             quiet = self.quiet
         self.nfit = 1 + 2 * int(fit_scat)
@@ -1458,6 +1452,19 @@ class GetTOAs:
         rot_port, model, ok_ichans, freqs, noise_stds = \
             self._fitted_subint(ifile, isub)
         return _host(rot_port), _host(model), ok_ichans, freqs, noise_stds
+
+    def show_subint(self, ifile=0, isub=0, rotate=0.0, **kwargs):
+        """Plot one fitted subintegration (ref pptoas.py:1280-1308)."""
+        from ..viz import show_subint
+        return show_subint(self, ifile=ifile, isub=isub, rotate=rotate,
+                           **kwargs)
+
+    def show_fit(self, ifile=0, isub=0, rotate=0.0, **kwargs):
+        """Plot one subint's data/model/residuals
+        (ref pptoas.py:1310-1412)."""
+        from ..viz import show_fit
+        return show_fit(self, ifile=ifile, isub=isub, rotate=rotate,
+                        **kwargs)
 
     def get_channels_to_zap(self, SNR_threshold=8.0, rchi2_threshold=1.3,
                             iterate=True, show=False):

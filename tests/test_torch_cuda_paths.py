@@ -514,3 +514,55 @@ def test_sharded_fit_on_the_card(card, shape):
     dphi = ((plain.phi - got.phi + 0.5) % 1.0 - 0.5).abs().max()
     assert float(dphi) * 0.005 < 1e-9
     assert torch.equal(plain.return_code, got.return_code)
+
+
+def test_viz_figure_numbers_card_match_cpu(card, archive):
+    """The figures' numbers (viz.figdata) from a GetTOAs run on the card
+    against the same run on the CPU: every fitted subint within 1e-8 of
+    its largest magnitude (the rotated data move to first order with the
+    fitted phase, which converged fits leave ~1e-11 rot apart, times the
+    steepest harmonic, 2 pi nbin / 2: 1.6e-8; read 2.1e-9 on the H100), the
+    channel reduced chi2s within 2e-9 relative (the post-fit bound
+    above), the stacked-profile FFTFIT of one subint's fitted channels in
+    one K2 launch, its phases within 1e-9 rot of the CPU's and of the
+    plain version's on the card; ppzap --hist's numbers alike.  No
+    matplotlib is needed."""
+    from pulseportraiture_tpu_torch.pipelines.toas import GetTOAs
+    from pulseportraiture_tpu_torch.viz import figdata
+
+    _, arch = archive
+    runs = {}
+    for dev in (DEVICE, "cpu"):
+        gt = GetTOAs(arch, GMODEL, quiet=True, device=dev)
+        gt.get_TOAs(quiet=True, show_plot=True)
+        gt.get_channels_to_zap()
+        runs[dev] = gt
+    for isub in runs["cpu"].ok_isubs[0]:
+        got, want = (figdata.fitted_subint(runs[d], 0, isub)
+                     for d in (DEVICE, "cpu"))
+        assert got.port.device.type == torch.device(DEVICE).type
+        for key in ("port", "model"):
+            g, w = got[key].cpu(), want[key]
+            assert float((g - w).abs().max()) <= 1e-8 * float(
+                w.abs().max()), key
+        pays = [figdata.residual_payload(f.port, f.model, f.noise_stds,
+                                         runs["cpu"].nfit)
+                for f in (got, want)]
+        assert torch.equal(pays[0].live.cpu(), pays[1].live)
+        np.testing.assert_allclose(pays[0].rchi2.cpu().numpy(),
+                                   pays[1].rchi2.numpy(), rtol=2e-9)
+    f = figdata.fitted_subint(runs[DEVICE], 0, 0)
+    ok = list(f.ok_ichans)
+    card.reset_launches()
+    fits = figdata.stacked_fits(f.port[ok], f.model[ok])
+    assert card.LAUNCHES["fftfit"] == 1 and int(fits.fitted.sum()) == 63
+    with plain_kernels(card):
+        plain = figdata.stacked_fits(f.port[ok], f.model[ok])
+    fc = figdata.fitted_subint(runs["cpu"], 0, 0)
+    cpu = figdata.stacked_fits(fc.port[ok], fc.model[ok])
+    for other in (plain.phase.cpu(), cpu.phase):
+        assert float((fits.phase.cpu() - other).abs().max()) <= 1e-9
+    hists = [figdata.zap_hist(runs[d].channel_red_chi2s, 1.3)
+             for d in (DEVICE, "cpu")]
+    np.testing.assert_allclose(hists[0][0], hists[1][0], rtol=2e-9)
+    assert hists[0][1] == hists[1][1]

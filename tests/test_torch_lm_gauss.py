@@ -315,7 +315,19 @@ def test_ppgauss_cli_gmodel_and_toas_match_reference(gauss_setup):
 
 
 def test_ppgauss_cli_refuses_unported_options(gauss_setup, capsys):
-    _, _, avg, _ = gauss_setup
-    for flag in (["--interactive"], ["--figure", "x.png"]):
-        assert tgauss_cli.main(["-d", avg, "--device", "cpu"] + flag) == 2
-        assert "not yet ported" in capsys.readouterr().err
+    """--interactive and --figure, refused until the plots were ported:
+    on a headless backend --interactive exits 1 with the JAX CLI's
+    message, and --figure saves the final fit's figure."""
+    import matplotlib
+
+    matplotlib.use("Agg")
+    tmp, _, avg, _ = gauss_setup
+    out = str(tmp / "cli_flags.gmodel")
+    assert tgauss_cli.main(["-d", avg, "-o", out, "--interactive",
+                            "--device", "cpu"]) == 1
+    assert "headless" in capsys.readouterr().err
+    assert not os.path.exists(out)
+    png = str(tmp / "cli_flags.png")
+    assert tgauss_cli.main(["-d", avg, "-o", out, "--autogauss", "0.05",
+                            "--figure", png, "--device", "cpu"]) == 0
+    assert os.path.getsize(png) > 1000

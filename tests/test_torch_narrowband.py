@@ -152,15 +152,21 @@ def test_narrowband_arrays_match_reference(archive, kw):
 
 def test_narrowband_cli_refusals(archive, capsys):
     """The JAX CLI's refusals: --one_DM and --checkpoint are wideband-only;
-    --psrchive and --showplot are not ported."""
-    _, arch = archive
+    --psrchive is not ported.  --showplot runs and draws nothing, as in
+    the JAX CLI: the .tim equals the run without it."""
+    tmp, arch = archive
     base = ["-d", arch, "-m", GMODEL, "--narrowband", "--device", "cpu"]
     assert tcli.main(base + ["--one_DM"]) == 1
     assert tcli.main(base + ["--checkpoint", "x.tim"]) == 1
     assert "cannot be combined" in capsys.readouterr().err
-    for flag in ("--psrchive", "--showplot"):
-        assert tcli.main(base + [flag]) == 2
-        assert "not yet ported" in capsys.readouterr().err
+    assert tcli.main(base + ["--psrchive"]) == 2
+    assert "not yet ported" in capsys.readouterr().err
+    tims = [str(tmp / ("nb_showplot%d.tim" % on)) for on in (1, 0)]
+    assert tcli.main(base + ["--showplot", "--quiet", "-o", tims[0]]) == 0
+    assert tcli.main(base + ["--quiet", "-o", tims[1]]) == 0
+    text = open(tims[0]).read()
+    assert len(text.splitlines()) == N_TOAS + 1   # FORMAT and the TOAs
+    assert text == open(tims[1]).read()
 
 
 def test_spectra_chunks_by_profiles(monkeypatch):

@@ -117,9 +117,22 @@ def test_pptoas_princeton_and_one_DM(archives):
 @pytest.mark.parametrize("flag", ["--fit_scat", "--fit_dt4", "--psrchive",
                                   "--showplot"])
 def test_unported_cli_flags_fail(archives, flag, capsys):
-    """Options still to port fail and say so; --fit_scat and --fit_dt4
-    run and match the JAX CLI on the same archives."""
+    """--psrchive (PSRCHIVE's bindings) fails and says so; --fit_scat and
+    --fit_dt4 run and match the JAX CLI on the same archives; --showplot
+    runs and draws nothing, as the JAX CLI: the .tim equals the run
+    without it, and the JAX CLI's with it."""
     tmp, meta = archives
+    if flag == "--showplot":
+        args = ["-d", meta, "-m", GMODEL, "--quiet"]
+        tim = [str(tmp / ("%s_showplot%d.tim" % (pkg, on)))
+               for pkg in ("port", "ref") for on in (1, 0)]
+        assert tcli.main(args + [flag, "-o", tim[0], "--device", "cpu"]) \
+            == 0
+        assert tcli.main(args + ["-o", tim[1], "--device", "cpu"]) == 0
+        assert jcli.main(args + [flag, "-o", tim[2]]) == 0
+        assert open(tim[0]).read() == open(tim[1]).read()
+        _assert_same_tim(tim[0], tim[2], 8, freq_rtol=1e-7)
+        return
     if flag in ("--fit_scat", "--fit_dt4"):
         args = ["-d", meta, "-m", GMODEL, "--quiet", flag]
         tref = str(tmp / ("ref_%s.tim" % flag.strip("-")))

@@ -218,7 +218,12 @@ def test_ppspline_cli_spl_and_toas_match_reference(setup):
     assert_same_tim(tims["port"], tims["ref"], 2)
 
 
-def test_ppspline_cli_refuses_plots(setup, capsys):
-    _, bright, _, _ = setup
-    assert tspl_cli.main(["-d", bright, "--plots", "--device", "cpu"]) == 2
-    assert "not yet ported" in capsys.readouterr().err
+def test_ppspline_cli_refuses_plots(setup):
+    """--plots, refused until the plots were ported, writes the JAX CLI's
+    three figures under the model name (-l)."""
+    tmp, bright, _, _ = setup
+    name = str(tmp / "plots")
+    assert tspl_cli.main(["-d", bright, "-o", name + ".spl", "-l", name,
+                          "--plots", "--quiet", "--device", "cpu"]) == 0
+    for suffix in (".eigs.png", ".proj.png", ".resids.png"):
+        assert os.path.getsize(name + suffix) > 1000
