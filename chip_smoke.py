@@ -247,9 +247,22 @@ MODEL_PARAMS = [0.0, 0.0, 0.35, -0.05, 0.05, 0.1, 1.0, -1.2]
 P0, NOISE = 0.005, 0.05
 TAU_INJ = 3e-3  # the scattering configuration's tau [rot] at nu0
 
-# K3's FP64 operations per harmonic (sincospi counted as 2, the division
-# as 1), counted from csrc/moments_scat.cu
-K3_OPS = 81
+# K3's FP64 operations per harmonic: the reference's arithmetic as the SASS
+# of a loop taking a sincospi at every harmonic shows it (k3_compare.py's
+# count for the one-warp-per-row csrc/moments_scat.cu before the current
+# design: 43 DFMA, 29 DMUL, 8 DADD, the sincospi and the division
+# included), an FMA counted as 2 FLOP against the FP64 peak.  The bound keeps this count
+# whatever the kernel does; the current loop's phasor recurrence needs
+# 2 * 31 + 28 + 7 between its anchors.
+K3_FLOPS = 2 * 43 + 29 + 8
+# K3 epilogue B's operations per row: the chain rule, dC and dS, f, g and the
+# 15 Hessian entries of _kernels.grad_hess_rows_plain, a division as one
+K3_GH_OPS = 306
+# epilogue B against its plain version: each of its 21 columns within this
+# of the column's largest magnitude (tests/test_torch_moments_scat.py GH_TOL:
+# the sums agree to 1e-12; f, g and H divide by C and S and cancel)
+K3_GH_TOL = 1e-10
+K3_NAMES = ("moments_scat", "moments_scat_grad_hess")
 
 
 def emit(phase, **kw):
@@ -325,14 +338,22 @@ def moments_bound_ms(n, nchan, K):
                     (rows * K * 18, PEAK_FP64_PER_S))
 
 
-def moments_scat_bound_ms(n, nchan, K, shared):
+def moments_scat_bound_ms(n, nchan, K, shared, grad_hess=False):
     """K3's least time for ``n`` evaluated rows: their cross (and, unless
     ``shared``, their |m|^2) read once, a shared |m|^2 once, shifts /
-    taus / inv_err2 per row, nine sums out; K3_OPS per harmonic."""
+    taus / inv_err2 per row, nine sums out; K3_FLOPS per harmonic.  With
+    ``grad_hess`` (epilogue B) also pd (3) and lnf per row and tau per
+    subint in, 21 columns out instead of nine, and K3_GH_OPS per row."""
     rows = n * nchan
-    return bound_ms(rows * K * 16 + (nchan if shared else rows) * K * 8
-                    + rows * 8 * 3 + rows * 9 * 8,
-                    (rows * K * K3_OPS, PEAK_FP64_PER_S))
+    nbytes = rows * K * 16 + (nchan if shared else rows) * K * 8 \
+        + rows * 8 * 3
+    ops = rows * K * K3_FLOPS
+    if grad_hess:
+        nbytes += rows * 8 * 4 + n * 8 + rows * 21 * 8
+        ops += rows * K3_GH_OPS
+    else:
+        nbytes += rows * 9 * 8
+    return bound_ms(nbytes, (ops, PEAK_FP64_PER_S))
 
 
 def fftfit_bound_ms(N, nharm, Ns, newton):
@@ -392,8 +413,9 @@ def phase_kernels(dev, kern, K=128):
     rows["fftfit"] = [phase_k2(dev, kern, gen, N, Ns, lo, hi,
                                time_plain=N <= 1000)
                       for N, Ns, lo, hi in K2_CASES]
-    rows["moments_scat"] = [phase_k3(dev, kern, gen, *case)
-                            for case in K3_CASES]
+    k3 = [phase_k3(dev, kern, gen, *case) for case in K3_CASES]
+    for j, name in enumerate(K3_NAMES):
+        rows[name] = [pair[j] for pair in k3]
     return rows
 
 
@@ -402,15 +424,18 @@ def phase_kernels(dev, kern, K=128):
 K3_CASES = [
     (1000, 512, 128, True, None),   # throughput_scat: the batch, one model
     (64, 512, 128, False, 40),      # pptoas chunks: per-subint models, lanes
+    (16, 512, 128, True, None),     # serve: one fit_scat request
     (7636, 1, 128, False, None),    # narrowband --fit_scat, 16 subints:
                                     # one channel and one model per lane
+    (1000, 256, 128, True, None),   # the mesh's (1, 2, 1) channel shard
 ]
 K3_MAIN = 0
 
 
 def phase_k3(dev, kern, gen, n, nchan, K, shared, nlanes):
-    """K3 against moments_scat_plain: each sum's error relative to its
-    largest magnitude over the rows, device times, bound."""
+    """K3's two epilogues against their plain versions: each sum's (each
+    of epilogue B's 21 columns') error relative to its largest magnitude
+    over the rows, device times, bound.  Returns the two rows."""
     import torch
 
     def rand(*shape):
@@ -428,32 +453,45 @@ def phase_k3(dev, kern, gen, n, nchan, K, shared, nlanes):
         n, generator=gen, device=dev)[:nlanes]).values
     shifts = (rand(m, nchan) - 0.5) * 4000.0
     taus = rand(m, nchan) * 0.02  # up to ~40 bins of 2048
-
-    def k3():
-        return kern.moments_scat(cross, abs_m2, shifts, taus, inv_err2, lanes)
-
-    def plain():
-        return kern.moments_scat_plain(cross, abs_m2, shifts, taus, inv_err2,
-                                       lanes)
-
-    got, want = k3(), plain()
-    torch.cuda.synchronize()
-    errs = {name: rel_err(got[..., j], want[..., j])
-            for j, name in enumerate(kern.MOMENTS_SCAT_SUMS)}
-    err, tol = max(errs.values()), 1e-12
-    bms, by = moments_scat_bound_ms(m, nchan, K, shared)
-    row = dict(shape=[n, nchan, K], shared_abs_m2=shared, lanes=nlanes,
-               max_rel_err=err, rel_err_by_sum=errs, tol=tol,
-               max_abs_err=float((got - want).abs().max()),
-               ms=graph_ms(k3), call_ms=cuda_ms(k3),
-               plain_ms=cuda_ms(plain, reps=3, warm=1),
-               bound_ms=bms, bound_by=by, library_ms=None)
-    row["share_of_bound"] = bms / row["ms"]
-    emit("kernels", kernel="moments_scat", **row)
-    if not err <= tol:
-        raise AssertionError("moments_scat kernel disagrees at %s: %s"
-                             % ([n, nchan, K], errs))
-    return row
+    # epilogue B's chain-rule inputs at the north star's scale: d shift /
+    # d(phi, DM, GM), ln(freq / nu_tau) over 1300-1700 MHz, tau [rot]
+    pd = torch.stack([torch.ones((m, nchan), dtype=torch.float64,
+                                 device=dev), (rand(m, nchan) - 0.5) * 0.4,
+                      (rand(m, nchan) - 0.5) * 2e-3], dim=1).contiguous()
+    lnf = (rand(m, nchan) - 0.5) * 0.4
+    tau = rand(m) * 4e-3 + 1e-3
+    out = []
+    for name in K3_NAMES:
+        extra = () if name == "moments_scat" else (pd, lnf, tau, True)
+        args = (cross, abs_m2, shifts, taus, inv_err2) + extra + (lanes,)
+        fn, plain = getattr(kern, name), getattr(kern, name + "_plain")
+        got, want = fn(*args), plain(*args)
+        torch.cuda.synchronize()
+        if name == "moments_scat":
+            cols, tol = kern.MOMENTS_SCAT_SUMS, 1e-12
+            errs = {c: rel_err(got[..., j], want[..., j])
+                    for j, c in enumerate(cols)}
+        else:
+            cols, tol = kern.GRAD_HESS_COLUMNS, K3_GH_TOL
+            errs = {c: rel_err(got[:, j], want[:, j])
+                    for j, c in enumerate(cols)}
+        err = max(errs.values())
+        bms, by = moments_scat_bound_ms(m, nchan, K, shared,
+                                        grad_hess=name != "moments_scat")
+        row = dict(shape=[n, nchan, K], shared_abs_m2=shared, lanes=nlanes,
+                   max_rel_err=err, rel_err_by_column=errs, tol=tol,
+                   max_abs_err=float((got - want).abs().max()),
+                   ms=graph_ms(lambda: fn(*args)),
+                   call_ms=cuda_ms(lambda: fn(*args)),
+                   plain_ms=cuda_ms(lambda: plain(*args), reps=3, warm=1),
+                   bound_ms=bms, bound_by=by, library_ms=None)
+        row["share_of_bound"] = bms / row["ms"]
+        emit("kernels", kernel=name, **row)
+        if not err <= tol:
+            raise AssertionError("%s kernel disagrees at %s: %s"
+                                 % (name, [n, nchan, K], errs))
+        out.append(row)
+    return out
 
 
 # K2 cases: (N profiles, Ns grid points, bounds); nharm 1025 (nbin 2048)
@@ -607,13 +645,15 @@ def read_tim(path):
 @contextlib.contextmanager
 def plain_kernels(K):
     """Swap the plain versions in for the kernels (the comparison run)."""
-    saved = K.moments, K.fftfit, K.moments_scat
-    K.moments, K.fftfit, K.moments_scat = (K.moments_plain, K.fftfit_plain,
-                                           K.moments_scat_plain)
+    names = tuple(K.KERNELS)
+    saved = {name: getattr(K, name) for name in names}
+    for name in names:
+        setattr(K, name, getattr(K, name + "_plain"))
     try:
         yield
     finally:
-        K.moments, K.fftfit, K.moments_scat = saved
+        for name in names:
+            setattr(K, name, saved[name])
 
 
 def run_cli(K, argv):
@@ -781,7 +821,7 @@ def phase_pptoas_scat(root, work, K, big, small, shape=PPTOAS_SHAPE,
     if len(z["tau"]) != nsub - 1 or not max(zmax.values()) < 5:
         raise AssertionError("scattering injection not recovered: max |z| "
                              "%s over %d tau fits" % (zmax, len(z["tau"])))
-    missing = [n for n in ("fftfit", "moments_scat") if launches[n] == 0]
+    missing = [n for n in ("fftfit",) + K3_NAMES if launches[n] == 0]
     if missing:
         raise AssertionError("kernels never launched on the --fit_scat path:"
                              " %s" % missing)
@@ -1017,13 +1057,14 @@ def phase_narrowband_scat(root, work, K, small, shape=PPTOAS_SHAPE,
                  profiled=("_narrowband_fit",)) as pclock:
         run_cli(K, base + ["-o", os.path.join(work, "nbs_prof.tim")])
     rows = device_rows(pclock["prof"][0])
-    k3 = kernel_times(pclock["prof"][0], K).get("moments_scat")
+    k3 = kernel_times(pclock["prof"][0], K)
+    k3, k3b = k3.get("moments_scat"), k3.get("moments_scat_grad_hess")
     dt_ns = max_dt_ns(kern, plain)
     gap = flag_gap(kern, plain, "log10_scat_time")
     rcs = gt.rcs[0][np.asarray(gt.TOA_errs[0] != 0)]
     codes = sorted(int(c) for c in np.unique(rcs))
     bad = [c for c in codes if str(c) not in RCSTRINGS]
-    missing = [n for n in ("fftfit", "moments_scat") if launches[n] == 0]
+    missing = [n for n in ("fftfit",) + K3_NAMES if launches[n] == 0]
     if missing or bad or len(kern) != len(plain) or \
             not (dt_ns < 1.0 and gap <= 1e-3 + 5e-7):
         raise AssertionError("narrowband --fit_scat: launches %s, rc %s, "
@@ -1041,6 +1082,8 @@ def phase_narrowband_scat(root, work, K, small, shape=PPTOAS_SHAPE,
          fit_device_busy_s=sum(r[1] for r in rows),
          k3_device_ms_total=k3[1] if k3 else None,
          k3_launches_profiled=k3[0] if k3 else 0,
+         k3_grad_hess_device_ms_total=k3b[1] if k3b else None,
+         k3_grad_hess_launches_profiled=k3b[0] if k3b else 0,
          fit_device_top=[[key[:60], dev_s * 1e3, n] for key, dev_s, n in
                          sorted(rows, key=lambda r: -r[1])[:8]],
          rc_counts={c: int((rcs == c).sum()) for c in codes},
@@ -1416,11 +1459,10 @@ def path_kernels_vs_plain(K, seen, required=("moments", "fftfit")):
     max_rel_err, max_abs_err)}, the key the kernel's name or
     "name@shape".  Raises when a ``required`` kernel was never called, or
     beyond 1e-12 of each sum's largest magnitude (K2's phase: 1e-9
-    rot)."""
+    rot; K3's f, g and H terms: K3_GH_TOL)."""
     import torch
 
-    plains = dict(moments=K.moments_plain, fftfit=K.fftfit_plain,
-                  moments_scat=K.moments_scat_plain)
+    plains = {name: getattr(K, name + "_plain") for name in K.KERNELS}
     called = {key if isinstance(key, str) else key[0] for key in seen}
     missing = [name for name in required if name not in called]
     if missing:
@@ -1440,6 +1482,10 @@ def path_kernels_vs_plain(K, seen, required=("moments", "fftfit")):
             abs_err = max(ph, float((got[1] - want[1]).abs().max()))
             ok = ph <= 1e-9 and err <= 1e-12
             shape.append(a[4])                      # [N, nharm] and Ns
+        elif name == "moments_scat_grad_hess":
+            err = max(rel_err(got[:, i], want[:, i])
+                      for i in range(got.shape[1]))
+            abs_err, ok = float((got - want).abs().max()), err <= K3_GH_TOL
         else:
             err = max(rel_err(got[..., i], want[..., i])
                       for i in range(got.shape[-1]))
@@ -2138,8 +2184,9 @@ def kernel_times(prof, K):
 def kernel_device_ms(fn, K):
     """({kernel name: (launches, device ms in all)}, device profile) of
     one call of fn(), from torch.profiler.  The device profile holds the
-    wall, the device-busy seconds and the eight device rows that took
-    longest."""
+    wall, the device-busy seconds, the device events (kernels, copies,
+    fills) and of them those not of a hand kernel (torch's), and the eight
+    device rows that took longest."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -2152,7 +2199,12 @@ def kernel_device_ms(fn, K):
     rows = device_rows(prof)
     top = sorted(rows, key=lambda r: -r[1])[:8]
     busy = sum(r[1] for r in rows)
-    profile_ = dict(wall_s=wall, device_busy_s=busy,
+    hand = tuple(K.TRACE_NAMES.values()) + ("fftfit_",)
+    events = sum(n for _, _, n in rows)
+    profile_ = dict(wall_s=wall, device_busy_s=busy, device_events=events,
+                    torch_device_events=events - sum(
+                        n for key, _, n in rows
+                        if any(h in key for h in hand)),
                     device_top=[[key[:60], dev_s * 1e3, n]
                                 for key, dev_s, n in top])
     return kernel_times(prof, K), profile_
@@ -2388,7 +2440,11 @@ def phase_noise_fit(cube):
 
 def phase_throughput_scat(dev, K):
     """The north-star scattering fit (bench_common.py's fit_scat) at
-    1000 x 512 x 2048: tau TAU_INJ at nu0, alpha -4, flags (1,1,0,1,1)."""
+    1000 x 512 x 2048: tau TAU_INJ at nu0, alpha -4, flags (1,1,0,1,1).
+    Recovery, the per-fit wall, device busy, device events (torch's and
+    the hand kernels'), peak memory; then the same fit with the plain
+    versions on the card: each lane's TOA within 1 ns, and the lanes
+    whose rc or nfeval differ, counted."""
     import torch
 
     from pulseportraiture_tpu_torch.fit.portrait import (
@@ -2416,6 +2472,8 @@ def phase_throughput_scat(dev, K):
     run()
     torch.cuda.synchronize()
     t_first = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
     K.reset_launches()
     t0 = time.perf_counter()
@@ -2431,18 +2489,37 @@ def phase_throughput_scat(dev, K):
     zalpha = ((out.alpha + 4.0) / out.alpha_err).abs()
     finite = bool(torch.isfinite(out.params).all()
                   and torch.isfinite(out.param_errs).all())
-    k3 = per_kernel.get("moments_scat")
     nfev = out.nfeval.double()
+    # the same fit through the plain versions on the card
+    with plain_kernels(K):
+        t0 = time.perf_counter()
+        ref = run()
+        torch.cuda.synchronize()
+        t_plain = time.perf_counter() - t0
+    dt_ns = (((out.phi - ref.phi) + 0.5) % 1.0 - 0.5).abs() * P0 * 1e9
+    rc_diff = torch.nonzero(out.return_code != ref.return_code).flatten()
+    nfev_diff = torch.nonzero(out.nfeval != ref.nfeval).flatten()
 
     def within(z):
         return float((z < 5).double().mean())
 
+    def per_launch(name):
+        hit = per_kernel.get(name)
+        return (hit[1] / hit[0], hit[1]) if hit else (None, None)
+
+    k3_ms, k3_total = per_launch("moments_scat")
+    gh_ms, gh_total = per_launch("moments_scat_grad_hess")
     res = dict(shape=[nsub, nchan, nbin], kmax=kmax, first_s=t_first,
                steady_s=t_steady, toas_per_s=nsub / t_steady,
                launches=launches,
-               k3_ms_per_launch=k3[1] / k3[0] if k3 else None,
-               k3_ms_total=k3[1] if k3 else None,
+               k3_ms_per_launch=k3_ms, k3_ms_total=k3_total,
+               k3_grad_hess_ms_per_launch=gh_ms,
+               k3_grad_hess_ms_total=gh_total,
+               device_busy_ms=device["device_busy_s"] * 1e3,
+               device_events=device["device_events"],
+               torch_device_events=device["torch_device_events"],
                peak_device_bytes=int(peak),
+               peak_above_prior_bytes=int(peak - base),
                rc_counts={int(c): int((out.return_code == c).sum())
                           for c in out.return_code.unique()},
                nfev_max=int(nfev.max()), nfev_median=float(nfev.median()),
@@ -2451,13 +2528,22 @@ def phase_throughput_scat(dev, K):
                frac_tau_within_5sigma=within(ztau),
                frac_alpha_within_5sigma=within(zalpha),
                median_tau_err=float(out.tau_err.median()), finite=finite,
+               plain_fit_s=t_plain,
+               plain_vs_kernel_max_ns=float(dt_ns.max()),
+               rc_differ=[int(i) for i in rc_diff],
+               nfev_differ=[int(i) for i in nfev_diff],
+               n_rc_differ=int(rc_diff.numel()),
+               n_nfev_differ=int(nfev_diff.numel()),
                profiled=device)
     emit("throughput_scat", **res)
     if not (finite and min(res[k] for k in res if k.startswith("frac_"))
             > 0.99):
         raise AssertionError("north-star scattering fit did not recover the "
                              "injection")
-    if launches["moments_scat"] == 0:
+    if not res["plain_vs_kernel_max_ns"] <= 1.0:
+        raise AssertionError("scattering fit: kernels vs plain %.3g ns"
+                             % res["plain_vs_kernel_max_ns"])
+    if any(launches[name] == 0 for name in K3_NAMES):
         raise AssertionError("scattering fit launched %s" % launches)
     return res
 
@@ -3183,7 +3269,7 @@ def phase_survey(root, work, K, device="cuda"):
     if len(progs) != n_specs or not all(e["ok"] for e in progs):
         raise AssertionError("warm programs: %s" % progs)
     if device == "cuda" and \
-            warm["fresh"]["backend_compiles"] != len(K.KERNELS):
+            warm["fresh"]["backend_compiles"] != len(K.SOURCES):
         raise AssertionError("warm did not build the kernels: %s" % warm)
     out["warm"] = warm
 
@@ -3311,11 +3397,11 @@ def phase_survey(root, work, K, device="cuda"):
             "run", "-w", wd("scat"), "--no_bary", "--fit_scat", "--device",
             device, "--quiet"])
     survey_exactly_once(wd("scat"), scat_files, nsub=nsub)
-    if scat_launches["moments_scat"] == 0 or scat_launches["fftfit"] == 0:
+    if any(scat_launches[n] == 0 for n in ("fftfit",) + K3_NAMES):
         raise AssertionError("--fit_scat survey launches %s"
                              % scat_launches)
     scat_rows = path_kernels_vs_plain(K, seen_scat,
-                                      required=("fftfit", "moments_scat"))
+                                      required=("fftfit",) + K3_NAMES)
     scat_toas, _ = survey_toas(wd("scat"))
     if not all("-scat_time" in t for f in scat_files for t in scat_toas[f]):
         raise AssertionError("--fit_scat TOAs without -scat_time")
@@ -3438,8 +3524,7 @@ def path_kernel_times(K, seen):
     counted."""
     import torch
 
-    plains = dict(moments=K.moments_plain, fftfit=K.fftfit_plain,
-                  moments_scat=K.moments_scat_plain)
+    plains = {name: getattr(K, name + "_plain") for name in K.KERNELS}
     n0 = dict(K.LAUNCHES)
     rows = {}
     for (name, _), (a, kw) in sorted(seen.items(), key=str):
@@ -3455,8 +3540,9 @@ def path_kernel_times(K, seen):
             # the evaluated rows: all, or the lanes given
             bms, by = moments_bound_ms(a[1].shape[0], *shape[1:])
         else:
-            bms, by = moments_scat_bound_ms(a[2].shape[0], *shape[1:],
-                                            shared=a[1].shape[0] == 1)
+            bms, by = moments_scat_bound_ms(
+                a[2].shape[0], *shape[1:], shared=a[1].shape[0] == 1,
+                grad_hess=name == "moments_scat_grad_hess")
         rows["%s@%s" % (name, "x".join(map(str, shape)))] = dict(
             ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
             share_of_bound=bms / ms)
@@ -3721,11 +3807,9 @@ def phase_serve(root, work, K, survey, device="cuda"):
                 str(list(failed.values())[0]):
             raise AssertionError("dispatch fault: failed records %s"
                                  % failed)
-        if launches["moments"] == 0 or launches["fftfit"] == 0 \
-                or launches["moments_scat"] == 0:
+        if any(launches[n] == 0 for n in K.KERNELS):
             raise AssertionError("serve launches %s" % launches)
-        path_rows = path_kernels_vs_plain(
-            K, seen, required=("moments", "fftfit", "moments_scat"))
+        path_rows = path_kernels_vs_plain(K, seen, required=tuple(K.KERNELS))
         times = path_kernel_times(K, seen)
         # a traced closed loop of one cycle: the device's busy seconds
         traced = pploadgen.build_requests(
@@ -3828,7 +3912,7 @@ def phase_serve(root, work, K, survey, device="cuda"):
     if cli_rc != 0 or sub.get("state") != "done" or not cli_gap < 1.0 \
             or not ready.get("warmed") or cw.get("backend_compiles") != 0 \
             or device == "cuda" and \
-            cw.get("compile_cache_hits") != len(K.KERNELS):
+            cw.get("compile_cache_hits") != len(K.SOURCES):
         raise AssertionError("ppserve CLI: rc %s, %s, %.3g ns, warm %s"
                              % (cli_rc, sub.get("state"), cli_gap, cw))
     cli = dict(ready_s=ready_s, process_s=cli_s, exit_code=cli_rc,
@@ -4281,11 +4365,12 @@ def main(argv):
         shutil.rmtree(work, ignore_errors=True)
     phase_throughput(dev, K)
     phase_throughput_scat(dev, K)
-    # K1's and K2's main path is pptoas, K3's pptoas_scat (their own
-    # fit-flag groups), each with the later paths; K1 and K2 also with the
-    # template builders and the walkthrough
+    # K1's and K2's main path is pptoas, K3's (both epilogues) pptoas_scat
+    # (their own fit-flag groups), each with the later paths; K1 and K2
+    # also with the template builders and the walkthrough
     own = dict(moments="pptoas", fftfit="pptoas",
-               moments_scat="pptoas_scat")
+               moments_scat="pptoas_scat",
+               moments_scat_grad_hess="pptoas_scat")
     paths = {name: [own[name], "narrowband", "narrowband_scat",
                     "templates", "ppzap"] for name in own}
     for name in ("moments", "fftfit"):
@@ -4311,7 +4396,7 @@ def main(argv):
                     "shape", "Ns", "ms", "call_ms", "first_call_ms", "stage_ms",
                     "bound_ms", "share_of_bound", "library_ms", "plain_ms",
                     "argmin_mismatches", "max_abs_err")} for c in r])
-        elif name == "moments_scat":
+        elif name in K3_NAMES:
             r, extra = r[K3_MAIN], dict(shapes=[
                 {key: c[key] for key in (
                     "shape", "shared_abs_m2", "lanes", "ms", "call_ms",

@@ -9,7 +9,13 @@ interface and loaded with ``ctypes``:
      ``_moments`` (scattering-free branch).
   K3 ``moments_scat`` (csrc/moments_scat.cu) — the nine per-channel
      harmonic sums of the scattering branch of the same ``_moments``
-     (:191-323); the (tau, alpha) chain rule on top stays torch.
+     (:191-323); and ``moments_scat_grad_hess``, the same harmonic loop
+     with a second epilogue: the (tau, alpha) chain rule and the
+     per-channel terms of ``portrait_grad_hess`` (:339-373) in
+     registers, [n, 21, nchan] (f, gradient, the Hessian's upper
+     triangle) that one channel sum turns into the fit's (f, g, H).
+     Both entry points live in one library; each has its own launch
+     count and trace name.
   K2 ``fftfit``  (csrc/fftfit.cu)  — batched FFTFIT grid search + Newton
      polish; replaces pulseportraiture_tpu/fit/phase_shift.py:64
      ``_fit_phase_shift_core``.  Bound by operations: its grid stage is a
@@ -23,16 +29,16 @@ interface and loaded with ``ctypes``:
 
 Each wrapper dispatches on its input's device: a CPU tensor takes the
 plain PyTorch version beside it (``moments_plain``/``fftfit_plain``/
-``moments_scat_plain``,
+``moments_scat_plain``/``moments_scat_grad_hess_plain``,
 which the CPU tests use and ``chip_smoke.py`` holds the kernels
 against); a CUDA tensor launches the kernel — building it at first use —
 or raises.  Nothing falls back from the card to the plain version.  The
 wrapper checks device, dtype, shape and contiguity, checks the launch's
 ``cudaGetLastError()`` and adds one to ``LAUNCHES[name]`` per launch.
 
-Build: ``build()`` starts one ``nvcc`` per source, all at once, writing
-``_build/lib<name>-<hash>.so`` (the hash covers the source and the
-flags, so an edited source never reuses a stale library);
+Build: ``build()`` starts one ``nvcc`` per source (``SOURCES``), all at
+once, writing ``_build/lib<source>-<hash>.so`` (the hash covers the
+source and the flags, so an edited source never reuses a stale library);
 ``set_build_dir`` moves that directory (``ppsurvey --compile-cache``),
 so several processes or restarts share one set of built libraries.
 Each source is published on the obs compile bridge (``obs.monitor``): a
@@ -57,12 +63,15 @@ import time
 import torch
 
 from .obs import monitor
+from .ops.scattering import LN10, _nonzero_div
 
 __all__ = ["KernelLaunchError", "LAUNCHES", "reset_launches", "build",
            "set_build_dir",
            "moments",
            "moments_plain", "moments_scat", "moments_scat_plain",
-           "MOMENTS_SCAT_SUMS", "fftfit", "fftfit_plain", "fftfit_table",
+           "MOMENTS_SCAT_SUMS", "moments_scat_grad_hess",
+           "moments_scat_grad_hess_plain", "GRAD_HESS_COLUMNS",
+           "HESS_UPPER", "fftfit", "fftfit_plain", "fftfit_table",
            "fftfit_table_plain", "KERNELS"]
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
@@ -79,7 +88,11 @@ KERNELS = {
                "pulseportraiture_tpu/fit/phase_shift.py:64"),
     "moments_scat": ("moments_scat.cu", "pp_moments_scat",
                      "pulseportraiture_tpu/fit/portrait.py:191"),
+    "moments_scat_grad_hess": ("moments_scat.cu", "pp_moments_scat_gh",
+                               "pulseportraiture_tpu/fit/portrait.py:339"),
 }
+# the sources, one nvcc and one library each
+SOURCES = tuple(sorted({src for src, _, _ in KERNELS.values()}))
 
 _VP, _I64, _INT, _DBL = (ctypes.c_void_p, ctypes.c_int64, ctypes.c_int,
                          ctypes.c_double)
@@ -92,16 +105,20 @@ _SYMBOLS = {
                "pp_fftfit_table": [_VP, _INT, _INT, _DBL, _DBL, _VP]},
     "moments_scat": {"pp_moments_scat": [_VP, _VP, _I64, _VP, _VP, _VP, _VP,
                                          _I64, _INT, _INT, _VP, _VP]},
+    "moments_scat_grad_hess": {"pp_moments_scat_gh": [
+        _VP, _VP, _I64, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _INT, _I64, _INT,
+        _INT, _VP, _VP]},
 }
 
 # kernel name -> the CUDA function that runs once per counted launch, as
 # it is named in a profiler trace (K2's grid stage; its Newton stage
 # runs as often)
 TRACE_NAMES = {"moments": "moments_kernel", "fftfit": "fftfit_grid_kernel",
-               "moments_scat": "moments_scat_kernel"}
+               "moments_scat": "moments_scat_kernel",
+               "moments_scat_grad_hess": "moments_scat_grad_hess_kernel"}
 
 LAUNCHES = {name: 0 for name in KERNELS}
-BUILD_LOG = {}  # name -> nvcc output (register/shared-memory report)
+BUILD_LOG = {}  # library (source stem) -> nvcc output (register report)
 _LIBS = {}
 _LOCK = threading.Lock()
 # launch counts and the K2 table cache are updated from several threads
@@ -148,11 +165,16 @@ def set_build_dir(path):
     return path
 
 
-def _lib_path(name):
-    src = os.path.join(CSRC_DIR, KERNELS[name][0])
+def _lib_of(name):
+    """The library (its source's stem) that holds kernel ``name``."""
+    return os.path.splitext(KERNELS[name][0])[0]
+
+
+def _lib_path(lib):
+    src = os.path.join(CSRC_DIR, lib + ".cu")
     with open(src, "rb") as f:
         h = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
-    return os.path.join(BUILD_DIR, "lib%s-%s.so" % (name, h.hexdigest()[:12]))
+    return os.path.join(BUILD_DIR, "lib%s-%s.so" % (lib, h.hexdigest()[:12]))
 
 
 def build(names=None):
@@ -168,39 +190,40 @@ def build(names=None):
         if not todo:
             return 0.0
         os.makedirs(BUILD_DIR, exist_ok=True)
+        libs = sorted({_lib_of(n) for n in todo})
         procs = {}
-        for name in todo:
-            path = _lib_path(name)
+        for lib in libs:
+            path = _lib_path(lib)
             if os.path.exists(path):
-                monitor.publish(monitor.CACHE_HIT_EVENT, kernel=name)
+                monitor.publish(monitor.CACHE_HIT_EVENT, kernel=lib)
                 continue
-            monitor.publish(monitor.CACHE_MISS_EVENT, kernel=name)
+            monitor.publish(monitor.CACHE_MISS_EVENT, kernel=lib)
             tmp = "%s.%d.tmp" % (path, os.getpid())
             cmd = [_nvcc()] + NVCC_FLAGS + [
-                "-o", tmp, os.path.join(CSRC_DIR, KERNELS[name][0])]
-            procs[name] = (subprocess.Popen(
+                "-o", tmp, os.path.join(CSRC_DIR, lib + ".cu")]
+            procs[lib] = (subprocess.Popen(
                 cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                 text=True), tmp, path, time.perf_counter())
         failed = []
-        for name, (proc, tmp, path, t_start) in procs.items():
+        for lib, (proc, tmp, path, t_start) in procs.items():
             out, _ = proc.communicate()
-            BUILD_LOG[name] = out
+            BUILD_LOG[lib] = out
             if proc.returncode != 0:
-                failed.append("%s:\n%s" % (name, out))
+                failed.append("%s:\n%s" % (lib, out))
             else:
                 os.replace(tmp, path)
                 # seconds from this nvcc's start to its end being read
                 # (the builds run together, so they overlap)
                 monitor.publish(monitor.COMPILE_EVENT,
                                 time.perf_counter() - t_start,
-                                kernel=name, source=KERNELS[name][0])
+                                kernel=lib, source=lib + ".cu")
         if failed:
             raise RuntimeError("nvcc failed for " + "\n".join(failed))
+        loaded = {lib: ctypes.CDLL(_lib_path(lib)) for lib in libs}
         for name in todo:
-            lib = ctypes.CDLL(_lib_path(name))
             fns = {}
             for sym, argtypes in _SYMBOLS[name].items():
-                fns[sym] = fn = getattr(lib, sym)
+                fns[sym] = fn = getattr(loaded[_lib_of(name)], sym)
                 fn.argtypes = argtypes
                 fn.restype = ctypes.c_int
             _LIBS[name] = fns
@@ -351,15 +374,8 @@ def moments_scat_plain(cross, abs_m2, shifts, taus, inv_err2, lanes=None):
     return torch.stack([C, S, T1, T2, Q0, Q1, W2, S1, S2], dim=-1)
 
 
-def moments_scat(cross, abs_m2, shifts, taus, inv_err2, lanes=None):
-    """K3 wrapper: the nine per-channel scattering sums [n, nchan, 9] f64
-    (order MOMENTS_SCAT_SUMS; see csrc/moments_scat.cu).
-
-    cross [B, nchan, K] complex128; abs_m2 [B or 1, nchan, K] f64 (one
-    set of rows shared by the batch when its first dimension is 1);
-    inv_err2 [B, nchan] f64; shifts and taus [n, nchan] f64 are the phase
-    shifts and channel scattering times [rot] of the rows to evaluate,
-    which are subints ``lanes`` [n] int64 (all B subints when None)."""
+def _check_scat(cross, abs_m2, shifts, taus, inv_err2, lanes, what):
+    """Check K3's common arguments; returns (B, nchan, K, n)."""
     _check(cross, "cross", torch.complex128, 3)
     _check(abs_m2, "abs_m2", torch.float64, 3)
     _check(shifts, "shifts", torch.float64, 2)
@@ -373,10 +389,24 @@ def moments_scat(cross, abs_m2, shifts, taus, inv_err2, lanes=None):
             or tuple(shifts.shape) != (n, nchan)
             or tuple(taus.shape) != (n, nchan)
             or tuple(inv_err2.shape) != (B, nchan)):
-        raise ValueError("moments_scat: shapes cross %s, abs_m2 %s, shifts "
-                         "%s, taus %s, inv_err2 %s disagree"
-                         % tuple(tuple(t.shape) for t in (
-                             cross, abs_m2, shifts, taus, inv_err2)))
+        raise ValueError("%s: shapes cross %s, abs_m2 %s, shifts %s, taus "
+                         "%s, inv_err2 %s disagree"
+                         % ((what,) + tuple(tuple(t.shape) for t in (
+                             cross, abs_m2, shifts, taus, inv_err2))))
+    return B, nchan, K, n
+
+
+def moments_scat(cross, abs_m2, shifts, taus, inv_err2, lanes=None):
+    """K3 wrapper: the nine per-channel scattering sums [n, nchan, 9] f64
+    (order MOMENTS_SCAT_SUMS; see csrc/moments_scat.cu).
+
+    cross [B, nchan, K] complex128; abs_m2 [B or 1, nchan, K] f64 (one
+    set of rows shared by the batch when its first dimension is 1);
+    inv_err2 [B, nchan] f64; shifts and taus [n, nchan] f64 are the phase
+    shifts and channel scattering times [rot] of the rows to evaluate,
+    which are subints ``lanes`` [n] int64 (all B subints when None)."""
+    B, nchan, K, n = _check_scat(cross, abs_m2, shifts, taus, inv_err2,
+                                 lanes, "moments_scat")
     _same_device(cross, abs_m2, shifts, taus, inv_err2, lanes)
     if cross.device.type == "cpu":
         return moments_scat_plain(cross, abs_m2, shifts, taus, inv_err2,
@@ -392,6 +422,117 @@ def moments_scat(cross, abs_m2, shifts, taus, inv_err2, lanes=None):
             m_bstride, shifts.data_ptr(), taus.data_ptr(),
             inv_err2.data_ptr(), None if lanes is None else lanes.data_ptr(),
             n, nchan, K, out.data_ptr())
+    return out
+
+
+# -- K3, epilogue B: per-row objective, gradient and Hessian ---------------
+
+# the Hessian's entries on and above the diagonal, in the order of
+# moments_scat_grad_hess's columns 6..20
+HESS_UPPER = tuple((p, r) for p in range(5) for r in range(p, 5))
+GRAD_HESS_COLUMNS = ("f",) + tuple("g%d" % p for p in range(5)) + tuple(
+    "H%d%d" % pr for pr in HESS_UPPER)
+
+
+def grad_hess_rows_plain(sums, taus, pd, lnf, tau, log10_tau):
+    """Epilogue B in PyTorch: [n, 21, nchan] (GRAD_HESS_COLUMNS) from the
+    nine sums [n, nchan, 9] of K3.  The (tau, alpha) chain rule of
+    ops/scattering.py (scattering_times_deriv / _2deriv, with lnf =
+    ln(freqs / nu_tau) [n, nchan] and the rows' linear tau [n]), the
+    reference's dC, dS, d2C, d2S (fit/portrait.py _moments) and the
+    per-channel terms of its portrait_grad_hess, each entry with the
+    order of operations of those functions: f = -(C^2/S), g = -(2 C dC/S
+    - C^2 dS/S^2), H_pr = -2 (C^2/S) (d2C/C - d2S/(2S) + ...), zero where
+    S <= 0.  A channel sum gives the unmasked (f, g, H)."""
+    C0, S0, T1, T2, Q0, Q1, W2, S1, S2 = sums.unbind(-1)
+    tau = tau[:, None]
+    dtau = LN10 * taus if log10_tau else _nonzero_div(taus, tau)
+    dalpha = lnf * taus
+    if log10_tau:
+        d2tau, dtda = LN10 * dtau, LN10 * dalpha
+    else:
+        d2tau, dtda = torch.zeros_like(dtau), _nonzero_div(dalpha, tau)
+    td = (dtau, dalpha)
+    t2d = ((d2tau, dtda), (dtda, lnf * dalpha))
+    pds = pd.unbind(1)
+    zero = torch.zeros_like(C0)
+    dC = [T1 * pds[p] for p in range(3)] + [t * Q0 for t in td]
+    dS = [zero] * 3 + [t * S1 for t in td]
+    ok = S0 > 0.0
+    S = torch.where(ok, S0, torch.ones_like(S0))
+    C = torch.where(ok, C0, zero)
+    out = [-torch.where(ok, C ** 2 / S, zero)]
+    out += [-torch.where(ok, 2.0 * C * dC[p] / S - C ** 2 * dS[p] / S ** 2,
+                         zero) for p in range(5)]
+    sC = torch.where(C != 0.0, C, torch.ones_like(C))
+    lead = -2.0 * (C ** 2 / S)
+    for p, r in HESS_UPPER:
+        d2S = zero
+        if r < 3:
+            d2C = T2 * pds[p] * pds[r]
+        elif p < 3:
+            d2C = pds[p] * (td[r - 3] * Q1)
+        else:
+            tdd = td[p - 3] * td[r - 3]
+            d2C = tdd * W2 + t2d[p - 3][r - 3] * Q0
+            d2S = tdd * S2 + t2d[p - 3][r - 3] * S1
+        inner = d2C / sC - 0.5 * d2S / S + dC[p] * dC[r] / sC ** 2 \
+            + dS[p] * dS[r] / S ** 2 - (dC[p] * dS[r] + dS[p] * dC[r]) \
+            / (sC * S)
+        out.append(torch.where(ok, lead * inner, zero))
+    return torch.stack(out, dim=1)
+
+
+def moments_scat_grad_hess_plain(cross, abs_m2, shifts, taus, inv_err2, pd,
+                                 lnf, tau, log10_tau, lanes=None):
+    """Plain PyTorch K3 with epilogue B: moments_scat_plain's nine sums,
+    then grad_hess_rows_plain: [n, 21, nchan]."""
+    return grad_hess_rows_plain(
+        moments_scat_plain(cross, abs_m2, shifts, taus, inv_err2, lanes),
+        taus, pd, lnf, tau, log10_tau)
+
+
+def moments_scat_grad_hess(cross, abs_m2, shifts, taus, inv_err2, pd, lnf,
+                           tau, log10_tau, lanes=None):
+    """K3 wrapper, epilogue B: per-row objective, gradient and Hessian
+    terms [n, 21, nchan] f64 (GRAD_HESS_COLUMNS; see
+    csrc/moments_scat.cu), whose channel sum is the scattering fit's
+    unmasked (f, g, H).
+
+    The first five arguments and ``lanes`` are moments_scat's; pd [n, 3,
+    nchan] are the rows' phase-shift derivatives wrt (phi, DM, GM), lnf
+    [n, nchan] = ln(freqs / nu_tau), tau [n] the rows' linear tau, and
+    ``log10_tau`` whether the fit's tau parameter is log10(tau)."""
+    B, nchan, K, n = _check_scat(cross, abs_m2, shifts, taus, inv_err2,
+                                 lanes, "moments_scat_grad_hess")
+    _check(pd, "pd", torch.float64, 3)
+    _check(lnf, "lnf", torch.float64, 2)
+    _check(tau, "tau", torch.float64, 1)
+    if tuple(pd.shape) != (n, 3, nchan) or tuple(lnf.shape) != (n, nchan) \
+            or tuple(tau.shape) != (n,):
+        raise ValueError("moments_scat_grad_hess: shapes pd %s, lnf %s, tau "
+                         "%s for %d rows of %d channels"
+                         % (tuple(pd.shape), tuple(lnf.shape),
+                            tuple(tau.shape), n, nchan))
+    _same_device(cross, abs_m2, shifts, taus, inv_err2, pd, lnf, tau, lanes)
+    log10_tau = bool(log10_tau)
+    if cross.device.type == "cpu":
+        return moments_scat_grad_hess_plain(cross, abs_m2, shifts, taus,
+                                            inv_err2, pd, lnf, tau,
+                                            log10_tau, lanes)
+    if cross.device.type != "cuda":
+        raise ValueError("moments_scat_grad_hess: unsupported device %s"
+                         % cross.device)
+    out = torch.empty((n, len(GRAD_HESS_COLUMNS), nchan),
+                      dtype=torch.float64, device=cross.device)
+    if n * nchan == 0:
+        return out
+    m_bstride = 0 if abs_m2.shape[0] == 1 else nchan * K
+    _launch("moments_scat_grad_hess", cross.device, cross.data_ptr(),
+            abs_m2.data_ptr(), m_bstride, shifts.data_ptr(), taus.data_ptr(),
+            inv_err2.data_ptr(), None if lanes is None else lanes.data_ptr(),
+            pd.data_ptr(), lnf.data_ptr(), tau.data_ptr(), int(log10_tau), n,
+            nchan, K, out.data_ptr())
     return out
 
 

@@ -18,10 +18,14 @@ Design, against the reference's vmapped ``lax.while_loop``:
 * Every evaluation of the objective, gradient and Hessian reduces to a
   few per-channel harmonic sums.  Without scattering (B = 1: no tau/alpha
   fit and a zero tau) they are (C, T1, T2), from kernel K1
-  (``_kernels.moments``, csrc/moments.cu); with scattering they are the
-  nine sums of kernel K3 (``_kernels.moments_scat``,
-  csrc/moments_scat.cu).  The (tau, alpha) chain rule and the 5x5 algebra
-  on top are torch, for the subints still being solved.
+  (``_kernels.moments``, csrc/moments.cu), and the 5x5 algebra on top
+  is torch.  With scattering, kernel K3 (csrc/moments_scat.cu) runs the
+  (tau, alpha) chain rule and the 5x5 algebra too: its second epilogue
+  (``_kernels.moments_scat_grad_hess``) writes each (subint, channel)
+  row's objective, gradient and Hessian terms, and one channel sum gives
+  the solver's (f, g, H) for the subints still being solved.  Its first
+  epilogue (``_kernels.moments_scat``, the nine sums) feeds the
+  finishing algebra (``_hess_with_scales``) once per fit.
 * ``_solve`` is the reference's bounded Levenberg-damped Newton loop
   written as a masked batched Python loop: each iteration gathers the
   lanes that are not done, steps them, and scatters the result back, so
@@ -46,6 +50,7 @@ Design, against the reference's vmapped ``lax.while_loop``:
 """
 
 import collections
+import functools
 import math
 
 import numpy as np
@@ -125,6 +130,18 @@ def _shifts(params, freqs, P, nu_DM, nu_GM):
         + (Dconst ** 2) * GM * (ipow(freqs, -4) - ipow(nu_GM, -4)) / P
 
 
+def _shifts_and_derivs(params, freqs, P, nu_DM, nu_GM):
+    """(_shifts, _phase_shift_derivs) at params [n, 5], the dispersion
+    terms formed once: the same arithmetic as the two functions'."""
+    dm = ipow(freqs, -2) - ipow(nu_DM, -2)
+    gm = ipow(freqs, -4) - ipow(nu_GM, -4)
+    sh = params[:, 0:1] + Dconst * params[:, 1:2] * dm / P \
+        + (Dconst ** 2) * params[:, 2:3] * gm / P
+    pd = torch.stack([torch.ones_like(freqs), Dconst * dm / P,
+                      (Dconst ** 2) * gm / P], dim=-2)
+    return sh, pd
+
+
 def _tau_lin(tau_p, log10_tau):
     return 10.0 ** tau_p if log10_tau else tau_p
 
@@ -164,34 +181,33 @@ def _derivs(C, S, T1, T2, pd, flags, per_channel=False):
     return f, grad, H
 
 
-def _derivs_full(m, flags, per_channel=False):
-    """(f, grad [n, 5], H [n, 5, 5] or [n, 5, 5, nchan]) from full moments
-    (C, S [n, nchan]; dC, dS [n, 5, nchan]; d2C, d2S [n, 5, 5, nchan]):
-    the reference's portrait_grad_hess algebra (:339-373), term for
-    term."""
-    C, S, dC, dS, d2C, d2S = (m[k] for k in ("C", "S", "dC", "dS", "d2C",
-                                             "d2S"))
-    ok = S > 0.0
-    S = torch.where(ok, S, torch.ones_like(S))
-    C = torch.where(ok, C, torch.zeros_like(C))
-    zero = torch.zeros_like(C)
-    f = -torch.sum(torch.where(ok, C ** 2 / S, zero), dim=-1)
-    Cb, Sb = C[:, None], S[:, None]
-    grad = -torch.sum(torch.where(ok[:, None], 2.0 * Cb * dC / Sb
-                                  - (Cb ** 2) * dS / Sb ** 2,
-                                  zero[:, None]), dim=-1)
-    flags_t = torch.as_tensor(flags, dtype=real_dtype, device=C.device)
-    grad = grad * flags_t
-    safe_C = torch.where(C != 0.0, C, torch.ones_like(C))
-    sC, Sq = safe_C[:, None, None], S[:, None, None]
-    dCi, dCj = dC[:, :, None], dC[:, None, :]
-    dSi, dSj = dS[:, :, None], dS[:, None, :]
-    Hn = -2.0 * (C ** 2 / S)[:, None, None] * (
-        d2C / sC - 0.5 * d2S / Sq + dCi * dCj / sC ** 2
-        + dSi * dSj / Sq ** 2 - (dCi * dSj + dSi * dCj) / (sC * Sq))
-    Hn = torch.where(ok[:, None, None], Hn, zero[:, None, None])
-    Hn = Hn * flags_t[:, None, None] * flags_t[None, :, None]
-    return f, grad, (Hn if per_channel else Hn.sum(dim=-1))
+# moments_scat_grad_hess's 21 columns -> the 25 entries of a symmetric 5x5
+_HESS_FULL = tuple(6 + _kernels.HESS_UPPER.index((min(p, r), max(p, r)))
+                   for p in range(5) for r in range(5))
+
+
+@functools.lru_cache(maxsize=None)
+def _unpack_constants(flags, device):
+    """(the flags' mask [5], its outer product [5, 5], _HESS_FULL as an
+    index tensor) on ``device``, made once."""
+    f = torch.as_tensor(flags, dtype=real_dtype, device=device)
+    return f, f[:, None] * f[None, :], torch.tensor(_HESS_FULL, device=device)
+
+
+def _grad_hess_from_rows(rows, flags, per_channel=False):
+    """(f, grad [n, 5], H [n, 5, 5] or per channel [n, 5, 5, nchan]) from
+    K3's per-row terms [n, 21, nchan]: the channel sum, then the flags'
+    mask (x * 1 = x and a sum of zeros is 0, so masking after the sum
+    gives the reference's masked-then-summed bits)."""
+    flags_t, outer, idx = _unpack_constants(tuple(flags), rows.device)
+    n, _, nchan = rows.shape
+    if per_channel:
+        fg = rows[:, :6].sum(dim=-1)
+        Hn = rows[:, idx].view(n, 5, 5, nchan)
+        return fg[:, 0], fg[:, 1:] * flags_t, Hn * outer[:, :, None]
+    tot = rows.sum(dim=-1)
+    return tot[:, 0], tot[:, 1:6] * flags_t, \
+        tot[:, idx].view(n, 5, 5) * outer
 
 
 def _take(nus, lanes):
@@ -285,10 +301,30 @@ class _Spectra:
         out.update(d2C=d2C, d2S=d2S)
         return out
 
+    def grad_hess_rows(self, params, nus, lanes=None):
+        """K3 with epilogue B: each row's objective, gradient and Hessian
+        terms [n, 21, nchan] at params [n, 5]."""
+        freqs, P = (self.freqs, self.P) if lanes is None else (
+            self.freqs[lanes], self.P[lanes])
+        sh, pd = _shifts_and_derivs(params, freqs, P, nus[0], nus[1])
+        with record_function("pp_scatter"):
+            tau = _tau_lin(params[:, 3:4], self.log10_tau)
+            ratio = freqs / nus[2]
+            # scattering_times and its derivatives' ln(freqs / nu_tau)
+            taus = tau * ratio ** params[:, 4:5]
+            return self._k3_gh(sh, taus, pd, torch.log(ratio),
+                               tau[:, 0].contiguous(), lanes)
+
+    def _k3_gh(self, sh, taus, pd, lnf, tau, lanes):
+        return _kernels.moments_scat_grad_hess(
+            self.cross, self.abs_m2, sh, taus, self.inv_err2, pd, lnf, tau,
+            self.log10_tau, lanes)
+
     def grad_hess(self, params, nus, flags, lanes=None, per_channel=False):
         if self.scat:
-            return _derivs_full(self.evaluate(params, nus, lanes), flags,
-                                per_channel)
+            return _grad_hess_from_rows(self.grad_hess_rows(params, nus,
+                                                            lanes),
+                                        flags, per_channel)
         C, S, T1, T2 = self.moments(params, nus, lanes)
         freqs, P, _ = self._rows(lanes)
         pd = _phase_shift_derivs(freqs, nus[0], nus[1], P)   # [n, 3, nchan]
@@ -305,9 +341,9 @@ class _ShardedSpectra(_Spectra):
     (cross-spectrum, |m|^2) stay on their cells (``_Cell``); the
     per-channel vectors (S, inv_err2, freqs) and P are whole on the lead
     device.  K1 and K3 launch once per cell, each on its own device, at
-    the shifts (and taus) of the cell's channels; their per-channel
-    outputs are joined along channels on the lead device, so every
-    channel sum after them is the unsharded one."""
+    the shifts (and taus, and K3's chain-rule inputs) of the cell's
+    channels; their per-channel outputs are joined along channels on the
+    lead device, so every channel sum after them is the unsharded one."""
 
     def __init__(self, cells, S, inv_err2, freqs, P, scat=False,
                  log10_tau=False):
@@ -315,8 +351,8 @@ class _ShardedSpectra(_Spectra):
                          log10_tau=log10_tau)
         self.cells = cells
 
-    def _join(self, outs):
-        return torch.cat([o.to(self.S.device) for o in outs], dim=1)
+    def _join(self, outs, dim=1):
+        return torch.cat([o.to(self.S.device) for o in outs], dim=dim)
 
     def _k1(self, sh, lanes):
         # every cell's launch is queued before the first copy back, so
@@ -332,6 +368,15 @@ class _ShardedSpectra(_Spectra):
             taus[:, c.chans].to(c.device).contiguous(), c.inv_err2,
             None if lanes is None else lanes.to(c.device))
             for c in self.cells])
+
+    def _k3_gh(self, sh, taus, pd, lnf, tau, lanes):
+        return self._join([_kernels.moments_scat_grad_hess(
+            c.cross, c.abs_m2, sh[:, c.chans].to(c.device).contiguous(),
+            taus[:, c.chans].to(c.device).contiguous(), c.inv_err2,
+            pd[:, :, c.chans].to(c.device).contiguous(),
+            lnf[:, c.chans].to(c.device).contiguous(), tau.to(c.device),
+            self.log10_tau, None if lanes is None else lanes.to(c.device))
+            for c in self.cells], dim=2)
 
 
 # -- JAX-shaped single-fit views (tests, interactive use) ----------------

@@ -3,14 +3,15 @@ its sharded fit on the card: kernels against their plain versions.
 
 Each test runs a path of pulseportraiture_tpu_torch on the CUDA device
 twice — through the hand kernels (K1 csrc/moments.cu, K2 csrc/fftfit.cu,
-K3 csrc/moments_scat.cu), then with their plain PyTorch versions swapped
-in on the same device — and holds the two runs to the port's parity bar:
-TOAs within 1 ns, equal rc and nfeval, equal zap lists, fluxes within
-1e-9 relative (1e-7 with the narrowband scattering fits, whose scales
-move with the ~1e-8 differences in tau of fits the data barely
-constrain, as between the port and the JAX package), post-fit channel
-reduced chi2 within 2e-9 relative (each moves to first order with the
-fitted phase, DM and scales, which converged fits leave ~1e-11 apart);
+K3 csrc/moments_scat.cu, both its epilogues), then with their plain
+PyTorch versions swapped in on the same device — and holds the two runs
+to the port's parity bar: TOAs within 1 ns, equal rc and nfeval, equal
+zap lists, fluxes within 1e-9 relative (1e-7 with the narrowband
+scattering fits, whose scales move with the ~1e-8 differences in tau of
+fits the data barely constrain, as between the port and the JAX
+package), post-fit channel reduced chi2 within 2e-9 relative (each moves
+to first order with the fitted phase, DM and scales, which converged
+fits leave ~1e-11 apart);
 K3 alone at one channel per lane within 1e-12 of each sum's largest
 magnitude; the template builders (align, spline, Gaussian) with aligned
 portraits within 5e-8 of their peak and weights within 1e-9 (the bound
@@ -63,13 +64,14 @@ def card():
 @contextlib.contextmanager
 def plain_kernels(K):
     """The plain versions in place of the kernels, on the card."""
-    saved = K.moments, K.fftfit, K.moments_scat
-    K.moments, K.fftfit, K.moments_scat = (K.moments_plain, K.fftfit_plain,
-                                           K.moments_scat_plain)
+    saved = {name: getattr(K, name) for name in K.KERNELS}
+    for name in K.KERNELS:
+        setattr(K, name, getattr(K, name + "_plain"))
     try:
         yield
     finally:
-        K.moments, K.fftfit, K.moments_scat = saved
+        for name, fn in saved.items():
+            setattr(K, name, fn)
 
 
 @pytest.fixture(scope="module")
@@ -148,6 +150,7 @@ def test_narrowband_kernels_match_plain(card, archive, kw):
     assert launches["fftfit"] >= 1
     if kw:
         assert launches["moments_scat"] >= 1
+        assert launches["moments_scat_grad_hess"] >= 1
     assert len(kern.TOA_list) == 3 * 63 + 1
     assert _max_dt_ns(_toas(kern), _toas(plain)) < 1.0
     np.testing.assert_array_equal(kern.rcs[0], plain.rcs[0])

@@ -156,3 +156,96 @@ def test_nu_zeros_match_reference(flags, option, rng):
     for h, w, name in zip(have, want, ("nu_DM", "nu_GM", "nu_tau")):
         np.testing.assert_allclose(float(h), float(w), rtol=1e-10,
                                    err_msg=name)
+
+
+def _gh_inputs(rng, nchan, log10_tau, nsub=3):
+    """K3 epilogue B's arguments for ``nsub`` subints of _spectra (channel
+    5 zapped; the first ``nchan`` channels), their reference arguments,
+    and the per-subint params."""
+    spec = [_spectra(rng) for _ in range(nsub)]
+    cross = np.stack([c[:nchan] for c, _, _ in spec])
+    abs_m2 = spec[0][1][None, :nchan]  # one model: |m|^2 shared
+    inv_err2 = np.stack([w[:nchan] for _, _, w in spec])
+    tau = rng.uniform(2e-3, 6e-3, nsub)
+    params = np.stack([rng.uniform(-0.3, 0.3, nsub),
+                       rng.uniform(-3e-3, 3e-3, nsub),
+                       rng.uniform(-2e-4, 2e-4, nsub),
+                       np.log10(tau) if log10_tau else tau,
+                       rng.uniform(-4.4, -3.6, nsub)], axis=1)
+    return cross, abs_m2, inv_err2, params
+
+
+@pytest.mark.parametrize("flags", [(1, 1, 0, 1, 1), (1, 1, 1, 1, 1),
+                                   (1, 1, 0, 1, 0)])
+@pytest.mark.parametrize("log10_tau", [True, False])
+@pytest.mark.parametrize("per_channel", [False, True])
+@pytest.mark.parametrize("nchan", [NCHAN, 1])
+def test_grad_hess_plain_matches_reference(flags, log10_tau, per_channel,
+                                           nchan, rng):
+    """K3 epilogue B's plain version (moments_scat_grad_hess_plain) on a
+    lane subset, summed and masked as the solver does, against the
+    reference's portrait_grad_hess of each lane (JAX on the CPU, its
+    complex128 branch).  Tolerance 1e-12 of each output's largest
+    magnitude: the nine sums differ from the reference's only in
+    summation order and the factored chain rule (~1e-15 of the terms),
+    and the 5x5 algebra, term for term the reference's, divides by C and
+    S and cancels (the Hessian's scattering block)."""
+    cross, abs_m2, inv_err2, params = _gh_inputs(rng, nchan, log10_tau)
+    freqs = FREQS[:nchan]
+    nu_DM, nu_GM = 1432.1, 1480.0
+    lanes = torch.tensor([2, 0])
+    x = torch.as_tensor(params)[lanes]
+    n = len(lanes)
+    fr = torch.as_tensor(np.tile(freqs, (n, 1)))
+    P = torch.full((n, 1), P0, dtype=torch.float64)
+    nus = [torch.full((n, 1), v, dtype=torch.float64)
+           for v in (nu_DM, nu_GM, NU_TAU)]
+    tau = (10.0 ** x[:, 3] if log10_tau else x[:, 3]).contiguous()
+    taus = tsc.scattering_times(tau[:, None], x[:, 4:5], fr, nus[2])
+    rows = tfp._kernels.moments_scat_grad_hess(
+        torch.as_tensor(cross), torch.as_tensor(abs_m2),
+        tfp._shifts(x, fr, P, nus[0], nus[1]), taus,
+        torch.as_tensor(inv_err2), tfp._phase_shift_derivs(
+            fr, nus[0], nus[1], P), torch.log(fr / nus[2]), tau, log10_tau,
+        lanes)
+    assert tuple(rows.shape) == (n, 21, nchan)
+    have = tfp._grad_hess_from_rows(rows, flags, per_channel)
+    for i, lane in enumerate(lanes.tolist()):
+        want = jfp.portrait_grad_hess(
+            params[lane], cross[lane], abs_m2[0], inv_err2[lane], freqs, P0,
+            nu_DM, nu_GM, NU_TAU, flags, log10_tau, NBIN,
+            per_channel=per_channel, scat=True)
+        np.testing.assert_allclose(float(have[0][i]), float(want[0]),
+                                   rtol=1e-12)
+        for h, w, what in zip(have[1:], want[1:], ("grad", "hess")):
+            _close(h[i], w, what="%s lane %d" % (what, lane))
+
+
+def test_grad_hess_plain_at_zero_tau_is_k1s(rng):
+    """At tau == 0, K3 epilogue B's (phi, DM, GM) terms are those of K1's
+    moments (the B = 1 algebra of fit.portrait._derivs), and its
+    scattering rows and columns vanish."""
+    cross, abs_m2, inv_err2, params = _gh_inputs(rng, NCHAN, True)
+    n = cross.shape[0]
+    fr = torch.as_tensor(np.tile(FREQS, (n, 1)))
+    P = torch.full((n, 1), P0, dtype=torch.float64)
+    nus = [torch.full((n, 1), v, dtype=torch.float64)
+           for v in (1432.1, 1480.0, NU_TAU)]
+    x = torch.as_tensor(params)
+    sh = tfp._shifts(x, fr, P, nus[0], nus[1])
+    pd = tfp._phase_shift_derivs(fr, nus[0], nus[1], P)
+    cross, abs_m2 = torch.as_tensor(cross), torch.as_tensor(abs_m2)
+    inv_err2 = torch.as_tensor(inv_err2)
+    zero = torch.zeros_like(sh)
+    rows = tfp._kernels.moments_scat_grad_hess(
+        cross, abs_m2, sh, zero, inv_err2, pd, torch.log(fr / nus[2]),
+        torch.zeros(n, dtype=torch.float64), True)
+    f, g, H = tfp._grad_hess_from_rows(rows, (1, 1, 1, 1, 1),
+                                       per_channel=True)
+    m = tfp._kernels.moments(cross, sh, inv_err2)
+    S = abs_m2.sum(-1) * inv_err2
+    f1, g1, H1 = tfp._derivs(m[..., 0], S, m[..., 1], m[..., 2], pd,
+                             (1, 1, 1, 0, 0), per_channel=True)
+    _close(f, f1.numpy(), rtol=1e-12, what="f")
+    _close(g, g1.numpy(), rtol=1e-12, what="grad")
+    _close(H, H1.numpy(), rtol=1e-12, what="hess")
