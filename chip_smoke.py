@@ -9,7 +9,12 @@ Phases, one JSON line each on stdout; any failure exits non-zero:
   build       nvcc build of every kernel in pulseportraiture_tpu_torch/csrc
   kernels     each hand kernel against its plain PyTorch version on the
               same inputs (error, tolerance, kernel / plain / bound /
-              library times): K1 at the main path's width, K2 at
+              library times): K1's two epilogues (the three sums, and
+              the per-row f, g and H terms) at [1000, 512, 128] (the
+              throughput batch), [48, 512, 128] and [16, 256, 128] (serve),
+              [1, 512, 128] (the mesh's groups of one) and [64, 512, 128]
+              with 40 lanes (pptoas chunks), each beside the launch
+              floor of an empty kernel at the same geometry; K2 at
               [256, 1025] (a 256-subint archive's guess), [1000, 1025] and
               [131072, 1025] with Ns 100 and [1000, 1025] with Ns 2048,
               grid-argmin mismatches, its time split
@@ -25,7 +30,8 @@ Phases, one JSON line each on stdout; any failure exits non-zero:
               archive (written by the port's make_fake_pulsar from
               examples/; subint 3 has one live channel, so both fit-flag
               groups run): 128 TOAs, injected phase and dDM recovered
-              within 5 sigma, K1 and K2 launched; a 16-subint subset
+              within 5 sigma, K1 (both epilogues) and K2 launched; a
+              16-subint subset
               re-run with the plain versions swapped in agrees within 1 ns
   pptoas_scat the same archive with --fit_scat (the model scatters with
               TAU = 20 us at 1500 MHz, alpha -4): 128 TOAs, phase, dDM
@@ -109,8 +115,10 @@ Phases, one JSON line each on stdout; any failure exits non-zero:
   throughput  fit_portrait_full_batch(init_params=None) at 1000 x 512 x
               2048 (data made on the card by the port's make_fake_dataset
               at phases and dDMs from a seeded torch.Generator; the
-              phases seeded through K2): TOAs/s, K1 launches, K1 ms
-              per launch (torch.profiler, a separate run), peak device
+              phases seeded through K2): TOAs/s, K1 launches (the
+              solver's evaluations through epilogue B, the finish's sums
+              through A), K1 ms per launch, device events and device-busy
+              ms per fit (torch.profiler, a separate run), peak device
               memory
   noise_fit   get_noise_fit (B10) on the first 256 subints of the
               throughput data (131,072 channels, three zeroed in every
@@ -209,13 +217,16 @@ Phases, one JSON line each on stdout; any failure exits non-zero:
   failed_datafiles  no archive of any GetTOAs run failed on a device error
 
 Then a ``kernels`` line (every hand kernel with its launches on its
-paths — K1 and K2 on pptoas, K3 on pptoas_scat, each plus the narrowband,
+paths — K1 (``moments``, ``moments_grad_hess``) and K2 on pptoas, K3
+(``moments_scat``, ``moments_scat_grad_hess``) on pptoas_scat, each plus
+the narrowband,
 narrowband_scat, templates, ppzap, obs, survey, serve and mesh runs, K1
 and K2 also on viz, ppalign, ppspline, ppgauss and the walkthrough, with
 ``launches_by_path`` —
 errors and times; K2 with
-its [1000, 1025] numbers and K3 with its [1000, 512, 128] ones, each with a
-``shapes`` list of all its cases), the card's name and power limit, and
+its [1000, 1025] numbers and K1 and K3 with their [1000, 512, 128] ones,
+each with a ``shapes`` list of all its cases), the card's name and power
+limit, and
 last ``{"ok": true, "device": {...}}``.  Exits non-zero without a result
 when no CUDA device is available or the package is missing.
 
@@ -263,6 +274,24 @@ K3_GH_OPS = 306
 # the sums agree to 1e-12; f, g and H divide by C and S and cancel)
 K3_GH_TOL = 1e-10
 K3_NAMES = ("moments_scat", "moments_scat_grad_hess")
+# K1's FP64 operations per harmonic: the SASS of its harmonic loop
+# (k3_compare.py --k1: csrc/moments.cu, a sincospi at every harmonic;
+# a body of four harmonics, one 16-byte load each) shows 21 DFMA, 9 DMUL
+# and 3 DADD per harmonic (with 1 DSETP and 3 FRND, 108 instructions in
+# all), an FMA counted as 2 FLOP against the FP64 peak; the bound before
+# counted ~18 operations (sincospi as 2)
+K1_FLOPS = 2 * 21 + 9 + 3
+# K1 epilogue B's operations per row: dC[3], f, g[3] and the six Hessian
+# entries of _kernels.moments_grad_hess_plain, a division as one
+K1_GH_OPS = 56
+# epilogue B against its plain version, each of its 10 columns within
+# this of the column's largest magnitude (as K3's: the sums agree to
+# 1e-12; f, g and H divide by C and S and cancel)
+K1_GH_TOL = 1e-10
+K1_NAMES = ("moments", "moments_grad_hess")
+# the kernels every scattering-free path launches: K1's two epilogues
+# (the finish's sums, the solver's evaluations) and K2 (the guess)
+PHASE_DM_KERNELS = K1_NAMES + ("fftfit",)
 
 
 def emit(phase, **kw):
@@ -329,13 +358,21 @@ def bound_ms(nbytes, *work):
                                  "operations")
 
 
-def moments_bound_ms(n, nchan, K):
+def moments_bound_ms(n, nchan, K, grad_hess=False):
     """K1's least time for ``n`` evaluated rows of [nchan, K]: their
     cross read once, shifts and inv_err2 per row, three sums out
-    (float64); ~18 FP64 operations per harmonic (sincospi as 2)."""
+    (float64); K1_FLOPS per harmonic.  With ``grad_hess`` (epilogue B)
+    also pd (3) and S per row in, 10 columns out instead of three, and
+    K1_GH_OPS per row."""
     rows = n * nchan
-    return bound_ms(rows * K * 16 + rows * 8 * 2 + rows * 3 * 8,
-                    (rows * K * 18, PEAK_FP64_PER_S))
+    nbytes = rows * K * 16 + rows * 8 * 2
+    ops = rows * K * K1_FLOPS
+    if grad_hess:
+        nbytes += rows * 8 * 4 + rows * 10 * 8
+        ops += rows * K1_GH_OPS
+    else:
+        nbytes += rows * 3 * 8
+    return bound_ms(nbytes, (ops, PEAK_FP64_PER_S))
 
 
 def moments_scat_bound_ms(n, nchan, K, shared, grad_hess=False):
@@ -372,44 +409,17 @@ def rel_err(a, b):
     return float((a - b).abs().max() / b.abs().max().clamp_min(1e-300))
 
 
-def phase_kernels(dev, kern, K=128):
-    """K1 at [100, 512, K] and K2 at each of K2_CASES against their plain
-    versions, with times and bounds (``kern`` is the _kernels module)."""
+def phase_kernels(dev, kern):
+    """K1 at each of K1_CASES, K2 at each of K2_CASES and K3 at each of
+    K3_CASES against their plain versions, with times and bounds
+    (``kern`` is the _kernels module)."""
     import torch
 
     gen = torch.Generator(device=dev).manual_seed(7)
     rows = {}
-
-    # K1: moments
-    n, nchan = 100, 512
-    cross = torch.complex(torch.randn((n, nchan, K), generator=gen,
-                                      device=dev, dtype=torch.float64),
-                          torch.randn((n, nchan, K), generator=gen,
-                                      device=dev, dtype=torch.float64))
-    shifts = (torch.rand((n, nchan), generator=gen, device=dev,
-                         dtype=torch.float64) - 0.5) * 4000.0
-    inv_err2 = torch.rand((n, nchan), generator=gen, device=dev,
-                          dtype=torch.float64) + 0.5
-    got = kern.moments(cross, shifts, inv_err2)
-    want = kern.moments_plain(cross, shifts, inv_err2)
-    torch.cuda.synchronize()
-    err = max(rel_err(got[..., i], want[..., i]) for i in range(3))
-    tol = 1e-12
-    bms, by = moments_bound_ms(n, nchan, K)
-    rows["moments"] = dict(
-        shape=[n, nchan, K], max_rel_err=err, tol=tol,
-        max_abs_err=float((got - want).abs().max()),
-        ms=graph_ms(lambda: kern.moments(cross, shifts, inv_err2)),
-        call_ms=cuda_ms(lambda: kern.moments(cross, shifts, inv_err2)),
-        plain_ms=cuda_ms(lambda: kern.moments_plain(cross, shifts, inv_err2),
-                         reps=5),
-        bound_ms=bms, bound_by=by, library_ms=None)
-    emit("kernels", kernel="moments", **rows["moments"])
-    if not err <= tol:
-        raise AssertionError("moments kernel disagrees: %g > %g"
-                             % (err, tol))
-    del cross, shifts, inv_err2, got, want
-
+    k1 = [phase_k1(dev, kern, gen, *case) for case in K1_CASES]
+    for j, name in enumerate(K1_NAMES):
+        rows[name] = [pair[j] for pair in k1]
     rows["fftfit"] = [phase_k2(dev, kern, gen, N, Ns, lo, hi,
                                time_plain=N <= 1000)
                       for N, Ns, lo, hi in K2_CASES]
@@ -417,6 +427,79 @@ def phase_kernels(dev, kern, K=128):
     for j, name in enumerate(K3_NAMES):
         rows[name] = [pair[j] for pair in k3]
     return rows
+
+
+# K1 cases: (subints, channels, harmonics, rows evaluated: a lane subset of
+# that many subints, or all when None)
+K1_CASES = [
+    (1000, 512, 128, None),   # throughput: the batch
+    (48, 512, 128, None),     # serve: a coalesced dispatch
+    (16, 256, 128, None),     # serve: a 256 x 1024 request
+    (1, 512, 128, None),      # mesh: a group of one subint
+    (64, 512, 128, 40),       # pptoas chunks: the solver's active lanes
+]
+K1_MAIN = 0
+
+
+def phase_k1(dev, kern, gen, n, nchan, K, nlanes):
+    """K1's two epilogues against their plain versions: each sum's (each
+    of epilogue B's 10 columns') error relative to its largest magnitude
+    over the rows; device times, the launch floor (an empty kernel at the
+    same geometry), bound.  Returns the two rows."""
+    import torch
+
+    def rand(*shape):
+        return torch.rand(shape, generator=gen, device=dev,
+                          dtype=torch.float64)
+
+    cross = torch.complex(torch.randn((n, nchan, K), generator=gen,
+                                      device=dev, dtype=torch.float64),
+                          torch.randn((n, nchan, K), generator=gen,
+                                      device=dev, dtype=torch.float64))
+    inv_err2 = rand(n, nchan) + 0.5
+    S = (rand(n, nchan) + 0.1) * inv_err2
+    m = n if nlanes is None else nlanes
+    lanes = None if nlanes is None else torch.sort(torch.randperm(
+        n, generator=gen, device=dev)[:nlanes]).values
+    shifts = (rand(m, nchan) - 0.5) * 4000.0
+    # epilogue B's d shift / d(phi, DM, GM) at the north star's scale
+    pd = torch.stack([torch.ones((m, nchan), dtype=torch.float64,
+                                 device=dev), (rand(m, nchan) - 0.5) * 0.4,
+                      (rand(m, nchan) - 0.5) * 2e-3], dim=1).contiguous()
+    floor_ms = graph_ms(lambda: kern.moments_launch_floor(m, nchan, dev))
+    out = []
+    for name in K1_NAMES:
+        args = (cross, shifts, inv_err2, lanes) if name == "moments" else \
+            (cross, shifts, pd, S, inv_err2, lanes)
+        fn, plain = getattr(kern, name), getattr(kern, name + "_plain")
+        got, want = fn(*args), plain(*args)
+        torch.cuda.synchronize()
+        if name == "moments":
+            cols, tol = ("C", "T1", "T2"), 1e-12
+            errs = {c: rel_err(got[..., j], want[..., j])
+                    for j, c in enumerate(cols)}
+        else:
+            cols, tol = kern.MOMENTS_GRAD_HESS_COLUMNS, K1_GH_TOL
+            errs = {c: rel_err(got[:, j], want[:, j])
+                    for j, c in enumerate(cols)}
+        err = max(errs.values())
+        bms, by = moments_bound_ms(m, nchan, K,
+                                   grad_hess=name != "moments")
+        row = dict(shape=[n, nchan, K], lanes=nlanes, max_rel_err=err,
+                   rel_err_by_column=errs, tol=tol,
+                   max_abs_err=float((got - want).abs().max()),
+                   ms=graph_ms(lambda: fn(*args)),
+                   floor_ms=floor_ms,
+                   call_ms=cuda_ms(lambda: fn(*args)),
+                   plain_ms=cuda_ms(lambda: plain(*args), reps=3, warm=1),
+                   bound_ms=bms, bound_by=by, library_ms=None)
+        row["share_of_bound"] = bms / row["ms"]
+        emit("kernels", kernel=name, **row)
+        if not err <= tol:
+            raise AssertionError("%s kernel disagrees at %s: %s"
+                                 % (name, [n, nchan, K], errs))
+        out.append(row)
+    return out
 
 
 # K3 cases: (subints, channels, harmonics, one |m|^2 shared by the batch,
@@ -752,7 +835,7 @@ def phase_pptoas(root, work, K, shape=PPTOAS_SHAPE, subset=16,
     if not (zDM.max() < 5 and zphi.max() < 5):
         raise AssertionError("injection not recovered: max |z| DM %.2f, "
                              "phase %.2f" % (zDM.max(), zphi.max()))
-    missing = [name for name in ("moments", "fftfit") if launches[name] == 0]
+    missing = [name for name in PHASE_DM_KERNELS if launches[name] == 0]
     if missing:
         raise AssertionError("kernels never launched on the pptoas path: %s"
                              % missing)
@@ -849,7 +932,7 @@ def phase_pptoas_scat(root, work, K, big, small, shape=PPTOAS_SHAPE,
     dt4_dt = max_dt_ns(kern, plain)
     if not dt4_dt < 1.0:
         raise AssertionError("--fit_dt4 plain vs kernel: %.3g ns" % dt4_dt)
-    missing = [n for n in ("moments", "fftfit") if dt4_launches[n] == 0]
+    missing = [n for n in PHASE_DM_KERNELS if dt4_launches[n] == 0]
     if missing:
         raise AssertionError("kernels never launched on the --fit_dt4 path:"
                              " %s" % missing)
@@ -1156,7 +1239,7 @@ def phase_templates(root, work, K, small, shape=PPTOAS_SHAPE,
         zDM = np.abs([(float(t["flags"]["pp_dm"]) - DM)
                       / float(t["flags"]["pp_dme"]) for t in kern
                       if "pp_dm" in t["flags"]])
-        missing = [n for n in ("moments", "fftfit") if launches[n] == 0]
+        missing = [n for n in PHASE_DM_KERNELS if launches[n] == 0]
         if len(kern) != subset or missing or not (
                 dt_ns < 1.0 and zphi.max() < 5 and zDM.max() < 5):
             raise AssertionError(
@@ -1221,7 +1304,7 @@ def phase_ppzap(root, work, K, small, shape=PPTOAS_SHAPE, subset=16):
     after = read_archive(small[:-len("fits")] + "zap").weights
     zeroed = {(int(c), int(i)) for i, c in zip(*np.nonzero(
         (before > 0) & (after == 0)))}
-    missing = [n for n in ("moments", "fftfit") if launches[n] == 0]
+    missing = [n for n in PHASE_DM_KERNELS if launches[n] == 0]
     if text[0] != text[1] or zeroed != listed or missing or not listed:
         raise AssertionError("ppzap -m: kernel and plain lists %s, %d "
                              "listed, %d zeroed, launches %s" % (
@@ -1340,7 +1423,7 @@ def phase_viz(root, work, K, small, shape=PPTOAS_SHAPE, subset=16):
 
     gm = os.path.join(root, "examples", "example.gmodel")
     t_phase = t0 = time.perf_counter()
-    with first_kernel_inputs(K, names=("moments",)) as k1, \
+    with first_kernel_inputs(K, names=K1_NAMES) as k1, \
             first_kernel_inputs(K, names=("fftfit",), per_shape=True) as k2:
         K.reset_launches()
         run = viz_path(small, gm, "cuda")
@@ -1352,7 +1435,8 @@ def phase_viz(root, work, K, small, shape=PPTOAS_SHAPE, subset=16):
     # relative to that sum reads float64 rounding as error (1e-3 of it,
     # 1.1e-12 absolute, on the H100); K2 at every shape
     seen = dict(k2)
-    seen["moments", tuple(k1["moments"][0][0].shape)] = k1["moments"]
+    for name in K1_NAMES:
+        seen[name, tuple(k1[name][0][0].shape)] = k1[name]
     path_rows = path_kernels_vs_plain(K, seen)
     times = path_kernel_times(K, seen)
     del seen
@@ -1396,7 +1480,7 @@ def phase_viz(root, work, K, small, shape=PPTOAS_SHAPE, subset=16):
         path_kernels_vs_plain=path_rows, path_kernel_times=times,
         phase_s=time.perf_counter() - t_phase)
     emit("viz", **res)
-    missing = [n for n in ("moments", "fftfit") if launches[n] == 0]
+    missing = [n for n in PHASE_DM_KERNELS if launches[n] == 0]
     ok = (not missing and np.isfinite(run["rchi2"]).all()
           and run["n_fitted"] == run["nchan_stacked"] > 0
           and len(run["rchi2"]) == run["n_live"] > 0
@@ -1421,7 +1505,7 @@ ALIGN_ARCHIVES = 8          # epochs aligned; 16 subints each: 128 rows
 
 
 @contextlib.contextmanager
-def first_kernel_inputs(K, names=("moments", "fftfit"), per_shape=False):
+def first_kernel_inputs(K, names=PHASE_DM_KERNELS, per_shape=False):
     """Copies of the tensor arguments of the first call of each kernel in
     ``names`` in the block (the shapes the path gives them): key -> (args,
     kwargs).  The key is the kernel's name, or with ``per_shape`` the pair
@@ -1453,13 +1537,13 @@ def first_kernel_inputs(K, names=("moments", "fftfit"), per_shape=False):
             setattr(K, name, saved[name])
 
 
-def path_kernels_vs_plain(K, seen, required=("moments", "fftfit")):
+def path_kernels_vs_plain(K, seen, required=PHASE_DM_KERNELS):
     """Each kernel on the inputs a path gave it (``first_kernel_inputs``),
     against its plain version (not counted): {key: dict(shape,
     max_rel_err, max_abs_err)}, the key the kernel's name or
     "name@shape".  Raises when a ``required`` kernel was never called, or
     beyond 1e-12 of each sum's largest magnitude (K2's phase: 1e-9
-    rot; K3's f, g and H terms: K3_GH_TOL)."""
+    rot; K1's and K3's f, g and H terms: K1_GH_TOL, K3_GH_TOL)."""
     import torch
 
     plains = {name: getattr(K, name + "_plain") for name in K.KERNELS}
@@ -1482,10 +1566,12 @@ def path_kernels_vs_plain(K, seen, required=("moments", "fftfit")):
             abs_err = max(ph, float((got[1] - want[1]).abs().max()))
             ok = ph <= 1e-9 and err <= 1e-12
             shape.append(a[4])                      # [N, nharm] and Ns
-        elif name == "moments_scat_grad_hess":
+        elif name in ("moments_grad_hess", "moments_scat_grad_hess"):
             err = max(rel_err(got[:, i], want[:, i])
                       for i in range(got.shape[1]))
-            abs_err, ok = float((got - want).abs().max()), err <= K3_GH_TOL
+            abs_err = float((got - want).abs().max())
+            ok = err <= (K1_GH_TOL if name == "moments_grad_hess"
+                         else K3_GH_TOL)
         else:
             err = max(rel_err(got[..., i], want[..., i])
                       for i in range(got.shape[-1]))
@@ -1602,7 +1688,7 @@ def phase_ppalign(root, work, K, dev, shape=(16, 512, 2048), niter=2,
             "-M", meta, "-I", tmpl, "-o", avg, "--niter", str(niter),
             "--device", str(dev)])
     peak = torch.cuda.max_memory_allocated()
-    missing = [n for n in ("moments", "fftfit") if launches[n] == 0]
+    missing = [n for n in PHASE_DM_KERNELS if launches[n] == 0]
     if missing:
         raise AssertionError("kernels never launched on the ppalign path: "
                              "%s" % missing)
@@ -1745,7 +1831,7 @@ def time_with_template(K, dev, work, small, model, tag, subset=16,
             work, tag + "_p.tim")])
     dt_ns = max_dt_ns(kern, plain)
     zphi, zDM = recovery(kern, DM, P, frame)
-    missing = [n for n in ("moments", "fftfit") if launches[n] == 0]
+    missing = [n for n in PHASE_DM_KERNELS if launches[n] == 0]
     if len(kern) != subset or missing or not dt_ns < 1.0 or (
             gate and not (zphi < 5 and zDM < 5)):
         raise AssertionError("pptoas with the %s template: %d TOAs, "
@@ -1899,7 +1985,7 @@ def phase_ppgauss(root, work, K, dev, avg, small):
          plain_vs_kernel_params_over_errs=gap,
          template_frame=dict(zip(("phase", "DM", "nu"), frame)),
          pptoas=toas)
-    if launches["moments"] == 0 or launches["fftfit"] == 0:
+    if any(launches[n] == 0 for n in PHASE_DM_KERNELS):
         raise AssertionError("ppgauss launched %s" % launches)
     if not (np.isfinite(params).all() and fits[-1].return_code in (1, 2)):
         raise AssertionError("ppgauss: params %s, rc %d"
@@ -2094,7 +2180,7 @@ def phase_walkthrough(root, work, K, dev, shape=(10, 512, 2048)):
     if not dt_ns < 1.0:
         raise AssertionError("walkthrough: plain vs kernel TOAs differ by "
                              "%.3g ns" % dt_ns)
-    if launches["moments"] == 0 or launches["fftfit"] == 0:
+    if any(launches[n] == 0 for n in PHASE_DM_KERNELS):
         raise AssertionError("walkthrough launched %s" % launches)
     if not np.isfinite([gls["postfit_wrms_us"], gls["red_chi2"]]).all():
         raise AssertionError("walkthrough: GLS %s" % gls)
@@ -2327,13 +2413,19 @@ def phase_throughput(dev, K):
     zDM = ((out.DM - dDMs) / out.DM_err).abs()
     finite = bool(torch.isfinite(out.phi).all()
                   and torch.isfinite(out.phi_err).all())
-    k1, k2 = per_kernel.get("moments"), per_kernel.get("fftfit")
+    k1, k1_gh, k2 = (per_kernel.get(name) for name in PHASE_DM_KERNELS)
     res = dict(shape=[nsub, nchan, nbin], kmax=kmax, first_s=t_first,
                steady_s=t_steady, toas_per_s=nsub / t_steady,
                launches=launches,
                k1_ms_per_launch=k1[1] / k1[0] if k1 else None,
                k1_ms_total=k1[1] if k1 else None,
+               k1_grad_hess_ms_per_launch=k1_gh[1] / k1_gh[0] if k1_gh
+               else None,
+               k1_grad_hess_ms_total=k1_gh[1] if k1_gh else None,
                k2_ms=k2[1] / k2[0] if k2 else None,
+               device_busy_ms=device["device_busy_s"] * 1e3,
+               device_events=device["device_events"],
+               torch_device_events=device["torch_device_events"],
                peak_device_bytes=int(peak),
                rc_counts={int(c): int((out.return_code == c).sum())
                           for c in out.return_code.unique()},
@@ -2345,7 +2437,7 @@ def phase_throughput(dev, K):
     if not (finite and res["frac_phase_within_5sigma"] > 0.99
             and res["frac_DM_within_5sigma"] > 0.99):
         raise AssertionError("north-star fit did not recover the injection")
-    if launches["moments"] == 0 or launches["fftfit"] == 0:
+    if any(launches[n] == 0 for n in PHASE_DM_KERNELS):
         raise AssertionError("throughput fit launched %s" % launches)
     del out, errs
     phase_noise_fit(data[:256])
@@ -3299,7 +3391,7 @@ def phase_survey(root, work, K, device="cuda"):
                           **survey_split(wd(name)))
         runs[name]["toas_per_s"] = len(files) * nsub / wall
     main_launches = runs["prefetch2"]["launches"]
-    missing = [n for n in ("moments", "fftfit") if main_launches[n] == 0]
+    missing = [n for n in PHASE_DM_KERNELS if main_launches[n] == 0]
     if missing:
         raise AssertionError("kernels never launched on the survey: %s"
                              % missing)
@@ -3536,9 +3628,10 @@ def path_kernel_times(K, seen):
             Ns, newton = a[4], a[5]
             shape.append(Ns)
             bms, by = fftfit_bound_ms(*shape[:2], Ns, newton)
-        elif name == "moments":
+        elif name in K1_NAMES:
             # the evaluated rows: all, or the lanes given
-            bms, by = moments_bound_ms(a[1].shape[0], *shape[1:])
+            bms, by = moments_bound_ms(a[1].shape[0], *shape[1:],
+                                       grad_hess=name != "moments")
         else:
             bms, by = moments_scat_bound_ms(
                 a[2].shape[0], *shape[1:], shared=a[1].shape[0] == 1,
@@ -4365,15 +4458,16 @@ def main(argv):
         shutil.rmtree(work, ignore_errors=True)
     phase_throughput(dev, K)
     phase_throughput_scat(dev, K)
-    # K1's and K2's main path is pptoas, K3's (both epilogues) pptoas_scat
-    # (their own fit-flag groups), each with the later paths; K1 and K2
-    # also with the template builders and the walkthrough
-    own = dict(moments="pptoas", fftfit="pptoas",
-               moments_scat="pptoas_scat",
+    # K1's (both epilogues) and K2's main path is pptoas, K3's (both
+    # epilogues) pptoas_scat (their own fit-flag groups), each with the
+    # later paths; K1 and K2 also with the template builders and the
+    # walkthrough
+    own = dict(moments="pptoas", moments_grad_hess="pptoas",
+               fftfit="pptoas", moments_scat="pptoas_scat",
                moments_scat_grad_hess="pptoas_scat")
     paths = {name: [own[name], "narrowband", "narrowband_scat",
                     "templates", "ppzap"] for name in own}
-    for name in ("moments", "fftfit"):
+    for name in PHASE_DM_KERNELS:
         paths[name] += ["viz", "ppalign", "ppspline", "ppgauss",
                         "walkthrough"]
     for name in own:
@@ -4396,6 +4490,12 @@ def main(argv):
                     "shape", "Ns", "ms", "call_ms", "first_call_ms", "stage_ms",
                     "bound_ms", "share_of_bound", "library_ms", "plain_ms",
                     "argmin_mismatches", "max_abs_err")} for c in r])
+        elif name in K1_NAMES:
+            r, extra = r[K1_MAIN], dict(shapes=[
+                {key: c[key] for key in (
+                    "shape", "lanes", "ms", "floor_ms",
+                    "call_ms", "bound_ms", "share_of_bound", "plain_ms",
+                    "max_rel_err", "max_abs_err")} for c in r])
         elif name in K3_NAMES:
             r, extra = r[K3_MAIN], dict(shapes=[
                 {key: c[key] for key in (

@@ -1,8 +1,8 @@
-"""Compare kernel K3 and the scattering fit across source trees on one GPU.
+"""Compare kernels K3 or K1 and their fits across source trees on one GPU.
 
 For each tree given (a checkout of this repository, e.g. the parent
 commit unpacked with ``git archive`` into a git-ignored directory), in the
-order given, in a subprocess of its own:
+order given, in a subprocess of its own.  By default (K3):
 
 * builds the tree's kernels and counts the FP64 instructions of K3's
   harmonic loop in the built library's SASS (``cuobjdump -sass``): for
@@ -18,10 +18,29 @@ order given, in a subprocess of its own:
   torch.profiler (device events, device-busy ms, the K3 rows) and the
   peak device memory.
 
+With ``--k1`` first (K1):
+
+* the SASS of K1's harmonic loop (``moments*`` kernels of
+  libmoments-*.so): the same FP64 counts, the harmonics being the body's
+  16-byte loads (LDG.E.128: one cross value each);
+* K1's three sums (``_kernels.moments``), and epilogue B
+  (``moments_grad_hess``) where the tree has it, at chip_smoke.py's
+  K1_CASES and [15, 512, 128]: device ms by CUDA-graph replay, with
+  the empty kernel's launch floor where the tree has it; nvcc's
+  register report (a fresh build);
+* one solver evaluation without scattering (``_Spectra.grad_hess``,
+  flags (1,1,0,0,0)) at [1000, 512, 128] and [16, 512, 128]: device
+  events and device-busy ms under torch.profiler, wall ms by CUDA events;
+* chip_smoke.py's throughput fit (1000 x 512 x 2048, flags (1,1,0,0,0),
+  phases seeded in the fit): five steady walls, one run under
+  torch.profiler (device events, device-busy ms, the K1 rows), nfeval,
+  return codes and the peak device memory.
+
 Each tree prints one JSON line; run the trees alternately (parent,
 change, change, parent) to compare them within one call:
 
     python3 k3_compare.py PARENT_DIR . . PARENT_DIR
+    python3 k3_compare.py --k1 PARENT_DIR . . PARENT_DIR
 
 Needs a CUDA device and the CUDA toolkit (nvcc, cuobjdump).
 """
@@ -32,19 +51,31 @@ import os
 import re
 import subprocess
 import sys
+import tempfile
 import time
 
 FP64_OPS = ("DFMA", "DMUL", "DADD", "DSETP", "FRND")
 KERNEL_NAME = r"moments_scat(?:_grad_hess)?_kernel"
+K1_KERNEL_NAME = r"moments(?:_grad_hess)?_kernel"
 
 
-def sass_loops(sass):
-    """{kernel: [per-loop {op: count, "harmonics": n}]} for the
-    moments_scat* kernels of a cuobjdump -sass listing."""
+def _is_k3_harmonic(op):
+    return op == "MUFU.RCP64H"
+
+
+def _is_k1_harmonic(op):
+    return op.startswith("LDG") and ".128" in op
+
+
+def sass_loops(sass, kernel_name=KERNEL_NAME, harmonic=_is_k3_harmonic):
+    """{kernel: [per-loop {op: count, "harmonics": n}]} for the kernels
+    matching ``kernel_name`` (K3's by default) of a cuobjdump -sass
+    listing; ``harmonic`` tells the instruction there is one of per
+    harmonic."""
     out = {}
     for func in re.split(r"\n\s*Function : ", sass)[1:]:
         name = func.split("\n", 1)[0]
-        kernel = re.findall(KERNEL_NAME, name)
+        kernel = re.findall(kernel_name, name)
         if not kernel:
             continue
         code = []
@@ -62,8 +93,7 @@ def sass_loops(sass):
                 body = [o for a, o, _ in code if lo <= a <= addr]
                 counts = {k: sum(1 for o in body if o.split(".")[0] == k)
                           for k in FP64_OPS}
-                counts["harmonics"] = sum(1 for o in body
-                                          if o == "MUFU.RCP64H")
+                counts["harmonics"] = sum(1 for o in body if harmonic(o))
                 counts["instructions"] = len(body)
                 if counts["harmonics"]:
                     loops.append(counts)
@@ -180,17 +210,173 @@ def one_tree(root):
     print(json.dumps(res), flush=True)
 
 
+def device_profile(fn):
+    """(device events, device-busy ms) of one call of fn() under
+    torch.profiler, the solver's pp_* ranges left out."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    events, busy_us, rows = 0, 0.0, {}
+    for e in prof.key_averages():
+        if not str(e.device_type).endswith("CUDA") \
+                or e.key.startswith("pp_"):
+            continue
+        us = getattr(e, "self_device_time_total", None)
+        us = e.self_cuda_time_total if us is None else us
+        events += e.count
+        busy_us += us
+        hit = re.findall(K1_KERNEL_NAME, e.key)
+        if hit:
+            rows[hit[-1]] = [e.count, us / 1e3]
+    return events, busy_us / 1e3, rows
+
+
+def one_tree_k1(root):
+    root = os.path.abspath(root)
+    sys.path.insert(0, root)
+    os.chdir(root)
+    import torch
+
+    import chip_smoke as cs
+    from pulseportraiture_tpu_torch import _kernels as K
+    from pulseportraiture_tpu_torch.fit import portrait as fp
+
+    K.set_build_dir(tempfile.mkdtemp(prefix="k1_build_"))  # nvcc's report
+    K.build()
+    cuobjdump = os.path.join(os.path.dirname(K._nvcc()), "cuobjdump")
+    lib = [f for f in os.listdir(K.BUILD_DIR)
+           if f.startswith("libmoments-") and f.endswith(".so")][0]
+    sass = subprocess.run(
+        [cuobjdump, "-sass", os.path.join(K.BUILD_DIR, lib)],
+        capture_output=True, text=True, check=True).stdout
+    res = dict(tree=root, gpu=cs.gpu_line(),
+               sass_loops=sass_loops(sass, K1_KERNEL_NAME, _is_k1_harmonic),
+               ptxas=[ln for ln in K.BUILD_LOG.get("moments", "").splitlines()
+                      if "Used" in ln or "spill" in ln])
+    gh = hasattr(K, "moments_grad_hess")
+    floor = hasattr(K, "moments_launch_floor")
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(7)
+
+    def rand(*shape):
+        return torch.rand(shape, generator=gen, device=dev,
+                          dtype=torch.float64)
+
+    times = {}
+    for n, nchan, nh, nlanes in [(1000, 512, 128, None), (48, 512, 128, None),
+                                 (16, 256, 128, None), (1, 512, 128, None),
+                                 (64, 512, 128, 40), (15, 512, 128, None)]:
+        cross = torch.complex(rand(n, nchan, nh) - 0.5,
+                              rand(n, nchan, nh) - 0.5)
+        inv_err2 = rand(n, nchan) + 0.5
+        lanes = None if nlanes is None else torch.sort(torch.randperm(
+            n, generator=gen, device=dev)[:nlanes]).values
+        m = n if lanes is None else nlanes
+        shifts = (rand(m, nchan) - 0.5) * 4000.0
+        row = {}
+        calls = {"moments": (K.moments, (cross, shifts, inv_err2, lanes))}
+        if gh:
+            pd = torch.stack([torch.ones((m, nchan), dtype=torch.float64,
+                                         device=dev),
+                              (rand(m, nchan) - 0.5) * 0.4,
+                              (rand(m, nchan) - 0.5) * 2e-3], 1).contiguous()
+            S = (rand(n, nchan) + 0.1) * inv_err2
+            calls["moments_grad_hess"] = (
+                K.moments_grad_hess, (cross, shifts, pd, S, inv_err2, lanes))
+        for name, (fn, args) in calls.items():
+            row[name] = cs.graph_ms(lambda: fn(*args))
+        if floor:
+            row["floor"] = cs.graph_ms(
+                lambda: K.moments_launch_floor(m, nchan, dev))
+        times["%dx%dx%d%s" % (n, nchan, nh, "" if nlanes is None else
+                              "-lanes%d" % nlanes)] = row
+        del cross, calls
+    res["times_ms"] = times
+    torch.cuda.empty_cache()
+
+    evals = {}
+    for n in (1000, 16):
+        nchan, nh = 512, 128
+        cross = torch.complex(rand(n, nchan, nh) - 0.5,
+                              rand(n, nchan, nh) - 0.5)
+        inv_err2 = rand(n, nchan) + 0.5
+        S = (rand(n, nchan) + 0.1) * inv_err2
+        freqs = torch.linspace(1300.0, 1700.0, nchan, dtype=torch.float64,
+                               device=dev).expand(n, nchan).contiguous()
+        P = torch.full((n, 1), cs.P0, dtype=torch.float64, device=dev)
+        sp = fp._Spectra(cross, None, S, inv_err2, freqs, P)
+        params = torch.zeros((n, 5), dtype=torch.float64, device=dev)
+        params[:, 0], params[:, 1] = rand(n) - 0.5, (rand(n) - 0.5) * 4e-3
+        nus = tuple(torch.full((n, 1), 1500.0, dtype=torch.float64,
+                               device=dev) for _ in range(3))
+
+        def one():
+            return sp.grad_hess(params, nus, (1, 1, 0, 0, 0))
+
+        events, busy, rows = device_profile(one)
+        evals["%dx%dx%d" % (n, nchan, nh)] = dict(
+            device_events=events, device_busy_ms=busy, k1_rows=rows,
+            wall_ms=cs.cuda_ms(one))
+        del sp, cross
+    res["evaluation"] = evals
+    torch.cuda.empty_cache()
+
+    nsub, nchan, nbin = 1000, 512, 2048
+    data, freqs, nu0, phis, dDMs, model = cs.north_star_data(
+        dev, 0, nsub, nchan, nbin)[:6]
+    kmax = fp.model_kmax(model)
+    errs = torch.full((nsub, nchan), cs.NOISE, dtype=torch.float64,
+                      device=dev)
+
+    def run():
+        return fp.fit_portrait_full_batch(
+            data, model, None, cs.P0, freqs, errs=errs,
+            fit_flags=(1, 1, 0, 0, 0), log10_tau=False, max_iter=30,
+            kmax=kmax, device=dev)
+
+    run()
+    torch.cuda.synchronize()
+    walls = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        out = run()
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    run()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    events, busy, rows = device_profile(run)
+    res.update(fit_walls_s=walls, device_events=events, device_busy_ms=busy,
+               k1_rows=rows, peak_device_bytes=int(peak),
+               peak_above_prior_bytes=int(peak - base),
+               nfev_median=float(out.nfeval.double().median()),
+               nfev_max=int(out.nfeval.max()),
+               return_codes=sorted(int(c)
+                                   for c in out.return_code.unique()))
+    print(json.dumps(res), flush=True)
+
+
 def main(argv):
+    k1 = bool(argv) and argv[0] == "--k1"
+    if k1:
+        argv = argv[1:]
     if len(argv) >= 2 and argv[0] == "--tree":
-        one_tree(argv[1])
+        (one_tree_k1 if k1 else one_tree)(argv[1])
         return 0
     if not argv:
         print(__doc__)
         return 2
     rc = 0
     for root in argv:
-        r = subprocess.run([sys.executable, os.path.abspath(__file__),
-                            "--tree", root], capture_output=True, text=True)
+        r = subprocess.run([sys.executable, os.path.abspath(__file__)]
+                           + (["--k1"] if k1 else []) + ["--tree", root],
+                           capture_output=True, text=True)
         print(r.stdout.strip(), flush=True)
         if r.returncode:
             print(r.stderr[-2000:], file=sys.stderr, flush=True)

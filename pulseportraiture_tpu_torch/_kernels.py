@@ -4,9 +4,14 @@ Three kernels, each a CUDA C++ source under ``csrc/`` compiled for
 Hopper (``sm_90a``) by ``nvcc`` into a shared library with a plain C
 interface and loaded with ``ctypes``:
 
-  K1 ``moments`` (csrc/moments.cu) — per-channel moments of the portrait
-     objective; replaces pulseportraiture_tpu/fit/portrait.py:118
-     ``_moments`` (scattering-free branch).
+  K1 ``moments`` (csrc/moments.cu) — the three per-channel harmonic sums
+     of the scattering-free branch of pulseportraiture_tpu/fit/portrait.py:118
+     ``_moments``; and ``moments_grad_hess``, the same harmonic loop with
+     a second epilogue: the per-channel terms of ``portrait_grad_hess``
+     (:339-373, dS = d2S = 0) in registers, [n, 10, nchan] (f, gradient,
+     the 3x3 Hessian's upper triangle) that one channel sum turns into
+     the (phi, DM, GM) fit's (f, g, H).  One library, two entry points,
+     each with its own launch count and trace name.
   K3 ``moments_scat`` (csrc/moments_scat.cu) — the nine per-channel
      harmonic sums of the scattering branch of the same ``_moments``
      (:191-323); and ``moments_scat_grad_hess``, the same harmonic loop
@@ -28,8 +33,9 @@ interface and loaded with ``ctypes``:
      the table is new); LAUNCHES counts one.
 
 Each wrapper dispatches on its input's device: a CPU tensor takes the
-plain PyTorch version beside it (``moments_plain``/``fftfit_plain``/
-``moments_scat_plain``/``moments_scat_grad_hess_plain``,
+plain PyTorch version beside it (``moments_plain``/
+``moments_grad_hess_plain``/``fftfit_plain``/``moments_scat_plain``/
+``moments_scat_grad_hess_plain``,
 which the CPU tests use and ``chip_smoke.py`` holds the kernels
 against); a CUDA tensor launches the kernel — building it at first use —
 or raises.  Nothing falls back from the card to the plain version.  The
@@ -38,7 +44,8 @@ wrapper checks device, dtype, shape and contiguity, checks the launch's
 
 Build: ``build()`` starts one ``nvcc`` per source (``SOURCES``), all at
 once, writing ``_build/lib<source>-<hash>.so`` (the hash covers the
-source and the flags, so an edited source never reuses a stale library);
+source, the headers it includes from ``csrc/`` and the flags, so an
+edited source or header never reuses a stale library);
 ``set_build_dir`` moves that directory (``ppsurvey --compile-cache``),
 so several processes or restarts share one set of built libraries.
 Each source is published on the obs compile bridge (``obs.monitor``): a
@@ -55,6 +62,7 @@ import ctypes
 import hashlib
 import math
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -67,8 +75,10 @@ from .ops.scattering import LN10, _nonzero_div
 
 __all__ = ["KernelLaunchError", "LAUNCHES", "reset_launches", "build",
            "set_build_dir",
-           "moments",
-           "moments_plain", "moments_scat", "moments_scat_plain",
+           "moments", "moments_plain", "moments_launch_floor",
+           "moments_grad_hess",
+           "moments_grad_hess_plain", "MOMENTS_GRAD_HESS_COLUMNS",
+           "MOMENTS_HESS_UPPER", "moments_scat", "moments_scat_plain",
            "MOMENTS_SCAT_SUMS", "moments_scat_grad_hess",
            "moments_scat_grad_hess_plain", "GRAD_HESS_COLUMNS",
            "HESS_UPPER", "fftfit", "fftfit_plain", "fftfit_table",
@@ -84,6 +94,8 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 KERNELS = {
     "moments": ("moments.cu", "pp_moments",
                 "pulseportraiture_tpu/fit/portrait.py:118"),
+    "moments_grad_hess": ("moments.cu", "pp_moments_gh",
+                          "pulseportraiture_tpu/fit/portrait.py:339"),
     "fftfit": ("fftfit.cu", "pp_fftfit",
                "pulseportraiture_tpu/fit/phase_shift.py:64"),
     "moments_scat": ("moments_scat.cu", "pp_moments_scat",
@@ -99,7 +111,10 @@ _VP, _I64, _INT, _DBL = (ctypes.c_void_p, ctypes.c_int64, ctypes.c_int,
 # kernel name -> {C symbol: argument types}; each returns a cudaError_t
 _SYMBOLS = {
     "moments": {"pp_moments": [_VP, _VP, _VP, _VP, _I64, _INT, _INT, _VP,
-                               _VP]},
+                               _VP],
+                "pp_moments_floor": [_I64, _INT, _VP]},
+    "moments_grad_hess": {"pp_moments_gh": [
+        _VP, _VP, _VP, _VP, _VP, _VP, _I64, _INT, _INT, _VP, _VP]},
     "fftfit": {"pp_fftfit": [_VP, _VP, _VP, _I64, _INT, _DBL, _DBL, _INT,
                              _INT, _INT, _VP, _VP, _VP, _VP, _VP, _VP],
                "pp_fftfit_table": [_VP, _INT, _INT, _DBL, _DBL, _VP]},
@@ -113,7 +128,9 @@ _SYMBOLS = {
 # kernel name -> the CUDA function that runs once per counted launch, as
 # it is named in a profiler trace (K2's grid stage; its Newton stage
 # runs as often)
-TRACE_NAMES = {"moments": "moments_kernel", "fftfit": "fftfit_grid_kernel",
+TRACE_NAMES = {"moments": "moments_kernel",
+               "moments_grad_hess": "moments_grad_hess_kernel",
+               "fftfit": "fftfit_grid_kernel",
                "moments_scat": "moments_scat_kernel",
                "moments_scat_grad_hess": "moments_scat_grad_hess_kernel"}
 
@@ -170,10 +187,29 @@ def _lib_of(name):
     return os.path.splitext(KERNELS[name][0])[0]
 
 
+_INCLUDE = re.compile(rb'^[ \t]*#[ \t]*include[ \t]*"([^"]+)"', re.M)
+
+
+def _source_files(name, seen=None):
+    """``name`` (a file under CSRC_DIR) and, depth first, every file of
+    CSRC_DIR it includes with quotes, each once."""
+    seen = [] if seen is None else seen
+    seen.append(name)
+    with open(os.path.join(CSRC_DIR, name), "rb") as f:
+        text = f.read()
+    for inc in _INCLUDE.findall(text):
+        inc = os.path.normpath(os.path.join(os.path.dirname(name),
+                                            inc.decode()))
+        if inc not in seen and os.path.isfile(os.path.join(CSRC_DIR, inc)):
+            _source_files(inc, seen)
+    return seen
+
+
 def _lib_path(lib):
-    src = os.path.join(CSRC_DIR, lib + ".cu")
-    with open(src, "rb") as f:
-        h = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for name in _source_files(lib + ".cu"):
+        with open(os.path.join(CSRC_DIR, name), "rb") as f:
+            h.update(name.encode() + b"\0" + f.read())
     return os.path.join(BUILD_DIR, "lib%s-%s.so" % (lib, h.hexdigest()[:12]))
 
 
@@ -294,12 +330,8 @@ def moments_plain(cross, shifts, inv_err2, lanes=None):
     return torch.stack([C, T1, T2], dim=-1)
 
 
-def moments(cross, shifts, inv_err2, lanes=None):
-    """K1 wrapper: per-channel moments [n, nchan, 3] f64.
-
-    cross [B, nchan, K] complex128, inv_err2 [B, nchan] f64; shifts
-    [n, nchan] f64 are the phase shifts of the rows to evaluate, which
-    are subints ``lanes`` [n] int64 (all B subints when None)."""
+def _check_moments(cross, shifts, inv_err2, lanes, what):
+    """Check K1's common arguments; returns (B, nchan, K, n)."""
     _check(cross, "cross", torch.complex128, 3)
     _check(shifts, "shifts", torch.float64, 2)
     _check(inv_err2, "inv_err2", torch.float64, 2)
@@ -309,10 +341,22 @@ def moments(cross, shifts, inv_err2, lanes=None):
         _check(lanes, "lanes", torch.int64, 1)
     if tuple(shifts.shape) != (n, nchan) or tuple(inv_err2.shape) != (
             B, nchan):
-        raise ValueError("moments: shapes cross %s, shifts %s, inv_err2 %s"
-                         " disagree" % (tuple(cross.shape),
+        raise ValueError("%s: shapes cross %s, shifts %s, inv_err2 %s"
+                         " disagree" % (what, tuple(cross.shape),
                                         tuple(shifts.shape),
                                         tuple(inv_err2.shape)))
+    return B, nchan, K, n
+
+
+def moments(cross, shifts, inv_err2, lanes=None):
+    """K1 wrapper: per-channel moments [n, nchan, 3] f64 (C, T1, T2; see
+    csrc/moments.cu).
+
+    cross [B, nchan, K] complex128, inv_err2 [B, nchan] f64; shifts
+    [n, nchan] f64 are the phase shifts of the rows to evaluate, which
+    are subints ``lanes`` [n] int64 (all B subints when None)."""
+    B, nchan, K, n = _check_moments(cross, shifts, inv_err2, lanes,
+                                    "moments")
     _same_device(cross, shifts, inv_err2, lanes)
     if cross.device.type == "cpu":
         return moments_plain(cross, shifts, inv_err2, lanes)
@@ -325,6 +369,85 @@ def moments(cross, shifts, inv_err2, lanes=None):
     _launch("moments", cross.device, cross.data_ptr(), shifts.data_ptr(),
             inv_err2.data_ptr(), None if lanes is None else lanes.data_ptr(),
             n, nchan, K, out.data_ptr())
+    return out
+
+
+def moments_launch_floor(n, nchan, device):
+    """Launch, uncounted, an empty kernel with the block and grid K1 takes
+    for n x nchan rows: the launch floor its times are measured against."""
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    _launch("moments", device, int(n), int(nchan),
+            symbol="pp_moments_floor", count=False)
+
+
+# -- K1, epilogue B: per-row objective, gradient and Hessian ---------------
+
+# the (phi, DM, GM) Hessian's entries on and above the diagonal, in the
+# order of moments_grad_hess's columns 4..9
+MOMENTS_HESS_UPPER = tuple((p, r) for p in range(3) for r in range(p, 3))
+MOMENTS_GRAD_HESS_COLUMNS = ("f",) + tuple("g%d" % p for p in range(3)) \
+    + tuple("H%d%d" % pr for pr in MOMENTS_HESS_UPPER)
+
+
+def moments_grad_hess_plain(cross, shifts, pd, S, inv_err2, lanes=None):
+    """Plain PyTorch K1 with epilogue B: [n, 10, nchan]
+    (MOMENTS_GRAD_HESS_COLUMNS) from moments_plain's sums, the reference's
+    portrait_grad_hess per channel with B = 1 (dS = d2S = 0): ok = S > 0,
+    f = -(C^2/S), g_p = -(2 C dC_p / S) with dC_p = T1 pd_p, H_pr = -2
+    (C^2/S) (d2C_pr/C + dC_p dC_r/C^2) with d2C_pr = T2 pd_p pd_r, zero
+    where not ok.  A channel sum gives the unmasked (f, g, H)."""
+    C0, T1, T2 = moments_plain(cross, shifts, inv_err2, lanes).unbind(-1)
+    if lanes is not None:
+        S = S[lanes]
+    ok = S > 0.0
+    S = torch.where(ok, S, torch.ones_like(S))
+    C = torch.where(ok, C0, torch.zeros_like(C0))
+    zero = torch.zeros_like(C)
+    pds = pd.unbind(1)
+    dC = [T1 * p for p in pds]
+    out = [-torch.where(ok, C ** 2 / S, zero)]
+    out += [-torch.where(ok, 2.0 * C * d / S, zero) for d in dC]
+    safe_C = torch.where(C != 0.0, C, torch.ones_like(C))
+    lead = -2.0 * (C ** 2 / S)
+    for p, r in MOMENTS_HESS_UPPER:
+        out.append(torch.where(ok, lead * (
+            T2 * pds[p] * pds[r] / safe_C + dC[p] * dC[r] / safe_C ** 2),
+            zero))
+    return torch.stack(out, dim=1)
+
+
+def moments_grad_hess(cross, shifts, pd, S, inv_err2, lanes=None):
+    """K1 wrapper, epilogue B: per-row objective, gradient and Hessian
+    terms [n, 10, nchan] f64 (MOMENTS_GRAD_HESS_COLUMNS; see
+    csrc/moments.cu), whose channel sum is the (phi, DM, GM) fit's
+    unmasked (f, g, H).
+
+    ``cross``, ``shifts``, ``inv_err2`` and ``lanes`` are moments'; pd [n, 3, nchan] are the rows' phase-shift derivatives wrt
+    (phi, DM, GM) and S [B, nchan] the channels' sum |m|^2 inv_err2."""
+    B, nchan, K, n = _check_moments(cross, shifts, inv_err2, lanes,
+                                    "moments_grad_hess")
+    _check(pd, "pd", torch.float64, 3)
+    _check(S, "S", torch.float64, 2)
+    if tuple(pd.shape) != (n, 3, nchan) or tuple(S.shape) != (B, nchan):
+        raise ValueError("moments_grad_hess: shapes pd %s, S %s for %d rows "
+                         "of %d subints of %d channels"
+                         % (tuple(pd.shape), tuple(S.shape), n, B, nchan))
+    _same_device(cross, shifts, pd, S, inv_err2, lanes)
+    if cross.device.type == "cpu":
+        return moments_grad_hess_plain(cross, shifts, pd, S, inv_err2, lanes)
+    if cross.device.type != "cuda":
+        raise ValueError("moments_grad_hess: unsupported device %s"
+                         % cross.device)
+    out = torch.empty((n, len(MOMENTS_GRAD_HESS_COLUMNS), nchan),
+                      dtype=torch.float64, device=cross.device)
+    if n * nchan == 0:
+        return out
+    _launch("moments_grad_hess", cross.device, cross.data_ptr(),
+            shifts.data_ptr(), inv_err2.data_ptr(),
+            None if lanes is None else lanes.data_ptr(), pd.data_ptr(),
+            S.data_ptr(), n, nchan, K, out.data_ptr())
     return out
 
 

@@ -16,16 +16,18 @@ Design, against the reference's vmapped ``lax.while_loop``:
   model's harmonic support (``model_kmax``), are formed once per fit in
   complex128/float64.
 * Every evaluation of the objective, gradient and Hessian reduces to a
-  few per-channel harmonic sums.  Without scattering (B = 1: no tau/alpha
-  fit and a zero tau) they are (C, T1, T2), from kernel K1
-  (``_kernels.moments``, csrc/moments.cu), and the 5x5 algebra on top
-  is torch.  With scattering, kernel K3 (csrc/moments_scat.cu) runs the
-  (tau, alpha) chain rule and the 5x5 algebra too: its second epilogue
-  (``_kernels.moments_scat_grad_hess``) writes each (subint, channel)
-  row's objective, gradient and Hessian terms, and one channel sum gives
-  the solver's (f, g, H) for the subints still being solved.  Its first
-  epilogue (``_kernels.moments_scat``, the nine sums) feeds the
-  finishing algebra (``_hess_with_scales``) once per fit.
+  few per-channel harmonic sums, and a kernel forms them and the
+  per-channel algebra on top in one pass.  Without scattering (B = 1: no
+  tau/alpha fit and a zero tau) it is kernel K1 (csrc/moments.cu): its
+  second epilogue (``_kernels.moments_grad_hess``) writes each (subint,
+  channel) row's objective, gradient and (phi, DM, GM) Hessian terms.
+  With scattering it is kernel K3 (csrc/moments_scat.cu), whose second
+  epilogue (``_kernels.moments_scat_grad_hess``) also runs the (tau,
+  alpha) chain rule and writes the 5x5 terms.  One channel sum gives
+  the solver's (f, g, H) for the subints still being solved.  Their
+  first epilogues (``_kernels.moments``, the three sums, and
+  ``_kernels.moments_scat``, the nine) feed the finishing algebra
+  (``_hess_with_scales``) once per fit.
 * ``_solve`` is the reference's bounded Levenberg-damped Newton loop
   written as a masked batched Python loop: each iteration gathers the
   lanes that are not done, steps them, and scatters the result back, so
@@ -146,68 +148,45 @@ def _tau_lin(tau_p, log10_tau):
     return 10.0 ** tau_p if log10_tau else tau_p
 
 
-def _derivs(C, S, T1, T2, pd, flags, per_channel=False):
-    """(f, grad [n, 5], H [n, 5, 5] or per channel [n, 5, 5, nchan]) from
-    K1's moments — the reference's portrait_grad_hess algebra with B = 1
-    (dS = d2S = 0, so the scattering rows/columns vanish)."""
-    n, nchan = C.shape
-    ok = S > 0.0  # zero-weight (zapped) channels drop out of all sums
-    S = torch.where(ok, S, torch.ones_like(S))
-    C = torch.where(ok, C, torch.zeros_like(C))
-    zero = torch.zeros_like(C)
-    f = -torch.sum(torch.where(ok, C ** 2 / S, zero), dim=-1)
-    dC = T1[:, None, :] * pd                              # [n, 3, nchan]
-    g3 = -torch.sum(torch.where(ok[:, None], 2.0 * C[:, None] * dC
-                                / S[:, None], zero[:, None]), dim=-1)
-    safe_C = torch.where(C != 0.0, C, torch.ones_like(C))
-    d2C = T2[:, None, None, :] * pd[:, :, None, :] * pd[:, None, :, :]
-    Hn3 = -2.0 * (C ** 2 / S)[:, None, None] * (
-        d2C / safe_C[:, None, None]
-        + dC[:, :, None, :] * dC[:, None, :, :]
-        / (safe_C ** 2)[:, None, None])
-    Hn3 = torch.where(ok[:, None, None], Hn3, zero[:, None, None])
-    flags = torch.as_tensor(flags, dtype=real_dtype, device=C.device)
-    grad = torch.zeros((n, 5), dtype=real_dtype, device=C.device)
-    grad[:, :3] = g3
-    grad = grad * flags
-    f3 = flags[:3]
-    Hn3 = Hn3 * f3[:, None, None] * f3[None, :, None]
-    if per_channel:
-        H = torch.zeros((n, 5, 5, nchan), dtype=real_dtype, device=C.device)
-        H[:, :3, :3] = Hn3
-    else:
-        H = torch.zeros((n, 5, 5), dtype=real_dtype, device=C.device)
-        H[:, :3, :3] = Hn3.sum(dim=-1)
-    return f, grad, H
-
-
-# moments_scat_grad_hess's 21 columns -> the 25 entries of a symmetric 5x5
-_HESS_FULL = tuple(6 + _kernels.HESS_UPPER.index((min(p, r), max(p, r)))
-                   for p in range(5) for r in range(5))
-
-
 @functools.lru_cache(maxsize=None)
-def _unpack_constants(flags, device):
-    """(the flags' mask [5], its outer product [5, 5], _HESS_FULL as an
-    index tensor) on ``device``, made once."""
+def _unpack_constants(flags, ncols, device):
+    """How per-row terms [n, ncols, nchan] map onto the 5-vector g and
+    the symmetric 5x5 H: K3's 21 columns (GRAD_HESS_COLUMNS) or K1's 10
+    (MOMENTS_GRAD_HESS_COLUMNS), whose scattering entries are zero.  On
+    ``device``, made once: the columns of g and of H's 25 entries [30]
+    (``ncols`` names a zero column appended after the rows), the flags'
+    mask of g and its outer product for H [30], and whether the zero
+    column is named."""
+    upper = {len(_kernels.GRAD_HESS_COLUMNS): _kernels.HESS_UPPER,
+             len(_kernels.MOMENTS_GRAD_HESS_COLUMNS):
+             _kernels.MOMENTS_HESS_UPPER}[ncols]
+    npar = 1 + max(r for _, r in upper)
+    cols = [1 + p if p < npar else ncols for p in range(5)] + [
+        1 + npar + upper.index((min(p, r), max(p, r)))
+        if max(p, r) < npar else ncols for p in range(5) for r in range(5)]
     f = torch.as_tensor(flags, dtype=real_dtype, device=device)
-    return f, f[:, None] * f[None, :], torch.tensor(_HESS_FULL, device=device)
+    return (torch.tensor(cols, device=device),
+            torch.cat([f, (f[:, None] * f[None, :]).flatten()]), npar < 5)
 
 
 def _grad_hess_from_rows(rows, flags, per_channel=False):
     """(f, grad [n, 5], H [n, 5, 5] or per channel [n, 5, 5, nchan]) from
-    K3's per-row terms [n, 21, nchan]: the channel sum, then the flags'
-    mask (x * 1 = x and a sum of zeros is 0, so masking after the sum
-    gives the reference's masked-then-summed bits)."""
-    flags_t, outer, idx = _unpack_constants(tuple(flags), rows.device)
-    n, _, nchan = rows.shape
-    if per_channel:
-        fg = rows[:, :6].sum(dim=-1)
-        Hn = rows[:, idx].view(n, 5, 5, nchan)
-        return fg[:, 0], fg[:, 1:] * flags_t, Hn * outer[:, :, None]
+    per-row terms [n, 21 or 10, nchan] (K3's or K1's epilogue B): the
+    channel sum, then the flags' mask (x * 1 = x and a sum of zeros is 0,
+    so masking after the sum gives the reference's masked-then-summed
+    bits)."""
+    n, ncols, nchan = rows.shape
+    cols, mask, pad = _unpack_constants(tuple(flags), ncols, rows.device)
     tot = rows.sum(dim=-1)
-    return tot[:, 0], tot[:, 1:6] * flags_t, \
-        tot[:, idx].view(n, 5, 5) * outer
+    if pad:
+        tot = torch.nn.functional.pad(tot, (0, 1))
+    gh = tot[:, cols] * mask
+    if per_channel:
+        if pad:
+            rows = torch.nn.functional.pad(rows, (0, 0, 0, 1))
+        Hn = rows[:, cols[5:]] * mask[5:, None]
+        return tot[:, 0], gh[:, :5], Hn.view(n, 5, 5, nchan)
+    return tot[:, 0], gh[:, :5], gh[:, 5:].view(n, 5, 5)
 
 
 def _take(nus, lanes):
@@ -302,11 +281,14 @@ class _Spectra:
         return out
 
     def grad_hess_rows(self, params, nus, lanes=None):
-        """K3 with epilogue B: each row's objective, gradient and Hessian
-        terms [n, 21, nchan] at params [n, 5]."""
+        """Each row's objective, gradient and Hessian terms at params
+        [n, 5]: K1 with epilogue B [n, 10, nchan], or K3 with epilogue B
+        [n, 21, nchan] with scattering."""
         freqs, P = (self.freqs, self.P) if lanes is None else (
             self.freqs[lanes], self.P[lanes])
         sh, pd = _shifts_and_derivs(params, freqs, P, nus[0], nus[1])
+        if not self.scat:
+            return self._k1_gh(sh, pd, lanes)
         with record_function("pp_scatter"):
             tau = _tau_lin(params[:, 3:4], self.log10_tau)
             ratio = freqs / nus[2]
@@ -315,25 +297,26 @@ class _Spectra:
             return self._k3_gh(sh, taus, pd, torch.log(ratio),
                                tau[:, 0].contiguous(), lanes)
 
+    def _k1_gh(self, sh, pd, lanes):
+        return _kernels.moments_grad_hess(self.cross, sh, pd, self.S,
+                                          self.inv_err2, lanes)
+
     def _k3_gh(self, sh, taus, pd, lnf, tau, lanes):
         return _kernels.moments_scat_grad_hess(
             self.cross, self.abs_m2, sh, taus, self.inv_err2, pd, lnf, tau,
             self.log10_tau, lanes)
 
     def grad_hess(self, params, nus, flags, lanes=None, per_channel=False):
-        if self.scat:
-            return _grad_hess_from_rows(self.grad_hess_rows(params, nus,
-                                                            lanes),
-                                        flags, per_channel)
-        C, S, T1, T2 = self.moments(params, nus, lanes)
-        freqs, P, _ = self._rows(lanes)
-        pd = _phase_shift_derivs(freqs, nus[0], nus[1], P)   # [n, 3, nchan]
-        return _derivs(C, S, T1, T2, pd, flags, per_channel)
+        """(f, grad, H) at params [n, 5], flags-masked: the channel sum of
+        grad_hess_rows (or H per channel)."""
+        return _grad_hess_from_rows(self.grad_hess_rows(params, nus, lanes),
+                                    flags, per_channel)
 
 
 # one (subint group, channel shard) cell of a sharded fit: its channels of
-# the cross-spectrum, |m|^2 and inv_err2 on its device
-_Cell = collections.namedtuple("_Cell", "device chans cross abs_m2 inv_err2")
+# the cross-spectrum, |m|^2, inv_err2 and S on its device
+_Cell = collections.namedtuple("_Cell",
+                               "device chans cross abs_m2 inv_err2 S")
 
 
 class _ShardedSpectra(_Spectra):
@@ -341,7 +324,7 @@ class _ShardedSpectra(_Spectra):
     (cross-spectrum, |m|^2) stay on their cells (``_Cell``); the
     per-channel vectors (S, inv_err2, freqs) and P are whole on the lead
     device.  K1 and K3 launch once per cell, each on its own device, at
-    the shifts (and taus, and K3's chain-rule inputs) of the cell's
+    the shifts (and taus, and their epilogue B's inputs) of the cell's
     channels; their per-channel outputs are joined along channels on the
     lead device, so every channel sum after them is the unsharded one."""
 
@@ -361,6 +344,13 @@ class _ShardedSpectra(_Spectra):
             c.cross, sh[:, c.chans].to(c.device).contiguous(), c.inv_err2,
             None if lanes is None else lanes.to(c.device))
             for c in self.cells])
+
+    def _k1_gh(self, sh, pd, lanes):
+        return self._join([_kernels.moments_grad_hess(
+            c.cross, sh[:, c.chans].to(c.device).contiguous(),
+            pd[:, :, c.chans].to(c.device).contiguous(), c.S, c.inv_err2,
+            None if lanes is None else lanes.to(c.device))
+            for c in self.cells], dim=2)
 
     def _k3(self, sh, taus, lanes):
         return self._join([_kernels.moments_scat(
@@ -921,10 +911,11 @@ def _fit_group(mesh, i, data, model, init, P, freqs, errs, weights, seed,
                                                 zip(bands, part)]
         cross, abs_m2, sd = _spectra(d, m, inv_err2, kmax)
         del d, m
-        cells.append(_Cell(dev, chans, cross, abs_m2, inv_err2))
+        s_cell = (torch.sum(abs_m2, dim=-1) * inv_err2).contiguous()
+        cells.append(_Cell(dev, chans, cross, abs_m2, inv_err2, s_cell))
         noise.append(e.to(lead))
         ie2.append(inv_err2.to(lead))
-        S.append((torch.sum(abs_m2, dim=-1) * inv_err2).to(lead))
+        S.append(s_cell.to(lead))
         Sd = sd.to(lead) if Sd is None else Sd + sd.to(lead)
     if errs is None:
         errs = torch.cat(noise, dim=1)

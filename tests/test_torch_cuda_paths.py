@@ -2,9 +2,10 @@
 its sharded fit on the card: kernels against their plain versions.
 
 Each test runs a path of pulseportraiture_tpu_torch on the CUDA device
-twice — through the hand kernels (K1 csrc/moments.cu, K2 csrc/fftfit.cu,
-K3 csrc/moments_scat.cu, both its epilogues), then with their plain
-PyTorch versions swapped in on the same device — and holds the two runs
+twice — through the hand kernels (K1 csrc/moments.cu and K3
+csrc/moments_scat.cu, both epilogues of each, K2 csrc/fftfit.cu), then
+with their plain PyTorch versions swapped in on the same device — and
+holds the two runs
 to the port's parity bar: TOAs within 1 ns, equal rc and nfeval, equal
 zap lists, fluxes within 1e-9 relative (1e-7 with the narrowband
 scattering fits, whose scales move with the ~1e-8 differences in tau of
@@ -224,6 +225,95 @@ def test_moments_scat_one_channel_per_lane(card):
         err = (got - want).abs().amax(dim=(0, 1)) / \
             want.abs().amax(dim=(0, 1)).clamp_min(1e-300)
         assert float(err.max()) <= 1e-12, err
+
+
+# K1 cases: (subints, channels, harmonics, rows evaluated: a lane subset of
+# that many subints, or all when None)
+K1_CASES = [
+    (6, 7, 37, None),      # K not a multiple of the 16 lanes of a row
+    (5, 3, 1, None),       # K = 1
+    (300, 1, 128, 77),     # one channel per subint, lanes
+    (1, 511, 128, None),   # one subint: an odd row count
+    (9, 512, 128, None),
+    (64, 512, 128, 40),    # pptoas chunks: lanes
+]
+
+
+@pytest.mark.parametrize("case", K1_CASES, ids=lambda c: "x".join(
+    map(str, c[:3])) + ("" if c[3] is None else "-lanes%d" % c[3]))
+def test_moments_kernels_match_plain_on_the_card(card, case):
+    """K1's two epilogues against their plain versions on the card: each
+    sum within 1e-12 and each of epilogue B's ten columns within 1e-10 of
+    its largest magnitude (B divides by C and S; chip_smoke.py K1_GH_TOL),
+    and a zapped channel's rows zero."""
+    K = card
+    B, nchan, Kh, nlanes = case
+    gen = torch.Generator(device="cuda").manual_seed(B * 100 + nchan + Kh)
+
+    def rand(*shape):
+        return torch.rand(shape, generator=gen, device="cuda",
+                          dtype=torch.float64)
+
+    cross = torch.complex(rand(B, nchan, Kh) - 0.5, rand(B, nchan, Kh) - 0.5)
+    inv_err2 = rand(B, nchan) + 0.5
+    inv_err2[0, -1] = 0.0
+    S = (rand(B, nchan) + 0.1) * inv_err2
+    lanes = None if nlanes is None else torch.sort(torch.randperm(
+        B, generator=gen, device="cuda")[:nlanes]).values
+    n = B if lanes is None else nlanes
+    shifts = (rand(n, nchan) - 0.5) * 4000.0
+    pd = torch.stack([torch.ones((n, nchan), dtype=torch.float64,
+                                 device="cuda"), (rand(n, nchan) - 0.5) * 0.4,
+                      (rand(n, nchan) - 0.5) * 2e-3], dim=1).contiguous()
+    for name, args, tol in (
+            ("moments", (cross, shifts, inv_err2, lanes), 1e-12),
+            ("moments_grad_hess", (cross, shifts, pd, S, inv_err2, lanes),
+             1e-10)):
+        got = getattr(K, name)(*args)
+        want = getattr(K, name + "_plain")(*args)
+        axes = (0, 1) if name == "moments" else (0, 2)
+        err = (got - want).abs().amax(dim=axes) / \
+            want.abs().amax(dim=axes).clamp_min(1e-300)
+        assert float(err.max()) <= tol, (name, err)
+        if lanes is None:
+            zapped = got[0, -1] if name == "moments" else got[0, :, -1]
+            assert bool((zapped == 0.0).all()), name
+
+
+def test_no_scattering_fit_kernel_equals_plain_on_the_card(card):
+    """A (phi, DM) fit of 48 subints of 64 x 512 on the card through K1's
+    epilogue B, then through the plain versions: TOAs within 1 ns, rc and
+    nfeval equal; and its solver went through epilogue B, one launch per
+    evaluation."""
+    from pulseportraiture_tpu_torch.fit.portrait import \
+        fit_portrait_full_batch
+    from pulseportraiture_tpu_torch.ops.fourier import get_bin_centers
+    from pulseportraiture_tpu_torch.ops.profiles import gen_gaussian_portrait
+    from pulseportraiture_tpu_torch.pipelines.synth import make_fake_dataset
+
+    mp = [0.0, 0.0, 0.35, -0.05, 0.05, 0.1, 1.0, -1.2]
+    gen = torch.Generator(device=DEVICE).manual_seed(11)
+    ds = make_fake_dataset(gen, mp, nsub=48, nchan=64, nbin=512,
+                           lofreq=1300.0, bw=400.0, P=0.005, noise_std=0.05,
+                           device=DEVICE)
+    model = gen_gaussian_portrait("000", mp, -4.0, get_bin_centers(512),
+                                  ds.freqs, ds.nu_ref, device=DEVICE)
+
+    def fit():
+        return fit_portrait_full_batch(
+            ds.subints, model, None, 0.005, ds.freqs,
+            fit_flags=(1, 1, 0, 0, 0), log10_tau=False, max_iter=30,
+            device=DEVICE)
+
+    card.reset_launches()
+    got = fit()
+    assert card.LAUNCHES["moments_grad_hess"] >= 2
+    with plain_kernels(card):
+        want = fit()
+    dphi = ((want.phi - got.phi + 0.5) % 1.0 - 0.5).abs().max()
+    assert float(dphi) * 0.005 < 1e-9
+    assert torch.equal(want.return_code, got.return_code)
+    assert torch.equal(want.nfeval, got.nfeval)
 
 
 @pytest.fixture(scope="module")
@@ -477,8 +567,8 @@ def test_sharded_fit_on_the_card(card, shape):
     """A given-init fit of 64 subints of 128 x 512 (make_fake_dataset on
     the card) sharded over a mesh of the card named eight (four) times:
     its TOAs (phi, DM and their reference frequency), rc and nfeval equal
-    the unsharded kernel fit's, K1 launched once per channel shard and
-    solver evaluation; the same sharded fit through the plain versions
+    the unsharded kernel fit's, K1 (both epilogues) launched once per
+    channel shard and evaluation; the same sharded fit through the plain versions
     within 1 ns."""
     from pulseportraiture_tpu_torch.fit.portrait import \
         fit_portrait_full_batch
@@ -508,8 +598,9 @@ def test_sharded_fit_on_the_card(card, shape):
     want = fit(None)
     card.reset_launches()
     got = fit(mesh)
-    assert card.LAUNCHES["moments"] % shape[1] == 0
-    assert card.LAUNCHES["moments"] > 0
+    for name in ("moments", "moments_grad_hess"):
+        assert card.LAUNCHES[name] % shape[1] == 0
+        assert card.LAUNCHES[name] > 0
     for key in ("phi", "DM", "nu_DM", "nfeval", "return_code"):
         assert torch.equal(got[key], want[key]), key
     with plain_kernels(card):

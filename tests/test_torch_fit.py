@@ -136,6 +136,110 @@ def test_grad_hess_match_reference(flags, per_channel, rng):
                                    atol=1e-12 * np.abs(want).max())
 
 
+def _k1_rows_inputs(rng, params):
+    """One subint's spectra (channel 4 zapped: S = 0; channel 7's
+    cross-spectrum zero: C = 0 with S > 0) and, at ``params`` [1, 5], the
+    port's shifts and d shift / d(phi, DM, GM) as the solver forms them."""
+    cross, abs_m2, inv_err2 = _spectra(rng)
+    cross[7] = 0.0
+    fr = torch.as_tensor(FREQS)[None]
+    nus = [torch.full((1, 1), v, dtype=torch.float64)
+           for v in (1432.1, 1480.0)]
+    sh, pd = tfp._shifts_and_derivs(torch.as_tensor(params)[None], fr,
+                                    torch.full((1, 1), P0,
+                                               dtype=torch.float64), *nus)
+    t_cross = torch.as_tensor(cross)[None].contiguous()
+    t_ie2 = torch.as_tensor(inv_err2)[None].contiguous()
+    S = (torch.as_tensor(abs_m2).sum(-1)[None] * t_ie2).contiguous()
+    return (cross, abs_m2, inv_err2), (t_cross, sh.contiguous(),
+                                       pd.contiguous(), S, t_ie2)
+
+
+@pytest.mark.parametrize("flags", [(1, 1, 0, 0, 0), (1, 0, 0, 0, 0),
+                                   (1, 1, 1, 0, 0)])
+@pytest.mark.parametrize("per_channel", [False, True])
+def test_moments_grad_hess_plain_matches_reference(flags, per_channel, rng):
+    """K1 epilogue B's plain version, its rows summed over channels and
+    flag-masked (fit.portrait._grad_hess_from_rows), is the reference's
+    portrait_grad_hess without scattering, a zapped channel (S = 0) and a
+    channel with C = 0 among the rows: 1e-12 of each output's largest
+    magnitude, as test_grad_hess_match_reference."""
+    params = np.array([0.021, 1.5e-3, 2e-6, 0.0, 0.0])
+    (cross, abs_m2, inv_err2), args = _k1_rows_inputs(rng, params)
+    rows = _kernels.moments_grad_hess_plain(*args)
+    assert tuple(rows.shape) == (1, 10, NCHAN)
+    assert bool((rows[0, :, 4] == 0.0).all())         # zapped
+    assert bool((rows[0, :, 7] == 0.0).all())         # C = 0
+    f_t, g_t, H_t = tfp._grad_hess_from_rows(rows, flags, per_channel)
+    f_r, g_r, H_r = jfp.portrait_grad_hess(
+        params, cross, abs_m2, inv_err2, FREQS, P0, 1432.1, 1480.0, 1500.0,
+        flags, False, NBIN, per_channel=per_channel, scat=False)
+    np.testing.assert_allclose(float(f_t[0]), float(f_r), rtol=1e-12)
+    for have, want in ((g_t[0], g_r), (H_t[0], H_r)):
+        want = np.asarray(want)
+        np.testing.assert_allclose(have.numpy(), want, rtol=1e-12,
+                                   atol=1e-12 * np.abs(want).max())
+
+
+def test_moments_grad_hess_lanes_equal_full_rows(rng):
+    """Epilogue B on a lane subset (the solver's still-active subints)
+    gives the full evaluation's rows bit for bit; on CPU tensors the
+    wrapper takes the plain version and launches nothing."""
+    B, nchan, Kh = 5, 6, 16
+    cross = torch.as_tensor(rng.standard_normal((B, nchan, Kh))
+                            + 1j * rng.standard_normal((B, nchan, Kh)))
+    inv_err2 = torch.as_tensor(rng.uniform(0.5, 2.0, (B, nchan)))
+    inv_err2[2, 3] = 0.0
+    S = torch.as_tensor(rng.uniform(0.5, 2.0, (B, nchan))) * inv_err2
+    shifts = torch.as_tensor(rng.uniform(-40.0, 40.0, (B, nchan)))
+    pd = torch.as_tensor(np.stack([np.ones((B, nchan)),
+                                   rng.uniform(-0.2, 0.2, (B, nchan)),
+                                   rng.uniform(-1e-3, 1e-3, (B, nchan))], 1))
+    _kernels.reset_launches()
+    full = _kernels.moments_grad_hess(cross, shifts, pd, S, inv_err2)
+    lanes = torch.tensor([3, 0, 2], dtype=torch.int64)
+    part = _kernels.moments_grad_hess(cross, shifts[lanes].contiguous(),
+                                      pd[lanes].contiguous(), S, inv_err2,
+                                      lanes)
+    torch.testing.assert_close(part, full[lanes], rtol=0, atol=0)
+    torch.testing.assert_close(
+        full, _kernels.moments_grad_hess_plain(cross, shifts, pd, S,
+                                               inv_err2), rtol=0, atol=0)
+    assert bool((full[2, :, 3] == 0.0).all())
+    assert set(_kernels.LAUNCHES.values()) == {0}
+
+
+@pytest.mark.parametrize("flags", [(1, 1, 0, 0, 0), (1, 0, 0, 0, 0)])
+def test_fit_through_k1_grad_hess_matches_reference(flags, rng,
+                                                    monkeypatch):
+    """The batched no-scattering fit evaluates the solver through K1's
+    epilogue B (its wrapper, counted here) and matches the reference:
+    TOAs (phi at nu_DM) within 1 ns, rc and nfeval equal."""
+    data, model, init, errs, weights, nu_fits = _batch_inputs(rng)
+    sel = np.array([0, 1, 2, 3, 4, 6, 7])
+    calls = []
+    wrapped = _kernels.moments_grad_hess
+
+    def counted(*a, **kw):
+        calls.append(a[1].shape[0])
+        return wrapped(*a, **kw)
+
+    monkeypatch.setattr(_kernels, "moments_grad_hess", counted)
+    kw = dict(errs=errs[sel], weights=weights[sel], fit_flags=flags,
+              nu_fits=nu_fits[sel], log10_tau=False, max_iter=50)
+    args = (data[sel], model, init[sel], np.full(len(sel), P0),
+            np.broadcast_to(FREQS, (len(sel), NCHAN)))
+    ref = jfp.fit_portrait_full_batch(*args, **kw)
+    got = tfp.fit_portrait_full_batch(*args, device="cpu", **kw)
+    assert calls and calls[0] == len(sel)     # the first: every subint
+    dt = np.abs(got["phi"].numpy() - np.asarray(ref["phi"])) * P0
+    assert dt.max() < 1e-9
+    np.testing.assert_array_equal(got["return_code"].numpy(),
+                                  np.asarray(ref["return_code"]))
+    np.testing.assert_array_equal(got["nfeval"].numpy(),
+                                  np.asarray(ref["nfeval"]))
+
+
 def test_fit_phase_shift_core_matches_reference(rng):
     data, model, _, _ = _fake_batch(rng, 6)
     prof = data.mean(axis=1)

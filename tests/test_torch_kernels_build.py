@@ -1,0 +1,45 @@
+"""The port's kernel build on the CPU (no nvcc needed): the library a
+source builds into is named by a hash of the source, of every header it
+includes from csrc/ and of the flags, so an edited header never loads a
+stale library."""
+
+import shutil
+
+from pulseportraiture_tpu_torch import _kernels
+
+
+def test_library_path_covers_included_headers(tmp_path, monkeypatch):
+    csrc = tmp_path / "csrc"
+    shutil.copytree(_kernels.CSRC_DIR, csrc)
+    monkeypatch.setattr(_kernels, "CSRC_DIR", str(csrc))
+    (csrc / "common.cuh").write_text('// v1\n#include "inner.cuh"\n')
+    (csrc / "inner.cuh").write_text('// v1\n#include "common.cuh"\n')
+    src = csrc / "moments.cu"
+    src.write_text('#include "common.cuh"\n#include <cuda_runtime.h>\n'
+                   '#include "missing.cuh"\n' + src.read_text())
+    assert _kernels._source_files("moments.cu") == [
+        "moments.cu", "common.cuh", "inner.cuh"]   # each once, cycle cut
+    first = _kernels._lib_path("moments")
+    other = _kernels._lib_path("fftfit")
+    (csrc / "inner.cuh").write_text('// v2\n#include "common.cuh"\n')
+    second = _kernels._lib_path("moments")
+    assert second != first
+    (csrc / "common.cuh").write_text('// v2\n#include "inner.cuh"\n')
+    third = _kernels._lib_path("moments")
+    assert third not in (first, second)
+    # a header no source includes, and another library, change nothing
+    (csrc / "unused.cuh").write_text("// v1\n")
+    assert _kernels._lib_path("moments") == third
+    assert _kernels._lib_path("fftfit") == other
+
+
+def test_library_path_of_a_source_without_headers(tmp_path, monkeypatch):
+    csrc = tmp_path / "csrc"
+    shutil.copytree(_kernels.CSRC_DIR, csrc)
+    monkeypatch.setattr(_kernels, "CSRC_DIR", str(csrc))
+    for lib in ("moments", "moments_scat", "fftfit"):
+        assert _kernels._source_files(lib + ".cu") == [lib + ".cu"]
+        before = _kernels._lib_path(lib)
+        path = csrc / (lib + ".cu")
+        path.write_text(path.read_text() + "\n// edited\n")
+        assert _kernels._lib_path(lib) != before

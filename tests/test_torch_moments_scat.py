@@ -215,7 +215,7 @@ def test_moments_scat_grad_hess_kernel_matches_plain_on_the_card(
 @pytest.mark.cuda
 def test_moments_scat_grad_hess_kernel_lanes_and_tau_zero_on_the_card():
     """A lane subset's rows equal the full rows bit for bit; at tau == 0
-    the (phi, DM, GM) terms are K1's (fit.portrait._derivs)."""
+    the (phi, DM, GM) terms are K1's (_kernels.moments_grad_hess_plain)."""
     _on_card()
     from pulseportraiture_tpu_torch.fit import portrait as tfp
 
@@ -233,10 +233,10 @@ def test_moments_scat_grad_hess_kernel_lanes_and_tau_zero_on_the_card():
         cross, abs_m2, shifts, torch.zeros_like(shifts), inv_err2, pd, lnf,
         torch.zeros(B, dtype=torch.float64, device="cuda"), True)
     f, g, H = tfp._grad_hess_from_rows(rows, (1, 1, 1, 1, 1), True)
-    m = _kernels.moments(cross, shifts, inv_err2)
     S = abs_m2.sum(-1) * inv_err2
-    f1, g1, H1 = tfp._derivs(m[..., 0], S, m[..., 1], m[..., 2], pd,
-                             (1, 1, 1, 0, 0), per_channel=True)
+    f1, g1, H1 = tfp._grad_hess_from_rows(
+        _kernels.moments_grad_hess_plain(cross, shifts, pd, S, inv_err2),
+        (1, 1, 1, 0, 0), per_channel=True)
     for x, y in ((f, f1), (g, g1), (H, H1)):
         torch.testing.assert_close(x, y, rtol=1e-12,
                                    atol=1e-12 * float(y.abs().max()))

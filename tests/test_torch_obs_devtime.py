@@ -76,8 +76,8 @@ def test_fixture_rows_and_kernel_names(tmp_path):
     assert {r["cat"] for r in dev} == set(devtime.DEVICE_CATEGORIES)
     counts = {name: sum(1 for r in dev if fn in r["op"])
               for name, fn in _kernels.TRACE_NAMES.items()}
-    assert counts == {"moments": 2, "fftfit": 1, "moments_scat": 1,
-                      "moments_scat_grad_hess": 0}
+    assert counts == {"moments": 2, "moments_grad_hess": 0, "fftfit": 1,
+                      "moments_scat": 1, "moments_scat_grad_hess": 0}
     assert devtime.scopes_of(["pp_solve", "x", "pp_scatter", None]) == \
         ["pp_solve", "pp_scatter"]
 

@@ -223,8 +223,8 @@ def test_grad_hess_plain_matches_reference(flags, log10_tau, per_channel,
 
 def test_grad_hess_plain_at_zero_tau_is_k1s(rng):
     """At tau == 0, K3 epilogue B's (phi, DM, GM) terms are those of K1's
-    moments (the B = 1 algebra of fit.portrait._derivs), and its
-    scattering rows and columns vanish."""
+    epilogue B (the B = 1 algebra of _kernels.moments_grad_hess_plain),
+    and its scattering rows and columns vanish."""
     cross, abs_m2, inv_err2, params = _gh_inputs(rng, NCHAN, True)
     n = cross.shape[0]
     fr = torch.as_tensor(np.tile(FREQS, (n, 1)))
@@ -242,10 +242,10 @@ def test_grad_hess_plain_at_zero_tau_is_k1s(rng):
         torch.zeros(n, dtype=torch.float64), True)
     f, g, H = tfp._grad_hess_from_rows(rows, (1, 1, 1, 1, 1),
                                        per_channel=True)
-    m = tfp._kernels.moments(cross, sh, inv_err2)
     S = abs_m2.sum(-1) * inv_err2
-    f1, g1, H1 = tfp._derivs(m[..., 0], S, m[..., 1], m[..., 2], pd,
-                             (1, 1, 1, 0, 0), per_channel=True)
+    f1, g1, H1 = tfp._grad_hess_from_rows(
+        tfp._kernels.moments_grad_hess_plain(cross, sh, pd, S, inv_err2),
+        (1, 1, 1, 0, 0), per_channel=True)
     _close(f, f1.numpy(), rtol=1e-12, what="f")
     _close(g, g1.numpy(), rtol=1e-12, what="grad")
     _close(H, H1.numpy(), rtol=1e-12, what="hess")
