@@ -3,7 +3,9 @@
 
     python3 chip_smoke.py
 
-Phases, one JSON line each on stdout; any failure exits non-zero:
+Phases, one JSON line each on stdout; any failure exits non-zero (synth,
+throughput, noise_fit and throughput_scat run right after kernels, while
+the profiler's clock conversion is fresh):
 
   gpu         nvidia-smi name and power limit of the card
   build       nvcc build of every kernel in pulseportraiture_tpu_torch/csrc
@@ -22,10 +24,17 @@ Phases, one JSON line each on stdout; any failure exits non-zero:
               [1000, 512, 128] with one shared |m|^2, at [64, 512, 128]
               with per-subint |m|^2 and a lane subset, and at
               [7636, 1, 128] (narrowband --fit_scat: one channel and one
-              |m|^2 per lane).  Kernel
+              |m|^2 per lane); K4's two epilogues (the fit's spectra
+              set-up, with the errors given and with the noise measured)
+              on the rFFT of [64, 512, 2048] (a throughput chunk),
+              [16, 512, 2048] and [16, 256, 1024] (serve and survey),
+              [7636, 1, 2048] (one-channel lanes) and [64, 512, 2048]
+              with a model per row (ppalign), K 128.  Kernel
               and library times are device times from CUDA-graph replay;
               ``call_ms`` is the wrapper's time per call, host included
-              (back-to-back CUDA events)
+              (back-to-back CUDA events); a K4 case whose inputs fit in
+              the L2 cache (``l2_resident``) also has ``cold_ms``, with
+              L2 flushed before each call
   pptoas      the port's pptoas CLI on a 128-subint x 512-channel x 2048-bin
               archive (written by the port's make_fake_pulsar from
               examples/; subint 3 has one live channel, so both fit-flag
@@ -117,9 +126,10 @@ Phases, one JSON line each on stdout; any failure exits non-zero:
               at phases and dDMs from a seeded torch.Generator; the
               phases seeded through K2): TOAs/s, K1 launches (the
               solver's evaluations through epilogue B, the finish's sums
-              through A), K1 ms per launch, device events and device-busy
-              ms per fit (torch.profiler, a separate run), peak device
-              memory
+              through A), K4 launches (the spectra, one a chunk of 64
+              subints), K1 and K4 ms per launch, device events and
+              device-busy ms per fit (torch.profiler, a separate run),
+              peak device memory
   noise_fit   get_noise_fit (B10) on the first 256 subints of the
               throughput data (131,072 channels, three zeroed in every
               subint): ms, bound, extra peak memory; the Wiener and
@@ -131,12 +141,14 @@ Phases, one JSON line each on stdout; any failure exits non-zero:
               the 16-subint archive with PPTPU_OBS_DIR and PPTPU_TRACE_DIR
               (CLI walls with obs on and off, in turns), --fit_scat, ppalign
               --niter 1 over two of the ppalign epochs (obs only), the
-              seeded throughput fit (1000 x 512 x 2048) captured in an obs
+              seeded throughput fit (1000 x 512 x 2048) without errs (the
+              noise from K4's second epilogue) captured in an obs
               run (its time with obs on and off): every run directory and
               its manifest (platform gpu, the card), one devtime event per
               captured fit region (device total > 0 and within the
               region's wall), each hand kernel's rows in the traces equal
-              to its launches over the region, the pp_seed / pp_solve /
+              to its launches over the region and the event's
+              ``complete`` saying so, the pp_seed / pp_solve /
               pp_scatter stages, pps_device_peak_bytes equal to
               max_memory_allocated, tools/obs_report.py on every run, and
               a PPTPU_FAULTS="site:dispatch@nth=1" run raising the port's
@@ -144,18 +156,19 @@ Phases, one JSON line each on stdout; any failure exits non-zero:
   throughput_scat  the north-star scattering fit at 1000 x 512 x 2048:
               tau 3e-3 rot at nu0, alpha -4, started at 1.5 x tau,
               flags (1,1,0,1,1), log10 tau, nu_fits = nu_outs = nu0,
-              max_iter 30: TOAs/s, K3 launches and ms per launch, nfeval,
+              max_iter 30: TOAs/s, K3 and K4 launches and ms per launch,
+              nfeval,
               return codes, tau recovery, peak device memory
   survey      the survey runner, ppsurvey, over a metafile of 8 archives
               of 16 x 512 x 2048, 2 of 16 x 500 x 2000 (padded into the
               512 x 2048 bucket), 2 of 16 x 256 x 1024 and a truncated
               file (make_fake_pulsar, noise 0.5, own seeds): plan; warm
               on a fresh kernel build directory (a process of its own:
-              nvcc builds 3; every warm program ran); run --prefetch 2,
-              then again with --trace-bucket (walls, the load / fit /
-              write split from
-              the obs spans, per-bucket archive seconds, device busy
-              from the bucket traces, the capture's cost); run
+              nvcc builds 4, one per source; every warm program ran);
+              run --prefetch 2, then again with --trace-bucket (walls,
+              the load / fit / write split from the obs spans, per-bucket
+              archive seconds, device busy from the bucket traces, the
+              capture's cost); run
               --max_archives 4 --prefetch 0 (serial loads) then resume
               over 6 archives of both buckets; --fit_scat on 4 archives
               of the 512 x 2048 bucket (K3); supervise with two worker processes sharing the
@@ -190,7 +203,7 @@ Phases, one JSON line each on stdout; any failure exits non-zero:
               and K3 against their plain versions and timed (with their
               bounds) at every shape the path gave them; peak memory.
               Then ppserve start as a process (--plan --warm on the
-              survey's primed kernel build directory: 0 builds, 3 hits),
+              survey's primed kernel build directory: 0 builds, 4 hits),
               ppserve submit --wait and status, SIGTERM -> exit 0; and
               pprouter start with 2 spawned daemons, 4 requests over
               both buckets through the router (each once, pptoas's
@@ -202,7 +215,9 @@ Phases, one JSON line each on stdout; any failure exits non-zero:
               (1,1,1), (2,1,1), (1,2,1), (1,1,2) and (2,2,2) with a given
               init (TOAs bit-equal to the unsharded kernel fit, every other
               field within 1e-12 relative, rc and nfeval equal) and seeded
-              (TOAs within 1 ns): wall, device busy (torch.profiler), peak
+              (TOAs within 1 ns): wall, device busy (torch.profiler; None
+              with the rows lost counted where a hand kernel's rows fall
+              short of its launches, as in every profiled phase), peak
               memory and launches per mesh; single-process
               distributed_sweep_fit; the throughput_scat fit on (1,2,1)
               (K3 per channel shard, equal to the unsharded fit);
@@ -214,6 +229,12 @@ Phases, one JSON line each on stdout; any failure exits non-zero:
               distributed_sweep_fit (rows reassembled: equal given init,
               1 ns seeded); K1, K2 and K3 against their plain versions and
               timed at every shape the phase gave them
+  obs_late    a known-fault check of obs in this process after the mesh:
+              pptoas on the 16-subint archive with PPTPU_OBS_DIR and
+              PPTPU_TRACE_DIR; so late the profiler may lose a region's
+              first rows, and each devtime event must state its rows,
+              launches, ``complete`` and ``lost_rows`` as its trace holds
+              them
   failed_datafiles  no archive of any GetTOAs run failed on a device error
 
 Then a ``kernels`` line (every hand kernel with its launches on its
@@ -221,10 +242,12 @@ paths — K1 (``moments``, ``moments_grad_hess``) and K2 on pptoas, K3
 (``moments_scat``, ``moments_scat_grad_hess``) on pptoas_scat, each plus
 the narrowband,
 narrowband_scat, templates, ppzap, obs, survey, serve and mesh runs, K1
-and K2 also on viz, ppalign, ppspline, ppgauss and the walkthrough, with
-``launches_by_path`` —
+and K2 also on viz, ppalign, ppspline, ppgauss and the walkthrough, K4
+(``spectra``, ``spectra_noise``) on every path, the throughput and
+throughput_scat fits included, with ``launches_by_path`` —
 errors and times; K2 with
-its [1000, 1025] numbers and K1 and K3 with their [1000, 512, 128] ones,
+its [1000, 1025] numbers, K1 and K3 with their [1000, 512, 128] ones and
+K4 with its [64, 512, 2048] ones,
 each with a ``shapes`` list of all its cases), the card's name and power
 limit, and
 last ``{"ok": true, "device": {...}}``.  Exits non-zero without a result
@@ -289,9 +312,26 @@ K1_GH_OPS = 56
 # 1e-12; f, g and H divide by C and S and cancel)
 K1_GH_TOL = 1e-10
 K1_NAMES = ("moments", "moments_grad_hess")
-# the kernels every scattering-free path launches: K1's two epilogues
-# (the finish's sums, the solver's evaluations) and K2 (the guess)
-PHASE_DM_KERNELS = K1_NAMES + ("fftfit",)
+# K1's two epilogues (the finish's sums, the solver's evaluations) and K2
+# (the guess)
+K1_K2_NAMES = K1_NAMES + ("fftfit",)
+# the kernels every scattering-free path launches: K1, K2 and K4's first
+# epilogue (the fit's spectra set-up)
+PHASE_DM_KERNELS = K1_K2_NAMES + ("spectra",)
+# the kernels a scattering fit from a given start launches: K4's first
+# epilogue and K3's two
+SCAT_FIT_KERNELS = ("spectra",) + K3_NAMES
+# the kernels every path with --fit_scat launches: K2 and those
+SCAT_KERNELS = ("fftfit",) + SCAT_FIT_KERNELS
+# K4's epilogues: the set-up with given errors, and with the noise
+# measured in the same pass (fits without errs: the mesh's)
+K4_NAMES = ("spectra", "spectra_noise")
+# K4 against its plain version: the cross and |m|^2 elementwise (the
+# same rounded operations: bit-equal expected), each within 1e-14 of
+# |d_k| |m_k| (|m_k|^2); the per-row sums (Sd, the noise and its
+# inv_err2) within 1e-13 relative: sums of nharm positive terms taken in
+# another order (a recursive sum's bound is (n - 1) eps, 1.1e-13 at 1025)
+K4_ELEM_TOL, K4_SUM_TOL = 1e-14, 1e-13
 
 
 def emit(phase, **kw):
@@ -347,6 +387,30 @@ def graph_ms(fn, reps=20):
     torch.cuda.synchronize()
     del graph
     return a.elapsed_time(b) / reps
+
+
+def l2_bytes():
+    """The card's L2 cache in bytes (50 MiB on the H100 where torch does
+    not say)."""
+    import torch
+
+    return int(getattr(torch.cuda.get_device_properties(0), "L2_cache_size",
+                       0) or 50 * 2 ** 20)
+
+
+def l2_cold_ms(fn, reps=20):
+    """Device time [ms] per fn() call with the L2 cache flushed before
+    each: graph_ms of a write of twice the L2's bytes and fn(), less
+    graph_ms of the write alone.  For inputs that fit in L2, which
+    graph_ms's replays keep there."""
+    import torch
+
+    flush = torch.empty(2 * l2_bytes() // 4, dtype=torch.float32,
+                        device="cuda")
+    both = graph_ms(lambda: (flush.zero_(), fn()), reps)
+    alone = graph_ms(flush.zero_, reps)
+    del flush
+    return both - alone
 
 
 def bound_ms(nbytes, *work):
@@ -405,8 +469,84 @@ def fftfit_bound_ms(N, nharm, Ns, newton):
                     (18 * N * nharm * (newton + 1), PEAK_FP64_PER_S))
 
 
+def spectra_bound_ms(r, nchan, nharm, kmax, m_per_row, absm2, noise):
+    """K4's least time for r x nchan rows of nharm harmonics: the data
+    spectra read once, the model's first kmax harmonics (shared: once for
+    the batch), inv_err2 or the weights per row; the cross written, |m|^2
+    when asked, sd (and, with ``noise``, the noise and inv_err2) per row;
+    |d|^2 (3 FP64 operations) at every harmonic and the product (6) and
+    |m|^2 (3) below kmax."""
+    rows = r * nchan
+    nbytes = rows * nharm * 16 + (rows if m_per_row else nchan) * kmax * 16 \
+        + rows * kmax * 16 + rows * 8 * (2 + 2 * bool(noise))
+    ops = rows * (3 * nharm + 6 * kmax)
+    if absm2:
+        nbytes += rows * kmax * 8
+        ops += rows * 3 * kmax
+    return bound_ms(nbytes, (ops, PEAK_FP64_PER_S))
+
+
 def rel_err(a, b):
     return float((a - b).abs().max() / b.abs().max().clamp_min(1e-300))
+
+
+# K4's output arguments, by name in its wrappers' signatures
+K4_OUTS = ("cross_out", "sd_out", "noise_out", "inv_err2_out", "absm2_out")
+
+
+def k4_arguments(fn, args, kw=None):
+    """The arguments of the K4 call fn(*args, **kw) by parameter name."""
+    import inspect
+
+    return inspect.signature(fn).bind(*args, **(kw or {}))
+
+
+def k4_call(fn, args, kw=None):
+    """fn (K4's wrapper or its plain version) on ``args`` with fresh
+    output tensors in place of those given; returns {output name:
+    tensor}."""
+    import torch
+
+    bound = k4_arguments(fn, args, kw)
+    outs = {key: torch.empty_like(bound.arguments[key]) for key in K4_OUTS
+            if isinstance(bound.arguments.get(key), torch.Tensor)}
+    bound.arguments.update(outs)
+    fn(*bound.args, **bound.kwargs)
+    return outs
+
+
+def k4_errors(K, arguments, got, want):
+    """K4 kernel outputs ``got`` against the plain version's ``want`` (by
+    output name) on the call's ``arguments`` (k4_arguments): the cross
+    (and |m|^2) elementwise relative to |d_k| |m_k| (|m_k|^2), each row
+    sum relative to itself; (errors by output, the largest absolute
+    error, whether within K4_ELEM_TOL / K4_SUM_TOL)."""
+    import torch
+
+    dfft, mfft, kmax = (arguments.arguments[key]
+                        for key in ("dfft", "mfft", "kmax"))
+    f0 = torch.ones(kmax, dtype=torch.float64, device=dfft.device)
+    f0[0] = abs(K.F0_fact)
+    m = (mfft if mfft.ndim == 3 else mfft[None])[..., :kmax].abs() * f0
+    scale = (dfft[..., :kmax].abs() * f0 * m).clamp_min(1e-300)
+    errs, ok, abs_err = {}, True, 0.0
+    for key, g in got.items():
+        w = want[key]
+        name = "abs_m2" if key == "absm2_out" else key[:-len("_out")]
+        gap = (g - w).abs()
+        abs_err = max(abs_err, float(gap.max()) if gap.numel() else 0.0)
+        if key == "cross_out":
+            errs[name] = float((gap / scale).max())
+            errs["cross_bit_equal"] = bool(torch.equal(g, w))
+            ok &= errs[name] <= K4_ELEM_TOL
+        elif key == "absm2_out":
+            errs[name] = float((gap / (m * m).expand_as(g).clamp_min(
+                1e-300)).max())
+            ok &= errs[name] <= K4_ELEM_TOL
+        else:
+            errs[name] = float((gap / w.abs().clamp_min(1e-300)).max())
+            ok &= errs[name] <= K4_SUM_TOL
+    return errs, abs_err, ok
 
 
 def phase_kernels(dev, kern):
@@ -426,6 +566,9 @@ def phase_kernels(dev, kern):
     k3 = [phase_k3(dev, kern, gen, *case) for case in K3_CASES]
     for j, name in enumerate(K3_NAMES):
         rows[name] = [pair[j] for pair in k3]
+    k4 = [phase_k4(dev, kern, gen, *case) for case in K4_CASES]
+    for j, name in enumerate(K4_NAMES):
+        rows[name] = [pair[j] for pair in k4]
     return rows
 
 
@@ -573,6 +716,89 @@ def phase_k3(dev, kern, gen, n, nchan, K, shared, nlanes):
         if not err <= tol:
             raise AssertionError("%s kernel disagrees at %s: %s"
                                  % (name, [n, nchan, K], errs))
+        out.append(row)
+    return out
+
+
+# K4 cases: (subints, channels, nbin, kmax, a model per row): the rows of
+# one launch, a chunk of _spectra (fit/portrait.py SPECTRA_ROWS)
+K4_CASES = [
+    (64, 512, 2048, 128, False),   # throughput: a chunk of the 1000 subints
+    (16, 512, 2048, 128, False),   # serve and survey: a 16 x 512 x 2048
+                                   # archive
+    (16, 256, 1024, 128, False),   # serve and survey: the 256 x 1024 bucket
+    (7636, 1, 2048, 128, True),    # narrowband --fit_scat: one-channel
+                                   # lanes, a model each
+    (64, 512, 2048, 128, True),    # ppalign: a model per row (its 128-row
+                                   # block in chunks of 64)
+]
+K4_MAIN = 0
+
+
+def phase_k4(dev, kern, gen, r, nchan, nbin, kmax, per_row):
+    """K4's two epilogues against their plain versions on the rFFT of
+    random profiles (a baseline, noise) and of a pulse model, inv_err2
+    and weights with zeros: errors (k4_errors), device times (graph
+    replay), the wrapper's time per call, the plain version's, the
+    bound and the launches one call counts.  Returns the two rows."""
+    import torch
+
+    nharm = nbin // 2 + 1
+    x = (torch.arange(nbin, dtype=torch.float64, device=dev) + 0.5) / nbin
+    pulse = torch.exp(-0.5 * ((x - 0.4) / 0.03) ** 2)
+    dfft = torch.fft.rfft(torch.randn((r, nchan, nbin), generator=gen,
+                                      device=dev, dtype=torch.float64)
+                          + 2.0 + pulse, dim=-1)
+    mshape = (r, nchan, nbin) if per_row else (nchan, nbin)
+    mfft = torch.fft.rfft(pulse + 0.01 * torch.randn(
+        mshape, generator=gen, device=dev, dtype=torch.float64), dim=-1)
+    inv_err2 = torch.rand((r, nchan), generator=gen, device=dev,
+                          dtype=torch.float64) + 0.5
+    inv_err2[:, nchan // 2] = 0.0
+    weights = (inv_err2 > 0.0).to(torch.float64)
+    cross = torch.empty((r, nchan, kmax), dtype=torch.complex128, device=dev)
+    vec = torch.empty((r, nchan), dtype=torch.float64, device=dev)
+    absm2 = torch.empty((r, nchan, kmax), dtype=torch.float64,
+                        device=dev) if per_row else None
+    out = []
+    for name in K4_NAMES:
+        if name == "spectra":
+            args = (dfft, mfft, inv_err2, kmax, cross, vec, absm2)
+        else:
+            args = (dfft, mfft, weights, nbin, kmax, cross, vec,
+                    vec.clone(), vec.clone(), absm2)
+        fn, plain = getattr(kern, name), getattr(kern, name + "_plain")
+        n0 = kern.LAUNCHES[name]
+        got = k4_call(fn, args)
+        launches = kern.LAUNCHES[name] - n0
+        want = k4_call(plain, args)
+        torch.cuda.synchronize()
+        errs, abs_err, ok = k4_errors(kern, k4_arguments(fn, args), got,
+                                      want)
+        del got, want
+        bms, by = spectra_bound_ms(r, nchan, nharm, kmax, per_row, per_row,
+                                   name == "spectra_noise")
+        row = dict(shape=[r, nchan, nbin], nharm=nharm, kmax=kmax,
+                   model_per_row=per_row, errors=errs,
+                   tol=dict(elementwise=K4_ELEM_TOL, sums=K4_SUM_TOL),
+                   max_abs_err=abs_err, launches_per_call=launches,
+                   ms=graph_ms(lambda: fn(*args)),
+                   call_ms=cuda_ms(lambda: fn(*args)),
+                   plain_ms=cuda_ms(lambda: plain(*args), reps=3, warm=1),
+                   bound_ms=bms, bound_by=by, library_ms=None)
+        row["share_of_bound"] = bms / row["ms"]
+        # inputs that fit in L2 stay there across graph_ms's replays: the
+        # time with L2 flushed before each call is the one against HBM
+        inputs = (dfft.numel() + mfft.numel()) * 16
+        row["l2_resident"] = inputs <= l2_bytes()
+        if row["l2_resident"]:
+            row["cold_ms"] = l2_cold_ms(lambda: fn(*args))
+            row["cold_share_of_bound"] = bms / row["cold_ms"]
+        emit("kernels", kernel=name, **row)
+        if not (ok and launches == 1):
+            raise AssertionError("%s kernel disagrees at %s (or launched %d "
+                                 "times): %s" % (name, [r, nchan, nbin],
+                                                 launches, errs))
         out.append(row)
     return out
 
@@ -849,7 +1075,7 @@ def phase_pptoas(root, work, K, shape=PPTOAS_SHAPE, subset=16,
                              % dt_ns)
     if profile_dir is not None:
         profile_cli(argv[:-2] + ["-o", os.path.join(work, "prof.tim")],
-                    profile_dir)
+                    profile_dir, K)
     emit("pptoas", archive=[nsub, nchan, nbin], n_toas=len(toas),
          make_s=t_make, cli_s=t_cli, toas_per_s=nsub / t_cli,
          launches=launches, max_abs_z_DM=float(zDM.max()),
@@ -904,7 +1130,7 @@ def phase_pptoas_scat(root, work, K, big, small, shape=PPTOAS_SHAPE,
     if len(z["tau"]) != nsub - 1 or not max(zmax.values()) < 5:
         raise AssertionError("scattering injection not recovered: max |z| "
                              "%s over %d tau fits" % (zmax, len(z["tau"])))
-    missing = [n for n in ("fftfit",) + K3_NAMES if launches[n] == 0]
+    missing = [n for n in SCAT_KERNELS if launches[n] == 0]
     if missing:
         raise AssertionError("kernels never launched on the --fit_scat path:"
                              " %s" % missing)
@@ -954,14 +1180,18 @@ def clocked(owner, names, profiled=(), keep_args=(), keep_out=()):
     functions) for the block: each call's wall seconds (after a device
     synchronize) go to clock[name], and for a class the instance it ran
     on to clock["self"]; the functions in ``profiled`` run under
-    torch.profiler, whose runs go to clock["prof"]; the arguments of the
+    torch.profiler, whose runs go to clock["prof"] (and the hand kernels'
+    launches in each to clock["prof_launches"]); the arguments of the
     first call of each function in ``keep_args`` go to
     clock[name + "_args"], the results of those in ``keep_out`` to
     clock[name + "_out"]."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    clock = dict(self=[], prof=[], **{n: [] for n in names})
+    from pulseportraiture_tpu_torch import _kernels as K
+
+    clock = dict(self=[], prof=[], prof_launches=[],
+                 **{n: [] for n in names})
     clock.update({n + "_out": [] for n in keep_out})
     saved = {n: getattr(owner, n) for n in names}
 
@@ -974,6 +1204,7 @@ def clocked(owner, names, profiled=(), keep_args=(), keep_out=()):
             ctx = profile(activities=[ProfilerActivity.CPU,
                                       ProfilerActivity.CUDA]) \
                 if name in profiled else contextlib.nullcontext()
+            n0 = dict(K.LAUNCHES)
             with ctx as prof:
                 t0 = time.perf_counter()
                 out = fn(*a, **kw)
@@ -981,6 +1212,8 @@ def clocked(owner, names, profiled=(), keep_args=(), keep_out=()):
                 clock[name].append(time.perf_counter() - t0)
             if prof is not None:
                 clock["prof"].append(prof)
+                clock["prof_launches"].append(
+                    {k: K.LAUNCHES[k] - n0[k] for k in n0})
             if name in keep_out:
                 clock[name + "_out"].append(out)
             return out
@@ -1077,7 +1310,7 @@ def phase_narrowband(root, work, K, big, small, shape=PPTOAS_SHAPE,
     # every device operation of the CLI runs inside get_narrowband_TOAs
     # (outside it: argument parsing and the .tim write, on the host)
     rows = device_rows(clock["prof"][0])
-    busy = sum(r[1] for r in rows)
+    busy = device_busy(rows, clock["prof_launches"][0], K)
 
     kern, plain = gettoas_pair(K, small, gm, "get_narrowband_TOAs",
                                print_flux=True)
@@ -1091,8 +1324,9 @@ def phase_narrowband(root, work, K, big, small, shape=PPTOAS_SHAPE,
          n_live_channels=n_live, cli_s=t_cli, toas_per_s=len(toas) / t_cli,
          fit_s=clock["_narrowband_fit"][0],
          toa_assembly_s=clock["_narrowband_toas"][0],
-         method_s=clock["get_narrowband_TOAs"][0], profiled=True,
-         device_busy_s=busy, device_idle_share=1.0 - busy / t_cli,
+         method_s=clock["get_narrowband_TOAs"][0], profiled=True, **busy,
+         device_idle_share=None if busy["device_busy_s"] is None
+         else 1.0 - busy["device_busy_s"] / t_cli,
          device_top=[[key[:60], dev_s * 1e3, n] for key, dev_s, n in
                      sorted(rows, key=lambda r: -r[1])[:8]],
          launches=launches,
@@ -1147,7 +1381,7 @@ def phase_narrowband_scat(root, work, K, small, shape=PPTOAS_SHAPE,
     rcs = gt.rcs[0][np.asarray(gt.TOA_errs[0] != 0)]
     codes = sorted(int(c) for c in np.unique(rcs))
     bad = [c for c in codes if str(c) not in RCSTRINGS]
-    missing = [n for n in ("fftfit",) + K3_NAMES if launches[n] == 0]
+    missing = [n for n in SCAT_KERNELS if launches[n] == 0]
     if missing or bad or len(kern) != len(plain) or \
             not (dt_ns < 1.0 and gap <= 1e-3 + 5e-7):
         raise AssertionError("narrowband --fit_scat: launches %s, rc %s, "
@@ -1162,7 +1396,7 @@ def phase_narrowband_scat(root, work, K, small, shape=PPTOAS_SHAPE,
          n_toas=len(kern),
          cli_s=t_cli, fit_s=clock["_narrowband_fit"][0], launches=launches,
          fit_profiled_s=pclock["_narrowband_fit"][0],
-         fit_device_busy_s=sum(r[1] for r in rows),
+         fit_device_busy=device_busy(rows, pclock["prof_launches"][0], K),
          k3_device_ms_total=k3[1] if k3 else None,
          k3_launches_profiled=k3[0] if k3 else 0,
          k3_grad_hess_device_ms_total=k3b[1] if k3b else None,
@@ -1424,7 +1658,8 @@ def phase_viz(root, work, K, small, shape=PPTOAS_SHAPE, subset=16):
     gm = os.path.join(root, "examples", "example.gmodel")
     t_phase = t0 = time.perf_counter()
     with first_kernel_inputs(K, names=K1_NAMES) as k1, \
-            first_kernel_inputs(K, names=("fftfit",), per_shape=True) as k2:
+            first_kernel_inputs(K, names=("fftfit", "spectra"),
+                                per_shape=True) as k2:
         K.reset_launches()
         run = viz_path(small, gm, "cuda")
         launches = dict(K.LAUNCHES)
@@ -1433,7 +1668,7 @@ def phase_viz(root, work, K, small, shape=PPTOAS_SHAPE, subset=16):
     # one-live-channel subint's first evaluation is at its FFTFIT optimum,
     # where its gradient sum cancels to ~1e-9 of its terms, so a bound
     # relative to that sum reads float64 rounding as error (1e-3 of it,
-    # 1.1e-12 absolute, on the H100); K2 at every shape
+    # 1.1e-12 absolute, on the H100); K2 and K4 at every shape
     seen = dict(k2)
     for name in K1_NAMES:
         seen[name, tuple(k1[name][0][0].shape)] = k1[name]
@@ -1555,12 +1790,19 @@ def path_kernels_vs_plain(K, seen, required=PHASE_DM_KERNELS):
     for key, (a, kw) in seen.items():
         name = key if isinstance(key, str) else key[0]
         n0 = K.LAUNCHES[name]
-        got = getattr(K, name)(*a, **kw)
+        if name in K4_NAMES:                # outputs written into its args
+            got = k4_call(getattr(K, name), a, kw)
+            want = k4_call(plains[name], a, kw)
+        else:
+            got = getattr(K, name)(*a, **kw)
+            want = plains[name](*a, **kw)
         K.LAUNCHES[name] = n0               # a comparison launch: not counted
-        want = plains[name](*a, **kw)
         torch.cuda.synchronize()
         shape = list(a[0].shape)
-        if name == "fftfit":
+        if name in K4_NAMES:
+            err, abs_err, ok = k4_errors(
+                K, k4_arguments(getattr(K, name), a, kw), got, want)
+        elif name == "fftfit":
             ph = float((got[0] - want[0]).abs().max())
             err = max(rel_err(got[1], want[1]), rel_err(got[2], want[2]))
             abs_err = max(ph, float((got[1] - want[1]).abs().max()))
@@ -1985,7 +2227,9 @@ def phase_ppgauss(root, work, K, dev, avg, small):
          plain_vs_kernel_params_over_errs=gap,
          template_frame=dict(zip(("phase", "DM", "nu"), frame)),
          pptoas=toas)
-    if any(launches[n] == 0 for n in PHASE_DM_KERNELS):
+    # ppgauss's convergence fits measure their own noise: K4's second
+    # epilogue, not its first
+    if any(launches[n] == 0 for n in K1_NAMES + ("fftfit", "spectra_noise")):
         raise AssertionError("ppgauss launched %s" % launches)
     if not (np.isfinite(params).all() and fits[-1].return_code in (1, 2)):
         raise AssertionError("ppgauss: params %s, rc %d"
@@ -2187,10 +2431,10 @@ def phase_walkthrough(root, work, K, dev, shape=(10, 512, 2048)):
     return launches
 
 
-def profile_cli(argv, outdir):
+def profile_cli(argv, outdir, K):
     """Where the pptoas CLI's wall time goes: host functions (cProfile,
-    one run) and device time by kernel (torch.profiler, another run).
-    Emits a summary; writes the tables to ``outdir``."""
+    one run) and device time by kernel (torch.profiler, another run;
+    device_busy).  Emits a summary; writes the tables to ``outdir``."""
     import cProfile
     import io
     import pstats
@@ -2211,15 +2455,17 @@ def profile_cli(argv, outdir):
                    for fn, v in st.stats.items()
                    if "pulseportraiture_tpu_torch" in fn[0]),
                   key=lambda r: -r[1])[:25]
+    n0 = dict(K.LAUNCHES)
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         pptoas.main(argv)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+    busy = device_busy(device_rows(prof), {
+        k: K.LAUNCHES[k] - n0[k] for k in n0}, K)
     rows = sorted(((key[:80], s, n) for key, s, n in device_rows(prof)),
                   key=lambda r: -r[1])
-    busy = sum(r[1] for r in rows)
     os.makedirs(outdir, exist_ok=True)
     buf = io.StringIO()
     pstats.Stats(pr, stream=buf).sort_stats("cumulative").print_stats(40)
@@ -2227,8 +2473,9 @@ def profile_cli(argv, outdir):
         f.write(buf.getvalue())
         f.write("\n" + prof.key_averages().table(
             sort_by="cpu_time_total", row_limit=40))
-    emit("profile", cprofile_wall_s=host_wall, wall_s=wall,
-         device_busy_s=busy, device_idle_share=1.0 - busy / wall,
+    emit("profile", cprofile_wall_s=host_wall, wall_s=wall, **busy,
+         device_idle_share=None if busy["device_busy_s"] is None
+         else 1.0 - busy["device_busy_s"] / wall,
          host_cumulative_s=host[:15],
          device_top=[list(r) for r in rows[:10]])
 
@@ -2251,6 +2498,25 @@ def device_rows(prof):
     return rows
 
 
+def device_busy(rows, launched, K):
+    """Device-busy seconds of a torch.profiler run's ``rows``
+    (device_rows), held to the hand kernels' ``launched`` counts over the
+    run: in a process that has run for minutes the profiler drops a
+    region's first rows (PERF.md section 7), and a hand kernel with fewer
+    rows than launches shows it.  Returns dict(device_busy_s: the rows'
+    sum, None where rows were lost; device_busy_s_undercount: the sum
+    then; rows_complete; lost_rows)."""
+    busy = sum(r[1] for r in rows)
+    seen = {name: sum(n for key, _, n in rows if fn in key)
+            for name, fn in K.TRACE_NAMES.items()}
+    complete = all(seen[k] == launched.get(k, 0) for k in seen)
+    return dict(device_busy_s=busy if complete else None,
+                device_busy_s_undercount=None if complete else busy,
+                rows_complete=complete,
+                lost_rows=sum(max(0, launched.get(k, 0) - seen[k])
+                              for k in seen))
+
+
 def kernel_times(prof, K):
     """{kernel name: (launches, device ms in all)} of a torch.profiler
     run.  A launch of K2 runs two CUDA kernels: its launches are the
@@ -2258,9 +2524,9 @@ def kernel_times(prof, K):
     for is left out."""
     out = {}
     for key, dev_s, count in device_rows(prof):
-        for name in K.KERNELS:  # moments(_scat)_kernel; fftfit_*_kernel
-            hit = (name + "_kernel" in key) if name.startswith("moments") \
-                else (name + "_" in key and "_kernel" in key)
+        for name in K.KERNELS:  # K.TRACE_NAMES; K2's fftfit_*_kernel
+            hit = (name + "_" in key and "_kernel" in key) \
+                if name == "fftfit" else K.TRACE_NAMES[name] in key
             if hit and dev_s > 0:
                 n, ms = out.get(name, (0, 0.0))
                 out[name] = (max(n, count), ms + dev_s * 1e3)
@@ -2270,24 +2536,27 @@ def kernel_times(prof, K):
 def kernel_device_ms(fn, K):
     """({kernel name: (launches, device ms in all)}, device profile) of
     one call of fn(), from torch.profiler.  The device profile holds the
-    wall, the device-busy seconds, the device events (kernels, copies,
-    fills) and of them those not of a hand kernel (torch's), and the eight
-    device rows that took longest."""
+    wall, the device-busy seconds (None where the profiler lost rows:
+    device_busy), the device events (kernels, copies, fills) and of them
+    those not of a hand kernel (torch's), and the eight device rows that
+    took longest."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
+    n0 = dict(K.LAUNCHES)
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+    launched = {k: K.LAUNCHES[k] - n0[k] for k in n0}
     rows = device_rows(prof)
     top = sorted(rows, key=lambda r: -r[1])[:8]
-    busy = sum(r[1] for r in rows)
     hand = tuple(K.TRACE_NAMES.values()) + ("fftfit_",)
     events = sum(n for _, _, n in rows)
-    profile_ = dict(wall_s=wall, device_busy_s=busy, device_events=events,
+    profile_ = dict(wall_s=wall, **device_busy(rows, launched, K),
+                    device_events=events,
                     torch_device_events=events - sum(
                         n for key, _, n in rows
                         if any(h in key for h in hand)),
@@ -2413,7 +2682,8 @@ def phase_throughput(dev, K):
     zDM = ((out.DM - dDMs) / out.DM_err).abs()
     finite = bool(torch.isfinite(out.phi).all()
                   and torch.isfinite(out.phi_err).all())
-    k1, k1_gh, k2 = (per_kernel.get(name) for name in PHASE_DM_KERNELS)
+    k1, k1_gh, k2, k4 = (per_kernel.get(name) for name in (
+        "moments", "moments_grad_hess", "fftfit", "spectra"))
     res = dict(shape=[nsub, nchan, nbin], kmax=kmax, first_s=t_first,
                steady_s=t_steady, toas_per_s=nsub / t_steady,
                launches=launches,
@@ -2423,7 +2693,10 @@ def phase_throughput(dev, K):
                else None,
                k1_grad_hess_ms_total=k1_gh[1] if k1_gh else None,
                k2_ms=k2[1] / k2[0] if k2 else None,
-               device_busy_ms=device["device_busy_s"] * 1e3,
+               k4_ms_per_launch=k4[1] / k4[0] if k4 else None,
+               k4_ms_total=k4[1] if k4 else None,
+               device_busy_ms=None if device["device_busy_s"] is None
+               else device["device_busy_s"] * 1e3,
                device_events=device["device_events"],
                torch_device_events=device["torch_device_events"],
                peak_device_bytes=int(peak),
@@ -2601,13 +2874,16 @@ def phase_throughput_scat(dev, K):
 
     k3_ms, k3_total = per_launch("moments_scat")
     gh_ms, gh_total = per_launch("moments_scat_grad_hess")
+    k4_ms, k4_total = per_launch("spectra")
     res = dict(shape=[nsub, nchan, nbin], kmax=kmax, first_s=t_first,
                steady_s=t_steady, toas_per_s=nsub / t_steady,
                launches=launches,
                k3_ms_per_launch=k3_ms, k3_ms_total=k3_total,
                k3_grad_hess_ms_per_launch=gh_ms,
                k3_grad_hess_ms_total=gh_total,
-               device_busy_ms=device["device_busy_s"] * 1e3,
+               k4_ms_per_launch=k4_ms, k4_ms_total=k4_total,
+               device_busy_ms=None if device["device_busy_s"] is None
+               else device["device_busy_s"] * 1e3,
                device_events=device["device_events"],
                torch_device_events=device["torch_device_events"],
                peak_device_bytes=int(peak),
@@ -2635,7 +2911,7 @@ def phase_throughput_scat(dev, K):
     if not res["plain_vs_kernel_max_ns"] <= 1.0:
         raise AssertionError("scattering fit: kernels vs plain %.3g ns"
                              % res["plain_vs_kernel_max_ns"])
-    if any(launches[name] == 0 for name in K3_NAMES):
+    if any(launches[name] == 0 for name in SCAT_FIT_KERNELS):
         raise AssertionError("scattering fit launched %s" % launches)
     return res
 
@@ -2679,6 +2955,90 @@ for run_dir in sys.argv[1:]:
     print("%s %%s %%d" %% (run_dir, rc), flush=True)
 """
 OBS_REPORT_RC = "obs_report exit code:"
+
+
+OBS_WORKER = r"""
+import json, sys
+root, work, small = sys.argv[1:4]
+sys.path.insert(0, root)
+import torch
+import chip_smoke as cs
+from pulseportraiture_tpu_torch import _kernels as K
+K.build()
+made = cs.track_failed_datafiles()
+launches = cs.phase_obs(root, work, K, torch.device("cuda"), small)
+failed = [f for lists in made for f in lists]
+if failed:
+    raise AssertionError("archives failed on the card: %s" % failed)
+print(json.dumps(launches), flush=True)
+"""
+
+
+def phase_obs_fresh(root, work, small):
+    """phase_obs in a process of its own (OBS_WORKER), its lines passed
+    on: torch.profiler maps the card's timestamps to the host clock with
+    a conversion that drifts over a process's life and drops the rows it
+    places before a capture's start, minutes in (PERF.md section 7); the
+    obs phase holds every captured region's hand-kernel rows to its
+    launches, and a fit region's first rows are K4's.  Returns the
+    phase's launches."""
+    import torch
+
+    torch.cuda.empty_cache()
+    r = subprocess.run([sys.executable, "-c", OBS_WORKER, root, work, small],
+                       capture_output=True, text=True, cwd=root,
+                       env=dict(os.environ, PYTHONPATH=root), timeout=900)
+    lines = r.stdout.strip().splitlines()
+    for ln in lines[:-1] if r.returncode == 0 else lines:
+        print(ln, flush=True)
+    if r.returncode != 0:
+        raise AssertionError("the obs phase's process exited %d: %s"
+                             % (r.returncode, r.stderr[-3000:]))
+    return json.loads(lines[-1])
+
+
+def phase_obs_late(root, work, K, small):
+    """A known-fault check of the obs layer, in this process after every
+    other phase: pptoas on the 16-subint archive with PPTPU_OBS_DIR and
+    PPTPU_TRACE_DIR.  So late in a process torch.profiler may lose a
+    region's first rows (PERF.md section 7); whether it did or not, each
+    devtime event must say so truly (obs_completeness_problems).  Emits
+    each region's completeness and lost rows."""
+    gm = os.path.join(root, "examples", "example.gmodel")
+    sub = os.path.join(work, "obs_late")
+    regions = []
+    with environ(PPTPU_OBS_DIR=sub,
+                 PPTPU_TRACE_DIR=os.path.join(work, "trace_late")), \
+            counted_captures(K, regions):
+        toas, wall, launches = run_cli(K, [
+            "-d", small, "-m", gm, "--no_bary", "--quiet",
+            "-o", os.path.join(work, "obs_late.tim")])
+    run = obs_run_dir(sub)
+    events = [e for e in obs_events(run) if e["kind"] == "devtime"]
+    problems = [] if len(events) == len(regions) and regions else [
+        "%d devtime events for %d captured regions" % (len(events),
+                                                       len(regions))]
+    rows = []
+    for e, reg in zip(events, regions):
+        counts = trace_kernel_counts(K, e["trace"])
+        problems += obs_completeness_problems(e["region"], e, counts, reg)
+        rows.append(dict(region=e["region"], complete=e.get("complete"),
+                         lost_rows=e.get("lost_rows"),
+                         kernel_rows=e.get("kernel_rows"),
+                         launches=reg["launches"],
+                         device_total_s=e["device_total_s"],
+                         wall_s=reg["wall_s"]))
+    with open(os.path.join(run, "manifest.json")) as f:
+        counters = json.load(f).get("counters", {})
+    incomplete = sum(1 for r in rows if r["complete"] is False)
+    if int(counters.get("devtime_incomplete", 0)) != incomplete:
+        problems.append("devtime_incomplete %s for %d incomplete regions"
+                        % (counters.get("devtime_incomplete"), incomplete))
+    emit("obs_late", n_toas=len(toas), cli_s=wall, launches=launches,
+         regions=rows, incomplete_regions=incomplete, problems=problems)
+    if problems or len(toas) != 16:
+        raise AssertionError("obs_late: %d TOAs; %s"
+                             % (len(toas), "; ".join(problems)))
 
 
 def obs_reports(root, run_dirs):
@@ -2751,6 +3111,21 @@ def trace_kernel_counts(K, trace):
             for name, fn in K.TRACE_NAMES.items()}
 
 
+def obs_completeness_problems(key, event, counts, region):
+    """Where the devtime ``event`` of a captured ``region``
+    (counted_captures) misstates its own completeness: its kernel rows
+    against ``counts`` (trace_kernel_counts), its launches against the
+    region's, ``complete`` and ``lost_rows`` against the two."""
+    launched = region["launches"]
+    want = dict(kernel_rows=counts, kernel_launches=launched,
+                complete=counts == launched,
+                lost_rows=sum(max(0, n - counts[k])
+                              for k, n in launched.items()))
+    return ["%s: devtime %s %s, the trace %s" % (key, field, event.get(
+        field), value) for field, value in want.items()
+        if event.get(field) != value]
+
+
 @contextlib.contextmanager
 def environ(**kw):
     """Set (str) or unset (None) environment variables for a block."""
@@ -2774,8 +3149,9 @@ def phase_obs(root, work, K, dev, small, fit_shape=(1000, 512, 2048)):
     """The observability layer on the card: pptoas on the 16-subint
     archive with PPTPU_OBS_DIR and PPTPU_TRACE_DIR (walls with obs on and
     off, in turns), then --fit_scat, then ppalign --niter 1 over two
-    epochs (obs only), then the seeded throughput fit captured inside an
-    obs run (its time with obs on and off), then a PPTPU_FAULTS run.
+    epochs (obs only), then the seeded throughput fit without errs
+    captured inside an obs run (its time with obs on and off), then a
+    PPTPU_FAULTS run.  Run in a process of its own (phase_obs_fresh).
     Checks every run directory, one devtime event per captured fit region
     (device total > 0 and within the region's wall), each hand kernel's
     rows in the traces against its launches over the region, the pp_*
@@ -2858,18 +3234,17 @@ def phase_obs(root, work, K, dev, small, fit_shape=(1000, 512, 2048)):
     runs["ppalign"] = obs_run_dir(sub)
     lap("ppalign")
 
-    # the seeded throughput fit (1000 x 512 x 2048), obs off and on
+    # the seeded throughput fit (1000 x 512 x 2048), obs off and on; no
+    # errs: the noise measured in the spectra pass (K4's second epilogue)
     nsub, nchan, nbin = fit_shape
     data, freqs, _, _, _, model, _, _, _ = north_star_data(dev, 0, nsub,
                                                             nchan, nbin)
     kmax = model_kmax(model)
-    errs = torch.full((nsub, nchan), NOISE, dtype=torch.float64, device=dev)
 
     def fit():
         out = fit_portrait_full_batch(
-            data, model, None, P0, freqs, errs=errs,
-            fit_flags=(1, 1, 0, 0, 0), log10_tau=False, max_iter=30,
-            kmax=kmax, device=dev)
+            data, model, None, P0, freqs, fit_flags=(1, 1, 0, 0, 0),
+            log10_tau=False, max_iter=30, kmax=kmax, device=dev)
         torch.cuda.synchronize()
         return out
 
@@ -2894,7 +3269,7 @@ def phase_obs(root, work, K, dev, small, fit_shape=(1000, 512, 2048)):
             fit_s["off"].append(time.perf_counter() - t0)
         add(dict(K.LAUNCHES))
     runs["throughput"] = obs_run_dir(sub)
-    del data, errs, model
+    del data, model
     lap("throughput")
 
     # every run directory, its manifest and its devtime events
@@ -2932,6 +3307,7 @@ def phase_obs(root, work, K, dev, small, fit_shape=(1000, 512, 2048)):
         if counts != reg["launches"]:
             problems.append("%s: kernel rows %s, launches %s"
                             % (key, counts, reg["launches"]))
+        problems += obs_completeness_problems(key, e, counts, reg)
     seen = {k: sum(r["trace_kernel_rows"][k] for r in rows)
             for k in K.TRACE_NAMES}
     if not all(seen.values()):
@@ -3157,7 +3533,9 @@ def survey_split(wd):
     checkpoint), the runner's per-archive fit span, each bucket's
     archive spans (claim to checkpoint; they overlap under prefetch),
     and the device busy seconds the bucket traces attributed
-    (device_total_s; None without --trace-bucket)."""
+    (device_total_s; None without --trace-bucket, or where a bucket's
+    capture lost rows: then device_busy_s_undercount, with the count of
+    such captures)."""
     (run,) = [os.path.join(wd, "obs", d) for d in
               sorted(os.listdir(os.path.join(wd, "obs")))]
     tot, buckets = {}, {}
@@ -3171,6 +3549,7 @@ def survey_split(wd):
                 b[1] += e.get("dur_s", 0.0)
     man = json.load(open(os.path.join(run, "manifest.json")))
     gauges = man.get("gauges") or {}
+    lost = gauges.get("device_total_incomplete_regions")
     return dict(load_s=tot.get("load", 0.0) + tot.get("prefetch_load", 0.0),
                 prefetch_load_s=tot.get("prefetch_load", 0.0),
                 fit_s=sum(tot.get(k, 0.0) for k in ("guess", "solve",
@@ -3179,8 +3558,12 @@ def survey_split(wd):
                 archive_fit_span_s=tot.get("fit", 0.0),
                 archive_s_by_bucket={k: dict(archives=n, archive_s=t)
                                      for k, (n, t) in buckets.items()},
-                device_busy_s=gauges.get("device_total_s"),
-                device_utilization=gauges.get("device_utilization"))
+                device_busy_s=None if lost else gauges.get("device_total_s"),
+                device_busy_s_undercount=gauges.get("device_total_s")
+                if lost else None,
+                device_busy_incomplete_regions=lost,
+                device_utilization=None if lost
+                else gauges.get("device_utilization"))
 
 
 def survey_tim_gap_ns(a, b):
@@ -3489,11 +3872,11 @@ def phase_survey(root, work, K, device="cuda"):
             "run", "-w", wd("scat"), "--no_bary", "--fit_scat", "--device",
             device, "--quiet"])
     survey_exactly_once(wd("scat"), scat_files, nsub=nsub)
-    if any(scat_launches[n] == 0 for n in ("fftfit",) + K3_NAMES):
+    if any(scat_launches[n] == 0 for n in SCAT_KERNELS):
         raise AssertionError("--fit_scat survey launches %s"
                              % scat_launches)
     scat_rows = path_kernels_vs_plain(K, seen_scat,
-                                      required=("fftfit",) + K3_NAMES)
+                                      required=SCAT_KERNELS)
     scat_toas, _ = survey_toas(wd("scat"))
     if not all("-scat_time" in t for f in scat_files for t in scat_toas[f]):
         raise AssertionError("--fit_scat TOAs without -scat_time")
@@ -3624,7 +4007,12 @@ def path_kernel_times(K, seen):
         ms = graph_ms(lambda: fn(*a, **kw))
         plain_ms = cuda_ms(lambda: plains[name](*a, **kw), reps=3, warm=1)
         shape = list(a[0].shape)
-        if name == "fftfit":
+        if name in K4_NAMES:
+            arg = k4_arguments(fn, a, kw).arguments
+            bms, by = spectra_bound_ms(
+                *shape, arg["kmax"], arg["mfft"].ndim == 3,
+                arg.get("absm2_out") is not None, name == "spectra_noise")
+        elif name == "fftfit":
             Ns, newton = a[4], a[5]
             shape.append(Ns)
             bms, by = fftfit_bound_ms(*shape[:2], Ns, newton)
@@ -3900,9 +4288,11 @@ def phase_serve(root, work, K, survey, device="cuda"):
                 str(list(failed.values())[0]):
             raise AssertionError("dispatch fault: failed records %s"
                                  % failed)
-        if any(launches[n] == 0 for n in K.KERNELS):
+        # served archives carry their noise: K4's first epilogue only
+        served = tuple(n for n in K.KERNELS if n != "spectra_noise")
+        if any(launches[n] == 0 for n in served):
             raise AssertionError("serve launches %s" % launches)
-        path_rows = path_kernels_vs_plain(K, seen, required=tuple(K.KERNELS))
+        path_rows = path_kernels_vs_plain(K, seen, required=served)
         times = path_kernel_times(K, seen)
         # a traced closed loop of one cycle: the device's busy seconds
         traced = pploadgen.build_requests(
@@ -4389,6 +4779,9 @@ def phase_mesh(root, work, K, survey, shape=(1000, 512, 2048),
     two, two_ok = mesh_two_process(root, work, shape, device, single)
     ok &= two_ok
     res = dict(shape=list(shape), kmax=kmax, unsharded_wall_s=ref_walls,
+               peak_above_prior_bytes_by_mesh={
+                   "x".join(map(str, row["mesh"])):
+                   row["peak_above_prior_bytes"] for row in meshes},
                meshes=meshes, groups_of_one=ones_row,
                single_process=single_gaps, fit_scat=scat_row,
                survey=survey_row, cli=cli_row, two_process=two,
@@ -4432,10 +4825,14 @@ def main(argv):
                 K.BUILD_LOG.items()})
 
     rows = phase_kernels(dev, K)
+    # each path's launches, from its main run (counts zeroed just before);
+    # the throughput fits first, while the profiler's clock conversion is
+    # fresh (it drifts over a process's life and drops a capture's first
+    # rows: PERF.md section 7)
+    by_path = {"throughput": phase_throughput(dev, K)["launches"],
+               "throughput_scat": phase_throughput_scat(dev, K)["launches"]}
     failed_lists = track_failed_datafiles()
     work = tempfile.mkdtemp(prefix="pp_smoke_")
-    # each path's launches, from its main run (counts zeroed just before)
-    by_path = {}
     try:
         by_path["pptoas"], big, small = phase_pptoas(
             root, work, K, profile_dir=profile_dir)
@@ -4450,35 +4847,42 @@ def main(argv):
         by_path["ppspline"] = phase_ppspline(root, work, K, dev, avg, small)
         by_path["ppgauss"] = phase_ppgauss(root, work, K, dev, avg, small)
         by_path["walkthrough"] = phase_walkthrough(root, work, K, dev)
-        by_path["obs"] = phase_obs(root, work, K, dev, small)
+        by_path["obs"] = phase_obs_fresh(root, work, small)
         by_path["survey"], survey = phase_survey(root, work, K)
         by_path["serve"] = phase_serve(root, work, K, survey)
         by_path["mesh"] = phase_mesh(root, work, K, survey)
+        phase_obs_late(root, work, K, small)
     finally:
         shutil.rmtree(work, ignore_errors=True)
-    phase_throughput(dev, K)
-    phase_throughput_scat(dev, K)
     # K1's (both epilogues) and K2's main path is pptoas, K3's (both
     # epilogues) pptoas_scat (their own fit-flag groups), each with the
     # later paths; K1 and K2 also with the template builders and the
-    # walkthrough
+    # walkthrough.  K4 runs on every path: its first epilogue wherever a
+    # fit is given its errors, its second where it measures them (the
+    # mesh's fits, the obs phase's throughput fit)
     own = dict(moments="pptoas", moments_grad_hess="pptoas",
                fftfit="pptoas", moments_scat="pptoas_scat",
                moments_scat_grad_hess="pptoas_scat")
     paths = {name: [own[name], "narrowband", "narrowband_scat",
                     "templates", "ppzap"] for name in own}
-    for name in PHASE_DM_KERNELS:
+    for name in K1_K2_NAMES:
         paths[name] += ["viz", "ppalign", "ppspline", "ppgauss",
                         "walkthrough"]
     for name in own:
         paths[name] += ["obs", "survey", "serve", "mesh"]
+    for name in K4_NAMES:
+        paths[name] = list(by_path)
     # no archive of any path failed on a device error
     failed = [f for made in failed_lists for f in made]
     emit("failed_datafiles", gettoas_runs=len(failed_lists), failed=failed)
     if failed:
         raise AssertionError("archives failed on the card: %s" % failed)
     launches = {name: sum(by_path[p][name] for p in paths[name])
-                for name in own}
+                for name in paths}
+    missing = [n for n in K4_NAMES if launches[n] == 0]
+    if missing:
+        raise AssertionError("kernels never launched on any path: %s"
+                             % missing)
 
     kernels = []
     for name, (src, _, replaces) in K.KERNELS.items():
@@ -4502,6 +4906,13 @@ def main(argv):
                     "shape", "shared_abs_m2", "lanes", "ms", "call_ms",
                     "bound_ms", "share_of_bound", "plain_ms", "max_rel_err",
                     "max_abs_err")} for c in r])
+        elif name in K4_NAMES:
+            r, extra = r[K4_MAIN], dict(shapes=[
+                {key: c[key] for key in (
+                    "shape", "kmax", "model_per_row", "ms", "call_ms",
+                    "bound_ms", "share_of_bound", "l2_resident", "cold_ms",
+                    "cold_share_of_bound", "plain_ms", "errors",
+                    "max_abs_err") if key in c} for c in r])
         kernels.append(dict(
             name=name, route="cuda",
             source="pulseportraiture_tpu_torch/csrc/" + src,

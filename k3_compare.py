@@ -36,11 +36,25 @@ With ``--k1`` first (K1):
   torch.profiler (device events, device-busy ms, the K1 rows), nfeval,
   return codes and the peak device memory.
 
+With ``--spectra`` first (the fit's set-up, K4):
+
+* where the tree has K4 (``_kernels.spectra``): chip_smoke.py's K4 phase
+  at its throughput chunk, [64, 512, 2048] K 128 (both epilogues against
+  their plain versions, device ms by CUDA-graph replay, bound);
+* chip_smoke.py's throughput fit (1000 x 512 x 2048, flags (1,1,0,0,0),
+  phases seeded in the fit, errors given) and throughput_scat fit (flags
+  (1,1,0,1,1), log10 tau), and the throughput fit without errs (the
+  noise measured by the fit): for each, ten steady walls, one
+  run under torch.profiler (device events, device-busy ms, the eight
+  longest device rows) and the peak device memory above what was
+  allocated before the fit.
+
 Each tree prints one JSON line; run the trees alternately (parent,
 change, change, parent) to compare them within one call:
 
     python3 k3_compare.py PARENT_DIR . . PARENT_DIR
     python3 k3_compare.py --k1 PARENT_DIR . . PARENT_DIR
+    python3 k3_compare.py --spectra PARENT_DIR . . PARENT_DIR
 
 Needs a CUDA device and the CUDA toolkit (nvcc, cuobjdump).
 """
@@ -362,12 +376,123 @@ def one_tree_k1(root):
     print(json.dumps(res), flush=True)
 
 
+def device_top(fn, n=8):
+    """(device events, device-busy ms, the ``n`` longest device rows as
+    [name, ms, count]) of one call of fn() under torch.profiler, the
+    pp_* ranges left out."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    rows = []
+    for e in prof.key_averages():
+        if not str(e.device_type).endswith("CUDA") \
+                or e.key.startswith("pp_"):
+            continue
+        us = getattr(e, "self_device_time_total", None)
+        us = e.self_cuda_time_total if us is None else us
+        rows.append([e.key[:60], us / 1e3, e.count])
+    rows.sort(key=lambda r: -r[1])
+    return (sum(r[2] for r in rows), sum(r[1] for r in rows), rows[:n])
+
+
+SPECTRA_WALLS = 10
+
+
+def fit_numbers(fn):
+    """Steady walls [s] of fn() (after one warm call), its profile
+    (device_top) and its peak device memory above the prior allocation;
+    returns (dict, the last result)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(SPECTRA_WALLS):
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    fn()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    events, busy, top = device_top(fn)
+    return dict(walls_s=times, wall_median_s=sorted(times)[SPECTRA_WALLS // 2],
+                device_events=events, device_busy_ms=busy, device_top=top,
+                peak_device_bytes=int(peak),
+                peak_above_prior_bytes=int(peak - base),
+                nfev_median=float(out.nfeval.double().median()),
+                return_codes=sorted(int(c) for c in
+                                    out.return_code.unique())), out
+
+
+def one_tree_spectra(root):
+    root = os.path.abspath(root)
+    sys.path.insert(0, root)
+    os.chdir(root)
+    import torch
+
+    import chip_smoke as cs
+    from pulseportraiture_tpu_torch import _kernels as K
+    from pulseportraiture_tpu_torch.fit import portrait as fp
+
+    K.set_build_dir(tempfile.mkdtemp(prefix="k4_build_"))  # nvcc's report
+    K.build()
+    dev = torch.device("cuda")
+    res = dict(tree=root, gpu=cs.gpu_line(), has_k4=hasattr(K, "spectra"),
+               ptxas=[ln for ln in K.BUILD_LOG.get("spectra", "").splitlines()
+                      if "Used" in ln or "spill" in ln])
+    if res["has_k4"]:
+        gen = torch.Generator(device=dev).manual_seed(7)
+        res["k4"] = {name: {key: row[key] for key in (
+            "shape", "ms", "bound_ms", "share_of_bound", "plain_ms",
+            "errors")} for name, row in zip(cs.K4_NAMES, cs.phase_k4(
+                dev, K, gen, *cs.K4_CASES[0]))}
+        torch.cuda.empty_cache()
+    nsub, nchan, nbin = 1000, 512, 2048
+    data, freqs, nu0, _, _, model = cs.north_star_data(
+        dev, 0, nsub, nchan, nbin)[:6]
+    kmax = fp.model_kmax(model)
+    errs = torch.full((nsub, nchan), cs.NOISE, dtype=torch.float64,
+                      device=dev)
+    kw = dict(fit_flags=(1, 1, 0, 0, 0), log10_tau=False, max_iter=30,
+              kmax=kmax, device=dev)
+    res["throughput"] = fit_numbers(lambda: fp.fit_portrait_full_batch(
+        data, model, None, cs.P0, freqs, errs=errs, **kw))[0]
+    res["throughput_no_errs"] = fit_numbers(
+        lambda: fp.fit_portrait_full_batch(data, model, None, cs.P0, freqs,
+                                           **kw))[0]
+    del data, errs
+    torch.cuda.empty_cache()
+    data, freqs, nu0, phis, dDMs, model = cs.north_star_data(
+        dev, 3, nsub, nchan, nbin, t_scat=cs.TAU_INJ * cs.P0)[:6]
+    errs = torch.full((nsub, nchan), cs.NOISE, dtype=torch.float64,
+                      device=dev)
+    init = torch.zeros((nsub, 5), dtype=torch.float64, device=dev)
+    init[:, 0], init[:, 1] = phis, dDMs
+    init[:, 3], init[:, 4] = math.log10(cs.TAU_INJ * 1.5), -4.0
+    nus = torch.full((nsub,), nu0, dtype=torch.float64, device=dev)
+    res["throughput_scat"] = fit_numbers(lambda: fp.fit_portrait_full_batch(
+        data, model, init, cs.P0, freqs, errs=errs, fit_flags=(1, 1, 0, 1, 1),
+        nu_fits=(nus, nus, nus), nu_outs=(nus, nus, nus), log10_tau=True,
+        max_iter=30, kmax=fp.model_kmax(model), device=dev))[0]
+    print(json.dumps(res), flush=True)
+
+
 def main(argv):
-    k1 = bool(argv) and argv[0] == "--k1"
-    if k1:
+    mode = argv[0] if argv and argv[0] in ("--k1", "--spectra") else None
+    if mode:
         argv = argv[1:]
     if len(argv) >= 2 and argv[0] == "--tree":
-        (one_tree_k1 if k1 else one_tree)(argv[1])
+        if mode == "--spectra":
+            one_tree_spectra(argv[1])
+        else:
+            (one_tree_k1 if mode else one_tree)(argv[1])
         return 0
     if not argv:
         print(__doc__)
@@ -375,7 +500,8 @@ def main(argv):
     rc = 0
     for root in argv:
         r = subprocess.run([sys.executable, os.path.abspath(__file__)]
-                           + (["--k1"] if k1 else []) + ["--tree", root],
+                           + ([mode] if mode else [])
+                           + ["--tree", root],
                            capture_output=True, text=True)
         print(r.stdout.strip(), flush=True)
         if r.returncode:

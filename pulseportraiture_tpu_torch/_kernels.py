@@ -1,6 +1,6 @@
 """The port's hand-written CUDA kernels: build, ctypes binding, wrappers.
 
-Three kernels, each a CUDA C++ source under ``csrc/`` compiled for
+Four kernels, each a CUDA C++ source under ``csrc/`` compiled for
 Hopper (``sm_90a``) by ``nvcc`` into a shared library with a plain C
 interface and loaded with ``ctypes``:
 
@@ -31,14 +31,25 @@ interface and loaded with ``ctypes``:
      without writing the [N, Ns] grid, and one to four warps per
      profile do the Newton polish.  Two launches per call (one more when
      the table is new); LAUNCHES counts one.
+  K4 ``spectra`` (csrc/spectra.cu) — the fit's spectra set-up, one pass
+     over cuFFT's rFFT output per chunk: harmonic 0 times F0_fact, the
+     truncated cross-spectrum d conj(m) written into the caller's slice
+     of one preallocated tensor, each row's data power times inv_err2
+     and, for a model per row, its |m|^2; replaces
+     pulseportraiture_tpu/fit/portrait.py:915-924.  ``spectra_noise``,
+     the same loop with a second epilogue: each row's noise as
+     get_noise_PS (pulseportraiture_tpu/ops/noise.py:39) from the
+     unscaled spectrum, its 1 / sigma_FT^2 and the data power with it,
+     for fits that measure their own noise.  One library, two entry
+     points, each with its own launch count and trace name.
 
 Each wrapper dispatches on its input's device: a CPU tensor takes the
 plain PyTorch version beside it (``moments_plain``/
 ``moments_grad_hess_plain``/``fftfit_plain``/``moments_scat_plain``/
-``moments_scat_grad_hess_plain``,
-which the CPU tests use and ``chip_smoke.py`` holds the kernels
-against); a CUDA tensor launches the kernel — building it at first use —
-or raises.  Nothing falls back from the card to the plain version.  The
+``moments_scat_grad_hess_plain``/``spectra_plain``/
+``spectra_noise_plain``, which the CPU tests use and ``chip_smoke.py``
+holds the kernels against); a CUDA tensor launches the kernel — building
+it at first use — or raises.  Nothing falls back from the card to the plain version.  The
 wrapper checks device, dtype, shape and contiguity, checks the launch's
 ``cudaGetLastError()`` and adds one to ``LAUNCHES[name]`` per launch.
 
@@ -70,6 +81,7 @@ import time
 
 import torch
 
+from .config import F0_fact
 from .obs import monitor
 from .ops.scattering import LN10, _nonzero_div
 
@@ -82,7 +94,8 @@ __all__ = ["KernelLaunchError", "LAUNCHES", "reset_launches", "build",
            "MOMENTS_SCAT_SUMS", "moments_scat_grad_hess",
            "moments_scat_grad_hess_plain", "GRAD_HESS_COLUMNS",
            "HESS_UPPER", "fftfit", "fftfit_plain", "fftfit_table",
-           "fftfit_table_plain", "KERNELS"]
+           "fftfit_table_plain", "spectra", "spectra_plain",
+           "spectra_noise", "spectra_noise_plain", "KERNELS"]
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC_DIR = os.path.join(_HERE, "csrc")
@@ -102,6 +115,10 @@ KERNELS = {
                      "pulseportraiture_tpu/fit/portrait.py:191"),
     "moments_scat_grad_hess": ("moments_scat.cu", "pp_moments_scat_gh",
                                "pulseportraiture_tpu/fit/portrait.py:339"),
+    "spectra": ("spectra.cu", "pp_spectra",
+                "pulseportraiture_tpu/fit/portrait.py:915"),
+    "spectra_noise": ("spectra.cu", "pp_spectra_noise",
+                      "pulseportraiture_tpu/ops/noise.py:39"),
 }
 # the sources, one nvcc and one library each
 SOURCES = tuple(sorted({src for src, _, _ in KERNELS.values()}))
@@ -123,6 +140,11 @@ _SYMBOLS = {
     "moments_scat_grad_hess": {"pp_moments_scat_gh": [
         _VP, _VP, _I64, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _INT, _I64, _INT,
         _INT, _VP, _VP]},
+    "spectra": {"pp_spectra": [_VP, _VP, _INT, _VP, _I64, _INT, _INT, _INT,
+                               _DBL, _VP, _VP, _VP, _VP]},
+    "spectra_noise": {"pp_spectra_noise": [
+        _VP, _VP, _INT, _VP, _I64, _INT, _INT, _INT, _DBL, _INT, _INT, _DBL,
+        _VP, _VP, _VP, _VP, _VP, _VP]},
 }
 
 # kernel name -> the CUDA function that runs once per counted launch, as
@@ -132,7 +154,9 @@ TRACE_NAMES = {"moments": "moments_kernel",
                "moments_grad_hess": "moments_grad_hess_kernel",
                "fftfit": "fftfit_grid_kernel",
                "moments_scat": "moments_scat_kernel",
-               "moments_scat_grad_hess": "moments_scat_grad_hess_kernel"}
+               "moments_scat_grad_hess": "moments_scat_grad_hess_kernel",
+               "spectra": "spectra_kernel",
+               "spectra_noise": "spectra_noise_kernel"}
 
 LAUNCHES = {name: 0 for name in KERNELS}
 BUILD_LOG = {}  # library (source stem) -> nvcc output (register report)
@@ -822,3 +846,174 @@ def fftfit(cross, inv_err2, lo, hi, Ns, newton_iter):
         return out[0], out[1], out[2]
     out, _ = _fftfit_launch(cross, inv_err2, lo, hi, Ns, newton_iter)
     return out[0], out[1], out[2]
+
+
+# -- K4: the fit's spectra set-up ----------------------------------------
+
+def _power(x):
+    """|x|^2 per element of a complex tensor as re*re + im*im, each
+    product rounded: the reference's real(x conj(x))."""
+    return x.real * x.real + x.imag * x.imag
+
+
+def _abs2(x):
+    """|x|^2 as the reference's abs(x) ** 2: the modulus sqrt(re*re +
+    im*im), correctly rounded, then its square (torch's vectorised
+    complex abs forms the modulus so)."""
+    return torch.sqrt(_power(x)) ** 2
+
+
+def _spectra_plain_rows(dfft, mfft, inv_err2, kmax, cross_out, sd_out,
+                        absm2_out, power):
+    """K4's common arithmetic in PyTorch, ``power`` the rows' unscaled
+    |d_k|^2 (changed in place at k = 0).  The complex product is written
+    out in real operations, each rounded, as the kernel does: torch's own
+    complex product and abs round differently in their vectorised and
+    scalar loops, which would tie a row's bits to its place in the
+    chunk."""
+    m = mfft if mfft.ndim == 3 else mfft[None]
+    d0 = dfft[..., 0] * F0_fact
+    power[..., 0] = _power(d0)
+    sd_out.copy_(torch.sum(power, dim=-1) * inv_err2)
+    dK = dfft[..., :kmax].clone()
+    dK[..., 0] = d0
+    mK = m[..., :kmax].clone()
+    mK[..., 0] *= F0_fact
+    (a, b), (c, d) = (torch.view_as_real(dK).unbind(-1),
+                      torch.view_as_real(mK).unbind(-1))
+    out = torch.view_as_real(cross_out)
+    out[..., 0] = a * c + b * d          # d conj(m)
+    out[..., 1] = b * c - a * d
+    if absm2_out is not None:
+        absm2_out.copy_(_abs2(mK).expand_as(absm2_out))
+
+
+def spectra_plain(dfft, mfft, inv_err2, kmax, cross_out, sd_out,
+                  absm2_out=None):
+    """Plain PyTorch K4, epilogue A: with harmonic 0 of the data and model
+    spectra times F0_fact, cross_out = d conj(m) below kmax, sd_out = the
+    row's sum of |d_k|^2 over every harmonic times inv_err2, absm2_out =
+    |m_k|^2 below kmax (reference fit/portrait.py:915-924)."""
+    _spectra_plain_rows(dfft, mfft, inv_err2, kmax, cross_out, sd_out,
+                        absm2_out, _power(dfft))
+    return cross_out, sd_out, absm2_out
+
+
+def noise_kc(nharm):
+    """The first harmonic of get_noise_PS's noise mean (frac 4) for rows
+    of ``nharm`` harmonics."""
+    return int((1 - 1.0 / 4) * nharm)
+
+
+def spectra_noise_plain(dfft, mfft, weights, nbin, kmax, cross_out, sd_out,
+                        noise_out, inv_err2_out, absm2_out=None):
+    """Plain PyTorch K4, epilogue B: noise_out = get_noise_PS of each row
+    (the mean of |d_k|^2 / nbin over its top quarter of harmonics,
+    unscaled, reference ops/noise.py:39), inv_err2_out = (noise
+    sqrt(nbin/2))^-2 where weights > 0, else 0, then epilogue A with
+    it."""
+    power = _power(dfft)
+    kc = noise_kc(dfft.shape[-1])
+    noise_out.copy_(torch.sqrt(torch.mean(power[..., kc:] / nbin, dim=-1)))
+    errs_FT = noise_out * math.sqrt(nbin / 2.0)
+    inv_err2_out.copy_(torch.where(weights > 0.0, errs_FT ** -2.0,
+                                   torch.zeros_like(errs_FT)))
+    _spectra_plain_rows(dfft, mfft, inv_err2_out, kmax, cross_out, sd_out,
+                        absm2_out, power)
+    return cross_out, sd_out, noise_out, inv_err2_out, absm2_out
+
+
+def _check_spectra(dfft, mfft, kmax, cross_out, sd_out, absm2_out, rowvecs,
+                   what):
+    """Check K4's arguments (``rowvecs`` the [r, nchan] f64 vectors by
+    name); returns (r, nchan, nharm, m_per_row)."""
+    _check(dfft, "dfft", torch.complex128, 3)
+    r, nchan, nharm = dfft.shape
+    if not isinstance(mfft, torch.Tensor) or mfft.ndim not in (2, 3):
+        raise ValueError("%s: mfft must be a 2-D or 3-D tensor" % what)
+    _check(mfft, "mfft", torch.complex128, mfft.ndim)
+    _check(cross_out, "cross_out", torch.complex128, 3)
+    _check(sd_out, "sd_out", torch.float64, 2)
+    if absm2_out is not None:
+        _check(absm2_out, "absm2_out", torch.float64, 3)
+    for name, t in rowvecs.items():
+        _check(t, name, torch.float64, 2)
+    if not 1 <= kmax <= nharm:
+        raise ValueError("%s: kmax %d outside 1..%d" % (what, kmax, nharm))
+    m_per_row = mfft.ndim == 3
+    want_m = (r, nchan, nharm) if m_per_row else (nchan, nharm)
+    bad = [name for name, t, shape in (
+        ["mfft", mfft, want_m], ["cross_out", cross_out, (r, nchan, kmax)],
+        ["sd_out", sd_out, (r, nchan)],
+        ["absm2_out", absm2_out, (r, nchan, kmax)],
+        *[[n, t, (r, nchan)] for n, t in rowvecs.items()])
+        if t is not None and tuple(t.shape) != shape]
+    if bad:
+        raise ValueError("%s: shapes of %s disagree with dfft %s, kmax %d"
+                         % (what, bad, tuple(dfft.shape), kmax))
+    _same_device(dfft, mfft, cross_out, sd_out, absm2_out,
+                 *rowvecs.values())
+    # double2 loads and stores
+    for name, t in (("dfft", dfft), ("mfft", mfft), ("cross_out", cross_out)):
+        if t.data_ptr() % 16:
+            raise ValueError("%s: %s is not 16-byte aligned" % (what, name))
+    return r, nchan, nharm, m_per_row
+
+
+def spectra(dfft, mfft, inv_err2, kmax, cross_out, sd_out, absm2_out=None):
+    """K4 wrapper, epilogue A (see csrc/spectra.cu): one pass over a
+    chunk's rFFT.  dfft [r, nchan, nharm] complex128 (left unmodified);
+    mfft [nchan, nharm] (a model shared by the rows) or [r, nchan, nharm]
+    complex128, neither scaled by F0_fact; inv_err2 [r, nchan] f64; kmax
+    in 1..nharm.  Writes cross_out [r, nchan, kmax] complex128 (d
+    conj(m)), sd_out [r, nchan] f64 (inv_err2 times the row's data power
+    over every harmonic) and, when given, absm2_out [r, nchan, kmax] f64
+    (|m|^2): the caller's slices of its preallocated tensors.  Returns
+    (cross_out, sd_out, absm2_out)."""
+    kmax = int(kmax)
+    r, nchan, nharm, per_row = _check_spectra(
+        dfft, mfft, kmax, cross_out, sd_out, absm2_out,
+        {"inv_err2": inv_err2}, "spectra")
+    if dfft.device.type == "cpu":
+        return spectra_plain(dfft, mfft, inv_err2, kmax, cross_out, sd_out,
+                             absm2_out)
+    if dfft.device.type != "cuda":
+        raise ValueError("spectra: unsupported device %s" % dfft.device)
+    if r * nchan:
+        _launch("spectra", dfft.device, dfft.data_ptr(), mfft.data_ptr(),
+                int(per_row), inv_err2.data_ptr(), r * nchan, nchan, nharm,
+                kmax, float(F0_fact), cross_out.data_ptr(), sd_out.data_ptr(),
+                None if absm2_out is None else absm2_out.data_ptr())
+    return cross_out, sd_out, absm2_out
+
+
+def spectra_noise(dfft, mfft, weights, nbin, kmax, cross_out, sd_out,
+                  noise_out, inv_err2_out, absm2_out=None):
+    """K4 wrapper, epilogue B: as ``spectra`` for a fit that measures its
+    own noise.  weights [r, nchan] f64 and ``nbin`` (dfft's nharm is
+    nbin // 2 + 1) in place of inv_err2; also writes noise_out [r, nchan]
+    (get_noise_PS of each row) and inv_err2_out [r, nchan] (1 /
+    sigma_FT^2, 0 where the weight is not > 0), and sd_out with it.
+    Returns (cross_out, sd_out, noise_out, inv_err2_out, absm2_out)."""
+    kmax, nbin = int(kmax), int(nbin)
+    r, nchan, nharm, per_row = _check_spectra(
+        dfft, mfft, kmax, cross_out, sd_out, absm2_out,
+        {"weights": weights, "noise_out": noise_out,
+         "inv_err2_out": inv_err2_out}, "spectra_noise")
+    if nharm != nbin // 2 + 1:
+        raise ValueError("spectra_noise: %d harmonics are not the rFFT of "
+                         "%d bins" % (nharm, nbin))
+    if dfft.device.type == "cpu":
+        return spectra_noise_plain(dfft, mfft, weights, nbin, kmax, cross_out,
+                                   sd_out, noise_out, inv_err2_out, absm2_out)
+    if dfft.device.type != "cuda":
+        raise ValueError("spectra_noise: unsupported device %s" % dfft.device)
+    if r * nchan:
+        _launch("spectra_noise", dfft.device, dfft.data_ptr(),
+                mfft.data_ptr(), int(per_row), weights.data_ptr(), r * nchan,
+                nchan, nharm, kmax, float(F0_fact), nbin, noise_kc(nharm),
+                math.sqrt(nbin / 2.0), cross_out.data_ptr(),
+                sd_out.data_ptr(), noise_out.data_ptr(),
+                inv_err2_out.data_ptr(),
+                None if absm2_out is None else absm2_out.data_ptr())
+    return cross_out, sd_out, noise_out, inv_err2_out, absm2_out

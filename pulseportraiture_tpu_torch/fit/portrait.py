@@ -63,7 +63,6 @@ from .. import _kernels, obs
 from ..config import Dconst, F0_fact, real_dtype, resolve_device
 from ..debug import check_fit_result
 from ..ops.fourier import ipow
-from ..ops.noise import get_noise
 from ..ops.scattering import (scattering_times, scattering_times_2deriv,
                               scattering_times_deriv)
 from ..parallel.mesh import AXES, shard
@@ -780,37 +779,49 @@ def _scat_hint(fit_flags, init_params, log10_tau):
 SPECTRA_ROWS = 64 * 512
 
 
-def _spectra(data, model, inv_err2, kmax, rows=SPECTRA_ROWS):
-    """(cross [b, nchan, K], abs_m2 [1 or b, nchan, K], Sd [b]) from data
-    [b, nchan, nbin] and model [nchan, nbin] or [b, nchan, nbin], with the
-    DC harmonic weighted by F0_fact.  The full-nharm data spectra exist
-    for about ``rows`` profiles at a time only (whole subints, at least
-    one); the arithmetic of each row does not depend on the chunks."""
-    def rfft0(x):
-        X = torch.fft.rfft(x, dim=-1)
-        X[..., 0] *= F0_fact
-        return X
-
+def _spectra(data, model, kmax, inv_err2=None, weights=None,
+             rows=SPECTRA_ROWS):
+    """(cross [b, nchan, K], abs_m2 [1 or b, nchan, K], Sd [b], noise,
+    inv_err2 [b, nchan]) from data [b, nchan, nbin] and model [nchan,
+    nbin] or [b, nchan, nbin], with the DC harmonic weighted by F0_fact:
+    one rFFT (cuFFT on the card) and one launch of kernel K4 per chunk,
+    the kernel writing into slices of the outputs allocated here.  Given
+    ``inv_err2`` (1 / sigma_FT^2 [b, nchan]), K4's first epilogue
+    (``_kernels.spectra``) runs and noise is None; given ``weights``
+    instead, its second (``_kernels.spectra_noise``) also measures the
+    noise of each profile (get_noise) and its inv_err2 (:func:`_inv_err2`).
+    The full-nharm data spectra exist for about ``rows`` profiles at a
+    time only (whole subints, at least one); the arithmetic of each row
+    does not depend on the chunks."""
+    b, nchan, nbin = data.shape
+    dev = data.device
     shared = model.ndim == 2
     if shared:
-        mFFT = rfft0(model)[None]
-    sub = max(1, rows // data.shape[1])
-    crosses, Sds, absm = [], [], []
-    for i in range(0, data.shape[0], sub):
-        dFFT = rfft0(data[i:i + sub])
-        w = inv_err2[i:i + sub]
-        Sds.append(torch.sum(torch.abs(dFFT) ** 2 * w[..., None],
-                             dim=(-2, -1)))
-        m = mFFT if shared else rfft0(model[i:i + sub])
-        dK, mK = dFFT[..., :kmax], m[..., :kmax]
-        crosses.append(dK * torch.conj(mK))
-        if not shared:
-            absm.append(torch.abs(mK) ** 2)
-        del dFFT
-    abs_m2 = torch.abs(mFFT[..., :kmax]) ** 2 if shared else \
-        torch.cat(absm)
-    return torch.cat(crosses).contiguous(), abs_m2.contiguous(), \
-        torch.cat(Sds)
+        mFFT = torch.fft.rfft(model, dim=-1)
+    cross = torch.empty((b, nchan, kmax), dtype=torch.complex128, device=dev)
+    sd = torch.empty((b, nchan), dtype=real_dtype, device=dev)
+    abs_m2 = None if shared else torch.empty((b, nchan, kmax),
+                                             dtype=real_dtype, device=dev)
+    noise = None
+    if weights is not None:
+        noise, inv_err2 = torch.empty_like(sd), torch.empty_like(sd)
+    sub = max(1, rows // nchan)
+    for i in range(0, b, sub):
+        s = slice(i, i + sub)
+        dFFT = torch.fft.rfft(data[s], dim=-1)
+        m = mFFT if shared else torch.fft.rfft(model[s], dim=-1)
+        am = None if shared else abs_m2[s]
+        if weights is None:
+            _kernels.spectra(dFFT, m, inv_err2[s], kmax, cross[s], sd[s], am)
+        else:
+            _kernels.spectra_noise(dFFT, m, weights[s].contiguous(), nbin,
+                                   kmax, cross[s], sd[s], noise[s],
+                                   inv_err2[s], am)
+        del dFFT, m
+    if shared:  # model-sized: |m|^2 once for the batch, in torch
+        mFFT[:, 0] *= F0_fact
+        abs_m2 = torch.abs(mFFT[None, :, :kmax]) ** 2
+    return cross, abs_m2, torch.sum(sd, dim=-1), noise, inv_err2
 
 
 def _band_sums(data, model, wok):
@@ -851,12 +862,21 @@ def _inv_err2(errs, weights, nbin):
 
 def _fit_chunk(data, model, init, P, freqs, errs, weights, nu_fits,
                nu_outs, nu_outs_mask, flags, lo, hi, max_iter, kmax,
-               log10_tau, scat, option, is_toa):
+               log10_tau, scat, option, is_toa, seed=False):
     """The batched fit of one chunk; every argument is a device tensor
-    with the chunk's leading batch dimension (model may be shared)."""
+    with the chunk's leading batch dimension (model may be shared).
+    ``errs`` None: the noise is measured in the spectra pass (K4's second
+    epilogue), and with ``seed`` the phases are seeded from it after."""
     nbin = data.shape[-1]
-    inv_err2 = _inv_err2(errs, weights, nbin)
-    cross, abs_m2, Sd = _spectra(data, model, inv_err2, kmax)
+    if errs is None:
+        cross, abs_m2, Sd, errs, inv_err2 = _spectra(data, model, kmax,
+                                                     weights=weights)
+        if seed:
+            with record_function("pp_seed"):
+                init[:, 0] = _seed_phases(data, model, errs, weights)
+    else:
+        inv_err2 = _inv_err2(errs, weights, nbin)
+        cross, abs_m2, Sd = _spectra(data, model, kmax, inv_err2)[:3]
     S = (torch.sum(abs_m2, dim=-1) * inv_err2).contiguous()
     sp = _Spectra(cross, abs_m2, S, inv_err2, freqs, P[:, None], scat=scat,
                   log10_tau=log10_tau)
@@ -890,7 +910,8 @@ def _fit_group(mesh, i, data, model, init, P, freqs, errs, weights, seed,
     ShardedTensors on ``mesh``; every other tensor holds the group's rows
     on its lead device (``errs`` None: measured on each cell).  Each
     (group, channel shard) cell joins its bin shards on its device and
-    forms its noise, band sums and spectra there; the lead device takes
+    forms its spectra (and noise: K4's second epilogue) and band sums
+    there; the lead device takes
     the per-channel vectors whole and runs the seeding (K2), the solver
     and the finish, with K1 or K3 on the cells."""
     lead = mesh.lead(i)
@@ -900,16 +921,19 @@ def _fit_group(mesh, i, data, model, init, P, freqs, errs, weights, seed,
         dev = mesh.devices[i, j, 0]
         chans = data.block((i, j, 0)).index[1]
         d, m = data.cell(i, j), model.cell(i, j)
-        e = get_noise(d) if errs is None else errs[:, chans].to(dev)
         w = weights[:, chans].to(dev)
-        inv_err2 = _inv_err2(e, w, nbin)
+        if errs is None:  # measured in the spectra pass (K4-B)
+            cross, abs_m2, sd, e, inv_err2 = _spectra(d, m, kmax, weights=w)
+        else:
+            e = errs[:, chans].to(dev)
+            inv_err2 = _inv_err2(e, w, nbin)
+            cross, abs_m2, sd = _spectra(d, m, kmax, inv_err2)[:3]
         if seed:
             with record_function("pp_seed"):
                 part = [x.to(lead) for x in _band_sums(d, m, (w > 0.0).to(
                     d.dtype))]
             bands = part if bands is None else [a + b for a, b in
                                                 zip(bands, part)]
-        cross, abs_m2, sd = _spectra(d, m, inv_err2, kmax)
         del d, m
         s_cell = (torch.sum(abs_m2, dim=-1) * inv_err2).contiguous()
         cells.append(_Cell(dev, chans, cross, abs_m2, inv_err2, s_cell))
@@ -1103,14 +1127,14 @@ def fit_portrait_full_batch(data_ports, model_ports, init_params, Ps,
     freqs = torch.broadcast_to(_to_dev(freqs, device), (B, nchan))
     P = _per_batch(Ps, B, device)
     init = torch.broadcast_to(_to_dev(init_params, device), (B, 5)).clone()
-    if errs is None and mesh is None:
-        errs = get_noise(data)
     if errs is not None:
         errs = torch.broadcast_to(_to_dev(errs, device), (B, nchan))
     if weights is None:
         weights = torch.ones((B, nchan), dtype=real_dtype, device=device)
     weights = torch.broadcast_to(_to_dev(weights, device), (B, nchan))
-    if seed and mesh is None:
+    if seed and mesh is None and errs is not None:
+        # (errs None: each chunk seeds after its spectra, which measure
+        # the noise)
         with record_function("pp_seed"):
             init[:, 0] = _seed_phases(data, model, errs, weights)
     if nu_fits is None or isinstance(nu_fits, (tuple, list)):
@@ -1160,10 +1184,10 @@ def fit_portrait_full_batch(data_ports, model_ports, init_params, Ps,
             s = slice(i, i + chunk)
             outs.append(_fit_chunk(
                 data[s], model if model.ndim == 2 else model[s], init[s],
-                P[s], freqs[s], errs[s], weights[s], nu_fits_b[s],
-                nu_outs_b[s], nu_outs_mask, flags, lo, hi, int(max_iter),
-                int(kmax), bool(log10_tau), scat, int(option),
-                bool(is_toa)))
+                P[s], freqs[s], None if errs is None else errs[s],
+                weights[s], nu_fits_b[s], nu_outs_b[s], nu_outs_mask, flags,
+                lo, hi, int(max_iter), int(kmax), bool(log10_tau), scat,
+                int(option), bool(is_toa), seed=bool(seed) and errs is None))
     out = DataBunch(**outs[0]) if len(outs) == 1 else DataBunch(
         **{k: torch.cat([o[k] for o in outs]) for k in RESULT_KEYS})
     # opt-in NaN hook (PPTPU_SANITIZE): fail at the fit that produced a
@@ -1211,17 +1235,14 @@ def get_scales_full(params, data_port, model_port, P, freqs, nu_DM, nu_GM,
                     nu_tau, log10_tau=True, device=None):
     """Maximum-likelihood per-channel amplitudes a_n = C_n/S_n at params
     (reference pptoaslib.py:908-926), on the full harmonic range with
-    unit weights."""
+    unit weights; the spectra in kernel K4 (kmax = nharm)."""
     device = resolve_device(device)
     data = _to_dev(data_port, device)
     model = _to_dev(model_port, device)
-    dFFT = torch.fft.rfft(data, dim=-1)
-    mFFT = torch.fft.rfft(model, dim=-1)
-    dFFT[..., 0] *= F0_fact
-    mFFT[..., 0] *= F0_fact
-    cross = dFFT * torch.conj(mFFT)
-    abs_m2 = torch.abs(mFFT) ** 2
-    inv_err2 = torch.ones(cross.shape[0], dtype=real_dtype, device=device)
+    nchan, nbin = data.shape
+    ones = torch.ones((1, nchan), dtype=real_dtype, device=device)
+    cross, abs_m2 = _spectra(data[None], model, nbin // 2 + 1, ones)[:2]
+    cross, abs_m2, inv_err2 = cross[0], abs_m2[0], ones[0]
     m = _moments(_to_dev(params, device), cross, abs_m2, inv_err2,
                  _to_dev(freqs, device), P, nu_DM, nu_GM, nu_tau, log10_tau,
                  data.shape[-1], order=0)

@@ -30,6 +30,15 @@ nesting before they are summed (:func:`self_times`; device rows of one
 stream do not overlap, so this is their duration), so ``scopes`` +
 ``unattributed_s`` == ``device_total_s``.
 
+**Completeness.**  torch.profiler places the card's rows on the host
+clock and drops those it places before the capture's start; in a
+process that has run for minutes the conversion has drifted and a
+region's first rows are lost (PERF.md section 7).  The capture knows how
+often each hand kernel was launched inside it (``_kernels.LAUNCHES``),
+so the summary holds each one's rows against its launches
+(:func:`kernel_rows`): ``complete`` is False when any differ, and
+``device_total_s`` is then an undercount of ``lost_rows`` rows or more.
+
 Not here, unlike the JAX package's module: its xplane protobuf reader
 (XLA's format only) and with it the allocator-memory timeline of a
 capture — the card's memory is read from the allocator instead
@@ -49,8 +58,8 @@ from . import core
 
 __all__ = ["SCOPE_PREFIX", "SCOPE_PHASES", "DEVICE_CATEGORIES",
            "find_capture", "parse_chrome_trace", "self_times",
-           "scopes_of", "summarize_region", "summarize_trace_dir",
-           "record_devtime"]
+           "scopes_of", "kernel_rows", "summarize_region",
+           "summarize_trace_dir", "record_devtime"]
 
 # record_function convention: any range name starting with this prefix
 # is an attribution scope (every other annotation is ignored)
@@ -170,9 +179,16 @@ def _scope_paths(events, rows):
         for r in rows}
 
 
+def kernel_rows(rows, functions):
+    """{kernel: its device rows} for ``functions`` {kernel: the name of
+    its CUDA function}: the rows whose name holds that name."""
+    return {name: sum(1 for r in rows if fn in r["op"])
+            for name, fn in functions.items()}
+
+
 # -- aggregation ----------------------------------------------------------
 
-def summarize_region(region_dir, top=10):
+def summarize_region(region_dir, top=10, kernels=None):
     """Aggregate the newest capture under one region directory.
 
     Returns None when no capture exists, else a JSON-ready dict::
@@ -188,6 +204,11 @@ def summarize_region(region_dir, top=10):
     longest, summed by name; ``n_ops`` counts device rows.  All values
     are self-time sums, so ``scopes`` + ``unattributed_s`` ==
     ``device_total_s`` (up to rounding).
+
+    With ``kernels`` ({kernel: (CUDA function name, launches over the
+    region)}) the summary also holds ``kernel_rows`` and
+    ``kernel_launches`` by kernel, ``complete`` (every kernel's rows equal
+    its launches) and ``lost_rows`` (the launches beyond their rows).
     """
     trace_path = find_capture(region_dir)
     if trace_path is None:
@@ -219,7 +240,7 @@ def summarize_region(region_dir, top=10):
         return round(us / 1e6, 6)
 
     top = dict(sorted(top_ops.items(), key=lambda kv: -kv[1])[:top])
-    return {
+    out = {
         "trace": trace_path,
         "device_total_s": s(total_us),
         "unattributed_s": s(unattr_us),
@@ -228,6 +249,14 @@ def summarize_region(region_dir, top=10):
         "top_ops": {k: s(v) for k, v in top.items()},
         "n_ops": len(rows),
     }
+    if kernels is not None:
+        counts = kernel_rows(rows, {k: fn for k, (fn, _) in kernels.items()})
+        launched = {k: int(n) for k, (_, n) in kernels.items()}
+        out.update(kernel_rows=counts, kernel_launches=launched,
+                   complete=counts == launched,
+                   lost_rows=sum(max(0, n - counts[k])
+                                 for k, n in launched.items()))
+    return out
 
 
 def summarize_trace_dir(trace_root, top=10):
@@ -248,21 +277,22 @@ def summarize_trace_dir(trace_root, top=10):
     return out
 
 
-def record_devtime(region, region_dir):
+def record_devtime(region, region_dir, kernels=None):
     """Ingest a just-closed capture and emit one ``devtime`` event into
     the active obs run (:mod:`.trace` calls this after the profiler
-    stops).
+    stops, with ``kernels`` as :func:`summarize_region` takes it).
 
     Never raises and never emits when no run is active or the capture
     is unreadable — telemetry must not kill the run it observes.  The
     per-run ``device_seconds_total`` counter sums ``device_total_s``
-    across regions.
+    across regions, and ``devtime_incomplete`` counts the regions whose
+    capture lost rows (``complete`` False): the sum undercounts then.
     """
     rec = core.current()
     if rec is None:
         return None
     try:
-        summary = summarize_region(region_dir)
+        summary = summarize_region(region_dir, kernels=kernels)
     except Exception as e:  # parsing must never be fatal
         rec.emit("event", name="devtime_error", region=region,
                  error=str(e)[:500])
@@ -272,4 +302,6 @@ def record_devtime(region, region_dir):
     rec.emit("devtime", region=region, **summary)
     rec.bump("devtime_regions")
     rec.bump("device_seconds_total", summary["device_total_s"])
+    if summary.get("complete") is False:
+        rec.bump("devtime_incomplete")
     return summary

@@ -17,11 +17,12 @@ region — the outer capture keeps the device timeline.
 
 On a successful stop the capture is immediately ingested by
 :mod:`.devtime`: one ``devtime`` event (per-stage device seconds,
-``record_function`` scope attribution) lands in the active obs run
-next to the ``trace`` event that links the span wall clock to the
-trace path.  The first capture of a process also initializes CUPTI,
-which takes seconds on the card; a caller timing the region warms the
-profiler up first.
+``record_function`` scope attribution, and each hand kernel's rows
+against its launches inside the region: ``complete``) lands in the
+active obs run next to the ``trace`` event that links the span wall
+clock to the trace path.  The first capture of a process also
+initializes CUPTI, which takes seconds on the card; a caller timing the
+region warms the profiler up first.
 """
 
 import contextlib
@@ -83,9 +84,12 @@ def trace_capture(name, base_dir=None):
         import torch
         from torch.profiler import ProfilerActivity, profile
 
+        from .. import _kernels
+
         acts = [ProfilerActivity.CPU]
         if torch.cuda.is_available():
             acts.append(ProfilerActivity.CUDA)
+        before = dict(_kernels.LAUNCHES)
         prof = profile(activities=acts)
         prof.start()
     except Exception as e:
@@ -96,13 +100,15 @@ def trace_capture(name, base_dir=None):
     finally:
         if prof is not None:
             try:
+                kernels = {k: (_kernels.TRACE_NAMES[k], n - before[k])
+                           for k, n in _kernels.LAUNCHES.items()}
                 prof.stop()
                 session = _session_dir(path)
                 os.makedirs(session, exist_ok=True)
                 prof.export_chrome_trace(os.path.join(
                     session, "pid%d.trace.json.gz" % os.getpid()))
                 core.event("trace", region=name, path=path)
-                devtime.record_devtime(name, path)
+                devtime.record_devtime(name, path, kernels=kernels)
             except Exception as e:
                 core.event("trace_error", region=name,
                            error=str(e)[:500])

@@ -1357,6 +1357,9 @@ def run_survey(plan, workdir, modelfile=None, process_index=None,
                                                0.0))
                 wall = time.perf_counter() - t0
                 obs.gauge("device_total_s", round(dev_s, 6))
+                # bucket captures that lost rows: the sum undercounts
+                obs.gauge("device_total_incomplete_regions", int(
+                    rec.counters.get("devtime_incomplete", 0)))
                 obs.gauge("device_utilization",
                           round(dev_s / wall, 4) if wall > 0 else 0.0)
             if rec is not None:

@@ -3,7 +3,8 @@ its sharded fit on the card: kernels against their plain versions.
 
 Each test runs a path of pulseportraiture_tpu_torch on the CUDA device
 twice — through the hand kernels (K1 csrc/moments.cu and K3
-csrc/moments_scat.cu, both epilogues of each, K2 csrc/fftfit.cu), then
+csrc/moments_scat.cu, both epilogues of each, K2 csrc/fftfit.cu, K4
+csrc/spectra.cu, both epilogues), then
 with their plain PyTorch versions swapped in on the same device — and
 holds the two runs
 to the port's parity bar: TOAs within 1 ns, equal rc and nfeval, equal
@@ -14,7 +15,9 @@ package), post-fit channel reduced chi2 within 2e-9 relative (each moves
 to first order with the fitted phase, DM and scales, which converged
 fits leave ~1e-11 apart);
 K3 alone at one channel per lane within 1e-12 of each sum's largest
-magnitude; the template builders (align, spline, Gaussian) with aligned
+magnitude; K4 alone with its cross and |m|^2 bit-equal and each row's
+sums within 1e-13 relative, its wrappers refusing bad arguments and never
+falling back; the template-building paths (align, spline, Gaussian) with aligned
 portraits within 5e-8 of their peak and weights within 1e-9 (the bound
 of the CPU parity tests against the JAX package: the (phase, DM) fits
 stop at the f64 floor of their objective, ~1e-9 rot apart, and a subint
@@ -660,3 +663,155 @@ def test_viz_figure_numbers_card_match_cpu(card, archive):
              for d in (DEVICE, "cpu")]
     np.testing.assert_allclose(hists[0][0], hists[1][0], rtol=2e-9)
     assert hists[0][1] == hists[1][1]
+
+
+# K4 cases: (subints, channels, nbin, kmax or None for nharm, a model per
+# row)
+K4_CASES = [
+    (6, 7, 64, 12, False),       # rows shorter than a warp's 128 harmonics
+    (5, 3, 63, 32, True),        # odd nbin, a model per row
+    (300, 1, 128, None, True),   # one channel a lane, kmax = nharm
+    (1, 511, 256, 129, False),   # one subint, kmax = nharm, odd row count
+    (3, 2, 2, 2, False),         # nbin 2: two harmonics
+    (64, 512, 2048, 128, False),  # the throughput chunk
+]
+
+
+@pytest.mark.parametrize("f0", [None, 0.5], ids=["F0_fact", "f0_half"])
+@pytest.mark.parametrize("case", K4_CASES, ids=lambda c: "%dx%dx%d-k%s%s" % (
+    c[0], c[1], c[2], c[3] or "all", "-rows" if c[4] else ""))
+def test_spectra_kernels_match_plain_on_the_card(card, monkeypatch, case,
+                                                 f0):
+    """K4's two epilogues against their plain versions on the card: the
+    cross and |m|^2 bit-equal (the same rounded operations, no fused
+    multiply-add) and each row's data power, noise and inv_err2 within
+    1e-13 relative (sums of positive terms in another order); the dfft
+    left unmodified, a zero weight's inv_err2 and data power 0, and one
+    launch counted per call."""
+    K = card
+    if f0 is not None:
+        monkeypatch.setattr(K, "F0_fact", f0)
+    r, nchan, nbin, kmax, per_row = case
+    nharm = nbin // 2 + 1
+    kmax = nharm if kmax is None else kmax
+    gen = torch.Generator(device=DEVICE).manual_seed(r + nchan + nbin)
+    dfft = torch.fft.rfft(torch.randn((r, nchan, nbin), generator=gen,
+                                      device=DEVICE, dtype=torch.float64)
+                          + 2.0, dim=-1)
+    mfft = torch.fft.rfft(torch.randn(
+        (r, nchan, nbin) if per_row else (nchan, nbin), generator=gen,
+        device=DEVICE, dtype=torch.float64), dim=-1)
+    before = dfft.clone()
+    w = torch.rand((r, nchan), generator=gen, device=DEVICE,
+                   dtype=torch.float64) + 0.5
+    w[0, -1] = 0.0
+
+    def outs(n):
+        return [torch.empty((r, nchan, kmax), dtype=torch.complex128,
+                            device=DEVICE)] + [
+            torch.empty((r, nchan), dtype=torch.float64, device=DEVICE)
+            for _ in range(n)] + [torch.empty(
+                (r, nchan, kmax), dtype=torch.float64, device=DEVICE)
+                if per_row else None]
+
+    for name, head, nvec in (("spectra", (dfft, mfft, w, kmax), 1),
+                             ("spectra_noise", (dfft, mfft, w, nbin, kmax),
+                              3)):
+        got, want = outs(nvec), outs(nvec)
+        n0 = K.LAUNCHES[name]
+        getattr(K, name)(*head, *got)
+        assert K.LAUNCHES[name] == n0 + 1
+        getattr(K, name + "_plain")(*head, *want)
+        assert torch.equal(got[0], want[0]), name       # cross
+        if per_row:
+            assert torch.equal(got[-1], want[-1]), name  # |m|^2
+        for g, p in zip(got[1:1 + nvec], want[1:1 + nvec]):
+            err = ((g - p).abs() / p.abs().clamp_min(1e-300)).max()
+            assert float(err) <= 1e-13, (name, float(err))
+        assert float(got[1][0, -1]) == 0.0
+        if name == "spectra_noise":
+            assert float(got[3][0, -1]) == 0.0
+    assert torch.equal(dfft, before)
+
+
+def test_spectra_wrappers_refuse_on_the_card(card, monkeypatch):
+    """K4's wrappers on CUDA tensors refuse a wrong dtype, shape or
+    contiguity, and never fall back to the plain versions: with those
+    made to raise, a valid call still launches the kernel."""
+    K = card
+    r, nchan, nbin, kmax = 2, 3, 16, 5
+    gen = torch.Generator(device=DEVICE).manual_seed(2)
+    dfft = torch.randn((r, nchan, nbin // 2 + 1), dtype=torch.complex128,
+                       generator=gen, device=DEVICE)
+    mfft = dfft[0].clone()
+    w = torch.ones((r, nchan), dtype=torch.float64, device=DEVICE)
+    cross = torch.empty((r, nchan, kmax), dtype=torch.complex128,
+                        device=DEVICE)
+    sd = torch.empty((r, nchan), dtype=torch.float64, device=DEVICE)
+
+    def boom(*a, **k):
+        raise AssertionError("fell back to the plain version")
+
+    monkeypatch.setattr(K, "spectra_plain", boom)
+    monkeypatch.setattr(K, "spectra_noise_plain", boom)
+    n0 = K.LAUNCHES["spectra"], K.LAUNCHES["spectra_noise"]
+    K.spectra(dfft, mfft, w, kmax, cross, sd)
+    K.spectra_noise(dfft, mfft, w, nbin, kmax, cross, sd, sd.clone(),
+                    sd.clone())
+    torch.cuda.synchronize()
+    assert (K.LAUNCHES["spectra"], K.LAUNCHES["spectra_noise"]) == (
+        n0[0] + 1, n0[1] + 1)
+    bad = [
+        (dfft.to(torch.complex64), mfft, w, kmax, cross, sd),
+        (dfft, mfft, w.float(), kmax, cross, sd),
+        (dfft, mfft[:2], w, kmax, cross, sd),
+        (dfft, mfft, w, kmax + 1, cross, sd),
+        (torch.cat([dfft, dfft], -1)[..., ::2], mfft, w, kmax, cross, sd),
+        (dfft, mfft, w, kmax, torch.empty(
+            (r, kmax, nchan), dtype=torch.complex128,
+            device=DEVICE).transpose(1, 2), sd),
+        (dfft, mfft, w.cpu(), kmax, cross, sd),
+    ]
+    for args in bad:
+        with pytest.raises((TypeError, ValueError)):
+            K.spectra(*args)
+        with pytest.raises((TypeError, ValueError)):
+            K.spectra_noise(*args[:3], nbin, *args[3:], sd.clone(),
+                            sd.clone())
+
+
+def test_errs_none_fit_kernel_equals_plain_on_the_card(card):
+    """A seeded (phi, DM) fit of 48 subints of 64 x 512 without errs: the
+    noise from K4's second epilogue (launched once, K4's first never),
+    the phases seeded after it; through the plain versions: TOAs within
+    1 ns, rc and nfeval equal."""
+    from pulseportraiture_tpu_torch.fit.portrait import \
+        fit_portrait_full_batch
+    from pulseportraiture_tpu_torch.ops.fourier import get_bin_centers
+    from pulseportraiture_tpu_torch.ops.profiles import gen_gaussian_portrait
+    from pulseportraiture_tpu_torch.pipelines.synth import make_fake_dataset
+
+    mp = [0.0, 0.0, 0.35, -0.05, 0.05, 0.1, 1.0, -1.2]
+    gen = torch.Generator(device=DEVICE).manual_seed(12)
+    ds = make_fake_dataset(gen, mp, nsub=48, nchan=64, nbin=512,
+                           lofreq=1300.0, bw=400.0, P=0.005, noise_std=0.05,
+                           device=DEVICE)
+    model = gen_gaussian_portrait("000", mp, -4.0, get_bin_centers(512),
+                                  ds.freqs, ds.nu_ref, device=DEVICE)
+
+    def fit():
+        return fit_portrait_full_batch(
+            ds.subints, model, None, 0.005, ds.freqs,
+            fit_flags=(1, 1, 0, 0, 0), log10_tau=False, max_iter=30,
+            device=DEVICE)
+
+    card.reset_launches()
+    got = fit()
+    assert card.LAUNCHES["spectra_noise"] == 1
+    assert card.LAUNCHES["spectra"] == 0
+    with plain_kernels(card):
+        want = fit()
+    dphi = ((want.phi - got.phi + 0.5) % 1.0 - 0.5).abs().max()
+    assert float(dphi) * 0.005 < 1e-9
+    assert torch.equal(want.return_code, got.return_code)
+    assert torch.equal(want.nfeval, got.nfeval)

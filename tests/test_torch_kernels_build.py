@@ -43,3 +43,22 @@ def test_library_path_of_a_source_without_headers(tmp_path, monkeypatch):
         path = csrc / (lib + ".cu")
         path.write_text(path.read_text() + "\n// edited\n")
         assert _kernels._lib_path(lib) != before
+
+
+def test_spectra_source_in_the_build(tmp_path, monkeypatch):
+    """csrc/spectra.cu is one of the built sources, holds both entry
+    points, and its library's name changes when the source is edited."""
+    assert "spectra.cu" in _kernels.SOURCES
+    assert _kernels._lib_of("spectra") == _kernels._lib_of("spectra_noise") \
+        == "spectra"
+    text = open(_kernels.CSRC_DIR + "/spectra.cu").read()
+    for name in ("spectra", "spectra_noise"):
+        assert 'extern "C" int %s(' % _kernels.KERNELS[name][1] in text
+        assert "__global__" in text and _kernels.TRACE_NAMES[name] in text
+    csrc = tmp_path / "csrc"
+    shutil.copytree(_kernels.CSRC_DIR, csrc)
+    monkeypatch.setattr(_kernels, "CSRC_DIR", str(csrc))
+    before = _kernels._lib_path("spectra")
+    src = csrc / "spectra.cu"
+    src.write_text(src.read_text() + "\n// edited\n")
+    assert _kernels._lib_path("spectra") != before

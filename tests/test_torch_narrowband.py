@@ -177,9 +177,9 @@ def test_spectra_chunks_by_profiles(monkeypatch):
     data = torch.as_tensor(rng.standard_normal((300, 1, 64)))
     model = torch.as_tensor(rng.standard_normal((300, 1, 64)))
     inv_err2 = torch.as_tensor(rng.uniform(0.5, 2.0, (300, 1)))
-    whole = tfp._spectra(data, model, inv_err2, 20)
+    whole = tfp._spectra(data, model, 20, inv_err2)[:3]
     for rows in (1, 7, 64, 299, 100000):
-        part = tfp._spectra(data, model, inv_err2, 20, rows=rows)
+        part = tfp._spectra(data, model, 20, inv_err2, rows=rows)[:3]
         for a, b in zip(part, whole):
             assert torch.equal(a, b)
     calls = []
@@ -190,10 +190,10 @@ def test_spectra_chunks_by_profiles(monkeypatch):
         return real(x, *a, **k)
 
     monkeypatch.setattr(torch.fft, "rfft", counting)
-    tfp._spectra(data, model[0], inv_err2, 20)
+    tfp._spectra(data, model[0], 20, inv_err2)
     assert calls == [1, 300]          # the shared model, one data chunk
     calls.clear()
     tfp._spectra(torch.zeros((130, 512, 8), dtype=torch.float64),
-                 torch.zeros((512, 8), dtype=torch.float64),
-                 torch.ones((130, 512), dtype=torch.float64), 5)
+                 torch.zeros((512, 8), dtype=torch.float64), 5,
+                 torch.ones((130, 512), dtype=torch.float64))
     assert calls == [512, 64, 64, 2]  # the model, then 64 subints a chunk

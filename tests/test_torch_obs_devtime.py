@@ -5,7 +5,9 @@ layout torch.profiler exports on the card: kernel, gpu_memcpy and
 gpu_memset rows on two streams, the host rows around their launches, and
 the gpu_user_annotation mirror of the record_function ranges on each
 stream) the stage totals must come out exact: the scope of a row is the
-pp_* ranges on its stream that contain its start.  On the CPU a real
+pp_* ranges on its stream that contain its start, and each hand kernel's
+rows are held against its launches over the region (a capture that lost
+rows says so: ``complete`` False).  On the CPU a real
 torch.profiler capture around the port's pipeline must yield one devtime
 event per fit region with no device rows, and the capture keeps the
 reference's contract: a nested capture is skipped with an event, a
@@ -77,9 +79,62 @@ def test_fixture_rows_and_kernel_names(tmp_path):
     counts = {name: sum(1 for r in dev if fn in r["op"])
               for name, fn in _kernels.TRACE_NAMES.items()}
     assert counts == {"moments": 2, "moments_grad_hess": 0, "fftfit": 1,
-                      "moments_scat": 1, "moments_scat_grad_hess": 0}
+                      "moments_scat": 1, "moments_scat_grad_hess": 0,
+                      "spectra": 0, "spectra_noise": 0}
     assert devtime.scopes_of(["pp_solve", "x", "pp_scatter", None]) == \
         ["pp_solve", "pp_scatter"]
+
+
+FIXTURE_ROWS = {"moments": 2, "fftfit": 1, "moments_scat": 1}
+
+
+@pytest.mark.parametrize("extra", [0, 1, 3], ids=["equal", "lost1", "lost3"])
+def test_kernel_rows_held_against_launches(tmp_path, extra):
+    """Each hand kernel's rows in the capture against its launches over
+    the region: complete only where they are equal, and the rows missing
+    counted (a region's first K1 rows lost by the profiler)."""
+    launched = {name: FIXTURE_ROWS.get(name, 0) for name in _kernels.LAUNCHES}
+    launched["moments"] += extra
+    s = devtime.summarize_region(_region(tmp_path), kernels={
+        name: (_kernels.TRACE_NAMES[name], n) for name, n in
+        launched.items()})
+    assert s["kernel_launches"] == launched
+    assert s["kernel_rows"] == {name: FIXTURE_ROWS.get(name, 0)
+                                for name in _kernels.LAUNCHES}
+    assert s["complete"] is (extra == 0) and s["lost_rows"] == extra
+    # the device total is what the trace holds, lost rows or not
+    assert s["device_total_s"] == 3.6e-05
+    assert "complete" not in devtime.summarize_region(_region(tmp_path /
+                                                              "plain"))
+
+
+def test_incomplete_capture_is_counted_in_the_run(tmp_path, monkeypatch):
+    """A capture whose region launched a hand kernel more often than its
+    trace shows (here: counts raised by hand, the CPU having no device
+    rows) is marked incomplete in its devtime event and counted in the
+    run's devtime_incomplete counter; a capture that launched nothing is
+    complete."""
+    monkeypatch.setenv("PPTPU_OBS_DIR", str(tmp_path / "obs"))
+    monkeypatch.setenv("PPTPU_TRACE_DIR", str(tmp_path / "trace"))
+    saved = dict(_kernels.LAUNCHES)
+    try:
+        with tobs.run("lost") as rec:
+            with tobs.trace_capture("quiet"):
+                torch.ones(64).sum()
+            with tobs.trace_capture("lossy"):
+                _kernels.LAUNCHES["spectra"] += 2
+            run_dir = rec.dir
+    finally:
+        _kernels.LAUNCHES.update(saved)
+    quiet, lossy = [e for e in _events(run_dir) if e["kind"] == "devtime"]
+    assert quiet["complete"] and quiet["lost_rows"] == 0
+    assert not lossy["complete"] and lossy["lost_rows"] == 2
+    assert lossy["kernel_launches"]["spectra"] == 2
+    assert lossy["kernel_rows"]["spectra"] == 0
+    with open(os.path.join(run_dir, "manifest.json")) as fh:
+        counters = json.load(fh)["counters"]
+    assert counters["devtime_regions"] == 2
+    assert counters["devtime_incomplete"] == 1
 
 
 def test_newest_session_wins_and_a_region_without_one_is_none(tmp_path):
