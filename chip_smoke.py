@@ -42,6 +42,23 @@ the profiler's clock conversion is fresh):
               within 5 sigma, K1 (both epilogues) and K2 launched; a
               16-subint subset
               re-run with the plain versions swapped in agrees within 1 ns
+  load        load_data on the card on the pptoas archive: the main path
+              (pptoas's load flags, then ppalign's: dedisperse, tscrunch,
+              pscrunch) with K5 (csrc/unpack.cu: decode, baseline), K6
+              (csrc/loadstats.cu: noise, S/N) and K7 (csrc/rotate.cu:
+              the phasor pass, the work copy's dedispersion) launched; its
+              wall over three runs, the seconds of each step (FITS read,
+              upload, K5, cuFFT, K6, K7, download: io.archive.LOAD_STEPS)
+              and the same load on the CPU; the card's bunch against the
+              plain versions on the card (subints within 1e-12 of each
+              row's range, noise 1e-13 and S/N 1e-12 relative, prof
+              1e-12 of its peak, masks equal) and the CPU's (reported);
+              pptoas's TOAs (GetTOAs) from the card load against those
+              from the plain load (1 ns, rc and nfeval equal); K5-K7
+              against their plain versions at the load's shapes (K5 on
+              the whole column, 65,536 rows of 2048 bins, bit-equal
+              decode; K6 on one chunk of subints, K7 on the whole
+              spectrum), with times and bounds
   pptoas_scat the same archive with --fit_scat (the model scatters with
               TAU = 20 us at 1500 MHz, alpha -4): 128 TOAs, phase, dDM
               and the scattering time at scat_ref_freq recovered within
@@ -164,7 +181,8 @@ the profiler's clock conversion is fresh):
               512 x 2048 bucket), 2 of 16 x 256 x 1024 and a truncated
               file (make_fake_pulsar, noise 0.5, own seeds): plan; warm
               on a fresh kernel build directory (a process of its own:
-              nvcc builds 4, one per source; every warm program ran);
+              nvcc builds one library per source; every warm program
+              ran);
               run --prefetch 2, then again with --trace-bucket (walls,
               the load / fit / write split from the obs spans, per-bucket
               archive seconds, device busy from the bucket traces, the
@@ -203,7 +221,8 @@ the profiler's clock conversion is fresh):
               and K3 against their plain versions and timed (with their
               bounds) at every shape the path gave them; peak memory.
               Then ppserve start as a process (--plan --warm on the
-              survey's primed kernel build directory: 0 builds, 4 hits),
+              survey's primed kernel build directory: 0 builds, a hit
+              per source),
               ppserve submit --wait and status, SIGTERM -> exit 0; and
               pprouter start with 2 spawned daemons, 4 requests over
               both buckets through the router (each once, pptoas's
@@ -244,10 +263,13 @@ the narrowband,
 narrowband_scat, templates, ppzap, obs, survey, serve and mesh runs, K1
 and K2 also on viz, ppalign, ppspline, ppgauss and the walkthrough, K4
 (``spectra``, ``spectra_noise``) on every path, the throughput and
-throughput_scat fits included, with ``launches_by_path`` —
+throughput_scat fits included, K5-K7 (``unpack``, ``baseline``,
+``load_stats``, ``rotate``) on every path that loads an
+archive, the load phase's own run first, with ``launches_by_path`` —
 errors and times; K2 with
 its [1000, 1025] numbers, K1 and K3 with their [1000, 512, 128] ones and
 K4 with its [64, 512, 2048] ones,
+K5-K7 with the load phase's,
 each with a ``shapes`` list of all its cases), the card's name and power
 limit, and
 last ``{"ok": true, "device": {...}}``.  Exits non-zero without a result
@@ -332,6 +354,25 @@ K4_NAMES = ("spectra", "spectra_noise")
 # inv_err2) within 1e-13 relative: sums of nharm positive terms taken in
 # another order (a recursive sum's bound is (n - 1) eps, 1.1e-13 at 1025)
 K4_ELEM_TOL, K4_SUM_TOL = 1e-14, 1e-13
+# the load's kernels: K5 (the decode, with the baseline in the same
+# launch, and the baseline alone), K6 (noise and S/N) and K7 (the phasor
+# pass of every rotation, the load's dedispersion among them)
+LOAD_NAMES = ("unpack", "baseline", "load_stats", "rotate")
+# the ones every path that loads an archive launches (K5's baseline alone
+# runs only after a state conversion or a rotation)
+LOAD_PATH_KERNELS = ("unpack", "load_stats", "rotate")
+# K5-K7 against their plain versions: the decode bit-equal; the baseline
+# within 1e-12 of each row's range (the kernel's window sums err by
+# <= 2.8e-14 of it, the plain FFT convolution's by ~log2(nbin) eps of
+# the row's largest magnitude); noise within 1e-13 and S/N within 1e-12
+# relative (sums of ~nbin terms in another order); the work copy's
+# profile within 1e-12 of its peak; K7 within 1e-13 of each row's
+# largest harmonic (one sincos and a complex product an element)
+LOAD_TOL = dict(baseline=1e-12, noise=1e-13, snr=1e-12, prof=1e-12,
+                rotate=1e-13)
+# FP64 operations of K7 per harmonic: the floor-mod (2), the angle (1),
+# a sincos (~20) and the complex product (6)
+K7_OPS = 29
 
 
 def emit(phase, **kw):
@@ -952,9 +993,10 @@ def read_tim(path):
 
 
 @contextlib.contextmanager
-def plain_kernels(K):
-    """Swap the plain versions in for the kernels (the comparison run)."""
-    names = tuple(K.KERNELS)
+def plain_kernels(K, names=None):
+    """Swap the plain versions in for the kernels (all, or ``names``):
+    the comparison run."""
+    names = tuple(K.KERNELS) if names is None else tuple(names)
     saved = {name: getattr(K, name) for name in names}
     for name in names:
         setattr(K, name, getattr(K, name + "_plain"))
@@ -1083,6 +1125,270 @@ def phase_pptoas(root, work, K, shape=PPTOAS_SHAPE, subset=16,
          median_toa_err_us=float(np.median([t["err_us"] for t in toas])),
          plain_vs_kernel_max_ns=dt_ns)
     return launches, big, small
+
+
+def load_bound_ms(name, rows, nbin):
+    """The least time of load kernel ``name`` over ``rows`` profiles of
+    ``nbin`` bins: each input read once, each output written once (K6
+    needs only the top quarter of each spectrum, the harmonics of the
+    noise mean), and its FP64 operations (K7_OPS per harmonic for K7,
+    ~6 a bin for K5's decode and window sums, 3 a harmonic of the
+    noise's quarter and 2 a bin of the S/N for K6)."""
+    nharm = nbin // 2 + 1
+    if name == "unpack":      # int16 in, float64 out, scl and offs
+        return bound_ms(rows * nbin * 10 + rows * 16,
+                        (rows * nbin * 6, PEAK_FP64_PER_S))
+    if name == "baseline":
+        return bound_ms(rows * nbin * 16, (rows * nbin * 4, PEAK_FP64_PER_S))
+    if name == "load_stats":  # rows and spectra in, noise and S/N out
+        top = nharm - int(0.75 * nharm)
+        return bound_ms(rows * (nbin * 8 + top * 16 + 16),
+                        (rows * (3 * top + 2 * nbin), PEAK_FP64_PER_S))
+    # rotate: spectra in and out, a shift a row
+    return bound_ms(rows * (nharm * 32 + 8),
+                    (rows * nharm * K7_OPS, PEAK_FP64_PER_S))
+
+
+def load_gaps(got, want):
+    """The card's load ``got`` against ``want`` (DataBunches): subints
+    relative to each row's range, noise and S/N relative, the profile
+    relative to its peak, prof_noise and prof_SNR relative."""
+    import numpy as np
+
+    s = want.subints
+    spread = np.maximum(np.ptp(s, axis=-1, keepdims=True), 1e-300)
+
+    def rel(a, b):
+        """Largest relative gap; NaN in both (0/0 S/N of a zapped
+        channel) is no gap, NaN in one is an infinite one."""
+        a, b = np.atleast_1d(np.asarray(a, float)), np.atleast_1d(
+            np.asarray(b, float))
+        if not b.size:
+            return 0.0
+        gap = np.abs(a - b) / np.maximum(np.abs(b), 1e-300)
+        nan_a, nan_b = np.isnan(a), np.isnan(b)
+        gap[nan_a & nan_b] = 0.0
+        gap[nan_a ^ nan_b] = np.inf
+        return float(gap.max())
+
+    return dict(
+        baseline=float(np.max(np.abs(got.subints - s) / spread)),
+        noise=rel(got.noise_stds, want.noise_stds),
+        snr=rel(got.SNRs, want.SNRs),
+        prof=float(np.max(np.abs(got.prof - want.prof))
+                   / np.abs(want.prof).max()),
+        prof_noise=rel(got.prof_noise, want.prof_noise),
+        prof_SNR=rel(got.prof_SNR, want.prof_SNR),
+        masks_equal=bool(np.array_equal(got.masks, want.masks)))
+
+
+def load_errors(K, name, a, kw):
+    """Load kernel ``name`` (K5-K7) on the arguments ``a`` against its
+    plain version, with fresh outputs and not counted: (errors,
+    max_abs_err, ok at LOAD_TOL).  The decode bit-equal (with a baseline
+    too: K5's decode alone on the same column); the baseline within
+    each row's range; K6's noise and S/N relative; K7 relative to each
+    row's largest harmonic."""
+    import torch
+
+    n0 = dict(K.LAUNCHES)
+    fn, plain = getattr(K, name), getattr(K, name + "_plain")
+    kw = {k: v for k, v in kw.items() if k != "out"}
+    if name == "load_stats":
+        x, X = a[0], a[1]
+        snr = len(a) > 3 and a[3] is not None
+        outs = [torch.empty(x.shape[0], dtype=torch.float64, device=x.device)
+                for _ in range(4)]
+        fn(x, X, outs[0], outs[1] if snr else None, *a[4:], **kw)
+        plain(x, X, outs[2], outs[3] if snr else None, *a[4:], **kw)
+        errs = dict(noise=float(((outs[0] - outs[2]).abs()
+                                 / outs[2].abs()).max()))
+        abs_err = float((outs[0] - outs[2]).abs().max())
+        if snr:
+            errs["snr"] = float(((outs[1] - outs[3]).abs() / outs[3].abs(
+            ).clamp_min(1e-300)).max())
+            abs_err = max(abs_err, float((outs[1] - outs[3]).abs().max()))
+        ok = all(errs[k] <= LOAD_TOL[k] for k in errs)
+    elif name == "rotate":
+        got, want = fn(*a, **kw), plain(*a, **kw)
+        scale = a[0].abs().amax(-1, keepdim=True).clamp_min(1e-300)
+        errs = dict(rotate=float(((got - want).abs() / scale).max()))
+        abs_err = float((got - want).abs().max())
+        ok = errs["rotate"] <= LOAD_TOL["rotate"]
+    else:
+        got, want = fn(*a, **kw), plain(*a, **kw)
+        frac = (a[3] if len(a) > 3 else kw.get("frac")) \
+            if name == "unpack" else 0.125
+        abs_err = float((got - want).abs().max())
+        errs = {}
+        if name == "unpack":
+            errs["decode_bit_equal"] = bool(torch.equal(
+                fn(*a[:3]), plain(*a[:3]))) if frac is not None \
+                else bool(torch.equal(got, want))
+        if frac is not None:
+            spread = (want.amax(-1, keepdim=True) - want.amin(
+                -1, keepdim=True)).clamp_min(1e-300)
+            errs["baseline"] = float(((got - want).abs() / spread).max())
+        ok = errs.get("decode_bit_equal", True) \
+            and errs.get("baseline", 0.0) <= LOAD_TOL["baseline"]
+    torch.cuda.synchronize()
+    K.LAUNCHES.update(n0)
+    return errs, abs_err, ok
+
+
+def load_kernel_rows(K, dev, big):
+    """K5, K6 and K7 against their plain versions at the shapes the load
+    of ``big`` gives them: K5 on the whole stored column, K6 on one chunk
+    of subints (io.archive.LOAD_CHUNK_BYTES), K7 on the whole cube's
+    spectrum (the dedispersion and the pptoas guess).  Each row: errors
+    (load_errors), device time (graph replay), the wrapper's time per
+    call, the plain version's, the bound and the launches one call
+    counts."""
+    import numpy as np
+    import torch
+
+    from pulseportraiture_tpu_torch.io import archive as A
+    from pulseportraiture_tpu_torch.io.psrfits import read_archive
+
+    arch = read_archive(big)
+    raw, scl, offs = arch.encoded
+    nbin = raw.shape[-1]
+    rows = raw.size // nbin
+    per_sub = arch.npol * arch.nchan
+    nharm = nbin // 2 + 1
+    chunk = per_sub * max(1, A.LOAD_CHUNK_BYTES // (per_sub * nharm * 16))
+    shifts = np.broadcast_to(arch._dispersion_shifts()[:, None, :],
+                             (arch.nsub, arch.npol, arch.nchan))
+    raw = torch.from_numpy(raw.reshape(rows, nbin)).to(dev)
+    scl = torch.from_numpy(scl.reshape(rows)).to(dev)
+    offs = torch.from_numpy(offs.reshape(rows)).to(dev)
+    sh = torch.as_tensor(shifts.reshape(-1).copy(), device=dev)
+    x = K.unpack_plain(raw, scl, offs)
+    base = K.baseline_plain(x)
+    xc = base[:chunk].contiguous()
+    X = torch.fft.rfft(xc, dim=-1)
+    Xall = torch.fft.rfft(base, dim=-1)
+    out, out_c = torch.empty_like(x), torch.empty_like(Xall)
+    vecs = [torch.empty(chunk, dtype=torch.float64, device=dev)
+            for _ in range(2)]
+    cases = dict(
+        unpack=((raw, scl, offs, 0.125), dict(out=out), rows),
+        baseline=((x,), dict(out=out), rows),
+        load_stats=((xc, X, vecs[0], vecs[1]), {}, chunk),
+        rotate=((Xall, sh), dict(out=out_c), rows))
+    result = {}
+    for name, (a, kw, n) in cases.items():
+        fn, plain = getattr(K, name), getattr(K, name + "_plain")
+        errs, abs_err, ok = load_errors(K, name, a, kw)
+        n0 = K.LAUNCHES[name]
+        fn(*a, **kw)
+        launches = K.LAUNCHES[name] - n0
+        torch.cuda.synchronize()
+        bms, by = load_bound_ms(name, n, nbin)
+        row = dict(shape=[n, nharm if name == "rotate" else nbin],
+                   errors=errs, tol=LOAD_TOL,
+                   max_abs_err=abs_err, launches_per_call=launches,
+                   ms=graph_ms(lambda: fn(*a, **kw)),
+                   call_ms=cuda_ms(lambda: fn(*a, **kw)),
+                   plain_ms=cuda_ms(lambda: plain(*a, **kw), reps=3, warm=1),
+                   bound_ms=bms, bound_by=by, library_ms=None)
+        row["share_of_bound"] = bms / row["ms"]
+        emit("kernels", kernel=name, **row)
+        if not (ok and launches == 1):
+            raise AssertionError("%s kernel disagrees at %s (or launched %d "
+                                 "times): %s" % (name, [n, nbin], launches,
+                                                 errs))
+        result[name] = [row]
+    del x, base, Xall, out, out_c, X, cases
+    torch.cuda.empty_cache()
+    return result
+
+
+# the load's flags on its main path: pptoas's (pipelines/toas.py _load),
+# then ppalign's (the dedispersed, tscrunched average of an epoch)
+PPTOAS_LOAD = dict(dedisperse=False, dededisperse=False, pscrunch=True,
+                   rm_baseline=True, refresh_arch=False, return_arch=False,
+                   quiet=True)
+PPALIGN_LOAD = dict(state="Intensity", dedisperse=True, tscrunch=True,
+                    pscrunch=True, rm_baseline=True, quiet=True)
+
+
+def phase_load(root, work, K, dev, big, reps=3):
+    """load_data on the card on the pptoas archive (nsub x nchan x nbin
+    of PPTOAS_SHAPE): the main path's run (pptoas's load, then ppalign's
+    flags; counts zeroed just before), its wall over ``reps`` runs, the
+    seconds of each step (io.archive.LOAD_STEPS), the CPU's load and the
+    card's with the plain versions of K5-K7 (each held to the kernels'
+    LOAD_TOL); pptoas's TOAs from the card load against those from the
+    plain load (1 ns, rc and nfeval equal); K5-K7's rows.  Returns
+    (the main run's launches, the kernels' rows)."""
+    import numpy as np
+    import torch
+
+    from pulseportraiture_tpu_torch.io.archive import load_data
+    from pulseportraiture_tpu_torch.pipelines.toas import GetTOAs
+
+    def timed(**kw):
+        t0 = time.perf_counter()
+        d = load_data(big, **kw)
+        if kw.get("device") != "cpu":
+            torch.cuda.synchronize()
+        return d, time.perf_counter() - t0
+
+    timed(device=dev, **PPTOAS_LOAD)   # cuFFT plans, pinned buffers
+    K.reset_launches()
+    got, t_main = timed(device=dev, **PPTOAS_LOAD)
+    aligned, t_align = timed(device=dev, **PPALIGN_LOAD)
+    launches = dict(K.LAUNCHES)
+    missing = [n for n in LOAD_NAMES if launches[n] == 0]
+    if missing:
+        raise AssertionError("kernels never launched on the load path: %s"
+                             % missing)
+    walls = [t_main] + [timed(device=dev, **PPTOAS_LOAD)[1]
+                        for _ in range(reps - 1)]
+    split = {}
+    load_data(big, device=dev, split=split, **PPTOAS_LOAD)
+    with plain_kernels(K, LOAD_NAMES):
+        plain, t_plain = timed(device=dev, **PPTOAS_LOAD)
+        plain_aligned, _ = timed(device=dev, **PPALIGN_LOAD)
+    host_split = {}  # on the CPU a step's mark waits for nothing
+    host, t_cpu = timed(device="cpu", split=host_split, **PPTOAS_LOAD)
+    gaps = dict(pptoas=load_gaps(got, plain),
+                ppalign=load_gaps(aligned, plain_aligned),
+                cpu=load_gaps(got, host))
+    bad = {k: v for k, v in list(gaps["pptoas"].items())
+           + list(gaps["ppalign"].items())
+           if k in LOAD_TOL and not v <= LOAD_TOL[k]}
+    bad.update({k: False for k in ("pptoas", "ppalign")
+                if not gaps[k]["masks_equal"]})
+
+    gm = os.path.join(root, "examples", "example.gmodel")
+    toas = []
+    for bunch in (got, plain):
+        gt = GetTOAs([big], gm, quiet=True, device=dev)
+        gt.preload(big, ("data", bunch))
+        gt.get_TOAs(bary=False, quiet=True)
+        toas.append(gt)
+    dt_ns = max_dt_ns_list(toas[0].TOA_list, toas[1].TOA_list)
+    same_rc = all(np.array_equal(np.asarray(a), np.asarray(b)) for a, b in
+                  zip(toas[0].rcs, toas[1].rcs))
+    same_nfev = all(np.array_equal(np.asarray(a), np.asarray(b)) for a, b
+                    in zip(toas[0].nfevals, toas[1].nfevals))
+    rows = load_kernel_rows(K, dev, big)
+    emit("load", archive=list(got.subints.shape), launches=launches,
+         wall_s=walls, wall_median_s=float(np.median(walls)),
+         align_flags_s=t_align, split_s=split, cpu_s=t_cpu,
+         cpu_split_s=host_split, plain_s=t_plain, gaps=gaps, tol=LOAD_TOL,
+         toas_card_vs_plain_load_ns=dt_ns, rc_equal=same_rc,
+         nfeval_equal=same_nfev, n_toas=len(toas[0].TOA_list))
+    if bad:
+        raise AssertionError("the card's load disagrees with the plain "
+                             "versions: %s" % bad)
+    if not (dt_ns < 1.0 and same_rc and same_nfev):
+        raise AssertionError("TOAs from the card load differ from the plain "
+                             "load's: %.3g ns, rc equal %s, nfeval equal %s"
+                             % (dt_ns, same_rc, same_nfev))
+    return launches, rows
 
 
 def phase_pptoas_scat(root, work, K, big, small, shape=PPTOAS_SHAPE,
@@ -1778,7 +2084,8 @@ def path_kernels_vs_plain(K, seen, required=PHASE_DM_KERNELS):
     max_rel_err, max_abs_err)}, the key the kernel's name or
     "name@shape".  Raises when a ``required`` kernel was never called, or
     beyond 1e-12 of each sum's largest magnitude (K2's phase: 1e-9
-    rot; K1's and K3's f, g and H terms: K1_GH_TOL, K3_GH_TOL)."""
+    rot; K1's and K3's f, g and H terms: K1_GH_TOL, K3_GH_TOL; K5-K7 at
+    LOAD_TOL, load_errors)."""
     import torch
 
     plains = {name: getattr(K, name + "_plain") for name in K.KERNELS}
@@ -1789,6 +2096,19 @@ def path_kernels_vs_plain(K, seen, required=PHASE_DM_KERNELS):
     rows = {}
     for key, (a, kw) in seen.items():
         name = key if isinstance(key, str) else key[0]
+        shape = list(a[0].shape)
+        row_key = name if isinstance(key, str) else "%s@%s" % (
+            name, "x".join(map(str, shape)))
+        if name in LOAD_NAMES:
+            errs, abs_err, ok = load_errors(K, name, a, kw)
+            rows[row_key] = dict(shape=shape, max_rel_err=max(
+                [v for v in errs.values() if not isinstance(v, bool)],
+                default=0.0), max_abs_err=abs_err, errors=errs)
+            if not ok:
+                raise AssertionError("%s disagrees with its plain version "
+                                     "on the path's inputs: %s"
+                                     % (name, rows[row_key]))
+            continue
         n0 = K.LAUNCHES[name]
         if name in K4_NAMES:                # outputs written into its args
             got = k4_call(getattr(K, name), a, kw)
@@ -1798,7 +2118,6 @@ def path_kernels_vs_plain(K, seen, required=PHASE_DM_KERNELS):
             want = plains[name](*a, **kw)
         K.LAUNCHES[name] = n0               # a comparison launch: not counted
         torch.cuda.synchronize()
-        shape = list(a[0].shape)
         if name in K4_NAMES:
             err, abs_err, ok = k4_errors(
                 K, k4_arguments(getattr(K, name), a, kw), got, want)
@@ -3308,8 +3627,10 @@ def phase_obs(root, work, K, dev, small, fit_shape=(1000, 512, 2048)):
             problems.append("%s: kernel rows %s, launches %s"
                             % (key, counts, reg["launches"]))
         problems += obs_completeness_problems(key, e, counts, reg)
+    # the captures are fit regions: every fit kernel shows in one; the
+    # load's (K5-K7) run before them
     seen = {k: sum(r["trace_kernel_rows"][k] for r in rows)
-            for k in K.TRACE_NAMES}
+            for k in K.TRACE_NAMES if k not in LOAD_NAMES}
     if not all(seen.values()):
         problems.append("kernels absent from every trace: %s" % seen)
     all_stages = set().union(*stages.values()) if stages else set()
@@ -3763,7 +4084,7 @@ def phase_survey(root, work, K, device="cuda"):
                 str(depth), "--device", device, "--quiet"] + (
                     ["--trace-bucket"] if traced else [])
         if name == "prefetch2":
-            with first_kernel_inputs(K, tuple(K.KERNELS), per_shape=True) \
+            with first_kernel_inputs(K, tuple(K.KERNELS), True) \
                     as seen, survey_toa_objects() as main_objs:
                 wall, launches, res = survey_cli(K, argv)
         else:
@@ -3774,11 +4095,13 @@ def phase_survey(root, work, K, device="cuda"):
                           **survey_split(wd(name)))
         runs[name]["toas_per_s"] = len(files) * nsub / wall
     main_launches = runs["prefetch2"]["launches"]
-    missing = [n for n in PHASE_DM_KERNELS if main_launches[n] == 0]
+    missing = [n for n in PHASE_DM_KERNELS + LOAD_PATH_KERNELS
+               if main_launches[n] == 0]
     if missing:
         raise AssertionError("kernels never launched on the survey: %s"
                              % missing)
-    path_rows = path_kernels_vs_plain(K, seen)
+    path_rows = path_kernels_vs_plain(
+        K, seen, required=PHASE_DM_KERNELS + LOAD_PATH_KERNELS)
     # both buckets' widths reached K1 (nchan) and K2 (nharm)
     widths = {name: sorted({key[1][1] for key in seen if key[0] == name})
               for name in ("moments", "fftfit")}
@@ -3866,7 +4189,7 @@ def phase_survey(root, work, K, device="cuda"):
     with open(meta_scat, "w") as f:
         f.write("\n".join(scat_files) + "\n")
     plan("scat", meta=meta_scat)
-    with first_kernel_inputs(K, tuple(K.KERNELS), per_shape=True) \
+    with first_kernel_inputs(K, tuple(K.KERNELS), True) \
             as seen_scat, survey_toa_objects() as scat_objs:
         ws, scat_launches, rs = survey_cli(K, [
             "run", "-w", wd("scat"), "--no_bary", "--fit_scat", "--device",
@@ -3995,7 +4318,7 @@ def path_kernel_times(K, seen):
     """Each kernel on the inputs a path gave it (``first_kernel_inputs``
     with ``per_shape``): device ms by CUDA-graph replay, the plain
     version's by CUDA events, and the bound of the same work (the
-    kernels phase's ``*_bound_ms``).  The timing launches are not
+    kernels phase's ``*_bound_ms``, the load phase's load_bound_ms).  The timing launches are not
     counted."""
     import torch
 
@@ -4020,6 +4343,12 @@ def path_kernel_times(K, seen):
             # the evaluated rows: all, or the lanes given
             bms, by = moments_bound_ms(a[1].shape[0], *shape[1:],
                                        grad_hess=name != "moments")
+        elif name == "rotate":  # the rows of the broadcast, nharm wide
+            lead = torch.broadcast_shapes(a[0].shape[:-1], a[1].shape)
+            bms, by = load_bound_ms(name, math.prod(lead),
+                                    2 * (shape[-1] - 1))
+        elif name in LOAD_NAMES:
+            bms, by = load_bound_ms(name, shape[0], shape[-1])
         else:
             bms, by = moments_scat_bound_ms(
                 a[2].shape[0], *shape[1:], shared=a[1].shape[0] == 1,
@@ -4219,7 +4548,7 @@ def phase_serve(root, work, K, survey, device="cuda"):
             source[dst] = canon[i % len(canon)]
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        with first_kernel_inputs(K, tuple(K.KERNELS), per_shape=True) \
+        with first_kernel_inputs(K, tuple(K.KERNELS), True) \
                 as seen:
             K.reset_launches()
             results, load_wall = pploadgen.run_load(
@@ -4288,8 +4617,10 @@ def phase_serve(root, work, K, survey, device="cuda"):
                 str(list(failed.values())[0]):
             raise AssertionError("dispatch fault: failed records %s"
                                  % failed)
-        # served archives carry their noise: K4's first epilogue only
-        served = tuple(n for n in K.KERNELS if n != "spectra_noise")
+        # served archives carry their noise: K4's first epilogue only;
+        # their loads decode and remove the baseline in one K5 launch
+        served = tuple(n for n in K.KERNELS
+                       if n not in ("spectra_noise", "baseline"))
         if any(launches[n] == 0 for n in served):
             raise AssertionError("serve launches %s" % launches)
         path_rows = path_kernels_vs_plain(K, seen, required=served)
@@ -4665,7 +4996,7 @@ def phase_mesh(root, work, K, survey, shape=(1000, 512, 2048),
         fit(None, x)
         ref[tag], ref_walls[tag] = timed(lambda: fit(None, x))
     meshes, ok = [], True
-    with first_kernel_inputs(K, tuple(K.KERNELS), per_shape=True) as seen:
+    with first_kernel_inputs(K, tuple(K.KERNELS), True) as seen:
         for shp in MESH_SHAPES:
             torch.cuda.synchronize()
             base = torch.cuda.memory_allocated()
@@ -4772,7 +5103,8 @@ def phase_mesh(root, work, K, survey, shape=(1000, 512, 2048),
                 and row["blocks"] == [1] * len(files) \
                 and row["max_dt_ns"] < 1.0 and c["err_us"] <= 1.0005e-3 \
                 and c["pp_dm"] <= 1.0005e-7 and c["pp_dme"] <= 1.0005e-7
-    path_rows = path_kernels_vs_plain(K, seen, required=tuple(K.KERNELS))
+    path_rows = path_kernels_vs_plain(K, seen, required=tuple(
+        n for n in K.KERNELS if n != "baseline"))
     times = path_kernel_times(K, seen)
     del seen
     torch.cuda.empty_cache()
@@ -4791,7 +5123,9 @@ def phase_mesh(root, work, K, survey, shape=(1000, 512, 2048),
     if not ok:
         raise AssertionError("a sharded fit or survey disagrees with the "
                              "unsharded one (the mesh line above)")
-    missing = [n for n, c in launches.items() if c == 0]
+    # the mesh's loads decode and remove the baseline in one K5 launch:
+    # K5's baseline alone follows only a rotation or a state conversion
+    missing = [n for n, c in launches.items() if c == 0 and n != "baseline"]
     if missing:
         raise AssertionError("kernels never launched on the mesh path: %s"
                              % missing)
@@ -4836,6 +5170,8 @@ def main(argv):
     try:
         by_path["pptoas"], big, small = phase_pptoas(
             root, work, K, profile_dir=profile_dir)
+        by_path["load"], load_rows = phase_load(root, work, K, dev, big)
+        rows.update(load_rows)
         by_path["pptoas_scat"] = phase_pptoas_scat(root, work, K, big, small)
         by_path["narrowband"] = phase_narrowband(root, work, K, big, small)
         by_path["narrowband_scat"] = phase_narrowband_scat(root, work, K,
@@ -4859,7 +5195,8 @@ def main(argv):
     # later paths; K1 and K2 also with the template builders and the
     # walkthrough.  K4 runs on every path: its first epilogue wherever a
     # fit is given its errors, its second where it measures them (the
-    # mesh's fits, the obs phase's throughput fit)
+    # mesh's fits, the obs phase's throughput fit).  K5-K7 run on every
+    # path that loads an archive, the load phase's own run first
     own = dict(moments="pptoas", moments_grad_hess="pptoas",
                fftfit="pptoas", moments_scat="pptoas_scat",
                moments_scat_grad_hess="pptoas_scat")
@@ -4870,7 +5207,7 @@ def main(argv):
                         "walkthrough"]
     for name in own:
         paths[name] += ["obs", "survey", "serve", "mesh"]
-    for name in K4_NAMES:
+    for name in K4_NAMES + LOAD_NAMES:
         paths[name] = list(by_path)
     # no archive of any path failed on a device error
     failed = [f for made in failed_lists for f in made]
@@ -4879,7 +5216,11 @@ def main(argv):
         raise AssertionError("archives failed on the card: %s" % failed)
     launches = {name: sum(by_path[p][name] for p in paths[name])
                 for name in paths}
-    missing = [n for n in K4_NAMES if launches[n] == 0]
+    missing = [n for n in K4_NAMES + LOAD_NAMES if launches[n] == 0]
+    # the load's main path, pptoas's load and its guess (K7)
+    missing += ["%s on %s" % (n, p) for p, names in (
+        ("load", LOAD_NAMES), ("pptoas", LOAD_PATH_KERNELS))
+        for n in names if by_path[p][n] == 0]
     if missing:
         raise AssertionError("kernels never launched on any path: %s"
                              % missing)
@@ -4906,6 +5247,11 @@ def main(argv):
                     "shape", "shared_abs_m2", "lanes", "ms", "call_ms",
                     "bound_ms", "share_of_bound", "plain_ms", "max_rel_err",
                     "max_abs_err")} for c in r])
+        elif name in LOAD_NAMES:
+            r, extra = r[0], dict(shapes=[
+                {key: c[key] for key in (
+                    "shape", "ms", "call_ms", "bound_ms", "share_of_bound",
+                    "plain_ms", "errors", "max_abs_err")} for c in r])
         elif name in K4_NAMES:
             r, extra = r[K4_MAIN], dict(shapes=[
                 {key: c[key] for key in (

@@ -1,6 +1,6 @@
 """The port's hand-written CUDA kernels: build, ctypes binding, wrappers.
 
-Four kernels, each a CUDA C++ source under ``csrc/`` compiled for
+Seven kernels, each a CUDA C++ source under ``csrc/`` compiled for
 Hopper (``sm_90a``) by ``nvcc`` into a shared library with a plain C
 interface and loaded with ``ctypes``:
 
@@ -43,12 +43,25 @@ interface and loaded with ``ctypes``:
      for fits that measure their own noise.  One library, two entry
      points, each with its own launch count and trace name.
 
+  K5 ``unpack`` (csrc/unpack.cu) — the archive's decode, raw int16 times
+     DAT_SCL plus DAT_OFFS in float64 (pulseportraiture_tpu/io/psrfits.py:
+     451-458), and in the same launch, when asked, the baseline removal
+     of Archive.remove_baseline (:248 there); ``baseline``, the baseline
+     removal alone, for rows a state conversion or a rotation made.
+  K6 ``load_stats`` (csrc/loadstats.cu) — the load's per-row noise
+     (get_noise_PS) and S/N (get_SNR) from each row and its rFFT, one
+     pass (pulseportraiture_tpu/io/archive.py:121-131, :148-150).
+  K7 ``rotate`` (csrc/rotate.cu) — the rotation phasor, in place on
+     cuFFT's output (pulseportraiture_tpu/ops/fourier.py:210
+     apply_phasor, which ops.fourier.apply_phasor sends here for CUDA
+     tensors): every rotation of data, the load's dedispersion and its
+     work copy's among them.
+
 Each wrapper dispatches on its input's device: a CPU tensor takes the
-plain PyTorch version beside it (``moments_plain``/
-``moments_grad_hess_plain``/``fftfit_plain``/``moments_scat_plain``/
-``moments_scat_grad_hess_plain``/``spectra_plain``/
-``spectra_noise_plain``, which the CPU tests use and ``chip_smoke.py``
-holds the kernels against); a CUDA tensor launches the kernel — building
+plain PyTorch version beside it (the same name with ``_plain``: e.g.
+``moments_plain``, ``spectra_noise_plain``, ``unpack_plain``,
+``rotate_plain``), which the CPU tests use and ``chip_smoke.py``
+holds the kernels against; a CUDA tensor launches the kernel — building
 it at first use — or raises.  Nothing falls back from the card to the plain version.  The
 wrapper checks device, dtype, shape and contiguity, checks the launch's
 ``cudaGetLastError()`` and adds one to ``LAUNCHES[name]`` per launch.
@@ -79,10 +92,13 @@ import subprocess
 import threading
 import time
 
+import numpy as np
 import torch
 
 from .config import F0_fact
 from .obs import monitor
+from .ops.fourier import phasor
+from .ops.noise import SNR_of_noise, noise_PS_of_power
 from .ops.scattering import LN10, _nonzero_div
 
 __all__ = ["KernelLaunchError", "LAUNCHES", "reset_launches", "build",
@@ -95,7 +111,9 @@ __all__ = ["KernelLaunchError", "LAUNCHES", "reset_launches", "build",
            "moments_scat_grad_hess_plain", "GRAD_HESS_COLUMNS",
            "HESS_UPPER", "fftfit", "fftfit_plain", "fftfit_table",
            "fftfit_table_plain", "spectra", "spectra_plain",
-           "spectra_noise", "spectra_noise_plain", "KERNELS"]
+           "spectra_noise", "spectra_noise_plain", "unpack", "unpack_plain",
+           "baseline", "baseline_plain", "baseline_window", "load_stats",
+           "load_stats_plain", "rotate", "rotate_plain", "KERNELS"]
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC_DIR = os.path.join(_HERE, "csrc")
@@ -119,6 +137,14 @@ KERNELS = {
                 "pulseportraiture_tpu/fit/portrait.py:915"),
     "spectra_noise": ("spectra.cu", "pp_spectra_noise",
                       "pulseportraiture_tpu/ops/noise.py:39"),
+    "unpack": ("unpack.cu", "pp_unpack",
+               "pulseportraiture_tpu/io/psrfits.py:451"),
+    "baseline": ("unpack.cu", "pp_baseline",
+                 "pulseportraiture_tpu/io/psrfits.py:248"),
+    "load_stats": ("loadstats.cu", "pp_load_stats",
+                   "pulseportraiture_tpu/io/archive.py:121"),
+    "rotate": ("rotate.cu", "pp_rotate",
+               "pulseportraiture_tpu/ops/fourier.py:210"),
 }
 # the sources, one nvcc and one library each
 SOURCES = tuple(sorted({src for src, _, _ in KERNELS.values()}))
@@ -145,10 +171,16 @@ _SYMBOLS = {
     "spectra_noise": {"pp_spectra_noise": [
         _VP, _VP, _INT, _VP, _I64, _INT, _INT, _INT, _DBL, _INT, _INT, _DBL,
         _VP, _VP, _VP, _VP, _VP, _VP]},
+    "unpack": {"pp_unpack": [_VP, _VP, _VP, _I64, _INT, _INT, _VP, _VP, _INT,
+                             _VP]},
+    "baseline": {"pp_baseline": [_VP, _I64, _INT, _INT, _VP, _VP, _INT, _VP]},
+    "load_stats": {"pp_load_stats": [_VP, _VP, _I64, _INT, _INT, _INT, _DBL,
+                                     _VP, _VP, _VP]},
+    "rotate": {"pp_rotate": [_VP, _VP, _I64, _INT, _DBL, _VP, _VP]},
 }
 
 # kernel name -> the CUDA function that runs once per counted launch, as
-# it is named in a profiler trace (K2's grid stage; its Newton stage
+# it is named in a profiler trace (K2's grid stage, its Newton stage
 # runs as often)
 TRACE_NAMES = {"moments": "moments_kernel",
                "moments_grad_hess": "moments_grad_hess_kernel",
@@ -156,7 +188,11 @@ TRACE_NAMES = {"moments": "moments_kernel",
                "moments_scat": "moments_scat_kernel",
                "moments_scat_grad_hess": "moments_scat_grad_hess_kernel",
                "spectra": "spectra_kernel",
-               "spectra_noise": "spectra_noise_kernel"}
+               "spectra_noise": "spectra_noise_kernel",
+               "unpack": "unpack_kernel",
+               "baseline": "baseline_kernel",
+               "load_stats": "load_stats_kernel",
+               "rotate": "rotate_kernel"}
 
 LAUNCHES = {name: 0 for name in KERNELS}
 BUILD_LOG = {}  # library (source stem) -> nvcc output (register report)
@@ -1017,3 +1053,225 @@ def spectra_noise(dfft, mfft, weights, nbin, kmax, cross_out, sd_out,
                 inv_err2_out.data_ptr(),
                 None if absm2_out is None else absm2_out.data_ptr())
     return cross_out, sd_out, noise_out, inv_err2_out, absm2_out
+
+
+# -- K5: the archive's decode and baseline -----------------------------------
+
+# csrc/unpack.cu kMaxSharedBins: longer rows keep their arrays in scratch,
+# at most UNPACK_SCRATCH_BYTES of it (fewer blocks, grid-striding)
+UNPACK_MAX_SHARED_BINS = 14000
+UNPACK_SCRATCH_BYTES = 1 << 28
+
+
+def baseline_window(nbin, frac=0.125):
+    """The baseline's window in bins: max(1, int(frac nbin)), as the
+    reference's Archive.remove_baseline."""
+    return max(1, int(frac * nbin))
+
+
+def _window_means(x, nwin):
+    """The circular window means of the rows of x [rows, nbin] as the
+    reference takes them: an rFFT convolution with a boxcar of nwin bins.
+    A CPU tensor's FFTs are numpy's (the reference's own pocketfft:
+    torch's CPU FFT is another library, and the tests that hold the port
+    to the JAX package bit for bit through ill-conditioned fits need the
+    reference's rounding); a CUDA tensor's are cuFFT's."""
+    nbin = x.shape[-1]
+    box = np.zeros(nbin)
+    box[:nwin] = 1.0 / nwin
+    if x.device.type == "cpu":
+        return torch.from_numpy(np.fft.irfft(
+            np.fft.rfft(x.numpy(), axis=-1) * np.conj(np.fft.rfft(box)),
+            nbin, axis=-1))
+    box = torch.as_tensor(box, device=x.device)
+    return torch.fft.irfft(torch.fft.rfft(x, dim=-1)
+                           * torch.conj(torch.fft.rfft(box)), n=nbin, dim=-1)
+
+
+def baseline_plain(x, frac=0.125, out=None):
+    """Plain PyTorch K5 baseline: each row of x [rows, nbin] f64 less the
+    least mean over its circular windows of baseline_window(nbin, frac)
+    bins, in the reference's order (pulseportraiture_tpu/io/psrfits.py:248
+    Archive.remove_baseline): the window means as an rFFT convolution
+    with a boxcar (_window_means), their minimum, the difference.  Into
+    ``out`` when given (x itself allowed)."""
+    means = _window_means(x, baseline_window(x.shape[-1], frac))
+    level = means.amin(dim=-1, keepdim=True)
+    if out is None:
+        return x - level
+    return torch.sub(x, level, out=out)
+
+
+def unpack_plain(raw, scl, offs, frac=None, out=None):
+    """Plain PyTorch K5: raw [rows, nbin] int16 as float64 times scl, plus
+    offs ([rows] f64 each), numpy's rounding (the product, then the sum);
+    with ``frac``, then baseline_plain.  Into ``out`` when given."""
+    x = raw.to(torch.float64) * scl[:, None]
+    x = torch.add(x, offs[:, None], out=out) if out is not None \
+        else x + offs[:, None]
+    return x if frac is None else baseline_plain(x, frac, out=x)
+
+
+def _unpack_scratch(rows, nbin, device):
+    """(scratch, blocks) of a K5 baseline launch: none for rows that fit
+    shared memory, else one slice of 2 nbin + 1 doubles per block."""
+    if nbin <= UNPACK_MAX_SHARED_BINS:
+        return None, 0
+    per = (2 * nbin + 1) * 8
+    blocks = int(max(1, min(rows, UNPACK_SCRATCH_BYTES // per)))
+    return torch.empty(blocks * (2 * nbin + 1), dtype=torch.float64,
+                       device=device), blocks
+
+
+def _rows_out(out, shape, like, what):
+    """``out`` checked as a contiguous f64 tensor of ``shape`` on like's
+    device, or a new one."""
+    if out is None:
+        return torch.empty(shape, dtype=torch.float64, device=like.device)
+    _check(out, "out", torch.float64, len(shape))
+    if tuple(out.shape) != tuple(shape):
+        raise ValueError("%s: out has shape %s, want %s"
+                         % (what, tuple(out.shape), tuple(shape)))
+    _same_device(like, out)
+    return out
+
+
+def unpack(raw, scl, offs, frac=None, out=None):
+    """K5 wrapper (see csrc/unpack.cu): decode raw [rows, nbin] int16 with
+    scl and offs [rows] f64 into out [rows, nbin] f64 (new when None),
+    bit-equal to numpy's raw * scl + offs; with ``frac``, the baseline of
+    windows of baseline_window(nbin, frac) bins removed in the same
+    launch.  Returns out."""
+    _check(raw, "raw", torch.int16, 2)
+    _check(scl, "scl", torch.float64, 1)
+    _check(offs, "offs", torch.float64, 1)
+    rows, nbin = raw.shape
+    if scl.shape[0] != rows or offs.shape[0] != rows:
+        raise ValueError("unpack: %d rows, scl %d, offs %d"
+                         % (rows, scl.shape[0], offs.shape[0]))
+    out = _rows_out(out, (rows, nbin), raw, "unpack")
+    _same_device(raw, scl, offs)
+    if raw.device.type == "cpu":
+        return unpack_plain(raw, scl, offs, frac, out)
+    if raw.device.type != "cuda":
+        raise ValueError("unpack: unsupported device %s" % raw.device)
+    nwin = 0 if frac is None else baseline_window(nbin, frac)
+    scratch, blocks = _unpack_scratch(rows, nbin, raw.device) if nwin \
+        else (None, 0)
+    if rows * nbin:
+        _launch("unpack", raw.device, raw.data_ptr(), scl.data_ptr(),
+                offs.data_ptr(), rows, nbin, nwin, out.data_ptr(),
+                None if scratch is None else scratch.data_ptr(), blocks)
+    return out
+
+
+def baseline(x, frac=0.125, out=None):
+    """K5 wrapper, the baseline alone (see csrc/unpack.cu): x [rows, nbin]
+    f64 less each row's least window mean (windows of baseline_window(
+    nbin, frac) bins) into out (new when None; x itself allowed).
+    Returns out."""
+    _check(x, "x", torch.float64, 2)
+    rows, nbin = x.shape
+    out = _rows_out(out, (rows, nbin), x, "baseline")
+    if x.device.type == "cpu":
+        return baseline_plain(x, frac, out)
+    if x.device.type != "cuda":
+        raise ValueError("baseline: unsupported device %s" % x.device)
+    scratch, blocks = _unpack_scratch(rows, nbin, x.device)
+    if rows * nbin:
+        _launch("baseline", x.device, x.data_ptr(), rows, nbin,
+                baseline_window(nbin, frac), out.data_ptr(),
+                None if scratch is None else scratch.data_ptr(), blocks)
+    return out
+
+
+# -- K6: the load's noise and S/N -------------------------------------------
+
+def load_stats_plain(x, X, noise_out, snr_out=None, fudge=3.25):
+    """Plain PyTorch K6: noise_out [rows] = get_noise_PS of each row of x
+    [rows, nbin] f64 from its rFFT X [rows, nharm] complex128 (the power
+    (X conj(X)).real / nbin, the square root of the mean of its top
+    quarter) and, when snr_out is given, snr_out [rows] = get_SNR with
+    that noise (reference ops/noise.py:64, :237)."""
+    pows = (X * torch.conj(X)).real / x.shape[-1]
+    noise_out.copy_(noise_PS_of_power(pows))
+    if snr_out is not None:
+        snr_out.copy_(SNR_of_noise(x, noise_out, fudge))
+    return noise_out, snr_out
+
+
+def load_stats(x, X, noise_out, snr_out=None, fudge=3.25):
+    """K6 wrapper (see csrc/loadstats.cu): the noise (and, with snr_out,
+    the S/N) of each row of x [rows, nbin] f64 from it and its rFFT X
+    [rows, nbin // 2 + 1] complex128, written into noise_out and snr_out
+    [rows] f64.  Returns (noise_out, snr_out)."""
+    _check(x, "x", torch.float64, 2)
+    _check(X, "X", torch.complex128, 2)
+    _check(noise_out, "noise_out", torch.float64, 1)
+    if snr_out is not None:
+        _check(snr_out, "snr_out", torch.float64, 1)
+    rows, nbin = x.shape
+    nharm = nbin // 2 + 1
+    if tuple(X.shape) != (rows, nharm) or noise_out.shape[0] != rows or (
+            snr_out is not None and snr_out.shape[0] != rows):
+        raise ValueError("load_stats: shapes x %s, X %s, noise_out %s "
+                         "disagree" % (tuple(x.shape), tuple(X.shape),
+                                       tuple(noise_out.shape)))
+    _same_device(x, X, noise_out, snr_out)
+    if x.device.type == "cpu":
+        return load_stats_plain(x, X, noise_out, snr_out, fudge)
+    if x.device.type != "cuda":
+        raise ValueError("load_stats: unsupported device %s" % x.device)
+    if rows:
+        _launch("load_stats", x.device, x.data_ptr(), X.data_ptr(), rows,
+                nbin, nharm, noise_kc(nharm), float(fudge),
+                noise_out.data_ptr(),
+                None if snr_out is None else snr_out.data_ptr())
+    return noise_out, snr_out
+
+
+# -- K7: the rotation phasor --------------------------------------------------
+
+TWO_PI = 2.0 * math.pi
+
+
+def rotate_plain(X, shifts, out=None):
+    """Plain PyTorch K7: X [..., nharm] times ops.fourier.phasor of
+    shifts (broadcast against X's leading dimensions).  Into ``out`` when
+    given."""
+    res = X * phasor(shifts, X.shape[-1])
+    if out is None:
+        return res
+    out.copy_(res)
+    return out
+
+
+def rotate(X, shifts, out=None):
+    """K7 wrapper (see csrc/rotate.cu): X [..., nharm]
+    complex128 times exp(2j pi ((s k) mod 1)) for shifts s [rot]
+    broadcastable to X's leading dimensions, into out (new when None; X
+    itself allowed when it has the broadcast shape).  Returns out."""
+    if not isinstance(X, torch.Tensor) or X.dtype != torch.complex128:
+        raise TypeError("rotate: X must be a complex128 tensor")
+    shifts = torch.as_tensor(shifts, dtype=torch.float64, device=X.device)
+    lead = torch.broadcast_shapes(X.shape[:-1], shifts.shape)
+    nharm = X.shape[-1]
+    if out is not None:
+        _check(out, "out", torch.complex128, len(lead) + 1)
+        if tuple(out.shape) != tuple(lead) + (nharm,):
+            raise ValueError("rotate: out has shape %s, want %s"
+                             % (tuple(out.shape), tuple(lead) + (nharm,)))
+        _same_device(X, out)
+    if X.device.type == "cpu":
+        return rotate_plain(X, shifts, out)
+    if X.device.type != "cuda":
+        raise ValueError("rotate: unsupported device %s" % X.device)
+    X = X.expand(tuple(lead) + (nharm,)).contiguous()
+    shifts = shifts.expand(lead).contiguous()
+    if out is None:
+        out = torch.empty_like(X)
+    rows = shifts.numel()
+    if rows * nharm:
+        _launch("rotate", X.device, X.data_ptr(), shifts.data_ptr(), rows,
+                nharm, TWO_PI, out.data_ptr())
+    return out

@@ -107,12 +107,12 @@ def main(argv=None):
     elif args.fwhm:
         tmp_file = _tmpfits()
         first = parse_metafile(args.metafile)[0]
-        nbin = read_archive(first).data.shape[-1]
+        nbin = read_archive(first).nbin
         profile = gaussian_profile(nbin, 0.5, float(args.fwhm)).numpy()
         make_constant_portrait(first, tmp_file, profile=profile, DM=0.0,
                                dmc=False, quiet=args.quiet)
         initial_guess = tmp_file
-    elif read_archive(initial_guess).data.shape[2] == 1:
+    elif read_archive(initial_guess).nchan == 1:
         tmp_file = _tmpfits()
         first = parse_metafile(args.metafile)[0]
         make_constant_portrait(first, tmp_file, profile=None, DM=0.0,

@@ -156,7 +156,8 @@ def main(argv=None):
                                  dededisperse=False,
                                  tscrunch=args.tscrunch, pscrunch=True,
                                  rm_baseline=True, refresh_arch=False,
-                                 return_arch=False, quiet=True)
+                                 return_arch=False, quiet=True,
+                                 device=device)
             except (RuntimeError, ValueError, OSError):
                 if not args.quiet:
                     print("Cannot load_data(%s).  Skipping it."

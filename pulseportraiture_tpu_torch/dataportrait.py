@@ -76,7 +76,7 @@ class DataPortrait:
             datafile, dedisperse=True, dededisperse=False, tscrunch=True,
             pscrunch=True, fscrunch=False, flux_prof=True,
             refresh_arch=True, return_arch=True, quiet=quiet,
-            **load_data_kwargs)
+            device=self.device, **load_data_kwargs)
         for key in ("source", "arch", "nbin", "nchan", "nu0", "bw", "Ps",
                     "freqs", "weights", "masks", "ok_ichans", "ok_isubs",
                     "noise_stds", "SNRs", "phases", "prof", "flux_prof",
@@ -115,7 +115,8 @@ class DataPortrait:
         for ifile, fname in enumerate(self.datafiles):
             d = load_data(fname, dedisperse=True, tscrunch=True,
                           pscrunch=True, fscrunch=False, flux_prof=True,
-                          return_arch=True, quiet=quiet, **load_data_kwargs)
+                          return_arch=True, quiet=quiet, device=self.device,
+                          **load_data_kwargs)
             nchan += d.nchan
             nchanx += len(d.ok_ichans[0])
             join_nchans.append(nchan)

@@ -4,9 +4,19 @@ Port of the JAX package's ``io/archive.py`` (reference
 pplib.py:2650-2820 load_data and :3189-3384
 make_fake_pulsar) on the in-repo PSRFITS layer (io.psrfits).
 
-Placement: ``load_data`` is host I/O.  Its per-archive noise and S/N
-estimates are computed on explicit CPU tensors — a stated placement
-(the load path never touches the accelerator), not a fallback.
+Placement: ``load_data`` runs on the device it is given (CUDA unless
+``device="cpu"``; no CUDA device and no ``"cpu"`` raises).  The host
+reads the FITS bytes; the DATA column goes up once as stored (int16,
+through pinned memory) and every pass over the cube runs on the device,
+in the reference's order: K5 decodes it and removes the baseline (one
+launch when nothing lies between the two), a state conversion and the
+(de)dedispersion (cuFFT with K7's phasor pass) and the scrunches (the
+Archive's arithmetic, io.psrfits.tscrunch_data and fscrunch_data) run
+as torch, then in chunks of subints cuFFT's rFFT feeds K6 (each row's
+noise and S/N), and the work copy (pscrunched, dedispersed through K7,
+tscrunched and fscrunched) gives the profile.  The subints come back
+once, into pinned host memory; the DataBunch keeps its numpy schema.  On
+the CPU the same steps run the kernels' plain versions (_kernels).
 
 Hooks, as in the JAX module: the ``archive_read`` fault-injection site
 (testing/faults.py) at the top of ``load_data``, and its decode seconds
@@ -20,27 +30,33 @@ import time
 import numpy as np
 import torch
 
+from .. import _kernels
+from ..config import resolve_device
 from ..obs import metrics
 from ..obs.metrics import PHASE_HISTOGRAM
 from ..ops.fourier import get_bin_centers, rotate_data
-from ..ops.noise import get_SNR, get_noise
+from ..ops.noise import get_noise_fit
 from ..testing import faults
 from ..utils.databunch import DataBunch
 from ..utils.mjd import MJD
 from ..utils.telescopes import telescope_code_dict
 from .gmodel import read_model
 from .polyco import polyco_from_spin
-from .psrfits import Archive, read_archive
+from .psrfits import (Archive, convert_state_data, fscrunch_data,
+                      read_archive, scrunched_weights, tscrunch_data)
 
 __all__ = ["load_data", "unload_new_archive", "make_fake_pulsar",
-           "file_is_type", "parse_metafile"]
+           "file_is_type", "parse_metafile", "LOAD_CHUNK_BYTES",
+           "LOAD_STEPS"]
 
-_HOST = torch.device("cpu")
-
-
-def _host_stat(fn, x, **kw):
-    """Evaluate a statistic of a numpy array on CPU tensors -> numpy."""
-    return fn(torch.as_tensor(np.asarray(x), device=_HOST), **kw).numpy()
+# the rFFT of the subints for K6 runs in chunks of whole subints of at
+# most this many bytes of spectrum (at least one subint)
+LOAD_CHUNK_BYTES = 1 << 28
+# load_data's ``split`` keys, in the order the steps run ("K7": the work
+# copy's pscrunch and dedispersion through cuFFT and K7; "profile": its
+# scrunches and the profile's noise and S/N)
+LOAD_STEPS = ("read", "upload", "K5", "rotate", "scrunch", "cuFFT", "K6",
+              "K7", "profile", "download", "host")
 
 
 def file_is_type(filename):
@@ -58,11 +74,153 @@ def file_is_type(filename):
         return "data"
 
 
+class _Split:
+    """Seconds per load step into ``split`` (a dict) when one is given:
+    each mark synchronises the device, so the steps do not overlap.
+    Without ``split`` a mark does nothing."""
+
+    def __init__(self, split, device):
+        self.split, self.device = split, device
+        self.t = time.perf_counter()
+
+    def mark(self, step):
+        if self.split is None:
+            return
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        t = time.perf_counter()
+        self.split[step] = self.split.get(step, 0.0) + (t - self.t)
+        self.t = t
+
+
+def _upload(arr, device, copy):
+    """A numpy array as a tensor on ``device``: through a pinned buffer to
+    the card; on the CPU its own memory (a copy when ``copy``)."""
+    t = torch.from_numpy(np.ascontiguousarray(arr))
+    if device.type != "cuda":
+        return t.clone() if copy else t
+    pinned = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+    pinned.copy_(t)
+    return pinned.to(device, non_blocking=True)
+
+
+def _download(t):
+    """A device tensor as a numpy array: through pinned host memory from
+    the card (the array lives in it)."""
+    if t.device.type != "cuda":
+        return t.numpy()
+    host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+    host.copy_(t)
+    return host.numpy()
+
+
+def _decode(arch, device, frac, steps):
+    """The archive's cube [nsub, npol, nchan, nbin] float64 on ``device``:
+    K5 decodes the stored column there (removing the baseline of windows
+    of ``frac`` in the same launch unless frac is None); an archive whose
+    cube is already expanded (or stored other than as int16) is uploaded
+    as float64, its baseline removed by K5 when asked."""
+    enc = arch.encoded
+    shape = (arch.nsub, arch.npol, arch.nchan, arch.nbin)
+    if enc is not None and enc[0].dtype == np.int16:
+        raw, scl, offs = (_upload(a.reshape(-1, a.shape[-1]) if a.ndim == 4
+                                  else a.reshape(-1), device, False)
+                          for a in enc)
+        steps.mark("upload")
+        return _kernels.unpack(raw, scl, offs, frac).reshape(shape)
+    x = _upload(arch.data, device, True)
+    steps.mark("upload")
+    return x if frac is None else _baseline(x, frac)
+
+
+def _baseline(x, frac=0.125):
+    """The cube x less K5's baseline of each row (in place when x is
+    contiguous)."""
+    rows = x.contiguous().reshape(-1, x.shape[-1])
+    return _kernels.baseline(rows, frac, out=rows).reshape(x.shape)
+
+
+def _dedisperse(x, arch, sign):
+    """The cube rotated by ``sign`` times the archive's dispersion shifts
+    (ops.fourier.rotate_data: cuFFT and K7's phasor pass)."""
+    dev = x.device
+    Ps = torch.as_tensor(arch.Ps, dtype=torch.float64, device=dev)
+    freqs = torch.as_tensor(arch.freqs, dtype=torch.float64, device=dev)
+    return rotate_data(x, 0.0, sign * arch.DM, Ps, freqs[:, None, :],
+                       arch.nu0)
+
+
+def _tscrunch(x, arch):
+    """Archive.tscrunch on the cube x and the archive's metadata."""
+    if arch.nsub == 1:
+        return x
+    x = tscrunch_data(x, torch.as_tensor(arch.weights, device=x.device))
+    arch.tscrunch_metadata()
+    return x
+
+
+def _fscrunch(x, arch):
+    """Archive.fscrunch on the cube x (dedispersed first if it is not)
+    and the archive's metadata."""
+    if arch.nchan == 1:
+        return x
+    if not arch.dedispersed:
+        x = _dedisperse(x, arch, 1.0)
+        arch.dedispersed = True
+    x = fscrunch_data(x, torch.as_tensor(arch.weights, device=x.device))
+    arch.fscrunch_metadata()
+    return x
+
+
+def _statistics(x, get_SNRs, steps):
+    """K6 over the final cube x [nsub, npol, nchan, nbin], cuFFT's rFFT
+    taken in chunks of subints: (noise [rows], SNR [rows] or None) on x's
+    device, rows in (subint, pol, channel) order."""
+    nsub, nbin = x.shape[0], x.shape[-1]
+    per_sub = x.shape[1] * x.shape[2]
+    rows = x.reshape(nsub * per_sub, nbin)
+    noise = torch.empty(rows.shape[0], dtype=torch.float64, device=x.device)
+    snr = torch.empty_like(noise) if get_SNRs else None
+    chunk = per_sub * max(1, LOAD_CHUNK_BYTES // max(
+        1, per_sub * (nbin // 2 + 1) * 16))
+    for r0 in range(0, rows.shape[0], chunk):
+        r = slice(r0, r0 + chunk)
+        X = torch.fft.rfft(rows[r], dim=-1)
+        steps.mark("cuFFT")
+        _kernels.load_stats(rows[r], X, noise[r],
+                            None if snr is None else snr[r])
+        steps.mark("K6")
+        del X
+    return noise, snr
+
+
+def _work_profile(x, arch, flux_prof, steps):
+    """The reference's work copy of the final cube x (io/archive.py:
+    135-146 there): pscrunched, dedispersed (cuFFT and K7), tscrunched
+    and fscrunched by the Archive's own arithmetic: (prof [nbin], the
+    flux profile [nchan], each channel's mean after the tscrunch, or
+    None).  Its peak is about two cubes of the pscrunched size."""
+    work = x
+    if arch.state != "Intensity":
+        work = convert_state_data(x, arch.state, "Intensity", arch.basis,
+                                  None)
+    if not arch.dedispersed:
+        work = _dedisperse(work, arch, 1.0)
+    steps.mark("K7")
+    w = arch.weights
+    work = tscrunch_data(work, torch.as_tensor(w, device=x.device))
+    if arch.nsub > 1:
+        w = scrunched_weights(w, 0)
+    flux = work.mean(axis=3)[0, 0] if flux_prof else None
+    work = fscrunch_data(work, torch.as_tensor(w, device=x.device))
+    return work[0, 0, 0].contiguous(), flux
+
+
 def load_data(filename, state=None, dedisperse=False, dededisperse=False,
               tscrunch=False, pscrunch=False, fscrunch=False,
               rm_baseline=True, flux_prof=False, refresh_arch=True,
               return_arch=True, quiet=True, get_SNRs=True,
-              noise_method="PS"):
+              noise_method="PS", device=None, split=None):
     """Load a PSRFITS archive into the canonical DataBunch schema.
 
     Field-for-field equivalent of the reference's load_data
@@ -70,17 +228,23 @@ def load_data(filename, state=None, dedisperse=False, dededisperse=False,
     [nsub, npol, nchan, nbin], freqs [nsub, nchan], weights, masks,
     noise_stds [nsub, npol, nchan], SNRs, ok_isubs, ok_ichans, Ps,
     epochs, phases, prof, flux_prof, plus observation metadata — all
-    numpy.
+    numpy.  The passes over the cube run on ``device`` (module
+    docstring).  ``split``, a dict, receives the seconds of each step
+    (LOAD_STEPS), each ended by a device synchronise: a diagnostic that
+    serialises the load.
     """
     # chaos site: an injected read fault surfaces exactly like a
     # truncated payload or NFS blip (testing/faults.py)
     faults.check("archive_read", key=getattr(filename, "filename",
                                              None) or str(filename))
+    device = resolve_device(device)
     t_decode0 = time.perf_counter()
-    arch = filename if isinstance(filename, Archive) \
-        else read_archive(filename)
+    steps = _Split(split, device)
+    given = filename if isinstance(filename, Archive) else None
+    arch = given if given is not None else read_archive(filename)
     if refresh_arch:
         arch = arch.copy()  # manipulations below stay local
+    steps.mark("read")
     source = arch.source
     telescope = arch.telescope
     try:
@@ -88,35 +252,51 @@ def load_data(filename, state=None, dedisperse=False, dededisperse=False,
     except KeyError:
         telescope_code = telescope
 
-    if state is not None and state != arch.state:
-        arch.convert_state(state)
-    if dedisperse:
-        arch.dedisperse()
-    if dededisperse:
-        arch.dededisperse()
+    convert = state is not None and state != arch.state
+    rotate = (dedisperse and not arch.dedispersed) or (
+        dededisperse and (dedisperse or arch.dedispersed))
+    frac = 0.125 if rm_baseline else None
+    # decode, with the baseline in the same launch when nothing lies
+    # between the two
+    x = _decode(arch, device, None if convert or rotate else frac, steps)
+    steps.mark("K5")
+    if convert:
+        x = convert_state_data(x, arch.state, state, arch.basis,
+                               lambda parts: torch.stack(parts, dim=1))
+        arch.npol, arch.state = x.shape[1], state
+    if dedisperse and not arch.dedispersed:
+        x = _dedisperse(x, arch, 1.0)
+        arch.dedispersed = True
+    if dededisperse and arch.dedispersed:
+        x = _dedisperse(x, arch, -1.0)
+        arch.dedispersed = False
+    steps.mark("rotate")
     DM = arch.DM
     dmc = arch.dedispersed
-    if rm_baseline:
-        arch.remove_baseline()
+    if rm_baseline and (convert or rotate):
+        x = _baseline(x)
+        steps.mark("K5")
     if tscrunch:
-        arch.tscrunch()
+        x = _tscrunch(x, arch)
     nsub = arch.nsub
     integration_length = float(arch.durations.sum())
     doppler_factors = arch.doppler_factors.copy()
     parallactic_angles = arch.parallactic_angles.copy()
-    if pscrunch:
-        arch.pscrunch()
+    if pscrunch and arch.state != "Intensity":
+        x = convert_state_data(x, arch.state, "Intensity", arch.basis, None)
+        arch.npol, arch.state = 1, "Intensity"
     state = arch.state
     npol = arch.npol
     if fscrunch:
-        arch.fscrunch()
+        x = _fscrunch(x, arch)
+    x = x.contiguous()
+    steps.mark("scrunch")
     nu0 = arch.nu0
     bw = arch.bw
     nchan = arch.nchan
     freqs = arch.freqs.copy()
     nbin = arch.nbin
     phases = get_bin_centers(nbin).numpy()
-    subints = arch.data.copy()
     Ps = arch.Ps.copy()
     if len(Ps) < nsub:  # tscrunch keeps one
         Ps = np.resize(Ps, nsub)
@@ -125,33 +305,36 @@ def load_data(filename, state=None, dedisperse=False, dededisperse=False,
     weights = arch.weights.copy()
     weights_norm = np.where(weights == 0.0, 0.0, 1.0)
 
-    noise_stds = _host_stat(get_noise, subints, method=noise_method)
+    if noise_method not in ("PS", "fit"):
+        raise ValueError(f"Unknown get_noise method '{noise_method}'.")
+    noise, snr = _statistics(x, get_SNRs, steps)
+    if noise_method == "fit":  # B10, torch on the device
+        noise = get_noise_fit(x)
+        steps.mark("K6")
+    prof, flux = _work_profile(x, arch, flux_prof, steps)
+    prof_stats = torch.empty(2, dtype=torch.float64, device=device)
+    _kernels.load_stats(prof[None], torch.fft.rfft(prof)[None],
+                        prof_stats[:1], prof_stats[1:])
+    steps.mark("profile")
+
+    subints = _download(x)
+    shape = (arch.nsub, npol, nchan)
+    noise_stds = noise.reshape(shape).cpu().numpy()
+    SNRs = snr.reshape(shape).cpu().numpy() if get_SNRs \
+        else np.zeros(shape)
+    prof = prof.cpu().numpy()
+    prof_noise, prof_SNR = (float(v) for v in prof_stats.cpu())
+    flux_profile = flux.cpu().numpy() if flux_prof else np.array([])
+    steps.mark("download")
+    if given is not None and not refresh_arch or return_arch:
+        arch.data = subints.copy()
     ok_isubs = np.compress(weights_norm.mean(axis=1),
                            range(arch.nsub))
     ok_ichans = [np.compress(weights_norm[isub], range(nchan))
                  for isub in range(arch.nsub)]
-    masks = np.einsum("ij,k->ijk", weights_norm, np.ones(nbin))
-    masks = np.einsum("j,ikl->ijkl", np.ones(npol), masks)
-    if get_SNRs:
-        SNRs = _host_stat(get_SNR, subints)
-    else:
-        SNRs = np.zeros([arch.nsub, npol, nchan])
-
-    work = arch.copy()
-    work.pscrunch()
-    if flux_prof:
-        fa = work.copy()
-        fa.dedisperse()
-        fa.tscrunch()
-        flux_profile = fa.data.mean(axis=3)[0][0]
-    else:
-        flux_profile = np.array([])
-    work.dedisperse()
-    work.tscrunch()
-    work.fscrunch()
-    prof = work.data[0, 0, 0]
-    prof_noise = float(_host_stat(get_noise, prof))
-    prof_SNR = float(_host_stat(get_SNR, prof))
+    masks = np.empty((arch.nsub, npol, nchan, nbin))
+    masks[...] = weights_norm[:, None, :, None]
+    steps.mark("host")
 
     metrics.observe(PHASE_HISTOGRAM, time.perf_counter() - t_decode0,
                     phase="decode")
@@ -180,7 +363,8 @@ def unload_new_archive(data, arch, outfile, DM=None, dmc=0, weights=None,
     ``dmc=0`` stores the archive dispersed (dedispersed=False)."""
     new = arch.copy() if isinstance(arch, Archive) else \
         read_archive(arch).copy()
-    new.data = np.asarray(data, dtype=np.float64).reshape(new.data.shape)
+    new.data = np.asarray(data, dtype=np.float64).reshape(
+        new.nsub, new.npol, new.nchan, new.nbin)
     if DM is not None:
         new.DM = float(DM)
     new.dedispersed = bool(dmc)

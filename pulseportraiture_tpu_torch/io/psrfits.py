@@ -2,9 +2,10 @@
 
 In-repo replacement for the PSRCHIVE L0 boundary (SURVEY.md §1 L0): the
 ``Archive`` class holds the folded data cube and metadata and provides
-the manipulations ``load_data`` needs (state conversion, de/dedispersion,
-scrunches, baseline removal, unload), implemented on the framework's own
-batched ops instead of C++ calls.
+the manipulations of an archive (state conversion, de/dedispersion,
+scrunches, unload) in numpy instead of C++ calls; ``load_data`` runs the
+same steps on the device (io/archive.py) and takes only the metadata
+updates from here.
 
 File layout written/read: primary HDU with PSRFITS observation keywords;
 a PSRPARAM table carrying the ephemeris text; a SUBINT BINTABLE with
@@ -30,9 +31,82 @@ from ..utils.mjd import MJD
 from .fits import HDU, read_fits, write_bintable_hdu, write_fits
 from .polyco import Polyco, PolycoSegment, parse_t2predict_text
 
-__all__ = ["Archive", "read_archive", "write_archive_file"]
+__all__ = ["Archive", "read_archive", "write_archive_file",
+           "convert_state_data", "tscrunch_data", "fscrunch_data",
+           "scrunched_weights"]
 
 Dconst = 0.000241 ** -1  # traditional dispersion constant, as config
+
+
+def _np_stack(parts):
+    return np.stack(parts, axis=1)
+
+
+def convert_state_data(data, state, new_state, basis, stack):
+    """The cube [nsub, npol, nchan, nbin] (numpy or torch) converted from
+    polarization state ``state`` to ``new_state`` like PSRCHIVE's
+    convert_state (Archive.convert_state's arithmetic; ``stack`` joins
+    the new pols along axis 1).  Supported: any -> 'Intensity' (I, or
+    AA+BB from Coherence), and the 4-pol linear maps Coherence <->
+    Stokes in the receptor basis (FD_POLN): for 'LIN' feeds I=AA+BB,
+    Q=AA-BB, U=2CR, V=2CI; for 'CIRC' feeds the roles of Q/U and V rotate
+    (I=AA+BB, V=AA-BB, Q=2CR, U=2CI)."""
+    npol = data.shape[1]
+    circ = basis.startswith("CIRC")
+    if new_state == "Intensity":
+        if state == "Coherence" and npol >= 2:
+            return data[:, 0:1] + data[:, 1:2]
+        return data[:, 0:1]  # Stokes: first pol is I
+    if state == "Coherence" and new_state == "Stokes" and npol == 4:
+        AA, BB = data[:, 0], data[:, 1]
+        CR, CI = data[:, 2], data[:, 3]
+        I, D = AA + BB, AA - BB
+        if circ:
+            return stack([I, 2.0 * CR, 2.0 * CI, D])
+        return stack([I, D, 2.0 * CR, 2.0 * CI])  # LIN (the default)
+    if state == "Stokes" and new_state == "Coherence" and npol == 4:
+        I, Q = data[:, 0], data[:, 1]
+        U, V = data[:, 2], data[:, 3]
+        if circ:
+            return stack([(I + V) / 2.0, (I - V) / 2.0, Q / 2.0, U / 2.0])
+        return stack([(I + Q) / 2.0, (I - Q) / 2.0, U / 2.0, V / 2.0])
+    raise NotImplementedError(
+        f"State conversion {state} (npol={npol}) -> "
+        f"{new_state} not supported; supported: -> 'Intensity', and "
+        f"4-pol Coherence <-> Stokes.")
+
+
+def _scrunch(data, weights, axis):
+    """The cube's weighted sum over weights' ``axis`` (0: subints, 1:
+    channels; the cube's 0 and 2) over the weights' sum there, 1 where
+    that sum is 0.  Array methods only: one definition for numpy arrays
+    and torch tensors."""
+    wsum = weights.sum(axis=axis, keepdims=True)
+    norm = wsum * 1.0
+    norm[~(wsum > 0.0)] = 1.0
+    data = (data * weights[:, None, :, None]).sum(axis=2 * axis,
+                                                  keepdims=True)
+    return data / norm[:, None, :, None]
+
+
+def tscrunch_data(data, weights):
+    """Archive.tscrunch's arithmetic: the cube [nsub, npol, nchan, nbin]
+    summed over subints with weights [nsub, nchan] (both numpy or both
+    torch) over their sum; one subint is left as it is."""
+    return data if data.shape[0] == 1 else _scrunch(data, weights, 0)
+
+
+def fscrunch_data(data, weights):
+    """Archive.fscrunch's arithmetic on a dedispersed cube: summed over
+    channels with weights [nsub, nchan] over their sum; one channel is
+    left as it is."""
+    return data if data.shape[2] == 1 else _scrunch(data, weights, 1)
+
+
+def scrunched_weights(weights, axis):
+    """The weights [nsub, nchan] (numpy) after a scrunch over ``axis`` (0:
+    tscrunch, 1: fscrunch): 1 where any weight was positive, else 0."""
+    return np.where(weights.sum(axis=axis, keepdims=True) > 0.0, 1.0, 0.0)
 
 
 def _rotate_np(data, shifts):
@@ -51,7 +125,10 @@ def _rotate_np(data, shifts):
 class Archive:
     """In-memory fold-mode archive.
 
-    data: [nsub, npol, nchan, nbin] float64 (physical units);
+    data: [nsub, npol, nchan, nbin] float64 (physical units); an archive
+    read from a file holds its DATA column as stored (``encoded``: raw,
+    DAT_SCL and DAT_OFFS) and expands it on the host only when ``data``
+    is first read, so ``load_data`` can decode it on the card instead;
     freqs: [nsub, nchan] MHz; weights: [nsub, nchan];
     Ps: [nsub] folding periods [sec]; epochs: list of MJD (subint
     centers); durations: [nsub] sec; state: 'Intensity'|'Stokes'|
@@ -64,9 +141,14 @@ class Archive:
                  backend="unknown", backend_delay=0.0, nu0=None, bw=None,
                  ephemeris_text="", doppler_factors=None,
                  parallactic_angles=None, filename="", polyco=None,
-                 doppler_degraded=False, basis="LIN"):
-        self.data = np.asarray(data, dtype=np.float64)
-        self.nsub, self.npol, self.nchan, self.nbin = self.data.shape
+                 doppler_degraded=False, basis="LIN", encoded=None):
+        if encoded is not None:
+            self._data, self._encoded = None, tuple(encoded)
+            shape = self._encoded[0].shape
+        else:
+            self.data = data
+            shape = self._data.shape
+        self.nsub, self.npol, self.nchan, self.nbin = shape
         self.freqs = np.asarray(freqs, dtype=np.float64)
         if self.freqs.ndim == 1:
             self.freqs = np.tile(self.freqs, (self.nsub, 1))
@@ -121,21 +203,51 @@ class Archive:
         self.filename = filename
         self.polyco = polyco  # Polyco predictor the data was folded with
 
+    @property
+    def data(self):
+        """The cube [nsub, npol, nchan, nbin] float64, expanded from
+        ``encoded`` at first read: raw * scl + offs in numpy."""
+        if self._data is None:
+            raw, scl, offs = self._encoded
+            self._data = raw.astype(np.float64) * scl[..., None] \
+                + offs[..., None]
+            self._encoded = None
+        return self._data
+
+    @data.setter
+    def data(self, value):
+        self._data = np.asarray(value, dtype=np.float64)
+        self._encoded = None
+
+    @property
+    def encoded(self):
+        """(raw [nsub, npol, nchan, nbin] as stored, scl, offs [nsub, npol,
+        nchan] float64) while the cube has not been expanded, else None."""
+        return self._encoded
+
     def copy(self):
+        if self._encoded is not None:  # the stored arrays are never written
+            return Archive(None, self.freqs.copy(), self.weights.copy(),
+                           self.Ps.copy(), list(self.epochs),
+                           self.durations.copy(), encoded=self._encoded,
+                           **self._copy_kw())
         return Archive(self.data.copy(), self.freqs.copy(),
                        self.weights.copy(), self.Ps.copy(),
                        list(self.epochs), self.durations.copy(),
-                       DM=self.DM, state=self.state,
-                       dedispersed=self.dedispersed, source=self.source,
-                       telescope=self.telescope, frontend=self.frontend,
-                       backend=self.backend,
-                       backend_delay=self.backend_delay, nu0=self.nu0,
-                       bw=self.bw, ephemeris_text=self.ephemeris_text,
-                       doppler_factors=self.doppler_factors.copy(),
-                       parallactic_angles=self.parallactic_angles.copy(),
-                       filename=self.filename, polyco=self.polyco,
-                       doppler_degraded=self.doppler_degraded,
-                       basis=self.basis)
+                       **self._copy_kw())
+
+    def _copy_kw(self):
+        return dict(DM=self.DM, state=self.state,
+                    dedispersed=self.dedispersed, source=self.source,
+                    telescope=self.telescope, frontend=self.frontend,
+                    backend=self.backend, backend_delay=self.backend_delay,
+                    nu0=self.nu0, bw=self.bw,
+                    ephemeris_text=self.ephemeris_text,
+                    doppler_factors=self.doppler_factors.copy(),
+                    parallactic_angles=self.parallactic_angles.copy(),
+                    filename=self.filename, polyco=self.polyco,
+                    doppler_degraded=self.doppler_degraded,
+                    basis=self.basis)
 
     # -- state ----------------------------------------------------------
     def convert_state(self, state):
@@ -151,43 +263,10 @@ class Archive:
         """
         if state == self.state:
             return
-        if state == "Intensity":
-            if self.state == "Coherence" and self.npol >= 2:
-                I = self.data[:, 0:1] + self.data[:, 1:2]
-            else:  # Stokes: first pol is I
-                I = self.data[:, 0:1]
-            self.data = I
-            self.npol = 1
-            self.state = "Intensity"
-            return
-        if self.state == "Coherence" and state == "Stokes" \
-                and self.npol == 4:
-            AA, BB = self.data[:, 0], self.data[:, 1]
-            CR, CI = self.data[:, 2], self.data[:, 3]
-            I, D = AA + BB, AA - BB
-            if self.basis.startswith("CIRC"):
-                self.data = np.stack([I, 2.0 * CR, 2.0 * CI, D], axis=1)
-            else:  # LIN (default when the basis is unrecorded)
-                self.data = np.stack([I, D, 2.0 * CR, 2.0 * CI], axis=1)
-            self.state = "Stokes"
-            return
-        if self.state == "Stokes" and state == "Coherence" \
-                and self.npol == 4:
-            I, Q = self.data[:, 0], self.data[:, 1]
-            U, V = self.data[:, 2], self.data[:, 3]
-            if self.basis.startswith("CIRC"):
-                AA, BB, CR, CI = (I + V) / 2.0, (I - V) / 2.0, \
-                    Q / 2.0, U / 2.0
-            else:
-                AA, BB, CR, CI = (I + Q) / 2.0, (I - Q) / 2.0, \
-                    U / 2.0, V / 2.0
-            self.data = np.stack([AA, BB, CR, CI], axis=1)
-            self.state = "Coherence"
-            return
-        raise NotImplementedError(
-            f"State conversion {self.state} (npol={self.npol}) -> "
-            f"{state} not supported; supported: -> 'Intensity', and "
-            f"4-pol Coherence <-> Stokes.")
+        self.data = convert_state_data(self.data, self.state, state,
+                                       self.basis, _np_stack)
+        self.npol = self.data.shape[1]
+        self.state = state
 
     def pscrunch(self):
         self.convert_state("Intensity")
@@ -214,17 +293,17 @@ class Archive:
     def tscrunch(self):
         if self.nsub == 1:
             return
-        w = self.weights[:, None, :, None]
-        wsum = self.weights.sum(axis=0)
-        data = (self.data * w).sum(axis=0, keepdims=True)
-        norm = np.where(wsum > 0.0, wsum, 1.0)[None, None, :, None]
-        self.data = data / norm
+        self.data = tscrunch_data(self.data, self.weights)
+        self.tscrunch_metadata()
+
+    def tscrunch_metadata(self):
+        """tscrunch's change to everything but the data (nsub > 1)."""
         mid = self.epochs[0] + \
             (self.epochs[-1] - self.epochs[0]) / 2.0 / 86400.0
         self.epochs = [mid]
         self.Ps = self.Ps[:1]
         self.freqs = self.freqs.mean(axis=0, keepdims=True)
-        self.weights = np.where(wsum > 0.0, 1.0, 0.0)[None, :]
+        self.weights = scrunched_weights(self.weights, 0)
         self.durations = np.array([self.durations.sum()])
         self.doppler_factors = self.doppler_factors[:1]
         self.parallactic_angles = self.parallactic_angles[:1]
@@ -235,29 +314,15 @@ class Archive:
             return
         if not self.dedispersed:
             self.dedisperse()
-        w = self.weights[:, None, :, None]
-        wsum = self.weights.sum(axis=1)
-        data = (self.data * w).sum(axis=2, keepdims=True)
-        norm = np.where(wsum > 0.0, wsum, 1.0)[:, None, None, None]
-        self.data = data / norm
-        self.freqs = np.full((self.nsub, 1), self.nu0)
-        self.weights = np.where(wsum > 0.0, 1.0, 0.0)[:, None]
-        self.nchan = 1
+        self.data = fscrunch_data(self.data, self.weights)
+        self.fscrunch_metadata()
 
-    # -- baseline -------------------------------------------------------
-    def remove_baseline(self, frac=0.125):
-        """Subtract each profile's off-pulse baseline: the mean over the
-        minimum-mean sliding window spanning ``frac`` of pulse phase
-        (PSRCHIVE's default baseline algorithm)."""
-        nwin = max(1, int(frac * self.nbin))
-        kernel = np.zeros(self.nbin)
-        kernel[:nwin] = 1.0 / nwin
-        # circular windowed means via FFT convolution
-        means = np.fft.irfft(np.fft.rfft(self.data, axis=-1)
-                             * np.conj(np.fft.rfft(kernel)), self.nbin,
-                             axis=-1)
-        baseline = means.min(axis=-1, keepdims=True)
-        self.data = self.data - baseline
+    def fscrunch_metadata(self):
+        """fscrunch's change to everything but the data (nchan > 1, the
+        data dedispersed)."""
+        self.freqs = np.full((self.nsub, 1), self.nu0)
+        self.weights = scrunched_weights(self.weights, 1)
+        self.nchan = 1
 
     # -- unload ---------------------------------------------------------
     def unload(self, filename, quiet=True):
@@ -448,14 +513,15 @@ def read_archive(filename):
     nchan = int(sh.get("NCHAN", primary.get("OBSNCHAN", 1)))
     raw = cols["DATA"]
     nbin = int(sh.get("NBIN", raw.shape[-1]))
-    data = raw.reshape(nsub, npol, nchan, nbin).astype(np.float64)
+    # the DATA column as stored; physical = raw * scl + offs (Archive.data
+    # expands it at first read, load_data on the card)
+    raw = raw.reshape(nsub, npol, nchan, nbin)
     scl = np.asarray(cols.get("DAT_SCL",
                               np.ones((nsub, npol * nchan))),
                      dtype=np.float64).reshape(nsub, npol, nchan)
     offs = np.asarray(cols.get("DAT_OFFS",
                                np.zeros((nsub, npol * nchan))),
                       dtype=np.float64).reshape(nsub, npol, nchan)
-    data = data * scl[..., None] + offs[..., None]
 
     freqs = np.asarray(cols["DAT_FREQ"], dtype=np.float64)
     if freqs.ndim == 1:
@@ -507,7 +573,7 @@ def read_archive(filename):
     if par is not None:
         par = np.asarray(par, dtype=np.float64).reshape(nsub)
     return Archive(
-        data, freqs, weights, Ps, epochs, durations,
+        None, freqs, weights, Ps, epochs, durations, encoded=(raw, scl, offs),
         DM=float(sh.get("DM", 0.0)),
         state=state, dedispersed=bool(sh.get("DEDISP", False)),
         source=str(primary.get("SRC_NAME", "unknown")).strip(),

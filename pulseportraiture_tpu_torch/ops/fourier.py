@@ -96,10 +96,33 @@ def phasor(shifts, nharm, sign=+1.0):
     return torch.complex(torch.cos(ang), torch.sin(ang))
 
 
-def apply_phasor(port_FT, shifts):
+def apply_phasor(port_FT, shifts, out=None):
     """Multiply an rFFT'd portrait [..., nchan, nharm] by the rotation
-    phasor for ``shifts`` [..., nchan] (rotations)."""
-    return port_FT * phasor(shifts, port_FT.shape[-1])
+    phasor for ``shifts`` [..., nchan] (rotations).
+
+    The product is _kernels.rotate, in complex128: on the card K7
+    (csrc/rotate.cu), on the CPU its plain version, the spectrum times
+    ``phasor``.  ``out`` (port_FT itself allowed) takes
+    the result.  The kernel carries no derivative: a fitted model's
+    rotation takes ``_rotate_FT(..., model=True)``."""
+    from .. import _kernels
+
+    return _kernels.rotate(torch.as_tensor(port_FT).to(torch.complex128),
+                           shifts, out=out)
+
+
+def _rotate_FT(FT, shifts, model=False):
+    """apply_phasor on a fresh rFFT ``FT``: in place when it is
+    contiguous and the shifts do not broaden it.  ``model`` takes the
+    spectrum times ``phasor`` as differentiable torch instead, for a
+    model that torch.func differentiates and batches (the fitted join
+    rotation of ops.profiles.gen_gaussian_portrait)."""
+    shifts = torch.as_tensor(shifts, dtype=real_dtype, device=FT.device)
+    if model:
+        return FT * phasor(shifts, FT.shape[-1])
+    same = FT.is_contiguous() and torch.broadcast_shapes(
+        FT.shape[:-1], shifts.shape) == FT.shape[:-1]
+    return apply_phasor(FT, shifts, out=FT if same else None)
 
 
 def _negpow(nu, n):
@@ -152,17 +175,19 @@ def rotate_portrait_full(port, phi, DM, GM, freqs, nu_DM=math.inf,
     freqs = torch.as_tensor(freqs, dtype=real_dtype, device=port.device)
     port_FT = torch.fft.rfft(port, dim=-1)
     shifts = phase_shifts(phi, DM, GM, freqs, nu_DM, nu_GM, P, mod=False)
-    return torch.fft.irfft(apply_phasor(port_FT, shifts), n=port.shape[-1],
+    return torch.fft.irfft(_rotate_FT(port_FT, shifts), n=port.shape[-1],
                            dim=-1)
 
 
 def rotate_data(data, phase=0.0, DM=0.0, Ps=None, freqs=None,
-                nu_ref=math.inf):
+                nu_ref=math.inf, model=False):
     """Rotate and/or dedisperse data of shape [..., nchan, nbin] or [nbin].
 
     ``Ps`` may be scalar or [...], ``freqs`` [nchan] or [..., nchan],
     ``nu_ref`` scalar or broadcastable against ``freqs``.  Positive
-    phase/DM rotate to earlier phases.  Runs on ``data``'s device."""
+    phase/DM rotate to earlier phases.  Runs on ``data``'s device.
+    ``model`` (2-D and up) keeps the phasor product differentiable under
+    torch.func (_rotate_FT)."""
     data = torch.as_tensor(data)
     dev = data.device
     if data.ndim == 1:
@@ -191,8 +216,8 @@ def rotate_data(data, phase=0.0, DM=0.0, Ps=None, freqs=None,
         shifts = torch.broadcast_to(torch.as_tensor(shifts, device=dev),
                                     data.shape[:-1])
     data_FT = torch.fft.rfft(data.to(real_dtype), dim=-1)
-    return torch.fft.irfft(apply_phasor(data_FT, shifts), n=data.shape[-1],
-                           dim=-1)
+    return torch.fft.irfft(_rotate_FT(data_FT, shifts, model),
+                           n=data.shape[-1], dim=-1)
 
 
 def rotate_profile(profile, phase=0.0):
@@ -200,8 +225,8 @@ def rotate_profile(profile, phase=0.0):
     profile = torch.as_tensor(profile)
     prof_FT = torch.fft.rfft(profile.to(real_dtype), dim=-1)
     phase = torch.as_tensor(phase, dtype=real_dtype, device=profile.device)
-    prof_FT = prof_FT * phasor(phase, prof_FT.shape[-1])
-    return torch.fft.irfft(prof_FT, n=profile.shape[-1], dim=-1)
+    return torch.fft.irfft(_rotate_FT(prof_FT, phase), n=profile.shape[-1],
+                           dim=-1)
 
 
 def fft_rotate(arr, bins):
@@ -245,5 +270,5 @@ def add_DM_nu(port, phase=0.0, DM=None, P=None, freqs=None, xs=(-2.0,),
             - torch.pow(nu, exps[:, None])), dim=0)
         shifts = phase + (Dconst * DM / P) * freq_term
     port_FT = torch.fft.rfft(port, dim=-1)
-    return torch.fft.irfft(apply_phasor(port_FT, shifts), n=port.shape[-1],
+    return torch.fft.irfft(_rotate_FT(port_FT, shifts), n=port.shape[-1],
                            dim=-1)

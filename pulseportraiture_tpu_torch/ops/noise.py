@@ -29,7 +29,8 @@ import torch
 
 from ..config import real_dtype
 
-__all__ = ["get_noise", "get_noise_PS", "get_noise_fit", "get_SNR",
+__all__ = ["get_noise", "get_noise_PS", "noise_PS_of_power",
+           "get_noise_fit", "get_SNR", "SNR_of_noise",
            "find_kc", "half_triangle_function", "wiener_filter",
            "brickwall_filter", "fit_brickwall", "wiener_smooth"]
 
@@ -64,7 +65,13 @@ def _power(data):
 def get_noise_PS(data, frac=4):
     """Noise from the mean of the top 1/frac of the power spectrum
     (reference pplib.py:2227-2253)."""
-    pows = _power(torch.as_tensor(data).to(real_dtype))[1]
+    return noise_PS_of_power(_power(torch.as_tensor(data).to(real_dtype))[1],
+                             frac)
+
+
+def noise_PS_of_power(pows, frac=4):
+    """get_noise_PS from the power spectrum pows [..., nharm] (|rFFT|^2 /
+    nbin): the square root of the mean of its top 1/frac."""
     kc = int((1 - 1.0 / frac) * pows.shape[-1])
     return torch.sqrt(torch.mean(pows[..., kc:], dim=-1))
 
@@ -238,7 +245,11 @@ def get_SNR(prof, fudge=3.25, noise_method="PS"):
     """Lorimer & Kramer S/N with the reference's PSRCHIVE-matching fudge
     (pplib.py:2289-2308).  Assumes the baseline has been removed."""
     prof = torch.as_tensor(prof).to(real_dtype)
-    noise = get_noise(prof, method=noise_method)
+    return SNR_of_noise(prof, get_noise(prof, method=noise_method), fudge)
+
+
+def SNR_of_noise(prof, noise, fudge=3.25):
+    """get_SNR of profiles prof [..., nbin] whose noise [...] is given."""
     Weq = prof.sum(dim=-1) / prof.max(dim=-1).values
     mask = torch.where(Weq <= 0.0, 0.0, 1.0).to(real_dtype)
     Weq = torch.where(Weq <= 0.0, torch.ones_like(Weq), Weq)

@@ -186,7 +186,7 @@ def gen_gaussian_portrait(model_code, params, scattering_index, phases,
                                  device=device)
         gport = gport.index_copy(0, ichans, rotate_data(
             gport[ichans], join_params[2 * ij], join_params[2 * ij + 1], P,
-            freqs[ichans], nu_ref))
+            freqs[ichans], nu_ref, model=True))
     return gport
 
 

@@ -113,7 +113,8 @@ def average_archives(datafiles, outfile, palign=False, tscrunch=True,
     for f in datafiles:
         try:
             d = load_data(f, state=state, dedisperse=True, tscrunch=True,
-                          pscrunch=pscrunch, rm_baseline=True, quiet=True)
+                          pscrunch=pscrunch, rm_baseline=True, quiet=True,
+                          device=device)
         except NotImplementedError as e:
             # e.g. -p on an already-pscrunched archive: skipped, like the
             # reference's ppalign ("converted or skipped")
@@ -319,7 +320,7 @@ def align_archives(metafile, initial_guess, fit_dm=True, tscrunch=False,
     model_data = load_data(initial_guess, state=state, dedisperse=True,
                            tscrunch=True, pscrunch=pscrunch,
                            rm_baseline=True, refresh_arch=True,
-                           return_arch=True, quiet=True)
+                           return_arch=True, quiet=True, device=device)
     nchan, nbin = model_data.nchan, model_data.nbin
     model_port = torch.as_tensor(
         (model_data.masks * model_data.subints)[0, 0], device=device)
@@ -380,7 +381,8 @@ def align_archives(metafile, initial_guess, fit_dm=True, tscrunch=False,
                     d = load_data(datafile, state=state, dedisperse=False,
                                   tscrunch=tscrunch, pscrunch=pscrunch,
                                   rm_baseline=True, refresh_arch=False,
-                                  return_arch=False, quiet=True)
+                                  return_arch=False, quiet=True,
+                                  device=device)
             except NotImplementedError as e:
                 print(f"Skipping {datafile}: cannot convert to {state} "
                       f"({e})", file=sys.stderr)

@@ -282,15 +282,18 @@ def _nonfinite_guard(ports, errs_b, weights_b):
     return ports, errs_b, weights_b, bad, n_zap, int(wok.sum())
 
 
-def _load(datafile, tscrunch, quiet):
-    """load_data with the reference's dmc-reload (pptoas.py:216-233)."""
+def _load(datafile, tscrunch, quiet, device):
+    """load_data on ``device`` with the reference's dmc-reload
+    (pptoas.py:216-233)."""
     data = load_data(datafile, dedisperse=False, dededisperse=False,
                      tscrunch=tscrunch, pscrunch=True, rm_baseline=True,
-                     refresh_arch=False, return_arch=False, quiet=quiet)
+                     refresh_arch=False, return_arch=False, quiet=quiet,
+                     device=device)
     if data.dmc:
         data = load_data(datafile, dedisperse=False, dededisperse=True,
                          tscrunch=tscrunch, pscrunch=True, rm_baseline=True,
-                         refresh_arch=False, return_arch=False, quiet=quiet)
+                         refresh_arch=False, return_arch=False, quiet=quiet,
+                         device=device)
     return data
 
 
@@ -299,13 +302,15 @@ def _load(datafile, tscrunch, quiet):
 _PRELOAD_MISS = object()
 
 
-def load_archive_data(datafile, tscrunch=False, quiet=True):
-    """load_data with the reference's dmc-reload; returns the DataBunch,
-    or None when the archive cannot be used.  ``GetTOAs._load_archive``
-    and the survey's prefetch stage (runner/prefetch.py) both run it, so
-    a prefetched buffer equals a serial load."""
+def load_archive_data(datafile, tscrunch=False, quiet=True, device=None):
+    """load_data on ``device`` (config.resolve_device) with the
+    reference's dmc-reload; returns the DataBunch, or None when the
+    archive cannot be used.  ``GetTOAs._load_archive`` and the survey's
+    prefetch stage (runner/prefetch.py) both run it, so a prefetched
+    buffer equals a serial load."""
+    device = resolve_device(device)
     try:
-        data = _load(datafile, tscrunch, quiet)
+        data = _load(datafile, tscrunch, quiet, device)
         if not len(data.ok_isubs):
             if not quiet:
                 print(f"No subints to fit for {datafile}; skipping it.")
@@ -404,7 +409,7 @@ class GetTOAs:
         """The load a ``_load_archive`` miss runs (subclasses that load
         otherwise, as the survey's bucketed driver does, override it)."""
         return load_archive_data(datafile, tscrunch=tscrunch,
-                                 quiet=quiet)
+                                 quiet=quiet, device=self.device)
 
     def preload(self, datafile, outcome):
         """Install a prefetched load outcome for ``datafile``:
@@ -450,7 +455,8 @@ class GetTOAs:
         # FITS template archive
         model_data = load_data(self.modelfile, dedisperse=False,
                                tscrunch=True, pscrunch=True,
-                               rm_baseline=True, quiet=True)
+                               rm_baseline=True, quiet=True,
+                               device=self.device)
         self.model_name = model_data.source
         model = (model_data.masks * model_data.subints)[0, 0]
         if model_data.nchan == 1:
@@ -1418,7 +1424,7 @@ class GetTOAs:
             self._data_cache = {}
         if datafile not in self._data_cache:
             self._data_cache[datafile] = _load(datafile, self.tscrunch,
-                                               quiet=True)
+                                               True, self.device)
         d = self._data_cache[datafile]
         dev = self.device
         P = float(d.Ps[isub])

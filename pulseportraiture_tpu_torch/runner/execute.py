@@ -122,7 +122,8 @@ class _BucketedGetTOAs(GetTOAs):
         # a prefetched buffer is already bucket-padded and replays
         # through GetTOAs._load_archive; a miss loads and pads here
         return load_bucketed_databunch(datafile, self._bucket_shape,
-                                       tscrunch=tscrunch, quiet=quiet)
+                                       tscrunch=tscrunch, quiet=quiet,
+                                       device=self.device)
 
 
 def make_mesh_fitter(mesh):
@@ -957,7 +958,7 @@ def run_survey(plan, workdir, modelfile=None, process_index=None,
                             functools.partial(
                                 load_bucketed_databunch, sinfo.path,
                                 sbucket.key, tscrunch=pf_tscrunch,
-                                quiet=quiet),
+                                quiet=quiet, device=device),
                             est_bytes=sbucket.est_bytes())
                 tw0 = time.perf_counter()
                 try:
@@ -1206,7 +1207,7 @@ def run_survey(plan, workdir, modelfile=None, process_index=None,
                                                 load_bucketed_databunch,
                                                 info.path, bucket.key,
                                                 tscrunch=pf_tscrunch,
-                                                quiet=quiet),
+                                                quiet=quiet, device=device),
                                             est_bytes=bucket.est_bytes(),
                                             ctx=trace_ctx)
                             if prefetcher is None:

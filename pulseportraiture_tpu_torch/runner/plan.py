@@ -408,10 +408,11 @@ def pad_databunch(d, nchan_pad, nbin_pad):
 
 
 def load_bucketed_databunch(datafile, bucket_shape, tscrunch=False,
-                            quiet=True):
-    """The complete host-side load of one bucketed archive: FITS decode
-    with the dmc-reload fallback (pipelines.toas.load_archive_data) +
-    pad to the bucket's canonical shape.
+                            quiet=True, device=None):
+    """The complete load of one bucketed archive: FITS read, the decode
+    and the load's statistics on ``device`` (config.resolve_device) with
+    the dmc-reload fallback (pipelines.toas.load_archive_data) + pad to
+    the bucket's canonical shape on the host.
 
     This is THE load path of the bucketed fit loop
     (execute._BucketedGetTOAs) and of the host prefetch stage
@@ -427,7 +428,8 @@ def load_bucketed_databunch(datafile, bucket_shape, tscrunch=False,
     from ..pipelines.toas import load_archive_data
 
     bucket_shape = tuple(bucket_shape)
-    data = load_archive_data(datafile, tscrunch=tscrunch, quiet=quiet)
+    data = load_archive_data(datafile, tscrunch=tscrunch, quiet=quiet,
+                             device=device)
     if data is None:
         return None
     try:

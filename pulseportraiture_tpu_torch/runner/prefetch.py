@@ -1,10 +1,10 @@
 """Bounded double-buffered host prefetch (docs/RUNNER.md "Host
 pipeline").
 
-The survey fit loop (execute.py) is IO-bound on the host: FITS decode
-+ ``pad_databunch`` run serially *between* fits, and the host decode is
-the larger part of every archive's wall on the H100 (PERF.md §5).
-:class:`HostPrefetcher` moves that load off the fit timeline: a small
+The survey fit loop (execute.py) runs each archive's load serially
+*between* fits: the FITS read, the decode and statistics on the card
+(io/archive.load_data) and ``pad_databunch``.  :class:`HostPrefetcher`
+moves that load off the fit timeline: a small
 worker pool runs :func:`~.plan.load_bucketed_databunch` for the *next*
 archives while the current one fits, handing each finished buffer back
 through a :class:`PrefetchTicket`.
@@ -40,12 +40,15 @@ by construction):
 The pool defaults to ONE worker: hand-off order then equals submission
 (claim) order, so ``nth=``/``every=`` fault-site counting stays
 deterministic, and the overlap that matters — load vs *fit* — needs no
-load-vs-load parallelism.  The buffers stay host-side numpy, as in the
-JAX package: the fit path mutates its arrays in place
-(``_nonfinite_guard``) and ``GetTOAs`` uploads each archive to the
-card on the fit thread, so a prefetched buffer replays bit-identically
-to a serial load.  Moving the upload here (pinned host memory, a copy
-stream) is a separate change with its own measurement.
+load-vs-load parallelism.  The worker thread does the load's device
+work too: it uploads the stored DATA column, runs the decode, baseline
+and statistics kernels (K5-K7) on the card and brings the subints back
+into pinned host memory, on the device's current stream.  The buffers
+it hands over are host-side numpy, as in the JAX package: the fit path
+mutates its arrays in place (``_nonfinite_guard``) and ``GetTOAs``
+uploads each archive's portraits to the card again on the fit thread,
+so a prefetched buffer replays bit-identically to a serial load.
+Keeping the load's device cube for the fit is a separate change.
 """
 
 import contextlib

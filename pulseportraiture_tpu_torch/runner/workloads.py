@@ -29,9 +29,10 @@ behind the same engine:
     ppgauss/ppspline model construction over averaged portraits, one
     model file per archive under ``<workdir>/models/``.
 
-The device work of each workload (the toas fits, the align block, the
-model fits) runs on the workload's ``device`` (None = the CUDA device;
-``"cpu"`` must be asked for); ``zap`` is host numpy.
+The device work of each workload (the archive loads, the toas fits, the
+align block, the model fits) runs on the workload's ``device`` (None =
+the CUDA device; ``"cpu"`` must be asked for); ``zap``'s proposal walk
+and weight rewrite are host numpy.
 
 Checkpoint protocol: the non-toas workloads checkpoint one JSONL line
 per archive (a *complete block* — torn tails are dropped on replay,
@@ -347,8 +348,9 @@ class ZapWorkload(Workload):
 
     def __init__(self, nstd=3.0, tscrunch=False, all_subs=None,
                  device=None):
-        # ``device`` is accepted for a uniform workload interface: the
-        # proposal walk and the weight rewrite are host numpy
+        # the load runs on ``device``; the proposal walk and the weight
+        # rewrite are host numpy
+        self.device = device
         self.nstd = float(nstd)
         self.tscrunch = bool(tscrunch)
         # ppzap semantics: tscrunched examination applies zaps to all
@@ -368,7 +370,7 @@ class ZapWorkload(Workload):
                           dededisperse=False, tscrunch=self.tscrunch,
                           pscrunch=True, rm_baseline=True,
                           refresh_arch=False, return_arch=False,
-                          quiet=True)
+                          quiet=True, device=self.device)
             zaps = get_zap_channels(d, nstd=self.nstd)
             n_prop = sum(len(z) for z in zaps)
             n_zapped = 0
@@ -472,7 +474,7 @@ class AlignWorkload(Workload):
         md = load_data(src, state=self._state(), dedisperse=True,
                        tscrunch=True, pscrunch=self.pscrunch,
                        rm_baseline=True, refresh_arch=True,
-                       return_arch=True, quiet=True)
+                       return_arch=True, quiet=True, device=self.device)
         self.model_data = md
         self.nchan, self.nbin = int(md.nchan), int(md.nbin)
         self.npol = 1 if self.pscrunch else 4
@@ -508,7 +510,7 @@ class AlignWorkload(Workload):
                               dedisperse=False, tscrunch=self.tscrunch,
                               pscrunch=self.pscrunch, rm_baseline=True,
                               refresh_arch=False, return_arch=False,
-                              quiet=True)
+                              quiet=True, device=self.device)
         except NotImplementedError as e:
             # inconvertible state: deterministic, like align_archives'
             # permanent skip — quarantine with the reason on record

@@ -577,7 +577,7 @@ class TOAService:
             functools.partial(load_bucketed_databunch, rq.path,
                               tuple(rq.bucket),
                               tscrunch=bool(kw.get("tscrunch", False)),
-                              quiet=self.quiet),
+                              quiet=self.quiet, device=self.device),
             est_bytes=estimate_archive_bytes(rq.nchan, rq.nbin,
                                              nsub=rq.nsub),
             ctx=rq.ctx())

@@ -23,7 +23,13 @@ of the CPU parity tests against the JAX package: the (phase, DM) fits
 stop at the f64 floor of their objective, ~1e-9 rot apart, and a subint
 rotated that much differently moves the portrait by ~1e-8 of its peak;
 read on the card: 1.5e-9), spline models within 1e-10 and Gaussian model
-parameters within 1e-6 of their errors.
+parameters within 1e-6 of their errors.  The load's kernels (K5
+csrc/unpack.cu, K6 csrc/loadstats.cu, K7 csrc/rotate.cu) against their
+plain versions: the decode bit-equal, the baseline within 1e-12 of each
+row's range (rows above shared memory's reach included), noise 1e-13 and
+S/N 1e-12 relative, the phasor pass 1e-13 of each row's largest
+harmonic, its weighted sum 1e-12 and the same bits twice; load_data on
+the card against the plain versions on the card and against the CPU.
 
 Readings on an H100 80GB HBM3 (700 W), kernels against plain: the
 scattering fluxes 1.48e-8 (log10 tau) and 2.03e-8 (linear tau), the
@@ -379,6 +385,47 @@ def test_template_builders_kernels_match_plain(card, epochs):
     fin = np.isfinite(errs) & (errs > 0)
     assert np.all(np.abs(gauss[0].model_params - gauss[1].model_params)[fin]
                   <= 1e-6 * errs[fin])
+
+
+def test_joined_gaussian_portrait_fit_card_matches_cpu(card):
+    """ppgauss's fit of a portrait in two join groups (their phase and
+    DM fitted under torch.func's vmap and jacfwd, the model's rotation
+    the differentiable phasor product, not K7) on the card against the
+    CPU: parameters within 1e-6 of their errors, errors within 1e-6
+    relative, chi2 within 1e-9 relative, rc equal (nfev is not held:
+    the stop test on chi2's relative change meets the card's and the
+    CPU's FFT rounding, 17 against 19 evaluations on an H100)."""
+    from pulseportraiture_tpu_torch.fit.gauss import fit_gaussian_portrait
+    from pulseportraiture_tpu_torch.ops.profiles import gen_gaussian_portrait
+
+    nbin, P = 128, 0.005
+    freqs = np.linspace(1100.0, 1900.0, 12)
+    params = np.array([0.02, 3.0, 0.35, -0.05, 0.05, 0.1, 1.0, -1.2,
+                       0.6, 0.02, 0.03, 0.0, 0.5, 0.5])
+    joins = [np.arange(0, 5), np.arange(5, 12)]
+    phases = np.arange(nbin) / nbin
+    model = gen_gaussian_portrait(
+        "001", np.concatenate([params, [0.0, 1e-3, 0.013, -2e-3]]), -4.0,
+        phases, freqs, 1500.0, joins, P).numpy()
+    rng = np.random.default_rng(4)
+    data = model + rng.normal(0.0, 0.01, model.shape)
+    init = params * np.where(np.arange(len(params)) % 2, 1.02, 0.98)
+    args = ("001", data, init, -3.5, np.full(data.shape, 0.01),
+            np.ones(len(params)), True, phases, freqs, 1500.0,
+            [joins, np.array([0.0, 0.0, 0.01, 0.0]), np.array([0, 1, 1, 1])],
+            P)
+    got = fit_gaussian_portrait(*args, device=DEVICE)
+    want = fit_gaussian_portrait(*args, device="cpu")
+    errs = np.asarray(want.fit_errs)
+    fin = np.isfinite(errs) & (errs > 0)
+    assert fin.sum() > len(params)
+    assert np.all(np.abs(np.asarray(got.fitted_params)
+                         - np.asarray(want.fitted_params))[fin]
+                  <= 1e-6 * errs[fin])
+    assert np.all(np.abs(np.asarray(got.fit_errs) - errs)[fin]
+                  <= 1e-6 * errs[fin])
+    assert abs(got.chi2 - want.chi2) <= 1e-9 * want.chi2
+    assert got.return_code == want.return_code
 
 
 def _noise_profiles(nbin=2048, n=300, seed=8):
@@ -815,3 +862,103 @@ def test_errs_none_fit_kernel_equals_plain_on_the_card(card):
     assert float(dphi) * 0.005 < 1e-9
     assert torch.equal(want.return_code, got.return_code)
     assert torch.equal(want.nfeval, got.nfeval)
+
+
+# -- the load on the card: K5, K6 and K7 ------------------------------------
+
+LOAD_CASES = [(300, 2048), (64, 63), (3, 2), (6, 16385)]
+
+
+@pytest.mark.parametrize("case", LOAD_CASES, ids=lambda c: "%dx%d" % c)
+def test_load_kernels_match_plain_on_the_card(card, case):
+    """K5's decode bit-equal to its plain version, its baseline (with the
+    decode and alone, rows above shared memory's reach included) within
+    1e-12 of each row's range; K6's noise within 1e-13 and S/N within
+    1e-12 relative; K7 within 1e-13 of each row's largest harmonic; each
+    launch counted."""
+    K = card
+    rows, nbin = case
+    gen = torch.Generator(device=DEVICE).manual_seed(rows * 7 + nbin)
+    raw = torch.randint(-32767, 32768, (rows, nbin), generator=gen,
+                        device=DEVICE, dtype=torch.int64).to(torch.int16)
+    scl = torch.rand(rows, generator=gen, device=DEVICE,
+                     dtype=torch.float64) * 1e-3
+    offs = (torch.rand(rows, generator=gen, device=DEVICE,
+                       dtype=torch.float64) - 0.5) * 1e3
+    K.reset_launches()
+    x = K.unpack(raw, scl, offs)
+    assert torch.equal(x, K.unpack_plain(raw, scl, offs))
+    spread = (x.amax(-1, keepdim=True) - x.amin(-1, keepdim=True)).clamp_min(
+        1e-300)
+    want = K.baseline_plain(x)
+    for got in (K.unpack(raw, scl, offs, frac=0.125), K.baseline(x),
+                K.baseline(x.clone(), out=None)):
+        assert float(((got - want).abs() / spread).max()) <= 1e-12
+    inplace = x.clone()
+    K.baseline(inplace, out=inplace)
+    assert float(((inplace - want).abs() / spread).max()) <= 1e-12
+    base = want.contiguous()
+    X = torch.fft.rfft(base, dim=-1)
+    outs = [torch.empty(rows, dtype=torch.float64, device=DEVICE)
+            for _ in range(4)]
+    K.load_stats(base, X, outs[0], outs[1])
+    K.load_stats_plain(base, X, outs[2], outs[3])
+    assert float(((outs[0] - outs[2]).abs() / outs[2].abs()).max()) <= 1e-13
+    assert float(((outs[1] - outs[3]).abs() / outs[3].abs().clamp_min(
+        1e-300)).max()) <= 1e-12
+    shifts = (torch.rand(rows, generator=gen, device=DEVICE,
+                         dtype=torch.float64) - 0.5) * 80.0
+    scale = X.abs().amax(-1, keepdim=True).clamp_min(1e-300)
+    got = K.rotate(X, shifts)
+    assert float(((got - K.rotate_plain(X, shifts)).abs() / scale).max()) \
+        <= 1e-13
+    Y = X.clone()
+    K.rotate(Y, shifts, out=Y)
+    assert torch.equal(Y, got)
+    torch.cuda.synchronize()
+    assert {n: K.LAUNCHES[n] for n in ("unpack", "baseline", "load_stats",
+                                       "rotate")} == dict(
+        unpack=2, baseline=3, load_stats=1, rotate=2)
+
+
+@pytest.mark.parametrize("kw", [
+    dict(), dict(dedisperse=True, flux_prof=True),
+    dict(tscrunch=True, fscrunch=True, flux_prof=True),
+    dict(noise_method="fit", get_SNRs=False)],
+    ids=["default", "dedisperse", "scrunch", "noise_fit"])
+def test_load_data_card_matches_plain_and_cpu(card, archive, kw):
+    """load_data on the card through K5-K7, with their plain versions on
+    the card, and on the CPU: subints within 1e-12 of each row's range,
+    noise within 1e-13 and S/N within 1e-12 relative (1e-12 for the
+    "fit" noise), prof within 1e-12 of its peak, flux_prof within 1e-12
+    of its largest; the kernels launched."""
+    from pulseportraiture_tpu_torch.io.archive import load_data
+
+    K = card
+    _, path = archive
+    K.reset_launches()
+    got = load_data(path, device=DEVICE, **kw)
+    launched = dict(K.LAUNCHES)
+    with plain_kernels(K):
+        plain = load_data(path, device=DEVICE, **kw)
+    host = load_data(path, device="cpu", **kw)
+    assert launched["load_stats"] >= 2 and launched["unpack"] == 1
+    assert launched["baseline"] == int("dedisperse" in kw)
+    assert launched["rotate"] >= 1   # the work copy's dedispersion
+    for want in (plain, host):
+        s = want.subints
+        spread = np.maximum(np.ptp(s, axis=-1, keepdims=True), 1e-300)
+        assert np.max(np.abs(got.subints - s) / spread) <= 1e-12
+        nt = 1e-12 if kw.get("noise_method") == "fit" else 1e-13
+        assert np.max(np.abs(got.noise_stds - want.noise_stds)
+                      / np.maximum(np.abs(want.noise_stds), 1e-300)) <= nt
+        assert np.max(np.abs(got.SNRs - want.SNRs)
+                      / np.maximum(np.abs(want.SNRs), 1e-300)) <= 1e-12
+        assert np.max(np.abs(got.prof - want.prof)) \
+            <= 1e-12 * np.abs(want.prof).max()
+        for key in ("prof_noise", "prof_SNR"):
+            assert abs(got[key] - want[key]) <= 1e-12 * abs(want[key])
+        if kw.get("flux_prof"):
+            assert np.max(np.abs(got.flux_prof - want.flux_prof)) \
+                <= 1e-12 * np.abs(want.flux_prof).max()
+        np.testing.assert_array_equal(got.masks, want.masks)

@@ -5,6 +5,8 @@ stale library."""
 
 import shutil
 
+import pytest
+
 from pulseportraiture_tpu_torch import _kernels
 
 
@@ -62,3 +64,30 @@ def test_spectra_source_in_the_build(tmp_path, monkeypatch):
     src = csrc / "spectra.cu"
     src.write_text(src.read_text() + "\n// edited\n")
     assert _kernels._lib_path("spectra") != before
+
+
+@pytest.mark.parametrize("source,names", [
+    ("unpack.cu", ("unpack", "baseline")),
+    ("loadstats.cu", ("load_stats",)),
+    ("rotate.cu", ("rotate",))])
+def test_load_sources_in_the_build(tmp_path, monkeypatch, source, names):
+    """The load's kernels (K5 csrc/unpack.cu, K6 csrc/loadstats.cu, K7
+    csrc/rotate.cu) are built sources, each entry point and traced CUDA
+    function in its source, each with a plain version; a library's name
+    changes when its source is edited."""
+    assert source in _kernels.SOURCES
+    lib = source[:-len(".cu")]
+    text = open(_kernels.CSRC_DIR + "/" + source).read()
+    for name in names:
+        assert _kernels._lib_of(name) == lib
+        assert 'extern "C" int %s(' % _kernels.KERNELS[name][1] in text
+        assert "__global__" in text and _kernels.TRACE_NAMES[name] in text
+        assert callable(getattr(_kernels, name + "_plain"))
+        assert name in _kernels.LAUNCHES
+    csrc = tmp_path / "csrc"
+    shutil.copytree(_kernels.CSRC_DIR, csrc)
+    monkeypatch.setattr(_kernels, "CSRC_DIR", str(csrc))
+    before = _kernels._lib_path(lib)
+    src = csrc / source
+    src.write_text(src.read_text() + "\n// edited\n")
+    assert _kernels._lib_path(lib) != before

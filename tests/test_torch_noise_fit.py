@@ -172,12 +172,13 @@ def test_load_data_with_fit_noise(tmp_path):
     path = str(tmp_path / "fake.fits")
     tarch.make_fake_pulsar(gm, par, path, nsub=2, nchan=8, nbin=128,
                            phase=0.1, dDM=1e-3, noise_stds=0.3, seed=4)
-    data = tarch.load_data(path, rm_baseline=False).subints.copy()
+    data = tarch.load_data(path, rm_baseline=False,
+                           device="cpu").subints.copy()
     data[:, :, [2, 5]] = 0.0
     zeroed = str(tmp_path / "zeroed.fits")
     tarch.unload_new_archive(data, path, zeroed, dmc=0)
     for f in (path, zeroed):
-        have = tarch.load_data(f, noise_method="fit")
+        have = tarch.load_data(f, noise_method="fit", device="cpu")
         want = jarch.load_data(f, noise_method="fit")
         _close(have.noise_stds, want.noise_stds)
         _close(have.SNRs, want.SNRs, atol=1e-12)

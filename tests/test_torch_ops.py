@@ -144,7 +144,7 @@ def test_load_data_fixtures(name):
     path = os.path.join(DATA, name + ".fits")
     exp = np.load(os.path.join(DATA, name + "_expected.npz"))
     kw = _FIXTURES[name]
-    d = tarch.load_data(path, quiet=True, **kw)
+    d = tarch.load_data(path, quiet=True, device="cpu", **kw)
     if name == "psrchive_style":
         # pscrunch of AABBCRCI forms AA+BB; channel 2 is zapped
         _close(d.subints[:, 0], exp["data"][:, 0] + exp["data"][:, 1], 1e-9)
@@ -174,7 +174,7 @@ def test_make_fake_pulsar_roundtrip(tmp_path):
                                  nsub=3, nchan=8, nbin=64, phase=0.1,
                                  dDM=1e-3, weights=w, noise_stds=0.01,
                                  seed=5)
-    d = tarch.load_data(out, quiet=True)
+    d = tarch.load_data(out, quiet=True, device="cpu")
     assert d.subints.shape == (3, 1, 8, 64)
     np.testing.assert_array_equal(d.weights, w)
     assert not d.dmc and abs(d.DM - 34.5678) < 1e-9
@@ -183,7 +183,7 @@ def test_make_fake_pulsar_roundtrip(tmp_path):
                                   nsub=2, nchan=8, nbin=64, phase=0.1,
                                   dDM=1e-3, weights=w[:2], noise_stds=0.01,
                                   seed=5)
-    d2 = tarch.load_data(out2, quiet=True)
+    d2 = tarch.load_data(out2, quiet=True, device="cpu")
     np.testing.assert_array_equal(d2.subints, d.subints[:2])
 
 

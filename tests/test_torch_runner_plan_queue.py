@@ -106,7 +106,7 @@ def test_pad_databunch_equal(corpus, i):
     same arrays to 1e-12 (absolute, on data of unit scale)."""
     d = tload_data(corpus.files[i], dedisperse=False, tscrunch=False,
                    pscrunch=True, rm_baseline=True, return_arch=False,
-                   quiet=True)
+                   quiet=True, device="cpu")
     jd = jplan.pad_databunch(_copy(d), 16, 128)
     td = tplan.pad_databunch(_copy(d), 16, 128)
     for key in ("subints", "prof", "noise_stds", "freqs", "weights",
@@ -125,7 +125,7 @@ def test_pad_databunch_equal(corpus, i):
 def test_pad_databunch_tensor_fields(corpus):
     """A DataBunch holding CPU tensors pads to the numpy arrays."""
     d = tload_data(corpus.files[3], pscrunch=True, rm_baseline=True,
-                   return_arch=False, quiet=True)
+                   return_arch=False, quiet=True, device="cpu")
     want = tplan.pad_databunch(_copy(d), 16, 128)
     dt = _copy(d)
     for key in ("subints", "prof", "noise_stds", "freqs", "weights",
@@ -141,13 +141,15 @@ def test_load_bucketed_matches_reference_load(corpus):
     """The port's whole bucketed load (load + pad) against the
     reference's on a padded archive: the decode agrees to the f64
     floor, so the padded arrays do too."""
-    t = tplan.load_bucketed_databunch(corpus.files[3], (16, 128))
+    t = tplan.load_bucketed_databunch(corpus.files[3], (16, 128),
+                                      device="cpu")
     j = jplan.load_bucketed_databunch(corpus.files[3], (16, 128))
     np.testing.assert_allclose(t.subints, np.asarray(j.subints),
                                rtol=0, atol=1e-12)
     np.testing.assert_allclose(t.noise_stds, np.asarray(j.noise_stds),
                                rtol=1e-10)
-    assert tplan.load_bucketed_databunch(corpus.files[0], (8, 64)) is None
+    assert tplan.load_bucketed_databunch(corpus.files[0], (8, 64),
+                                         device="cpu") is None
 
 
 # -- ledger -------------------------------------------------------------
@@ -277,7 +279,8 @@ def test_prefetch_replays_load_outcomes(corpus):
     pf = tprefetch.HostPrefetcher(depth=2)
     try:
         good = pf.submit(corpus.files[3], lambda: tplan.
-                         load_bucketed_databunch(corpus.files[3], (16, 128)))
+                         load_bucketed_databunch(corpus.files[3], (16, 128),
+                                                 device="cpu"))
 
         def boom():
             raise RuntimeError("read fault")
@@ -285,7 +288,8 @@ def test_prefetch_replays_load_outcomes(corpus):
         bad = pf.submit(corpus.files[0], boom)
         kind, val = pf.consume(good)
         assert kind == "data"
-        serial = tplan.load_bucketed_databunch(corpus.files[3], (16, 128))
+        serial = tplan.load_bucketed_databunch(corpus.files[3], (16, 128),
+                                               device="cpu")
         np.testing.assert_array_equal(val.subints, serial.subints)
         kind, val = pf.consume(bad)
         assert kind == "raise" and isinstance(val, RuntimeError)

@@ -79,7 +79,7 @@ def test_get_zap_channels_and_paz_cmds_match_reference(setup, nstd):
     for path in (hot, clean):
         kw = dict(dedisperse=False, tscrunch=False, pscrunch=True,
                   rm_baseline=True, quiet=True)
-        got = tzap.get_zap_channels(tload(path, **kw), nstd=nstd)
+        got = tzap.get_zap_channels(tload(path, device="cpu", **kw), nstd=nstd)
         want = jzap.get_zap_channels(jload(path, **kw), nstd=nstd)
         assert got == want
         zaps.append(got)
@@ -103,23 +103,23 @@ def test_apply_zaps_round_trip(setup, tmp_path):
     _, _, hot, _, _ = setup
     work = str(tmp_path / "w.fits")
     shutil.copy(hot, work)
-    before = tload(work, pscrunch=True, quiet=True).weights
+    before = tload(work, pscrunch=True, quiet=True, device="cpu").weights
     zap_list = [[[3, 11], [3], []]]
     (out, n), = tzap.apply_zaps([work], zap_list, modify=False, quiet=True)
     assert out == str(tmp_path / "w.zap") and n == 3
-    after = tload(out, pscrunch=True, quiet=True).weights
+    after = tload(out, pscrunch=True, quiet=True, device="cpu").weights
     want = before.copy()
     want[0, [3, 11]] = 0.0
     want[1, 3] = 0.0
     np.testing.assert_array_equal(after, want)
-    np.testing.assert_array_equal(tload(work, pscrunch=True,
-                                        quiet=True).weights, before)
+    np.testing.assert_array_equal(tload(work, pscrunch=True, quiet=True,
+                                        device="cpu").weights, before)
     tzap.apply_zaps([work], [[[5], [], []]], all_subs=True, modify=True,
                     quiet=True)
     want = before.copy()
     want[:, 5] = 0.0
-    np.testing.assert_array_equal(tload(work, pscrunch=True,
-                                        quiet=True).weights, want)
+    np.testing.assert_array_equal(tload(work, pscrunch=True, quiet=True,
+                                        device="cpu").weights, want)
     with pytest.raises(ValueError):
         tzap.apply_zaps([work, work], zap_list, modify=False, quiet=True)
 
@@ -208,8 +208,9 @@ def test_ppzap_cli_apply_and_refusals(setup, tmp_path, capsys):
     assert listed
     assert tzap_cli.main(["-d", work, "-m", gm, "--apply", "--quiet",
                           "--device", "cpu"]) == 0
-    before = tload(work, pscrunch=True, quiet=True).weights
-    after = tload(str(tmp_path / "a.zap"), pscrunch=True, quiet=True).weights
+    before = tload(work, pscrunch=True, quiet=True, device="cpu").weights
+    after = tload(str(tmp_path / "a.zap"), pscrunch=True, quiet=True,
+                  device="cpu").weights
     zeroed = {(int(c), int(i)) for i, c in zip(*np.nonzero(
         (before > 0) & (after == 0)))}
     assert zeroed == listed
