@@ -53,12 +53,16 @@ the profiler's clock conversion is fresh):
               plain versions on the card (subints within 1e-12 of each
               row's range, noise 1e-13 and S/N 1e-12 relative, prof
               1e-12 of its peak, masks equal) and the CPU's (reported);
-              pptoas's TOAs (GetTOAs) from the card load against those
-              from the plain load (1 ns, rc and nfeval equal); K5-K7
-              against their plain versions at the load's shapes (K5 on
-              the whole column, 65,536 rows of 2048 bins, bit-equal
-              decode; K6 on one chunk of subints, K7 on the whole
-              spectrum), with times and bounds
+              pptoas's TOAs (GetTOAs, fed the load's device cube) from
+              the card load against those from the plain load (1 ns, rc
+              and nfeval equal), the fit's host-to-device copies (none of
+              a portrait from pageable memory: the cube is not uploaded
+              again); K5-K7 against their plain versions at the load's
+              shapes (K5 on the whole stored big-endian column, 65,536
+              rows of 2048 bins: with the baseline, the baseline alone,
+              and the decode alone, bit-equal, beside torch.addcmul; K6
+              on one chunk of subints, K7 on the whole spectrum), with
+              times and bounds
   pptoas_scat the same archive with --fit_scat (the model scatters with
               TAU = 20 us at 1500 MHz, alpha -4): 128 TOAs, phase, dDM
               and the scattering time at scat_ref_freq recovered within
@@ -186,7 +190,9 @@ the profiler's clock conversion is fresh):
               run --prefetch 2, then again with --trace-bucket (walls,
               the load / fit / write split from the obs spans, per-bucket
               archive seconds, device busy from the bucket traces, the
-              capture's cost); run
+              capture's cost) and once under torch.profiler (its
+              host-to-device copies, pageable and pinned, and its peak
+              device memory); run
               --max_archives 4 --prefetch 0 (serial loads) then resume
               over 6 archives of both buckets; --fit_scat on 4 archives
               of the 512 x 2048 bucket (K3); supervise with two worker processes sharing the
@@ -214,7 +220,8 @@ the profiler's clock conversion is fresh):
               duplicate (replayed, no launch) and two requests under
               PPTPU_FAULTS="site:dispatch@nth=1" (one retries, its
               sibling completes), and a traced closed loop of 8 (device
-              busy); at least one coalesced dispatch; every served
+              busy; its host-to-device copies, none of a portrait from
+              pageable memory); at least one coalesced dispatch; every served
               archive once in its tenant's toas.tim and within 1 ns of
               the port's pptoas on the same archive; no kernel built
               after warm (request manifests: backend_compiles 0); K1, K2
@@ -1138,6 +1145,9 @@ def load_bound_ms(name, rows, nbin):
     if name == "unpack":      # int16 in, float64 out, scl and offs
         return bound_ms(rows * nbin * 10 + rows * 16,
                         (rows * nbin * 6, PEAK_FP64_PER_S))
+    if name == "decode":      # the same bytes, a product and a sum a bin
+        return bound_ms(rows * nbin * 10 + rows * 16,
+                        (rows * nbin * 2, PEAK_FP64_PER_S))
     if name == "baseline":
         return bound_ms(rows * nbin * 16, (rows * nbin * 4, PEAK_FP64_PER_S))
     if name == "load_stats":  # rows and spectra in, noise and S/N out
@@ -1238,12 +1248,15 @@ def load_errors(K, name, a, kw):
 
 def load_kernel_rows(K, dev, big):
     """K5, K6 and K7 against their plain versions at the shapes the load
-    of ``big`` gives them: K5 on the whole stored column, K6 on one chunk
-    of subints (io.archive.LOAD_CHUNK_BYTES), K7 on the whole cube's
-    spectrum (the dedispersion and the pptoas guess).  Each row: errors
-    (load_errors), device time (graph replay), the wrapper's time per
-    call, the plain version's, the bound and the launches one call
-    counts."""
+    of ``big`` gives them: K5 on the whole stored column (the file's
+    big-endian int16, packed by io.archive.stored_rows as the load packs
+    it), with the baseline, alone on the decoded rows, and the decode
+    alone (its library_ms: torch.addcmul of the native column, which the
+    port never calls); K6 on one chunk of subints
+    (io.archive.LOAD_CHUNK_BYTES), K7 on the whole cube's spectrum (the
+    dedispersion and the pptoas guess).  Each row: errors (load_errors),
+    device time (graph replay), the wrapper's time per call, the plain
+    version's, the bound and the launches one call counts."""
     import numpy as np
     import torch
 
@@ -1251,17 +1264,18 @@ def load_kernel_rows(K, dev, big):
     from pulseportraiture_tpu_torch.io.psrfits import read_archive
 
     arch = read_archive(big)
-    raw, scl, offs = arch.encoded
-    nbin = raw.shape[-1]
-    rows = raw.size // nbin
+    stored, scl, offs = arch.stored
+    nbin = stored.shape[-1]
+    rows = stored.size // nbin
     per_sub = arch.npol * arch.nchan
     nharm = nbin // 2 + 1
     chunk = per_sub * max(1, A.LOAD_CHUNK_BYTES // (per_sub * nharm * 16))
     shifts = np.broadcast_to(arch._dispersion_shifts()[:, None, :],
                              (arch.nsub, arch.npol, arch.nchan))
-    raw = torch.from_numpy(raw.reshape(rows, nbin)).to(dev)
+    raw = A.stored_rows(stored, dev).to(dev)
     scl = torch.from_numpy(scl.reshape(rows)).to(dev)
     offs = torch.from_numpy(offs.reshape(rows)).to(dev)
+    native = K.stored_values(raw).to(torch.int16)
     sh = torch.as_tensor(shifts.reshape(-1).copy(), device=dev)
     x = K.unpack_plain(raw, scl, offs)
     base = K.baseline_plain(x)
@@ -1271,35 +1285,43 @@ def load_kernel_rows(K, dev, big):
     out, out_c = torch.empty_like(x), torch.empty_like(Xall)
     vecs = [torch.empty(chunk, dtype=torch.float64, device=dev)
             for _ in range(2)]
-    cases = dict(
-        unpack=((raw, scl, offs, 0.125), dict(out=out), rows),
-        baseline=((x,), dict(out=out), rows),
-        load_stats=((xc, X, vecs[0], vecs[1]), {}, chunk),
-        rotate=((Xall, sh), dict(out=out_c), rows))
+    # (kernel, mode, arguments, keywords, rows, one PyTorch call of the
+    # same function or None)
+    cases = [
+        ("unpack", "decode+baseline", (raw, scl, offs, 0.125),
+         dict(out=out), rows, None),
+        ("baseline", "baseline", (x,), dict(out=out), rows, None),
+        ("unpack", "decode", (raw, scl, offs), dict(out=out), rows,
+         lambda: torch.addcmul(offs[:, None], native, scl[:, None])),
+        ("load_stats", "noise+snr", (xc, X, vecs[0], vecs[1]), {}, chunk,
+         None),
+        ("rotate", "rotate", (Xall, sh), dict(out=out_c), rows, None)]
     result = {}
-    for name, (a, kw, n) in cases.items():
+    for name, mode, a, kw, n, library in cases:
         fn, plain = getattr(K, name), getattr(K, name + "_plain")
         errs, abs_err, ok = load_errors(K, name, a, kw)
         n0 = K.LAUNCHES[name]
         fn(*a, **kw)
         launches = K.LAUNCHES[name] - n0
         torch.cuda.synchronize()
-        bms, by = load_bound_ms(name, n, nbin)
+        bms, by = load_bound_ms("decode" if mode == "decode" else name, n,
+                                nbin)
         row = dict(shape=[n, nharm if name == "rotate" else nbin],
-                   errors=errs, tol=LOAD_TOL,
+                   mode=mode, errors=errs, tol=LOAD_TOL,
                    max_abs_err=abs_err, launches_per_call=launches,
                    ms=graph_ms(lambda: fn(*a, **kw)),
                    call_ms=cuda_ms(lambda: fn(*a, **kw)),
                    plain_ms=cuda_ms(lambda: plain(*a, **kw), reps=3, warm=1),
-                   bound_ms=bms, bound_by=by, library_ms=None)
+                   bound_ms=bms, bound_by=by,
+                   library_ms=None if library is None else graph_ms(library))
         row["share_of_bound"] = bms / row["ms"]
         emit("kernels", kernel=name, **row)
         if not (ok and launches == 1):
             raise AssertionError("%s kernel disagrees at %s (or launched %d "
                                  "times): %s" % (name, [n, nbin], launches,
                                                  errs))
-        result[name] = [row]
-    del x, base, Xall, out, out_c, X, cases
+        result.setdefault(name, []).append(row)
+    del x, base, Xall, out, out_c, X, cases, native
     torch.cuda.empty_cache()
     return result
 
@@ -1308,7 +1330,7 @@ def load_kernel_rows(K, dev, big):
 # then ppalign's (the dedispersed, tscrunched average of an epoch)
 PPTOAS_LOAD = dict(dedisperse=False, dededisperse=False, pscrunch=True,
                    rm_baseline=True, refresh_arch=False, return_arch=False,
-                   quiet=True)
+                   quiet=True, keep_cube=True)
 PPALIGN_LOAD = dict(state="Intensity", dedisperse=True, tscrunch=True,
                     pscrunch=True, rm_baseline=True, quiet=True)
 
@@ -1365,10 +1387,23 @@ def phase_load(root, work, K, dev, big, reps=3):
     gm = os.path.join(root, "examples", "example.gmodel")
     toas = []
     for bunch in (got, plain):
+        if bunch.device_cube is None or not bunch.device_cube.is_cuda:
+            raise AssertionError("the load left no cube on the card")
         gt = GetTOAs([big], gm, quiet=True, device=dev)
         gt.preload(big, ("data", bunch))
-        gt.get_TOAs(bary=False, quiet=True)
+        if bunch is got:   # the fit of the card's bunch: its copies
+            _, fit_profile = kernel_device_ms(
+                lambda: gt.get_TOAs(bary=False, quiet=True), K, copies=True)
+        else:
+            gt.get_TOAs(bary=False, quiet=True)
+        if bunch.device_cube is not None:
+            raise AssertionError("GetTOAs left the cube on the bunch")
         toas.append(gt)
+    copies = fit_profile["h2d"]
+    nsub, npol, nchan, nbin = got.subints.shape
+    if copies["largest_pageable_bytes"] >= nchan * nbin * 8:
+        raise AssertionError("GetTOAs copied portraits from pageable memory "
+                             "to the card: %s" % copies)
     dt_ns = max_dt_ns_list(toas[0].TOA_list, toas[1].TOA_list)
     same_rc = all(np.array_equal(np.asarray(a), np.asarray(b)) for a, b in
                   zip(toas[0].rcs, toas[1].rcs))
@@ -1380,7 +1415,9 @@ def phase_load(root, work, K, dev, big, reps=3):
          align_flags_s=t_align, split_s=split, cpu_s=t_cpu,
          cpu_split_s=host_split, plain_s=t_plain, gaps=gaps, tol=LOAD_TOL,
          toas_card_vs_plain_load_ns=dt_ns, rc_equal=same_rc,
-         nfeval_equal=same_nfev, n_toas=len(toas[0].TOA_list))
+         nfeval_equal=same_nfev, n_toas=len(toas[0].TOA_list),
+         fit_h2d=copies, fit_wall_s=fit_profile["wall_s"],
+         fit_peak_bytes=fit_profile["peak_bytes"])
     if bad:
         raise AssertionError("the card's load disagrees with the plain "
                              "versions: %s" % bad)
@@ -2852,17 +2889,58 @@ def kernel_times(prof, K):
     return out
 
 
-def kernel_device_ms(fn, K):
+def h2d_copies(prof):
+    """The host-to-device copies of a torch.profiler run, read from its
+    Chrome trace (each copy's size is in its ``bytes`` argument): their
+    count, bytes and device ms, the same of those from pageable memory,
+    and the five largest as [bytes, source memory]."""
+    fd, path = tempfile.mkstemp(suffix=".json")
+    os.close(fd)
+    try:
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = json.load(f).get("traceEvents", [])
+    finally:
+        os.unlink(path)
+    out = dict(count=0, bytes=0, ms=0.0, pageable_count=0,
+               pageable_bytes=0, pageable_ms=0.0)
+    sizes = []
+    for e in events:
+        name = str(e.get("name", ""))
+        if e.get("ph") != "X" or not name.startswith("Memcpy HtoD"):
+            continue
+        nbytes = int((e.get("args") or {}).get("bytes", 0))
+        ms = float(e.get("dur", 0.0)) / 1e3
+        pageable = "Pageable" in name
+        out["count"] += 1
+        out["bytes"] += nbytes
+        out["ms"] += ms
+        if pageable:
+            out["pageable_count"] += 1
+            out["pageable_bytes"] += nbytes
+            out["pageable_ms"] += ms
+        sizes.append([nbytes, "pageable" if pageable else "pinned"])
+    out["largest"] = sorted(sizes, reverse=True)[:5]
+    out["largest_pageable_bytes"] = max(
+        [b for b, kind in sizes if kind == "pageable"], default=0)
+    return out
+
+
+def kernel_device_ms(fn, K, copies=False):
     """({kernel name: (launches, device ms in all)}, device profile) of
     one call of fn(), from torch.profiler.  The device profile holds the
     wall, the device-busy seconds (None where the profiler lost rows:
     device_busy), the device events (kernels, copies, fills) and of them
     those not of a hand kernel (torch's), and the eight device rows that
-    took longest."""
+    took longest; with ``copies`` also its host-to-device copies
+    (h2d_copies) and the peak device memory over the call."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     n0 = dict(K.LAUNCHES)
+    if copies:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -2881,6 +2959,9 @@ def kernel_device_ms(fn, K):
                         if any(h in key for h in hand)),
                     device_top=[[key[:60], dev_s * 1e3, n]
                                 for key, dev_s, n in top])
+    if copies:
+        profile_.update(h2d=h2d_copies(prof),
+                        peak_bytes=torch.cuda.max_memory_allocated())
     return kernel_times(prof, K), profile_
 
 
@@ -4094,6 +4175,22 @@ def phase_survey(root, work, K, device="cuda"):
                           counts=res["counts"], quarantine_reason=reason,
                           **survey_split(wd(name)))
         runs[name]["toas_per_s"] = len(files) * nsub / wall
+    # once more under torch.profiler: the run's copies to the card (the
+    # padded archives' host cubes go up from pageable memory, the others'
+    # stored columns pinned) and its peak device memory (the load's cubes
+    # held by the prefetch tickets and the fit)
+    profiled = None
+    if device == "cuda":
+        plan("prefetch2_profiled")
+        argv = ["run", "-w", wd("prefetch2_profiled"), "--no_bary",
+                "--prefetch", "2", "--device", device, "--quiet"]
+        K.reset_launches()
+        _, prof = kernel_device_ms(lambda: survey_cli(K, argv), K,
+                                   copies=True)
+        survey_exactly_once(wd("prefetch2_profiled"), files, bad, nsub=nsub)
+        profiled = dict(wall_s=prof["wall_s"], h2d=prof["h2d"],
+                        peak_bytes=prof["peak_bytes"],
+                        device_busy_s=prof["device_busy_s"])
     main_launches = runs["prefetch2"]["launches"]
     missing = [n for n in PHASE_DM_KERNELS + LOAD_PATH_KERNELS
                if main_launches[n] == 0]
@@ -4261,7 +4358,7 @@ def phase_survey(root, work, K, device="cuda"):
     launches = {n: main_launches[n] + scat_launches[n] for n in K.KERNELS}
     emit("survey", archives=len(files), shapes=sorted(set(
         "%dx%dx%d" % s for s in SURVEY_SHAPES)), make_s=make_s,
-         plan=out["plan"], warm=warm, runs=runs,
+         plan=out["plan"], warm=warm, runs=runs, profiled=profiled,
          trace_cost_s=runs["prefetch2_traced"]["wall_s"]
          - runs["prefetch2"]["wall_s"],
          resume=dict(run_s=w1, resume_s=w2, done_first=r1["counts"]["done"]),
@@ -4634,7 +4731,7 @@ def phase_serve(root, work, K, survey, device="cuda"):
         n0 = dict(K.LAUNCHES)
         _, busy = kernel_device_ms(lambda: pploadgen.run_load(
             sock, traced, mode="closed", concurrency=SERVE_CONCURRENCY,
-            seed=10, timeout=600), K)
+            seed=10, timeout=600), K, copies=True)
         K.LAUNCHES.update(n0)
         status = svc.status()
         builds_after = int(rec.counters.get("backend_compiles", 0))
@@ -4658,6 +4755,13 @@ def phase_serve(root, work, K, survey, device="cuda"):
         raise AssertionError("kernel builds after warm: %d -> %d, request "
                              "manifests %s" % (builds0, builds_after,
                                                req_builds))
+    # the traced cycle's copies to the card: each archive's stored int16
+    # column goes up pinned, and no portrait from pageable memory (one
+    # subint's portrait of the canonical shape at the least)
+    portrait = 8 * SURVEY_SHAPES[0][1] * SURVEY_SHAPES[0][2]
+    if busy["h2d"]["largest_pageable_bytes"] >= portrait:
+        raise AssertionError("pageable copies of portraits in the traced "
+                             "cycle: %s" % busy["h2d"])
     served = serve_tenant_toas(wd)
     if set(served) != set(source) | {scat}:
         raise AssertionError("served archives %s" % sorted(served))
@@ -5250,8 +5354,9 @@ def main(argv):
         elif name in LOAD_NAMES:
             r, extra = r[0], dict(shapes=[
                 {key: c[key] for key in (
-                    "shape", "ms", "call_ms", "bound_ms", "share_of_bound",
-                    "plain_ms", "errors", "max_abs_err")} for c in r])
+                    "shape", "mode", "ms", "call_ms", "bound_ms",
+                    "share_of_bound", "plain_ms", "library_ms", "errors",
+                    "max_abs_err")} for c in r])
         elif name in K4_NAMES:
             r, extra = r[K4_MAIN], dict(shapes=[
                 {key: c[key] for key in (

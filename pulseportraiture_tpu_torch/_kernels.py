@@ -43,11 +43,13 @@ interface and loaded with ``ctypes``:
      for fits that measure their own noise.  One library, two entry
      points, each with its own launch count and trace name.
 
-  K5 ``unpack`` (csrc/unpack.cu) — the archive's decode, raw int16 times
-     DAT_SCL plus DAT_OFFS in float64 (pulseportraiture_tpu/io/psrfits.py:
-     451-458), and in the same launch, when asked, the baseline removal
-     of Archive.remove_baseline (:248 there); ``baseline``, the baseline
-     removal alone, for rows a state conversion or a rotation made.
+  K5 ``unpack`` (csrc/unpack.cu) — the archive's decode of the DATA
+     column as the file stores it (big-endian int16, its bytes swapped in
+     the kernel), times DAT_SCL plus DAT_OFFS in float64
+     (pulseportraiture_tpu/io/psrfits.py:451-458), and in the same launch,
+     when asked, the baseline removal of Archive.remove_baseline (:248
+     there); ``baseline``, the baseline removal alone, for rows a state
+     conversion or a rotation made.
   K6 ``load_stats`` (csrc/loadstats.cu) — the load's per-row noise
      (get_noise_PS) and S/N (get_SNR) from each row and its rFFT, one
      pass (pulseportraiture_tpu/io/archive.py:121-131, :148-150).
@@ -112,6 +114,7 @@ __all__ = ["KernelLaunchError", "LAUNCHES", "reset_launches", "build",
            "HESS_UPPER", "fftfit", "fftfit_plain", "fftfit_table",
            "fftfit_table_plain", "spectra", "spectra_plain",
            "spectra_noise", "spectra_noise_plain", "unpack", "unpack_plain",
+           "stored_values",
            "baseline", "baseline_plain", "baseline_window", "load_stats",
            "load_stats_plain", "rotate", "rotate_plain", "KERNELS"]
 
@@ -1057,9 +1060,10 @@ def spectra_noise(dfft, mfft, weights, nbin, kmax, cross_out, sd_out,
 
 # -- K5: the archive's decode and baseline -----------------------------------
 
-# csrc/unpack.cu kMaxSharedBins: longer rows keep their arrays in scratch,
-# at most UNPACK_SCRATCH_BYTES of it (fewer blocks, grid-striding)
-UNPACK_MAX_SHARED_BINS = 14000
+# csrc/unpack.cu kMaxSharedBins: a longer row keeps its block's prefix
+# slice in scratch, at most UNPACK_SCRATCH_BYTES of it (fewer blocks,
+# striding)
+UNPACK_MAX_SHARED_BINS = 28000
 UNPACK_SCRATCH_BYTES = 1 << 28
 
 
@@ -1102,24 +1106,40 @@ def baseline_plain(x, frac=0.125, out=None):
     return torch.sub(x, level, out=out)
 
 
+def stored_values(raw):
+    """The values of stored int16 rows ``raw``, whose bytes are the file's
+    big-endian ones (an int16 tensor read in native order), as int32: the
+    two bytes of each swapped."""
+    u = raw.to(torch.int32) & 0xFFFF
+    v = ((u & 0xFF) << 8) | (u >> 8)
+    return v - ((v & 0x8000) << 1)
+
+
 def unpack_plain(raw, scl, offs, frac=None, out=None):
-    """Plain PyTorch K5: raw [rows, nbin] int16 as float64 times scl, plus
-    offs ([rows] f64 each), numpy's rounding (the product, then the sum);
-    with ``frac``, then baseline_plain.  Into ``out`` when given."""
-    x = raw.to(torch.float64) * scl[:, None]
+    """Plain PyTorch K5: the stored rows raw [rows, nbin] int16
+    (big-endian bytes, stored_values) as float64 times scl, plus offs
+    ([rows] f64 each), numpy's rounding (the product, then the sum); with
+    ``frac``, then baseline_plain.  Into ``out`` when given."""
+    x = stored_values(raw).to(torch.float64) * scl[:, None]
     x = torch.add(x, offs[:, None], out=out) if out is not None \
         else x + offs[:, None]
     return x if frac is None else baseline_plain(x, frac, out=x)
 
 
+def _slice_len(nbin):
+    """csrc/unpack.cu slice_len: a row's prefix slice in doubles."""
+    return (nbin + 15) & ~15
+
+
 def _unpack_scratch(rows, nbin, device):
-    """(scratch, blocks) of a K5 baseline launch: none for rows that fit
-    shared memory, else one slice of 2 nbin + 1 doubles per block."""
+    """(scratch, blocks) of a K5 baseline launch: none for rows whose
+    slice fits a block's shared memory, else one slice a block (a row at
+    a time each)."""
     if nbin <= UNPACK_MAX_SHARED_BINS:
         return None, 0
-    per = (2 * nbin + 1) * 8
+    per = _slice_len(nbin) * 8
     blocks = int(max(1, min(rows, UNPACK_SCRATCH_BYTES // per)))
-    return torch.empty(blocks * (2 * nbin + 1), dtype=torch.float64,
+    return torch.empty(blocks * _slice_len(nbin), dtype=torch.float64,
                        device=device), blocks
 
 
@@ -1137,11 +1157,12 @@ def _rows_out(out, shape, like, what):
 
 
 def unpack(raw, scl, offs, frac=None, out=None):
-    """K5 wrapper (see csrc/unpack.cu): decode raw [rows, nbin] int16 with
-    scl and offs [rows] f64 into out [rows, nbin] f64 (new when None),
-    bit-equal to numpy's raw * scl + offs; with ``frac``, the baseline of
-    windows of baseline_window(nbin, frac) bins removed in the same
-    launch.  Returns out."""
+    """K5 wrapper (see csrc/unpack.cu): decode the stored rows raw [rows,
+    nbin] int16 (the file's big-endian bytes) with scl and offs [rows] f64
+    into out [rows, nbin] f64 (new when None), bit-equal to numpy's
+    decode of the values; with ``frac``, the baseline of windows of
+    baseline_window(nbin, frac) bins removed in the same launch.  Returns
+    out."""
     _check(raw, "raw", torch.int16, 2)
     _check(scl, "scl", torch.float64, 1)
     _check(offs, "offs", torch.float64, 1)

@@ -6,17 +6,22 @@ make_fake_pulsar) on the in-repo PSRFITS layer (io.psrfits).
 
 Placement: ``load_data`` runs on the device it is given (CUDA unless
 ``device="cpu"``; no CUDA device and no ``"cpu"`` raises).  The host
-reads the FITS bytes; the DATA column goes up once as stored (int16,
-through pinned memory) and every pass over the cube runs on the device,
-in the reference's order: K5 decodes it and removes the baseline (one
+reads the FITS bytes; the DATA column goes up once as the file stores it
+(big-endian int16: one host copy packs its rows into a pinned buffer) and
+every pass over the cube runs on the device, in the reference's order: K5
+swaps its bytes, decodes it and removes the baseline (one
 launch when nothing lies between the two), a state conversion and the
 (de)dedispersion (cuFFT with K7's phasor pass) and the scrunches (the
 Archive's arithmetic, io.psrfits.tscrunch_data and fscrunch_data) run
 as torch, then in chunks of subints cuFFT's rFFT feeds K6 (each row's
 noise and S/N), and the work copy (pscrunched, dedispersed through K7,
 tscrunched and fscrunched) gives the profile.  The subints come back
-once, into pinned host memory; the DataBunch keeps its numpy schema.  On
-the CPU the same steps run the kernels' plain versions (_kernels).
+once, into pinned host memory; the DataBunch keeps its numpy schema.
+With ``keep_cube`` the final cube also stays on the device, outside that
+schema (``LoadedBunch.device_cube``), for the fit to index there instead
+of uploading ``subints`` again; the fit takes it (``take_device_cube``)
+and drops it after the archive.  On the CPU the same steps run the
+kernels' plain versions (_kernels).
 
 Hooks, as in the JAX module: the ``archive_read`` fault-injection site
 (testing/faults.py) at the top of ``load_data``, and its decode seconds
@@ -47,7 +52,7 @@ from .psrfits import (Archive, convert_state_data, fscrunch_data,
 
 __all__ = ["load_data", "unload_new_archive", "make_fake_pulsar",
            "file_is_type", "parse_metafile", "LOAD_CHUNK_BYTES",
-           "LOAD_STEPS"]
+           "LOAD_STEPS", "LoadedBunch", "take_device_cube", "stored_rows"]
 
 # the rFFT of the subints for K6 runs in chunks of whole subints of at
 # most this many bytes of spectrum (at least one subint)
@@ -93,6 +98,44 @@ class _Split:
         self.t = t
 
 
+class LoadedBunch(DataBunch):
+    """load_data's DataBunch: the reference's numpy schema, and besides it,
+    in a slot outside the dict (no key: no comparison of fields, writer of
+    a .tim or figure sees it), ``device_cube``: with ``keep_cube`` the final
+    cube [nsub, npol, nchan, nbin] float64 on the load's device, whose
+    values ``subints`` holds, else None."""
+
+    __slots__ = ("device_cube",)
+
+    def __init__(self, device_cube=None, **kwds):
+        super().__init__(**kwds)
+        self.device_cube = device_cube
+
+
+def take_device_cube(d):
+    """The device cube a load left on the bunch ``d``, taken off it (so the
+    bunch holds no device memory after), or None when it has none."""
+    cube = getattr(d, "device_cube", None) if isinstance(d, LoadedBunch) \
+        else None
+    if cube is not None:
+        d.device_cube = None
+    return cube
+
+
+def stored_rows(raw, device):
+    """The stored DATA column raw [nsub, npol, nchan, nbin] int16 (either
+    byte order; from a file a big-endian view of its bytes, with the
+    record's strides) as K5 takes it: [rows, nbin] int16 holding the
+    big-endian bytes, packed by one copy into a pinned buffer for the
+    card (a plain one for the CPU).  The record's stride and the column's
+    offset in it, whatever their alignment, end here."""
+    nbin = raw.shape[-1]
+    buf = torch.empty((raw.size // nbin, nbin), dtype=torch.int16,
+                      pin_memory=device.type == "cuda")
+    buf.numpy().view(">i2").reshape(raw.shape)[...] = raw
+    return buf
+
+
 def _upload(arr, device, copy):
     """A numpy array as a tensor on ``device``: through a pinned buffer to
     the card; on the CPU its own memory (a copy when ``copy``)."""
@@ -120,12 +163,14 @@ def _decode(arch, device, frac, steps):
     of ``frac`` in the same launch unless frac is None); an archive whose
     cube is already expanded (or stored other than as int16) is uploaded
     as float64, its baseline removed by K5 when asked."""
-    enc = arch.encoded
+    st = arch.stored
     shape = (arch.nsub, arch.npol, arch.nchan, arch.nbin)
-    if enc is not None and enc[0].dtype == np.int16:
-        raw, scl, offs = (_upload(a.reshape(-1, a.shape[-1]) if a.ndim == 4
-                                  else a.reshape(-1), device, False)
-                          for a in enc)
+    if st is not None and st[0].dtype.kind == "i" \
+            and st[0].dtype.itemsize == 2:
+        raw = stored_rows(st[0], device)
+        if device.type == "cuda":
+            raw = raw.to(device, non_blocking=True)
+        scl, offs = (_upload(a.reshape(-1), device, False) for a in st[1:])
         steps.mark("upload")
         return _kernels.unpack(raw, scl, offs, frac).reshape(shape)
     x = _upload(arch.data, device, True)
@@ -220,7 +265,7 @@ def load_data(filename, state=None, dedisperse=False, dededisperse=False,
               tscrunch=False, pscrunch=False, fscrunch=False,
               rm_baseline=True, flux_prof=False, refresh_arch=True,
               return_arch=True, quiet=True, get_SNRs=True,
-              noise_method="PS", device=None, split=None):
+              noise_method="PS", device=None, split=None, keep_cube=False):
     """Load a PSRFITS archive into the canonical DataBunch schema.
 
     Field-for-field equivalent of the reference's load_data
@@ -231,7 +276,9 @@ def load_data(filename, state=None, dedisperse=False, dededisperse=False,
     numpy.  The passes over the cube run on ``device`` (module
     docstring).  ``split``, a dict, receives the seconds of each step
     (LOAD_STEPS), each ended by a device synchronise: a diagnostic that
-    serialises the load.
+    serialises the load.  ``keep_cube`` leaves the final cube on the
+    device as the returned LoadedBunch's ``device_cube`` (module
+    docstring).
     """
     # chaos site: an injected read fault surfaces exactly like a
     # truncated payload or NFS blip (testing/faults.py)
@@ -338,7 +385,8 @@ def load_data(filename, state=None, dedisperse=False, dededisperse=False,
 
     metrics.observe(PHASE_HISTOGRAM, time.perf_counter() - t_decode0,
                     phase="decode")
-    return DataBunch(
+    return LoadedBunch(
+        device_cube=x if keep_cube else None,
         arch=arch if return_arch else None, backend=arch.backend,
         backend_delay=arch.backend_delay, bw=bw,
         doppler_factors=doppler_factors,

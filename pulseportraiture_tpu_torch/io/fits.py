@@ -6,6 +6,13 @@ archive I/O in-repo.  Only the FITS subset PSRFITS needs is implemented:
 the primary HDU (header-only) and BINTABLE extensions with column types
 L, X, B, I, J, K, E, D, A and TDIM reshaping.  All multi-byte fields are
 big-endian per the FITS standard.
+
+``read_fits`` copies no part of the file's bytes: each HDU's header and
+table are parsed from a ``memoryview`` of the one buffer read, and the
+int16 DATA column of a table stays as stored (a big-endian view into that
+buffer, row stride NAXIS1), so the archive loader packs it once into its
+upload buffer and the decode kernel swaps the bytes; every other numeric
+column is converted to native byte order.
 """
 
 import numpy as np
@@ -54,11 +61,14 @@ class Header(dict):
 
     @classmethod
     def from_bytes(cls, buf):
-        """Parse header cards until END; returns (header, ncards_blocks)."""
+        """Parse header cards until END from ``buf`` (bytes or a
+        memoryview: only one card at a time is copied); returns (header,
+        ncards_blocks)."""
         hdr = cls()
         offset = 0
         while True:
-            card = buf[offset:offset + CARD].decode("ascii", "replace")
+            card = bytes(buf[offset:offset + CARD]).decode("ascii",
+                                                           "replace")
             offset += CARD
             key = card[:8].strip()
             if key == "END":
@@ -158,16 +168,17 @@ def _read_bintable(header, raw):
         col = table[name]
         if name in shapes:
             col = col.reshape((nrow,) + shapes[name])
-        if col.dtype.kind in "iuf":
+        if col.dtype.kind in "iuf" and name != "DATA":
             col = col.astype(col.dtype.newbyteorder("="))
         columns[name] = col
     return columns
 
 
 def read_fits(path):
-    """Read a FITS file into a list of HDUs."""
+    """Read a FITS file into a list of HDUs (module docstring: the DATA
+    column stays a big-endian view of the file's bytes)."""
     with open(path, "rb") as f:
-        buf = f.read()
+        buf = memoryview(f.read())
     hdus = []
     offset = 0
     while offset < len(buf):

@@ -126,9 +126,10 @@ class Archive:
     """In-memory fold-mode archive.
 
     data: [nsub, npol, nchan, nbin] float64 (physical units); an archive
-    read from a file holds its DATA column as stored (``encoded``: raw,
-    DAT_SCL and DAT_OFFS) and expands it on the host only when ``data``
-    is first read, so ``load_data`` can decode it on the card instead;
+    read from a file holds its DATA column as stored (``stored``: the
+    file's big-endian int16 view, DAT_SCL and DAT_OFFS) and expands it on
+    the host only when ``data`` is first read, so ``load_data`` can
+    decode it on the card instead;
     freqs: [nsub, nchan] MHz; weights: [nsub, nchan];
     Ps: [nsub] folding periods [sec]; epochs: list of MJD (subint
     centers); durations: [nsub] sec; state: 'Intensity'|'Stokes'|
@@ -143,8 +144,8 @@ class Archive:
                  parallactic_angles=None, filename="", polyco=None,
                  doppler_degraded=False, basis="LIN", encoded=None):
         if encoded is not None:
-            self._data, self._encoded = None, tuple(encoded)
-            shape = self._encoded[0].shape
+            self._data, self._stored = None, tuple(encoded)
+            shape = self._stored[0].shape
         else:
             self.data = data
             shape = self._data.shape
@@ -206,30 +207,40 @@ class Archive:
     @property
     def data(self):
         """The cube [nsub, npol, nchan, nbin] float64, expanded from
-        ``encoded`` at first read: raw * scl + offs in numpy."""
+        ``stored`` at first read: raw * scl + offs in numpy."""
         if self._data is None:
-            raw, scl, offs = self._encoded
+            raw, scl, offs = self._stored
             self._data = raw.astype(np.float64) * scl[..., None] \
                 + offs[..., None]
-            self._encoded = None
+            self._stored = None
         return self._data
 
     @data.setter
     def data(self, value):
         self._data = np.asarray(value, dtype=np.float64)
-        self._encoded = None
+        self._stored = None
+
+    @property
+    def stored(self):
+        """(raw [nsub, npol, nchan, nbin] int16 as the file stores it, a
+        big-endian view of its bytes with the record's strides, scl, offs
+        [nsub, npol, nchan] float64) while the cube has not been expanded,
+        else None."""
+        return self._stored
 
     @property
     def encoded(self):
-        """(raw [nsub, npol, nchan, nbin] as stored, scl, offs [nsub, npol,
-        nchan] float64) while the cube has not been expanded, else None."""
-        return self._encoded
+        """``stored`` with raw in native byte order (a copy), else None."""
+        if self._stored is None:
+            return None
+        raw, scl, offs = self._stored
+        return raw.astype(raw.dtype.newbyteorder("=")), scl, offs
 
     def copy(self):
-        if self._encoded is not None:  # the stored arrays are never written
+        if self._stored is not None:  # the stored arrays are never written
             return Archive(None, self.freqs.copy(), self.weights.copy(),
                            self.Ps.copy(), list(self.epochs),
-                           self.durations.copy(), encoded=self._encoded,
+                           self.durations.copy(), encoded=self._stored,
                            **self._copy_kw())
         return Archive(self.data.copy(), self.freqs.copy(),
                        self.weights.copy(), self.Ps.copy(),
@@ -513,8 +524,8 @@ def read_archive(filename):
     nchan = int(sh.get("NCHAN", primary.get("OBSNCHAN", 1)))
     raw = cols["DATA"]
     nbin = int(sh.get("NBIN", raw.shape[-1]))
-    # the DATA column as stored; physical = raw * scl + offs (Archive.data
-    # expands it at first read, load_data on the card)
+    # the DATA column as stored (big-endian, io.fits); physical = raw * scl
+    # + offs (Archive.data expands it at first read, load_data on the card)
     raw = raw.reshape(nsub, npol, nchan, nbin)
     scl = np.asarray(cols.get("DAT_SCL",
                               np.ones((nsub, npol * nchan))),

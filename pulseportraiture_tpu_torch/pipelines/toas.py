@@ -46,7 +46,8 @@ from ..config import resolve_device, scattering_alpha
 from ..fit.phase_shift import fit_phase_shift
 from ..fit.portrait import fit_portrait_full_batch
 from ..fit.transforms import guess_fit_freq, phase_transform
-from ..io.archive import file_is_type, load_data, parse_metafile
+from ..io.archive import (file_is_type, load_data, parse_metafile,
+                          take_device_cube)
 from ..io.gmodel import read_model
 from ..io.splmodel import read_spline_model
 from ..io.timfile import TOA, filter_TOAs, format_toa_line, write_TOAs
@@ -267,16 +268,25 @@ def _nonfinite_guard(ports, errs_b, weights_b):
     """Zero-weight every live channel whose data or noise estimate is
     non-finite (NaN * 0 == NaN, so weights alone cannot contain it).
 
-    Returns ``(ports, errs_b, weights_b, bad_chan, n_zap, n_live)``:
-    scrubbed copies, the [B, nchan] bad-channel mask, the number of
-    channels zapped and the number that were live going in."""
+    ``ports`` is a host array or a tensor (on the device: the mask of its
+    non-finite channels is taken there and only that comes back; its bad
+    channels are zeroed there).  Returns ``(ports, errs_b, weights_b,
+    bad_chan, n_zap, n_live)``: scrubbed copies, the [B, nchan] host
+    bad-channel mask, the number of channels zapped and the number that
+    were live going in."""
     wok = weights_b > 0.0
-    bad = (~np.isfinite(ports).all(axis=-1)
-           | ~np.isfinite(errs_b)) & wok
+    on_device = isinstance(ports, torch.Tensor)
+    finite = torch.isfinite(ports).all(dim=-1).cpu().numpy() if on_device \
+        else np.isfinite(ports).all(axis=-1)
+    bad = (~finite | ~np.isfinite(errs_b)) & wok
     n_zap = int(bad.sum())
     if n_zap == 0:
         return ports, errs_b, weights_b, bad, 0, int(wok.sum())
-    ports = np.where(bad[..., None], 0.0, ports)
+    if on_device:
+        ports = ports.masked_fill(torch.as_tensor(
+            bad, device=ports.device)[..., None], 0.0)
+    else:
+        ports = np.where(bad[..., None], 0.0, ports)
     errs_b = np.where(bad, 1.0, errs_b)
     weights_b = np.where(bad, 0.0, weights_b)
     return ports, errs_b, weights_b, bad, n_zap, int(wok.sum())
@@ -284,16 +294,14 @@ def _nonfinite_guard(ports, errs_b, weights_b):
 
 def _load(datafile, tscrunch, quiet, device):
     """load_data on ``device`` with the reference's dmc-reload
-    (pptoas.py:216-233)."""
-    data = load_data(datafile, dedisperse=False, dededisperse=False,
-                     tscrunch=tscrunch, pscrunch=True, rm_baseline=True,
-                     refresh_arch=False, return_arch=False, quiet=quiet,
-                     device=device)
+    (pptoas.py:216-233), the final cube kept on the device for the fit
+    (io.archive.LoadedBunch)."""
+    kw = dict(dedisperse=False, tscrunch=tscrunch, pscrunch=True,
+              rm_baseline=True, refresh_arch=False, return_arch=False,
+              quiet=quiet, device=device, keep_cube=True)
+    data = load_data(datafile, dededisperse=False, **kw)
     if data.dmc:
-        data = load_data(datafile, dedisperse=False, dededisperse=True,
-                         tscrunch=tscrunch, pscrunch=True, rm_baseline=True,
-                         refresh_arch=False, return_arch=False, quiet=quiet,
-                         device=device)
+        data = load_data(datafile, dededisperse=True, **kw)
     return data
 
 
@@ -325,6 +333,28 @@ def load_archive_data(datafile, tscrunch=False, quiet=True, device=None):
 def _host(x):
     return x.detach().cpu().numpy() if isinstance(x, torch.Tensor) \
         else np.asarray(x)
+
+
+def _fit_rows(cube, ok):
+    """The fit batch [B, nchan, nbin] of the device cube [nsub, npol, nchan,
+    nbin]: its first pol of the subints ``ok`` (a view when ok is every
+    subint in order, else gathered on the cube's device)."""
+    if len(ok) == cube.shape[0] and np.array_equal(ok, np.arange(len(ok))):
+        return cube[:, 0].contiguous()
+    return cube[torch.as_tensor(ok, device=cube.device), 0]
+
+
+def _keep_rows(x, keep):
+    """The rows of ``x`` (host array or tensor) where ``keep`` (host bool
+    mask) is true."""
+    if isinstance(x, torch.Tensor):
+        return x[torch.as_tensor(keep, device=x.device)]
+    return x[keep]
+
+
+def _dtype_name(x):
+    """numpy's name of the dtype of x (host array or tensor)."""
+    return str(x.dtype).replace("torch.", "")
 
 
 def _convolve(port, resp_FT):
@@ -498,13 +528,17 @@ class GetTOAs:
                        **event):
         """The archive's fit batch after the non-finite guard:
         (ok, ports, freqs_b, weights_b, errs_b, SNRs_b, Ps_b, bad_chan,
-        n_zap), or None when the archive is refused.  A guard that zaps
-        channels emits a ``nonfinite_guard`` obs event (``event`` adds
-        its fields)."""
+        n_zap), or None when the archive is refused.  ``ports`` is a
+        tensor on the load's device when the bunch carries the load's
+        device cube (taken off the bunch here: io.archive.take_device_cube),
+        else the host batch.  A guard that zaps channels emits a
+        ``nonfinite_guard`` obs event (``event`` adds its fields)."""
         ok = np.asarray(d.ok_isubs)
+        cube = take_device_cube(d)
+        ports = d.subints[ok, 0] if cube is None else _fit_rows(cube, ok)
+        del cube
         ports, errs_b, weights_b, bad_chan, n_zap, n_live = \
-            _nonfinite_guard(d.subints[ok, 0], d.noise_stds[ok, 0],
-                             d.weights[ok])
+            _nonfinite_guard(ports, d.noise_stds[ok, 0], d.weights[ok])
         if n_zap:
             frac = n_zap / max(n_live, 1)
             obs.event("nonfinite_guard", datafile=datafile,
@@ -607,6 +641,7 @@ class GetTOAs:
             done_archives = _resume_checkpoint(checkpoint, quiet)
         for iarch, datafile in enumerate(datafiles):
             if os.path.realpath(datafile) in done_archives:
+                self._take_preloaded(datafile)  # its buffer is not needed
                 if not quiet:
                     print(f"{datafile} already in checkpoint "
                           f"{checkpoint}; skipping it.")
@@ -638,7 +673,7 @@ class GetTOAs:
                 keep = wok.sum(-1) > 0
                 if not keep.all():  # subints with no live channel left
                     ok, ports, freqs_b, weights_b, errs_b, SNRs_b, \
-                        Ps_b, wok = (a[keep] for a in (
+                        Ps_b, wok = (_keep_rows(a, keep) for a in (
                             ok, ports, freqs_b, weights_b, errs_b,
                             SNRs_b, Ps_b, wok))
                     if len(ok) == 0:
@@ -662,7 +697,7 @@ class GetTOAs:
                 self.ok_idatafiles.append(iarch)
                 obs.event("archive", datafile=datafile, nsub=int(nsub),
                           nchan=int(nchan), nbin=int(nbin), B=int(B),
-                          dtype=str(ports.dtype))
+                          dtype=_dtype_name(ports))
 
                 ph.enter("guess")
 
@@ -695,8 +730,10 @@ class GetTOAs:
                                  None if nu_ref_tau is None else taus_ref)
 
                 # -- initial guesses (batched, on the device) ---------------
-                # the data go to the device once; the fits below index them
+                # the data are on the device once (the load's cube, or the
+                # host batch uploaded here); the fits below index them
                 ports_dev = torch.as_tensor(ports).to(dev)
+                del ports
                 wok_dev = torch.as_tensor(wok).to(dev)
                 wsum = wok_dev.sum(-1)[:, None]
                 DM_guess = DM_stored
@@ -789,6 +826,7 @@ class GetTOAs:
                         for j, i in enumerate(idxs):
                             results[i] = {key: val[j]
                                           for key, val in out.items()}
+                del ports_dev  # the archive's device data end with its fit
                 fit_duration = time.time() - fit_start
             except DEVICE_ERRORS as e:
                 del self.ok_idatafiles[n_okid:]
@@ -1087,6 +1125,7 @@ class GetTOAs:
             done_archives = _resume_checkpoint(checkpoint, quiet)
         for iarch, datafile in enumerate(datafiles):
             if os.path.realpath(datafile) in done_archives:
+                self._take_preloaded(datafile)  # its buffer is not needed
                 if not quiet:
                     print(f"{datafile} already in checkpoint "
                           f"{checkpoint}; skipping it.")
@@ -1120,7 +1159,7 @@ class GetTOAs:
                 self.ok_idatafiles.append(iarch)
                 obs.event("archive", datafile=datafile, nsub=int(nsub),
                           nchan=int(nchan), nbin=int(d.nbin),
-                          B=int(len(ok)), dtype=str(ports.dtype),
+                          B=int(len(ok)), dtype=_dtype_name(ports),
                           narrowband=True)
                 # flatten live (subint, channel) pairs into one fit batch
                 jj, cc = np.nonzero(wok)                      # [M], [M]
@@ -1140,6 +1179,7 @@ class GetTOAs:
                         ports, models, same_freqs, jj, cc, errs_b, freqs_b,
                         Ps_b, d.DM, fit_scat, log10_tau, bounds, max_iter,
                         print_flux)
+                del ports  # the archive's device data end with its fit
                 fit_duration = time.time() - fit_start
             except DEVICE_ERRORS as e:
                 del self.ok_idatafiles[n_okid:]
@@ -1211,8 +1251,9 @@ class GetTOAs:
                         freqs_b, Ps_b, DM, fit_scat, log10_tau, bounds,
                         max_iter, print_flux):
         """Fit the live (subint, channel) profiles ``ports[jj, cc]``, on
-        the device: the data and the model rows are gathered there
-        (``models[cc]``; no host copy of the broadcast model).  Returns a
+        the device: the data (a host batch uploaded here, or already
+        there) and the model rows are gathered there (``models[cc]``; no
+        host copy of the broadcast model).  Returns a
         dict of host arrays [M] (phis, phi_errs, taus, tau_errs, scales,
         scale_errs, snrs, red_chi2s, and for fit_scat covs [M, 2, 2],
         nfevals, rcs; with print_flux the profile fluxes and errors)."""

@@ -348,7 +348,9 @@ def pad_databunch(d, nchan_pad, nbin_pad):
     ``nbin_native``; bw scales with nchan so the per-channel bandwidth
     stays the native value.  No-op when already canonical.  Array
     fields held as (CPU) torch tensors are padded as float64 numpy, the
-    arithmetic of the reference's numpy path.
+    arithmetic of the reference's numpy path.  A padded bunch no longer
+    carries the load's device cube (io.archive.take_device_cube): the fit
+    uploads its padded host cube.
     """
     faults.check("archive_pad", key=getattr(d, "filename", None))
     for name in _PAD_FIELDS:
@@ -361,6 +363,9 @@ def pad_databunch(d, nchan_pad, nbin_pad):
     if nchan_pad < nchan or nbin_pad < nbin:
         raise ValueError(f"pad {nchan}x{nbin} -> {nchan_pad}x{nbin_pad}"
                          " shrinks the archive")
+    from ..io.archive import take_device_cube
+
+    take_device_cube(d)  # its shape is the native one
     d.nchan_native, d.nbin_native = nchan, nbin
     if nbin != nbin_pad:
         d.subints = _resample_nbin(d.subints, nbin_pad)

@@ -43,12 +43,19 @@ deterministic, and the overlap that matters — load vs *fit* — needs no
 load-vs-load parallelism.  The worker thread does the load's device
 work too: it uploads the stored DATA column, runs the decode, baseline
 and statistics kernels (K5-K7) on the card and brings the subints back
-into pinned host memory, on the device's current stream.  The buffers
-it hands over are host-side numpy, as in the JAX package: the fit path
-mutates its arrays in place (``_nonfinite_guard``) and ``GetTOAs``
-uploads each archive's portraits to the card again on the fit thread,
-so a prefetched buffer replays bit-identically to a serial load.
-Keeping the load's device cube for the fit is a separate change.
+into pinned host memory, on its current stream (the device's default
+stream, as the fit thread's).  The buffer it hands over is the serial
+load's DataBunch: its numpy schema, as in the JAX package, and the
+load's device cube beside it (``io.archive.LoadedBunch``), which the fit
+thread's ``GetTOAs`` takes and indexes on the card instead of uploading
+the portraits again.  ``load_data`` returns only after its download into
+pinned memory, which synchronises the worker's stream, so the cube is
+complete when the fit thread reads it: no event is needed.  A cube lives
+from its load to the end of its archive's fit, so the card holds at most
+``depth`` held cubes (the live tickets) and the one being fitted; a
+padded archive's cube is dropped at the pad (``pad_databunch``) and its
+host cube uploaded by the fit.  A prefetched buffer replays
+bit-identically to a serial load.
 """
 
 import contextlib

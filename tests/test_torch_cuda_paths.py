@@ -866,7 +866,8 @@ def test_errs_none_fit_kernel_equals_plain_on_the_card(card):
 
 # -- the load on the card: K5, K6 and K7 ------------------------------------
 
-LOAD_CASES = [(300, 2048), (64, 63), (3, 2), (6, 16385)]
+LOAD_CASES = [(300, 2048), (64, 63), (3, 2), (6, 16385), (5, 32768),
+              (2, 30001)]
 
 
 @pytest.mark.parametrize("case", LOAD_CASES, ids=lambda c: "%dx%d" % c)
@@ -962,3 +963,155 @@ def test_load_data_card_matches_plain_and_cpu(card, archive, kw):
             assert np.max(np.abs(got.flux_prof - want.flux_prof)) \
                 <= 1e-12 * np.abs(want.flux_prof).max()
         np.testing.assert_array_equal(got.masks, want.masks)
+
+
+def _baseline_gap(got, want):
+    """Largest |got - want| over each row's range of want; NaN in both is no
+    gap, NaN in one an infinite one."""
+    spread = (want.amax(-1, keepdim=True) - want.amin(-1, keepdim=True))
+    gap = (got - want).abs() / spread.clamp_min(1e-300)
+    both = torch.isnan(got) & torch.isnan(want)
+    one = torch.isnan(got) ^ torch.isnan(want)
+    gap = torch.where(both, torch.zeros_like(gap), gap)
+    gap = torch.where(one, torch.full_like(gap, float("inf")), gap)
+    return float(gap.max())
+
+
+def _stored(rows, nbin, seed, pad=0):
+    """(stored rows on the card, their values [rows, nbin] int16 on the
+    host): random values written into FITS-like records with a ``pad``-byte
+    column before DATA (an odd stride and offset when pad is odd), packed
+    by io.archive.stored_rows and uploaded."""
+    from pulseportraiture_tpu_torch.io.archive import stored_rows
+
+    rng = np.random.default_rng(seed)
+    vals = rng.integers(-32768, 32768, (rows, nbin)).astype(np.int16)
+    fields = ([("PAD", "S%d" % pad)] if pad else []) + [
+        ("DATA", ">i2", (nbin,))]
+    table = np.zeros(rows, dtype=fields)
+    table["DATA"] = vals
+    col = np.frombuffer(memoryview(table.tobytes()), dtype=table.dtype)
+    packed = stored_rows(col["DATA"].reshape(rows, 1, 1, nbin),
+                         torch.device(DEVICE))
+    return packed.to(DEVICE), vals
+
+
+STORED_CASES = {
+    "odd_stride": dict(rows=40, nbin=2048, pad=3),
+    "odd_nbin": dict(rows=33, nbin=999, pad=5),
+    "one_row": dict(rows=1, nbin=2048, pad=0),
+    "misaligned": dict(rows=7, nbin=512, pad=0, shift=1),
+    "nan_rows": dict(rows=9, nbin=1024, pad=0, nan=True),
+    "scratch": dict(rows=3, nbin=32768, pad=1),
+}
+
+
+@pytest.mark.parametrize("case", sorted(STORED_CASES))
+def test_unpack_stored_column_on_the_card(card, case):
+    """K5 on the stored column: the decode bit-equal to numpy's decode of
+    the values and to unpack_plain, its baseline (with the decode and
+    alone) within 1e-12 of each row's range of the plain version's, at
+    odd record strides, odd nbin, a single row (an idle warp in its block),
+    tensors off 16-byte alignment (the scalar path), rows with NaN (their
+    baseline NaN in both) and rows above shared memory's reach (scratch);
+    each launch counted."""
+    K = card
+    c = STORED_CASES[case]
+    rows, nbin = c["rows"], c["nbin"]
+    raw, vals = _stored(rows, nbin, seed=rows + nbin, pad=c["pad"])
+    rng = np.random.default_rng(nbin)
+    scl = torch.as_tensor(rng.uniform(1e-4, 1.0, rows).astype(np.float32)
+                          .astype(np.float64), device=DEVICE)
+    offs = torch.as_tensor(rng.uniform(-50, 50, rows).astype(np.float32)
+                           .astype(np.float64), device=DEVICE)
+    if c.get("nan"):
+        scl[rows // 2] = float("nan")
+    out = None
+    if c.get("shift"):
+        # raw and out 2 and 8 bytes off 16-byte alignment
+        buf = torch.empty(rows * nbin + 1, dtype=torch.int16, device=DEVICE)
+        buf[1:].copy_(raw.reshape(-1))
+        raw = buf[1:].view(rows, nbin)
+        out = torch.empty(rows * nbin + 1, dtype=torch.float64,
+                          device=DEVICE)[1:].view(rows, nbin)
+        assert raw.data_ptr() % 16 and out.data_ptr() % 16
+    K.reset_launches()
+    x = K.unpack(raw, scl, offs, out=out)
+    want = vals.astype(np.float64) * scl.cpu().numpy()[:, None] \
+        + offs.cpu().numpy()[:, None]
+    np.testing.assert_array_equal(x.cpu().numpy(), want)
+    assert torch.equal(K.unpack_plain(raw, scl, offs).nan_to_num(7.0),
+                       x.nan_to_num(7.0))
+    base = K.baseline_plain(x.clone())
+    got = K.unpack(raw, scl, offs, frac=0.125)
+    assert _baseline_gap(got, base) <= 1e-12
+    xin = x if c.get("shift") else x.clone()  # misaligned: scalar path
+    if c.get("nan"):
+        xin[1, nbin // 3] = float("nan")
+        base = K.baseline_plain(xin.clone())
+    assert _baseline_gap(K.baseline(xin), base) <= 1e-12
+    K.baseline(xin, out=xin)
+    assert _baseline_gap(xin, base) <= 1e-12
+    if c.get("nan"):
+        assert torch.isnan(xin[1]).all() and torch.isnan(xin[rows // 2]).all()
+        assert not torch.isnan(xin[0]).any()
+    torch.cuda.synchronize()
+    assert {n: K.LAUNCHES[n] for n in ("unpack", "baseline")} == dict(
+        unpack=2, baseline=2)
+
+
+def test_unpack_wrappers_refuse_on_the_card(card):
+    """K5's wrappers raise on what the kernel does not take, on the card
+    as on the CPU, and never fall back to the plain version: a refused
+    call launches nothing."""
+    K = card
+    raw = torch.zeros(4, 64, dtype=torch.int16, device=DEVICE)
+    ones = torch.ones(4, dtype=torch.float64, device=DEVICE)
+    x = torch.zeros(4, 64, dtype=torch.float64, device=DEVICE)
+    K.reset_launches()
+    bad = [
+        (TypeError, lambda: K.unpack(raw.float(), ones, ones)),
+        (ValueError, lambda: K.unpack(raw[:, ::2], ones, ones)),
+        (ValueError, lambda: K.unpack(raw, ones[:3], ones)),
+        (ValueError, lambda: K.unpack(raw, ones.cpu(), ones)),
+        (ValueError, lambda: K.unpack(raw, ones, ones, out=x[:3])),
+        (TypeError, lambda: K.baseline(x.float())),
+        (ValueError, lambda: K.baseline(x.t())),
+        (ValueError, lambda: K.baseline(x, out=torch.empty_like(x).cpu())),
+    ]
+    for err, call in bad:
+        with pytest.raises(err):
+            call()
+    assert K.LAUNCHES["unpack"] == K.LAUNCHES["baseline"] == 0
+
+
+@pytest.mark.parametrize("nan", [False, True], ids=["clean", "nan"])
+def test_gettoas_device_cube_on_the_card(card, archive, nan):
+    """GetTOAs on a bunch loaded on the card indexes the load's device cube
+    (no upload of the portraits) and gives the same TOAs, rc and nfeval
+    as the same bunch without its cube (the host batch uploaded), with a
+    NaN channel zapped by both guards; the cube is taken off the bunch."""
+    from pulseportraiture_tpu_torch.io.archive import take_device_cube
+    from pulseportraiture_tpu_torch.pipelines.toas import (
+        GetTOAs, load_archive_data)
+
+    _, path = archive
+    runs = []
+    for keep in (True, False):
+        d = load_archive_data(path, device=DEVICE)
+        assert d.device_cube is not None and d.device_cube.is_cuda
+        if nan:
+            d.subints[1, 0, 5, 9] = np.nan
+            d.device_cube[1, 0, 5, 9] = float("nan")
+        if not keep:
+            take_device_cube(d)
+        gt = GetTOAs([path], GMODEL, quiet=True, device=DEVICE)
+        gt.preload(path, ("data", d))
+        gt.get_TOAs(bary=False)
+        assert d.device_cube is None
+        runs.append(gt)
+    assert _max_dt_ns(_toas(runs[0]), _toas(runs[1])) == 0.0
+    for attr in ("rcs", "nfevals", "n_nonfinite_zapped"):
+        assert [np.asarray(v).tolist() for v in getattr(runs[0], attr)] == \
+            [np.asarray(v).tolist() for v in getattr(runs[1], attr)]
+    assert [int(n) for n in runs[0].n_nonfinite_zapped] == [int(nan)]

@@ -16,10 +16,13 @@ import pytest
 import torch
 
 from pulseportraiture_tpu.io import archive as jarch
+from pulseportraiture_tpu.io.fits import read_fits as jread_fits
+from pulseportraiture_tpu.io.psrfits import read_archive as jread_archive
 from pulseportraiture_tpu.ops.noise import get_SNR as jget_SNR
 from pulseportraiture_tpu.ops.noise import get_noise as jget_noise
 from pulseportraiture_tpu_torch import _kernels as K
 from pulseportraiture_tpu_torch.io import archive as tarch
+from pulseportraiture_tpu_torch.io.fits import read_fits
 from pulseportraiture_tpu_torch.io.psrfits import (fscrunch_data,
                                                    read_archive,
                                                    tscrunch_data)
@@ -233,24 +236,74 @@ def _rows(seed, rows=24, nbin=64, offset=40.0):
     return x + offset * rng.uniform(-1, 1, (rows, 1))
 
 
+def _be_rows(raw):
+    """int16 rows as K5 takes them: the big-endian bytes of their values,
+    read as an int16 tensor."""
+    return torch.from_numpy(np.ascontiguousarray(raw).astype(">i2").view(
+        np.int16))
+
+
 def test_unpack_plain_is_numpys_decode():
+    """K5 takes the stored (big-endian) rows: bit-equal to numpy's decode
+    of their values, without and with the baseline."""
     rng = np.random.default_rng(1)
     raw = rng.integers(-32767, 32768, (12, 100)).astype(np.int16)
     scl = rng.uniform(1e-4, 1.0, 12).astype(np.float32).astype(np.float64)
     offs = rng.uniform(-50, 50, 12).astype(np.float32).astype(np.float64)
     want = raw.astype(np.float64) * scl[:, None] + offs[:, None]
-    have = K.unpack(torch.as_tensor(raw), torch.as_tensor(scl),
+    have = K.unpack(_be_rows(raw), torch.as_tensor(scl),
                     torch.as_tensor(offs))
     np.testing.assert_array_equal(have.numpy(), want)
     out = torch.empty(12, 100, dtype=torch.float64)
-    assert K.unpack_plain(torch.as_tensor(raw), torch.as_tensor(scl),
+    assert K.unpack_plain(_be_rows(raw), torch.as_tensor(scl),
                           torch.as_tensor(offs), out=out) is out
     np.testing.assert_array_equal(out.numpy(), want)
     # with the baseline: the decode, then baseline_plain
-    both = K.unpack(torch.as_tensor(raw), torch.as_tensor(scl),
+    both = K.unpack(_be_rows(raw), torch.as_tensor(scl),
                     torch.as_tensor(offs), frac=0.125)
     np.testing.assert_array_equal(
         both.numpy(), K.baseline_plain(torch.as_tensor(want)).numpy())
+
+
+@pytest.mark.parametrize("pad", [0, 3, 16], ids=lambda p: "pad%d" % p)
+@pytest.mark.parametrize("nbin", [1, 7, 64, 200])
+def test_unpack_plain_of_stored_rows(nbin, pad):
+    """The DATA column of FITS records whose stride and DATA offset are
+    odd (a ``pad``-byte column first), read by io.fits as stored and
+    packed by io.archive.stored_rows: unpack_plain bit-equal to numpy's
+    decode of the values, without and with the baseline (then equal to
+    baseline_plain of that decode)."""
+    nsub, nchan = 3, 4
+    rng = np.random.default_rng(nbin + pad)
+    vals = rng.integers(-32768, 32768, (nsub, 1, nchan, nbin)).astype(
+        np.int16)
+    vals[0, 0, 0, :2] = (-32768, 32767)[:nbin]
+    fields = ([("PAD", "S%d" % pad)] if pad else []) + [
+        ("DATA", ">i2", (nchan * nbin,))]
+    table = np.zeros(nsub, dtype=fields)
+    table["DATA"] = vals.reshape(nsub, -1)
+    buf = memoryview(table.tobytes())
+    stored = np.frombuffer(buf, dtype=table.dtype)["DATA"].reshape(
+        nsub, 1, nchan, nbin)
+    assert stored.dtype == np.dtype(">i2")
+    assert stored.strides[0] == table.dtype.itemsize
+    rows = tarch.stored_rows(stored, torch.device("cpu"))
+    assert rows.dtype == torch.int16 and rows.shape == (nsub * nchan, nbin)
+    np.testing.assert_array_equal(K.stored_values(rows).numpy(),
+                                  vals.reshape(-1, nbin))
+    scl = rng.uniform(1e-4, 1.0, nsub * nchan).astype(np.float32).astype(
+        np.float64)
+    offs = rng.uniform(-50, 50, nsub * nchan).astype(np.float32).astype(
+        np.float64)
+    want = vals.reshape(-1, nbin).astype(np.float64) * scl[:, None] \
+        + offs[:, None]
+    args = (rows, torch.as_tensor(scl), torch.as_tensor(offs))
+    np.testing.assert_array_equal(K.unpack_plain(*args).numpy(), want)
+    np.testing.assert_array_equal(
+        K.unpack_plain(*args, frac=0.125).numpy(),
+        K.baseline_plain(torch.as_tensor(want)).numpy())
+    # a native column packs to the same stored bytes
+    assert torch.equal(tarch.stored_rows(vals, torch.device("cpu")), rows)
 
 
 @pytest.mark.parametrize("nbin", [1, 7, 64, 200])
@@ -387,3 +440,59 @@ def test_read_archive_keeps_the_column_encoded(archives):
     assert arch.encoded is None and copy.encoded is not None
     np.testing.assert_array_equal(copy.data, want)
     assert (arch.nsub, arch.npol, arch.nchan, arch.nbin) == (3, 4, 8, 64)
+
+
+# -- the DATA column as stored ----------------------------------------------
+
+FIXTURE_FILES = ("psrchive_style", "t2pred_style", "stokes_style")
+FITS_FILES = FIXTURE_FILES + tuple(sorted(ARCHIVES))
+
+
+def _fits_path(archives, name):
+    return os.path.join(DATA, name + ".fits") if name in FIXTURE_FILES \
+        else archives[name]
+
+
+@pytest.mark.parametrize("name", FITS_FILES)
+def test_read_fits_matches_reference(archives, name):
+    """The port's read_fits against the JAX package's, HDU by HDU: the
+    same header cards in the same order, the same columns with the same
+    shapes and values; every column but DATA in native byte order as
+    there, DATA a read-only big-endian view of the file's bytes."""
+    path = _fits_path(archives, name)
+    have, want = read_fits(path), jread_fits(path)
+    assert len(have) == len(want)
+    for h, w in zip(have, want):
+        assert h.header.order == w.header.order
+        assert dict(h.header) == dict(w.header)
+        assert list(h.columns) == list(w.columns)
+        for key, wc in w.columns.items():
+            hc = h.columns[key]
+            assert hc.shape == wc.shape, key
+            np.testing.assert_array_equal(hc, wc, err_msg=key)
+            if key == "DATA":
+                assert hc.dtype == np.dtype(">i2") and wc.dtype == np.int16
+                assert not hc.flags.writeable
+            else:
+                assert hc.dtype == wc.dtype, key
+    assert any("DATA" in h.columns for h in have)
+
+
+@pytest.mark.parametrize("name", FITS_FILES)
+def test_stored_view_is_the_encoded_column(archives, name):
+    """Archive.stored is the file's big-endian column: byte-swapped it is
+    Archive.encoded (native int16), and encoded decoded is the JAX
+    package's cube, bit for bit; neither read expands the cube."""
+    path = _fits_path(archives, name)
+    arch = read_archive(path)
+    raw, scl, offs = arch.stored
+    enc, escl, eoffs = arch.encoded
+    assert raw.dtype == np.dtype(">i2") and enc.dtype == np.int16
+    assert raw.shape == enc.shape == (arch.nsub, arch.npol, arch.nchan,
+                                      arch.nbin)
+    np.testing.assert_array_equal(raw.view(np.int16).byteswap(), enc)
+    assert escl is scl and eoffs is offs and arch.stored is not None
+    want = jread_archive(path).data
+    np.testing.assert_array_equal(
+        enc.astype(np.float64) * scl[..., None] + offs[..., None], want)
+    np.testing.assert_array_equal(arch.data, want)
