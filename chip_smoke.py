@@ -119,10 +119,22 @@ the profiler's clock conversion is fresh):
               fit seconds; one block's device time (torch.profiler) and
               its rotation's (B8, with its bound); a 2-epoch subset with
               the plain versions swapped in (within 1e-9 of the peak)
-  ppspline    ppspline -s on the aligned archive: eigenprofiles, the
-              eigensolve and smart_smooth at its shapes (B9, with their
-              bounds); pptoas with the .spl on the 16-subint archive:
-              phase and DM within 5 sigma, plain vs kernel 1 ns
+  ppalign_s   ppalign -s on the aligned archive (its one epoch aligned
+              to itself, --niter 1, then psrsmooth -W of the output:
+              K8 on its 512 x 2048 profiles, its plain version made to
+              raise meanwhile): CLI wall, K1, K2 and K8 launched, K8 held
+              against its plain version on the rows the path gave it (the
+              same (level, factor) per row, each smooth within 1e-10 of
+              its peak) and timed there (CUDA-graph replay) beside its
+              bound and the plain version's time; the .sm archive
+              against psrsmooth with the plain versions (one count of
+              each row's int16 encoding)
+  ppspline    ppspline -s on the aligned archive: eigenprofiles, K8 at the
+              path's shapes (the ten candidate eigenprofiles, [10, 2048],
+              and the mean profile, [1, 2048]) held against its plain
+              version and timed as on ppalign_s, B9's eigensolve with its
+              bound; pptoas with the .spl on the 16-subint archive: phase
+              and DM within 5 sigma, plain vs kernel 1 ns
   ppgauss     ppgauss --autogauss 0.05 --niter 2 on the aligned archive:
               components, LM nfev and rc, the Jacobian pass's device time
               (B9), a plain-versions run (parameters within 1e-6 of their
@@ -137,8 +149,9 @@ the profiler's clock conversion is fresh):
               dF0 2e-9 Hz, dF1 4e-17 Hz/s injected as phase) -> align
               (niter 1) -> spline model -> wideband TOAs -> .tim -> the
               DMDATA 1 + DMX GLS fit of F0 and F1: example.py's own DM
-              and GLS criteria, K1 and K2 launched, the pptoas step rerun
-              with the plain versions (1 ns); seconds per step and in
+              and GLS criteria, K1, K2 and K8 launched (and held against
+              their plain versions), the pptoas step rerun with the plain
+              versions (1 ns); seconds per step and in
               load_data, the GLS's wrms and reduced chi2
   synth       make_fake_dataset (B11) making the throughput data on the
               card: seconds, bound, peak device memory
@@ -268,15 +281,17 @@ paths — K1 (``moments``, ``moments_grad_hess``) and K2 on pptoas, K3
 (``moments_scat``, ``moments_scat_grad_hess``) on pptoas_scat, each plus
 the narrowband,
 narrowband_scat, templates, ppzap, obs, survey, serve and mesh runs, K1
-and K2 also on viz, ppalign, ppspline, ppgauss and the walkthrough, K4
+and K2 also on viz, ppalign, ppalign_s, ppspline, ppgauss and the
+walkthrough, K4
 (``spectra``, ``spectra_noise``) on every path, the throughput and
 throughput_scat fits included, K5-K7 (``unpack``, ``baseline``,
 ``load_stats``, ``rotate``) on every path that loads an
-archive, the load phase's own run first, with ``launches_by_path`` —
+archive, the load phase's own run first, K8 (``smooth_search``) on
+ppspline, ppalign_s and the walkthrough, with ``launches_by_path`` —
 errors and times; K2 with
 its [1000, 1025] numbers, K1 and K3 with their [1000, 512, 128] ones and
 K4 with its [64, 512, 2048] ones,
-K5-K7 with the load phase's,
+K5-K7 with the load phase's, K8 with ppalign_s's [512, 2048] ones,
 each with a ``shapes`` list of all its cases), the card's name and power
 limit, and
 last ``{"ok": true, "device": {...}}``.  Exits non-zero without a result
@@ -380,6 +395,17 @@ LOAD_TOL = dict(baseline=1e-12, noise=1e-13, snr=1e-12, prof=1e-12,
 # FP64 operations of K7 per harmonic: the floor-mod (2), the angle (1),
 # a sincos (~20) and the complex product (6)
 K7_OPS = 29
+# K8, smart_smooth's search (every path that smooths: ppspline -s,
+# ppalign -s, the walkthrough's spline model)
+SMOOTH_KERNELS = ("smooth_search",)
+# K8 against its plain version: the same (level, factor) on every row and
+# each smooth within this of its row's peak (tests/test_torch_wavelet_*;
+# the two hand cuFFT the same bits, the plain's smooth is wavelet_smooth's)
+SMOOTH_TOL = 1e-10
+# FP64 operations of K8 per half-spectrum bin per candidate, beside the
+# candidates' forward transforms: forming its spectrum S from the tables
+# and reading its S/N and chi2 from it, ~24 a bin
+K8_OPS = 24
 
 
 def emit(phase, **kw):
@@ -2170,6 +2196,9 @@ def path_kernels_vs_plain(K, seen, required=PHASE_DM_KERNELS):
             abs_err = float((got - want).abs().max())
             ok = err <= (K1_GH_TOL if name == "moments_grad_hess"
                          else K3_GH_TOL)
+        elif name == "smooth_search":
+            abs_err, err, mismatches = smooth_errors(got, want)
+            ok = mismatches == 0 and err <= SMOOTH_TOL
         else:
             err = max(rel_err(got[..., i], want[..., i])
                       for i in range(got.shape[-1]))
@@ -2178,9 +2207,81 @@ def path_kernels_vs_plain(K, seen, required=PHASE_DM_KERNELS):
             name, "x".join(map(str, shape)))
         rows[row_key] = dict(shape=shape, max_rel_err=err,
                              max_abs_err=abs_err)
+        if name == "smooth_search":
+            rows[row_key]["choice_mismatches"] = mismatches
         if not ok:
             raise AssertionError("%s disagrees with its plain version on "
                                  "the path's inputs: %s" % (name, rows[row_key]))
+    return rows
+
+
+def smooth_errors(got, want):
+    """K8's (out, choice) against its plain version's: (largest |out
+    gap|, largest gap over its row's peak, rows whose (level, factor)
+    differ)."""
+    (out, choice), (pout, pchoice) = got, want
+    if not out.numel():
+        return 0.0, 0.0, 0
+    peak = pout.abs().max(dim=-1).values.clamp(min=1e-300)
+    gap = (out - pout).abs().max(dim=-1).values
+    return (float(gap.max()), float((gap / peak).max()),
+            int((choice != pchoice).any(dim=-1).sum()))
+
+
+def smooth_bound_ms(rows, nbin, nlevel, nfact):
+    """K8's least time: each candidate's thresholded arrays' real forward
+    transform (2.5 nbin log2 nbin FP64 operations) and K8_OPS per
+    half-spectrum bin to form and read its spectrum, for rows x nlevel x
+    nfact candidates, against the FP64 peak; the rows read and the result
+    written once."""
+    ops = rows * nlevel * nfact * (2.5 * nbin * math.log2(nbin)
+                                   + K8_OPS * (nbin // 2 + 1))
+    return bound_ms(2 * rows * nbin * 8, (ops, PEAK_FP64_PER_S))
+
+
+def smooth_grid_bound_ms(rows, nbin, nlevel, nfact):
+    """The least time of the torch grid K8 replaced, by that grid's own
+    transforms: per level l, l + 3 complex FFTs and a real one of nfact x
+    rows profiles, 5 nbin log2 nbin FP64 operations each."""
+    ffts = sum(lev + 4 for lev in range(1, nlevel + 1)) * nfact * rows
+    return bound_ms(2 * rows * nbin * 8,
+                    (ffts * 5 * nbin * math.log2(nbin), PEAK_FP64_PER_S))
+
+
+def smooth_rows(K, seen, vs_plain, path):
+    """K8 at each shape a path gave it (``seen``, from first_kernel_inputs
+    per shape) with its errors against plain (``vs_plain``): device ms by
+    CUDA-graph replay, the wrapper's ms per call (CUDA events), the plain
+    version's (CUDA events: it syncs the host), the bound, the torch
+    grid's bound and one call's device profile (kernel_device_ms: its
+    longest device rows).  Timing launches are not counted."""
+    rows = []
+    for key, (a, kw) in sorted(seen.items(), key=lambda kv: kv[0][1]):
+        if key[0] != "smooth_search":
+            continue
+        port, _, nlevel, facts = a[:4]
+        r, nbin = port.shape
+        nfact = facts.shape[0]
+        n0 = K.LAUNCHES["smooth_search"]
+        reps = 5 if r > 64 else 20
+        ms = graph_ms(lambda: K.smooth_search(*a, **kw), reps=reps)
+        call_ms = cuda_ms(lambda: K.smooth_search(*a, **kw), reps=reps,
+                          warm=1)
+        plain_ms = cuda_ms(lambda: K.smooth_search_plain(*a, **kw), reps=2,
+                           warm=1)
+        # where a call's device time goes: its six kernels and cuFFT's
+        _, prof = kernel_device_ms(lambda: K.smooth_search(*a, **kw), K)
+        K.LAUNCHES["smooth_search"] = n0
+        bms, by = smooth_bound_ms(r, nbin, nlevel, nfact)
+        err = vs_plain["smooth_search@%dx%d" % (r, nbin)]
+        rows.append(dict(
+            path=path, shape=[r, nbin], nlevels=nlevel, nfact=nfact, ms=ms,
+            call_ms=call_ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
+            share_of_bound=bms / ms,
+            grid_bound_ms=smooth_grid_bound_ms(r, nbin, nlevel, nfact)[0],
+            library_ms=None, max_abs_err=err["max_abs_err"],
+            max_rel_err=err["max_rel_err"],
+            choice_mismatches=err["choice_mismatches"], profile=prof))
     return rows
 
 
@@ -2442,27 +2543,31 @@ def time_with_template(K, dev, work, small, model, tag, subset=16,
 
 
 def phase_ppspline(root, work, K, dev, avg, small):
-    """The port's ppspline -s on the aligned archive; B9's eigh and
-    smart_smooth at the path's shapes; pptoas with the .spl on the
-    16-subint archive (5 sigma, 1 ns).  Returns the launches of the
-    ppspline and pptoas runs, summed."""
+    """The port's ppspline -s on the aligned archive: K2 and K8 launched,
+    K8 held against its plain version on the inputs the path gave it (the
+    ten candidate eigenprofiles [10, 2048] and the mean profile [1, 2048])
+    and timed there; B9's eigh at the path's shape; pptoas with the .spl
+    on the 16-subint archive (5 sigma, 1 ns).  Returns the launches of the
+    ppspline and pptoas runs, summed, and K8's rows."""
     import torch
 
     from pulseportraiture_tpu_torch.cli import ppspline
     from pulseportraiture_tpu_torch.dataportrait import DataPortrait
     from pulseportraiture_tpu_torch.io.splmodel import read_spline_model
-    from pulseportraiture_tpu_torch.ops.pca import pca
-    from pulseportraiture_tpu_torch.ops.wavelet import smart_smooth
 
     spl = os.path.join(work, "aligned.spl")
-    wall, launches = run_tool(K, ppspline, ["-d", avg, "-o", spl, "-s",
-                                            "--quiet", "--device", str(dev)])
-    if launches["fftfit"] == 0:
-        raise AssertionError("K2 never launched by ppspline -N prof")
+    with first_kernel_inputs(K, SMOOTH_KERNELS, per_shape=True) as seen:
+        wall, launches = run_tool(K, ppspline, [
+            "-d", avg, "-o", spl, "-s", "--quiet", "--device", str(dev)])
+    if launches["fftfit"] == 0 or launches["smooth_search"] == 0:
+        raise AssertionError("ppspline -N prof -s launched %s" % launches)
     ncomp = read_spline_model(spl)[4].shape[1]
+    vs_plain = path_kernels_vs_plain(K, seen, SMOOTH_KERNELS)
+    k8 = smooth_rows(K, seen, vs_plain, "ppspline")
+    del seen
 
-    # B9 at this path's shapes: the eigensolve of the [nbin, nbin]
-    # covariance and the smoothing of the ten candidate eigenvectors
+    # B9 at this path's shape: the eigensolve of the [nbin, nbin]
+    # covariance
     dp = DataPortrait(avg, quiet=True, device=dev)
     dp.normalize_portrait("prof")
     port = torch.as_tensor(dp.portx, device=dev)
@@ -2476,27 +2581,77 @@ def phase_ppspline(root, work, K, dev, avg, small):
     # symmetric eigendecomposition with vectors, ~9 n^3 (Golub & Van Loan)
     eigh_bound, eigh_by = bound_ms(2 * n * n * 8 + n * 8,
                                    (9 * n ** 3, PEAK_FP64_PER_S))
-    cand = pca(port, mean, w)[1][:, :10].T.contiguous()
-    nbin = cand.shape[-1]
-    nlev = int(math.log2(nbin))
-    ss_ms = cuda_ms(lambda: smart_smooth(cand), reps=3, warm=1)
-    # per level l: l+3 complex FFTs (and a real one) of nfact x 10 rows
-    ffts = sum(l + 4 for l in range(1, nlev + 1)) * 30 * cand.shape[0]
-    ss_bound, ss_by = bound_ms(2 * cand.numel() * 8,
-                               (ffts * 5 * nbin * math.log2(nbin),
-                                PEAK_FP64_PER_S))
-    del dp, port, d, cov, cand
+    del dp, port, d, cov
 
     toas = time_with_template(K, dev, work, small, spl, "spline_built")
     total = {name: launches[name] + toas["launches"][name]
              for name in launches}
     emit("ppspline", cli_s=wall, launches=launches, n_eigenprofiles=ncomp,
+         kernels_vs_plain=vs_plain, k8=k8,
          b9_eigh=dict(shape=[n, n], ms=eigh_ms, bound_ms=eigh_bound,
                       bound_by=eigh_by),
-         b9_smart_smooth=dict(shape=[10, nbin], nlevels=nlev, nfact=30,
-                              ms=ss_ms, bound_ms=ss_bound, bound_by=ss_by),
          pptoas=toas)
-    return total
+    return total, k8
+
+
+def phase_ppalign_smooth(root, work, K, dev, avg):
+    """The port's ppalign -s (psrsmooth -W) on the ppalign phase's aligned
+    archive (one epoch, aligned to itself, --niter 1, then every profile
+    of the output smoothed): CLI wall, K8 launched (its plain version
+    made to raise meanwhile), held against its plain version on the
+    [nchan, nbin] rows it was given and timed there; the .sm archive
+    against psrsmooth_archive with the plain versions swapped in (each
+    row within one count of its int16 encoding).  Returns the run's
+    launches and K8's rows."""
+    import numpy as np
+
+    from pulseportraiture_tpu_torch.cli import ppalign
+    from pulseportraiture_tpu_torch.io.psrfits import read_archive
+    from pulseportraiture_tpu_torch.pipelines.align import psrsmooth_archive
+
+    meta = os.path.join(work, "aligned.meta")
+    with open(meta, "w") as f:
+        f.write(avg + "\n")
+    out = os.path.join(work, "realigned.fits")
+
+    def refuse(*a, **k):
+        raise AssertionError("K8 fell back to its plain version")
+
+    plain = K.smooth_search_plain
+    K.smooth_search_plain = refuse
+    try:
+        with first_kernel_inputs(K, SMOOTH_KERNELS, per_shape=True) as seen:
+            wall, launches = run_tool(K, ppalign, [
+                "-M", meta, "-I", avg, "-o", out, "--niter", "1", "-s",
+                "--device", str(dev)])
+    finally:
+        K.smooth_search_plain = plain
+    missing = [n for n in PHASE_DM_KERNELS + SMOOTH_KERNELS
+               if launches[n] == 0]
+    if missing:
+        raise AssertionError("kernels never launched on ppalign -s: %s"
+                             % missing)
+    vs_plain = path_kernels_vs_plain(K, seen, SMOOTH_KERNELS)
+    k8 = smooth_rows(K, seen, vs_plain, "ppalign_s")
+    del seen
+
+    with plain_kernels(K):
+        psm = psrsmooth_archive(out, outfile=out + ".plain.sm", device=dev)
+    got, want, raw = (read_archive(path) for path in (out + ".sm", psm, out))
+    scl = want.encoded[1]
+    counts = np.abs(got.data - want.data) / scl[..., None]
+    smoothed = np.any(got.data != raw.data, axis=-1)
+    emit("ppalign_s", archive=list(got.data.shape), cli_s=wall,
+         launches=launches, kernels_vs_plain=vs_plain, k8=k8,
+         rows_smoothed=int(smoothed.sum()), rows=int(smoothed.size),
+         sm_vs_plain=dict(max_counts=float(counts.max()),
+                          rows_differing=int(np.any(counts > 0,
+                                                    axis=-1).sum())))
+    if got.data.shape != raw.data.shape or not counts.max() <= 1.01:
+        raise AssertionError("ppalign -s: the .sm archive against the plain "
+                             "versions' differs by %.3g counts"
+                             % counts.max())
+    return launches, k8
 
 
 def jacobian_pass(dp, dev):
@@ -2722,10 +2877,11 @@ def walkthrough_criteria(gt, gls, dDMs):
 
 def phase_walkthrough(root, work, K, dev, shape=(10, 512, 2048)):
     """examples/example.py end to end through the port at full width
-    (WALK_EPOCHS epochs of ``shape``): its DM and GLS criteria, K1 and K2
-    launched and held against their plain versions on the first inputs
-    the path gave them, the pptoas step rerun with the plain versions
-    (1 ns).  Returns the launches of the walkthrough's run."""
+    (WALK_EPOCHS epochs of ``shape``): its DM and GLS criteria, K1, K2 and
+    K8 (the spline model's smoothing) launched and held against their
+    plain versions on the first inputs the path gave them, the pptoas
+    step rerun with the plain versions (1 ns).  Returns the launches of
+    the walkthrough's run."""
     import numpy as np
 
     from pulseportraiture_tpu_torch import dataportrait
@@ -2741,10 +2897,12 @@ def phase_walkthrough(root, work, K, dev, shape=(10, 512, 2048)):
     with clocked(align, ("load_data",)) as c1, \
             clocked(dataportrait, ("load_data",)) as c2, \
             clocked(toas, ("load_data",)) as c3, \
-            first_kernel_inputs(K) as seen:
+            first_kernel_inputs(K, PHASE_DM_KERNELS + SMOOTH_KERNELS) \
+            as seen:
         run = walkthrough_run(root, work, meta, files, dev)
     launches = dict(K.LAUNCHES)
-    vs_plain = path_kernels_vs_plain(K, seen)
+    vs_plain = path_kernels_vs_plain(K, seen,
+                                     PHASE_DM_KERNELS + SMOOTH_KERNELS)
     del seen
     loads = c1["load_data"] + c2["load_data"] + c3["load_data"]
     gls, gt = run["gls"], run["gt"]
@@ -2780,7 +2938,7 @@ def phase_walkthrough(root, work, K, dev, shape=(10, 512, 2048)):
     if not dt_ns < 1.0:
         raise AssertionError("walkthrough: plain vs kernel TOAs differ by "
                              "%.3g ns" % dt_ns)
-    if any(launches[n] == 0 for n in PHASE_DM_KERNELS):
+    if any(launches[n] == 0 for n in PHASE_DM_KERNELS + SMOOTH_KERNELS):
         raise AssertionError("walkthrough launched %s" % launches)
     if not np.isfinite([gls["postfit_wrms_us"], gls["red_chi2"]]).all():
         raise AssertionError("walkthrough: GLS %s" % gls)
@@ -3709,9 +3867,9 @@ def phase_obs(root, work, K, dev, small, fit_shape=(1000, 512, 2048)):
                             % (key, counts, reg["launches"]))
         problems += obs_completeness_problems(key, e, counts, reg)
     # the captures are fit regions: every fit kernel shows in one; the
-    # load's (K5-K7) run before them
+    # load's (K5-K7) run before them, and no captured path smooths (K8)
     seen = {k: sum(r["trace_kernel_rows"][k] for r in rows)
-            for k in K.TRACE_NAMES if k not in LOAD_NAMES}
+            for k in K.TRACE_NAMES if k not in LOAD_NAMES + SMOOTH_KERNELS}
     if not all(seen.values()):
         problems.append("kernels absent from every trace: %s" % seen)
     all_stages = set().union(*stages.values()) if stages else set()
@@ -4715,9 +4873,10 @@ def phase_serve(root, work, K, survey, device="cuda"):
             raise AssertionError("dispatch fault: failed records %s"
                                  % failed)
         # served archives carry their noise: K4's first epilogue only;
-        # their loads decode and remove the baseline in one K5 launch
-        served = tuple(n for n in K.KERNELS
-                       if n not in ("spectra_noise", "baseline"))
+        # their loads decode and remove the baseline in one K5 launch; no
+        # request smooths (K8)
+        served = tuple(n for n in K.KERNELS if n not in (
+            "spectra_noise", "baseline") + SMOOTH_KERNELS)
         if any(launches[n] == 0 for n in served):
             raise AssertionError("serve launches %s" % launches)
         path_rows = path_kernels_vs_plain(K, seen, required=served)
@@ -5208,7 +5367,7 @@ def phase_mesh(root, work, K, survey, shape=(1000, 512, 2048),
                 and row["max_dt_ns"] < 1.0 and c["err_us"] <= 1.0005e-3 \
                 and c["pp_dm"] <= 1.0005e-7 and c["pp_dme"] <= 1.0005e-7
     path_rows = path_kernels_vs_plain(K, seen, required=tuple(
-        n for n in K.KERNELS if n != "baseline"))
+        n for n in K.KERNELS if n not in ("baseline",) + SMOOTH_KERNELS))
     times = path_kernel_times(K, seen)
     del seen
     torch.cuda.empty_cache()
@@ -5228,8 +5387,10 @@ def phase_mesh(root, work, K, survey, shape=(1000, 512, 2048),
         raise AssertionError("a sharded fit or survey disagrees with the "
                              "unsharded one (the mesh line above)")
     # the mesh's loads decode and remove the baseline in one K5 launch:
-    # K5's baseline alone follows only a rotation or a state conversion
-    missing = [n for n, c in launches.items() if c == 0 and n != "baseline"]
+    # K5's baseline alone follows only a rotation or a state conversion;
+    # nothing on it smooths (K8)
+    missing = [n for n, c in launches.items()
+               if c == 0 and n not in ("baseline",) + SMOOTH_KERNELS]
     if missing:
         raise AssertionError("kernels never launched on the mesh path: %s"
                              % missing)
@@ -5284,7 +5445,11 @@ def main(argv):
         by_path["ppzap"] = phase_ppzap(root, work, K, small)
         by_path["viz"] = phase_viz(root, work, K, small)
         by_path["ppalign"], avg = phase_ppalign(root, work, K, dev)
-        by_path["ppspline"] = phase_ppspline(root, work, K, dev, avg, small)
+        by_path["ppalign_s"], k8_align = phase_ppalign_smooth(
+            root, work, K, dev, avg)
+        by_path["ppspline"], k8_spline = phase_ppspline(root, work, K, dev,
+                                                        avg, small)
+        rows["smooth_search"] = k8_spline + k8_align
         by_path["ppgauss"] = phase_ppgauss(root, work, K, dev, avg, small)
         by_path["walkthrough"] = phase_walkthrough(root, work, K, dev)
         by_path["obs"] = phase_obs_fresh(root, work, small)
@@ -5307,12 +5472,14 @@ def main(argv):
     paths = {name: [own[name], "narrowband", "narrowband_scat",
                     "templates", "ppzap"] for name in own}
     for name in K1_K2_NAMES:
-        paths[name] += ["viz", "ppalign", "ppspline", "ppgauss",
+        paths[name] += ["viz", "ppalign", "ppalign_s", "ppspline", "ppgauss",
                         "walkthrough"]
     for name in own:
         paths[name] += ["obs", "survey", "serve", "mesh"]
     for name in K4_NAMES + LOAD_NAMES:
         paths[name] = list(by_path)
+    # K8 on every path that smooths
+    paths["smooth_search"] = ["ppspline", "ppalign_s", "walkthrough"]
     # no archive of any path failed on a device error
     failed = [f for made in failed_lists for f in made]
     emit("failed_datafiles", gettoas_runs=len(failed_lists), failed=failed)
@@ -5323,7 +5490,9 @@ def main(argv):
     missing = [n for n in K4_NAMES + LOAD_NAMES if launches[n] == 0]
     # the load's main path, pptoas's load and its guess (K7)
     missing += ["%s on %s" % (n, p) for p, names in (
-        ("load", LOAD_NAMES), ("pptoas", LOAD_PATH_KERNELS))
+        ("load", LOAD_NAMES), ("pptoas", LOAD_PATH_KERNELS),
+        ("ppspline", SMOOTH_KERNELS), ("ppalign_s", SMOOTH_KERNELS),
+        ("walkthrough", SMOOTH_KERNELS))
         for n in names if by_path[p][n] == 0]
     if missing:
         raise AssertionError("kernels never launched on any path: %s"
@@ -5357,6 +5526,13 @@ def main(argv):
                     "shape", "mode", "ms", "call_ms", "bound_ms",
                     "share_of_bound", "plain_ms", "library_ms", "errors",
                     "max_abs_err")} for c in r])
+        elif name == "smooth_search":
+            r, extra = max(r, key=lambda c: c["shape"][0]), dict(shapes=[
+                {key: c[key] for key in (
+                    "path", "shape", "nlevels", "nfact", "ms", "call_ms",
+                    "bound_ms", "share_of_bound", "grid_bound_ms",
+                    "plain_ms", "max_rel_err", "max_abs_err",
+                    "choice_mismatches")} for c in r])
         elif name in K4_NAMES:
             r, extra = r[K4_MAIN], dict(shapes=[
                 {key: c[key] for key in (

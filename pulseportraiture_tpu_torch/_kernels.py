@@ -1,6 +1,6 @@
 """The port's hand-written CUDA kernels: build, ctypes binding, wrappers.
 
-Seven kernels, each a CUDA C++ source under ``csrc/`` compiled for
+Eight kernels, each a CUDA C++ source under ``csrc/`` compiled for
 Hopper (``sm_90a``) by ``nvcc`` into a shared library with a plain C
 interface and loaded with ``ctypes``:
 
@@ -58,6 +58,12 @@ interface and loaded with ``ctypes``:
      apply_phasor, which ops.fourier.apply_phasor sends here for CUDA
      tensors): every rotation of data, the load's dedispersion and its
      work copy's among them.
+  K8 ``smooth_search`` (csrc/wavelet.cu) — smart_smooth's wavelet
+     smoothing search (pulseportraiture_tpu/ops/wavelet.py:177
+     _smart_smooth_grid) between cuFFT's transforms: the analysis
+     products, the median and thresholds, the candidates' spectra from
+     host tables, their gated pseudo-S/N and the choice.  Six CUDA
+     kernels per chunk of rows; LAUNCHES counts one (the search stage's).
 
 Each wrapper dispatches on its input's device: a CPU tensor takes the
 plain PyTorch version beside it (the same name with ``_plain``: e.g.
@@ -102,6 +108,7 @@ from .obs import monitor
 from .ops.fourier import phasor
 from .ops.noise import SNR_of_noise, noise_PS_of_power
 from .ops.scattering import LN10, _nonzero_div
+from .ops.stats import median
 
 __all__ = ["KernelLaunchError", "LAUNCHES", "reset_launches", "build",
            "set_build_dir",
@@ -116,7 +123,9 @@ __all__ = ["KernelLaunchError", "LAUNCHES", "reset_launches", "build",
            "spectra_noise", "spectra_noise_plain", "unpack", "unpack_plain",
            "stored_values",
            "baseline", "baseline_plain", "baseline_window", "load_stats",
-           "load_stats_plain", "rotate", "rotate_plain", "KERNELS"]
+           "load_stats_plain", "rotate", "rotate_plain", "smooth_search",
+           "smooth_search_plain", "smooth_chunk_rows", "SMOOTH_MAX_BINS",
+           "KERNELS"]
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC_DIR = os.path.join(_HERE, "csrc")
@@ -148,6 +157,8 @@ KERNELS = {
                    "pulseportraiture_tpu/io/archive.py:121"),
     "rotate": ("rotate.cu", "pp_rotate",
                "pulseportraiture_tpu/ops/fourier.py:210"),
+    "smooth_search": ("wavelet.cu", "pp_wavelet_search",
+                      "pulseportraiture_tpu/ops/wavelet.py:177"),
 }
 # the sources, one nvcc and one library each
 SOURCES = tuple(sorted({src for src, _, _ in KERNELS.values()}))
@@ -180,6 +191,18 @@ _SYMBOLS = {
     "load_stats": {"pp_load_stats": [_VP, _VP, _I64, _INT, _INT, _INT, _DBL,
                                      _VP, _VP, _VP]},
     "rotate": {"pp_rotate": [_VP, _VP, _I64, _INT, _DBL, _VP, _VP]},
+    "smooth_search": {
+        "pp_wavelet_analysis": [_VP, _VP, _I64, _INT, _INT, _VP, _VP],
+        "pp_wavelet_sigma": [_VP, _VP, _VP, _I64, _INT, _INT, _INT, _INT,
+                             _INT, _INT, _DBL, _VP, _VP, _VP],
+        "pp_wavelet_threshold": [_VP, _VP, _I64, _INT, _INT, _INT, _INT,
+                                 _VP, _VP, _VP],
+        "pp_wavelet_synthesis": [_VP, _VP, _VP, _I64, _INT, _INT, _INT, _VP,
+                                 _VP],
+        "pp_wavelet_search": [_VP, _VP, _VP, _VP, _I64, _INT, _INT, _INT,
+                              _INT, _INT, _DBL, _VP, _VP, _VP],
+        "pp_wavelet_select": [_VP, _VP, _VP, _VP, _I64, _INT, _INT, _INT,
+                              _DBL, _VP, _VP, _VP]},
 }
 
 # kernel name -> the CUDA function that runs once per counted launch, as
@@ -195,7 +218,8 @@ TRACE_NAMES = {"moments": "moments_kernel",
                "unpack": "unpack_kernel",
                "baseline": "baseline_kernel",
                "load_stats": "load_stats_kernel",
-               "rotate": "rotate_kernel"}
+               "rotate": "rotate_kernel",
+               "smooth_search": "wavelet_search_kernel"}
 
 LAUNCHES = {name: 0 for name in KERNELS}
 BUILD_LOG = {}  # library (source stem) -> nvcc output (register report)
@@ -1296,3 +1320,231 @@ def rotate(X, shifts, out=None):
         _launch("rotate", X.device, X.data_ptr(), shifts.data_ptr(), rows,
                 nharm, TWO_PI, out.data_ptr())
     return out
+
+
+# -- K8: the wavelet smoothing search -----------------------------------------
+
+# bytes of a chunk's candidate buffers: the thresholded arrays T and their
+# spectra D (and, on the card, cuFFT's copy of D for the inverse)
+SMOOTH_CHUNK_BYTES = 1 << 30
+# the median's sort holds a row's |cD_0| (padded to a power of two) in
+# shared memory: 128 KB at 16384 bins
+SMOOTH_MAX_BINS = 16384
+
+
+def smooth_chunk_rows(nlevel, nfact, nbin):
+    """Rows of a smooth_search chunk: SMOOTH_CHUNK_BYTES over a row's
+    [nlevel, nfact] candidates (nbin float64 and twice nbin // 2 + 1
+    complex128 each), at least 1."""
+    per_row = nlevel * nfact * (nbin * 8 + 2 * (nbin // 2 + 1) * 16)
+    return max(1, SMOOTH_CHUNK_BYTES // per_row)
+
+
+def _smooth_args(port, wavelet, nlevel, facts, threshtype, out, choice):
+    """Check smooth_search's arguments; returns (tables, out, choice): the
+    search tables of ops.wavelet.search_tables on port's device, out and
+    choice new where None."""
+    from .ops.wavelet import search_tables
+
+    _check(port, "port", torch.float64, 2)
+    _check(facts, "facts", torch.float64, 1)
+    rows, nbin = port.shape
+    if nbin < 2 or nbin % 2 or int(nlevel) < 1 or facts.shape[0] < 1:
+        raise ValueError("smooth_search: port %s (nbin even), nlevel %s and "
+                         "facts %s: want an even nbin, a level and a factor"
+                         % (tuple(port.shape), nlevel, tuple(facts.shape)))
+    if threshtype not in ("hard", "soft"):
+        raise ValueError("smooth_search: unknown threshold mode '%s'"
+                         % threshtype)
+    if out is None:
+        out = torch.empty_like(port)
+    else:
+        _check(out, "out", torch.float64, 2)
+    if choice is None:
+        choice = torch.empty((rows, 2), dtype=torch.int64, device=port.device)
+    else:
+        _check(choice, "choice", torch.int64, 2)
+    if tuple(out.shape) != (rows, nbin) or tuple(choice.shape) != (rows, 2):
+        raise ValueError("smooth_search: out %s and choice %s, want %s and "
+                         "%s" % (tuple(out.shape), tuple(choice.shape),
+                                 (rows, nbin), (rows, 2)))
+    _same_device(port, facts, out, choice)
+    return search_tables(wavelet, nbin, int(nlevel), port.device), out, choice
+
+
+def _smooth_search(port, tables, facts, tol, soft, out, choice, card):
+    """smart_smooth's search over chunks of rows: the kernels' stages on
+    the card (``card``), their plain versions otherwise, between the same
+    torch.fft calls on the same shapes.  The plain stages round each
+    product and sum as the kernels do (real operations, no fused
+    multiply-add), so on one device both hand cuFFT the same bits.  The
+    kernels write each row's winner (its irFFT(S), already made) into out;
+    the plain stages leave out to smooth_search_plain."""
+    ana, P, Q = tables
+    rows, nbin = port.shape
+    nlevel, nh = P.shape
+    nfact = facts.shape[0]
+    kc = noise_kc(nh)
+    lam_scale = math.sqrt(2.0 * math.log(float(nbin)))
+    step = min(rows, smooth_chunk_rows(nlevel, nfact, nbin))
+    dev = port.device
+    T = torch.empty((step, nlevel, nfact, nbin), dtype=torch.float64,
+                    device=dev)
+    D = torch.empty((step, nlevel, nfact, nh), dtype=torch.complex128,
+                    device=dev)
+    if card:
+        C = torch.empty((step, nlevel, nh), dtype=torch.complex128, device=dev)
+        lam = torch.empty((step, nfact), dtype=torch.float64, device=dev)
+        errs = torch.empty(step, dtype=torch.float64, device=dev)
+        same = torch.empty((step, nlevel, nfact), dtype=torch.int32,
+                           device=dev)
+        snr = torch.empty((step, nlevel, nfact), dtype=torch.float64,
+                          device=dev)
+        chi2 = torch.empty_like(snr)
+        npow2 = 1 << (nbin - 1).bit_length()
+    for c0 in range(0, rows, step):
+        x = port[c0:c0 + step]
+        r = x.shape[0]
+        X = torch.fft.rfft(x, dim=-1)
+        if card:
+            _launch("smooth_search", dev, X.data_ptr(), ana.data_ptr(), r,
+                    nlevel, nh, C.data_ptr(), symbol="pp_wavelet_analysis",
+                    count=False)
+            cD = torch.fft.irfft(C[:r], n=nbin, dim=-1)
+            _launch("smooth_search", dev, X.data_ptr(), cD.data_ptr(),
+                    facts.data_ptr(), r, nlevel, nbin, nh, kc, npow2, nfact,
+                    lam_scale, lam.data_ptr(), errs.data_ptr(),
+                    symbol="pp_wavelet_sigma", count=False)
+            _launch("smooth_search", dev, cD.data_ptr(), lam.data_ptr(), r,
+                    nlevel, nfact, nbin, int(soft), T.data_ptr(),
+                    same.data_ptr(), symbol="pp_wavelet_threshold",
+                    count=False)
+            torch.fft.rfft(T[:r], dim=-1, out=D[:r])
+            _launch("smooth_search", dev, X.data_ptr(), P.data_ptr(),
+                    Q.data_ptr(), r, nlevel, nfact, nh, D.data_ptr(),
+                    symbol="pp_wavelet_synthesis", count=False)
+            torch.fft.irfft(D[:r], n=nbin, dim=-1, out=T[:r])
+            torch.fft.rfft(T[:r], dim=-1, out=D[:r])
+            _launch("smooth_search", dev, x.data_ptr(), T.data_ptr(),
+                    D.data_ptr(), errs.data_ptr(), r, nlevel, nfact, nbin, nh,
+                    kc, float(tol), snr.data_ptr(), chi2.data_ptr())
+            _launch("smooth_search", dev, T.data_ptr(), snr.data_ptr(),
+                    chi2.data_ptr(), same.data_ptr(), r, nlevel, nfact, nbin,
+                    float(tol), out[c0:c0 + r].data_ptr(),
+                    choice[c0:c0 + r].data_ptr(),
+                    symbol="pp_wavelet_select", count=False)
+            continue
+        xr, xi = X.real[:, None], X.imag[:, None]
+        # analysis: C_j = A_j X
+        cD = torch.fft.irfft(torch.complex(
+            ana.real * xr - ana.imag * xi, ana.real * xi + ana.imag * xr),
+            n=nbin, dim=-1)
+        # sigma, the thresholds, the row's noise
+        errs = noise_PS_of_power(_power(X) / nbin)
+        sigma = median(torch.abs(cD[:, 0])) / 0.6745
+        lam = facts[None, :] * sigma[:, None] * lam_scale
+        c, lm = cD[:, :, None, :], lam[:, None, :, None]
+        t = T[:r]
+        if soft:
+            torch.mul(torch.sign(c), torch.clamp(torch.abs(c) - lm, min=0.0),
+                      out=t)
+        else:
+            torch.where(torch.abs(c) < lm, torch.zeros((), dtype=c.dtype,
+                                                       device=dev), c, out=t)
+        same = torch.zeros((r, nlevel, nfact), dtype=torch.bool, device=dev)
+        same[:, :, 1:] = (t[:, :, 1:] == t[:, :, :-1]).all(-1)
+        d = D[:r]
+        torch.fft.rfft(t, dim=-1, out=d)
+        # synthesis in place: d[:, j] <- S_{j+1} = P_{j+1} X
+        #                                    + sum_{i<=j} Q_i D_i
+        for j in range(nlevel):
+            dr, di = d[:, j].real, d[:, j].imag
+            qr, qi = Q[j].real, Q[j].imag
+            tr, ti = qr * dr - qi * di, qr * di + qi * dr
+            accr = tr if j == 0 else accr + tr
+            acci = ti if j == 0 else acci + ti
+            d[:, j] = torch.complex(P[j] * xr + accr, P[j] * xi + acci)
+        torch.fft.irfft(d, n=nbin, dim=-1, out=t)
+        torch.fft.rfft(t, dim=-1, out=d)
+        # search: each candidate's pseudo-S/N, gated by its chi2
+        pw = _power(d)
+        sig = pw[..., 1:].sum(-1)
+        noise = torch.sqrt(pw[..., kc:].sum(-1) / nbin / (nh - kc)) * \
+            math.sqrt(0.5 * nbin)
+        pos = noise > 0.0
+        snr = torch.where(pos, sig / torch.where(pos, noise, 1.0),
+                          torch.where(sig > 0.0, math.inf, 0.0))
+        serr = torch.where(errs > 0.0, errs, 1.0)
+        res = (x[:, None, None, :] - t) / serr[:, None, None, None]
+        chi2 = (res * res).sum(-1) / nbin
+        snr = torch.where(chi2 - 1.0 <= tol, snr, 0.0)
+        # select: per level the first best factor that repeats no earlier
+        # one, a level kept only when strictly better
+        dup = torch.cumprod(same.to(torch.int64), dim=1).bool()
+        snr = torch.where(dup, -math.inf, snr)
+        best = torch.full((r,), -math.inf, dtype=torch.float64, device=dev)
+        bl = torch.full((r,), -1, dtype=torch.int64, device=dev)
+        bf = torch.zeros(r, dtype=torch.int64, device=dev)
+        for lev in range(nlevel):
+            ib = torch.argmax(snr[:, lev], dim=1)
+            m = snr[:, lev].gather(1, ib[:, None])[:, 0]
+            better = m > best
+            bl = torch.where(better, lev, bl)
+            bf = torch.where(better, ib, bf)
+            best = torch.maximum(best, m)
+        ar, blc = torch.arange(r, device=dev), bl.clamp(min=0)
+        keep = (bl >= 0) & (best > 0.0) & (chi2[ar, blc, bf] - 1.0 <= tol)
+        choice[c0:c0 + r, 0] = torch.where(keep, bl + 1, 0)
+        choice[c0:c0 + r, 1] = torch.where(keep, bf, -1)
+    return out, choice
+
+
+def smooth_search_plain(port, wavelet, nlevel, facts, rchi2_tol,
+                        threshtype="hard", out=None, choice=None):
+    """Plain PyTorch K8 (see smooth_search): the choice by the kernels'
+    stages in torch; each chosen row's smooth made as the reference makes
+    its candidates, ops.wavelet.wavelet_smooth at the chosen level over
+    every row and factor (one call per level chosen), so that it checks
+    the kernels' candidate spectra against swt / iswt."""
+    from .ops.wavelet import wavelet_smooth
+
+    tables, out, choice = _smooth_args(port, wavelet, nlevel, facts,
+                                       threshtype, out, choice)
+    out.zero_()
+    if not port.shape[0]:
+        return out, choice
+    _smooth_search(port, tables, facts, rchi2_tol, threshtype == "soft", out,
+                   choice, card=False)
+    fgrid = facts.reshape(-1, 1)
+    for lev in torch.unique(choice[:, 0]).tolist():
+        if lev > 0:
+            rows = torch.nonzero(choice[:, 0] == lev)[:, 0]
+            cand = wavelet_smooth(port, wavelet, lev, threshtype, fgrid)
+            out[rows] = cand[choice[rows, 1], rows]
+    return out, choice
+
+
+def smooth_search(port, wavelet, nlevel, facts, rchi2_tol, threshtype="hard",
+                  out=None, choice=None):
+    """K8 wrapper (see csrc/wavelet.cu): smart_smooth's search over the
+    rows of port [rows, nbin] float64 (nbin even) with ``wavelet`` ('dbN'
+    or the lowpass filter's taps), ``nlevel`` levels and the threshold
+    factors facts [nfact] float64, the kernels reading the tables of
+    ops.wavelet.search_tables: each row's best candidate (zeros where none
+    passes chi2 - 1 <= rchi2_tol) into out [rows, nbin] and its (level,
+    factor index) into choice [rows, 2] int64 ((0, -1) where zeroed).
+    Rows go in chunks of smooth_chunk_rows.  Returns (out, choice)."""
+    if port.device.type == "cpu":
+        return smooth_search_plain(port, wavelet, nlevel, facts, rchi2_tol,
+                                   threshtype, out, choice)
+    tables, out, choice = _smooth_args(port, wavelet, nlevel, facts,
+                                       threshtype, out, choice)
+    if port.device.type != "cuda":
+        raise ValueError("smooth_search: unsupported device %s" % port.device)
+    if port.shape[1] > SMOOTH_MAX_BINS:
+        raise ValueError("smooth_search: %d bins; the kernel takes at most %d"
+                         % (port.shape[1], SMOOTH_MAX_BINS))
+    if port.shape[0]:
+        _smooth_search(port, tables, facts, rchi2_tol, threshtype == "soft",
+                       out, choice, card=True)
+    return out, choice

@@ -6,10 +6,13 @@ pplib.py:1621-1761 ``wavelet_smooth``/``smart_smooth``): the undecimated
 per level, so the transform and its exact inverse are products with the
 level-j filter response H(2^j w) in the FFT domain (cuFFT on the card).
 The Daubechies filters come from spectral factorization on the host
-(``daubechies_dec_lo``).  ``smart_smooth``'s search is one dense
-(nlevel x fact) candidate grid per portrait on the device of its input:
-for each level a [nfact, ..., nbin] batch of smoothed candidates, a
-one-sided reduced-chi2 gate and an argmax over pseudo-S/N.
+(``daubechies_dec_lo``).  ``smart_smooth``'s search over the dense
+(nlevel x fact) candidate grid runs on the device of its input as hand
+kernel K8 (``_kernels.smooth_search``, csrc/wavelet.cu): one transform
+of each profile, the thresholded details' transforms per (level, fact),
+and each candidate's spectrum from host tables (``search_tables``: the
+inverse transform unrolled), with a one-sided reduced-chi2 gate and an
+argmax over pseudo-S/N.
 """
 
 import functools
@@ -20,11 +23,10 @@ import numpy as np
 import torch
 
 from ..config import real_dtype
-from .noise import get_noise
 from .stats import median
 
 __all__ = ["daubechies_dec_lo", "swt", "iswt", "wavelet_smooth",
-           "smart_smooth", "threshold"]
+           "smart_smooth", "threshold", "search_tables"]
 
 
 @functools.lru_cache(maxsize=None)
@@ -149,22 +151,62 @@ def wavelet_smooth(port, wavelet="db8", nlevel=5, threshtype="hard",
     return iswt(cA, cDs, wavelet)
 
 
-def _pseudo_snr(smooth_prof):
-    """Fourier-domain pseudo-S/N of the smoothing-factor search
-    (reference pplib.py:1737-1761)."""
-    sig = torch.sum(torch.abs(torch.fft.rfft(smooth_prof, dim=-1)[..., 1:])
-                    ** 2, dim=-1)
-    noise = get_noise(smooth_prof) * math.sqrt(smooth_prof.shape[-1] / 2.0)
-    pos = noise > 0.0
-    return torch.where(pos, sig / torch.where(pos, noise,
-                                              torch.ones_like(noise)),
-                       torch.where(sig > 0.0, torch.full_like(sig, math.inf),
-                                   torch.zeros_like(sig)))
+def _search_tables_np(h, nbin, nlevel):
+    """(ana, P, Q) of search_tables for the lowpass filter taps h."""
+    g = ((-1.0) ** np.arange(len(h))) * h[::-1]
+    H, G = np.fft.fft(h, nbin), np.fft.fft(g, nbin)
+    nh = nbin // 2 + 1
+    k = np.arange(nh)
+    ana = np.empty((nlevel, nh), dtype=np.complex128)
+    P = np.empty((nlevel, nh), dtype=np.float64)
+    Q = np.empty((nlevel, nh), dtype=np.complex128)
+    prod = np.ones(nh, dtype=np.complex128)       # prod_{i<j} H_i
+    for j in range(nlevel):
+        idx = (k * 2 ** j) % nbin
+        ana[j] = np.conj(G[idx] * prod)
+        Q[j] = G[idx] * prod / 2.0 ** (j + 1)
+        prod = prod * H[idx]
+        P[j] = np.abs(prod) ** 2 / 2.0 ** (j + 1)
+    return ana, P, Q
+
+
+_TABLES = {}
+
+
+def search_tables(wavelet, nbin, nlevel, device):
+    """The smoothing search's tables on ``device``: the half-spectrum
+    (k = 0..nbin/2) responses, with H_i = H(2^i w) and G_i = G(2^i w) the
+    level-i responses of ``swt``,
+
+      ana[j] = conj(G_j prod_{i<j} H_i)         cD_j's spectrum over X's
+      P[l-1] = prod_{i<l} |H_i|^2 / 2^l         cA_l's share of a candidate
+      Q[j]   = G_j prod_{i<j} H_i / 2^(j+1)     cD_j's share of a candidate
+
+    so that the level-l candidate with thresholded details D_j is P[l-1] X
+    + sum_{j<l} Q[j] D_j (``iswt``'s recursion unrolled), for j, l - 1 <
+    nlevel.  Built once per (wavelet, nbin, nlevel) on the host in
+    float64 / complex128 and uploaded once per device."""
+    if isinstance(wavelet, str):
+        if not wavelet.startswith("db"):
+            raise ValueError(f"unsupported wavelet '{wavelet}'")
+        h = daubechies_dec_lo(int(wavelet[2:]))
+    else:
+        h = np.asarray(wavelet, dtype=np.float64)
+    key = (tuple(float(v) for v in h), int(nbin), int(nlevel),
+           str(torch.device(device)))
+    tabs = _TABLES.get(key)
+    if tabs is None:
+        tabs = tuple(torch.as_tensor(t, device=device) for t in
+                     _search_tables_np(h, key[1], key[2]))
+        _TABLES[key] = tabs
+    return tabs
 
 
 def _smart_smooth_grid(port, try_nlevels, nfact, rchi2_tol, wavelet,
                        threshtype):
-    """Dense (nlevel x fact) candidate search on ``port``'s device.
+    """The (nlevel x fact) candidate search on ``port``'s device: K8
+    (``_kernels.smooth_search``) on the card, its plain version on the
+    CPU.
 
     Returns the per-profile best smooth [..., nbin] (zeros where no
     candidate passes the chi2 gate).  The gate is one-sided, as in the
@@ -172,34 +214,15 @@ def _smart_smooth_grid(port, try_nlevels, nfact, rchi2_tol, wavelet,
     under-smoothed candidates eligible, and the pseudo-S/N argmax (first
     maximum) picks the most aggressive admissible candidate.
     """
+    from .. import _kernels
+
     nbin = port.shape[-1]
-    errs = get_noise(port)                      # [...] per profile
-    safe_errs = torch.where(errs > 0.0, errs, torch.ones_like(errs))
+    rows = port.reshape(-1, nbin).contiguous()
     facts = torch.linspace(0.0, 3.0, nfact, dtype=real_dtype,
                            device=port.device)
-
-    def chi2_of(sm):
-        r = (port - sm) / safe_errs[..., None]
-        return torch.sum(r * r, dim=-1) / nbin
-
-    best = torch.zeros_like(port)
-    best_snr = torch.full(port.shape[:-1], -math.inf, dtype=real_dtype,
-                          device=port.device)
-    fgrid = facts.reshape((nfact,) + (1,) * (port.ndim - 1))
-    for ilevel in range(try_nlevels):
-        sm = wavelet_smooth(port, wavelet, ilevel + 1, threshtype, fgrid)
-        snr = _pseudo_snr(sm)                   # [nfact, ...]
-        ok = chi2_of(sm) - 1.0 <= rchi2_tol
-        snr = torch.where(ok, snr, torch.zeros_like(snr))
-        ibest = torch.argmax(snr, dim=0)        # [...]
-        sm_best = torch.take_along_dim(
-            sm, ibest[None, ..., None], dim=0)[0]
-        snr_best = torch.take_along_dim(snr, ibest[None], dim=0)[0]
-        improve = snr_best > best_snr
-        best = torch.where(improve[..., None], sm_best, best)
-        best_snr = torch.maximum(best_snr, snr_best)
-    final_ok = (best_snr > 0.0) & (chi2_of(best) - 1.0 <= rchi2_tol)
-    return torch.where(final_ok[..., None], best, torch.zeros_like(best))
+    out, _ = _kernels.smooth_search(rows, wavelet, try_nlevels, facts,
+                                    rchi2_tol, threshtype)
+    return out.reshape(port.shape)
 
 
 def smart_smooth(port, try_nlevels=None, rchi2_tol=0.1, wavelet="db8",

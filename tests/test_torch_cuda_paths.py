@@ -30,6 +30,9 @@ row's range (rows above shared memory's reach included), noise 1e-13 and
 S/N 1e-12 relative, the phasor pass 1e-13 of each row's largest
 harmonic, its weighted sum 1e-12 and the same bits twice; load_data on
 the card against the plain versions on the card and against the CPU.
+The smoothing search (K8 csrc/wavelet.cu) against its plain version:
+the same (level, factor) on every row and each smooth within 1e-10 of
+its row's peak, at six shapes, in chunks, never falling back.
 
 Readings on an H100 80GB HBM3 (700 W), kernels against plain: the
 scattering fluxes 1.48e-8 (log10 tau) and 2.03e-8 (linear tau), the
@@ -1115,3 +1118,108 @@ def test_gettoas_device_cube_on_the_card(card, archive, nan):
         assert [np.asarray(v).tolist() for v in getattr(runs[0], attr)] == \
             [np.asarray(v).tolist() for v in getattr(runs[1], attr)]
     assert [int(n) for n in runs[0].n_nonfinite_zapped] == [int(nan)]
+
+
+# K8 (csrc/wavelet.cu) against its plain version: (rows, nbin, levels,
+# threshold mode, wavelet); 8192 bins take the median's sort above 48 KB
+# of shared memory, the taps an explicit filter
+SMOOTH_CASES = [(10, 2048, 11, "hard", "db8"), (1, 2048, 11, "hard", "db8"),
+                (64, 2048, 11, "soft", "db8"), (16, 1000, 1, "hard", "db8"),
+                (8, 8192, 13, "hard", "db8"), (8, 256, 8, "soft", "taps")]
+SMOOTH_TOL = 1e-10
+
+
+def _smooth_rows(rows, nbin, seed):
+    """Seeded rows cycling through a two-Gaussian pulse plus noise at S/N
+    from ~3 to ~300, the pulse with a spike one bin wide, pure noise, an
+    all-zero row and the noiseless pulse."""
+    rng = np.random.default_rng(seed)
+    x = (np.arange(nbin) + 0.5) / nbin
+    pulse = np.exp(-0.5 * ((x - 0.4) / 0.02) ** 2) \
+        + 0.5 * np.exp(-0.5 * ((x - 0.5) / 0.04) ** 2)
+    spike = np.exp(-0.5 * ((x - 0.3) * nbin) ** 2)
+    out = []
+    for i in range(rows):
+        kind = i % 6
+        noise = rng.standard_normal(nbin) * 0.1
+        if kind == 0:
+            out.append(pulse * rng.uniform(0.1, 10.0) + noise)
+        elif kind == 1:
+            out.append(pulse + 10.0 * spike + noise)
+        elif kind == 2:
+            out.append(noise * 10.0)
+        elif kind == 3 and rows > 6:
+            out.append(np.zeros(nbin))
+        elif kind == 4 and rows > 6:
+            out.append(pulse)
+        else:
+            out.append(pulse * rng.uniform(1.0, 3.0) + noise)
+    return torch.as_tensor(np.array(out), device=DEVICE)
+
+
+@pytest.mark.parametrize("case", SMOOTH_CASES, ids=lambda c: "%dx%d-%d-%s-%s"
+                         % c)
+def test_smooth_search_kernel_matches_plain(card, monkeypatch, case):
+    """K8 against its plain version on the card: the same (level, factor)
+    per row, the same rows zeroed, each smooth within SMOOTH_TOL of its
+    row's peak; one counted launch per chunk (here also in chunks of 3
+    rows); the plain version never called for a CUDA tensor."""
+    K = card
+    rows, nbin, nlevel, mode, wavelet = case
+    if wavelet == "taps":
+        from pulseportraiture_tpu_torch.ops.wavelet import daubechies_dec_lo
+        wavelet = tuple(daubechies_dec_lo(2))
+    port = _smooth_rows(rows, nbin, rows + nbin)
+    facts = torch.linspace(0.0, 3.0, 30, dtype=torch.float64, device=DEVICE)
+    want, wchoice = K.smooth_search_plain(port, wavelet, nlevel, facts, 0.1,
+                                          mode)
+
+    def boom(*a, **k):
+        raise AssertionError("fell back to the plain version")
+
+    monkeypatch.setattr(K, "smooth_search_plain", boom)
+    for chunk in (None, 3):
+        if chunk is not None:
+            monkeypatch.setattr(K, "smooth_chunk_rows", lambda *a: chunk)
+        step = min(rows, K.smooth_chunk_rows(nlevel, 30, nbin))
+        n0 = K.LAUNCHES["smooth_search"]
+        got, choice = K.smooth_search(port, wavelet, nlevel, facts, 0.1, mode)
+        torch.cuda.synchronize()
+        assert K.LAUNCHES["smooth_search"] - n0 == -(-rows // step)
+        assert torch.equal(choice, wchoice), (choice, wchoice)
+        peak = want.abs().max(dim=-1).values.clamp(min=1e-300)
+        gap = (got - want).abs().max(dim=-1).values
+        assert bool((gap <= SMOOTH_TOL * peak).all()), gap / peak
+        assert torch.equal(got.abs().sum(-1) == 0, want.abs().sum(-1) == 0)
+
+
+def test_smooth_search_refuses_on_the_card(card):
+    """K8 raises on what it does not take, on the card as on the CPU (more
+    bins than its sort holds among them), launching nothing; smart_smooth
+    on a CUDA tensor goes through it."""
+    from pulseportraiture_tpu_torch.ops.wavelet import smart_smooth
+
+    K = card
+    facts = torch.linspace(0.0, 3.0, 30, dtype=torch.float64, device=DEVICE)
+    big = torch.zeros(2, 2 * K.SMOOTH_MAX_BINS, dtype=torch.float64,
+                      device=DEVICE)
+    port = _smooth_rows(4, 256, 1)
+    K.reset_launches()
+    bad = [
+        (ValueError, lambda: K.smooth_search(big, "db8", 1, facts, 0.1)),
+        (ValueError, lambda: K.smooth_search(port, "db8", 8, facts, 0.1,
+                                             "garrote")),
+        (TypeError, lambda: K.smooth_search(port.float(), "db8", 8, facts,
+                                            0.1)),
+        (ValueError, lambda: K.smooth_search(port.t().contiguous().t(),
+                                             "db8", 8, facts, 0.1)),
+        (ValueError, lambda: K.smooth_search(port, "db8", 8, facts.cpu(),
+                                             0.1)),
+    ]
+    for err, call in bad:
+        with pytest.raises(err):
+            call()
+    assert K.LAUNCHES["smooth_search"] == 0
+    out = smart_smooth(port)
+    torch.cuda.synchronize()
+    assert out.device.type == "cuda" and K.LAUNCHES["smooth_search"] == 1

@@ -91,3 +91,29 @@ def test_load_sources_in_the_build(tmp_path, monkeypatch, source, names):
     src = csrc / source
     src.write_text(src.read_text() + "\n// edited\n")
     assert _kernels._lib_path(lib) != before
+
+
+def test_wavelet_source_in_the_build(tmp_path, monkeypatch):
+    """K8 (csrc/wavelet.cu) is a built source: its six entry points and
+    its traced CUDA function are in the source, it has a plain version
+    and a launch count, and its library's name changes when the source
+    is edited."""
+    assert "wavelet.cu" in _kernels.SOURCES
+    assert _kernels._lib_of("smooth_search") == "wavelet"
+    text = open(_kernels.CSRC_DIR + "/wavelet.cu").read()
+    symbols = _kernels._SYMBOLS["smooth_search"]
+    assert _kernels.KERNELS["smooth_search"][1] in symbols
+    assert len(symbols) == 6
+    for sym in symbols:
+        assert 'extern "C" int %s(' % sym in text
+    assert "__global__" in text and \
+        _kernels.TRACE_NAMES["smooth_search"] in text
+    assert callable(_kernels.smooth_search_plain)
+    assert "smooth_search" in _kernels.LAUNCHES
+    csrc = tmp_path / "csrc"
+    shutil.copytree(_kernels.CSRC_DIR, csrc)
+    monkeypatch.setattr(_kernels, "CSRC_DIR", str(csrc))
+    before = _kernels._lib_path("wavelet")
+    src = csrc / "wavelet.cu"
+    src.write_text(src.read_text() + "\n// edited\n")
+    assert _kernels._lib_path("wavelet") != before

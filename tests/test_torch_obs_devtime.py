@@ -81,7 +81,8 @@ def test_fixture_rows_and_kernel_names(tmp_path):
     assert counts == {"moments": 2, "moments_grad_hess": 0, "fftfit": 1,
                       "moments_scat": 1, "moments_scat_grad_hess": 0,
                       "spectra": 0, "spectra_noise": 0, "unpack": 0,
-                      "baseline": 0, "load_stats": 0, "rotate": 0}
+                      "baseline": 0, "load_stats": 0, "rotate": 0,
+                      "smooth_search": 0}
     assert devtime.scopes_of(["pp_solve", "x", "pp_scatter", None]) == \
         ["pp_solve", "pp_scatter"]
 
