@@ -122,11 +122,22 @@ the profiler's clock conversion is fresh):
   ppalign_s   ppalign -s on the aligned archive (its one epoch aligned
               to itself, --niter 1, then psrsmooth -W of the output:
               K8 on its 512 x 2048 profiles, its plain version made to
-              raise meanwhile): CLI wall, K1, K2 and K8 launched, K8 held
-              against its plain version on the rows the path gave it (the
-              same (level, factor) per row, each smooth within 1e-10 of
-              its peak) and timed there (CUDA-graph replay) beside its
-              bound and the plain version's time; the .sm archive
+              raise meanwhile): CLI wall, K1, K2 and K8 launched (its
+              scan among them), K8's rows by tier (certified by the scan,
+              redecided by the route), K8 held against its plain version
+              on the rows the path gave it (the same (level, factor) per
+              row, each smooth within 1e-10 of its peak), its scan
+              against the scan's plain version (S/N and chi2 within
+              1e-12 relative, the repeat flags equal) and the
+              certification's premise there (the scan's noise, signal
+              power and chi2 within their bounds of the route's), timed
+              there (its device time by CUDA-graph replay of the scan
+              with its certification and of the route over the uncertain
+              rows, the call by CUDA events, the route alone over every
+              row both ways) beside its bound and the plain version's
+              time; K8 at a width its
+              scan does not take (16 rows of 2000 bins: every row through
+              the route, counted, as plain); the .sm archive
               against psrsmooth with the plain versions (one count of
               each row's int16 encoding)
   ppspline    ppspline -s on the aligned archive: eigenprofiles, K8 at the
@@ -286,8 +297,10 @@ walkthrough, K4
 (``spectra``, ``spectra_noise``) on every path, the throughput and
 throughput_scat fits included, K5-K7 (``unpack``, ``baseline``,
 ``load_stats``, ``rotate``) on every path that loads an
-archive, the load phase's own run first, K8 (``smooth_search``) on
-ppspline, ppalign_s and the walkthrough, with ``launches_by_path`` —
+archive, the load phase's own run first, K8 (``smooth_search``, counted
+once a chunk decided, its ``symbols`` and ``rows_by_path``: rows by
+tier) on ppspline, ppalign_s and the walkthrough, with
+``launches_by_path`` —
 errors and times; K2 with
 its [1000, 1025] numbers, K1 and K3 with their [1000, 512, 128] ones and
 K4 with its [64, 512, 2048] ones,
@@ -400,12 +413,18 @@ K7_OPS = 29
 SMOOTH_KERNELS = ("smooth_search",)
 # K8 against its plain version: the same (level, factor) on every row and
 # each smooth within this of its row's peak (tests/test_torch_wavelet_*;
-# the two hand cuFFT the same bits, the plain's smooth is wavelet_smooth's)
+# the route hands cuFFT the plain version's bits, the scan's rows are
+# certified, and the smooths differ by rounding: the plain's are
+# wavelet_smooth's)
 SMOOTH_TOL = 1e-10
 # FP64 operations of K8 per half-spectrum bin per candidate, beside the
 # candidates' forward transforms: forming its spectrum S from the tables
 # and reading its S/N and chi2 from it, ~24 a bin
 K8_OPS = 24
+# K8's rows by tier on each path that smooths (K.SMOOTH_ROWS over the
+# path's main run): scanned (the scan, certified or not), redecided (of
+# those, the uncertain rows the route took), unscanned
+SMOOTH_TIERS = {}
 
 
 def emit(phase, **kw):
@@ -2248,41 +2267,209 @@ def smooth_grid_bound_ms(rows, nbin, nlevel, nfact):
                     (ffts * 5 * nbin * math.log2(nbin), PEAK_FP64_PER_S))
 
 
+def smooth_scan_errors(K, a):
+    """K8's scan kernel (smooth_scan) against its plain version on the
+    inputs ``a`` of a smooth_search call, and the certification's premise
+    there: (largest relative gap of the S/N and chi2 over the candidates
+    with both positive and finite, the repeat flags equal, {the largest
+    gap between the scan kernel's value and the route's (cuFFT's round
+    trips, the plain stages on the card) over its bound: noise over En,
+    the square root of the signal power over G, of the chi2 over delta
+    (_kernels._cert_bounds_plain)}, the rows whose cuFFT transforms fail
+    the certification's check)."""
+    import torch
+
+    from pulseportraiture_tpu_torch.ops.wavelet import (scan_twiddles,
+                                                        search_maxima,
+                                                        search_tables)
+
+    port, wavelet, nlevel, facts, _, mode = a[:6]
+    r, nbin = port.shape
+    st, same = K.smooth_scan(port, wavelet, nlevel, facts, mode)
+    sp, samep = K.smooth_scan_plain(port, wavelet, nlevel, facts, mode)
+    ok = torch.isfinite(sp[..., :2]).all(-1) & (sp[..., :2] > 0).all(-1)
+    rel = ((st[..., :2] - sp[..., :2]).abs() / sp[..., :2].abs().clamp(
+        min=1e-300))[ok]
+    nh = nbin // 2 + 1
+    kc = K.noise_kc(nh)
+    tables = search_tables(wavelet, nbin, nlevel, port.device)
+    t = torch.empty((r, nlevel, facts.shape[0], nbin), dtype=torch.float64,
+                    device=port.device)
+    d = torch.empty((r, nlevel, facts.shape[0], nh), dtype=torch.complex128,
+                    device=port.device)
+    _, _, chi2, _ = K._route_candidates_plain(port, tables, facts,
+                                              mode == "soft", t, d)
+    pw = K._power(d)
+    noise = torch.sqrt(pw[..., kc:].sum(-1) / nbin / (nh - kc))
+    sig = pw[..., 1:].sum(-1)
+    del t, d, pw
+    X, cD, errs, _ = K._setup_plain(port, tables[0], facts)
+    G, En, delta, bad = K._cert_bounds_plain(
+        port, X, cD, errs, st, tables[0][0],
+        search_maxima(wavelet, nbin, nlevel, port.device),
+        scan_twiddles(nbin, port.device))
+
+    def over(gap, bound):
+        return float(torch.where(bound > 0.0, gap / bound, gap * math.inf
+                                 ).nan_to_num(0.0).max())
+
+    gaps = dict(noise=over((st[..., 2] - noise).abs(), En),
+                sqrt_sig=over((st[..., 3].sqrt() - sig.sqrt()).abs(), G),
+                sqrt_chi2=over((st[..., 1].sqrt() - chi2.sqrt()).abs(),
+                               delta))
+    torch.cuda.synchronize()
+    return (float(rel.max()) if rel.numel() else 0.0,
+            bool(torch.equal(same, samep)), gaps, int(bad.sum()))
+
+
 def smooth_rows(K, seen, vs_plain, path):
     """K8 at each shape a path gave it (``seen``, from first_kernel_inputs
-    per shape) with its errors against plain (``vs_plain``): device ms by
-    CUDA-graph replay, the wrapper's ms per call (CUDA events), the plain
-    version's (CUDA events: it syncs the host), the bound, the torch
-    grid's bound and one call's device profile (kernel_device_ms: its
-    longest device rows).  Timing launches are not counted."""
+    per shape) with its errors against plain (``vs_plain``): its rows by
+    tier (certified by the scan, redecided by the route, unscanned), its
+    device ms by CUDA-graph replay (``ms``: the set-up, the scan and the
+    certification, plus the route over this input's uncertain rows,
+    gathered with their set-up; each part alone, ``scan_certify_ms`` and
+    ``route_ms``, and the set-up and scan alone, ``scan_ms``), the
+    wrapper's ms per call (CUDA events over calls back to back,
+    ``call_ms``: a call syncs the host once, for its uncertain rows'
+    count; ``call_synced_ms`` with each call's result awaited, as its
+    callers read it), the route alone over every row (the design before
+    the scan, on the same input in the same process: ``route_all_ms`` by
+    graph replay, ``route_all_call_ms`` and ``route_all_call_synced_ms``
+    by CUDA events), the plain version's (CUDA events: it syncs the host), the
+    bound, the torch grid's bound, one call's device profile
+    (kernel_device_ms: its longest device rows), the scan kernel against
+    smooth_scan_plain and the certification's premise
+    (smooth_scan_errors).  Timing launches are not counted."""
+    import torch
+
+    from pulseportraiture_tpu_torch.ops.wavelet import (search_maxima,
+                                                        search_tables)
+
     rows = []
     for key, (a, kw) in sorted(seen.items(), key=lambda kv: kv[0][1]):
         if key[0] != "smooth_search":
             continue
-        port, _, nlevel, facts = a[:4]
+        port, wavelet, nlevel, facts, tol, mode = a[:6]
         r, nbin = port.shape
         nfact = facts.shape[0]
+        soft = mode == "soft"
         n0 = K.LAUNCHES["smooth_search"]
+        tiers0 = dict(K.SMOOTH_ROWS)
+        scanned = K.scannable(nbin)
         reps = 5 if r > 64 else 20
-        ms = graph_ms(lambda: K.smooth_search(*a, **kw), reps=reps)
+        tables = search_tables(wavelet, nbin, nlevel, port.device)
+
+        def new_out(n):
+            return (torch.empty((n, nbin), dtype=torch.float64,
+                                device=port.device),
+                    torch.empty((n, 2), dtype=torch.int64,
+                                device=port.device))
+
         call_ms = cuda_ms(lambda: K.smooth_search(*a, **kw), reps=reps,
                           warm=1)
+        # as its callers make it: each call's result read before the next
+        call_synced_ms = cuda_ms(lambda: (K.smooth_search(*a, **kw),
+                                          torch.cuda.synchronize()),
+                                 reps=reps, warm=1)
+        o, c = new_out(r)
+        route_all_ms = graph_ms(lambda: K._route(
+            port, tables, facts, tol, soft, o, c, card=True), reps=reps)
+        route_all_call_ms = cuda_ms(lambda: K._route(
+            port, tables, facts, tol, soft, *new_out(r), card=True),
+            reps=reps, warm=1)
+        route_all_call_synced_ms = cuda_ms(lambda: (K._route(
+            port, tables, facts, tol, soft, *new_out(r), card=True),
+            torch.cuda.synchronize()), reps=reps, warm=1)
+        if scanned:
+            # the first two tiers, then the route over the uncertain rows,
+            # gathered as smooth_search gathers them
+            maxima = search_maxima(wavelet, nbin, nlevel, port.device)
+            flags, setup = K._scan_certify(port, tables, maxima, facts, tol,
+                                           soft, o, c)
+            unc = torch.nonzero(flags)[:, 0]
+            tiers = dict(certified=r - len(unc), redecided=len(unc),
+                         unscanned=0)
+            scan_ms = graph_ms(lambda: K.smooth_scan(
+                port, wavelet, nlevel, facts, mode), reps=reps)
+            scan_certify_ms = graph_ms(lambda: K._scan_certify(
+                port, tables, maxima, facts, tol, soft, o, c), reps=reps)
+            xu = port.index_select(0, unc)
+            su = None if setup is None else tuple(
+                t.index_select(0, unc) for t in setup)
+            ou, cu = new_out(len(unc))
+            route_ms = graph_ms(lambda: K._route(
+                xu, tables, facts, tol, soft, ou, cu, card=True, setup=su),
+                reps=reps) if len(unc) else 0.0
+            device_ms = scan_certify_ms + route_ms
+        else:
+            tiers = dict(certified=0, redecided=0, unscanned=r)
+            scan_ms = scan_certify_ms = None
+            # every row through the route: no host sync
+            route_ms = device_ms = graph_ms(
+                lambda: K.smooth_search(*a, **kw), reps=reps)
         plain_ms = cuda_ms(lambda: K.smooth_search_plain(*a, **kw), reps=2,
                            warm=1)
-        # where a call's device time goes: its six kernels and cuFFT's
+        # where a call's device time goes: the set-up, the scan and its
+        # certification, the route's kernels and cuFFT
         _, prof = kernel_device_ms(lambda: K.smooth_search(*a, **kw), K)
+        scan_rel, same_eq, gaps, check_failed = smooth_scan_errors(K, a) \
+            if scanned else (None, None, None, None)
         K.LAUNCHES["smooth_search"] = n0
+        K.SMOOTH_ROWS.update(tiers0)
         bms, by = smooth_bound_ms(r, nbin, nlevel, nfact)
         err = vs_plain["smooth_search@%dx%d" % (r, nbin)]
         rows.append(dict(
-            path=path, shape=[r, nbin], nlevels=nlevel, nfact=nfact, ms=ms,
-            call_ms=call_ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
-            share_of_bound=bms / ms,
+            path=path, shape=[r, nbin], nlevels=nlevel, nfact=nfact,
+            ms=device_ms, call_ms=call_ms, call_synced_ms=call_synced_ms,
+            scan_ms=scan_ms, scan_certify_ms=scan_certify_ms,
+            route_ms=route_ms, route_all_ms=route_all_ms,
+            route_all_call_ms=route_all_call_ms,
+            route_all_call_synced_ms=route_all_call_synced_ms,
+            rows=tiers, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
+            share_of_bound=bms / device_ms,
             grid_bound_ms=smooth_grid_bound_ms(r, nbin, nlevel, nfact)[0],
             library_ms=None, max_abs_err=err["max_abs_err"],
             max_rel_err=err["max_rel_err"],
-            choice_mismatches=err["choice_mismatches"], profile=prof))
+            choice_mismatches=err["choice_mismatches"],
+            scan_vs_plain_max_rel_err=scan_rel, scan_same_equal=same_eq,
+            gap_over_bound=gaps, rows_failing_fft_check=check_failed,
+            profile=prof))
+        if scanned and not (scan_rel <= 1e-12 and same_eq
+                            and max(gaps.values()) <= 1.0):
+            raise AssertionError("K8's scan on %s %s: %s" % (
+                path, [r, nbin], rows[-1]))
     return rows
+
+
+def smooth_width_check(K, port, nbin=2000):
+    """K8 on rows of a width its scan does not take (the path's first 16
+    rows cut to ``nbin`` bins): every row through the route, counted as
+    unscanned, and the same (level, factor) as plain.  Returns the
+    check's numbers."""
+    import torch
+
+    rows = port[:16, :nbin].contiguous()
+    facts = torch.linspace(0.0, 3.0, 30, dtype=torch.float64,
+                           device=rows.device)
+    n0 = K.LAUNCHES["smooth_search"]
+    tiers0 = dict(K.SMOOTH_ROWS)
+    got, choice = K.smooth_search(rows, "db8", 1, facts, 0.1)
+    want, wchoice = K.smooth_search_plain(rows, "db8", 1, facts, 0.1)
+    torch.cuda.synchronize()
+    out = dict(shape=list(rows.shape), launches=K.LAUNCHES["smooth_search"]
+               - n0, rows={t: K.SMOOTH_ROWS[t] - tiers0[t] for t in tiers0},
+               choice_mismatches=int((choice != wchoice).any(-1).sum()),
+               max_rel_err=float(((got - want).abs().amax(-1) / want.abs(
+               ).amax(-1).clamp(min=1e-300)).max()))
+    K.LAUNCHES["smooth_search"] = n0
+    K.SMOOTH_ROWS.update(tiers0)
+    if out["rows"]["unscanned"] != rows.shape[0] or out["launches"] < 1 \
+            or out["choice_mismatches"] or not out["max_rel_err"] <= \
+            SMOOTH_TOL:
+        raise AssertionError("K8 at a width the scan does not take: %s"
+                             % out)
+    return out
 
 
 def align_inputs(root, work, shape, narch=ALIGN_ARCHIVES, nu0=NU0):
@@ -2559,8 +2746,11 @@ def phase_ppspline(root, work, K, dev, avg, small):
     with first_kernel_inputs(K, SMOOTH_KERNELS, per_shape=True) as seen:
         wall, launches = run_tool(K, ppspline, [
             "-d", avg, "-o", spl, "-s", "--quiet", "--device", str(dev)])
-    if launches["fftfit"] == 0 or launches["smooth_search"] == 0:
-        raise AssertionError("ppspline -N prof -s launched %s" % launches)
+    SMOOTH_TIERS["ppspline"] = tiers = dict(K.SMOOTH_ROWS)
+    if launches["fftfit"] == 0 or launches["smooth_search"] == 0 or \
+            tiers["scanned"] == 0:
+        raise AssertionError("ppspline -N prof -s launched %s, K8's rows %s"
+                             % (launches, tiers))
     ncomp = read_spline_model(spl)[4].shape[1]
     vs_plain = path_kernels_vs_plain(K, seen, SMOOTH_KERNELS)
     k8 = smooth_rows(K, seen, vs_plain, "ppspline")
@@ -2587,7 +2777,7 @@ def phase_ppspline(root, work, K, dev, avg, small):
     total = {name: launches[name] + toas["launches"][name]
              for name in launches}
     emit("ppspline", cli_s=wall, launches=launches, n_eigenprofiles=ncomp,
-         kernels_vs_plain=vs_plain, k8=k8,
+         kernels_vs_plain=vs_plain, k8=k8, k8_rows=tiers,
          b9_eigh=dict(shape=[n, n], ms=eigh_ms, bound_ms=eigh_bound,
                       bound_by=eigh_by),
          pptoas=toas)
@@ -2624,15 +2814,19 @@ def phase_ppalign_smooth(root, work, K, dev, avg):
             wall, launches = run_tool(K, ppalign, [
                 "-M", meta, "-I", avg, "-o", out, "--niter", "1", "-s",
                 "--device", str(dev)])
+        SMOOTH_TIERS["ppalign_s"] = tiers = dict(K.SMOOTH_ROWS)
     finally:
         K.smooth_search_plain = plain
     missing = [n for n in PHASE_DM_KERNELS + SMOOTH_KERNELS
                if launches[n] == 0]
-    if missing:
-        raise AssertionError("kernels never launched on ppalign -s: %s"
-                             % missing)
+    if missing or tiers["scanned"] == 0:
+        raise AssertionError("kernels never launched on ppalign -s: %s; "
+                             "K8's rows %s" % (missing, tiers))
     vs_plain = path_kernels_vs_plain(K, seen, SMOOTH_KERNELS)
     k8 = smooth_rows(K, seen, vs_plain, "ppalign_s")
+    widths = smooth_width_check(K, max(
+        (a[0] for key, (a, _) in seen.items() if key[0] == "smooth_search"),
+        key=lambda t: t.shape[0]))
     del seen
 
     with plain_kernels(K):
@@ -2642,7 +2836,8 @@ def phase_ppalign_smooth(root, work, K, dev, avg):
     counts = np.abs(got.data - want.data) / scl[..., None]
     smoothed = np.any(got.data != raw.data, axis=-1)
     emit("ppalign_s", archive=list(got.data.shape), cli_s=wall,
-         launches=launches, kernels_vs_plain=vs_plain, k8=k8,
+         launches=launches, kernels_vs_plain=vs_plain, k8=k8, k8_rows=tiers,
+         k8_unscanned_width=widths,
          rows_smoothed=int(smoothed.sum()), rows=int(smoothed.size),
          sm_vs_plain=dict(max_counts=float(counts.max()),
                           rows_differing=int(np.any(counts > 0,
@@ -2901,6 +3096,7 @@ def phase_walkthrough(root, work, K, dev, shape=(10, 512, 2048)):
             as seen:
         run = walkthrough_run(root, work, meta, files, dev)
     launches = dict(K.LAUNCHES)
+    SMOOTH_TIERS["walkthrough"] = tiers = dict(K.SMOOTH_ROWS)
     vs_plain = path_kernels_vs_plain(K, seen,
                                      PHASE_DM_KERNELS + SMOOTH_KERNELS)
     del seen
@@ -2924,7 +3120,7 @@ def phase_walkthrough(root, work, K, dev, shape=(10, 512, 2048)):
              prefit_wrms_us=gls["prefit_wrms_us"],
              postfit_wrms_us=gls["postfit_wrms_us"],
              red_chi2=gls["red_chi2"]),
-         criteria=crit, kernels_vs_plain=vs_plain,
+         criteria=crit, kernels_vs_plain=vs_plain, k8_rows=tiers,
          plain_vs_kernel_max_ns=dt_ns)
     if len(kern) != len(files) * shape[0] or len(plain) != len(kern):
         raise AssertionError("walkthrough: %d TOAs (plain run %d), want %d"
@@ -2938,8 +3134,10 @@ def phase_walkthrough(root, work, K, dev, shape=(10, 512, 2048)):
     if not dt_ns < 1.0:
         raise AssertionError("walkthrough: plain vs kernel TOAs differ by "
                              "%.3g ns" % dt_ns)
-    if any(launches[n] == 0 for n in PHASE_DM_KERNELS + SMOOTH_KERNELS):
-        raise AssertionError("walkthrough launched %s" % launches)
+    if any(launches[n] == 0 for n in PHASE_DM_KERNELS + SMOOTH_KERNELS) \
+            or tiers["scanned"] == 0:
+        raise AssertionError("walkthrough launched %s, K8's rows %s"
+                             % (launches, tiers))
     if not np.isfinite([gls["postfit_wrms_us"], gls["red_chi2"]]).all():
         raise AssertionError("walkthrough: GLS %s" % gls)
     return launches
@@ -5527,12 +5725,18 @@ def main(argv):
                     "share_of_bound", "plain_ms", "library_ms", "errors",
                     "max_abs_err")} for c in r])
         elif name == "smooth_search":
-            r, extra = max(r, key=lambda c: c["shape"][0]), dict(shapes=[
-                {key: c[key] for key in (
+            r, extra = max(r, key=lambda c: c["shape"][0]), dict(
+                symbols=sorted(K._SYMBOLS[name]), rows_by_path=SMOOTH_TIERS,
+                shapes=[{key: c[key] for key in (
                     "path", "shape", "nlevels", "nfact", "ms", "call_ms",
-                    "bound_ms", "share_of_bound", "grid_bound_ms",
-                    "plain_ms", "max_rel_err", "max_abs_err",
-                    "choice_mismatches")} for c in r])
+                    "call_synced_ms", "scan_ms", "scan_certify_ms",
+                    "route_ms", "route_all_ms", "route_all_call_ms",
+                    "route_all_call_synced_ms", "rows", "bound_ms",
+                    "share_of_bound", "grid_bound_ms", "plain_ms",
+                    "max_rel_err", "max_abs_err", "choice_mismatches",
+                    "scan_vs_plain_max_rel_err", "scan_same_equal",
+                    "gap_over_bound", "rows_failing_fft_check")}
+                    for c in r])
         elif name in K4_NAMES:
             r, extra = r[K4_MAIN], dict(shapes=[
                 {key: c[key] for key in (

@@ -60,10 +60,15 @@ interface and loaded with ``ctypes``:
      work copy's among them.
   K8 ``smooth_search`` (csrc/wavelet.cu) — smart_smooth's wavelet
      smoothing search (pulseportraiture_tpu/ops/wavelet.py:177
-     _smart_smooth_grid) between cuFFT's transforms: the analysis
-     products, the median and thresholds, the candidates' spectra from
-     host tables, their gated pseudo-S/N and the choice.  Six CUDA
-     kernels per chunk of rows; LAUNCHES counts one (the search stage's).
+     _smart_smooth_grid) in three tiers: the set-up (the analysis
+     products between cuFFT's transforms, the median and thresholds); the
+     scan (pp_wavelet_scan, one block a (row, factor) over every level,
+     its own transforms in shared memory) and its certification with the
+     certified rows' choice and smooth (pp_wavelet_certify); the route
+     (the candidates' round trips through cuFFT and their gated pseudo-S/N
+     and choice) for the rows left uncertain and for widths the scan does
+     not take.  LAUNCHES counts each chunk decided (one certifying or
+     route select); SMOOTH_ROWS counts the rows by tier.
 
 Each wrapper dispatches on its input's device: a CPU tensor takes the
 plain PyTorch version beside it (the same name with ``_plain``: e.g.
@@ -124,8 +129,9 @@ __all__ = ["KernelLaunchError", "LAUNCHES", "reset_launches", "build",
            "stored_values",
            "baseline", "baseline_plain", "baseline_window", "load_stats",
            "load_stats_plain", "rotate", "rotate_plain", "smooth_search",
-           "smooth_search_plain", "smooth_chunk_rows", "SMOOTH_MAX_BINS",
-           "KERNELS"]
+           "smooth_search_plain", "smooth_scan",
+           "smooth_scan_plain", "smooth_chunk_rows", "scan_chunk_rows",
+           "scannable", "SMOOTH_MAX_BINS", "SMOOTH_ROWS", "KERNELS"]
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC_DIR = os.path.join(_HERE, "csrc")
@@ -157,7 +163,7 @@ KERNELS = {
                    "pulseportraiture_tpu/io/archive.py:121"),
     "rotate": ("rotate.cu", "pp_rotate",
                "pulseportraiture_tpu/ops/fourier.py:210"),
-    "smooth_search": ("wavelet.cu", "pp_wavelet_search",
+    "smooth_search": ("wavelet.cu", "pp_wavelet_scan",
                       "pulseportraiture_tpu/ops/wavelet.py:177"),
 }
 # the sources, one nvcc and one library each
@@ -202,12 +208,19 @@ _SYMBOLS = {
         "pp_wavelet_search": [_VP, _VP, _VP, _VP, _I64, _INT, _INT, _INT,
                               _INT, _INT, _DBL, _VP, _VP, _VP],
         "pp_wavelet_select": [_VP, _VP, _VP, _VP, _I64, _INT, _INT, _INT,
-                              _DBL, _VP, _VP, _VP]},
+                              _DBL, _VP, _VP, _VP],
+        "pp_wavelet_scan": [_VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _I64,
+                            _INT, _INT, _INT, _INT, _INT, _VP, _VP, _VP],
+        "pp_wavelet_certify": [_VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP,
+                               _VP, _VP, _VP, _I64, _INT, _INT, _INT, _INT,
+                               _INT, _DBL, _DBL, _DBL, _DBL, _DBL, _VP, _VP,
+                               _VP, _VP]},
 }
 
 # kernel name -> the CUDA function that runs once per counted launch, as
 # it is named in a profiler trace (K2's grid stage, its Newton stage
-# runs as often)
+# runs as often; K8's two selects, the route's and the scan's certifying
+# one, both wavelet_select*)
 TRACE_NAMES = {"moments": "moments_kernel",
                "moments_grad_hess": "moments_grad_hess_kernel",
                "fftfit": "fftfit_grid_kernel",
@@ -219,7 +232,7 @@ TRACE_NAMES = {"moments": "moments_kernel",
                "baseline": "baseline_kernel",
                "load_stats": "load_stats_kernel",
                "rotate": "rotate_kernel",
-               "smooth_search": "wavelet_search_kernel"}
+               "smooth_search": "wavelet_select"}
 
 LAUNCHES = {name: 0 for name in KERNELS}
 BUILD_LOG = {}  # library (source stem) -> nvcc output (register report)
@@ -239,9 +252,11 @@ class KernelLaunchError(RuntimeError):
 
 
 def reset_launches():
-    """Set every launch count to 0."""
+    """Set every launch count, and K8's rows by tier (SMOOTH_ROWS), to 0."""
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+    for tier in SMOOTH_ROWS:
+        SMOOTH_ROWS[tier] = 0
 
 
 def _nvcc():
@@ -1323,21 +1338,94 @@ def rotate(X, shifts, out=None):
 
 
 # -- K8: the wavelet smoothing search -----------------------------------------
+#
+# Three tiers (csrc/wavelet.cu): the set-up (each row's rFFT, its details
+# cD_j, sigma and the thresholds), the scan (every candidate's S/N, chi2 and
+# noise from the scan's own transforms, on chip) with the certification and
+# the winner's smooth, and the route (the candidates' round trips through
+# cuFFT, as the reference reads them) for the rows the certification leaves
+# uncertain and for the widths the scan does not take.
 
-# bytes of a chunk's candidate buffers: the thresholded arrays T and their
-# spectra D (and, on the card, cuFFT's copy of D for the inverse)
+# bytes of a chunk's buffers: the route's thresholded arrays T and their
+# spectra D (and, on the card, cuFFT's copy of D for the inverse); the
+# scan's set-up (C and cD) and candidate statistics
 SMOOTH_CHUNK_BYTES = 1 << 30
 # the median's sort holds a row's |cD_0| (padded to a power of two) in
 # shared memory: 128 KB at 16384 bins
 SMOOTH_MAX_BINS = 16384
+# the scan takes rows of a power of two bins in this range: its two
+# transform buffers (nbin / 2 complex128 each) and the running sum (nbin /
+# 2 + 1) sit in shared memory, 192 KB at 8192 bins
+SCAN_MIN_BINS = 64
+SCAN_MAX_BINS = 8192
+# The certification (pp_wavelet_certify, _certify_plain).  The scan's
+# transforms round otherwise than the FFT library's round trips, so the
+# route's S/N, chi2 and noise of a candidate are the scan's within bounds
+# drawn, per candidate, from a worst-case bound on floating-point FFT error:
+# Higham, Accuracy and Stability of Numerical Algorithms (2nd ed., 2002),
+# Theorem 24.2: a radix-2 FFT of 2^t points with twiddles within mu of
+# the true ones has |y^ - y|_2 <= t eta / (1 - t eta) |y|_2, eta = mu +
+# gamma_4 (sqrt(2) + mu), gamma_k = k u / (1 - k u), u = 2^-53.  The
+# scan's radix-4 pass rounds no more than two radix-2 stages (its 4-point
+# DFT has exact twiddles +-1, +-i), its real transform's split step is
+# counted as two more: t = log2(nbin) + 1 (_cert_eps).  Its twiddle table
+# (ops.wavelet.scan_twiddles) takes the angle 2 pi t / nbin within 1.35 u
+# times the true one (at most 2 pi) and numpy's cos and sin within an
+# ulp: mu = TWIDDLE_ERR.  The FFT library's transforms are held to the
+# same bound: the certification checks it on each row's own data (the
+# set-up's rFFT of x and irFFT of C_0 within 2 eps of the scan's), and a
+# row that fails goes through the route.  From that, for a candidate of level l + 1 with An =
+# sqrt(nbin) sum_{j<=l} max|Q_j| |T_j| (its details' spectra; the scan
+# reads |T_j|) and |S| <= Sn = sqrt(sig) + max|P_l| |X_0| + An, the two
+# evaluations' spectra differ by at most G0 = 2 eps An + 2 gam (max|P_l|
+# sqrt(nbin) |x| + An) before the route's round trip (gam: the synthesis
+# sums' rounding, gamma_{2L + 4}, _cert_gam) and G = G0 + 3 eps (Sn + G0)
+# after it; so the route's noise lies within En = G / sqrt(nbin (nh - kc))
+# of the scan's, the square root of its signal power within G, the
+# square root of its chi2 within delta (_cert_bounds_plain), and its S/N
+# within [lo, hi].  The gated S/N of a candidate that is no repeat then
+# lies within [vlo, vhi] (lo where the gate passes for certain, 0 where it
+# may fail; hi where it may pass, 0 where it fails for certain).  A row
+# stands when the candidate of the greatest vlo (its choice) has vlo > 0
+# and every other candidate's vhi, times 1 + CERT_MARGIN, stays below it;
+# a row zeroed stands when no vhi is above 0; a NaN or infinite chi2,
+# noise, signal power or bound leaves it uncertain.  CERT_MARGIN and
+# CHI2_MARGIN also cover the rounding of the sums of the S/N and the chi2
+# (relative, below nbin u).  An uncertain row goes through the route whole.
+# The candidates whose noise lies at the round trip's rounding floor have
+# wide intervals: a row is uncertain where one of them, or a candidate
+# within the margin, could overtake its choice.
+CERT_MARGIN = 1e-6
+CHI2_MARGIN = 1e-9
+_U = 2.0 ** -53
+TWIDDLE_ERR = 12.0 * _U
+# rows of K8's calls on the card by the tier that decided them: scanned
+# (the scan and its certification), redecided (scanned rows the route then
+# took, uncertain), unscanned (rows of a width the scan does not take,
+# through the route whole)
+SMOOTH_ROWS = {"scanned": 0, "redecided": 0, "unscanned": 0}
 
 
 def smooth_chunk_rows(nlevel, nfact, nbin):
-    """Rows of a smooth_search chunk: SMOOTH_CHUNK_BYTES over a row's
-    [nlevel, nfact] candidates (nbin float64 and twice nbin // 2 + 1
-    complex128 each), at least 1."""
+    """Rows of a route chunk: SMOOTH_CHUNK_BYTES over a row's [nlevel,
+    nfact] candidates (nbin float64 and twice nbin // 2 + 1 complex128
+    each), at least 1."""
     per_row = nlevel * nfact * (nbin * 8 + 2 * (nbin // 2 + 1) * 16)
     return max(1, SMOOTH_CHUNK_BYTES // per_row)
+
+
+def scan_chunk_rows(nlevel, nfact, nbin):
+    """Rows of a scan chunk: SMOOTH_CHUNK_BYTES over a row's set-up (C
+    [nlevel, nbin // 2 + 1] complex128, cD [nlevel, nbin] float64) and its
+    candidates' statistics (five float64 and a flag each), at least 1."""
+    per_row = nlevel * ((nbin // 2 + 1) * 16 + nbin * 8) \
+        + nlevel * nfact * 44
+    return max(1, SMOOTH_CHUNK_BYTES // per_row)
+
+
+def scannable(nbin):
+    """Whether the scan takes rows of ``nbin`` bins."""
+    return SCAN_MIN_BINS <= nbin <= SCAN_MAX_BINS and nbin & (nbin - 1) == 0
 
 
 def _smooth_args(port, wavelet, nlevel, facts, threshtype, out, choice):
@@ -1372,20 +1460,113 @@ def _smooth_args(port, wavelet, nlevel, facts, threshtype, out, choice):
     return search_tables(wavelet, nbin, int(nlevel), port.device), out, choice
 
 
-def _smooth_search(port, tables, facts, tol, soft, out, choice, card):
-    """smart_smooth's search over chunks of rows: the kernels' stages on
-    the card (``card``), their plain versions otherwise, between the same
-    torch.fft calls on the same shapes.  The plain stages round each
-    product and sum as the kernels do (real operations, no fused
-    multiply-add), so on one device both hand cuFFT the same bits.  The
-    kernels write each row's winner (its irFFT(S), already made) into out;
-    the plain stages leave out to smooth_search_plain."""
+def _check_card(port, what):
+    if port.device.type != "cuda":
+        raise ValueError("%s: unsupported device %s" % (what, port.device))
+    if port.shape[1] > SMOOTH_MAX_BINS:
+        raise ValueError("%s: %d bins; the kernel takes at most %d"
+                         % (what, port.shape[1], SMOOTH_MAX_BINS))
+
+
+def _setup_plain(x, ana, facts):
+    """The set-up in torch: X = rFFT(x), cD_j = irFFT(A_j X), each row's
+    noise errs (get_noise_PS from X) and thresholds lam [rows, nfact]."""
+    nbin = x.shape[-1]
+    X = torch.fft.rfft(x, dim=-1)
+    xr, xi = X.real[:, None], X.imag[:, None]
+    # analysis: C_j = A_j X
+    cD = torch.fft.irfft(torch.complex(
+        ana.real * xr - ana.imag * xi, ana.real * xi + ana.imag * xr),
+        n=nbin, dim=-1)
+    # sigma, the thresholds, the row's noise
+    errs = noise_PS_of_power(_power(X) / nbin)
+    sigma = median(torch.abs(cD[:, 0])) / 0.6745
+    lam = facts[None, :] * sigma[:, None] * math.sqrt(
+        2.0 * math.log(float(nbin)))
+    return X, cD, errs, lam
+
+
+def _setup_card(x, ana, facts, C, lam, errs):
+    """The set-up on the card into C, lam and errs (rows x.shape[0] of
+    them): pp_wavelet_analysis, cuFFT's inverse, pp_wavelet_sigma.
+    Returns (X, cD)."""
+    r, nbin = x.shape
+    nlevel, nh = ana.shape
+    dev = x.device
+    X = torch.fft.rfft(x, dim=-1)
+    _launch("smooth_search", dev, X.data_ptr(), ana.data_ptr(), r, nlevel,
+            nh, C.data_ptr(), symbol="pp_wavelet_analysis", count=False)
+    cD = torch.fft.irfft(C[:r], n=nbin, dim=-1)
+    _launch("smooth_search", dev, X.data_ptr(), cD.data_ptr(),
+            facts.data_ptr(), r, nlevel, nbin, nh, noise_kc(nh),
+            1 << (nbin - 1).bit_length(), facts.shape[0],
+            math.sqrt(2.0 * math.log(float(nbin))), lam.data_ptr(),
+            errs.data_ptr(), symbol="pp_wavelet_sigma", count=False)
+    return X, cD
+
+
+def _route_candidates_plain(x, tables, facts, soft, t, d):
+    """The route's candidates in torch on rows x: (errs, snr, chi2, same)
+    with t [r, nlevel, nfact, nbin] the candidates' smooths and d their
+    round trip's spectra S' (both written in place); snr not gated."""
+    ana, P, Q = tables
+    nbin = x.shape[-1]
+    nh = nbin // 2 + 1
+    kc = noise_kc(nh)
+    X, cD, errs, lam = _setup_plain(x, ana, facts)
+    xr, xi = X.real[:, None], X.imag[:, None]
+    r, nlevel = cD.shape[:2]
+    c, lm = cD[:, :, None, :], lam[:, None, :, None]
+    if soft:
+        torch.mul(torch.sign(c), torch.clamp(torch.abs(c) - lm, min=0.0),
+                  out=t)
+    else:
+        torch.where(torch.abs(c) < lm, torch.zeros((), dtype=c.dtype,
+                                                   device=x.device), c, out=t)
+    same = torch.zeros((r, nlevel, facts.shape[0]), dtype=torch.bool,
+                       device=x.device)
+    same[:, :, 1:] = (t[:, :, 1:] == t[:, :, :-1]).all(-1)
+    torch.fft.rfft(t, dim=-1, out=d)
+    # synthesis in place: d[:, j] <- S_{j+1} = P_{j+1} X
+    #                                    + sum_{i<=j} Q_i D_i
+    for j in range(nlevel):
+        dr, di = d[:, j].real, d[:, j].imag
+        qr, qi = Q[j].real, Q[j].imag
+        tr, ti = qr * dr - qi * di, qr * di + qi * dr
+        accr = tr if j == 0 else accr + tr
+        acci = ti if j == 0 else acci + ti
+        d[:, j] = torch.complex(P[j] * xr + accr, P[j] * xi + acci)
+    torch.fft.irfft(d, n=nbin, dim=-1, out=t)
+    torch.fft.rfft(t, dim=-1, out=d)
+    # search: each candidate's pseudo-S/N and chi2
+    pw = _power(d)
+    sig = pw[..., 1:].sum(-1)
+    noise = torch.sqrt(pw[..., kc:].sum(-1) / nbin / (nh - kc)) * \
+        math.sqrt(0.5 * nbin)
+    pos = noise > 0.0
+    snr = torch.where(pos, sig / torch.where(pos, noise, 1.0),
+                      torch.where(sig > 0.0, math.inf, 0.0))
+    serr = torch.where(errs > 0.0, errs, 1.0)
+    res = (x[:, None, None, :] - t) / serr[:, None, None, None]
+    chi2 = (res * res).sum(-1) / nbin
+    return errs, snr, chi2, same
+
+
+def _route(port, tables, facts, tol, soft, out, choice, card, setup=None):
+    """The route over chunks of rows: the kernels' stages on the card
+    (``card``), their plain versions otherwise, between the same torch.fft
+    calls on the same shapes.  The plain stages round each product and sum
+    as the kernels do (real operations, no fused multiply-add), so on one
+    device both hand cuFFT the same bits.  The kernels write each row's
+    winner (its irFFT(S), already made) into out; the plain stages leave
+    out to smooth_search_plain.  ``setup``: the rows' set-up (X, cD, lam,
+    errs) where the card has it already (the scan's, gathered: cuFFT gives
+    a row the same bits in any batch), else made here."""
     ana, P, Q = tables
     rows, nbin = port.shape
     nlevel, nh = P.shape
     nfact = facts.shape[0]
     kc = noise_kc(nh)
-    lam_scale = math.sqrt(2.0 * math.log(float(nbin)))
     step = min(rows, smooth_chunk_rows(nlevel, nfact, nbin))
     dev = port.device
     T = torch.empty((step, nlevel, nfact, nbin), dtype=torch.float64,
@@ -1393,28 +1574,24 @@ def _smooth_search(port, tables, facts, tol, soft, out, choice, card):
     D = torch.empty((step, nlevel, nfact, nh), dtype=torch.complex128,
                     device=dev)
     if card:
-        C = torch.empty((step, nlevel, nh), dtype=torch.complex128, device=dev)
-        lam = torch.empty((step, nfact), dtype=torch.float64, device=dev)
-        errs = torch.empty(step, dtype=torch.float64, device=dev)
+        if setup is None:
+            C = torch.empty((step, nlevel, nh), dtype=torch.complex128,
+                            device=dev)
+            lam = torch.empty((step, nfact), dtype=torch.float64, device=dev)
+            errs = torch.empty(step, dtype=torch.float64, device=dev)
         same = torch.empty((step, nlevel, nfact), dtype=torch.int32,
                            device=dev)
         snr = torch.empty((step, nlevel, nfact), dtype=torch.float64,
                           device=dev)
         chi2 = torch.empty_like(snr)
-        npow2 = 1 << (nbin - 1).bit_length()
     for c0 in range(0, rows, step):
         x = port[c0:c0 + step]
         r = x.shape[0]
-        X = torch.fft.rfft(x, dim=-1)
         if card:
-            _launch("smooth_search", dev, X.data_ptr(), ana.data_ptr(), r,
-                    nlevel, nh, C.data_ptr(), symbol="pp_wavelet_analysis",
-                    count=False)
-            cD = torch.fft.irfft(C[:r], n=nbin, dim=-1)
-            _launch("smooth_search", dev, X.data_ptr(), cD.data_ptr(),
-                    facts.data_ptr(), r, nlevel, nbin, nh, kc, npow2, nfact,
-                    lam_scale, lam.data_ptr(), errs.data_ptr(),
-                    symbol="pp_wavelet_sigma", count=False)
+            if setup is None:
+                X, cD = _setup_card(x, ana, facts, C, lam, errs)
+            else:
+                X, cD, lam, errs = (t[c0:c0 + r] for t in setup)
             _launch("smooth_search", dev, cD.data_ptr(), lam.data_ptr(), r,
                     nlevel, nfact, nbin, int(soft), T.data_ptr(),
                     same.data_ptr(), symbol="pp_wavelet_threshold",
@@ -1427,56 +1604,16 @@ def _smooth_search(port, tables, facts, tol, soft, out, choice, card):
             torch.fft.rfft(T[:r], dim=-1, out=D[:r])
             _launch("smooth_search", dev, x.data_ptr(), T.data_ptr(),
                     D.data_ptr(), errs.data_ptr(), r, nlevel, nfact, nbin, nh,
-                    kc, float(tol), snr.data_ptr(), chi2.data_ptr())
+                    kc, float(tol), snr.data_ptr(), chi2.data_ptr(),
+                    symbol="pp_wavelet_search", count=False)
             _launch("smooth_search", dev, T.data_ptr(), snr.data_ptr(),
-                    chi2.data_ptr(), same.data_ptr(), r, nlevel, nfact, nbin,
-                    float(tol), out[c0:c0 + r].data_ptr(),
+                    chi2.data_ptr(), same.data_ptr(), r, nlevel, nfact,
+                    nbin, float(tol), out[c0:c0 + r].data_ptr(),
                     choice[c0:c0 + r].data_ptr(),
-                    symbol="pp_wavelet_select", count=False)
+                    symbol="pp_wavelet_select")
             continue
-        xr, xi = X.real[:, None], X.imag[:, None]
-        # analysis: C_j = A_j X
-        cD = torch.fft.irfft(torch.complex(
-            ana.real * xr - ana.imag * xi, ana.real * xi + ana.imag * xr),
-            n=nbin, dim=-1)
-        # sigma, the thresholds, the row's noise
-        errs = noise_PS_of_power(_power(X) / nbin)
-        sigma = median(torch.abs(cD[:, 0])) / 0.6745
-        lam = facts[None, :] * sigma[:, None] * lam_scale
-        c, lm = cD[:, :, None, :], lam[:, None, :, None]
-        t = T[:r]
-        if soft:
-            torch.mul(torch.sign(c), torch.clamp(torch.abs(c) - lm, min=0.0),
-                      out=t)
-        else:
-            torch.where(torch.abs(c) < lm, torch.zeros((), dtype=c.dtype,
-                                                       device=dev), c, out=t)
-        same = torch.zeros((r, nlevel, nfact), dtype=torch.bool, device=dev)
-        same[:, :, 1:] = (t[:, :, 1:] == t[:, :, :-1]).all(-1)
-        d = D[:r]
-        torch.fft.rfft(t, dim=-1, out=d)
-        # synthesis in place: d[:, j] <- S_{j+1} = P_{j+1} X
-        #                                    + sum_{i<=j} Q_i D_i
-        for j in range(nlevel):
-            dr, di = d[:, j].real, d[:, j].imag
-            qr, qi = Q[j].real, Q[j].imag
-            tr, ti = qr * dr - qi * di, qr * di + qi * dr
-            accr = tr if j == 0 else accr + tr
-            acci = ti if j == 0 else acci + ti
-            d[:, j] = torch.complex(P[j] * xr + accr, P[j] * xi + acci)
-        torch.fft.irfft(d, n=nbin, dim=-1, out=t)
-        torch.fft.rfft(t, dim=-1, out=d)
-        # search: each candidate's pseudo-S/N, gated by its chi2
-        pw = _power(d)
-        sig = pw[..., 1:].sum(-1)
-        noise = torch.sqrt(pw[..., kc:].sum(-1) / nbin / (nh - kc)) * \
-            math.sqrt(0.5 * nbin)
-        pos = noise > 0.0
-        snr = torch.where(pos, sig / torch.where(pos, noise, 1.0),
-                          torch.where(sig > 0.0, math.inf, 0.0))
-        serr = torch.where(errs > 0.0, errs, 1.0)
-        res = (x[:, None, None, :] - t) / serr[:, None, None, None]
-        chi2 = (res * res).sum(-1) / nbin
+        _, snr, chi2, same = _route_candidates_plain(x, tables, facts, soft,
+                                                     T[:r], D[:r])
         snr = torch.where(chi2 - 1.0 <= tol, snr, 0.0)
         # select: per level the first best factor that repeats no earlier
         # one, a level kept only when strictly better
@@ -1499,29 +1636,477 @@ def _smooth_search(port, tables, facts, tol, soft, out, choice, card):
     return out, choice
 
 
-def smooth_search_plain(port, wavelet, nlevel, facts, rchi2_tol,
-                        threshtype="hard", out=None, choice=None):
-    """Plain PyTorch K8 (see smooth_search): the choice by the kernels'
-    stages in torch; each chosen row's smooth made as the reference makes
-    its candidates, ops.wavelet.wavelet_smooth at the chosen level over
-    every row and factor (one call per level chosen), so that it checks
-    the kernels' candidate spectra against swt / iswt."""
+# -- K8's scan: its own transforms, in torch -----------------------------------
+
+def _radices(n):
+    """The radices of the scan's passes over n = 2^m complex points: one
+    radix-2 pass first where m is odd, then radix-4 passes."""
+    m = n.bit_length() - 1
+    return [2] * (m % 2) + [4] * (m // 2)
+
+
+def _fft_scan(re, im, tw):
+    """The scan's complex forward FFT over the last axis of (re, im) (n
+    points, tw scan_twiddles(2n)): Stockham autosort passes, each
+    butterfly's inputs times their twiddles, then its radix-2 or radix-4
+    DFT, every product and sum rounded in pp_wavelet_scan's order."""
+    n = re.shape[-1]
+    nbin = 2 * n
+    p = 1
+    for R in _radices(n):
+        m = n // R
+        i = torch.arange(m, device=re.device)
+        k = i & (p - 1)
+        u = [(re[..., i + q * m], im[..., i + q * m]) for q in range(R)]
+        for q in range(1, R):
+            t = q * k * (nbin // (R * p))
+            c, s = tw[t, 0], tw[t, 1]
+            a, b = u[q]
+            u[q] = (a * c - b * s, a * s + b * c)
+        if R == 2:
+            (a0r, a0i), (a1r, a1i) = u
+            y = [(a0r + a1r, a0i + a1i), (a0r - a1r, a0i - a1i)]
+        else:
+            (u0r, u0i), (u1r, u1i), (u2r, u2i), (u3r, u3i) = u
+            b0r, b0i = u0r + u2r, u0i + u2i
+            b1r, b1i = u0r - u2r, u0i - u2i
+            b2r, b2i = u1r + u3r, u1i + u3i
+            b3r, b3i = u1r - u3r, u1i - u3i
+            y = [(b0r + b2r, b0i + b2i), (b1r + b3i, b1i - b3r),
+                 (b0r - b2r, b0i - b2i), (b1r - b3i, b1i + b3r)]
+        j = (i - k) * R + k
+        re, im = torch.empty_like(re), torch.empty_like(im)
+        for q in range(R):
+            re[..., j + q * p] = y[q][0]
+            im[..., j + q * p] = y[q][1]
+        p *= R
+    return re, im
+
+
+def _rfft_scan(x, tw):
+    """The scan's real FFT of x [..., nbin]: the complex FFT of its
+    nbin / 2 (even, odd) pairs, then the split into nbin / 2 + 1
+    harmonics.  Returns (re, im)."""
+    n = x.shape[-1] // 2
+    zr, zi = _fft_scan(x[..., 0::2], x[..., 1::2], tw)
+    k = torch.arange(n + 1, device=x.device)
+    a, b = k % n, (n - k) % n
+    pr, pi, mr, mi = zr[..., a], zi[..., a], zr[..., b], zi[..., b]
+    er, ei = (pr + mr) * 0.5, (pi - mi) * 0.5
+    orr, oi = (pr - mr) * 0.5, (pi + mi) * 0.5
+    c, s = tw[k, 0], tw[k, 1]
+    return er + (c * oi + s * orr), ei + (s * oi - c * orr)
+
+
+def _irfft_scan(Sr, Si, tw):
+    """The scan's inverse real FFT of the nbin / 2 + 1 harmonics (Sr, Si)
+    to nbin bins (the imaginary parts of harmonics 0 and nbin / 2 dropped,
+    as irFFT's): the merge into nbin / 2 complex points, scaled by 1 /
+    nbin, and the complex FFT of their conjugates, conjugated."""
+    n = Sr.shape[-1] - 1
+    nbin = 2 * n
+    Si = Si.clone()
+    Si[..., 0] = 0.0
+    Si[..., n] = 0.0
+    k = torch.arange(n, device=Sr.device)
+    ar, ai, br, bi = Sr[..., k], Si[..., k], Sr[..., n - k], Si[..., n - k]
+    inv = 1.0 / nbin
+    er, ei = (ar + br) * inv, (ai - bi) * inv
+    o_r, o_i = (ar - br) * inv, (ai + bi) * inv
+    c, s = tw[k, 0], tw[k, 1]
+    wr, wi = o_r * c + o_i * s, o_i * c - o_r * s
+    zr, zi = _fft_scan(er - wi, -(ei + wr), tw)
+    out = torch.empty(Sr.shape[:-1] + (nbin,), dtype=Sr.dtype,
+                      device=Sr.device)
+    out[..., 0::2] = zr
+    out[..., 1::2] = -zi
+    return out
+
+
+def _edge_zeroed(v):
+    """v with its first and last harmonics set to 0 (a copy)."""
+    v = v.clone()
+    v[..., 0] = 0.0
+    v[..., -1] = 0.0
+    return v
+
+
+def _scan_plain(x, X, cD, lam, errs, P, Q, tw, soft, qmax):
+    """The scan in torch: for each row, factor and level l + 1, its
+    candidate's spectrum S = P_l X + sum_{j<=l} Q_j rFFT(T_j) from the
+    scan's own rFFT of the thresholded details T_j, read as
+    pp_wavelet_scan reads it: stats float64 (the pseudo-S/N, not gated; the chi2 against x; the noise get_noise_PS;
+    the signal power sig over harmonics 1..nbin/2; the norm sum_{j<=l}
+    qmax[j] |T_j| of its details) [rows, nlevel, nfact, 5] and same
+    [rows, nlevel, nfact] int32 (T_j equal to the factor before's at every
+    bin)."""
+    from .ops.wavelet import threshold
+
+    mode = "soft" if soft else "hard"
+    rows, nlevel, nbin = cD.shape
+    nfact = lam.shape[1]
+    nh = nbin // 2 + 1
+    kc = noise_kc(nh)
+    dev = x.device
+    Xr, Xi = X.real[:, None], _edge_zeroed(X.imag)[:, None]
+    w = torch.full((nh,), 2.0, dtype=torch.float64, device=dev)
+    w[0] = w[-1] = 1.0
+    serr = torch.where(errs > 0.0, errs, 1.0)[:, None]
+    stats = torch.empty((rows, nlevel, nfact, 5), dtype=torch.float64,
+                        device=dev)
+    same = torch.zeros((rows, nlevel, nfact), dtype=torch.int32, device=dev)
+    tnorm = torch.zeros((rows, nfact), dtype=torch.float64, device=dev)
+    for j in range(nlevel):
+        t = threshold(cD[:, j, None, :], lam[:, :, None], mode)
+        tnorm = tnorm + qmax[j] * torch.sqrt((t * t).sum(-1))
+        same[:, j, 1:] = (t[:, 1:] == t[:, :-1]).all(-1).to(torch.int32)
+        Dr, Di = _rfft_scan(t, tw)
+        qr, qi = Q[j].real, Q[j].imag
+        tr, ti = qr * Dr - qi * Di, qr * Di + qi * Dr
+        accr = tr if j == 0 else accr + tr
+        acci = ti if j == 0 else acci + ti
+        Sr = P[j] * Xr + accr
+        Si = _edge_zeroed(P[j] * Xi + acci)
+        pw = Sr * Sr + Si * Si
+        sig = pw[..., 1:].sum(-1)
+        noise = torch.sqrt(pw[..., kc:].sum(-1) / nbin / (nh - kc))
+        nr = noise * math.sqrt(0.5 * nbin)
+        pos = nr > 0.0
+        stats[:, j, :, 0] = torch.where(
+            pos, sig / torch.where(pos, nr, 1.0),
+            torch.where(sig > 0.0, math.inf, 0.0))
+        Rr, Ri = Xr - Sr, Xi - Si
+        res = ((Rr * Rr + Ri * Ri) * w).sum(-1)
+        stats[:, j, :, 1] = res / nbin / (serr * serr) / nbin
+        stats[:, j, :, 2] = noise
+        stats[:, j, :, 3] = sig
+        stats[:, j, :, 4] = tnorm
+    return stats, same
+
+
+def _cert_eps(nbin):
+    """The relative error bound of one transform of nbin points (see
+    CERT_MARGIN): Higham's Theorem 24.2 with t = log2(nbin) + 1 stages."""
+    t = math.log2(nbin) + 1.0
+    eta = TWIDDLE_ERR + 4.0 * _U / (1.0 - 4.0 * _U) * (math.sqrt(2.0)
+                                                       + TWIDDLE_ERR)
+    return t * eta / (1.0 - t * eta)
+
+
+def _cert_gam(nlevel):
+    """gamma_{2 nlevel + 4}: the relative rounding of a candidate's
+    synthesis sum P X + sum_j Q_j D_j (see CERT_MARGIN)."""
+    k = 2 * nlevel + 4
+    return k * _U / (1.0 - k * _U)
+
+
+def _cert_bounds_plain(x, X, cD, errs, stats, ana0, maxima, tw):
+    """The certification's bounds in torch (see CERT_MARGIN,
+    pp_wavelet_certify's cand_bounds): (G, En, delta) [rows, nlevel,
+    nfact] of each candidate and bad [rows], where the FFT library's rFFT
+    of x (X) or irFFT of C_0 = ana0 X (cD_0) strays beyond 2 eps of the
+    scan's transforms.  maxima: search_maxima's [2 nlevel]."""
+    rows, nlevel, nbin = cD.shape
+    nh = nbin // 2 + 1
+    eps, gam = _cert_eps(nbin), _cert_gam(nlevel)
+    sn, r2n = math.sqrt(nbin), math.sqrt(2.0 / nbin)
+    nx = torch.sqrt((x * x).sum(-1))
+    pl = maxima[nlevel:][None, :, None]
+    An = sn * stats[..., 4]
+    Sn = torch.sqrt(stats[..., 3]) + pl * X[:, 0].real.abs()[:, None, None] \
+        + An
+    G0 = 2.0 * eps * An + 2.0 * gam * (pl * sn * nx[:, None, None] + An)
+    G = G0 + 3.0 * eps * (Sn + G0)
+    En = G / math.sqrt(nbin * (nh - noise_kc(nh)))
+    delta = (math.sqrt(2.0) * eps * nx[:, None, None]
+             + r2n * (eps * (Sn + G0) + G0)) / (
+        torch.where(errs > 0.0, errs, 1.0)[:, None, None] * sn)
+    # the library's transforms of the row against the scan's
+    Xr, Xi = _rfft_scan(x, tw)
+    fwd = torch.sqrt(((Xr - X.real) ** 2 + (Xi - X.imag) ** 2).sum(-1)) \
+        <= 2.0 * eps * (sn * nx)
+    xr, xi = X.real, X.imag
+    cr = ana0.real * xr - ana0.imag * xi
+    ci = ana0.real * xi + ana0.imag * xr
+    gap = torch.sqrt(((cD[:, 0] - _irfft_scan(cr, ci, tw)) ** 2).sum(-1))
+    inv = gap <= 2.0 * eps * (r2n * torch.sqrt((cr * cr + ci * ci).sum(-1)))
+    return G, En, delta, ~(fwd & inv & torch.isfinite(nx))
+
+
+def _certify_plain(x, X, cD, stats, same, errs, tol, ana0, maxima, tw):
+    """The certification and choice in torch (see CERT_MARGIN): (choice
+    [rows, 2] int64, the scan's (level, factor) or (0, -1) for a row
+    zeroed; uncertain [rows] bool)."""
+    rows, nlevel, nfact, _ = stats.shape
+    nbin = x.shape[-1]
+    snr, chi2, noise, sig, _ = stats.unbind(-1)
+    dup = torch.cumprod(same.to(torch.int64), dim=1).bool()
+    G, En, delta, bad = _cert_bounds_plain(x, X, cD, errs, stats, ana0,
+                                           maxima, tw)
+    # the gate: passed for certain, failed for certain, or either
+    mchi = CHI2_MARGIN + 2.0 * torch.sqrt(chi2) * delta + delta * delta
+    d = chi2 - 1.0
+    sure_in, sure_out = d <= tol - mchi, d > tol + mchi
+    # the route's S/N within [lo, hi]; its gated S/N within [vlo, vhi]
+    c = math.sqrt(0.5 * nbin)
+    rs = torch.sqrt(sig)
+    sig_lo = torch.clamp(rs - G, min=0.0) ** 2
+    sig_hi = (rs + G) ** 2
+    nlo = noise - En
+    lo = torch.where(sig_lo > 0.0, sig_lo / ((noise + En) * c), 0.0)
+    hi = torch.where(sig_hi > 0.0, torch.where(
+        nlo > 0.0, sig_hi / (nlo * c), math.inf), 0.0)
+    vlo = torch.where(dup, -math.inf, torch.where(sure_in, lo, 0.0))
+    vhi = torch.where(dup, -math.inf, torch.where(sure_out, 0.0, hi))
+    bad = bad | (~dup & ~(torch.isfinite(chi2) & torch.isfinite(noise)
+                          & torch.isfinite(sig) & torch.isfinite(G)
+                          & torch.isfinite(delta))).flatten(1).any(1)
+    vlo, vhi = vlo.flatten(1), vhi.flatten(1)
+    best, win = torch.max(vlo, dim=1)
+    keep = best > 0.0
+    # a rival: another upper bound within the margin of the best lower
+    # bound (kept rows), above 0 (rows zeroed)
+    hit = torch.where(keep[:, None], vhi * (1.0 + CERT_MARGIN)
+                      >= best[:, None], vhi > 0.0)
+    hit[torch.arange(rows, device=x.device), win] &= ~keep
+    choice = torch.stack([torch.where(keep, win // nfact + 1, 0),
+                          torch.where(keep, win % nfact, -1)], dim=1)
+    return choice, bad | hit.any(1)
+
+
+def _make_plain(x, X, cD, lam, P, Q, tw, soft, choice):
+    """The chosen candidates' smooths in torch by the scan's transforms:
+    irFFT(P_l X + sum_{j<l} Q_j rFFT(T_j)) at each row's (level l,
+    factor), zeros where choice is (0, -1)."""
+    from .ops.wavelet import threshold
+
+    mode = "soft" if soft else "hard"
+    out = torch.zeros_like(x)
+    for lev in torch.unique(choice[:, 0]).tolist():
+        if lev <= 0:
+            continue
+        rows = torch.nonzero(choice[:, 0] == lev)[:, 0]
+        lm = lam[rows, choice[rows, 1]][:, None]
+        for j in range(lev):
+            Dr, Di = _rfft_scan(threshold(cD[rows, j], lm, mode), tw)
+            qr, qi = Q[j].real, Q[j].imag
+            tr, ti = qr * Dr - qi * Di, qr * Di + qi * Dr
+            accr = tr if j == 0 else accr + tr
+            acci = ti if j == 0 else acci + ti
+        Xs = X[rows]
+        out[rows] = _irfft_scan(P[lev - 1] * Xs.real + accr,
+                                P[lev - 1] * Xs.imag + acci, tw)
+    return out
+
+
+def smooth_scan_plain(port, wavelet, nlevel, facts, threshtype="hard"):
+    """Plain PyTorch version of K8's scan (pp_wavelet_scan, see
+    smooth_scan): the set-up in torch, then _scan_plain.  Returns (stats,
+    same)."""
+    from .ops.wavelet import scan_twiddles, search_maxima
+
+    tables, _, _ = _smooth_args(port, wavelet, nlevel, facts, threshtype,
+                                None, None)
+    X, cD, errs, lam = _setup_plain(port, tables[0], facts)
+    return _scan_plain(port, X, cD, lam, errs, tables[1], tables[2],
+                       scan_twiddles(port.shape[1], port.device),
+                       threshtype == "soft", search_maxima(
+                           wavelet, port.shape[1], int(nlevel), port.device))
+
+
+def smooth_scan(port, wavelet, nlevel, facts, threshtype="hard"):
+    """K8's scan on the card (csrc/wavelet.cu pp_wavelet_scan after the
+    set-up's kernels and cuFFT): every candidate's (S/N not gated, chi2,
+    noise, signal power, its details' norm) [rows, nlevel, nfact, 5]
+    float64 (see _scan_plain) and its repeat
+    flag [rows, nlevel, nfact] int32, for rows of a width the scan takes
+    (``scannable``).  The plain version for a CPU tensor.  Its launches
+    are not counted: the main path counts K8 where it decides
+    (smooth_search)."""
+    from .ops.wavelet import search_maxima
+
+    if port.device.type == "cpu":
+        return smooth_scan_plain(port, wavelet, nlevel, facts, threshtype)
+    tables, _, _ = _smooth_args(port, wavelet, nlevel, facts, threshtype,
+                                None, None)
+    _check_card(port, "smooth_scan")
+    rows, nbin = port.shape
+    if not scannable(nbin):
+        raise ValueError("smooth_scan: %d bins; the scan takes powers of "
+                         "two from %d to %d" % (nbin, SCAN_MIN_BINS,
+                                                SCAN_MAX_BINS))
+    nfact = facts.shape[0]
+    maxima = search_maxima(wavelet, nbin, int(nlevel), port.device)
+    stats = torch.empty((rows, int(nlevel), nfact, 5), dtype=torch.float64,
+                        device=port.device)
+    same = torch.empty((rows, int(nlevel), nfact), dtype=torch.int32,
+                       device=port.device)
+    for c0, x, X, _, cD, lam, errs in _scan_chunks(port, tables, facts):
+        _scan_launch(x, X, cD, lam, errs, tables, maxima, facts, threshtype
+                     == "soft", stats[c0:], same[c0:])
+    return stats, same
+
+
+def _scan_chunks(port, tables, facts):
+    """The set-up on the card over scan chunks: yields (first row, x, X, C,
+    cD, lam, errs) per chunk (the buffers reused)."""
+    rows, nbin = port.shape
+    nlevel, nh = tables[1].shape
+    step = min(rows, scan_chunk_rows(nlevel, facts.shape[0], nbin))
+    dev = port.device
+    C = torch.empty((step, nlevel, nh), dtype=torch.complex128, device=dev)
+    lam = torch.empty((step, facts.shape[0]), dtype=torch.float64,
+                      device=dev)
+    errs = torch.empty(step, dtype=torch.float64, device=dev)
+    for c0 in range(0, rows, step):
+        x = port[c0:c0 + step]
+        X, cD = _setup_card(x, tables[0], facts, C, lam, errs)
+        r = x.shape[0]
+        yield c0, x, X, C[:r], cD, lam[:r], errs[:r]
+
+
+def _scan_launch(x, X, cD, lam, errs, tables, maxima, facts, soft, stats,
+                 same):
+    from .ops.wavelet import scan_twiddles
+
+    r, nbin = x.shape
+    _, P, Q = tables
+    nlevel, nh = P.shape
+    _launch("smooth_search", x.device, X.data_ptr(), cD.data_ptr(),
+            lam.data_ptr(), errs.data_ptr(), P.data_ptr(), Q.data_ptr(),
+            scan_twiddles(nbin, x.device).data_ptr(), maxima.data_ptr(), r,
+            nlevel,
+            facts.shape[0], nbin, noise_kc(nh), int(soft), stats.data_ptr(),
+            same.data_ptr(), symbol="pp_wavelet_scan", count=False)
+
+
+def _scan_certify(port, tables, maxima, facts, tol, soft, out, choice):
+    """The set-up, the scan and the certification on the card over scan
+    chunks of port's rows (a width the scan takes): each certified row's
+    choice and smooth into choice and out.  Returns (uncertain [rows] int32
+    on the card, the set-up (X, cD, lam, errs) of the rows where they made
+    one chunk, else None); no host sync."""
+    from .ops.wavelet import scan_twiddles
+
+    _, P, Q = tables
+    nbin = port.shape[1]
+    nlevel = P.shape[0]
+    nfact = facts.shape[0]
+    dev = port.device
+    tw = scan_twiddles(nbin, dev)
+    eps, gam = _cert_eps(nbin), _cert_gam(nlevel)
+    uncertain = torch.empty(port.shape[0], dtype=torch.int32, device=dev)
+    setup = None
+    for c0, x, X, C, cD, lam, errs in _scan_chunks(port, tables, facts):
+        setup = (X, cD, lam, errs) if c0 == 0 and x.shape[0] == \
+            port.shape[0] else None
+        r = x.shape[0]
+        stats = torch.empty((r, nlevel, nfact, 5), dtype=torch.float64,
+                            device=dev)
+        same = torch.empty((r, nlevel, nfact), dtype=torch.int32,
+                           device=dev)
+        _scan_launch(x, X, cD, lam, errs, tables, maxima, facts, soft, stats,
+                     same)
+        _launch("smooth_search", dev, x.data_ptr(), X.data_ptr(),
+                C.data_ptr(), cD.data_ptr(), lam.data_ptr(), errs.data_ptr(),
+                P.data_ptr(), Q.data_ptr(), tw.data_ptr(), maxima.data_ptr(),
+                stats.data_ptr(), same.data_ptr(), r, nlevel, nfact, nbin,
+                noise_kc(nbin // 2 + 1), int(soft), float(tol), CERT_MARGIN,
+                CHI2_MARGIN, eps, gam, out[c0:].data_ptr(),
+                choice[c0:].data_ptr(), uncertain[c0:].data_ptr(),
+                symbol="pp_wavelet_certify")
+    return uncertain, setup
+
+
+def _plain_smooths(port, wavelet, threshtype, facts, choice, out):
+    """Each chosen row's smooth into out as the reference makes its
+    candidates: ops.wavelet.wavelet_smooth at the chosen level over every
+    row and factor (one call per level chosen)."""
     from .ops.wavelet import wavelet_smooth
 
-    tables, out, choice = _smooth_args(port, wavelet, nlevel, facts,
-                                       threshtype, out, choice)
-    out.zero_()
-    if not port.shape[0]:
-        return out, choice
-    _smooth_search(port, tables, facts, rchi2_tol, threshtype == "soft", out,
-                   choice, card=False)
     fgrid = facts.reshape(-1, 1)
     for lev in torch.unique(choice[:, 0]).tolist():
         if lev > 0:
             rows = torch.nonzero(choice[:, 0] == lev)[:, 0]
             cand = wavelet_smooth(port, wavelet, lev, threshtype, fgrid)
             out[rows] = cand[choice[rows, 1], rows]
-    return out, choice
+    return out
+
+
+def _smooth_tiers(port, wavelet, nlevel, facts, tol, threshtype, out, choice,
+                  card):
+    """K8 in its three tiers over port's rows, on the card (``card``) or
+    through the plain versions of the scan and the route: the set-up and
+    the scan, the certification with each certified row's choice and
+    smooth, then the route over the uncertain rows, gathered with their
+    set-up (on the card one host sync, for their count); for a width the
+    scan does not take, the route over every row.  Returns (out, choice, uncertain rows [n]
+    int64, or None where every row went through the route)."""
+    from .ops.wavelet import scan_twiddles, search_maxima
+
+    tables, out, choice = _smooth_args(port, wavelet, nlevel, facts,
+                                       threshtype, out, choice)
+    rows, nbin = port.shape
+    soft = threshtype == "soft"
+    tol = float(tol)
+    if not rows:
+        return out, choice, None
+    if not scannable(nbin):
+        if card:
+            _route(port, tables, facts, tol, soft, out, choice, card=True)
+        else:
+            smooth_search_plain(port, wavelet, nlevel, facts, tol,
+                                threshtype, out, choice)
+        return out, choice, None
+    maxima = search_maxima(wavelet, nbin, int(nlevel), port.device)
+    if card:
+        flags, setup = _scan_certify(port, tables, maxima, facts, tol, soft,
+                                     out, choice)
+        uncertain = torch.nonzero(flags)[:, 0]    # the call's one host sync
+        if len(uncertain):
+            n = len(uncertain)
+            o = torch.empty((n, nbin), dtype=torch.float64,
+                            device=port.device)
+            c = torch.empty((n, 2), dtype=torch.int64, device=port.device)
+            _route(port.index_select(0, uncertain), tables, facts, tol, soft,
+                   o, c, card=True, setup=None if setup is None else tuple(
+                       t.index_select(0, uncertain) for t in setup))
+            out.index_copy_(0, uncertain, o)
+            choice.index_copy_(0, uncertain, c)
+        return out, choice, uncertain
+    ana, P, Q = tables
+    tw = scan_twiddles(nbin, port.device)
+    X, cD, errs, lam = _setup_plain(port, ana, facts)
+    stats, same = _scan_plain(port, X, cD, lam, errs, P, Q, tw, soft, maxima)
+    ch, unc = _certify_plain(port, X, cD, stats, same, errs, tol, ana[0],
+                             maxima, tw)
+    choice.copy_(ch)
+    out.copy_(_make_plain(port, X, cD, lam, P, Q, tw, soft, ch))
+    uncertain = torch.nonzero(unc)[:, 0]
+    if len(uncertain):
+        o, c = smooth_search_plain(port[uncertain], wavelet, nlevel, facts,
+                                   tol, threshtype)
+        out[uncertain] = o
+        choice[uncertain] = c
+    return out, choice, uncertain
+
+
+def smooth_search_plain(port, wavelet, nlevel, facts, rchi2_tol,
+                        threshtype="hard", out=None, choice=None):
+    """Plain PyTorch K8 (see smooth_search): the choice by the route's
+    stages in torch; each chosen row's smooth made as the reference makes
+    its candidates, ops.wavelet.wavelet_smooth at the chosen level over
+    every row and factor (one call per level chosen), so that it checks
+    the kernels' candidate spectra against swt / iswt."""
+    tables, out, choice = _smooth_args(port, wavelet, nlevel, facts,
+                                       threshtype, out, choice)
+    out.zero_()
+    if not port.shape[0]:
+        return out, choice
+    _route(port, tables, facts, rchi2_tol, threshtype == "soft", out,
+           choice, card=False)
+    return _plain_smooths(port, wavelet, threshtype, facts, choice,
+                          out), choice
 
 
 def smooth_search(port, wavelet, nlevel, facts, rchi2_tol, threshtype="hard",
@@ -1533,18 +2118,28 @@ def smooth_search(port, wavelet, nlevel, facts, rchi2_tol, threshtype="hard",
     ops.wavelet.search_tables: each row's best candidate (zeros where none
     passes chi2 - 1 <= rchi2_tol) into out [rows, nbin] and its (level,
     factor index) into choice [rows, 2] int64 ((0, -1) where zeroed).
-    Rows go in chunks of smooth_chunk_rows.  Returns (out, choice)."""
+
+    On the card: the scan and its certification over chunks of
+    scan_chunk_rows for widths the scan takes (``scannable``), then the
+    route over the uncertain rows, gathered, in chunks of
+    smooth_chunk_rows rows (over every row for other widths); one host
+    sync a call, for the uncertain rows' count (so a call with uncertain
+    rows is not captured in a CUDA graph).  LAUNCHES counts each chunk
+    decided (one pp_wavelet_certify or pp_wavelet_select); SMOOTH_ROWS the
+    rows by tier.  On the CPU: smooth_search_plain.  Returns (out,
+    choice)."""
     if port.device.type == "cpu":
         return smooth_search_plain(port, wavelet, nlevel, facts, rchi2_tol,
                                    threshtype, out, choice)
-    tables, out, choice = _smooth_args(port, wavelet, nlevel, facts,
-                                       threshtype, out, choice)
-    if port.device.type != "cuda":
-        raise ValueError("smooth_search: unsupported device %s" % port.device)
-    if port.shape[1] > SMOOTH_MAX_BINS:
-        raise ValueError("smooth_search: %d bins; the kernel takes at most %d"
-                         % (port.shape[1], SMOOTH_MAX_BINS))
-    if port.shape[0]:
-        _smooth_search(port, tables, facts, rchi2_tol, threshtype == "soft",
-                       out, choice, card=True)
+    _check(port, "port", torch.float64, 2)
+    _check_card(port, "smooth_search")
+    out, choice, uncertain = _smooth_tiers(port, wavelet, nlevel, facts,
+                                           rchi2_tol, threshtype, out,
+                                           choice, card=True)
+    with _STATE_LOCK:
+        if uncertain is None:
+            SMOOTH_ROWS["unscanned"] += port.shape[0]
+        else:
+            SMOOTH_ROWS["scanned"] += port.shape[0]
+            SMOOTH_ROWS["redecided"] += len(uncertain)
     return out, choice

@@ -12,7 +12,9 @@ kernel K8 (``_kernels.smooth_search``, csrc/wavelet.cu): one transform
 of each profile, the thresholded details' transforms per (level, fact),
 and each candidate's spectrum from host tables (``search_tables``: the
 inverse transform unrolled), with a one-sided reduced-chi2 gate and an
-argmax over pseudo-S/N.
+argmax over pseudo-S/N.  On the card a scan with its own transforms
+(``scan_twiddles``) decides each row where its bounds allow, the
+candidates' round trips through cuFFT the rest.
 """
 
 import functools
@@ -26,7 +28,8 @@ from ..config import real_dtype
 from .stats import median
 
 __all__ = ["daubechies_dec_lo", "swt", "iswt", "wavelet_smooth",
-           "smart_smooth", "threshold", "search_tables"]
+           "smart_smooth", "threshold", "search_tables", "search_maxima",
+           "scan_twiddles"]
 
 
 @functools.lru_cache(maxsize=None)
@@ -186,20 +189,80 @@ def search_tables(wavelet, nbin, nlevel, device):
     + sum_{j<l} Q[j] D_j (``iswt``'s recursion unrolled), for j, l - 1 <
     nlevel.  Built once per (wavelet, nbin, nlevel) on the host in
     float64 / complex128 and uploaded once per device."""
-    if isinstance(wavelet, str):
-        if not wavelet.startswith("db"):
-            raise ValueError(f"unsupported wavelet '{wavelet}'")
-        h = daubechies_dec_lo(int(wavelet[2:]))
-    else:
-        h = np.asarray(wavelet, dtype=np.float64)
-    key = (tuple(float(v) for v in h), int(nbin), int(nlevel),
-           str(torch.device(device)))
+    h, key = _table_key(wavelet, nbin, nlevel, device)
     tabs = _TABLES.get(key)
     if tabs is None:
         tabs = tuple(torch.as_tensor(t, device=device) for t in
                      _search_tables_np(h, key[1], key[2]))
         _TABLES[key] = tabs
     return tabs
+
+
+def search_maxima(wavelet, nbin, nlevel, device):
+    """[2 nlevel] float64 on ``device``: max_k |Q[j, k]| for each level j,
+    then max_k |P[l, k]| for each level l (search_tables), with which K8's
+    certification bounds its candidates' spectra.  Built and cached as
+    search_tables."""
+    h, key = _table_key(wavelet, nbin, nlevel, device)
+    key = ("maxima",) + key
+    m = _TABLES.get(key)
+    if m is None:
+        _, P, Q = _search_tables_np(h, key[2], key[3])
+        m = torch.as_tensor(np.concatenate([np.abs(Q).max(-1),
+                                            np.abs(P).max(-1)]),
+                            device=device)
+        _TABLES[key] = m
+    return m
+
+
+def _table_key(wavelet, nbin, nlevel, device):
+    """(the lowpass taps, the tables' cache key) of ``wavelet``."""
+    if isinstance(wavelet, str):
+        if not wavelet.startswith("db"):
+            raise ValueError(f"unsupported wavelet '{wavelet}'")
+        h = daubechies_dec_lo(int(wavelet[2:]))
+    else:
+        h = np.asarray(wavelet, dtype=np.float64)
+    return h, (tuple(float(v) for v in h), int(nbin), int(nlevel),
+               str(torch.device(device)))
+
+
+def _scan_twiddles_np(nbin):
+    """[nbin + P, 2] float64: (cos, -sin)(2 pi t / nbin) for t < nbin, exact
+    at the quarter turns; then, for each Stockham pass of the complex FFT
+    of nbin / 2 points (radix R, p points done: one radix-2 pass first where
+    log2(nbin / 2) is odd, then radix-4), its butterflies' twiddles in the
+    order the pass reads them, entry (q - 1) p + k = the table's q k nbin /
+    (R p), for q = 1..R-1 and k < p."""
+    t = np.arange(nbin)
+    ang = 2.0 * np.pi * t / nbin
+    tw = np.stack([np.cos(ang), -np.sin(ang)], axis=-1)
+    quarter = nbin // 4
+    if quarter and nbin % 4 == 0:
+        tw[::quarter] = [[1.0, 0.0], [0.0, -1.0], [-1.0, 0.0], [0.0, 1.0]]
+    n = nbin // 2
+    m = n.bit_length() - 1
+    passes, p = [], 1
+    for R in [2] * (m % 2) + [4] * (m // 2):
+        q, k = np.meshgrid(np.arange(1, R), np.arange(p), indexing="ij")
+        passes.append(tw[(q * k * (nbin // (R * p))).ravel()])
+        p *= R
+    return np.concatenate([tw] + passes)
+
+
+def scan_twiddles(nbin, device):
+    """The twiddle table of the smoothing scan's own transforms (K8's
+    pp_wavelet_scan and its plain version): W^t = exp(-2 pi i t / nbin)
+    as (re, im) for t < nbin, then each pass's twiddles in its
+    butterflies' order (so a warp reads them coalesced), float64, built on
+    the host with numpy's cos and sin and uploaded once per (nbin,
+    device)."""
+    key = ("twiddles", int(nbin), str(torch.device(device)))
+    tw = _TABLES.get(key)
+    if tw is None:
+        tw = torch.as_tensor(_scan_twiddles_np(int(nbin)), device=device)
+        _TABLES[key] = tw
+    return tw
 
 
 def _smart_smooth_grid(port, try_nlevels, nfact, rchi2_tol, wavelet,

@@ -32,7 +32,10 @@ harmonic, its weighted sum 1e-12 and the same bits twice; load_data on
 the card against the plain versions on the card and against the CPU.
 The smoothing search (K8 csrc/wavelet.cu) against its plain version:
 the same (level, factor) on every row and each smooth within 1e-10 of
-its row's peak, at six shapes, in chunks, never falling back.
+its row's peak, at eight shapes (a width its scan does not take among
+them), in chunks, never falling back; its scan against the scan's plain
+version (S/N and chi2 within 1e-12 relative, the repeat flags equal);
+cuFFT's rows equal whatever their batch.
 
 Readings on an H100 80GB HBM3 (700 W), kernels against plain: the
 scattering fluxes 1.48e-8 (log10 tau) and 2.03e-8 (linear tau), the
@@ -1121,11 +1124,13 @@ def test_gettoas_device_cube_on_the_card(card, archive, nan):
 
 
 # K8 (csrc/wavelet.cu) against its plain version: (rows, nbin, levels,
-# threshold mode, wavelet); 8192 bins take the median's sort above 48 KB
-# of shared memory, the taps an explicit filter
+# threshold mode, wavelet); 8192 bins take the median's sort and the scan
+# above 48 KB of shared memory, the taps an explicit filter, 1000 bins a
+# width the scan does not take (every row through the route)
 SMOOTH_CASES = [(10, 2048, 11, "hard", "db8"), (1, 2048, 11, "hard", "db8"),
                 (64, 2048, 11, "soft", "db8"), (16, 1000, 1, "hard", "db8"),
-                (8, 8192, 13, "hard", "db8"), (8, 256, 8, "soft", "taps")]
+                (8, 8192, 13, "hard", "db8"), (8, 256, 8, "soft", "taps"),
+                (512, 2048, 11, "hard", "db8"), (8, 64, 6, "hard", "db8")]
 SMOOTH_TOL = 1e-10
 
 
@@ -1162,8 +1167,10 @@ def _smooth_rows(rows, nbin, seed):
 def test_smooth_search_kernel_matches_plain(card, monkeypatch, case):
     """K8 against its plain version on the card: the same (level, factor)
     per row, the same rows zeroed, each smooth within SMOOTH_TOL of its
-    row's peak; one counted launch per chunk (here also in chunks of 3
-    rows); the plain version never called for a CUDA tensor."""
+    row's peak; one counted launch per chunk decided, the scan's chunks
+    and the route's chunks of the uncertain rows (here also in chunks of
+    3 rows), the rows counted by tier; the plain version never called for
+    a CUDA tensor."""
     K = card
     rows, nbin, nlevel, mode, wavelet = case
     if wavelet == "taps":
@@ -1181,11 +1188,22 @@ def test_smooth_search_kernel_matches_plain(card, monkeypatch, case):
     for chunk in (None, 3):
         if chunk is not None:
             monkeypatch.setattr(K, "smooth_chunk_rows", lambda *a: chunk)
-        step = min(rows, K.smooth_chunk_rows(nlevel, 30, nbin))
-        n0 = K.LAUNCHES["smooth_search"]
+            monkeypatch.setattr(K, "scan_chunk_rows", lambda *a: chunk)
+        step = K.smooth_chunk_rows(nlevel, 30, nbin)
+        K.reset_launches()
         got, choice = K.smooth_search(port, wavelet, nlevel, facts, 0.1, mode)
         torch.cuda.synchronize()
-        assert K.LAUNCHES["smooth_search"] - n0 == -(-rows // step)
+        tiers = dict(K.SMOOTH_ROWS)
+        if K.scannable(nbin):
+            # a launch per scan chunk, and per route chunk of the uncertain
+            # rows
+            assert tiers["scanned"] == rows and tiers["unscanned"] == 0
+            chunks = -(-rows // K.scan_chunk_rows(nlevel, 30, nbin))
+            assert K.LAUNCHES["smooth_search"] == \
+                chunks + -(-tiers["redecided"] // step)
+        else:
+            assert tiers == dict(scanned=0, redecided=0, unscanned=rows)
+            assert K.LAUNCHES["smooth_search"] == -(-rows // step)
         assert torch.equal(choice, wchoice), (choice, wchoice)
         peak = want.abs().max(dim=-1).values.clamp(min=1e-300)
         gap = (got - want).abs().max(dim=-1).values
@@ -1222,4 +1240,63 @@ def test_smooth_search_refuses_on_the_card(card):
     assert K.LAUNCHES["smooth_search"] == 0
     out = smart_smooth(port)
     torch.cuda.synchronize()
-    assert out.device.type == "cuda" and K.LAUNCHES["smooth_search"] == 1
+    # the scan's chunk, and the route's chunk where a row is uncertain
+    assert out.device.type == "cuda" and K.LAUNCHES["smooth_search"] == \
+        1 + min(1, K.SMOOTH_ROWS["redecided"])
+    assert K.SMOOTH_ROWS["scanned"] == 4
+
+
+# K8's scan (pp_wavelet_scan) against its plain version: (rows, nbin,
+# levels, threshold mode)
+SCAN_CASES = [(10, 2048, 11, "hard"), (64, 256, 8, "soft"),
+              (8, 8192, 13, "hard"), (4, 64, 6, "soft")]
+
+
+@pytest.mark.parametrize("case", SCAN_CASES, ids=lambda c: "%dx%d-%d-%s" % c)
+def test_smooth_scan_kernel_matches_plain(card, case):
+    """The scan kernel against smooth_scan_plain, which runs the same
+    transforms in torch with every product and sum rounded in the same
+    order: the S/N and chi2 of every candidate where both are positive
+    and finite within 1e-12 relative (the two differ in their sums'
+    order only), the noise and signal power likewise, the repeat flags
+    equal."""
+    K = card
+    rows, nbin, nlevel, mode = case
+    port = _smooth_rows(rows, nbin, 7 * rows + nbin)
+    facts = torch.linspace(0.0, 3.0, 30, dtype=torch.float64, device=DEVICE)
+    st, same = K.smooth_scan(port, "db8", nlevel, facts, mode)
+    sp, samep = K.smooth_scan_plain(port, "db8", nlevel, facts, mode)
+    torch.cuda.synchronize()
+    assert torch.equal(same, samep)
+    ok = torch.isfinite(sp).all(-1) & (sp > 0).all(-1)
+    assert bool(ok.any())
+    rel = (st - sp).abs() / sp.abs()
+    assert float(rel[ok].max()) <= 1e-12
+
+
+def test_cufft_rows_batch_invariant(card):
+    """The route's agreement with the plain version rests on cuFFT giving
+    a row the same bits whatever its batch: the transforms of rows
+    gathered in batches of other sizes equal those of the full batch,
+    and smooth_search_plain at full size and row by row chooses the
+    same."""
+    K = card
+    g = torch.Generator(device=DEVICE).manual_seed(3)
+    for nbin in (2048, 1000, 8192):
+        x = torch.randn(64, nbin, generator=g, device=DEVICE,
+                        dtype=torch.float64)
+        C = torch.randn(64, 11, nbin // 2 + 1, generator=g, device=DEVICE,
+                        dtype=torch.complex128)
+        full_r = torch.fft.rfft(x, dim=-1)
+        full_i = torch.fft.irfft(C, n=nbin, dim=-1)
+        for B in (1, 3, 10):
+            idx = torch.randperm(64, generator=g, device=DEVICE)[:B]
+            assert torch.equal(torch.fft.rfft(x[idx], dim=-1), full_r[idx])
+            assert torch.equal(torch.fft.irfft(C[idx], n=nbin, dim=-1),
+                               full_i[idx])
+    port = _smooth_rows(24, 2048, 5)
+    facts = torch.linspace(0.0, 3.0, 30, dtype=torch.float64, device=DEVICE)
+    _, whole = K.smooth_search_plain(port, "db8", 11, facts, 0.1)
+    for i in range(port.shape[0]):
+        _, one = K.smooth_search_plain(port[i:i + 1], "db8", 11, facts, 0.1)
+        assert torch.equal(one[0], whole[i]), i

@@ -94,7 +94,7 @@ def test_load_sources_in_the_build(tmp_path, monkeypatch, source, names):
 
 
 def test_wavelet_source_in_the_build(tmp_path, monkeypatch):
-    """K8 (csrc/wavelet.cu) is a built source: its six entry points and
+    """K8 (csrc/wavelet.cu) is a built source: its eight entry points and
     its traced CUDA function are in the source, it has a plain version
     and a launch count, and its library's name changes when the source
     is edited."""
@@ -103,7 +103,7 @@ def test_wavelet_source_in_the_build(tmp_path, monkeypatch):
     text = open(_kernels.CSRC_DIR + "/wavelet.cu").read()
     symbols = _kernels._SYMBOLS["smooth_search"]
     assert _kernels.KERNELS["smooth_search"][1] in symbols
-    assert len(symbols) == 6
+    assert len(symbols) == 8
     for sym in symbols:
         assert 'extern "C" int %s(' % sym in text
     assert "__global__" in text and \
