@@ -29,7 +29,12 @@ the profiler's clock conversion is fresh):
               on the rFFT of [64, 512, 2048] (a throughput chunk),
               [16, 512, 2048] and [16, 256, 1024] (serve and survey),
               [7636, 1, 2048] (one-channel lanes) and [64, 512, 2048]
-              with a model per row (ppalign), K 128.  Kernel
+              with a model per row (ppalign), K 128; K9's two epilogues
+              (the Gaussian portrait fit's f, g and J^T J; its f alone)
+              at [512, 2048] with 1 and 4 components in one lane and 1
+              in three lanes (NaNs alike, the same bits twice), beside
+              epilogue B the torch route it replaces (vmap(jacfwd) of
+              the residual and its two einsums).  Kernel
               and library times are device times from CUDA-graph replay;
               ``call_ms`` is the wrapper's time per call, host included
               (back-to-back CUDA events); a K4 case whose inputs fit in
@@ -147,9 +152,13 @@ the profiler's clock conversion is fresh):
               bound; pptoas with the .spl on the 16-subint archive: phase
               and DM within 5 sigma, plain vs kernel 1 ns
   ppgauss     ppgauss --autogauss 0.05 --niter 2 on the aligned archive:
-              components, LM nfev and rc, the Jacobian pass's device time
-              (B9), a plain-versions run (parameters within 1e-6 of their
-              errors); pptoas with the .gmodel: plain vs kernel 1 ns,
+              components, LM nfev and rc, its portrait fits through K9
+              (gauss_normal and gauss_sse launched, held against their
+              plain versions on the path's first inputs and timed there;
+              no fit took the jacfwd route), the torch route K9 replaces
+              timed at the solution (the Jacobian pass, with and without
+              its einsums), a plain-versions run (parameters within 1e-6
+              of their errors); pptoas with the .gmodel: plain vs kernel 1 ns,
               phase and DM within 5 sigma once referred to the initial
               template's phase zero and DM reference (the model's own
               offsets against the template, a fit of one noiseless
@@ -299,12 +308,14 @@ throughput_scat fits included, K5-K7 (``unpack``, ``baseline``,
 ``load_stats``, ``rotate``) on every path that loads an
 archive, the load phase's own run first, K8 (``smooth_search``, counted
 once a chunk decided, its ``symbols`` and ``rows_by_path``: rows by
-tier) on ppspline, ppalign_s and the walkthrough, with
+tier) on ppspline, ppalign_s and the walkthrough, K9 (``gauss_normal``,
+``gauss_sse``) on ppgauss, with
 ``launches_by_path`` —
 errors and times; K2 with
 its [1000, 1025] numbers, K1 and K3 with their [1000, 512, 128] ones and
 K4 with its [64, 512, 2048] ones,
-K5-K7 with the load phase's, K8 with ppalign_s's [512, 2048] ones,
+K5-K7 with the load phase's, K8 with ppalign_s's [512, 2048] ones, K9
+with its one-lane, one-component [512, 2048] ones,
 each with a ``shapes`` list of all its cases), the card's name and power
 limit, and
 last ``{"ok": true, "device": {...}}``.  Exits non-zero without a result
@@ -425,6 +436,24 @@ K8_OPS = 24
 # path's main run): scanned (the scan, certified or not), redecided (of
 # those, the uncertain rows the route took), unscanned
 SMOOTH_TIERS = {}
+# K9, the Gaussian portrait fit's normal equations (ppgauss's portrait fits
+# with tau frozen at 0 and no join groups): epilogue B the fit's f, g and
+# J^T J, epilogue A its f alone (the trial steps)
+K9_NAMES = ("gauss_normal", "gauss_sse")
+# K9 against its plain version: f, g and J^T J within this of each output's
+# largest magnitude, lane by lane (tests/test_torch_cuda_paths.py
+# GAUSS_TOL: sums of ~1e6 terms in another order, the Gram per channel then
+# the chain rule over channels), and the same NaNs
+K9_TOL = 1e-12
+# K9 cases at ppgauss's aligned portrait, [512, 2048]: (components, lanes);
+# ppgauss --autogauss fits one component in one lane; 19 components take
+# pass 1 in tiles (one more than a single tile holds)
+K9_CASES = [(1, 1), (4, 1), (1, 3), (19, 1)]
+K9_MAIN = 0
+# the most components at which the kernels phase times the torch route K9
+# replaces (its forward-mode tangents at 19 components would hold ~19 GB
+# an intermediate)
+K9_ROUTE_MAX_NGAUSS = 4
 
 
 def emit(phase, **kw):
@@ -579,6 +608,68 @@ def spectra_bound_ms(r, nchan, nharm, kmax, m_per_row, absm2, noise):
     return bound_ms(nbytes, (ops, PEAK_FP64_PER_S))
 
 
+def gauss_ops_per_bin(ngauss, normal):
+    """K9's FP64 operations per bin and lane, from csrc/gauss.cu, as
+    (vector operations, the Gram's multiply-adds counted 2 each): per live
+    component the wrap (2), x / sigma, z^2 and its half, the exp (~20),
+    amp e and its sum (27 in all), and in epilogue B its four basis values
+    (8); per bin 1 / err (B), r and m (3), and then r^2 and its sum (A, 2);
+    in B 2 for each of the (Q + 1)(Q + 2) / 2 Gram entries, Q + 1 = 3
+    ngauss + 2, a float64 product sum_bins v v^T that the FP64 tensor cores
+    can take."""
+    if not normal:
+        return 3 + 27 * ngauss + 2, 0
+    q1 = 3 * ngauss + 2
+    return 4 + 35 * ngauss, q1 * (q1 + 1)
+
+
+def k9_err_values(errs):
+    """The error values K9 must read: one a channel where errs is
+    per-channel noise broadcast over the bins (stride 0 along them, as
+    ppgauss gives it), else one a bin."""
+    return errs.shape[0] if errs.stride(1) == 0 else errs.numel()
+
+
+def gauss_bound_ms(B, nchan, nbin, ngauss, normal, err_values):
+    """K9's least time for B lanes of [nchan, nbin] at ``ngauss``
+    components: the params, data, ``err_values`` errors (k9_err_values),
+    bin centres and freqs read once (the lanes share the data), f (and g
+    and J^T J) written once; gauss_ops_per_bin per bin and lane, its Gram
+    multiply-adds at the FP64 tensor cores' peak and the rest at the FP64
+    peak, and for epilogue B the chain rule (4 operations per channel for
+    each of J^T J's upper triangle and g)."""
+    P = 6 * ngauss + 3
+    N = nchan * nbin
+    nbytes = B * P * 8 + (N + err_values) * 8 + (nbin + nchan) * 8 + \
+        B * 8 * ((1 + P + P * P) if normal else 1)
+    vector, gram = gauss_ops_per_bin(ngauss, normal)
+    ops = B * N * vector
+    if normal:
+        ops += B * nchan * 4 * (P * (P + 1) // 2 + P)
+    return bound_ms(nbytes, (ops, PEAK_FP64_PER_S),
+                    (B * N * gram, PEAK_FP64_TENSOR_PER_S))
+
+
+def k9_errors(got, want):
+    """K9's outputs (f, or (f, g, J^T J)) against its plain version's:
+    ({output: the largest gap over the lanes, each relative to its lane's
+    largest magnitude}, the largest absolute gap, whether the NaNs fall
+    alike)."""
+    import torch
+
+    got = got if isinstance(got, tuple) else (got,)
+    want = want if isinstance(want, tuple) else (want,)
+    errs, abs_err, same_nan = {}, 0.0, True
+    for key, a, b in zip(("f", "g", "JtJ"), got, want):
+        a, b = a.reshape(a.shape[0], -1), b.reshape(b.shape[0], -1)
+        same_nan &= bool(torch.equal(torch.isnan(a), torch.isnan(b)))
+        gap = (a - b).nan_to_num(0.0).abs().amax(-1)
+        scale = b.nan_to_num(0.0).abs().amax(-1).clamp_min(1e-300)
+        errs[key] = float((gap / scale).max())
+        abs_err = max(abs_err, float(gap.max()))
+    return errs, abs_err, same_nan
+
+
 def rel_err(a, b):
     return float((a - b).abs().max() / b.abs().max().clamp_min(1e-300))
 
@@ -662,7 +753,112 @@ def phase_kernels(dev, kern):
     k4 = [phase_k4(dev, kern, gen, *case) for case in K4_CASES]
     for j, name in enumerate(K4_NAMES):
         rows[name] = [pair[j] for pair in k4]
+    k9 = [phase_k9(dev, kern, *case) for case in K9_CASES]
+    for j, name in enumerate(K9_NAMES):
+        rows[name] = [pair[j] for pair in k9]
     return rows
+
+
+def k9_inputs(dev, ngauss, B, nchan=512, nbin=2048, seed=9):
+    """K9's arguments at [nchan, nbin]: B lanes of ngauss power-law
+    components (model code "000", tau 0), data the first lane's model
+    plus noise (numpy, seeded), per-channel errors broadcast over the bins
+    as ppgauss gives them, the band of the smoke's archives."""
+    import numpy as np
+    import torch
+
+    from pulseportraiture_tpu_torch.ops.fourier import get_bin_centers
+    from pulseportraiture_tpu_torch.ops.profiles import gen_gaussian_portrait
+
+    rng = np.random.default_rng(seed)
+    freqs = np.linspace(NU0 - 400.0, NU0 + 400.0, nchan)
+    comps = []
+    for c in range(ngauss):
+        comps += [0.2 + 0.6 * c / ngauss, -0.05, 0.03 + 0.01 * c, 0.1,
+                  1.0 / (c + 1), -1.2]
+    base = np.concatenate([[0.02, 0.0], comps, [-4.0]])
+    x = np.stack([base * (1.0 + 0.002 * k) for k in range(B)])
+    x[:, 1] = 0.0
+    model = gen_gaussian_portrait("000", base[:-1], base[-1],
+                                  np.arange(nbin) / nbin, freqs, NU0).numpy()
+    noise = rng.uniform(0.02, 0.08, nchan)
+    data = model + rng.normal(0.0, 1.0, (nchan, nbin)) * noise[:, None]
+    t = lambda a: torch.as_tensor(a, device=dev)  # noqa: E731
+    return (t(x), t(data), t(noise[:, None]).expand(nchan, nbin),
+            get_bin_centers(nbin, device=dev), t(freqs), NU0, "000")
+
+
+def torch_route_ms(args, reps=3):
+    """The torch route K9 replaces on the same inputs, as fit.lm takes it:
+    (device ms of one vmap(jacfwd) pass of the residual through
+    gen_gaussian_portrait, ms of that pass with the two einsums forming
+    J^T r and J^T J) by CUDA events."""
+    import torch
+
+    from pulseportraiture_tpu_torch.ops.profiles import gen_gaussian_portrait
+
+    x, data, errs, bins, freqs, nu_ref, code = args
+    nparam = x.shape[1] - 1
+
+    def res_twice(p):
+        model = gen_gaussian_portrait(code, p[:nparam], p[nparam], bins,
+                                      freqs, nu_ref, device=x.device)
+        r = ((data - model) / errs).reshape(-1)
+        return r, r
+
+    jac_b = torch.func.vmap(torch.func.jacfwd(res_twice, has_aux=True))
+
+    def step():
+        J, r = jac_b(x)
+        return (torch.einsum("bnp,bn->bp", J, r),
+                torch.einsum("bnp,bnq->bpq", J, J))
+
+    jac = cuda_ms(lambda: jac_b(x), reps=reps, warm=1)
+    both = cuda_ms(step, reps=reps, warm=1)
+    torch.cuda.empty_cache()
+    return jac, both
+
+
+def phase_k9(dev, kern, ngauss, B, nchan=512, nbin=2048):
+    """K9's two epilogues against their plain versions at [nchan, nbin]
+    with ``ngauss`` components and B lanes: f (and g and J^T J) within
+    K9_TOL, the same NaNs, two calls the same bits; device times by graph
+    replay, the wrapper's per call, the plain version's, the bound; beside
+    epilogue B the torch route it replaces (torch_route_ms).  Returns the
+    two rows."""
+    import torch
+
+    args = k9_inputs(dev, ngauss, B, nchan, nbin)
+    route = torch_route_ms(args) if ngauss <= K9_ROUTE_MAX_NGAUSS else \
+        (None, None)
+    out = []
+    for name in K9_NAMES:
+        fn, plain = getattr(kern, name), getattr(kern, name + "_plain")
+        got, again, want = fn(*args), fn(*args), plain(*args)
+        torch.cuda.synchronize()
+        errs, abs_err, same_nan = k9_errors(got, want)
+        repeat = all(torch.equal(a, b) for a, b in zip(
+            *(v if isinstance(v, tuple) else (v,) for v in (got, again))))
+        err = max(errs.values())
+        bms, by = gauss_bound_ms(B, nchan, nbin, ngauss, name == "gauss_normal",
+                                 k9_err_values(args[2]))
+        row = dict(shape=[B, nchan, nbin], ngauss=ngauss, max_rel_err=err,
+                   errors=errs, tol=K9_TOL, same_nan=same_nan,
+                   repeat_bit_equal=repeat, max_abs_err=abs_err,
+                   ms=graph_ms(lambda: fn(*args)),
+                   call_ms=cuda_ms(lambda: fn(*args)),
+                   plain_ms=cuda_ms(lambda: plain(*args), reps=3, warm=1),
+                   bound_ms=bms, bound_by=by, library_ms=None)
+        row["share_of_bound"] = bms / row["ms"]
+        if name == "gauss_normal":
+            row["torch_route_jac_ms"], row["torch_route_ms"] = route
+        emit("kernels", kernel=name, **row)
+        if not (err <= K9_TOL and same_nan and repeat):
+            raise AssertionError("%s kernel disagrees at %s: %s"
+                                 % (name, row["shape"], row))
+        out.append(row)
+    torch.cuda.empty_cache()
+    return out
 
 
 # K1 cases: (subints, channels, harmonics, rows evaluated: a lane subset of
@@ -2139,6 +2335,13 @@ def first_kernel_inputs(K, names=PHASE_DM_KERNELS, per_shape=False):
     seen = {}
     saved = {name: getattr(K, name) for name in names}
 
+    def copy(x):
+        # a broadcast dimension (stride 0, as K9's per-channel errs) stays
+        # broadcast: a copy of one slice, expanded
+        flat = tuple(slice(0, 1) if x.stride(d) == 0 else slice(None)
+                     for d in range(x.ndim))
+        return x[flat].clone().expand(x.shape)
+
     def keep(name, fn):
         def call(*a, **kw):
             key = name
@@ -2146,7 +2349,7 @@ def first_kernel_inputs(K, names=PHASE_DM_KERNELS, per_shape=False):
                 key = (name, tuple(a[0].shape) + (
                     (a[4],) if name == "fftfit" else ()))
             if key not in seen:
-                seen[key] = (tuple(x.clone() if isinstance(
+                seen[key] = (tuple(copy(x) if isinstance(
                     x, torch.Tensor) else x for x in a), dict(kw))
             return fn(*a, **kw)
         return call
@@ -2167,7 +2370,7 @@ def path_kernels_vs_plain(K, seen, required=PHASE_DM_KERNELS):
     "name@shape".  Raises when a ``required`` kernel was never called, or
     beyond 1e-12 of each sum's largest magnitude (K2's phase: 1e-9
     rot; K1's and K3's f, g and H terms: K1_GH_TOL, K3_GH_TOL; K5-K7 at
-    LOAD_TOL, load_errors)."""
+    LOAD_TOL, load_errors; K9's f, g and J^T J at K9_TOL, k9_errors)."""
     import torch
 
     plains = {name: getattr(K, name + "_plain") for name in K.KERNELS}
@@ -2218,6 +2421,11 @@ def path_kernels_vs_plain(K, seen, required=PHASE_DM_KERNELS):
         elif name == "smooth_search":
             abs_err, err, mismatches = smooth_errors(got, want)
             ok = mismatches == 0 and err <= SMOOTH_TOL
+        elif name in K9_NAMES:
+            errs, abs_err, same_nan = k9_errors(got, want)
+            err = max(errs.values())
+            ok = err <= K9_TOL and same_nan
+            shape = [a[0].shape[0]] + list(a[1].shape)   # lanes, data
         else:
             err = max(rel_err(got[..., i], want[..., i])
                       for i in range(got.shape[-1]))
@@ -2850,13 +3058,14 @@ def phase_ppalign_smooth(root, work, K, dev, avg):
 
 
 def jacobian_pass(dp, dev):
-    """One forward-mode Jacobian of the Gaussian portrait fit's residual
-    at its solution, as fit_gaussian_portrait's lm_solve takes it:
-    (device ms, bound ms, bound_by, shape [N, nparam])."""
+    """The torch route K9 replaces (the jacfwd route fit.lm takes for a
+    fit K9 does not take), at the Gaussian portrait fit's solution: one
+    forward-mode Jacobian of its residual and, beside it, that pass with
+    the two einsums forming J^T r and J^T J (torch_route_ms): (device ms
+    of the Jacobian, of the Jacobian with its einsums, the Jacobian's
+    bound ms, bound_by, shape [N, nparam])."""
     import numpy as np
     import torch
-
-    from pulseportraiture_tpu_torch.ops.profiles import gen_gaussian_portrait
 
     data = torch.as_tensor(dp.portx, device=dev)
     errs = torch.as_tensor(dp.portx_noise, device=dev)
@@ -2865,53 +3074,57 @@ def jacobian_pass(dp, dev):
                                         [dp.scattering_index]]),
                         device=dev)
     nparam = len(dp.model_params)
-
-    def residual(v):
-        model = gen_gaussian_portrait(dp.model_code, v[:nparam], v[nparam],
-                                      dp.phases, freqs, dp.nu_ref,
-                                      device=dev)
-        return ((data - model) / errs).reshape(-1)
-
-    jac = torch.func.jacfwd(residual)
-    ms = cuda_ms(lambda: jac(x), reps=3, warm=1)
-    N, npar = data.numel(), x.numel()
     nchan, nbin = data.shape
+    bins = torch.as_tensor(dp.phases, device=dev)
+    ms, route_ms = torch_route_ms((x[None], data, errs, bins, freqs,
+                                   dp.nu_ref, dp.model_code))
+    N, npar = data.numel(), x.numel()
     ngauss = (nparam - 2) // 6
     # data and errs read, J written; per tangent the components over the
     # portrait (~30 operations per bin and component) and the scattered
     # branch's rFFT and irFFT (2.5 N log2 nbin each)
     flops = npar * (30 * ngauss * N + 5 * N * math.log2(nbin))
     bms, by = bound_ms(2 * N * 8 + N * npar * 8, (flops, PEAK_FP64_PER_S))
-    return ms, bms, by, [N, npar]
+    return ms, route_ms, bms, by, [N, npar]
 
 
 def phase_ppgauss(root, work, K, dev, avg, small):
     """The port's ppgauss --autogauss 0.05 --niter 2 on the aligned
-    archive: components, LM nfev and rc, wall, the Jacobian pass's device
-    ms; a run with the plain versions (parameters within 1e-6 of their
-    errors); pptoas with the .gmodel on the 16-subint archive (1 ns
-    against plain; the injection within 5 sigma, referred to the initial
-    template's phase zero and DM reference).  Returns the launches of the
-    ppgauss and pptoas runs, summed."""
+    archive: components, LM nfev and rc, wall, its portrait fits through
+    K9 (both epilogues launched, the jacfwd route not taken: fit.gauss's
+    FIT_ROUTES), K9 held against its plain version on the first inputs
+    the path gave each epilogue and timed there; the torch route K9
+    replaces (jacobian_pass) at the solution; a run with the plain
+    versions (parameters within 1e-6 of their errors); pptoas with the
+    .gmodel on the 16-subint archive (1 ns against plain; the injection
+    within 5 sigma, referred to the initial template's phase zero and DM
+    reference).  Returns the launches of the ppgauss and pptoas runs,
+    summed."""
     import numpy as np
 
     from pulseportraiture_tpu_torch.cli import ppgauss
+    from pulseportraiture_tpu_torch.fit import gauss as fit_gauss
     from pulseportraiture_tpu_torch.io.gmodel import read_model
     from pulseportraiture_tpu_torch.models import gauss
 
     out = os.path.join(work, "aligned.gmodel")
     argv = ["-d", avg, "--autogauss", "0.05", "--niter", "2", "--device",
             str(dev)]
+    routes = dict(fit_gauss.FIT_ROUTES)
     with clocked(gauss, ("fit_gaussian_portrait",),
                  keep_out=("fit_gaussian_portrait",)) as clock, \
             clocked(gauss.GaussianModelPortrait,
-                    ("check_convergence",)) as conv:
+                    ("check_convergence",)) as conv, \
+            first_kernel_inputs(K, K9_NAMES) as seen:
         wall, launches = run_tool(K, ppgauss, argv + ["-o", out])
+    routes = {k: fit_gauss.FIT_ROUTES[k] - routes[k] for k in routes}
+    k9_vs_plain = path_kernels_vs_plain(K, seen, required=K9_NAMES)
+    k9_times = path_kernel_times(K, {(k, None): v for k, v in seen.items()})
     fits = clock["fit_gaussian_portrait_out"]
     dp = conv["self"][-1]
     _, _, _, ngauss, params, _, _, _ = read_model(out)
     errs = read_model(out + "_errs")[4]
-    jms, jb, jby, jshape = jacobian_pass(dp, dev)
+    jms, route_ms, jb, jby, jshape = jacobian_pass(dp, dev)
 
     plain_out = os.path.join(work, "aligned_plain.gmodel")
     with plain_kernels(K):
@@ -2929,14 +3142,18 @@ def phase_ppgauss(root, work, K, dev, avg, small):
          fit_s=clock["fit_gaussian_portrait"],
          lm_nfev=[f.nfev for f in fits], lm_rc=[f.return_code for f in fits],
          red_chi2=fits[-1].chi2 / fits[-1].dof, converged=int(dp.cnvrgnc),
-         jacobian=dict(shape=jshape, ms=jms, bound_ms=jb, bound_by=jby),
+         fit_routes=routes, k9_vs_plain=k9_vs_plain, k9_times=k9_times,
+         jacobian=dict(shape=jshape, ms=jms, torch_route_ms=route_ms,
+                       bound_ms=jb, bound_by=jby),
          plain_vs_kernel_params_over_errs=gap,
          template_frame=dict(zip(("phase", "DM", "nu"), frame)),
          pptoas=toas)
     # ppgauss's convergence fits measure their own noise: K4's second
-    # epilogue, not its first
-    if any(launches[n] == 0 for n in K1_NAMES + ("fftfit", "spectra_noise")):
-        raise AssertionError("ppgauss launched %s" % launches)
+    # epilogue, not its first; its portrait fits go through K9 alone
+    if any(launches[n] == 0 for n in K1_NAMES + ("fftfit", "spectra_noise")
+           + K9_NAMES) or routes["jacfwd"] or not routes["normal"]:
+        raise AssertionError("ppgauss launched %s, fit routes %s"
+                             % (launches, routes))
     if not (np.isfinite(params).all() and fits[-1].return_code in (1, 2)):
         raise AssertionError("ppgauss: params %s, rc %d"
                              % (params, fits[-1].return_code))
@@ -4066,8 +4283,10 @@ def phase_obs(root, work, K, dev, small, fit_shape=(1000, 512, 2048)):
         problems += obs_completeness_problems(key, e, counts, reg)
     # the captures are fit regions: every fit kernel shows in one; the
     # load's (K5-K7) run before them, and no captured path smooths (K8)
+    # or fits a Gaussian model (K9)
     seen = {k: sum(r["trace_kernel_rows"][k] for r in rows)
-            for k in K.TRACE_NAMES if k not in LOAD_NAMES + SMOOTH_KERNELS}
+            for k in K.TRACE_NAMES
+            if k not in LOAD_NAMES + SMOOTH_KERNELS + K9_NAMES}
     if not all(seen.values()):
         problems.append("kernels absent from every trace: %s" % seen)
     all_stages = set().union(*stages.values()) if stages else set()
@@ -4792,6 +5011,11 @@ def path_kernel_times(K, seen):
             Ns, newton = a[4], a[5]
             shape.append(Ns)
             bms, by = fftfit_bound_ms(*shape[:2], Ns, newton)
+        elif name in K9_NAMES:                  # lanes, and the data's shape
+            shape = [shape[0]] + list(a[1].shape)
+            bms, by = gauss_bound_ms(*shape, K.gauss_ngauss(a[0].shape[1]),
+                                     name == "gauss_normal",
+                                     k9_err_values(a[2]))
         elif name in K1_NAMES:
             # the evaluated rows: all, or the lanes given
             bms, by = moments_bound_ms(a[1].shape[0], *shape[1:],
@@ -5072,9 +5296,9 @@ def phase_serve(root, work, K, survey, device="cuda"):
                                  % failed)
         # served archives carry their noise: K4's first epilogue only;
         # their loads decode and remove the baseline in one K5 launch; no
-        # request smooths (K8)
+        # request smooths (K8) or fits a Gaussian model (K9)
         served = tuple(n for n in K.KERNELS if n not in (
-            "spectra_noise", "baseline") + SMOOTH_KERNELS)
+            "spectra_noise", "baseline") + SMOOTH_KERNELS + K9_NAMES)
         if any(launches[n] == 0 for n in served):
             raise AssertionError("serve launches %s" % launches)
         path_rows = path_kernels_vs_plain(K, seen, required=served)
@@ -5565,7 +5789,8 @@ def phase_mesh(root, work, K, survey, shape=(1000, 512, 2048),
                 and row["max_dt_ns"] < 1.0 and c["err_us"] <= 1.0005e-3 \
                 and c["pp_dm"] <= 1.0005e-7 and c["pp_dme"] <= 1.0005e-7
     path_rows = path_kernels_vs_plain(K, seen, required=tuple(
-        n for n in K.KERNELS if n not in ("baseline",) + SMOOTH_KERNELS))
+        n for n in K.KERNELS
+        if n not in ("baseline",) + SMOOTH_KERNELS + K9_NAMES))
     times = path_kernel_times(K, seen)
     del seen
     torch.cuda.empty_cache()
@@ -5586,9 +5811,9 @@ def phase_mesh(root, work, K, survey, shape=(1000, 512, 2048),
                              "unsharded one (the mesh line above)")
     # the mesh's loads decode and remove the baseline in one K5 launch:
     # K5's baseline alone follows only a rotation or a state conversion;
-    # nothing on it smooths (K8)
-    missing = [n for n, c in launches.items()
-               if c == 0 and n not in ("baseline",) + SMOOTH_KERNELS]
+    # nothing on it smooths (K8) or fits a Gaussian model (K9)
+    missing = [n for n, c in launches.items() if c == 0 and n not in
+               ("baseline",) + SMOOTH_KERNELS + K9_NAMES]
     if missing:
         raise AssertionError("kernels never launched on the mesh path: %s"
                              % missing)
@@ -5678,6 +5903,9 @@ def main(argv):
         paths[name] = list(by_path)
     # K8 on every path that smooths
     paths["smooth_search"] = ["ppspline", "ppalign_s", "walkthrough"]
+    # K9 on ppgauss's portrait fits
+    for name in K9_NAMES:
+        paths[name] = ["ppgauss"]
     # no archive of any path failed on a device error
     failed = [f for made in failed_lists for f in made]
     emit("failed_datafiles", gettoas_runs=len(failed_lists), failed=failed)
@@ -5690,7 +5918,7 @@ def main(argv):
     missing += ["%s on %s" % (n, p) for p, names in (
         ("load", LOAD_NAMES), ("pptoas", LOAD_PATH_KERNELS),
         ("ppspline", SMOOTH_KERNELS), ("ppalign_s", SMOOTH_KERNELS),
-        ("walkthrough", SMOOTH_KERNELS))
+        ("walkthrough", SMOOTH_KERNELS), ("ppgauss", K9_NAMES))
         for n in names if by_path[p][n] == 0]
     if missing:
         raise AssertionError("kernels never launched on any path: %s"
@@ -5737,6 +5965,14 @@ def main(argv):
                     "scan_vs_plain_max_rel_err", "scan_same_equal",
                     "gap_over_bound", "rows_failing_fft_check")}
                     for c in r])
+        elif name in K9_NAMES:
+            r, extra = r[K9_MAIN], dict(shapes=[
+                {key: c[key] for key in (
+                    "shape", "ngauss", "ms", "call_ms", "bound_ms",
+                    "bound_by", "share_of_bound", "plain_ms",
+                    "torch_route_jac_ms", "torch_route_ms", "errors",
+                    "max_abs_err", "repeat_bit_equal") if key in c}
+                for c in r])
         elif name in K4_NAMES:
             r, extra = r[K4_MAIN], dict(shapes=[
                 {key: c[key] for key in (

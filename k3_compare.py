@@ -49,12 +49,26 @@ With ``--spectra`` first (the fit's set-up, K4):
   longest device rows) and the peak device memory above what was
   allocated before the fit.
 
+With ``--ppgauss`` first (the Gaussian portrait fit, K9):
+
+* ``ppgauss --autogauss 0.05 --niter 2`` on one averaged archive (one
+  subint, 512 channels x 2048 bins, dedispersed, noise 0.05, one evolving
+  component of model code "000", made once with this tree's
+  make_fake_pulsar, chip_smoke.py's ppgauss input), run twice in the
+  tree's process; the second run is reported (the first builds the
+  kernels): the CLI wall, each portrait fit's seconds
+  (fit_gaussian_portrait, the device synchronised), nfev and rc, the hand
+  kernels' launches, and the fitted model's parameters and errors; after
+  the trees, each run's largest parameter gap to the first run's, over
+  its errors.
+
 Each tree prints one JSON line; run the trees alternately (parent,
 change, change, parent) to compare them within one call:
 
     python3 k3_compare.py PARENT_DIR . . PARENT_DIR
     python3 k3_compare.py --k1 PARENT_DIR . . PARENT_DIR
     python3 k3_compare.py --spectra PARENT_DIR . . PARENT_DIR
+    python3 k3_compare.py --ppgauss PARENT_DIR . . PARENT_DIR
 
 Needs a CUDA device and the CUDA toolkit (nvcc, cuobjdump).
 """
@@ -484,29 +498,114 @@ def one_tree_spectra(root):
     print(json.dumps(res), flush=True)
 
 
+def ppgauss_archive(work):
+    """The averaged archive --ppgauss fits (this tree's make_fake_pulsar)."""
+    from pulseportraiture_tpu_torch.io.archive import make_fake_pulsar
+    from pulseportraiture_tpu_torch.io.gmodel import write_model
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    gm = os.path.join(work, "one.gmodel")
+    write_model(gm, "fake", "000", 1500.0,
+                [0.0, 0.0, 0.35, -0.05, 0.05, 0.1, 1.0, -1.2],
+                [1] * 8, -4.0, 0, quiet=True)
+    return make_fake_pulsar(
+        gm, os.path.join(root, "examples", "example.par"),
+        os.path.join(work, "avg.fits"), nsub=1, nchan=512, nbin=2048,
+        nu0=1500.0, bw=800.0, tsub=60.0, noise_stds=0.05, dedispersed=True,
+        seed=3, quiet=True)
+
+
+def one_tree_ppgauss(root, archive):
+    root = os.path.abspath(root)
+    sys.path.insert(0, root)
+    import torch
+
+    from pulseportraiture_tpu_torch import _kernels as K
+    from pulseportraiture_tpu_torch.cli import ppgauss
+    from pulseportraiture_tpu_torch.models import gauss as mg
+
+    fit, fits, built = mg.fit_gaussian_portrait, [], []
+    make = mg.GaussianModelPortrait.make_gaussian_model
+
+    def timed(*a, **kw):
+        t0 = time.perf_counter()
+        out = fit(*a, **kw)
+        torch.cuda.synchronize()
+        fits.append(dict(s=time.perf_counter() - t0, nfev=int(out.nfev),
+                         rc=int(out.return_code)))
+        return out
+
+    def keep(self, *a, **kw):
+        built.append(self)
+        return make(self, *a, **kw)
+
+    mg.fit_gaussian_portrait = timed
+    mg.GaussianModelPortrait.make_gaussian_model = keep
+    out = os.path.join(tempfile.mkdtemp(prefix="ppgauss_"), "m.gmodel")
+    argv = ["-d", archive, "--autogauss", "0.05", "--niter", "2", "-o", out,
+            "--device", "cuda"]
+    for _ in range(2):
+        del fits[:], built[:]
+        K.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rc = ppgauss.main(argv)
+        wall = time.perf_counter() - t0
+        if rc != 0:
+            raise SystemExit("ppgauss exited %d" % rc)
+    print(json.dumps(dict(
+        tree=root, cli_s=wall, fits=fits,
+        launches={k: v for k, v in K.LAUNCHES.items() if v},
+        params=[float(v) for v in built[-1].model_params],
+        errs=[float(v) for v in built[-1].model_param_errs])), flush=True)
+
+
+def params_gaps(lines):
+    """Each --ppgauss run's largest parameter gap to the first run's,
+    over the first run's finite errors."""
+    import numpy as np
+
+    runs = [json.loads(ln) for ln in lines]
+    p0, e0 = (np.asarray(runs[0][k]) for k in ("params", "errs"))
+    fin = np.isfinite(e0) & (e0 > 0)
+    return [float(np.max(np.abs(np.asarray(r["params"]) - p0)[fin]
+                         / e0[fin])) for r in runs]
+
+
 def main(argv):
-    mode = argv[0] if argv and argv[0] in ("--k1", "--spectra") else None
+    mode = argv[0] if argv and argv[0] in ("--k1", "--spectra",
+                                           "--ppgauss") else None
     if mode:
         argv = argv[1:]
     if len(argv) >= 2 and argv[0] == "--tree":
         if mode == "--spectra":
             one_tree_spectra(argv[1])
+        elif mode == "--ppgauss":
+            one_tree_ppgauss(argv[1], argv[2])
         else:
             (one_tree_k1 if mode else one_tree)(argv[1])
         return 0
     if not argv:
         print(__doc__)
         return 2
-    rc = 0
+    extra = []
+    if mode == "--ppgauss":
+        extra = [ppgauss_archive(tempfile.mkdtemp(prefix="ppgauss_data_"))]
+    rc, lines = 0, []
     for root in argv:
         r = subprocess.run([sys.executable, os.path.abspath(__file__)]
                            + ([mode] if mode else [])
-                           + ["--tree", root],
+                           + ["--tree", root] + extra,
                            capture_output=True, text=True)
         print(r.stdout.strip(), flush=True)
         if r.returncode:
             print(r.stderr[-2000:], file=sys.stderr, flush=True)
             rc = r.returncode
+        elif mode == "--ppgauss":
+            lines.append(r.stdout.strip().splitlines()[-1])
+    if mode == "--ppgauss" and lines:
+        print(json.dumps(dict(params_gap_over_errs=params_gaps(lines))),
+              flush=True)
     return rc
 
 

@@ -1,6 +1,6 @@
 """The port's hand-written CUDA kernels: build, ctypes binding, wrappers.
 
-Eight kernels, each a CUDA C++ source under ``csrc/`` compiled for
+Nine kernels, each a CUDA C++ source under ``csrc/`` compiled for
 Hopper (``sm_90a``) by ``nvcc`` into a shared library with a plain C
 interface and loaded with ``ctypes``:
 
@@ -69,6 +69,15 @@ interface and loaded with ``ctypes``:
      and choice) for the rows left uncertain and for widths the scan does
      not take.  LAUNCHES counts each chunk decided (one certifying or
      route select); SMOOTH_ROWS counts the rows by tier.
+  K9 ``gauss_normal`` (csrc/gauss.cu) — the normal equations of the
+     Gaussian portrait fit's Levenberg-Marquardt loop (the forward-mode
+     Jacobian of pulseportraiture_tpu/fit/lm.py:60 and its products J^T r
+     and J^T J, for the residual of pulseportraiture_tpu/fit/gauss.py:124
+     on the unscattered model of ops/profiles.py:141): f = sum r^2,
+     g = J^T r and J^T J per lane from the model's analytic derivatives,
+     with no Jacobian formed; and ``gauss_sse``, f alone, for the loop's
+     trial steps.  One library, two entry points, each with its own
+     launch count and trace name.
 
 Each wrapper dispatches on its input's device: a CPU tensor takes the
 plain PyTorch version beside it (the same name with ``_plain``: e.g.
@@ -112,6 +121,7 @@ from .config import F0_fact
 from .obs import monitor
 from .ops.fourier import phasor
 from .ops.noise import SNR_of_noise, noise_PS_of_power
+from .ops.profiles import FWHM_FACT
 from .ops.scattering import LN10, _nonzero_div
 from .ops.stats import median
 
@@ -131,7 +141,11 @@ __all__ = ["KernelLaunchError", "LAUNCHES", "reset_launches", "build",
            "load_stats_plain", "rotate", "rotate_plain", "smooth_search",
            "smooth_search_plain", "smooth_scan",
            "smooth_scan_plain", "smooth_chunk_rows", "scan_chunk_rows",
-           "scannable", "SMOOTH_MAX_BINS", "SMOOTH_ROWS", "KERNELS"]
+           "scannable", "SMOOTH_MAX_BINS", "SMOOTH_ROWS", "gauss_normal",
+           "gauss_normal_plain", "gauss_sse", "gauss_sse_plain",
+           "gauss_ngauss", "gauss_normal_smem", "gauss_tile_rows",
+           "GAUSS_MAX_NGAUSS", "GAUSS_ONE_TILE_NGAUSS",
+           "KERNELS"]
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC_DIR = os.path.join(_HERE, "csrc")
@@ -165,6 +179,10 @@ KERNELS = {
                "pulseportraiture_tpu/ops/fourier.py:210"),
     "smooth_search": ("wavelet.cu", "pp_wavelet_scan",
                       "pulseportraiture_tpu/ops/wavelet.py:177"),
+    "gauss_normal": ("gauss.cu", "pp_gauss_normal",
+                     "pulseportraiture_tpu/fit/lm.py:60"),
+    "gauss_sse": ("gauss.cu", "pp_gauss_sse",
+                  "pulseportraiture_tpu/fit/gauss.py:124"),
 }
 # the sources, one nvcc and one library each
 SOURCES = tuple(sorted({src for src, _, _ in KERNELS.values()}))
@@ -215,6 +233,12 @@ _SYMBOLS = {
                                _VP, _VP, _VP, _I64, _INT, _INT, _INT, _INT,
                                _INT, _DBL, _DBL, _DBL, _DBL, _DBL, _VP, _VP,
                                _VP, _VP]},
+    "gauss_normal": {"pp_gauss_normal": [
+        _VP, _VP, _VP, _I64, _INT, _VP, _VP, _INT, _INT, _INT, _INT, _DBL,
+        _DBL, _INT, _INT, _INT, _INT, _VP, _VP, _VP, _VP, _VP]},
+    "gauss_sse": {"pp_gauss_sse": [
+        _VP, _VP, _VP, _I64, _INT, _VP, _VP, _INT, _INT, _INT, _INT, _DBL,
+        _DBL, _INT, _INT, _INT, _VP, _VP, _VP]},
 }
 
 # kernel name -> the CUDA function that runs once per counted launch, as
@@ -232,7 +256,9 @@ TRACE_NAMES = {"moments": "moments_kernel",
                "baseline": "baseline_kernel",
                "load_stats": "load_stats_kernel",
                "rotate": "rotate_kernel",
-               "smooth_search": "wavelet_select"}
+               "smooth_search": "wavelet_select",
+               "gauss_normal": "gauss_normal_kernel",
+               "gauss_sse": "gauss_sse_kernel"}
 
 LAUNCHES = {name: 0 for name in KERNELS}
 BUILD_LOG = {}  # library (source stem) -> nvcc output (register report)
@@ -2143,3 +2169,284 @@ def smooth_search(port, wavelet, nlevel, facts, rchi2_tol, threshtype="hard",
             SMOOTH_ROWS["scanned"] += port.shape[0]
             SMOOTH_ROWS["redecided"] += len(uncertain)
     return out, choice
+
+
+# -- K9: the Gaussian portrait fit's normal equations -------------------------
+
+# pass 1 of csrc/gauss.cu (a block a (lane, channel, tile)): its threads,
+# the bins staged a round (one a thread), the staged rows' stride in
+# doubles and its warps; the shared memory one block can take on the
+# H100; the Gram rows of a tile when the whole matrix does not fit
+GAUSS_THREADS = 256
+GAUSS_PAD = GAUSS_THREADS + 1
+GAUSS_WARPS = GAUSS_THREADS // 32
+GAUSS_SMEM_MAX = 232448
+GAUSS_TILE_ROWS = 32
+
+
+def gauss_ngauss(nparam):
+    """The components of a Gaussian portrait fit's parameter vector of
+    ``nparam`` = 2 + 6 ngauss + 1 entries (dc, tau, six per component,
+    the scattering index); raises ValueError for any other length."""
+    ngauss, rest = divmod(int(nparam) - 3, 6)
+    if ngauss < 1 or rest:
+        raise ValueError("a Gaussian portrait's parameters are 2 + 6 ngauss "
+                         "+ 1 (ngauss >= 1), got %d" % nparam)
+    return ngauss
+
+
+def _gauss_rows(ngauss):
+    """(Q + 1, Gram entries): the basis rows and r of csrc/gauss.cu's
+    pass 1, and the upper triangle of their Gram matrix."""
+    q1 = 3 * ngauss + 2
+    return q1, q1 * (q1 + 1) // 2
+
+
+def gauss_normal_smem(ngauss, tile_rows=None):
+    """Bytes of shared memory pass 1 of gauss_normal takes at ``ngauss``
+    components in tiles of ``tile_rows`` Gram rows (None: one tile, the
+    whole matrix): five doubles a component, the staged rows (all Q + 1,
+    or two blocks' of tile_rows, GAUSS_PAD doubles each), a row of the
+    tile's Gram sums a warp, a live flag (int) a component and a packed
+    (k, k') pair (2 bytes) a tile entry."""
+    q1, npairs = _gauss_rows(ngauss)
+    R = q1 if tile_rows is None else min(int(tile_rows), q1)
+    rows, pairs = (q1, npairs) if R >= q1 else (2 * R, R * R)
+    return 8 * (5 * ngauss + rows * GAUSS_PAD + GAUSS_WARPS * pairs) \
+        + 4 * ngauss + 2 * pairs
+
+
+# the most components gauss_normal takes on the card, in tiles of
+# GAUSS_TILE_ROWS (its wrapper raises beyond), and the most with one tile
+GAUSS_MAX_NGAUSS = (GAUSS_SMEM_MAX - 8 * (2 * GAUSS_TILE_ROWS * GAUSS_PAD
+                                         + GAUSS_WARPS * GAUSS_TILE_ROWS ** 2)
+                    - 2 * GAUSS_TILE_ROWS ** 2) // (8 * 5 + 4)
+GAUSS_ONE_TILE_NGAUSS = max(n for n in range(1, 64)
+                            if gauss_normal_smem(n) <= GAUSS_SMEM_MAX)
+
+
+def gauss_tile_rows(ngauss):
+    """The Gram rows a tile of gauss_normal's pass 1 takes at ``ngauss``
+    components: all 3 ngauss + 2 (one tile) up to GAUSS_ONE_TILE_NGAUSS,
+    else GAUSS_TILE_ROWS; ValueError beyond GAUSS_MAX_NGAUSS."""
+    if ngauss <= GAUSS_ONE_TILE_NGAUSS:
+        return _gauss_rows(ngauss)[0]
+    if ngauss <= GAUSS_MAX_NGAUSS:
+        return GAUSS_TILE_ROWS
+    raise ValueError("gauss_normal: %d components; the kernel takes at most "
+                     "%d (%d bytes of shared memory a block)"
+                     % (ngauss, GAUSS_MAX_NGAUSS, GAUSS_SMEM_MAX))
+
+
+def _gauss_laws(model_code):
+    """The three model-code digits (loc, wid, amp) as 0 (power law) or 1
+    (linear)."""
+    code = str(model_code)
+    if len(code) != 3 or set(code) - set("01"):
+        raise ValueError("model_code must be three digits of 0 (power law) "
+                         "or 1 (linear), got %r" % (model_code,))
+    return tuple(int(c) for c in code)
+
+
+def _check_gauss(params, data, errs, bins, freqs, model_code, what):
+    """Check K9's arguments; returns (B, P, ngauss, laws)."""
+    _check(params, "params", torch.float64, 2)
+    _check(data, "data", torch.float64, 2)
+    if isinstance(errs, torch.Tensor) and errs.ndim == 2 and \
+            errs.stride(1) == 0:
+        # per-channel errors broadcast over the bins, read through their
+        # row stride (a value a channel): dtype and rank to check
+        _check(errs[:1, :1], "errs", torch.float64, 2)
+    else:
+        _check(errs, "errs", torch.float64, 2)
+    _check(bins, "bins", torch.float64, 1)
+    _check(freqs, "freqs", torch.float64, 1)
+    B, P = params.shape
+    nchan, nbin = data.shape
+    if tuple(errs.shape) != (nchan, nbin) or bins.shape[0] != nbin or \
+            freqs.shape[0] != nchan:
+        raise ValueError("%s: shapes data %s, errs %s, bins %s, freqs %s "
+                         "disagree" % (what, tuple(data.shape),
+                                       tuple(errs.shape), tuple(bins.shape),
+                                       tuple(freqs.shape)))
+    _same_device(params, data, errs, bins, freqs)
+    return B, P, gauss_ngauss(P), _gauss_laws(model_code)
+
+
+def _evolve_plain(p0, slope, logf, dfreq, law):
+    """One evolution law at every channel: (value, d value / d p0,
+    d value / d slope, cross) [B, nchan, ngauss] of p0 and slope [B,
+    ngauss]: the power law exp(logf slope + log p0) (law 0) or the linear
+    law dfreq slope + p0 (law 1), the derivatives in the order
+    forward-mode takes them (log's tangent 1 / p0, then exp's).  ``cross``
+    is the value's tangent along any other parameter: value (0 / p0) for
+    the power law, 0 unless p0 = 0 (then NaN, which forward-mode carries
+    into every column of the Jacobian), and 0 for the linear law."""
+    if law == 0:
+        val = torch.exp(logf[None, :, None] * slope[:, None, :]
+                        + torch.log(p0)[:, None, :])
+        return (val, (1.0 / p0)[:, None, :] * val, logf[None, :, None] * val,
+                (0.0 / p0)[:, None, :] * val)
+    val = dfreq[None, :, None] * slope[:, None, :] + p0[:, None, :]
+    return (val, torch.ones_like(val), dfreq[None, :, None].expand_as(val),
+            torch.zeros_like(val))
+
+
+def _gauss_terms_plain(params, data, errs, bins, freqs, nu_ref, laws,
+                       columns):
+    """The unscattered Gaussian portrait's residual r [B, nchan, nbin]
+    (the arithmetic of ops.profiles.gen_gaussian_portrait at tau = 0)
+    and, with ``columns``, its Jacobian J [B, nchan, nbin, P] from the
+    analytic derivatives (None without)."""
+    B, P = params.shape
+    ng = gauss_ngauss(P)
+    nu = torch.as_tensor(nu_ref, dtype=torch.float64, device=freqs.device)
+    logf = torch.log(freqs) - torch.log(nu)
+    dfreq = freqs - nu_ref
+    comps = params[:, 2:P - 1].reshape(B, ng, 6)
+    (locs, dl0, dl1, xl), (wids, dw0, dw1, xw), (amps, da0, da1, xa) = (
+        _evolve_plain(comps[..., 2 * k], comps[..., 2 * k + 1], logf, dfreq,
+                      laws[k]) for k in range(3))
+    mean = torch.remainder(locs, 1.0)
+    x = bins - mean[..., None]                      # [B, nchan, ng, nbin]
+    x = torch.where(x > 0.5, x - 1.0, x)
+    x = torch.where(x < -0.5, x + 1.0, x)
+    live = (wids > 0.0)[..., None]
+    sigma = torch.where(live, (wids / FWHM_FACT)[..., None],
+                        torch.ones_like(x[..., :1]))
+    zr = x / sigma
+    z = torch.clamp(zr, -20.0, 20.0)
+    e = torch.where(live, torch.exp(-0.5 * (z * z)), torch.zeros_like(z))
+    model = params[:, 0, None, None] + torch.sum(amps[..., None] * e, dim=2)
+    r = (data - model) / errs
+    if not columns:
+        return r, None
+    zero = torch.zeros_like(e)
+    # d model / d (loc, wid) of the evolved component: 0 where the clip
+    # holds z, and where wid <= 0 whatever the chain factor (the
+    # reference's where selects a zero there)
+    inner = torch.abs(zr) < 20.0
+    ae = amps[..., None] * e
+    b_loc = torch.where(inner, ae * z / sigma, zero)
+    b_wid = torch.where(inner, ae * z * z / torch.where(
+        live, wids[..., None], torch.ones_like(sigma)), zero)
+    cols = [torch.where(live, a[..., None] * b, zero)
+            for a, b in ((dl0, b_loc), (dl1, b_loc), (dw0, b_wid),
+                         (dw1, b_wid))]
+    cols += [da0[..., None] * e, da1[..., None] * e]
+    nchan, nbin = data.shape
+    comp_cols = torch.stack(cols, dim=3).reshape(B, nchan, 6 * ng, nbin)
+    one = torch.ones((B, nchan, nbin, 1), dtype=torch.float64,
+                     device=params.device)
+    dm = torch.cat([one, torch.zeros_like(one),
+                    comp_cols.transpose(-1, -2), torch.zeros_like(one)],
+                   dim=-1)
+    # the evolved values' tangents along every parameter (0, or NaN from a
+    # power law's p0 = 0: through amp always, through loc and wid where
+    # the component is live), added to every column as forward-mode does
+    cross = xa[..., None] * e + torch.where(
+        live, xl[..., None] * b_loc + xw[..., None] * b_wid, zero)
+    dm = dm + torch.sum(cross, dim=2)[..., None]
+    return r, -dm / errs[..., None]
+
+
+def gauss_sse_plain(params, data, errs, bins, freqs, nu_ref, model_code):
+    """Plain PyTorch K9, epilogue A: f [B] = sum r^2 of the unscattered
+    Gaussian portrait's residual (see gauss_normal_plain)."""
+    r, _ = _gauss_terms_plain(params, data, errs, bins, freqs, nu_ref,
+                              _gauss_laws(model_code), False)
+    return torch.sum(r * r, dim=(-2, -1))
+
+
+def gauss_normal_plain(params, data, errs, bins, freqs, nu_ref, model_code):
+    """Plain PyTorch K9, epilogue B: (f [B], g [B, P], JtJ [B, P, P]) of
+    the residual r = (data - m) / errs of the unscattered Gaussian
+    portrait m at params [B, P] (see gauss_normal): its Jacobian's
+    columns from the analytic derivatives, then f = sum r^2, g = J^T r
+    and J^T J by einsum, as the JAX reference's lm_solve forms them."""
+    r, J = _gauss_terms_plain(params, data, errs, bins, freqs, nu_ref,
+                              _gauss_laws(model_code), True)
+    B, P = params.shape
+    r, J = r.reshape(B, -1), J.reshape(B, -1, P)
+    return (torch.sum(r * r, dim=-1), torch.einsum("bnp,bn->bp", J, r),
+            torch.einsum("bnp,bnq->bpq", J, J))
+
+
+def _gauss_launch(name, params, data, errs, bins, freqs, nu_ref, laws,
+                  tiles, scratch, *outs):
+    B, P = params.shape
+    nchan, nbin = data.shape
+    if B > 65535:
+        raise ValueError("%s: %d lanes; a launch takes at most 65535"
+                         % (name, B))
+    per_bin = int(errs.stride(1) != 0)
+    _launch(name, params.device, params.data_ptr(), data.data_ptr(),
+            errs.data_ptr(), errs.stride(0), per_bin, bins.data_ptr(),
+            freqs.data_ptr(), B, gauss_ngauss(P), nchan, nbin,
+            float(nu_ref), FWHM_FACT, *laws, *tiles,
+            scratch.data_ptr(), *(o.data_ptr() for o in outs))
+
+
+def gauss_sse(params, data, errs, bins, freqs, nu_ref, model_code):
+    """K9 wrapper, epilogue A (see csrc/gauss.cu): f [B] = sum over the
+    portrait of r^2, r = (data - m) / errs, m the unscattered Gaussian
+    portrait (gen_gaussian_portrait at tau = 0) at each lane's params
+    [B, 2 + 6 ngauss + 1] float64 (dc, tau, (loc, dloc, wid, dwid, amp,
+    damp) per component, the scattering index), model_code's three
+    digits (loc, wid, amp; 0 power law, 1 linear about nu_ref), data and
+    errs [nchan, nbin], the bin centres bins [nbin] and freqs [nchan],
+    all float64 and contiguous, except that errs may be per-channel
+    errors broadcast over the bins (stride 0 along them; read as nchan
+    values).  Two launches (the (lane, channel) sums, their channel sum),
+    counted as one."""
+    B, P, _, laws = _check_gauss(params, data, errs, bins, freqs,
+                                 model_code, "gauss_sse")
+    if params.device.type == "cpu":
+        return gauss_sse_plain(params, data, errs, bins, freqs, nu_ref,
+                               model_code)
+    if params.device.type != "cuda":
+        raise ValueError("gauss_sse: unsupported device %s" % params.device)
+    if not (B and data.numel()):
+        return torch.zeros(B, dtype=torch.float64, device=params.device)
+    # the kernels write every output element
+    f = torch.empty(B, dtype=torch.float64, device=params.device)
+    scratch = torch.empty((B, data.shape[0]), dtype=torch.float64,
+                          device=params.device)
+    _gauss_launch("gauss_sse", params, data, errs, bins, freqs, nu_ref, laws,
+                  (), scratch, f)
+    return f
+
+
+def gauss_normal(params, data, errs, bins, freqs, nu_ref, model_code):
+    """K9 wrapper, epilogue B (see csrc/gauss.cu): (f [B], g [B, P], JtJ
+    [B, P, P]) float64 for the residual of gauss_sse's arguments and its
+    Jacobian J = d r / d params: f = sum r^2, g = J^T r, JtJ = J^T J,
+    with no J formed.  The tau and scattering-index columns of J are 0
+    (the unscattered model does not depend on them).  Two launches (the
+    channels' weighted basis Gram matrices, then the chain rule summed
+    over channels), counted as one.  Pass 1 takes the Gram matrix in one
+    tile up to GAUSS_ONE_TILE_NGAUSS components and in tiles of
+    GAUSS_TILE_ROWS rows beyond (the same bits); more than
+    GAUSS_MAX_NGAUSS components raise ValueError (pass 1's shared
+    memory)."""
+    B, P, ng, laws = _check_gauss(params, data, errs, bins, freqs,
+                                  model_code, "gauss_normal")
+    if params.device.type == "cpu":
+        return gauss_normal_plain(params, data, errs, bins, freqs, nu_ref,
+                                  model_code)
+    if params.device.type != "cuda":
+        raise ValueError("gauss_normal: unsupported device %s"
+                         % params.device)
+    tile_rows = gauss_tile_rows(ng)
+    dev = params.device
+    new = torch.empty if B and data.numel() else torch.zeros
+    f = new(B, dtype=torch.float64, device=dev)
+    g = new((B, P), dtype=torch.float64, device=dev)
+    JtJ = new((B, P, P), dtype=torch.float64, device=dev)
+    if B and data.numel():      # the kernels write every output element
+        _, npairs = _gauss_rows(ng)
+        scratch = torch.empty((B, data.shape[0], npairs + 6 * ng + 1),
+                              dtype=torch.float64, device=dev)
+        _gauss_launch("gauss_normal", params, data, errs, bins, freqs,
+                      nu_ref, laws, (tile_rows,), scratch, f, g, JtJ)
+    return f, g, JtJ

@@ -4,16 +4,23 @@ Port of the JAX package's ``fit/gauss.py`` (reference
 pplib.py:1842-2052 ``fit_gaussian_profile``/``fit_gaussian_portrait``
 and a non-interactive form of the GaussianSelector GUI's ``auto_gauss``
 seeding, ppgauss.py:442-479).  The minimizer is the port's bounded
-Levenberg-Marquardt (fit.lm) with ``torch.func.jacfwd`` Jacobians through
-the vectorized profile and portrait generators, on ``device`` (None = the
-CUDA device): the data are uploaded once per fit and the whole loop runs
-there.  Seeds and results are host numpy, as in the JAX package.
+Levenberg-Marquardt (fit.lm) on ``device`` (None = the CUDA device): the
+data are uploaded once per fit and the whole loop runs there.  A portrait
+fit with no join groups and tau frozen at 0 (ppgauss's default) gives
+lm_solve its normal equations from kernel K9 (``GaussNormal``:
+_kernels.gauss_normal and gauss_sse, csrc/gauss.cu); every other fit, and
+the profile fits, take ``torch.func.jacfwd`` Jacobians through the
+vectorized profile and portrait generators.  ``FIT_ROUTES`` counts the
+portrait fits by route.  Seeds and results are host numpy, as in the JAX
+package.
 """
 
 import numpy as np
 import torch
 
+from .. import _kernels
 from ..config import resolve_device, wid_max
+from ..ops.fourier import get_bin_centers
 from ..ops.profiles import (gaussian_profile, gen_gaussian_portrait,
                             gen_gaussian_profile)
 from ..utils.databunch import DataBunch
@@ -21,7 +28,12 @@ from .lm import lm_solve
 from .phase_shift import fit_phase_shift
 
 __all__ = ["fit_gaussian_profile", "fit_gaussian_portrait",
-           "auto_gauss_seed", "peak_pick_seed", "dc_seed"]
+           "auto_gauss_seed", "peak_pick_seed", "dc_seed", "GaussNormal",
+           "FIT_ROUTES"]
+
+# fit_gaussian_portrait's calls by route: "normal" (kernel K9's normal
+# equations) or "jacfwd" (torch.func's Jacobian of the residual)
+FIT_ROUTES = {"normal": 0, "jacfwd": 0}
 
 
 def _dev(x, device):
@@ -83,6 +95,35 @@ def fit_gaussian_profile(data, init_params, errs, fit_flags=None,
                      nfev=int(r.nfev), return_code=int(r.return_code))
 
 
+class GaussNormal:
+    """The unscattered, unjoined Gaussian portrait fit's least-squares
+    problem for lm_solve's ``normal=``: data and errs [nchan, nbin] (errs
+    kept as a broadcast view when it is per-channel noise), the bin
+    centres and freqs held on their device; ``sse(x)`` and
+    ``normal(x)`` at parameters x [B, 2 + 6 ngauss + 1] (the scattering
+    index last) are kernel K9's two epilogues (_kernels.gauss_sse,
+    gauss_normal; their plain versions for CPU tensors)."""
+
+    def __init__(self, model_code, data, errs, freqs, nu_ref, nbin):
+        self.model_code = str(model_code)
+        self.data = data.contiguous()
+        self.errs = errs if errs.stride(-1) == 0 else errs.contiguous()
+        self.freqs = freqs.contiguous()
+        self.nu_ref = float(nu_ref)
+        self.bins = get_bin_centers(nbin, device=data.device)
+        self.ndata = data.numel()
+
+    def _args(self, x):
+        return (x.contiguous(), self.data, self.errs, self.bins, self.freqs,
+                self.nu_ref, self.model_code)
+
+    def sse(self, x):
+        return _kernels.gauss_sse(*self._args(x))
+
+    def normal(self, x):
+        return _kernels.gauss_normal(*self._args(x))
+
+
 def fit_gaussian_portrait(model_code, data, init_params, scattering_index,
                           errs, fit_flags, fit_scattering_index, phases,
                           freqs, nu_ref, join_params=(), P=None,
@@ -93,11 +134,18 @@ def fit_gaussian_portrait(model_code, data, init_params, scattering_index,
     the scattering index rides as an extra trailing parameter (fit when
     ``fit_scattering_index``), and join (phase, DM) pairs append after
     it when ``join_params`` = [join_ichans(x), params, flags] is given.
+    Without join groups and with tau starting at 0 and frozen, the model
+    stays unscattered and lm_solve takes its normal equations from K9
+    (GaussNormal); otherwise it differentiates the residual with jacfwd.
     Returns DataBunch(fitted_params, fit_errs, scattering_index(+err),
     chi2, dof, nfev, return_code) (numpy / numbers).  Equivalent of pplib.py:1924-2052.
     """
     device = resolve_device(device)
     data = _dev(data, device)
+    errs = np.asarray(errs, dtype=np.float64)
+    if errs.ndim == 2 and (errs == errs[:, :1]).all():
+        # per-channel noise: a value a channel, broadcast over the bins
+        errs = np.ascontiguousarray(errs[:, :1])
     errs = torch.broadcast_to(_dev(errs, device), data.shape)
     freqs = _dev(freqs, device)
     init_params = np.asarray(init_params, dtype=np.float64)
@@ -133,8 +181,13 @@ def fit_gaussian_portrait(model_code, data, init_params, scattering_index,
                                       P=P, device=device)
         return ((data - model) / errs).reshape(-1)
 
+    normal = None
+    if not njoin and x0[1] == 0.0 and xflags[1] == 0.0:
+        normal = GaussNormal(model_code, data, errs, freqs, nu_ref,
+                             len(phases))
+    FIT_ROUTES["jacfwd" if normal is None else "normal"] += 1
     r = lm_solve(residual, _dev(x0, device), fit_flags=xflags,
-                 bounds=(lo, hi))
+                 bounds=(lo, hi), normal=normal)
     params = r.params.cpu().numpy()
     perrs = r.param_errs.cpu().numpy()
     dof = data.numel() - int(xflags.sum())

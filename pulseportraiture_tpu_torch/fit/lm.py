@@ -9,6 +9,10 @@ gathers the problems not yet done, steps them and scatters the results
 back, so a batch [B, nparam] steps in lockstep and a finished problem
 stays frozen exactly as under ``vmap`` of the JAX package's
 ``lax.while_loop``.  The ``done`` test syncs the host once per pass.
+A problem can instead be given through its normal equations
+(``normal=``: the sum of squares, J^T r and J^T J from one call, as
+kernel K9 computes them for the Gaussian portrait fit), and then no
+Jacobian is formed.
 
 Error semantics follow lmfit's defaults: the covariance is
 ``inv(J^T J) * red_chi2`` with J the err-weighted Jacobian at the
@@ -35,7 +39,7 @@ def _vec(value, n, fill, device):
 
 
 def lm_solve(residual_fn, x0, fit_flags=None, bounds=None, max_iter=100,
-             ftol=1e-12, xtol=1e-12, args=(), device=None):
+             ftol=1e-12, xtol=1e-12, args=(), device=None, normal=None):
     """Minimize ``sum(residual_fn(x, *args)**2)`` over x.
 
     residual_fn: x [nparam] (+args) -> err-weighted residuals [N], built
@@ -47,6 +51,15 @@ def lm_solve(residual_fn, x0, fit_flags=None, bounds=None, max_iter=100,
     Runs on x0's device when it is a tensor, else on ``device`` (None =
     the CUDA device).  Returns DataBunch(params, param_errs, covar, chi2,
     red_chi2, nfev, return_code, ndata) of tensors, batched like x0.
+
+    normal: optional; the problem through its normal equations in place
+    of residual_fn (which is then not called): an object with
+    ``sse(x [B, nparam]) -> f [B]`` (sum r^2), ``normal(x) -> (f [B],
+    g [B, nparam], JtJ [B, nparam, nparam])`` (g = J^T r, JtJ = J^T J of
+    the err-weighted residuals r and their Jacobian J) and ``ndata``.
+    Every pass and the covariance use it; the flags and the
+    identifiability mask act on JtJ as they act on J, since
+    (J D)^T (J D) = D J^T J D for a diagonal D.
     """
     if isinstance(x0, torch.Tensor):
         device = x0.device
@@ -64,19 +77,47 @@ def lm_solve(residual_fn, x0, fit_flags=None, bounds=None, max_iter=100,
     eye = torch.eye(nparam, dtype=real_dtype, device=device)
     unfit = eye * (1.0 - flags)
 
-    def res(p):
-        return residual_fn(p, *args).to(real_dtype)
+    if normal is None:
+        def res(p):
+            return residual_fn(p, *args).to(real_dtype)
 
-    def res_twice(p):
-        r = res(p)
-        return r, r
+        def res_twice(p):
+            r = res(p)
+            return r, r
 
-    res_b = torch.func.vmap(res)
-    jac_b = torch.func.vmap(torch.func.jacfwd(res_twice, has_aux=True))
+        res_b = torch.func.vmap(res)
+        jac_b = torch.func.vmap(torch.func.jacfwd(res_twice, has_aux=True))
 
-    r0 = res_b(x)
-    ndata = r0.shape[-1]
-    f = torch.sum(r0 * r0, dim=-1)
+        def sse(p):
+            r = res_b(p)
+            return torch.sum(r * r, dim=-1)
+
+        def gradient_normal(p):
+            J, r = jac_b(p)
+            J = J * flags
+            return (torch.einsum("bnp,bn->bp", J, r),
+                    torch.einsum("bnp,bnq->bpq", J, J))
+
+        def normal_matrix(p):
+            J = jac_b(p)[0] * flags
+            return torch.einsum("bnp,bnq->bpq", J, J)
+
+        r0 = res_b(x)
+        ndata = r0.shape[-1]
+        f = torch.sum(r0 * r0, dim=-1)
+    else:
+        sse = normal.sse
+        flags2 = flags[:, None] * flags[None, :]
+
+        def gradient_normal(p):
+            _, g, JtJ = normal.normal(p)
+            return g * flags, JtJ * flags2
+
+        def normal_matrix(p):
+            return gradient_normal(p)[1]
+
+        ndata = int(normal.ndata)
+        f = sse(x)
     mu = torch.full((B,), 1e-3, dtype=real_dtype, device=device)
     done = torch.zeros(B, dtype=torch.bool, device=device)
     nfev = torch.ones(B, dtype=torch.long, device=device)
@@ -87,17 +128,13 @@ def lm_solve(residual_fn, x0, fit_flags=None, bounds=None, max_iter=100,
         if act.numel() == 0:
             break
         xa, fa, mua = x[act], f[act], mu[act]
-        J, r = jac_b(xa)
-        J = J * flags
-        g = torch.einsum("bnp,bn->bp", J, r)
-        JtJ = torch.einsum("bnp,bnq->bpq", J, J)
+        g, JtJ = gradient_normal(xa)
         scale_d = torch.clamp(torch.abs(torch.diagonal(JtJ, dim1=-2,
                                                        dim2=-1)), min=1e-30)
         A = JtJ + mua[:, None, None] * torch.diag_embed(scale_d) + unfit
         raw_trial = xa - solve_refined(A, g)
         trial = torch.minimum(torch.maximum(raw_trial, lo), hi)
-        r_t = res_b(trial)
-        f_t = torch.sum(r_t * r_t, dim=-1)
+        f_t = sse(trial)
         accept = f_t < fa
         mu_new = torch.where(accept, torch.clamp(mua * 0.3, min=1e-14),
                              mua * 5.0)
@@ -126,12 +163,10 @@ def lm_solve(residual_fn, x0, fit_flags=None, bounds=None, max_iter=100,
     # lmfit-style covariance at the solution; unidentifiable parameters
     # (a vanishing Jacobian column, e.g. tau pinned at its 0 bound) are
     # left out of the inverse like frozen ones and report inf
-    J, _ = jac_b(x)
-    J = J * flags
-    colnorm = torch.sum(J * J, dim=-2)                       # [B, nparam]
+    JtJ = normal_matrix(x)
+    colnorm = torch.diagonal(JtJ, dim1=-2, dim2=-1)          # [B, nparam]
     ident = flags * (colnorm > 1e-30)
-    J = J * ident[:, None, :]
-    JtJ = torch.einsum("bnp,bnq->bpq", J, J) + \
+    JtJ = JtJ * (ident[:, :, None] * ident[:, None, :]) + \
         torch.diag_embed(1.0 - ident)
     nfit = torch.sum(flags)
     dof = torch.clamp(ndata - nfit, min=1.0)

@@ -35,7 +35,13 @@ the same (level, factor) on every row and each smooth within 1e-10 of
 its row's peak, at eight shapes (a width its scan does not take among
 them), in chunks, never falling back; its scan against the scan's plain
 version (S/N and chi2 within 1e-12 relative, the repeat flags equal);
-cuFFT's rows equal whatever their batch.
+cuFFT's rows equal whatever their batch.  The Gaussian portrait fit's
+normal equations (K9 csrc/gauss.cu) against their plain version: f, g
+and J^T J within 1e-12 of their largest magnitude lane by lane at 1, 3
+and 8 components and 1 and 3 lanes, the same bits twice, the NaN of an
+amplitude at its 0 bound; ppgauss on the card against the CPU (model
+parameters within max(1e-6, 4 sqrt(eps chi2)) of their errors: float64
+chi2's floor, where K9's and its plain version's LM runs stop apart).
 
 Readings on an H100 80GB HBM3 (700 W), kernels against plain: the
 scattering fluxes 1.48e-8 (log10 tau) and 2.03e-8 (linear tau), the
@@ -1300,3 +1306,248 @@ def test_cufft_rows_batch_invariant(card):
     for i in range(port.shape[0]):
         _, one = K.smooth_search_plain(port[i:i + 1], "db8", 11, facts, 0.1)
         assert torch.equal(one[0], whole[i]), i
+
+
+# K9 (csrc/gauss.cu): (components, lanes, model code); the kernel against
+# its plain version within GAUSS_TOL of each output's largest magnitude per
+# lane (sums of ~130,000 terms in another order: the Gram per channel, then
+# the chain rule over channels; an H100 reads <= 1.1e-13 at [512, 2048])
+GAUSS_CASES = [(1, 1, "000"), (3, 1, "111"), (8, 1, "101"), (1, 3, "000"),
+               (3, 3, "011"), (8, 3, "000"), (19, 1, "000"), (24, 2, "101")]
+GAUSS_TOL = 1e-12
+
+
+def _gauss_inputs(ngauss, lanes, code, nchan=128, nbin=1024, seed=11):
+    """K9's arguments on the card: lanes of ngauss components (slopes
+    sized to the code's laws), data a noisy model, per-bin errors."""
+    from pulseportraiture_tpu_torch.ops.fourier import get_bin_centers
+    from pulseportraiture_tpu_torch.ops.profiles import gen_gaussian_portrait
+
+    rng = np.random.default_rng(seed)
+    freqs = np.linspace(1100.0, 1900.0, nchan)
+    slope = {"0": (-0.05, 0.1, -1.2), "1": (-1e-5, 1e-5, -4e-4)}
+    comps = []
+    for c in range(ngauss):
+        comps += [0.1 + 0.8 * c / max(ngauss, 1), slope[code[0]][0],
+                  0.01 + 0.005 * c, slope[code[1]][1], 1.0 / (c + 1),
+                  slope[code[2]][2]]
+    base = np.concatenate([[0.03, 0.0], comps, [-4.0]])
+    x = np.stack([base * (1.0 + 0.002 * k) for k in range(lanes)])
+    x[:, 1] = 0.0
+    model = gen_gaussian_portrait(code, base[:-1], base[-1],
+                                  np.arange(nbin) / nbin, freqs,
+                                  1500.0).numpy()
+    errs = 0.05 * rng.uniform(0.5, 1.5, (nchan, nbin))
+    data = model + rng.normal(0.0, 1.0, (nchan, nbin)) * errs
+    t = lambda a: torch.as_tensor(a, device=DEVICE)  # noqa: E731
+    return (t(x), t(data), t(errs), get_bin_centers(nbin, device=DEVICE),
+            t(freqs), 1500.0, code)
+
+
+def _lane_gap(got, want):
+    """Largest gap over the lanes, each relative to its lane's largest
+    magnitude (NaN where both are NaN counted as equal)."""
+    got, want = got.reshape(got.shape[0], -1), want.reshape(want.shape[0], -1)
+    assert torch.equal(torch.isnan(got), torch.isnan(want))
+    gap = (got - want).nan_to_num(0.0).abs().amax(-1)
+    return float((gap / want.nan_to_num(0.0).abs().amax(-1).clamp_min(
+        1e-300)).max())
+
+
+@pytest.mark.parametrize("case", GAUSS_CASES, ids=lambda c: "%dg-%dl-%s" % c)
+def test_gauss_kernels_match_plain_on_the_card(card, case):
+    """K9's two epilogues against their plain versions on the card (f, g
+    and J^T J within GAUSS_TOL of their largest magnitude, lane by lane),
+    one counted launch a call, and two calls the same bits (no atomics)."""
+    K = card
+    args = _gauss_inputs(*case)
+    n0 = dict(K.LAUNCHES)
+    got = K.gauss_normal(*args)
+    again = K.gauss_normal(*args)
+    sse = K.gauss_sse(*args)
+    torch.cuda.synchronize()
+    assert K.LAUNCHES["gauss_normal"] == n0["gauss_normal"] + 2
+    assert K.LAUNCHES["gauss_sse"] == n0["gauss_sse"] + 1
+    want = K.gauss_normal_plain(*args)
+    for a, b in zip(got, again):
+        assert torch.equal(a, b)
+    for a, b in zip(got, want):
+        assert _lane_gap(a[:, None], b[:, None]) <= GAUSS_TOL
+    assert _lane_gap(sse[:, None], want[0][:, None]) <= GAUSS_TOL
+    assert torch.equal(sse, K.gauss_sse(*args))
+
+
+@pytest.mark.parametrize("ngauss,rows", [(3, 4), (3, 7), (19, 20), (19, 13)])
+def test_gauss_normal_tiles_give_the_same_bits(card, monkeypatch, ngauss,
+                                               rows):
+    """Pass 1 in tiles of ``rows`` Gram rows (forced) gives the bits of
+    its own tiling (one tile up to 18 components, 32 rows beyond): every
+    entry is summed in the same order whatever the tile."""
+    K = card
+    args = _gauss_inputs(ngauss, 2, "000", nchan=64, nbin=700)
+    want = K.gauss_normal(*args)
+    assert K.gauss_tile_rows(ngauss) == (3 * ngauss + 2 if ngauss <= 18
+                                         else 32)
+    monkeypatch.setattr(K, "gauss_tile_rows", lambda ng: rows)
+    got = K.gauss_normal(*args)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+
+def test_gauss_per_channel_errs_on_the_card(card):
+    """Per-channel errors broadcast over the bins (stride 0, as ppgauss
+    gives them) give the bits of the same errors materialised."""
+    K = card
+    args = list(_gauss_inputs(3, 2, "111"))
+    noise = args[2][:, 0].contiguous()
+    view = list(args)
+    view[2] = noise[:, None].expand_as(args[2])
+    args[2] = view[2].contiguous()
+    for a, b in zip(K.gauss_normal(*view), K.gauss_normal(*args)):
+        assert torch.equal(a, b)
+    assert torch.equal(K.gauss_sse(*view), K.gauss_sse(*args))
+
+
+def _z_floor(chi2):
+    """The largest gap, in errors, at which two LM runs of one float64
+    problem may stop apart: max(1e-6, 4 sqrt(eps chi2)) (a move of z
+    errors changes chi2 by ~z^2 at reduced chi2 ~1, which float64 chi2
+    cannot see below eps chi2)."""
+    return max(1e-6, 4.0 * np.sqrt(np.finfo(float).eps * chi2))
+
+
+def test_gaussian_portrait_fit_19_components_card_matches_cpu(card):
+    """fit_gaussian_portrait with 19 components (pass 1 in tiles of 32
+    rows on the card) through K9 on the card and its plain version on the
+    CPU: params and errors within _z_floor of the errors, rc equal."""
+    from pulseportraiture_tpu_torch.fit import gauss as fg
+    from pulseportraiture_tpu_torch.ops.profiles import gen_gaussian_portrait
+
+    ng, nchan, nbin = 19, 64, 512
+    K = card
+    comps = [[0.03 + 0.05 * c, -0.01, 0.012, 0.05, 1.0 - 0.03 * c, -1.0]
+             for c in range(ng)]
+    params = np.concatenate([[0.02, 0.0], np.ravel(comps)])
+    freqs = np.linspace(1100.0, 1900.0, nchan)
+    rng = np.random.default_rng(4)
+    noise = 0.02 * rng.uniform(0.5, 1.5, nchan)
+    model = gen_gaussian_portrait("000", params, -4.0,
+                                  np.arange(nbin) / nbin, freqs,
+                                  1500.0).numpy()
+    data = model + rng.normal(0.0, 1.0, model.shape) * noise[:, None]
+    flags = np.ones(len(params))
+    flags[1] = 0.0
+    init = params * np.where(np.arange(len(params)) % 2, 1.01, 0.995)
+    args = ("000", data, init, -4.0, np.outer(noise, np.ones(nbin)), flags,
+            False, np.arange(nbin) / nbin, freqs, 1500.0)
+    K.reset_launches()
+    routes = dict(fg.FIT_ROUTES)
+    card_fit = fg.fit_gaussian_portrait(*args, device="cuda")
+    assert K.LAUNCHES["gauss_normal"] > 0 and K.LAUNCHES["gauss_sse"] > 0
+    cpu_fit = fg.fit_gaussian_portrait(*args, device="cpu")
+    assert fg.FIT_ROUTES["normal"] == routes["normal"] + 2
+    assert fg.FIT_ROUTES["jacfwd"] == routes["jacfwd"]
+    err = cpu_fit.fit_errs
+    fin = np.isfinite(err) & (err > 0)
+    assert fin.sum() == len(params) - 1
+    gap = np.abs(card_fit.fitted_params - cpu_fit.fitted_params)[fin] / err[fin]
+    z_tol = _z_floor(cpu_fit.chi2)
+    print("ppgauss-19: chi2 %r gap/err %r floor %r" % (cpu_fit.chi2,
+                                                      gap.max(), z_tol))
+    assert gap.max() <= z_tol
+    assert np.all(np.abs(card_fit.fit_errs - err)[fin] <= z_tol * err[fin])
+    assert card_fit.return_code == cpu_fit.return_code
+
+
+def test_gauss_kernels_nan_and_limits_on_the_card(card):
+    """An amplitude's power law at its 0 bound gives NaN in every g and
+    J^T J entry, as the plain version (and forward-mode) does, f finite;
+    more components than pass 1's tiles hold (757), float32 parameters
+    and a CPU mix raise."""
+    K = card
+    args = list(_gauss_inputs(1, 2, "000"))
+    x = args[0].clone()
+    x[0, 6] = 0.0
+    args[0] = x
+    got, want = K.gauss_normal(*args), K.gauss_normal_plain(*args)
+    assert torch.isnan(got[1][0]).all() and torch.isnan(got[2][0]).all()
+    assert torch.isfinite(got[1][1]).all() and torch.isfinite(got[0]).all()
+    for a, b in zip(got, want):
+        assert _lane_gap(a[:, None], b[:, None]) <= GAUSS_TOL
+    big = _gauss_inputs(757, 1, "000", nchan=4, nbin=64)
+    with pytest.raises(ValueError, match="at most 756"):
+        K.gauss_normal(*big)
+    assert torch.isfinite(K.gauss_sse(*big)).all()
+    with pytest.raises(TypeError, match="float64"):
+        K.gauss_normal(args[0].float(), *args[1:])
+    with pytest.raises(ValueError, match="must be on"):
+        K.gauss_sse(args[0].cpu(), *args[1:])
+
+
+# ppgauss card-vs-CPU fixtures: (seed, channels, bins, noise)
+PPGAUSS_CASES = [(7, 64, 512, 0.01), (8, 128, 1024, 0.01),
+                 (9, 256, 512, 0.03)]
+
+
+@pytest.mark.parametrize("case", PPGAUSS_CASES,
+                         ids=lambda c: "seed%d-%dx%d" % c[:3])
+def test_ppgauss_cli_card_matches_cpu(card, tmp_path, monkeypatch, case):
+    """ppgauss --autogauss 0.05 --niter 1 on the card (its portrait fits
+    through K9, no jacfwd) against the same CLI on the CPU (K9's plain
+    version): the fitted model parameters (read from the CLI's
+    GaussianModelPortrait at full precision) within _z_floor(chi2) of
+    their errors, the floor below which float64 chi2 cannot tell two
+    parameter vectors apart: K9 and its plain version sum in other
+    orders, so their LM runs may stop apart at that floor.  Each case
+    prints its chi2, gap and floor.  The .gmodel files within that and
+    their printed digit (8 decimals)."""
+    from pulseportraiture_tpu_torch.cli import ppgauss
+    from pulseportraiture_tpu_torch.fit import gauss as fg
+    from pulseportraiture_tpu_torch.io.archive import make_fake_pulsar
+    from pulseportraiture_tpu_torch.io.gmodel import read_model, write_model
+    from pulseportraiture_tpu_torch.models import gauss as mg
+
+    built, chi2 = [], []
+    make = mg.GaussianModelPortrait.make_gaussian_model
+
+    def keep(self, *a, **kw):
+        built.append(self)
+        return make(self, *a, **kw)
+
+    monkeypatch.setattr(mg.GaussianModelPortrait, "make_gaussian_model",
+                        keep)
+
+    K = card
+    gm = str(tmp_path / "true.gmodel")
+    write_model(gm, "fake", "000", 1500.0,
+                [0.05, 0.0, 0.35, -0.05, 0.05, 0.1, 1.0, -1.2],
+                np.ones(8, int), -4.0, 0, quiet=True)
+    seed, nchan, nbin, noise = case
+    avg = make_fake_pulsar(gm, PAR, str(tmp_path / "avg.fits"), nsub=1,
+                           nchan=nchan, nbin=nbin, nu0=1500.0, bw=800.0,
+                           tsub=60.0, noise_stds=noise, dedispersed=True,
+                           seed=seed, quiet=True)
+    out = {}
+    for dev in ("cuda", "cpu"):
+        K.reset_launches()
+        routes = dict(fg.FIT_ROUTES)
+        path = str(tmp_path / ("%s.gmodel" % dev))
+        assert ppgauss.main(["-d", avg, "--autogauss", "0.05", "--niter",
+                             "1", "-o", path, "--device", dev]) == 0
+        assert fg.FIT_ROUTES["jacfwd"] == routes["jacfwd"]
+        assert fg.FIT_ROUTES["normal"] > routes["normal"]
+        if dev == "cuda":
+            assert K.LAUNCHES["gauss_normal"] > 0
+            assert K.LAUNCHES["gauss_sse"] > 0
+        out[dev] = (built[-1].model_params, built[-1].model_param_errs,
+                    read_model(path)[4])
+        chi2.append(built[-1].chi2)
+    (pk, _, fk), (pc, ec, fc) = out["cuda"], out["cpu"]
+    fin = np.isfinite(ec) & (ec > 0)
+    assert fin.sum() >= 6 and np.isfinite(pk).all()
+    z_tol = _z_floor(chi2[-1])
+    gap = float(np.max(np.abs(pk - pc)[fin] / ec[fin]))
+    print("ppgauss %s: chi2 %r gap/err %r floor %r" % (case, chi2[-1], gap,
+                                                      z_tol))
+    assert gap <= z_tol
+    assert np.abs(fk - fc).max() <= z_tol * ec[fin].max() + 1.01e-8

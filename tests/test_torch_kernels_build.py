@@ -117,3 +117,25 @@ def test_wavelet_source_in_the_build(tmp_path, monkeypatch):
     src = csrc / "wavelet.cu"
     src.write_text(src.read_text() + "\n// edited\n")
     assert _kernels._lib_path("wavelet") != before
+
+
+def test_gauss_source_in_the_build(tmp_path, monkeypatch):
+    """K9 (csrc/gauss.cu) is a built source: both entry points
+    (gauss_normal, gauss_sse) and their traced CUDA functions are in it,
+    each has a plain version and a launch count, and the library's name
+    changes when the source is edited."""
+    assert "gauss.cu" in _kernels.SOURCES
+    text = open(_kernels.CSRC_DIR + "/gauss.cu").read()
+    for name in ("gauss_normal", "gauss_sse"):
+        assert _kernels._lib_of(name) == "gauss"
+        assert 'extern "C" int %s(' % _kernels.KERNELS[name][1] in text
+        assert "__global__" in text and _kernels.TRACE_NAMES[name] in text
+        assert callable(getattr(_kernels, name + "_plain"))
+        assert name in _kernels.LAUNCHES
+    csrc = tmp_path / "csrc"
+    shutil.copytree(_kernels.CSRC_DIR, csrc)
+    monkeypatch.setattr(_kernels, "CSRC_DIR", str(csrc))
+    before = _kernels._lib_path("gauss")
+    src = csrc / "gauss.cu"
+    src.write_text(src.read_text() + "\n// edited\n")
+    assert _kernels._lib_path("gauss") != before
