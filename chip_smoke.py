@@ -31,10 +31,13 @@ the profiler's clock conversion is fresh):
               [7636, 1, 2048] (one-channel lanes) and [64, 512, 2048]
               with a model per row (ppalign), K 128; K9's two epilogues
               (the Gaussian portrait fit's f, g and J^T J; its f alone)
-              at [512, 2048] with 1 and 4 components in one lane and 1
-              in three lanes (NaNs alike, the same bits twice), beside
-              epilogue B the torch route it replaces (vmap(jacfwd) of
-              the residual and its two einsums).  Kernel
+              at [512, 2048] with 1, 2, 3, 4 and 19 components in one
+              lane (both sides of the warp / mma layouts' crossover) and
+              1 in three lanes (NaNs alike, the same bits twice), beside
+              epilogue B its layout, the torch route it replaces
+              (vmap(jacfwd) of the residual and its two einsums) and, at
+              4 and 19 components, cuBLAS's Gram alone (bmm of a
+              materialised basis).  Kernel
               and library times are device times from CUDA-graph replay;
               ``call_ms`` is the wrapper's time per call, host included
               (back-to-back CUDA events); a K4 case whose inputs fit in
@@ -163,6 +166,13 @@ the profiler's clock conversion is fresh):
               template's phase zero and DM reference (the model's own
               offsets against the template, a fit of one noiseless
               portrait to the other, are added to each TOA)
+  ppgauss_scat the portrait fits K9 does not take, on the same archive:
+              ppgauss --autogauss 0.05 --niter 2 --fitscat (tau fitted:
+              every portrait fit on jacfwd, K9 never launched) and a
+              joined fit of its portrait in two join groups of channels
+              through fit.gauss.fit_gaussian_portrait; each fit's wall,
+              nfev, rc, routes and the device ms of one jacfwd pass at
+              its solution (with its einsums) beside its bound
   walkthrough examples/example.py through the port at full width: 5
               scintillated, dispersed epochs of 10 x 512 x 2048 (noise
               1.5, own seeds, dDM ~ N(3e-4, 2e-4), the spin perturbation
@@ -446,14 +456,19 @@ K9_NAMES = ("gauss_normal", "gauss_sse")
 # the chain rule over channels), and the same NaNs
 K9_TOL = 1e-12
 # K9 cases at ppgauss's aligned portrait, [512, 2048]: (components, lanes);
-# ppgauss --autogauss fits one component in one lane; 19 components take
-# pass 1 in tiles (one more than a single tile holds)
-K9_CASES = [(1, 1), (4, 1), (1, 3), (19, 1)]
+# ppgauss --autogauss fits one component in one lane; 2 and 3 components
+# sit on the two sides of the layouts' crossover (the warp layout up to
+# _kernels.GAUSS_WARP_NGAUSS, the FP64 tensor cores beyond); 19 fill the
+# mma layout's one 64-row panel, 21 take its three panels (two row
+# blocks), each a pass over the bins
+K9_CASES = [(1, 1), (2, 1), (3, 1), (4, 1), (1, 3), (19, 1), (21, 1)]
 K9_MAIN = 0
 # the most components at which the kernels phase times the torch route K9
 # replaces (its forward-mode tangents at 19 components would hold ~19 GB
 # an intermediate)
 K9_ROUTE_MAX_NGAUSS = 4
+# the components at which the kernels phase times cuBLAS's Gram alone
+K9_GRAM_NGAUSS = (4, 19)
 
 
 def emit(phase, **kw):
@@ -484,9 +499,11 @@ def cuda_ms(fn, reps=20, warm=3):
     return a.elapsed_time(b) / reps
 
 
-def graph_ms(fn, reps=20):
+def graph_ms(fn, reps=20, keep=None):
     """Device time [ms] per fn() call: ``reps`` calls captured in one CUDA
-    graph and replayed, so the host's time to launch them is left out."""
+    graph and replayed, so the host's time to launch them is left out.
+    With a list ``keep``, a copy of what the last call of the timed
+    replay returned (a tensor or a tuple of them) is appended to it."""
     import torch
 
     fn()
@@ -498,7 +515,7 @@ def graph_ms(fn, reps=20):
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
         for _ in range(reps):
-            fn()
+            out = fn()
     graph.replay()
     torch.cuda.synchronize()
     a = torch.cuda.Event(enable_timing=True)
@@ -507,6 +524,9 @@ def graph_ms(fn, reps=20):
     graph.replay()
     b.record()
     torch.cuda.synchronize()
+    if keep is not None:
+        keep.append(tuple(t.clone() for t in out) if isinstance(out, tuple)
+                    else out.clone())
     del graph
     return a.elapsed_time(b) / reps
 
@@ -788,22 +808,14 @@ def k9_inputs(dev, ngauss, B, nchan=512, nbin=2048, seed=9):
             get_bin_centers(nbin, device=dev), t(freqs), NU0, "000")
 
 
-def torch_route_ms(args, reps=3):
-    """The torch route K9 replaces on the same inputs, as fit.lm takes it:
-    (device ms of one vmap(jacfwd) pass of the residual through
-    gen_gaussian_portrait, ms of that pass with the two einsums forming
-    J^T r and J^T J) by CUDA events."""
+def jacfwd_pass_ms(residual, x, reps=3):
+    """The jacfwd route fit.lm takes for ``residual`` at lanes x [B,
+    nparam]: (device ms of one vmap(jacfwd) pass, ms of that pass with
+    the two einsums forming J^T r and J^T J) by CUDA events."""
     import torch
 
-    from pulseportraiture_tpu_torch.ops.profiles import gen_gaussian_portrait
-
-    x, data, errs, bins, freqs, nu_ref, code = args
-    nparam = x.shape[1] - 1
-
     def res_twice(p):
-        model = gen_gaussian_portrait(code, p[:nparam], p[nparam], bins,
-                                      freqs, nu_ref, device=x.device)
-        r = ((data - model) / errs).reshape(-1)
+        r = residual(p)
         return r, r
 
     jac_b = torch.func.vmap(torch.func.jacfwd(res_twice, has_aux=True))
@@ -819,16 +831,62 @@ def torch_route_ms(args, reps=3):
     return jac, both
 
 
+def portrait_residual(code, data, errs, bins, freqs, nu_ref, joins=(),
+                      P=None):
+    """fit.gauss.fit_gaussian_portrait's residual of a parameter vector
+    (the model's, the scattering index, then each join group's pair)."""
+    import torch
+
+    from pulseportraiture_tpu_torch.ops.profiles import gen_gaussian_portrait
+
+    def residual(p):
+        n = p.shape[0] - 1 - 2 * len(joins)
+        mpar = torch.cat([p[:n], p[n + 1:]]) if len(joins) else p[:n]
+        model = gen_gaussian_portrait(code, mpar, p[n], bins, freqs, nu_ref,
+                                      join_ichans=joins, P=P,
+                                      device=data.device)
+        return ((data - model) / errs).reshape(-1)
+
+    return residual
+
+
+def torch_route_ms(args, reps=3):
+    """The torch route K9 replaces on K9's arguments, as fit.lm takes it
+    (jacfwd_pass_ms of the unscattered residual)."""
+    x, data, errs, bins, freqs, nu_ref, code = args
+    return jacfwd_pass_ms(portrait_residual(code, data, errs, bins, freqs,
+                                            nu_ref), x, reps)
+
+
+def gram_cublas_ms(dev, ngauss, B, nchan, nbin):
+    """cuBLAS's time for K9's Gram alone: torch.bmm(V.mT, V) of a
+    materialised basis V [B nchan, nbin, 3 ngauss + 2] float64 (values
+    drawn at random: the product's time does not depend on them), by
+    graph replay.  No PyTorch call computes K9's whole function."""
+    import torch
+
+    V = torch.randn((B * nchan, nbin, 3 * ngauss + 2), dtype=torch.float64,
+                    device=dev)
+    ms = graph_ms(lambda: torch.bmm(V.mT, V))
+    del V
+    return ms
+
+
 def phase_k9(dev, kern, ngauss, B, nchan=512, nbin=2048):
     """K9's two epilogues against their plain versions at [nchan, nbin]
     with ``ngauss`` components and B lanes: f (and g and J^T J) within
     K9_TOL, the same NaNs, two calls the same bits; device times by graph
-    replay, the wrapper's per call, the plain version's, the bound; beside
-    epilogue B the torch route it replaces (torch_route_ms).  Returns the
+    replay through a GaussWork (the fit's route: no allocation in the
+    launch), the wrapper's per call with and without one, the plain
+    version's, the bound; the work's outputs of the timed replay and of a
+    call after the timed ones the first call's bits; beside epilogue B
+    its layout, the torch route it replaces (torch_route_ms) and, at
+    K9_GRAM_NGAUSS, cuBLAS's Gram alone (gram_cublas_ms).  Returns the
     two rows."""
     import torch
 
     args = k9_inputs(dev, ngauss, B, nchan, nbin)
+    work = kern.GaussWork(*args[1:])
     route = torch_route_ms(args) if ngauss <= K9_ROUTE_MAX_NGAUSS else \
         (None, None)
     out = []
@@ -842,18 +900,36 @@ def phase_k9(dev, kern, ngauss, B, nchan=512, nbin=2048):
         err = max(errs.values())
         bms, by = gauss_bound_ms(B, nchan, nbin, ngauss, name == "gauss_normal",
                                  k9_err_values(args[2]))
+        replayed = []
         row = dict(shape=[B, nchan, nbin], ngauss=ngauss, max_rel_err=err,
                    errors=errs, tol=K9_TOL, same_nan=same_nan,
                    repeat_bit_equal=repeat, max_abs_err=abs_err,
-                   ms=graph_ms(lambda: fn(*args)),
+                   ms=graph_ms(lambda: fn(*args, work=work), keep=replayed),
                    call_ms=cuda_ms(lambda: fn(*args)),
+                   work_call_ms=cuda_ms(lambda: fn(*args, work=work)),
                    plain_ms=cuda_ms(lambda: plain(*args), reps=3, warm=1),
                    bound_ms=bms, bound_by=by, library_ms=None)
         row["share_of_bound"] = bms / row["ms"]
+        # the timed work route (graph replays, then calls) against the
+        # first call: the same bits, so within K9_TOL of plain too
+        later = fn(*args, work=work)
+        torch.cuda.synchronize()
+        work_same = all(torch.equal(a, b) for v in (replayed[0], later)
+                        for a, b in zip(v if isinstance(v, tuple) else (v,),
+                                        got if isinstance(got, tuple)
+                                        else (got,)))
+        work_err = max(max(k9_errors(v, want)[0].values())
+                       for v in (replayed[0], later))
+        row.update(work_bit_equal=work_same, work_max_rel_err=work_err)
         if name == "gauss_normal":
+            row["layout"] = kern.gauss_layout(ngauss)
             row["torch_route_jac_ms"], row["torch_route_ms"] = route
+            if ngauss in K9_GRAM_NGAUSS:
+                row["gram_cublas_ms"] = gram_cublas_ms(dev, ngauss, B, nchan,
+                                                       nbin)
         emit("kernels", kernel=name, **row)
-        if not (err <= K9_TOL and same_nan and repeat):
+        if not (err <= K9_TOL and same_nan and repeat and work_same
+                and work_err <= K9_TOL):
             raise AssertionError("%s kernel disagrees at %s: %s"
                                  % (name, row["shape"], row))
         out.append(row)
@@ -3057,34 +3133,39 @@ def phase_ppalign_smooth(root, work, K, dev, avg):
     return launches, k8
 
 
-def jacobian_pass(dp, dev):
+def jacobian_bound_ms(N, npar, nbin, ngauss):
+    """A Gaussian portrait's Jacobian pass's least time: data and errs
+    read, J written; per tangent the components over the portrait (~30
+    operations per bin and component) and the scattered branch's rFFT and
+    irFFT (2.5 N log2 nbin each; gen_gaussian_portrait computes that
+    branch whatever tau)."""
+    flops = npar * (30 * ngauss * N + 5 * N * math.log2(nbin))
+    return bound_ms(2 * N * 8 + N * npar * 8, (flops, PEAK_FP64_PER_S))
+
+
+def jacobian_pass(dp, dev, joins=(), x=None):
     """The torch route K9 replaces (the jacfwd route fit.lm takes for a
-    fit K9 does not take), at the Gaussian portrait fit's solution: one
-    forward-mode Jacobian of its residual and, beside it, that pass with
-    the two einsums forming J^T r and J^T J (torch_route_ms): (device ms
-    of the Jacobian, of the Jacobian with its einsums, the Jacobian's
-    bound ms, bound_by, shape [N, nparam])."""
+    fit K9 does not take), at a Gaussian portrait fit's solution: the
+    portrait of ``dp`` (a GaussianModelPortrait) and x [nparam] where
+    given, else its parameters and scattering index; jacfwd_pass_ms of
+    its residual and its bound: (ms of the Jacobian, of the Jacobian
+    with its einsums, bound ms, bound_by, shape [N, nparam])."""
     import numpy as np
     import torch
 
     data = torch.as_tensor(dp.portx, device=dev)
-    errs = torch.as_tensor(dp.portx_noise, device=dev)
-    freqs = torch.as_tensor(dp.freqsxs[0], device=dev)
-    x = torch.as_tensor(np.concatenate([dp.model_params,
-                                        [dp.scattering_index]]),
-                        device=dev)
-    nparam = len(dp.model_params)
-    nchan, nbin = data.shape
-    bins = torch.as_tensor(dp.phases, device=dev)
-    ms, route_ms = torch_route_ms((x[None], data, errs, bins, freqs,
-                                   dp.nu_ref, dp.model_code))
+    if x is None:
+        x = np.concatenate([dp.model_params, [dp.scattering_index]])
+    x = torch.as_tensor(x, device=dev)
+    residual = portrait_residual(
+        dp.model_code, data, torch.as_tensor(dp.portx_noise, device=dev),
+        torch.as_tensor(dp.phases, device=dev),
+        torch.as_tensor(dp.freqsxs[0], device=dev), dp.nu_ref, joins,
+        dp.Ps[0] if len(joins) else None)
+    ms, route_ms = jacfwd_pass_ms(residual, x[None])
     N, npar = data.numel(), x.numel()
-    ngauss = (nparam - 2) // 6
-    # data and errs read, J written; per tangent the components over the
-    # portrait (~30 operations per bin and component) and the scattered
-    # branch's rFFT and irFFT (2.5 N log2 nbin each)
-    flops = npar * (30 * ngauss * N + 5 * N * math.log2(nbin))
-    bms, by = bound_ms(2 * N * 8 + N * npar * 8, (flops, PEAK_FP64_PER_S))
+    bms, by = jacobian_bound_ms(N, npar, data.shape[1],
+                                (len(dp.model_params) - 2) // 6)
     return ms, route_ms, bms, by, [N, npar]
 
 
@@ -3162,6 +3243,95 @@ def phase_ppgauss(root, work, K, dev, avg, small):
                              "by %.3g of their errors" % gap)
     return {name: launches[name] + toas["launches"][name]
             for name in launches}
+
+
+def phase_ppgauss_scat(root, work, K, dev, avg):
+    """The Gaussian portrait fits K9 does not take, on the aligned archive:
+    ppgauss --autogauss 0.05 --niter 2 --fitscat (tau fitted: every
+    portrait fit on torch.func's jacfwd, FIT_ROUTES["jacfwd"], K9 never
+    launched), and a joined fit of its portrait in two join groups of
+    channels (the second group's phase and DM fitted) through
+    fit.gauss.fit_gaussian_portrait (the smoke's archives share one band,
+    so no metafile of bands is made for ppgauss -j).  Each: wall, nfev,
+    rc, the routes, and the device time of one jacfwd pass at its
+    solution, with its einsums, beside its bound.  Returns the launches
+    of the ppgauss run."""
+    import numpy as np
+    import torch
+
+    from pulseportraiture_tpu_torch.cli import ppgauss
+    from pulseportraiture_tpu_torch.fit import gauss as fit_gauss
+    from pulseportraiture_tpu_torch.models import gauss
+
+    out = os.path.join(work, "aligned_scat.gmodel")
+    argv = ["-d", avg, "--autogauss", "0.05", "--niter", "2", "--fitscat",
+            "--device", str(dev), "-o", out]
+    routes = dict(fit_gauss.FIT_ROUTES)
+    with clocked(gauss, ("fit_gaussian_portrait",),
+                 keep_out=("fit_gaussian_portrait",)) as clock, \
+            clocked(gauss.GaussianModelPortrait,
+                    ("check_convergence",)) as conv:
+        wall, launches = run_tool(K, ppgauss, argv)
+    routes = {k: fit_gauss.FIT_ROUTES[k] - routes[k] for k in routes}
+    fits = clock["fit_gaussian_portrait_out"]
+    dp = conv["self"][-1]
+    nparam = len(dp.model_params)
+    ngauss = (nparam - 2) // 6
+    nchan = dp.portx.shape[0]
+    jms, route_ms, jb, jby, jshape = jacobian_pass(dp, dev)
+    scat = dict(cli_s=wall, fit_s=clock["fit_gaussian_portrait"],
+                lm_nfev=[f.nfev for f in fits],
+                lm_rc=[f.return_code for f in fits], fit_routes=routes,
+                tau_bins=float(dp.model_params[1]),
+                jacobian=dict(shape=jshape, ms=jms, torch_route_ms=route_ms,
+                              bound_ms=jb, bound_by=jby))
+
+    # the joined fit: two join groups of channels, unscattered, the
+    # second group's (phase, DM) fitted
+    half = nchan // 2
+    joins = [np.arange(0, half), np.arange(half, nchan)]
+    init = np.array(dp.model_params, dtype=np.float64)
+    init[1] = 0.0
+    flags = np.ones(nparam)
+    flags[1] = 0.0
+    jargs = (dp.model_code, dp.portx, init, dp.scattering_index,
+             dp.portx_noise, flags, False, dp.phases, dp.freqsxs[0],
+             dp.nu_ref, [joins, np.zeros(4), np.array([0, 0, 1, 1])],
+             dp.Ps[0])
+    jroutes = dict(fit_gauss.FIT_ROUTES)
+    K.reset_launches()
+    t0 = time.perf_counter()
+    jfit = fit_gauss.fit_gaussian_portrait(*jargs, device=dev)
+    torch.cuda.synchronize()
+    jwall = time.perf_counter() - t0
+    jlaunch = dict(K.LAUNCHES)
+    jroutes = {k: fit_gauss.FIT_ROUTES[k] - jroutes[k] for k in jroutes}
+    jx = np.concatenate([jfit.fitted_params[:nparam],
+                         [jfit.scattering_index],
+                         jfit.fitted_params[nparam:]])
+    jjms, jroute_ms, jjb, jjby, jjshape = jacobian_pass(dp, dev, joins, jx)
+    joined = dict(fit_s=jwall, lm_nfev=int(jfit.nfev),
+                  lm_rc=int(jfit.return_code), fit_routes=jroutes,
+                  join_params=[float(v) for v in jfit.fitted_params[nparam:]],
+                  red_chi2=jfit.chi2 / jfit.dof,
+                  jacobian=dict(shape=jjshape, ms=jjms,
+                                torch_route_ms=jroute_ms, bound_ms=jjb,
+                                bound_by=jjby))
+    emit("ppgauss_scat", launches=launches, n_components=ngauss,
+         scattered=scat, joined=joined)
+    if routes["normal"] or not routes["jacfwd"] or any(
+            launches[n] for n in K9_NAMES):
+        raise AssertionError("ppgauss --fitscat: fit routes %s, launches %s"
+                             % (routes, launches))
+    if jroutes != {"normal": 0, "jacfwd": 1} or any(
+            jlaunch[n] for n in K9_NAMES):
+        raise AssertionError("joined fit: fit routes %s, launches %s"
+                             % (jroutes, jlaunch))
+    if not (np.isfinite(dp.model_params).all() and np.isfinite(jx).all()
+            and np.isfinite(jfit.chi2)):
+        raise AssertionError("ppgauss_scat: params %s, joined %s"
+                             % (dp.model_params, jx))
+    return launches
 
 
 # examples/example.py's walkthrough: epochs, their first MJD and spacing,
@@ -5874,6 +6044,7 @@ def main(argv):
                                                         avg, small)
         rows["smooth_search"] = k8_spline + k8_align
         by_path["ppgauss"] = phase_ppgauss(root, work, K, dev, avg, small)
+        by_path["ppgauss_scat"] = phase_ppgauss_scat(root, work, K, dev, avg)
         by_path["walkthrough"] = phase_walkthrough(root, work, K, dev)
         by_path["obs"] = phase_obs_fresh(root, work, small)
         by_path["survey"], survey = phase_survey(root, work, K)
@@ -5896,7 +6067,7 @@ def main(argv):
                     "templates", "ppzap"] for name in own}
     for name in K1_K2_NAMES:
         paths[name] += ["viz", "ppalign", "ppalign_s", "ppspline", "ppgauss",
-                        "walkthrough"]
+                        "ppgauss_scat", "walkthrough"]
     for name in own:
         paths[name] += ["obs", "survey", "serve", "mesh"]
     for name in K4_NAMES + LOAD_NAMES:
@@ -5968,10 +6139,11 @@ def main(argv):
         elif name in K9_NAMES:
             r, extra = r[K9_MAIN], dict(shapes=[
                 {key: c[key] for key in (
-                    "shape", "ngauss", "ms", "call_ms", "bound_ms",
-                    "bound_by", "share_of_bound", "plain_ms",
-                    "torch_route_jac_ms", "torch_route_ms", "errors",
-                    "max_abs_err", "repeat_bit_equal") if key in c}
+                    "shape", "ngauss", "layout", "ms", "call_ms",
+                    "work_call_ms", "bound_ms", "bound_by", "share_of_bound",
+                    "plain_ms", "gram_cublas_ms", "torch_route_jac_ms",
+                    "torch_route_ms", "errors", "max_abs_err",
+                    "repeat_bit_equal") if key in c}
                 for c in r])
         elif name in K4_NAMES:
             r, extra = r[K4_MAIN], dict(shapes=[

@@ -1,4 +1,4 @@
-"""Compare kernels K3 or K1 and their fits across source trees on one GPU.
+"""Compare kernels K3, K1 or K9 and their fits across source trees on one GPU.
 
 For each tree given (a checkout of this repository, e.g. the parent
 commit unpacked with ``git archive`` into a git-ignored directory), in the
@@ -62,6 +62,23 @@ With ``--ppgauss`` first (the Gaussian portrait fit, K9):
   the trees, each run's largest parameter gap to the first run's, over
   its errors.
 
+With ``--k9`` first (the Gaussian portrait fit's normal equations):
+
+* K9's two epilogues (``_kernels.gauss_normal``, ``gauss_sse``) at
+  chip_smoke.py's K9 cases of this tree ([512, 2048], per-channel errs,
+  chip_smoke.k9_inputs): device ms by CUDA-graph replay (through a
+  GaussWork where the tree has one: its launches allocate nothing, as on
+  the fit's path), the wrapper's
+  ms per call by back-to-back CUDA events (``call_ms``), its host ms per
+  call (the enqueue alone, no sync), and where the tree has
+  ``_kernels.GaussWork`` the same two through a GaussWork (the route
+  ``fit.gauss.GaussNormal`` takes: ``work_call_ms``, ``work_host_ms``);
+  both epilogues' device ms at 1, 3 and 19 components over 512 to 4096
+  bins and 128 to 2048 channels (``sweep``); both at 19 to 43 components
+  at [512, 2048], across the mma layout's panel counts (``panels``: one
+  64-row panel up to 20 components, three at 21-41, six at 43, each a
+  pass over the bins); nvcc's register report.
+
 Each tree prints one JSON line; run the trees alternately (parent,
 change, change, parent) to compare them within one call:
 
@@ -69,6 +86,7 @@ change, change, parent) to compare them within one call:
     python3 k3_compare.py --k1 PARENT_DIR . . PARENT_DIR
     python3 k3_compare.py --spectra PARENT_DIR . . PARENT_DIR
     python3 k3_compare.py --ppgauss PARENT_DIR . . PARENT_DIR
+    python3 k3_compare.py --k9 PARENT_DIR . . PARENT_DIR
 
 Needs a CUDA device and the CUDA toolkit (nvcc, cuobjdump).
 """
@@ -560,6 +578,82 @@ def one_tree_ppgauss(root, archive):
         errs=[float(v) for v in built[-1].model_param_errs])), flush=True)
 
 
+def host_ms(fn, reps=200):
+    """Host ms per call of ``fn`` (its enqueue: no sync in the loop)."""
+    import torch
+
+    for _ in range(5):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    dt = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return dt * 1e3 / reps
+
+
+def one_tree_k9(root):
+    root = os.path.abspath(root)
+    sys.path.insert(0, root)
+    os.chdir(root)
+    import torch
+
+    import chip_smoke as cs
+    from pulseportraiture_tpu_torch import _kernels as K
+
+    K.build(["gauss_normal", "gauss_sse"])
+    dev = torch.device("cuda")
+    rows = []
+    for ngauss, B in cs.K9_CASES:
+        args = cs.k9_inputs(dev, ngauss, B)
+        work = K.GaussWork(*args[1:]) if hasattr(K, "GaussWork") else None
+        kw = {} if work is None else dict(work=work)
+        row = dict(ngauss=ngauss, lanes=B)
+        for name in ("gauss_normal", "gauss_sse"):
+            fn = getattr(K, name)
+            row[name] = dict(ms=cs.graph_ms(lambda: fn(*args, **kw)),
+                             call_ms=cs.cuda_ms(lambda: fn(*args), reps=50),
+                             host_ms=host_ms(lambda: fn(*args)))
+            if work is not None:
+                row[name]["work_call_ms"] = cs.cuda_ms(
+                    lambda: fn(*args, work=work), reps=50)
+                row[name]["work_host_ms"] = host_ms(
+                    lambda: fn(*args, work=work))
+        rows.append(row)
+        torch.cuda.empty_cache()
+    # gauss_normal's and gauss_sse's device ms as the bins and channels
+    # grow, one lane, through a work where the tree has one: what is fixed
+    # per call and per block, what grows with the bins
+    sweep = []
+    for ngauss in (1, 3, 19):
+        for nchan, nbin in ((512, 512), (512, 1024), (512, 2048),
+                            (512, 4096), (128, 2048), (2048, 2048)):
+            args = cs.k9_inputs(dev, ngauss, 1, nchan, nbin)
+            kw = {} if not hasattr(K, "GaussWork") else dict(
+                work=K.GaussWork(*args[1:]))
+            sweep.append(dict(
+                ngauss=ngauss, nchan=nchan, nbin=nbin,
+                normal_ms=cs.graph_ms(lambda: K.gauss_normal(*args, **kw)),
+                sse_ms=cs.graph_ms(lambda: K.gauss_sse(*args, **kw))))
+            torch.cuda.empty_cache()
+    panels = []
+    for ngauss in (19, 20, 21, 24, 41, 43):
+        args = cs.k9_inputs(dev, ngauss, 1)
+        kw = {} if not hasattr(K, "GaussWork") else dict(
+            work=K.GaussWork(*args[1:]))
+        panels.append(dict(
+            ngauss=ngauss,
+            normal_ms=cs.graph_ms(lambda: K.gauss_normal(*args, **kw)),
+            sse_ms=cs.graph_ms(lambda: K.gauss_sse(*args, **kw))))
+        torch.cuda.empty_cache()
+    ptxas = [ln.strip() for ln in K.BUILD_LOG.get("gauss", "").splitlines()
+             if "Used" in ln or "spill" in ln]
+    print(json.dumps(dict(tree=root, gpu=cs.gpu_line(), k9=rows,
+                          sweep=sweep, panels=panels, ptxas=ptxas)),
+          flush=True)
+
+
 def params_gaps(lines):
     """Each --ppgauss run's largest parameter gap to the first run's,
     over the first run's finite errors."""
@@ -574,7 +668,7 @@ def params_gaps(lines):
 
 def main(argv):
     mode = argv[0] if argv and argv[0] in ("--k1", "--spectra",
-                                           "--ppgauss") else None
+                                           "--ppgauss", "--k9") else None
     if mode:
         argv = argv[1:]
     if len(argv) >= 2 and argv[0] == "--tree":
@@ -582,6 +676,8 @@ def main(argv):
             one_tree_spectra(argv[1])
         elif mode == "--ppgauss":
             one_tree_ppgauss(argv[1], argv[2])
+        elif mode == "--k9":
+            one_tree_k9(argv[1])
         else:
             (one_tree_k1 if mode else one_tree)(argv[1])
         return 0

@@ -75,9 +75,12 @@ interface and loaded with ``ctypes``:
      and J^T J, for the residual of pulseportraiture_tpu/fit/gauss.py:124
      on the unscattered model of ops/profiles.py:141): f = sum r^2,
      g = J^T r and J^T J per lane from the model's analytic derivatives,
-     with no Jacobian formed; and ``gauss_sse``, f alone, for the loop's
-     trial steps.  One library, two entry points, each with its own
-     launch count and trace name.
+     with no Jacobian formed (the channels' Gram matrices on the FP64
+     tensor cores, or in registers at one or two components; the chain
+     rule in the block; the channel sum by a tree of last-block-done
+     counters, one launch a call); and ``gauss_sse``, f alone, for the
+     loop's trial steps.  One library, two entry points, each with its
+     own launch count and trace name.
 
 Each wrapper dispatches on its input's device: a CPU tensor takes the
 plain PyTorch version beside it (the same name with ``_plain``: e.g.
@@ -143,8 +146,9 @@ __all__ = ["KernelLaunchError", "LAUNCHES", "reset_launches", "build",
            "smooth_scan_plain", "smooth_chunk_rows", "scan_chunk_rows",
            "scannable", "SMOOTH_MAX_BINS", "SMOOTH_ROWS", "gauss_normal",
            "gauss_normal_plain", "gauss_sse", "gauss_sse_plain",
-           "gauss_ngauss", "gauss_normal_smem", "gauss_tile_rows",
-           "GAUSS_MAX_NGAUSS", "GAUSS_ONE_TILE_NGAUSS",
+           "gauss_ngauss", "gauss_layout", "gauss_sizes", "GAUSS_SIZES",
+           "GaussWork", "GAUSS_MAX_NGAUSS",
+           "GAUSS_SSE_MAX_NGAUSS", "GAUSS_WARP_NGAUSS",
            "KERNELS"]
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
@@ -235,16 +239,19 @@ _SYMBOLS = {
                                _VP, _VP]},
     "gauss_normal": {"pp_gauss_normal": [
         _VP, _VP, _VP, _I64, _INT, _VP, _VP, _INT, _INT, _INT, _INT, _DBL,
-        _DBL, _INT, _INT, _INT, _INT, _VP, _VP, _VP, _VP, _VP]},
+        _DBL, _INT, _INT, _INT, _VP, _VP, _VP, _VP, _VP, _VP],
+        "pp_gauss_sizes": [_INT, _INT, _INT, _VP]},
     "gauss_sse": {"pp_gauss_sse": [
         _VP, _VP, _VP, _I64, _INT, _VP, _VP, _INT, _INT, _INT, _INT, _DBL,
-        _DBL, _INT, _INT, _INT, _VP, _VP, _VP]},
+        _DBL, _INT, _INT, _INT, _VP, _VP, _VP, _VP],
+        "pp_gauss_sizes": [_INT, _INT, _INT, _VP]},
 }
 
 # kernel name -> the CUDA function that runs once per counted launch, as
 # it is named in a profiler trace (K2's grid stage, its Newton stage
 # runs as often; K8's two selects, the route's and the scan's certifying
-# one, both wavelet_select*)
+# one, both wavelet_select*; K9's two layouts, gauss_normal_warp_kernel
+# and gauss_normal_mma_kernel)
 TRACE_NAMES = {"moments": "moments_kernel",
                "moments_grad_hess": "moments_grad_hess_kernel",
                "fftfit": "fftfit_grid_kernel",
@@ -257,7 +264,7 @@ TRACE_NAMES = {"moments": "moments_kernel",
                "load_stats": "load_stats_kernel",
                "rotate": "rotate_kernel",
                "smooth_search": "wavelet_select",
-               "gauss_normal": "gauss_normal_kernel",
+               "gauss_normal": "gauss_normal_",
                "gauss_sse": "gauss_sse_kernel"}
 
 LAUNCHES = {name: 0 for name in KERNELS}
@@ -2173,15 +2180,15 @@ def smooth_search(port, wavelet, nlevel, facts, rchi2_tol, threshtype="hard",
 
 # -- K9: the Gaussian portrait fit's normal equations -------------------------
 
-# pass 1 of csrc/gauss.cu (a block a (lane, channel, tile)): its threads,
-# the bins staged a round (one a thread), the staged rows' stride in
-# doubles and its warps; the shared memory one block can take on the
-# H100; the Gram rows of a tile when the whole matrix does not fit
-GAUSS_THREADS = 256
-GAUSS_PAD = GAUSS_THREADS + 1
-GAUSS_WARPS = GAUSS_THREADS // 32
-GAUSS_SMEM_MAX = 232448
-GAUSS_TILE_ROWS = 32
+# csrc/gauss.cu's kWarpNgauss (the warp layout up to this many components,
+# the FP64 tensor cores beyond), kMaxNgauss and kSseMaxNgauss (the most
+# components each epilogue takes on the card, held to the shared memory a
+# block takes there by the source's static_asserts; the wrappers raise
+# beyond, and fit.gauss keeps jacfwd there).  The launches' geometry is the
+# source's alone (gauss_sizes).
+GAUSS_WARP_NGAUSS = 2
+GAUSS_MAX_NGAUSS = 1888
+GAUSS_SSE_MAX_NGAUSS = 6456
 
 
 def gauss_ngauss(nparam):
@@ -2195,47 +2202,99 @@ def gauss_ngauss(nparam):
     return ngauss
 
 
-def _gauss_rows(ngauss):
-    """(Q + 1, Gram entries): the basis rows and r of csrc/gauss.cu's
-    pass 1, and the upper triangle of their Gram matrix."""
-    q1 = 3 * ngauss + 2
-    return q1, q1 * (q1 + 1) // 2
+def gauss_layout(ngauss):
+    """The layout gauss_normal takes on the card at ``ngauss`` components:
+    "warp" (the Gram's 15 or 36 entries in registers) up to
+    GAUSS_WARP_NGAUSS, else "mma" (the FP64 tensor cores)."""
+    return "warp" if ngauss <= GAUSS_WARP_NGAUSS else "mma"
 
 
-def gauss_normal_smem(ngauss, tile_rows=None):
-    """Bytes of shared memory pass 1 of gauss_normal takes at ``ngauss``
-    components in tiles of ``tile_rows`` Gram rows (None: one tile, the
-    whole matrix): five doubles a component, the staged rows (all Q + 1,
-    or two blocks' of tile_rows, GAUSS_PAD doubles each), a row of the
-    tile's Gram sums a warp, a live flag (int) a component and a packed
-    (k, k') pair (2 bytes) a tile entry."""
-    q1, npairs = _gauss_rows(ngauss)
-    R = q1 if tile_rows is None else min(int(tile_rows), q1)
-    rows, pairs = (q1, npairs) if R >= q1 else (2 * R, R * R)
-    return 8 * (5 * ngauss + rows * GAUSS_PAD + GAUSS_WARPS * pairs) \
-        + 4 * ngauss + 2 * pairs
+GAUSS_SIZES = ("width", "rows", "counters", "chans_per_block", "fan", "smem")
 
 
-# the most components gauss_normal takes on the card, in tiles of
-# GAUSS_TILE_ROWS (its wrapper raises beyond), and the most with one tile
-GAUSS_MAX_NGAUSS = (GAUSS_SMEM_MAX - 8 * (2 * GAUSS_TILE_ROWS * GAUSS_PAD
-                                         + GAUSS_WARPS * GAUSS_TILE_ROWS ** 2)
-                    - 2 * GAUSS_TILE_ROWS ** 2) // (8 * 5 + 4)
-GAUSS_ONE_TILE_NGAUSS = max(n for n in range(1, 64)
-                            if gauss_normal_smem(n) <= GAUSS_SMEM_MAX)
+def gauss_sizes(ngauss, nchan, normal=True):
+    """csrc/gauss.cu's geometry of a launch of epilogue B (``normal``) or A
+    at ``ngauss`` components and ``nchan`` channels, as its pp_gauss_sizes
+    gives it: {GAUSS_SIZES key: int}: the doubles in a row of per-lane
+    sums, a lane's scratch rows and tree counters, the channels a block,
+    the channel tree's fan-in and the shared memory a block takes.  Builds
+    the kernel (nvcc); raises ValueError past the epilogue's component
+    limit."""
+    name = "gauss_normal" if normal else "gauss_sse"
+    if name not in _LIBS:
+        build([name])
+    out = (ctypes.c_int64 * len(GAUSS_SIZES))()
+    if _LIBS[name]["pp_gauss_sizes"](int(ngauss), int(nchan), int(normal),
+                                     out):
+        raise ValueError("%s: no launch of %d components over %d channels"
+                         % (name, ngauss, nchan))
+    return dict(zip(GAUSS_SIZES, out))
 
 
-def gauss_tile_rows(ngauss):
-    """The Gram rows a tile of gauss_normal's pass 1 takes at ``ngauss``
-    components: all 3 ngauss + 2 (one tile) up to GAUSS_ONE_TILE_NGAUSS,
-    else GAUSS_TILE_ROWS; ValueError beyond GAUSS_MAX_NGAUSS."""
-    if ngauss <= GAUSS_ONE_TILE_NGAUSS:
-        return _gauss_rows(ngauss)[0]
-    if ngauss <= GAUSS_MAX_NGAUSS:
-        return GAUSS_TILE_ROWS
-    raise ValueError("gauss_normal: %d components; the kernel takes at most "
-                     "%d (%d bytes of shared memory a block)"
-                     % (ngauss, GAUSS_MAX_NGAUSS, GAUSS_SMEM_MAX))
+class _GaussBuffers:
+    """A launch's scratch rows and its tree's counters (zero: every launch
+    leaves them zero), sized by gauss_sizes; with ``outs``,
+    gauss_normal's outputs, kept."""
+
+    def __init__(self, B, nchan, ngauss, normal, device, outs=False):
+        sz = gauss_sizes(ngauss, nchan, normal)
+        self.scratch = torch.empty((B, sz["rows"], sz["width"]),
+                                   dtype=torch.float64, device=device)
+        self.counters = torch.zeros((B, sz["counters"]), dtype=torch.int32,
+                                    device=device)
+        P = 6 * ngauss + 3
+        self.outs = None if not outs else (
+            torch.empty(B, dtype=torch.float64, device=device),
+            torch.empty((B, P), dtype=torch.float64, device=device),
+            torch.empty((B, P, P), dtype=torch.float64, device=device))
+
+
+class GaussWork:
+    """K9's arguments that stay fixed over a fit (data, errs, bins, freqs,
+    nu_ref, model_code), checked once, and the buffers its launches reuse
+    per (lanes, components, epilogue): the scratch rows, the channel
+    tree's counters and gauss_normal's outputs.  Pass it as ``work=`` to
+    gauss_normal / gauss_sse with those same arguments (or tensors of the
+    same shapes, strides, dtype and device): the call then checks only
+    ``params``.  gauss_normal's outputs are then overwritten by its next
+    call with the same work; one work serves one stream at a time."""
+
+    def __init__(self, data, errs, bins, freqs, nu_ref, model_code):
+        _check_gauss_fixed(data, errs, bins, freqs, "gauss work")
+        self.laws = _gauss_laws(model_code)
+        self.device = data.device
+        self._layout = (_layout(data), _layout(errs), tuple(bins.shape),
+                        tuple(freqs.shape))
+        self._bufs = {}
+
+    def check(self, params, data, errs, bins, freqs, model_code):
+        """(B, P, ngauss, laws) of a call with this work; raises where its
+        fixed arguments are not laid out as the work's or its model code
+        is not the work's."""
+        _check(params, "params", torch.float64, 2)
+        if params.device != self.device or self._layout != (
+                _layout(data), _layout(errs), tuple(bins.shape),
+                tuple(freqs.shape)):
+            raise ValueError("gauss work: the arguments are not laid out as "
+                             "the work's (%s)" % (self._layout,))
+        if _gauss_laws(model_code) != self.laws:
+            raise ValueError("gauss work: model_code %r is not the work's "
+                             "(laws %s)" % (model_code, self.laws))
+        B, P = params.shape
+        return B, P, gauss_ngauss(P), self.laws
+
+    def buffers(self, B, ngauss, normal):
+        key = (B, ngauss, normal)
+        bufs = self._bufs.get(key)
+        if bufs is None:
+            bufs = self._bufs[key] = _GaussBuffers(
+                B, self._layout[0][0][0], ngauss, normal, self.device,
+                outs=normal)
+        return bufs
+
+
+def _layout(t):
+    return (tuple(t.shape), t.stride(), t.dtype, t.device)
 
 
 def _gauss_laws(model_code):
@@ -2248,9 +2307,8 @@ def _gauss_laws(model_code):
     return tuple(int(c) for c in code)
 
 
-def _check_gauss(params, data, errs, bins, freqs, model_code, what):
-    """Check K9's arguments; returns (B, P, ngauss, laws)."""
-    _check(params, "params", torch.float64, 2)
+def _check_gauss_fixed(data, errs, bins, freqs, what):
+    """Check K9's arguments other than params (see gauss_sse)."""
     _check(data, "data", torch.float64, 2)
     if isinstance(errs, torch.Tensor) and errs.ndim == 2 and \
             errs.stride(1) == 0:
@@ -2261,7 +2319,6 @@ def _check_gauss(params, data, errs, bins, freqs, model_code, what):
         _check(errs, "errs", torch.float64, 2)
     _check(bins, "bins", torch.float64, 1)
     _check(freqs, "freqs", torch.float64, 1)
-    B, P = params.shape
     nchan, nbin = data.shape
     if tuple(errs.shape) != (nchan, nbin) or bins.shape[0] != nbin or \
             freqs.shape[0] != nchan:
@@ -2269,7 +2326,15 @@ def _check_gauss(params, data, errs, bins, freqs, model_code, what):
                          "disagree" % (what, tuple(data.shape),
                                        tuple(errs.shape), tuple(bins.shape),
                                        tuple(freqs.shape)))
-    _same_device(params, data, errs, bins, freqs)
+    _same_device(data, errs, bins, freqs)
+
+
+def _check_gauss(params, data, errs, bins, freqs, model_code, what):
+    """Check K9's arguments; returns (B, P, ngauss, laws)."""
+    _check(params, "params", torch.float64, 2)
+    _check_gauss_fixed(data, errs, bins, freqs, what)
+    _same_device(params, data)
+    B, P = params.shape
     return B, P, gauss_ngauss(P), _gauss_laws(model_code)
 
 
@@ -2350,20 +2415,24 @@ def _gauss_terms_plain(params, data, errs, bins, freqs, nu_ref, laws,
     return r, -dm / errs[..., None]
 
 
-def gauss_sse_plain(params, data, errs, bins, freqs, nu_ref, model_code):
+def gauss_sse_plain(params, data, errs, bins, freqs, nu_ref, model_code,
+                    work=None):
     """Plain PyTorch K9, epilogue A: f [B] = sum r^2 of the unscattered
-    Gaussian portrait's residual (see gauss_normal_plain)."""
+    Gaussian portrait's residual (see gauss_normal_plain; ``work`` is the
+    kernel's and unused here)."""
     r, _ = _gauss_terms_plain(params, data, errs, bins, freqs, nu_ref,
                               _gauss_laws(model_code), False)
     return torch.sum(r * r, dim=(-2, -1))
 
 
-def gauss_normal_plain(params, data, errs, bins, freqs, nu_ref, model_code):
+def gauss_normal_plain(params, data, errs, bins, freqs, nu_ref, model_code,
+                       work=None):
     """Plain PyTorch K9, epilogue B: (f [B], g [B, P], JtJ [B, P, P]) of
     the residual r = (data - m) / errs of the unscattered Gaussian
     portrait m at params [B, P] (see gauss_normal): its Jacobian's
     columns from the analytic derivatives, then f = sum r^2, g = J^T r
-    and J^T J by einsum, as the JAX reference's lm_solve forms them."""
+    and J^T J by einsum, as the JAX reference's lm_solve forms them
+    (``work`` is the kernel's and unused here)."""
     r, J = _gauss_terms_plain(params, data, errs, bins, freqs, nu_ref,
                               _gauss_laws(model_code), True)
     B, P = params.shape
@@ -2373,7 +2442,7 @@ def gauss_normal_plain(params, data, errs, bins, freqs, nu_ref, model_code):
 
 
 def _gauss_launch(name, params, data, errs, bins, freqs, nu_ref, laws,
-                  tiles, scratch, *outs):
+                  bufs, *outs):
     B, P = params.shape
     nchan, nbin = data.shape
     if B > 65535:
@@ -2383,11 +2452,13 @@ def _gauss_launch(name, params, data, errs, bins, freqs, nu_ref, laws,
     _launch(name, params.device, params.data_ptr(), data.data_ptr(),
             errs.data_ptr(), errs.stride(0), per_bin, bins.data_ptr(),
             freqs.data_ptr(), B, gauss_ngauss(P), nchan, nbin,
-            float(nu_ref), FWHM_FACT, *laws, *tiles,
-            scratch.data_ptr(), *(o.data_ptr() for o in outs))
+            float(nu_ref), FWHM_FACT, *laws, bufs.scratch.data_ptr(),
+            bufs.counters.data_ptr(),
+            *(o.data_ptr() for o in outs))
 
 
-def gauss_sse(params, data, errs, bins, freqs, nu_ref, model_code):
+def gauss_sse(params, data, errs, bins, freqs, nu_ref, model_code,
+              work=None):
     """K9 wrapper, epilogue A (see csrc/gauss.cu): f [B] = sum over the
     portrait of r^2, r = (data - m) / errs, m the unscattered Gaussian
     portrait (gen_gaussian_portrait at tau = 0) at each lane's params
@@ -2397,56 +2468,71 @@ def gauss_sse(params, data, errs, bins, freqs, nu_ref, model_code):
     errs [nchan, nbin], the bin centres bins [nbin] and freqs [nchan],
     all float64 and contiguous, except that errs may be per-channel
     errors broadcast over the bins (stride 0 along them; read as nchan
-    values).  Two launches (the (lane, channel) sums, their channel sum),
-    counted as one."""
-    B, P, _, laws = _check_gauss(params, data, errs, bins, freqs,
-                                 model_code, "gauss_sse")
+    values).  One launch.  ``work`` (a GaussWork of the same fixed
+    arguments) skips their checks and keeps the launch's scratch.  More
+    than GAUSS_SSE_MAX_NGAUSS components raise ValueError on the card."""
+    if work is None:
+        B, P, ng, laws = _check_gauss(params, data, errs, bins, freqs,
+                                      model_code, "gauss_sse")
+    else:
+        B, P, ng, laws = work.check(params, data, errs, bins, freqs,
+                                    model_code)
     if params.device.type == "cpu":
         return gauss_sse_plain(params, data, errs, bins, freqs, nu_ref,
                                model_code)
     if params.device.type != "cuda":
         raise ValueError("gauss_sse: unsupported device %s" % params.device)
+    if ng > GAUSS_SSE_MAX_NGAUSS:
+        raise ValueError("gauss_sse: %d components; the kernel takes at most "
+                         "%d" % (ng, GAUSS_SSE_MAX_NGAUSS))
     if not (B and data.numel()):
         return torch.zeros(B, dtype=torch.float64, device=params.device)
-    # the kernels write every output element
+    bufs = work.buffers(B, ng, False) if work is not None else \
+        _GaussBuffers(B, data.shape[0], ng, False, params.device)
     f = torch.empty(B, dtype=torch.float64, device=params.device)
-    scratch = torch.empty((B, data.shape[0]), dtype=torch.float64,
-                          device=params.device)
     _gauss_launch("gauss_sse", params, data, errs, bins, freqs, nu_ref, laws,
-                  (), scratch, f)
+                  bufs, f)
     return f
 
 
-def gauss_normal(params, data, errs, bins, freqs, nu_ref, model_code):
+def gauss_normal(params, data, errs, bins, freqs, nu_ref, model_code,
+                 work=None):
     """K9 wrapper, epilogue B (see csrc/gauss.cu): (f [B], g [B, P], JtJ
     [B, P, P]) float64 for the residual of gauss_sse's arguments and its
     Jacobian J = d r / d params: f = sum r^2, g = J^T r, JtJ = J^T J,
     with no J formed.  The tau and scattering-index columns of J are 0
-    (the unscattered model does not depend on them).  Two launches (the
-    channels' weighted basis Gram matrices, then the chain rule summed
-    over channels), counted as one.  Pass 1 takes the Gram matrix in one
-    tile up to GAUSS_ONE_TILE_NGAUSS components and in tiles of
-    GAUSS_TILE_ROWS rows beyond (the same bits); more than
-    GAUSS_MAX_NGAUSS components raise ValueError (pass 1's shared
-    memory)."""
-    B, P, ng, laws = _check_gauss(params, data, errs, bins, freqs,
-                                  model_code, "gauss_normal")
+    (the unscattered model does not depend on them).  One launch: the
+    warp layout up to GAUSS_WARP_NGAUSS components, the FP64 tensor cores
+    beyond (gauss_layout); more than GAUSS_MAX_NGAUSS components raise
+    ValueError on the card (the mma layout's shared memory).  With
+    ``work`` (a GaussWork of the same fixed arguments) the fixed arguments
+    are not checked again and the outputs are the work's own, overwritten
+    by its next gauss_normal call."""
+    if work is None:
+        B, P, ng, laws = _check_gauss(params, data, errs, bins, freqs,
+                                      model_code, "gauss_normal")
+    else:
+        B, P, ng, laws = work.check(params, data, errs, bins, freqs,
+                                    model_code)
     if params.device.type == "cpu":
         return gauss_normal_plain(params, data, errs, bins, freqs, nu_ref,
                                   model_code)
     if params.device.type != "cuda":
         raise ValueError("gauss_normal: unsupported device %s"
                          % params.device)
-    tile_rows = gauss_tile_rows(ng)
+    if ng > GAUSS_MAX_NGAUSS:
+        raise ValueError("gauss_normal: %d components; the kernel takes at "
+                         "most %d (the mma layout's shared memory)"
+                         % (ng, GAUSS_MAX_NGAUSS))
     dev = params.device
-    new = torch.empty if B and data.numel() else torch.zeros
-    f = new(B, dtype=torch.float64, device=dev)
-    g = new((B, P), dtype=torch.float64, device=dev)
-    JtJ = new((B, P, P), dtype=torch.float64, device=dev)
-    if B and data.numel():      # the kernels write every output element
-        _, npairs = _gauss_rows(ng)
-        scratch = torch.empty((B, data.shape[0], npairs + 6 * ng + 1),
-                              dtype=torch.float64, device=dev)
-        _gauss_launch("gauss_normal", params, data, errs, bins, freqs,
-                      nu_ref, laws, (tile_rows,), scratch, f, g, JtJ)
-    return f, g, JtJ
+    if not (B and data.numel()):
+        return (torch.zeros(B, dtype=torch.float64, device=dev),
+                torch.zeros((B, P), dtype=torch.float64, device=dev),
+                torch.zeros((B, P, P), dtype=torch.float64, device=dev))
+    if work is not None:
+        bufs = work.buffers(B, ng, True)
+    else:
+        bufs = _GaussBuffers(B, data.shape[0], ng, True, dev, outs=True)
+    _gauss_launch("gauss_normal", params, data, errs, bins, freqs, nu_ref,
+                  laws, bufs, *bufs.outs)
+    return bufs.outs

@@ -18,7 +18,7 @@
 // v = (nu - nu_ref) s + p0, dv/dp0 = 1, dv/ds = nu - nu_ref.  At bin centre t:
 //
 //   x = t - (loc mod 1), moved into [-0.5, 0.5] (the reference's two wheres)
-//   sigma = wid / FWHM, z = clip(x / sigma, +-20), e = exp(-z^2 / 2)
+//   sigma = wid / FWHM, z = clip(x (1 / sigma), +-20), e = exp(-z^2 / 2)
 //   m = dc + sum_c amp e
 //   dm/ddc = 1, dm/damp = e, dm/dloc = amp e z / sigma, dm/dwid = amp e z^2 / wid
 //
@@ -37,132 +37,137 @@
 // and JtJ = J^T J (gauss_normal, epilogue B).
 //
 // Design.  At channel nu every column of J is a chain factor a_p(nu) (1 for
-// dc) times one of Q = 1 + 3 ngauss basis rows of the bin: 1 / err, e / err,
-// (amp e z / sigma) / err and (amp e z^2 / wid) / err per component.  With r
-// appended as row Q, the channel's (Q + 1) x (Q + 1) Gram matrix
-// G = sum_bins v v^T holds everything: JtJ_pq = sum_nu a_p a_q G_{q(p) q(q)},
-// g_p = -sum_nu a_p G_{q(p) Q}, f = sum_nu G_QQ.
-//   Pass 1 (gauss_normal_kernel): one block a (lane, channel, tile).  Its
-// first threads evolve the components (one each) into shared memory and,
-// in tile 0, write the chain factors to the channel's scratch row.  Then
-// rounds of 256 bins, one a thread: each thread forms v for its bin and
-// stages the rows its tile takes in shared memory (the next round's data,
-// error and bin centre already loading); warp w sums the round's bins
-// 32w .. 32w + 31 for the tile's Gram entries its lanes own (entry k on
-// lane k mod 32) into its own row of sums.  At the end the warps' rows are
-// added in order, into the scratch row.  A tile is the Gram matrix's
-// entries between two blocks of tile_rows rows (a block with itself on the
-// diagonal); when every row and sum fits a block's shared memory there is
-// one tile, all of G (18 components on an H100), and beyond that blocks of
-// 32 rows, each tile recomputing the bin's model for r.  An entry is summed
-// in the same order whatever the tiling, so tiling changes no bit.
-//   Pass 2 (gauss_chain_kernel): one block a lane.  Each output (JtJ's upper
-// triangle, g, f) is a sum over channels, taken in slices when there are
-// fewer outputs than threads; the slices are added in order.
-//   Epilogue A (gauss_sse_kernel): pass 1 without the basis, each thread's
-// r^2 over its bins joined by shuffle trees; gauss_fsum_kernel sums the
-// channels.  No atomics anywhere: the same inputs give the same bits.
+// dc) times one of Q = 1 + 3 ngauss basis rows of the bin: w, e w,
+// (amp e z / sigma) w and (amp e z^2 / wid) w per component, w = 1 / err.
+// With r appended as row Q, the channel's (Q + 1) x (Q + 1) Gram matrix
+// G = V^T V, V the [nbin, Q + 1] matrix of those rows, holds everything:
+// JtJ_pq = sum_nu a_p a_q G_{q(p) q(q)}, g_p = -sum_nu a_p G_{q(p) Q},
+// f = sum_nu G_QQ: a batched SYRK with K = nbin per (lane, channel).  Where
+// the errors are one value a channel (errs read through a stride of 0 along
+// the bins, as ppgauss gives them) w is 1 in the bins and the channel's Gram
+// is scaled by 1 / err^2 once; 1 / sigma is formed once per component.
+//   The mma layout (more than kWarpNgauss components): the Gram's rows in
+// blocks of kPanelRows (64) rows, its upper triangle in panels (I, J), I <= J
+// (one panel, all of G, up to 20 components), each panel in pairs of
+// 16 x 8 tiles (16 rows by 16 columns: one a fragment, two b) summed on
+// the FP64 tensor cores (mma.sync m16n8k8 .f64, accumulators in registers)
+// from rounds of 32 bins staged in shared memory, row by row.  A bin's
+// basis values are formed by the lanes of its warp, which split its
+// components (each bin's exp and model formed once a panel; the model's
+// partial sums joined by a fixed shuffle tree).  Own bins (3-10
+// components, a Gram of one or three pairs): a block of four warps per
+// (lane, channel group), each warp forming four bins a lane side by side
+// into a slice of its own and summing its own rounds into every pair (no
+// block barrier in the loop), the warps' partial pairs then added in warp
+// order.  Beyond: a block of eight warps, which share each chunk of 32
+// bins (one barrier a chunk, two chunks staged) and deal the panel's pairs
+// out, at most two a warp.  The thread that holds an entry of G applies
+// the chain rule to it and writes (or, for the group's later channels,
+// adds) its terms to the group's row of per-lane sums: JtJ's upper
+// triangle over the 6 ngauss + 1 live parameters, g, f and the channels'
+// poison.  Beyond one panel (21 components and more) each panel is a pass
+// over the bins of its own: a component's exp is formed once per panel
+// holding its rows, and the model (every exp) once per panel holding r, so
+// each exp is formed 2-3 times a bin at 21-41 components.  Forming it once
+// needs every pair's accumulators live through one pass: at 41 components
+// 36 pairs, five a warp, 40 doubles a lane against the 16 of two pairs,
+// which fits at one block an SM instead of two (not tried here); past
+// about 60 components the registers run out, the whole [nbin, q1] basis
+// does not fit a block's shared memory, and accumulators kept there would
+// be loaded and stored every k-step.
+//   The warp layout (1-2 components, a Gram too small for 16 x 8 tiles): a
+// block of four warps per (lane, channel), each thread's bins summed into
+// the Gram's 15 or 36 entries in registers, a fixed shuffle tree per entry
+// and the warps in order; the chain rule as above.
+//   Epilogue A: a block of four warps per (lane, channel), r^2 summed as in
+// the warp layout.
+//   One launch per call and epilogue.  Every block writes its row to
+// scratch; the rows are then summed over the channels by a tree of fixed
+// shape (fan-in ``fan``): the last block to finish a node, found by a
+// counter of the call's own (an atomic on the counter only, never on a
+// sum), sums the node's children in child order; the root's sums are the
+// outputs.  Each counter is set back to 0 by the block that found itself
+// last, so two calls in a row and CUDA-graph replays start from 0.  The
+// same inputs give the same bits whatever the order the blocks run in.
 //
-// errs [nchan, nbin] is read through its strides (errs_row, errs_bin), so
-// per-channel errors broadcast over the bins (errs_bin = 0, as ppgauss
-// gives them) are read as nchan values.
+// errs [nchan, nbin] is read through its strides (errs_row, errs_bin).
 //
 // What bounds it on an H100: at one lane and one component, bytes: data
 // read once, 8.4 MB at [512, 2048] (errs a value a channel), 0.0025 ms at
 // 3.35 TB/s, against ~39 FP64 operations a bin (the exp ~20) at 34
-// TFLOP/s and the Gram's 15 entries (2 each) at the FP64 tensor cores' 67,
-// 0.0017 ms.  Several lanes (B) or components make it operations: the Gram
-// grows as (3 ngauss + 2)^2 / 2 and every lane reads the same data.  The
-// Gram sums are plain FP64 FMAs here (not the tensor cores).
+// TFLOP/s; a launch's own floor of a few microseconds alone takes half of
+// that bound.  More components or lanes make it operations: the exp and
+// basis grow as ngauss, the Gram as (3 ngauss + 2)^2 / 2 multiply-adds a
+// bin on the FP64 tensor cores (67 TFLOP/s), every lane reading the same
+// data.  At 19 components a 64-row panel's pairs carry 64 x 72 / 2 entries
+// for the 59 x 60 / 2 the Gram needs.  What holds it on an H100 (PERF.md
+// row K9): each block's chains of dependent FP64 operations (a bin's exp
+// and basis values, then the shuffles, the chain rule and the tree), which
+// a block's few warps do not hide; a block alone on an SM takes nearly as
+// long as four sharing it, so the time follows the bins a block walks, not
+// the card's FP64 or tensor rate.
 //
-// Limits: pass 1 of the normal equations keeps the tile's staged rows of
-// 257 doubles, a row of its Gram sums per warp and five doubles a component
-// in shared memory: tiles of 32 rows hold 756 components on an H100 (the
-// wrapper raises beyond); epilogue A holds 5282.  Lanes ride on the grid's y
-// dimension and tiles on its z (<= 65535 each).
+// Limits: the mma layout keeps ten doubles and an int a component and two
+// chunks of at most 2 kPanelRows rows of 36 doubles in shared memory:
+// kMaxNgauss = 1888 components on an H100 (232,448 bytes a block; the
+// wrapper raises beyond, and fit.gauss takes jacfwd there); epilogue A
+// kSseMaxNgauss = 6456.  Lanes ride on the grid's y dimension (<= 65535).
+// The rows of sums take (6 ngauss + 1)^2 / 2 doubles a lane and channel
+// group; channels are grouped a block so that a lane's rows stay within
+// kRowBudget.  geometry() alone sizes a launch: pp_gauss_sizes hands it to
+// the wrapper, which allocates from it.
 
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include <algorithm>
+
 namespace {
 
-constexpr int kThreads = 256;          // pass 1: a (lane, channel) block
-constexpr int kWarps = kThreads / 32;
-constexpr int kPad = kThreads + 1;     // a staged row's stride [doubles]
-constexpr int kChainThreads = 1024;    // pass 2: a lane's block
-constexpr int kSumThreads = 256;       // epilogue A's channel sum
 constexpr double kZmax = 20.0;
+constexpr int kWarpNgauss = 2;      // the warp layout up to this many components
+constexpr int kSmallThreads = 128;  // warp layout and epilogue A: four warps a block
+constexpr int kMmaThreads = 256;    // mma layout: eight warps a block
+constexpr int kMmaWarps = kMmaThreads / 32;
+constexpr int kPanelRows = 64;      // the Gram rows in a panel's row block
+constexpr int kSmemMax = 232448;    // shared memory a block may take on an H100
+// the channel tree's least fan-in, and the doubles a node may read (a wider
+// fan where the rows are short); the bytes a lane's rows of sums may take
+// before the mma layout groups channels a block
+constexpr int kFan = 8;
+constexpr int kFanDoubles = 1024;
+constexpr int64_t kRowBudget = int64_t(1) << 28;
 
 struct Laws {
   int loc, wid, amp;
 };
 
-// shared memory of pass 1 (the wrapper's gauss_normal_smem counts the same)
-struct Smem {
-  double *mean, *sigma, *amp, *isig, *iwid;  // per component
-  double *v;                                 // srows x kPad staged rows
-  double *acc;                               // kWarps x spairs Gram sums
-  int *live;                                 // per component: 1 live, 2 poisoned
-  unsigned short *pair;                      // (k << 8) | k' per tile entry
+// the channel tree: nleaf rows a lane, summed fan at a time up to one
+struct Tree {
+  int nleaf, fan;
 };
 
-// a tile of pass 1: the Gram entries between rows a0 .. a0 + na - 1 and
-// b0 .. b0 + nb - 1 (q <= q'; the same block on the diagonal); its staged
-// rows are block a's and then, off the diagonal, block b's
-struct Tile {
-  int a0, na, b0, nb;
-  bool diag;
-  // row q's staged slot, -1 where the tile does not take it
-  __device__ __forceinline__ int slot(int q) const {
-    if (q >= a0 && q < a0 + na) return q - a0;
-    if (!diag && q >= b0 && q < b0 + nb) return na + q - b0;
-    return -1;
+// a lane's scratch rows (the leaves', then every level's but the root's)
+// and counters (every level's nodes)
+__host__ __device__ inline void tree_sizes(Tree tr, int64_t* rows, int* counters) {
+  int n = tr.nleaf, c = 0;
+  int64_t r = tr.nleaf;
+  for (;;) {
+    n = (n + tr.fan - 1) / tr.fan;
+    c += n;
+    if (n == 1) break;
+    r += n;
   }
-  __device__ __forceinline__ int entries() const {
-    return diag ? na * (na + 1) / 2 : na * nb;
-  }
+  *rows = r;
+  *counters = c;
+}
+
+// one component's values at one channel, in shared memory
+struct Comp {
+  double *mean, *isig, *amp, *iwid, *chain;  // chain: six a component, or null
+  int* live;                                 // bit 0 live, bit 1 poisoned
 };
-
-// tile z of the blocks of R rows (their upper triangle, row by row)
-__device__ __forceinline__ Tile tile_of(int z, int q1, int R) {
-  const int nblk = (q1 + R - 1) / R;
-  int i = 0, rem = z;
-  while (rem >= nblk - i) {
-    rem -= nblk - i;
-    ++i;
-  }
-  Tile tl;
-  tl.a0 = i * R;
-  tl.na = min(R, q1 - tl.a0);
-  tl.b0 = (i + rem) * R;
-  tl.nb = min(R, q1 - tl.b0);
-  tl.diag = rem == 0;
-  return tl;
-}
-
-// the staged rows and Gram sums a block of R rows a tile keeps room for:
-// all of them in one tile, else two blocks' rows and a block's square
-__host__ __device__ __forceinline__ int staged_rows(int q1, int R) {
-  return R >= q1 ? q1 : 2 * R;
-}
-__host__ __device__ __forceinline__ int staged_pairs(int q1, int R) {
-  return R >= q1 ? q1 * (q1 + 1) / 2 : R * R;
-}
-
-__device__ __forceinline__ Smem carve(double* base, int ng, int srows, int spairs, bool normal) {
-  Smem s;
-  s.mean = base;
-  s.sigma = s.mean + ng;
-  s.amp = s.sigma + ng;
-  s.isig = s.amp + ng;
-  s.iwid = s.isig + ng;
-  s.v = s.iwid + ng;
-  s.acc = s.v + (normal ? srows * kPad : 0);
-  s.live = (int*)(s.acc + (normal ? kWarps * spairs : 0));
-  s.pair = (unsigned short*)(s.live + ng);
-  return s;
-}
 
 // one evolution law at one channel: the value and its derivatives in p0 and
 // the slope, rounded as ops/profiles.py's torch operations
@@ -186,15 +191,14 @@ __device__ __forceinline__ double cross(double p0, double v, int law) {
   return law == 0 ? __dmul_rn(__ddiv_rn(0.0, p0), v) : 0.0;
 }
 
-// thread c < ng: component c's evolved values at channel nu into shared
-// memory and, when chain is given, its six chain factors (loc0, dloc, wid0,
-// dwid, amp0, damp), the loc and wid ones zeroed where wid <= 0.  The
-// component is poisoned where forward-mode would carry a NaN tangent of its
-// evolved values (a power law's p0 = 0) into every column: through amp
-// always, through loc and wid where it is live
+// component c's evolved values at channel nu into shared memory and, when
+// s.chain is given, its six chain factors (loc0, dloc, wid0, dwid, amp0,
+// damp), the loc and wid ones zeroed where wid <= 0.  The component is
+// poisoned where forward-mode would carry a NaN tangent of its evolved
+// values (a power law's p0 = 0) into every column: through amp always,
+// through loc and wid where it is live
 __device__ void setup_component(const double* __restrict__ prm, int c, double nu,
-                                double nu_ref, double fwhm, Laws laws, const Smem& s,
-                                double* chain) {
+                                double nu_ref, double fwhm, Laws laws, const Comp& s) {
   const double logf = __dsub_rn(log(nu), log(nu_ref));
   const double dfreq = __dsub_rn(nu, nu_ref);
   const double* q = prm + 2 + 6 * c;
@@ -207,7 +211,6 @@ __device__ void setup_component(const double* __restrict__ prm, int c, double nu
   const bool live = wid > 0.0;
   const double sigma = live ? __ddiv_rn(wid, fwhm) : 1.0;
   s.mean[c] = mean;
-  s.sigma[c] = sigma;
   s.amp[c] = amp;
   s.isig[c] = __ddiv_rn(1.0, sigma);
   s.iwid[c] = live ? __ddiv_rn(1.0, wid) : 0.0;
@@ -215,352 +218,943 @@ __device__ void setup_component(const double* __restrict__ prm, int c, double nu
                         (live && (isnan(cross(q[0], loc, laws.loc)) ||
                                   isnan(cross(q[2], wid, laws.wid))));
   s.live[c] = (int)live | ((int)poisoned << 1);
-  if (chain != nullptr) {
-    for (int k = 0; k < 6; ++k) chain[6 * c + k] = (k < 4 && !live) ? 0.0 : a[k];
+  if (s.chain != nullptr) {
+    for (int k = 0; k < 6; ++k) s.chain[6 * c + k] = (k < 4 && !live) ? 0.0 : a[k];
   }
 }
 
-// pass 1 for block (channel blockIdx.x, lane blockIdx.y, tile blockIdx.z):
-// with kNormal the tile's Gram entries into out, a row of npairs + 6 ng + 1
-// doubles, and in tile 0 the channel's chain factors and its poison (0, or
-// NaN where a component is poisoned); without, its sum of r^2 into *out
-template <bool kNormal>
-__device__ __forceinline__ void pass1(const double* __restrict__ params,
-                                      const double* __restrict__ data,
-                                      const double* __restrict__ errs, int64_t erow,
-                                      int ebin, const double* __restrict__ bins,
-                                      const double* __restrict__ freqs, int ng, int nchan,
-                                      int nbin, double nu_ref, double fwhm, Laws laws, int R,
-                                      double* __restrict__ scratch) {
-  extern __shared__ double smem[];
-  const int ch = blockIdx.x, b = blockIdx.y, t = threadIdx.x;
-  const int P = 6 * ng + 3, q1 = 3 * ng + 2, npairs = q1 * (q1 + 1) / 2;
-  const Smem s = carve(smem, ng, staged_rows(q1, R), staged_pairs(q1, R), kNormal);
-  const Tile tl = tile_of(kNormal ? blockIdx.z : 0, q1, kNormal ? R : q1);
-  const int ntp = tl.entries();
-  const bool first = blockIdx.z == 0;
-  const double* prm = params + (int64_t)b * P;
-  double* out = kNormal ? scratch + ((int64_t)b * nchan + ch) * (npairs + 6 * ng + 1)
-                        : scratch + (int64_t)b * nchan + ch;
-  const double nu = freqs[ch];
-  for (int c = t; c < ng; c += kThreads)
-    setup_component(prm, c, nu, nu_ref, fwhm, laws, s,
-                    kNormal && first ? out + npairs : nullptr);
-  if (kNormal) {
-    for (int p = t; p < kWarps * ntp; p += kThreads) s.acc[p] = 0.0;
-    for (int p = t; p < ntp; p += kThreads) {
-      int k = 0, k2;
-      if (tl.diag) {
-        int rem = p;
-        while (rem >= tl.na - k) {
-          rem -= tl.na - k;
-          ++k;
-        }
-        k2 = k + rem;
-      } else {
-        k = p / tl.nb;
-        k2 = tl.na + p % tl.nb;
-      }
-      s.pair[p] = (unsigned short)((k << 8) | k2);
+// the channel's poison (0, or NaN where a component is poisoned)
+__device__ __forceinline__ double channel_poison(const int* live, int ng) {
+  bool poisoned = false;
+  for (int c = 0; c < ng; ++c) poisoned |= (live[c] & 2) != 0;
+  return poisoned ? __longlong_as_double(0x7ff8000000000000LL) : 0.0;
+}
+
+// component c at bin centre xb: e, and with kBasis its loc and wid basis
+// values (times w); e = 0 for a dead component
+template <bool kBasis>
+__device__ __forceinline__ double component(double xb, int c, const Comp& s, double w, double* vl,
+                                            double* vw) {
+  double e = 0.0;
+  if (kBasis) *vl = *vw = 0.0;
+  if (s.live[c] & 1) {
+    double x = __dsub_rn(xb, s.mean[c]);
+    if (x > 0.5) x = __dsub_rn(x, 1.0);
+    if (x < -0.5) x = __dadd_rn(x, 1.0);
+    const double isig = s.isig[c];
+    const double zr = __dmul_rn(x, isig);
+    const double z = zr < -kZmax ? -kZmax : (zr > kZmax ? kZmax : zr);
+    e = exp(__dmul_rn(-0.5, __dmul_rn(z, z)));
+    if (kBasis && fabs(zr) < kZmax) {
+      const double ae = __dmul_rn(__dmul_rn(s.amp[c], e), w);
+      *vl = __dmul_rn(__dmul_rn(ae, z), isig);
+      *vw = __dmul_rn(__dmul_rn(__dmul_rn(ae, z), z), s.iwid[c]);
     }
+  }
+  return e;
+}
+
+// a thread's bins j0 + u T (u < 4): bin centre, data and error (1 where the
+// errors are per channel); x = d = 0 past nbin
+struct Bins4 {
+  double x[4], d[4], e[4];
+};
+
+__device__ __forceinline__ void load4(Bins4& v, int j0, int T, int nbin,
+                                      const double* __restrict__ bins,
+                                      const double* __restrict__ drow,
+                                      const double* __restrict__ erw, int ebin) {
+#pragma unroll
+  for (int u = 0; u < 4; ++u) {
+    const int j = j0 + u * T;
+    v.x[u] = v.d[u] = 0.0;
+    v.e[u] = 1.0;
+    if (j < nbin) {
+      v.x[u] = __ldg(bins + j);
+      v.d[u] = __ldg(drow + j);
+      if (ebin) v.e[u] = __ldg(erw + (int64_t)j * ebin);
+    }
+  }
+}
+
+// -- the rows of sums and their channel tree ----------------------------------
+
+// offset of row p of an upper triangle over L parameters, stored row by row
+__host__ __device__ __forceinline__ int64_t upper_off(int p, int L) {
+  return (int64_t)p * L - (int64_t)p * (p - 1) / 2;
+}
+
+// (p, q), p <= q, of entry o of that triangle
+__device__ __forceinline__ void upper_pq(int64_t o, int L, int* p, int* q) {
+  const double a = 2.0 * L + 1.0;
+  int pp = (int)floor(0.5 * (a - sqrt(a * a - 8.0 * (double)o)));
+  pp = pp < 0 ? 0 : (pp > L - 1 ? L - 1 : pp);
+  while (pp + 1 < L && upper_off(pp + 1, L) <= o) ++pp;
+  while (pp > 0 && upper_off(pp, L) > o) --pp;
+  *p = pp;
+  *q = pp + (int)(o - upper_off(pp, L));
+}
+
+// a row of per-lane sums over the L = 6 ngauss + 1 live parameters (dc, then
+// six a component): JtJ's upper triangle, g (before its sign), f, poison
+__host__ __device__ __forceinline__ int64_t row_width(int ng) {
+  const int L = 6 * ng + 1;
+  return (int64_t)L * (L + 1) / 2 + L + 2;
+}
+
+__device__ __forceinline__ void put(double* p, double v, bool add) {
+  *p = add ? __dadd_rn(*p, v) : v;
+}
+
+// basis row q's first live parameter p and the chain factors of p and, for
+// a component's row (the function's value), p + 1 (row 0: dc, alone;
+// then e, loc, wid per component)
+__device__ __forceinline__ bool row_params(int q, const double* chain, int* p, double* c0,
+                                           double* c1) {
+  if (q == 0) {
+    *p = 0;
+    *c0 = 1.0;
+    *c1 = 0.0;
+    return false;
+  }
+  const int c = (q - 1) / 3, k = (q - 1) % 3;
+  const int base = k == 0 ? 4 : (k == 1 ? 0 : 2);  // amp, loc, wid
+  *p = 1 + 6 * c + base;
+  *c0 = chain[6 * c + base];
+  *c1 = chain[6 * c + base + 1];
+  return true;
+}
+
+// the chain rule on the channel's Gram entry G = G_ij (i <= j < q1): its
+// terms into (add) or onto (!add) the row of sums
+__device__ __forceinline__ void emit(int i, int j, double G, int q1, int L,
+                                     const double* chain, double* row, bool add) {
+  const int64_t nU = (int64_t)L * (L + 1) / 2;
+  if (i == q1 - 1) {
+    put(row + nU + L, G, add);
+    return;
+  }
+  int pa;
+  double a0, a1;
+  const bool two_a = row_params(i, chain, &pa, &a0, &a1);
+  if (j == q1 - 1) {
+    put(row + nU + pa, __dmul_rn(a0, G), add);
+    if (two_a) put(row + nU + pa + 1, __dmul_rn(a1, G), add);
+    return;
+  }
+  int pb;
+  double b0, b1;
+  const bool two_b = row_params(j, chain, &pb, &b0, &b1);
+  auto term = [&](int p, double cp, int q, double cq) {
+    const int lo = min(p, q), hi = max(p, q);
+    put(row + upper_off(lo, L) + (hi - lo), __dmul_rn(__dmul_rn(cp, cq), G), add);
+  };
+  term(pa, a0, pb, b0);
+  if (two_b) term(pa, a0, pb + 1, b1);
+  if (two_a) {
+    if (i != j) term(pa + 1, a1, pb, b0);
+    if (two_b) term(pa + 1, a1, pb + 1, b1);
+  }
+}
+
+// entries 0 .. count - 1 of nc child rows of stride W (read from L2: other
+// blocks wrote them), each summed in child order and handed to out(o, sum);
+// part holds blockDim.x doubles.  The loads of eight children (and of four
+// outputs a thread) are all in flight before their sums.
+template <class Out>
+__device__ void node_sum(const double* __restrict__ child, int nc, int64_t W, int64_t count,
+                         double* part, Out out) {
+  const int T = blockDim.x, t = threadIdx.x;
+  if (count >= T || nc == 1) {
+    for (int64_t o0 = t; o0 < count; o0 += 4 * (int64_t)T) {
+      double s[4] = {0.0, 0.0, 0.0, 0.0};
+      for (int k0 = 0; k0 < nc; k0 += 8) {
+        double v[4][8];
+#pragma unroll
+        for (int u = 0; u < 4; ++u)
+#pragma unroll
+          for (int k = 0; k < 8; ++k) {
+            const int64_t o = o0 + (int64_t)u * T;
+            v[u][k] = (k0 + k < nc && o < count) ? __ldcg(child + (k0 + k) * W + o) : 0.0;
+          }
+#pragma unroll
+        for (int u = 0; u < 4; ++u)
+#pragma unroll
+          for (int k = 0; k < 8; ++k)
+            if (k0 + k < nc) s[u] = __dadd_rn(s[u], v[u][k]);
+      }
+#pragma unroll
+      for (int u = 0; u < 4; ++u)
+        if (o0 + (int64_t)u * T < count) out(o0 + (int64_t)u * T, s[u]);
+    }
+    return;
+  }
+  const int n = (int)count, nsl = min(T / n, nc);
+  if (t < nsl * n) {
+    const int o = t % n, sl = t / n;
+    double s = 0.0;
+    for (int k0 = sl; k0 < nc; k0 += 8 * nsl) {
+      double v[8];
+#pragma unroll
+      for (int k = 0; k < 8; ++k) {
+        const int c = k0 + k * nsl;
+        v[k] = c < nc ? __ldcg(child + c * W + o) : 0.0;
+      }
+#pragma unroll
+      for (int k = 0; k < 8; ++k)
+        if (k0 + k * nsl < nc) s = __dadd_rn(s, v[k]);
+    }
+    part[t] = s;
   }
   __syncthreads();
-  if (kNormal && first && t == 0) {
-    bool poisoned = false;
-    for (int c = 0; c < ng; ++c) poisoned |= (s.live[c] & 2) != 0;
-    out[npairs + 6 * ng] = poisoned ? __longlong_as_double(0x7ff8000000000000LL) : 0.0;
+  if (t < n) {
+    double s = 0.0;
+    for (int sl = 0; sl < nsl; ++sl) s = __dadd_rn(s, part[sl * n + t]);
+    out(t, s);
   }
+}
+
+// After the block has written its leaf row: while it is the last of its
+// node's children to finish, sum the node's children in order (into the
+// node's row, or at the root through root(child rows, count)).
+template <class Root>
+__device__ void climb(double* rows, int* cnt, int leaf, Tree tr, int64_t W, double* part,
+                      int* last, Root root) {
+  int n = tr.nleaf, idx = leaf, cntoff = 0;
+  int64_t rowoff = 0, next = tr.nleaf;
+  for (;;) {
+    const int m = (n + tr.fan - 1) / tr.fan, parent = idx / tr.fan;
+    const int c0 = parent * tr.fan, nc = min(tr.fan, n - c0);
+    __threadfence();
+    __syncthreads();
+    if (threadIdx.x == 0) *last = atomicAdd(cnt + cntoff + parent, 1) == nc - 1;
+    __syncthreads();
+    if (!*last) return;
+    __threadfence();
+    if (threadIdx.x == 0) cnt[cntoff + parent] = 0;  // the next call starts at 0
+    const double* child = rows + (rowoff + c0) * W;
+    if (m == 1) {
+      root(child, nc);
+      return;
+    }
+    double* out = rows + (next + parent) * W;
+    node_sum(child, nc, W, W, part, [&](int64_t o, double v) { out[o] = v; });
+    idx = parent;
+    n = m;
+    rowoff = next;
+    next += m;
+    cntoff += m;
+  }
+}
+
+// the root of epilogue B: the channels' poison first, then f, g and JtJ
+// (both triangles; the tau and scattering-index rows and columns the
+// poison alone)
+__device__ void root_normal(const double* child, int nc, int ng, int64_t W, double* part,
+                            double* pt, double* __restrict__ f, double* __restrict__ g,
+                            double* __restrict__ JtJ) {
+  const int L = 6 * ng + 1, P = 6 * ng + 3;
+  const int64_t nU = (int64_t)L * (L + 1) / 2;
+  if (threadIdx.x == 0) {
+    double p = 0.0;
+    for (int k = 0; k < nc; ++k) p = __dadd_rn(p, __ldcg(child + k * W + W - 1));
+    *pt = p;
+  }
+  __syncthreads();
+  const double ptot = *pt;
+  auto pidx = [](int p) { return p == 0 ? 0 : p + 1; };
+  node_sum(child, nc, W, W - 1, part, [&](int64_t o, double v) {
+    if (o < nU) {
+      int p, q;
+      upper_pq(o, L, &p, &q);
+      const int a = pidx(p), b = pidx(q);
+      const double val = __dadd_rn(v, ptot);
+      JtJ[(int64_t)a * P + b] = val;
+      JtJ[(int64_t)b * P + a] = val;
+    } else if (o < nU + L) {
+      g[pidx((int)(o - nU))] = __dsub_rn(0.0, __dadd_rn(v, ptot));
+    } else {
+      *f = v;
+    }
+  });
+  for (int k = threadIdx.x; k < P; k += blockDim.x) {
+    JtJ[P + k] = JtJ[(int64_t)k * P + 1] = ptot;
+    JtJ[(int64_t)(P - 1) * P + k] = JtJ[(int64_t)k * P + P - 1] = ptot;
+  }
+  if (threadIdx.x == 0) g[1] = g[P - 1] = __dsub_rn(0.0, ptot);
+}
+
+// -- the warp layout: 1-2 components ------------------------------------------
+
+template <int NG>
+__global__ void __launch_bounds__(kSmallThreads, 4)
+gauss_normal_warp_kernel(const double* __restrict__ params, const double* __restrict__ data,
+                         const double* __restrict__ errs, int64_t erow, int ebin,
+                         const double* __restrict__ bins, const double* __restrict__ freqs,
+                         int nchan, int nbin, double nu_ref, double fwhm, Laws laws, Tree tr,
+                         int64_t nrows, int ncnt, double* __restrict__ scratch,
+                         int* __restrict__ counters, double* __restrict__ f,
+                         double* __restrict__ g, double* __restrict__ JtJ) {
+  constexpr int Q1 = 3 * NG + 2, NE = Q1 * (Q1 + 1) / 2, L = 6 * NG + 1, P = 6 * NG + 3;
+  constexpr int kW = kSmallThreads / 32;
+  __shared__ double cmean[NG], cisig[NG], camp[NG], ciwid[NG], cchain[6 * NG];
+  __shared__ int clive[NG];
+  __shared__ double wsum[kW][NE];
+  __shared__ double part[kSmallThreads];
+  __shared__ double pt;
+  __shared__ int last;
+  const int ch = blockIdx.x, b = blockIdx.y, t = threadIdx.x, lane = t & 31, w = t >> 5;
+  const int64_t W = row_width(NG);
+  const double* prm = params + (int64_t)b * P;
+  const Comp s{cmean, cisig, camp, ciwid, cchain, clive};
+  const double* drow = data + (int64_t)ch * nbin;
+  const double* erw = errs + (int64_t)ch * erow;
+  // the first four of the thread's bins load while the components evolve;
+  // each later four while the four before them are summed
+  Bins4 cur;
+  load4(cur, t, kSmallThreads, nbin, bins, drow, erw, ebin);
+  if (t < NG) setup_component(prm, t, freqs[ch], nu_ref, fwhm, laws, s);
+  __syncthreads();
 
   const double dc = prm[0];
-  const int64_t row = (int64_t)ch * nbin;
-  const double* erw = errs + (int64_t)ch * erow;
-  const int k0 = tl.slot(0), kr = tl.slot(q1 - 1);
-  double nx = 0.0, nd = 0.0, ne = 1.0;  // the next round's bin
-  if (t < nbin) {
-    nx = __ldg(bins + t);
-    nd = __ldg(data + row + t);
-    ne = __ldg(erw + (int64_t)t * ebin);
-  }
-  double ss = 0.0;
-  const int w = t >> 5, lane = t & 31;
-  for (int c0 = 0; c0 < nbin; c0 += kThreads) {
-    const bool have = c0 + t < nbin;
-    const double xb = nx, d = nd, er = ne;
-    const int jn = c0 + kThreads + t;
-    if (jn < nbin) {
-      nx = __ldg(bins + jn);
-      nd = __ldg(data + row + jn);
-      ne = __ldg(erw + (int64_t)jn * ebin);
-    }
-    const double ie = kNormal ? __ddiv_rn(1.0, er) : 0.0;
-    double acc = 0.0;
-    for (int c = 0; c < ng; ++c) {
-      const int ke = kNormal ? tl.slot(1 + 3 * c) : -1;
-      const int kl = kNormal ? tl.slot(2 + 3 * c) : -1;
-      const int kw = kNormal ? tl.slot(3 + 3 * c) : -1;
-      double e = 0.0, vl = 0.0, vw = 0.0;
-      if (s.live[c] & 1) {
-        double x = __dsub_rn(xb, s.mean[c]);
-        if (x > 0.5) x = __dsub_rn(x, 1.0);
-        if (x < -0.5) x = __dadd_rn(x, 1.0);
-        const double zr = __ddiv_rn(x, s.sigma[c]);
-        const double z = zr < -kZmax ? -kZmax : (zr > kZmax ? kZmax : zr);
-        e = exp(__dmul_rn(-0.5, __dmul_rn(z, z)));
-        if (kNormal && fabs(zr) < kZmax && (kl >= 0 || kw >= 0)) {
-          const double ae = __dmul_rn(__dmul_rn(s.amp[c], e), ie);
-          vl = __dmul_rn(__dmul_rn(ae, z), s.isig[c]);
-          vw = __dmul_rn(__dmul_rn(__dmul_rn(ae, z), z), s.iwid[c]);
+  double acc[NE];
+#pragma unroll
+  for (int k = 0; k < NE; ++k) acc[k] = 0.0;
+  for (int j0 = t; j0 < nbin; j0 += 4 * kSmallThreads) {
+    Bins4 nxt;
+    load4(nxt, j0 + 4 * kSmallThreads, kSmallThreads, nbin, bins, drow, erw, ebin);
+    // SB bins' basis values side by side, then their Gram terms in bin order
+    constexpr int SB = NG == 1 ? 4 : 2;
+#pragma unroll
+    for (int u0 = 0; u0 < 4; u0 += SB) {
+      double v[SB][Q1];
+#pragma unroll
+      for (int u = 0; u < SB; ++u) {
+        const double xb = cur.x[u0 + u], er = cur.e[u0 + u];
+        const double w8 = ebin ? __ddiv_rn(1.0, er) : 1.0;
+        double m = 0.0;
+        v[u][0] = w8;
+#pragma unroll
+        for (int c = 0; c < NG; ++c) {
+          const double e = component<true>(xb, c, s, w8, v[u] + 2 + 3 * c, v[u] + 3 + 3 * c);
+          m = __dadd_rn(m, __dmul_rn(s.amp[c], e));  // a dead component adds amp * 0
+          v[u][1 + 3 * c] = __dmul_rn(e, w8);
         }
+        double r = __dsub_rn(cur.d[u0 + u], __dadd_rn(dc, m));
+        if (ebin) r = __ddiv_rn(r, er);
+        v[u][Q1 - 1] = r;
       }
-      // a dead component adds amp * 0, as the reference's sum does
-      acc = __dadd_rn(acc, __dmul_rn(s.amp[c], e));
-      if (kNormal) {
-        if (ke >= 0) s.v[ke * kPad + t] = have ? __dmul_rn(e, ie) : 0.0;
-        if (kl >= 0) s.v[kl * kPad + t] = have ? vl : 0.0;
-        if (kw >= 0) s.v[kw * kPad + t] = have ? vw : 0.0;
+#pragma unroll
+      for (int u = 0; u < SB; ++u) {
+        if (j0 + (u0 + u) * kSmallThreads >= nbin) break;
+        int k = 0;
+#pragma unroll
+        for (int a = 0; a < Q1; ++a)
+#pragma unroll
+          for (int c = a; c < Q1; ++c, ++k) acc[k] = fma(v[u][a], v[u][c], acc[k]);
       }
     }
-    const double r = have ? __ddiv_rn(__dsub_rn(d, __dadd_rn(dc, acc)), er) : 0.0;
-    if (kNormal) {
-      if (k0 >= 0) s.v[k0 * kPad + t] = have ? ie : 0.0;
-      if (kr >= 0) s.v[kr * kPad + t] = r;
-      __syncthreads();
-      const double* base = s.v + 32 * w;
-      for (int p = lane; p < ntp; p += 32) {
-        const int qq = s.pair[p];
-        const double* u = base + (qq >> 8) * kPad;
-        const double* u2 = base + (qq & 255) * kPad;
-        double sum = 0.0;
-#pragma unroll 8
-        for (int k = 0; k < 32; ++k) sum = fma(u[k], u2[k], sum);
-        s.acc[w * ntp + p] += sum;
-      }
-      __syncthreads();
-    } else {
-      ss = __dadd_rn(ss, __dmul_rn(r, r));
-    }
+    cur = nxt;
   }
-
-  if (kNormal) {
-    for (int p = t; p < ntp; p += kThreads) {
-      double sum = 0.0;
-      for (int k = 0; k < kWarps; ++k) sum = __dadd_rn(sum, s.acc[k * ntp + p]);
-      const int qq = s.pair[p], k = qq >> 8, k2 = qq & 255;
-      const int q = tl.a0 + k;
-      const int q2 = k2 < tl.na ? tl.a0 + k2 : tl.b0 + k2 - tl.na;
-      out[q * q1 - q * (q - 1) / 2 + (q2 - q)] = sum;
-    }
-  } else {
-    __shared__ double part[kWarps];
+#pragma unroll
+  for (int k = 0; k < NE; ++k) {
 #pragma unroll
     for (int off = 16; off > 0; off >>= 1)
-      ss = __dadd_rn(ss, __shfl_xor_sync(0xffffffffu, ss, off));
-    if (lane == 0) part[w] = ss;
-    __syncthreads();
-    if (t == 0) {
-      double sum = 0.0;
-      for (int k = 0; k < kWarps; ++k) sum = __dadd_rn(sum, part[k]);
-      *out = sum;
-    }
+      acc[k] = __dadd_rn(acc[k], __shfl_xor_sync(0xffffffffu, acc[k], off));
   }
+  if (lane == 0) {
+#pragma unroll
+    for (int k = 0; k < NE; ++k) wsum[w][k] = acc[k];
+  }
+  __syncthreads();
+
+  double* rows = scratch + (int64_t)b * nrows * W;
+  double* row = rows + (int64_t)ch * W;
+  double sc = 1.0;
+  if (!ebin) {
+    const double ie = __ddiv_rn(1.0, erw[0]);
+    sc = __dmul_rn(ie, ie);
+  }
+  for (int k = t; k < NE; k += kSmallThreads) {
+    double G = wsum[0][k];
+    for (int u = 1; u < kW; ++u) G = __dadd_rn(G, wsum[u][k]);
+    int i = 0, rem = k;
+    while (rem >= Q1 - i) {
+      rem -= Q1 - i;
+      ++i;
+    }
+    emit(i, i + rem, __dmul_rn(G, sc), Q1, L, cchain, row, false);
+  }
+  if (t == 0) row[W - 1] = channel_poison(clive, NG);
+  climb(rows, counters + (int64_t)b * ncnt, ch, tr, W, part, &last,
+        [&](const double* child, int nc) {
+          root_normal(child, nc, NG, W, part, &pt, f + b, g + (int64_t)b * P,
+                      JtJ + (int64_t)b * P * P);
+        });
 }
 
-__global__ void __launch_bounds__(kThreads)
-gauss_normal_kernel(const double* __restrict__ params, const double* __restrict__ data,
-                    const double* __restrict__ errs, int64_t erow, int ebin,
-                    const double* __restrict__ bins, const double* __restrict__ freqs,
-                    int ng, int nchan, int nbin, double nu_ref, double fwhm, Laws laws,
-                    int R, double* __restrict__ scratch) {
-  pass1<true>(params, data, errs, erow, ebin, bins, freqs, ng, nchan, nbin, nu_ref, fwhm, laws,
-              R, scratch);
+// -- the mma layout: three components and more --------------------------------
+
+// d += a b for one 16x8x8 tile (gq = lane / 4, tq = lane % 4):
+//   a = A[gq][tq], A[gq+8][tq], A[gq][tq+4], A[gq+8][tq+4];  b = B[tq][gq], B[tq+4][gq];
+//   d = D[gq][2tq], D[gq][2tq+1], D[gq+8][2tq], D[gq+8][2tq+1].
+// (m8n8k4 runs at half the FP64 tensor rate on the H100; m16n8k8 at the full.)
+__device__ __forceinline__ void mma_f64(double (&d)[4], const double (&a)[4],
+                                        const double (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f64.f64.f64.f64 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+d"(d[0]), "+d"(d[1]), "+d"(d[2]), "+d"(d[3])
+      : "d"(a[0]), "d"(a[1]), "d"(a[2]), "d"(a[3]), "d"(b[0]), "d"(b[1]));
 }
 
-__global__ void __launch_bounds__(kThreads)
+// the Gram's rows padded to whole 16-row tiles
+__host__ __device__ constexpr int padded_rows(int ng) { return (3 * ng + 2 + 15) / 16 * 16; }
+// own bins (3-10 components, a Gram of one or three 16 x 16 tile pairs):
+// each warp of a four-warp block sums its own rounds of 32 bins into every
+// pair; beyond, an eight-warp block's warps share chunks of 32 bins and the
+// pairs are dealt out
+__host__ __device__ constexpr bool own_bins(int ng) { return padded_rows(ng) <= 32; }
+constexpr int kChunkBins = 32;                // bins a round or a chunk stages
+constexpr int kStageStride = kChunkBins + 4;  // a staged row [doubles]: 4 mod 16, no bank conflicts
+constexpr int kOwnWarps = 4;
+
+template <bool kOwn>
+struct MmaShape {
+  static constexpr int kWarps = kOwn ? kOwnWarps : kMmaWarps;
+  static constexpr int kThreads = 32 * kWarps;
+  static constexpr int kSlots = kOwn ? 4 : 8;  // lanes splitting a bin's components
+};
+
+// the doubles staged: a slice of every row a warp (and room for the warps'
+// partial pairs) with own bins, else two chunks of all rows of a one-panel
+// Gram or of two row blocks
+__host__ __device__ constexpr int staged_doubles(int ng) {
+  return own_bins(ng) ? (kOwnWarps * padded_rows(ng) * kStageStride > kOwnWarps * 32 * 8
+                             ? kOwnWarps * padded_rows(ng) * kStageStride
+                             : kOwnWarps * 32 * 8)
+                      : 2 * (padded_rows(ng) <= kPanelRows ? padded_rows(ng) : 2 * kPanelRows) *
+                            kStageStride;
+}
+
+// the mma layout's shared memory: ten doubles a component (its evolved
+// values and chain factors), the staged bins, four doubles, an int a
+// component and four more
+constexpr int64_t mma_smem(int ng) {
+  return 8 * (10 * (int64_t)ng + staged_doubles(ng) + 4) + 4 * ((int64_t)ng + 4);
+}
+
+// the most components each epilogue takes: the mma layout's shared memory
+// grows by 84 bytes a component once its panels are two full row blocks
+constexpr int kMaxNgauss = 1888;
+static_assert(mma_smem(kMaxNgauss) <= kSmemMax && mma_smem(kMaxNgauss + 1) > kSmemMax,
+              "kMaxNgauss: the most components a block's shared memory holds");
+
+// kPairs: the tile pairs a warp holds (own bins: every pair of the Gram,
+// one at 3-4 components, three at 5-10; shared: at most two of a panel's)
+template <bool kOwn, int kPairs>
+__global__ void __launch_bounds__(MmaShape<kOwn>::kThreads, kOwn ? 4 : 2)
+gauss_normal_mma_kernel(const double* __restrict__ params, const double* __restrict__ data,
+                        const double* __restrict__ errs, int64_t erow, int ebin,
+                        const double* __restrict__ bins, const double* __restrict__ freqs,
+                        int ng, int nchan, int nbin, double nu_ref, double fwhm, Laws laws,
+                        int cpb, Tree tr, int64_t nrows, int ncnt,
+                        double* __restrict__ scratch, int* __restrict__ counters,
+                        double* __restrict__ f, double* __restrict__ g,
+                        double* __restrict__ JtJ) {
+  using Shape = MmaShape<kOwn>;
+  constexpr int kWarps = Shape::kWarps, kThreads = Shape::kThreads;
+  constexpr int CS = Shape::kSlots, ST = kStageStride;
+  constexpr int NB = kOwn ? 4 : 1;  // bins a lane forms at once
+  constexpr int R = kPanelRows;
+  extern __shared__ double smem[];
+  const int q1 = 3 * ng + 2, q1s = padded_rows(ng), L = 6 * ng + 1, P = 6 * ng + 3;
+  const int64_t W = row_width(ng);
+  const int smax = q1s <= R ? q1s : 2 * R;
+  Comp s;
+  s.mean = smem;
+  s.isig = s.mean + ng;
+  s.amp = s.isig + ng;
+  s.iwid = s.amp + ng;
+  s.chain = s.iwid + ng;
+  double* buf = s.chain + 6 * ng;  // the staged bins
+  double* scal = buf + staged_doubles(ng);
+  s.live = (int*)(scal + 4);
+  int* iflag = s.live + ng;
+
+  const int t = threadIdx.x, warp = t >> 5, lane = t & 31;
+  const int gq = lane >> 2, tq = lane & 3;
+  const int b = blockIdx.y, leaf = blockIdx.x;
+  const int ch0 = leaf * cpb, ch1 = min(nchan, ch0 + cpb);
+  const double* prm = params + (int64_t)b * P;
+  double* rows = scratch + (int64_t)b * nrows * W;
+  double* row = rows + (int64_t)leaf * W;
+  const int nblk = (q1s + R - 1) / R;
+  // own bins: this lane's bins jj + 8u (u < 4) of each of its warp's
+  // rounds, in the warp's slice; shared: bin jb of each chunk
+  const int jj = lane / CS, cs = lane % CS, jb = warp * (32 / CS) + jj;
+  const int tg = kOwn ? 0 : warp, ngrp = kOwn ? 1 : kWarps;
+  double* wbuf = kOwn ? buf + warp * q1s * ST : buf;
+  const double dc = prm[0];
+
+  for (int ch = ch0; ch < ch1; ++ch) {
+    const bool add = ch != ch0;
+    __syncthreads();  // the previous channel's readers are done
+    for (int c = t; c < ng; c += kThreads) setup_component(prm, c, freqs[ch], nu_ref, fwhm, laws, s);
+    __syncthreads();
+    if (t == 0) put(row + W - 1, channel_poison(s.live, ng), add);
+    const double* drow = data + (int64_t)ch * nbin;
+    const double* erw = errs + (int64_t)ch * erow;
+    double sc = 1.0;
+    if (!ebin) {
+      const double ie = __ddiv_rn(1.0, erw[0]);
+      sc = __dmul_rn(ie, ie);
+    }
+
+    for (int I = 0; I < nblk; ++I)
+      for (int J = I; J < nblk; ++J) {
+        const int rI = I * R, nI = min(R, q1s - rI), rJ = J * R, nJ = min(R, q1s - rJ);
+        const bool diag = I == J, last = J == nblk - 1;
+        const int nm = nI / 16, np = nJ / 16;
+        int npair = 0;
+        for (int mi = 0; mi < nm; ++mi) npair += diag ? np - mi : np;
+        auto slot = [&](int q) {
+          if (q >= rI && q < rI + nI) return q - rI;
+          if (!diag && q >= rJ && q < rJ + nJ) return nI + q - rJ;
+          return -1;
+        };
+        // this warp's pairs of 16 x 8 tiles (16 rows, 16 columns: one a
+        // fragment, two b) tg, tg + ngrp, ...: the shared-memory offsets of
+        // their fragments' rows and their first rows and columns in G
+        const int npw = npair > tg ? min(kPairs, (npair - tg + ngrp - 1) / ngrp) : 0;
+        int aoff[kPairs], boff[kPairs], ti[kPairs], tj[kPairs];
+#pragma unroll
+        for (int u = 0; u < kPairs; ++u) {
+          int mi = 0, rem = tg + u * ngrp;
+          if (rem >= npair) {
+            rem = 0;
+          } else if (diag) {
+            while (rem >= np - mi) {
+              rem -= np - mi;
+              ++mi;
+            }
+            rem += mi;
+          } else {
+            mi = rem / np;
+            rem %= np;
+          }
+          aoff[u] = (16 * mi + gq) * ST + tq;
+          boff[u] = ((diag ? 0 : nI) + 16 * rem + gq) * ST + tq;
+          ti[u] = rI + 16 * mi + gq;
+          tj[u] = rJ + 16 * rem + 2 * tq;
+        }
+        double acc[kPairs][2][4];
+#pragma unroll
+        for (int u = 0; u < kPairs; ++u)
+#pragma unroll
+          for (int h = 0; h < 2; ++h)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) acc[u][h][e] = 0.0;
+        // the padding rows (the last block's, after r) stay zero
+        if (last) {
+          const int npad = q1s - q1, nstage = kOwn ? kWarps : 2;
+          const int per = kOwn ? q1s * ST : smax * ST;
+          for (int e = t; e < nstage * npad * ST; e += kThreads) {
+            const int part = e / (npad * ST), rem = e % (npad * ST);
+            buf[part * per + slot(q1 + rem / ST) * ST + rem % ST] = 0.0;
+          }
+          if (kOwn) __syncthreads();
+        }
+        // the components this panel forms: all of them (the model) where
+        // it holds r, else those with rows in blocks I and J
+        int ca0 = 0, ca1 = ng, cb0 = 0, cb1 = 0;
+        if (!last) {
+          ca0 = max(0, (rI - 1) / 3);
+          ca1 = min(ng, (rI + nI + 1) / 3);
+          if (!diag) {
+            cb0 = max(0, (rJ - 1) / 3);
+            cb1 = min(ng, (rJ + nJ + 1) / 3);
+          }
+        }
+        const int na = ca1 - ca0, ncomp = na + cb1 - cb0;
+        // NB bins' basis values into columns col[] of staged rows S (this
+        // lane's share of their components, the bins' chains side by side;
+        // r and row 0 by slot 0)
+        auto form = [&](double* S, const int (&col)[NB], const bool (&have)[NB],
+                        const double (&xb)[NB], const double (&d)[NB], const double (&er)[NB]) {
+          double w8[NB], pm[NB];
+#pragma unroll
+          for (int u = 0; u < NB; ++u) {
+            w8[u] = ebin ? __ddiv_rn(1.0, er[u]) : 1.0;
+            pm[u] = 0.0;
+          }
+#pragma unroll 2
+          for (int k = cs; k < ncomp; k += CS) {
+            const int c = k < na ? ca0 + k : cb0 + k - na;
+            const int s1 = slot(1 + 3 * c), s2 = slot(2 + 3 * c), s3 = slot(3 + 3 * c);
+            const double amp = s.amp[c];
+#pragma unroll
+            for (int u = 0; u < NB; ++u) {
+              double vl, vw;
+              const double e = component<true>(xb[u], c, s, w8[u], &vl, &vw);
+              pm[u] = __dadd_rn(pm[u], __dmul_rn(amp, e));  // a dead component adds amp * 0
+              if (s1 >= 0) S[s1 * ST + col[u]] = have[u] ? __dmul_rn(e, w8[u]) : 0.0;
+              if (s2 >= 0) S[s2 * ST + col[u]] = have[u] ? vl : 0.0;
+              if (s3 >= 0) S[s3 * ST + col[u]] = have[u] ? vw : 0.0;
+            }
+          }
+#pragma unroll
+          for (int u = 0; u < NB; ++u) {
+            if (last) {
+#pragma unroll
+              for (int off = 1; off < CS; off <<= 1)
+                pm[u] = __dadd_rn(pm[u], __shfl_xor_sync(0xffffffffu, pm[u], off));
+            }
+            if (cs == 0) {
+              if (I == 0) S[col[u]] = have[u] ? w8[u] : 0.0;
+              if (last) {
+                double r = __dsub_rn(d[u], __dadd_rn(dc, pm[u]));
+                if (ebin) r = __ddiv_rn(r, er[u]);
+                S[slot(q1 - 1) * ST + col[u]] = have[u] ? r : 0.0;
+              }
+            }
+          }
+        };
+        // the 32 staged bins of S (four k-steps) into this warp's pairs
+        auto sum_pairs = [&](const double* S) {
+#pragma unroll
+          for (int ks = 0; ks < kChunkBins / 8; ++ks)
+#pragma unroll
+            for (int u = 0; u < kPairs; ++u) {
+              if (u < npw) {
+                const double* A = S + aoff[u] + 8 * ks;
+                const double* Bt = S + boff[u] + 8 * ks;
+                const double a[4] = {A[0], A[8 * ST], A[4], A[8 * ST + 4]};
+                const double b0[2] = {Bt[0], Bt[4]};
+                const double b1[2] = {Bt[8 * ST], Bt[8 * ST + 4]};
+                mma_f64(acc[u][0], a, b0);
+                mma_f64(acc[u][1], a, b1);
+              }
+            }
+        };
+        const int nround = (nbin + kChunkBins - 1) / kChunkBins;
+        if (kOwn) {
+          // this warp's rounds warp, warp + 4, ...: four bins a lane, the
+          // next round's data loading while this one is summed
+          double dn[4];
+#pragma unroll
+          for (int u = 0; u < 4; ++u) {
+            const int j = warp * kChunkBins + jj + 8 * u;
+            dn[u] = j < nbin ? __ldg(drow + j) : 0.0;
+          }
+          for (int rd = warp; rd < nround; rd += kWarps) {
+            double dc4[NB];
+#pragma unroll
+            for (int u = 0; u < NB; ++u) {
+              dc4[u] = dn[u];
+              const int j = (rd + kWarps) * kChunkBins + jj + 8 * u;
+              dn[u] = j < nbin ? __ldg(drow + j) : 0.0;
+            }
+            int col[NB];
+            bool have[NB];
+            double xb[NB], er[NB];
+#pragma unroll
+            for (int u = 0; u < NB; ++u) {
+              const int j = rd * kChunkBins + jj + 8 * u;
+              col[u] = jj + 8 * u;
+              have[u] = j < nbin;
+              xb[u] = have[u] ? __ldg(bins + j) : 0.0;
+              er[u] = (have[u] && ebin) ? __ldg(erw + (int64_t)j * ebin) : 1.0;
+            }
+            form(wbuf, col, have, xb, dc4, er);
+            __syncwarp();
+            sum_pairs(wbuf);
+            __syncwarp();
+          }
+        } else {
+          // chunks of 32 bins, bin jb of each by this lane, the next
+          // chunk's loading while this one is formed
+          double nx = 0.0, nd = 0.0, ne = 1.0;
+          if (jb < nbin) {
+            nx = __ldg(bins + jb);
+            nd = __ldg(drow + jb);
+            if (ebin) ne = __ldg(erw + (int64_t)jb * ebin);
+          }
+          for (int kc = 0; kc < nround; ++kc) {
+            double* B = buf + (kc & 1) * smax * ST;
+            const bool have = kc * kChunkBins + jb < nbin;
+            const double xb = nx, d = nd, er = ne;
+            const int jn = (kc + 1) * kChunkBins + jb;
+            if (jn < nbin) {
+              nx = __ldg(bins + jn);
+              nd = __ldg(drow + jn);
+              if (ebin) ne = __ldg(erw + (int64_t)jn * ebin);
+            }
+            const int col[NB] = {jb};
+            const bool hv[NB] = {have};
+            const double x1[NB] = {xb}, d1[NB] = {d}, e1[NB] = {er};
+            form(B, col, hv, x1, d1, e1);
+            __syncthreads();
+            sum_pairs(B);
+          }
+        }
+        __syncthreads();  // the staged bins are read before they are written again
+        // the Gram entries this warp holds (own bins: every warp's partial
+        // pairs, added in warp order by warp u % 4 for pair u) into the row
+        auto emit_pair = [&](int u, const double (&v)[2][4]) {
+#pragma unroll
+          for (int h = 0; h < 2; ++h)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const int i = ti[u] + (e >= 2 ? 8 : 0), j = tj[u] + 8 * h + (e & 1);
+              if (i <= j && j < q1)
+                emit(i, j, __dmul_rn(v[h][e], sc), q1, L, s.chain, row, add);
+            }
+        };
+        if (kOwn) {
+#pragma unroll
+          for (int u = 0; u < kPairs; ++u) {
+            if (u < npw) {
+#pragma unroll
+              for (int e = 0; e < 8; ++e) buf[(warp * 32 + lane) * 8 + e] = acc[u][e / 4][e % 4];
+              __syncthreads();
+              if (warp == u % kWarps) {
+                double v[2][4];
+#pragma unroll
+                for (int e = 0; e < 8; ++e) {
+                  double x = buf[lane * 8 + e];
+                  for (int w = 1; w < kWarps; ++w) x = __dadd_rn(x, buf[(w * 32 + lane) * 8 + e]);
+                  v[e / 4][e % 4] = x;
+                }
+                emit_pair(u, v);
+              }
+              __syncthreads();
+            }
+          }
+        } else {
+#pragma unroll
+          for (int u = 0; u < kPairs; ++u)
+            if (u < npw) emit_pair(u, acc[u]);
+        }
+      }
+  }
+  climb(rows, counters + (int64_t)b * ncnt, leaf, tr, W, buf, iflag,
+        [&](const double* child, int nc) {
+          root_normal(child, nc, ng, W, buf, scal, f + b, g + (int64_t)b * P,
+                      JtJ + (int64_t)b * P * P);
+        });
+}
+
+// -- epilogue A ---------------------------------------------------------------
+
+__global__ void __launch_bounds__(kSmallThreads)
 gauss_sse_kernel(const double* __restrict__ params, const double* __restrict__ data,
                  const double* __restrict__ errs, int64_t erow, int ebin,
                  const double* __restrict__ bins, const double* __restrict__ freqs, int ng,
-                 int nchan, int nbin, double nu_ref, double fwhm, Laws laws,
-                 double* __restrict__ scratch) {
-  pass1<false>(params, data, errs, erow, ebin, bins, freqs, ng, nchan, nbin, nu_ref, fwhm, laws,
-               0, scratch);
-}
-
-// parameter p's basis row in pass 1's Gram matrix, -1 for tau and the
-// scattering index (their columns are 0)
-__device__ __forceinline__ int basis_of(int p, int P) {
-  if (p == 0) return 0;
-  if (p == 1 || p == P - 1) return -1;
-  const int c = (p - 2) / 6, k = (p - 2) % 6;
-  return k < 2 ? 2 + 3 * c : (k < 4 ? 3 + 3 * c : 1 + 3 * c);
-}
-
-// pass 2, one block a lane: JtJ (both triangles), g and f from the
-// channels' scratch rows, each channel's poison added to every g and JtJ
-// term (forward-mode's NaN in every column)
-__global__ void __launch_bounds__(kChainThreads)
-gauss_chain_kernel(const double* __restrict__ scratch, int ng, int nchan,
-                   double* __restrict__ f, double* __restrict__ g, double* __restrict__ JtJ) {
-  __shared__ double part[kChainThreads];
-  const int b = blockIdx.x, t = threadIdx.x;
-  const int P = 6 * ng + 3, q1 = 3 * ng + 2, npairs = q1 * (q1 + 1) / 2;
-  const int W = npairs + 6 * ng + 1, nupper = P * (P + 1) / 2, nout = nupper + P + 1;
-  int nslices = kChainThreads / nout;
-  nslices = nslices < 1 ? 1 : (nslices > nchan ? nchan : nslices);
-  const double* rows = scratch + (int64_t)b * nchan * W;
-  for (int item = t; item < nout * nslices; item += kChainThreads) {
-    const int o = item / nslices, sl = item % nslices;
-    int pa, pb;  // the output's parameters; pb = -1 for g, -2 for f
-    if (o < nupper) {
-      int p = 0, rem = o;
-      while (rem >= P - p) {
-        rem -= P - p;
-        ++p;
-      }
-      pa = p;
-      pb = p + rem;
-    } else if (o < nupper + P) {
-      pa = o - nupper;
-      pb = -1;
-    } else {
-      pa = pb = -2;
-    }
-    const int qa = pa == -2 ? q1 - 1 : basis_of(pa, P);
-    const int qb = pb < 0 ? q1 - 1 : basis_of(pb, P);
-    const bool zero = qa < 0 || qb < 0;      // a tau or scattering-index column
-    const int lo = qa < qb ? qa : qb, hi = qa < qb ? qb : qa;
-    const int idx = zero ? 0 : lo * q1 - lo * (lo - 1) / 2 + (hi - lo);
-    const int ka = pa > 0 ? npairs + pa - 2 : -1;
-    const int kb = pb > 0 ? npairs + pb - 2 : -1;
-    const int kp = pa == -2 ? -1 : W - 1;    // f takes no poison
-    double sum = 0.0;
-#pragma unroll 4
-    for (int ch = sl; ch < nchan; ch += nslices) {
-      const double* r = rows + (int64_t)ch * W;
-      const double ca = ka < 0 ? 1.0 : r[ka];
-      const double cb = kb < 0 ? 1.0 : r[kb];
-      double term = zero ? 0.0 : __dmul_rn(__dmul_rn(ca, cb), r[idx]);
-      if (kp >= 0) term = __dadd_rn(term, r[kp]);
-      sum = __dadd_rn(sum, term);
-    }
-    if (nslices > 1) {
-      part[item] = sum;  // nout * nslices <= kChainThreads
-    } else {
-      if (pb >= 0) {
-        JtJ[((int64_t)b * P + pa) * P + pb] = sum;
-        JtJ[((int64_t)b * P + pb) * P + pa] = sum;
-      } else if (pb == -1) {
-        g[(int64_t)b * P + pa] = __dsub_rn(0.0, sum);
-      } else {
-        f[b] = sum;
-      }
-    }
-  }
-  if (nslices == 1) return;
+                 int nchan, int nbin, double nu_ref, double fwhm, Laws laws, Tree tr,
+                 int64_t nrows, int ncnt, double* __restrict__ scratch,
+                 int* __restrict__ counters, double* __restrict__ f) {
+  extern __shared__ double smem[];
+  __shared__ double wpart[kSmallThreads / 32];
+  __shared__ double part[kSmallThreads];
+  __shared__ int last;
+  const int ch = blockIdx.x, b = blockIdx.y, t = threadIdx.x, lane = t & 31;
+  const int P = 6 * ng + 3;
+  Comp s;
+  s.mean = smem;
+  s.isig = s.mean + ng;
+  s.amp = s.isig + ng;
+  s.iwid = s.amp + ng;
+  s.chain = nullptr;
+  s.live = (int*)(s.iwid + ng);
+  const double* prm = params + (int64_t)b * P;
+  const double* drow = data + (int64_t)ch * nbin;
+  const double* erw = errs + (int64_t)ch * erow;
+  // the first four of the thread's bins load while the components evolve;
+  // each later four while the four before them are summed
+  Bins4 cur;
+  load4(cur, t, kSmallThreads, nbin, bins, drow, erw, ebin);
+  for (int c = t; c < ng; c += kSmallThreads)
+    setup_component(prm, c, freqs[ch], nu_ref, fwhm, laws, s);
   __syncthreads();
-  for (int o = t; o < nout; o += kChainThreads) {
-    double sum = 0.0;
-    for (int k = 0; k < nslices; ++k) sum = __dadd_rn(sum, part[o * nslices + k]);
-    if (o < nupper) {
-      int p = 0, rem = o;
-      while (rem >= P - p) {
-        rem -= P - p;
-        ++p;
-      }
-      JtJ[((int64_t)b * P + p) * P + p + rem] = sum;
-      JtJ[((int64_t)b * P + p + rem) * P + p] = sum;
-    } else if (o < nupper + P) {
-      g[(int64_t)b * P + o - nupper] = __dsub_rn(0.0, sum);
-    } else {
-      f[b] = sum;
-    }
-  }
-}
-
-// epilogue A's channel sum, one block a lane
-__global__ void __launch_bounds__(kSumThreads)
-gauss_fsum_kernel(const double* __restrict__ part, int nchan, double* __restrict__ f) {
-  __shared__ double warp_sum[kSumThreads / 32];
-  const int b = blockIdx.x, t = threadIdx.x;
-  double s = 0.0;
-  for (int ch = t; ch < nchan; ch += kSumThreads)
-    s = __dadd_rn(s, part[(int64_t)b * nchan + ch]);
+  const double dc = prm[0];
+  double ss = 0.0;
+  for (int j0 = t; j0 < nbin; j0 += 4 * kSmallThreads) {
+    Bins4 nxt;
+    load4(nxt, j0 + 4 * kSmallThreads, kSmallThreads, nbin, bins, drow, erw, ebin);
+    // the four bins' models side by side, then their r^2 in bin order
+    double m[4] = {0.0, 0.0, 0.0, 0.0};
+    for (int c = 0; c < ng; ++c) {
+      const double amp = s.amp[c];
 #pragma unroll
-  for (int off = 16; off > 0; off >>= 1) s = __dadd_rn(s, __shfl_xor_sync(0xffffffffu, s, off));
-  if ((t & 31) == 0) warp_sum[t >> 5] = s;
-  __syncthreads();
-  if (t == 0) {
-    double sum = 0.0;
-    for (int k = 0; k < kSumThreads / 32; ++k) sum = __dadd_rn(sum, warp_sum[k]);
-    f[b] = sum;
+      for (int u = 0; u < 4; ++u)
+        m[u] = __dadd_rn(m[u], __dmul_rn(amp, component<false>(cur.x[u], c, s, 1.0, nullptr,
+                                                                nullptr)));
+    }
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      if (j0 + u * kSmallThreads >= nbin) break;
+      double r = __dsub_rn(cur.d[u], __dadd_rn(dc, m[u]));
+      if (ebin) r = __ddiv_rn(r, cur.e[u]);
+      ss = __dadd_rn(ss, __dmul_rn(r, r));
+    }
+    cur = nxt;
   }
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) ss = __dadd_rn(ss, __shfl_xor_sync(0xffffffffu, ss, off));
+  if (lane == 0) wpart[t >> 5] = ss;
+  __syncthreads();
+  double* rows = scratch + (int64_t)b * nrows;
+  if (t == 0) {
+    double v = wpart[0];
+    for (int u = 1; u < kSmallThreads / 32; ++u) v = __dadd_rn(v, wpart[u]);
+    if (!ebin) {
+      const double ie = __ddiv_rn(1.0, erw[0]);
+      v = __dmul_rn(v, __dmul_rn(ie, ie));
+    }
+    rows[ch] = v;
+  }
+  climb(rows, counters + (int64_t)b * ncnt, ch, tr, 1, part, &last,
+        [&](const double* child, int nc) {
+          node_sum(child, nc, 1, 1, part, [&](int64_t, double v) { f[b] = v; });
+        });
 }
 
-size_t pass1_smem(int ng, bool normal, int R) {
-  const int q1 = 3 * ng + 2, srows = staged_rows(q1, R), spairs = staged_pairs(q1, R);
-  size_t doubles = 5 * (size_t)ng;
-  if (normal) doubles += (size_t)srows * kPad + (size_t)kWarps * spairs;
-  return 8 * doubles + 4 * (size_t)ng + (normal ? 2 * (size_t)spairs : 0);
+// epilogue A's shared memory: four doubles and an int a component
+constexpr int64_t sse_smem(int ng) { return 36 * (int64_t)ng; }
+constexpr int kSseMaxNgauss = 6456;
+static_assert(sse_smem(kSseMaxNgauss) <= kSmemMax && sse_smem(kSseMaxNgauss + 1) > kSmemMax,
+              "kSseMaxNgauss: the most components a block's shared memory holds");
+
+// a launch's geometry, from the components, the channels and the epilogue
+// (normal: B): the doubles in a row of sums, the channels a block, the
+// channel tree, a lane's scratch rows and counters, and the dynamic shared
+// memory a block takes.  pp_gauss_sizes gives it to the wrapper, which
+// allocates scratch and counters from it.
+struct Geometry {
+  int64_t width, rows, smem;
+  int cpb, counters;
+  Tree tr;
+};
+
+Geometry geometry(int ng, int nchan, bool normal) {
+  Geometry gm;
+  gm.width = normal ? row_width(ng) : 1;
+  gm.cpb = 1;
+  if (normal && ng > kWarpNgauss) {
+    const int64_t bytes = (int64_t)nchan * 8 * gm.width;
+    gm.cpb = (int)((bytes + kRowBudget - 1) / kRowBudget);
+  }
+  const int nleaf = (nchan + gm.cpb - 1) / gm.cpb;
+  const int64_t wide = kFanDoubles / gm.width;
+  gm.tr = Tree{nleaf, (int)std::max<int64_t>(kFan, std::min<int64_t>(nleaf, wide))};
+  tree_sizes(gm.tr, &gm.rows, &gm.counters);
+  gm.smem = !normal ? sse_smem(ng) : (ng <= kWarpNgauss ? 0 : mma_smem(ng));
+  return gm;
+}
+
+cudaError_t set_smem(const void* kernel, size_t smem) {
+  if (smem > kSmemMax) return cudaErrorInvalidValue;
+  if (smem <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
 }
 
 }  // namespace
+
+// The geometry of a launch at ngauss components and nchan channels, for
+// epilogue B (normal != 0) or A, into sizes[6] (int64): the doubles in a row
+// of sums, a lane's scratch rows and counters, the channels a block, the
+// channel tree's fan-in and the dynamic shared memory a block takes.  The
+// wrapper allocates scratch [B, rows, width] f64 and counters [B, counters]
+// int32 from it.  Returns cudaErrorInvalidValue past the epilogue's
+// component limit (kMaxNgauss, kSseMaxNgauss).
+extern "C" int pp_gauss_sizes(int ngauss, int nchan, int normal, void* sizes) {
+  if (ngauss < 1 || nchan < 1 || ngauss > (normal ? kMaxNgauss : kSseMaxNgauss))
+    return (int)cudaErrorInvalidValue;
+  const Geometry gm = geometry(ngauss, nchan, normal != 0);
+  int64_t* out = (int64_t*)sizes;
+  out[0] = gm.width;
+  out[1] = gm.rows;
+  out[2] = gm.counters;
+  out[3] = gm.cpb;
+  out[4] = gm.tr.fan;
+  out[5] = gm.smem;
+  return 0;
+}
 
 // params [B, 6 ngauss + 3], data [nchan, nbin], errs [nchan, nbin] through
 // its strides (errs_row, errs_bin: 0 for per-channel errors broadcast over
 // the bins, else 1), bins [nbin] (bin centres), freqs [nchan], all f64;
 // nu_ref; fwhm = 2 sqrt(2 ln 2); the model-code digits of loc, wid and amp
-// (0 power law, 1 linear); tile_rows, the Gram rows a tile of pass 1 takes
-// (3 ngauss + 2 or more for one tile, else at most 127); scratch
-// [B, nchan, npairs + 6 ngauss + 1] f64; f [B], g [B, P], JtJ [B, P, P] f64
-// out.
-// Launches pass 1 and pass 2 on `stream`; returns the first cudaError_t.
+// (0 power law, 1 linear); scratch and counters as pp_gauss_sizes gives
+// them (the counters zero before the first call; every call leaves them
+// zero); f [B], g [B, P], JtJ [B, P, P] f64 out.  One launch on `stream`;
+// returns the first cudaError_t.
 extern "C" int pp_gauss_normal(const void* params, const void* data, const void* errs,
                                int64_t errs_row, int errs_bin, const void* bins,
                                const void* freqs, int B, int ngauss, int nchan, int nbin,
                                double nu_ref, double fwhm, int law_loc, int law_wid,
-                               int law_amp, int tile_rows, void* scratch, void* f, void* g,
+                               int law_amp, void* scratch, void* counters, void* f, void* g,
                                void* JtJ, void* stream) {
   if (B <= 0 || nchan <= 0 || nbin <= 0) return 0;
-  const int q1 = 3 * ngauss + 2;
-  const int R = tile_rows < q1 ? tile_rows : q1;
-  if (R < 1 || staged_rows(q1, R) > 255) return (int)cudaErrorInvalidValue;
-  const int nblk = (q1 + R - 1) / R, ntiles = nblk * (nblk + 1) / 2;
-  if (ntiles > 65535) return (int)cudaErrorInvalidValue;
+  if (ngauss < 1 || ngauss > kMaxNgauss || B > 65535) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-  const size_t smem = pass1_smem(ngauss, true, R);
-  cudaError_t err = cudaFuncSetAttribute(gauss_normal_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
   const Laws laws{law_loc, law_wid, law_amp};
-  gauss_normal_kernel<<<dim3(nchan, B, ntiles), kThreads, smem, st>>>(
-      (const double*)params, (const double*)data, (const double*)errs, errs_row, errs_bin,
-      (const double*)bins, (const double*)freqs, ngauss, nchan, nbin, nu_ref, fwhm, laws, R,
-      (double*)scratch);
-  err = cudaGetLastError();
+  const Geometry gm = geometry(ngauss, nchan, true);
+  const double *pp = (const double*)params, *dd = (const double*)data, *ee = (const double*)errs;
+  const double *bb = (const double*)bins, *ff = (const double*)freqs;
+  double *sc = (double*)scratch, *fo = (double*)f, *go = (double*)g, *jo = (double*)JtJ;
+  int* cn = (int*)counters;
+  if (ngauss <= kWarpNgauss) {
+    const dim3 grid(nchan, B);
+    if (ngauss == 1)
+      gauss_normal_warp_kernel<1><<<grid, kSmallThreads, 0, st>>>(
+          pp, dd, ee, errs_row, errs_bin, bb, ff, nchan, nbin, nu_ref, fwhm, laws, gm.tr,
+          gm.rows, gm.counters, sc, cn, fo, go, jo);
+    else
+      gauss_normal_warp_kernel<2><<<grid, kSmallThreads, 0, st>>>(
+          pp, dd, ee, errs_row, errs_bin, bb, ff, nchan, nbin, nu_ref, fwhm, laws, gm.tr,
+          gm.rows, gm.counters, sc, cn, fo, go, jo);
+    return (int)cudaGetLastError();
+  }
+  const dim3 grid(gm.tr.nleaf, B);
+  // one instantiation per (own bins, pairs a warp holds)
+  auto run = [&](auto kernel, int threads) {
+    cudaError_t err = set_smem((const void*)kernel, gm.smem);
+    if (err != cudaSuccess) return err;
+    kernel<<<grid, threads, gm.smem, st>>>(pp, dd, ee, errs_row, errs_bin, bb, ff, ngauss, nchan,
+                                           nbin, nu_ref, fwhm, laws, gm.cpb, gm.tr, gm.rows,
+                                           gm.counters, sc, cn, fo, go, jo);
+    return cudaSuccess;
+  };
+  cudaError_t err;
+  if (!own_bins(ngauss))
+    err = run(gauss_normal_mma_kernel<false, 2>, MmaShape<false>::kThreads);
+  else if (padded_rows(ngauss) == 16)
+    err = run(gauss_normal_mma_kernel<true, 1>, MmaShape<true>::kThreads);
+  else
+    err = run(gauss_normal_mma_kernel<true, 3>, MmaShape<true>::kThreads);
   if (err != cudaSuccess) return (int)err;
-  gauss_chain_kernel<<<B, kChainThreads, 0, st>>>((const double*)scratch, ngauss, nchan,
-                                                   (double*)f, (double*)g, (double*)JtJ);
   return (int)cudaGetLastError();
 }
 
-// the same arguments without tile_rows, g and JtJ; scratch [B, nchan] f64.
+// the same arguments without g and JtJ (epilogue A: a leaf a channel, rows
+// of one double); one launch.
 extern "C" int pp_gauss_sse(const void* params, const void* data, const void* errs,
                             int64_t errs_row, int errs_bin, const void* bins,
                             const void* freqs, int B, int ngauss, int nchan, int nbin,
                             double nu_ref, double fwhm, int law_loc, int law_wid, int law_amp,
-                            void* scratch, void* f, void* stream) {
+                            void* scratch, void* counters, void* f, void* stream) {
   if (B <= 0 || nchan <= 0 || nbin <= 0) return 0;
+  if (ngauss < 1 || ngauss > kSseMaxNgauss || B > 65535) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-  const size_t smem = pass1_smem(ngauss, false, 0);
-  cudaError_t err = cudaFuncSetAttribute(gauss_sse_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  const Geometry gm = geometry(ngauss, nchan, false);
+  cudaError_t err = set_smem((const void*)gauss_sse_kernel, gm.smem);
   if (err != cudaSuccess) return (int)err;
   const Laws laws{law_loc, law_wid, law_amp};
-  gauss_sse_kernel<<<dim3(nchan, B), kThreads, smem, st>>>(
+  gauss_sse_kernel<<<dim3(nchan, B), kSmallThreads, gm.smem, st>>>(
       (const double*)params, (const double*)data, (const double*)errs, errs_row, errs_bin,
-      (const double*)bins, (const double*)freqs, ngauss, nchan, nbin, nu_ref, fwhm, laws,
-      (double*)scratch);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  gauss_fsum_kernel<<<B, kSumThreads, 0, st>>>((const double*)scratch, nchan, (double*)f);
+      (const double*)bins, (const double*)freqs, ngauss, nchan, nbin, nu_ref, fwhm, laws, gm.tr,
+      gm.rows, gm.counters, (double*)scratch, (int*)counters, (double*)f);
   return (int)cudaGetLastError();
 }

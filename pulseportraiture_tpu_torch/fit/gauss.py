@@ -29,11 +29,25 @@ from .phase_shift import fit_phase_shift
 
 __all__ = ["fit_gaussian_profile", "fit_gaussian_portrait",
            "auto_gauss_seed", "peak_pick_seed", "dc_seed", "GaussNormal",
-           "FIT_ROUTES"]
+           "portrait_route", "FIT_ROUTES"]
 
 # fit_gaussian_portrait's calls by route: "normal" (kernel K9's normal
 # equations) or "jacfwd" (torch.func's Jacobian of the residual)
 FIT_ROUTES = {"normal": 0, "jacfwd": 0}
+
+
+def portrait_route(njoin, tau0, tau_flag, ngauss, device):
+    """The route of a Gaussian portrait fit: "normal" (K9) for an
+    unscattered, unjoined fit (no join groups, tau starting at 0 and
+    frozen) of at most _kernels.GAUSS_MAX_NGAUSS components on a CUDA
+    device (any number on the CPU, whose plain version has no limit),
+    else "jacfwd"."""
+    if njoin or tau0 != 0.0 or tau_flag != 0.0:
+        return "jacfwd"
+    if torch.device(device).type == "cuda" and \
+            ngauss > _kernels.GAUSS_MAX_NGAUSS:
+        return "jacfwd"
+    return "normal"
 
 
 def _dev(x, device):
@@ -102,7 +116,10 @@ class GaussNormal:
     centres and freqs held on their device; ``sse(x)`` and
     ``normal(x)`` at parameters x [B, 2 + 6 ngauss + 1] (the scattering
     index last) are kernel K9's two epilogues (_kernels.gauss_sse,
-    gauss_normal; their plain versions for CPU tensors)."""
+    gauss_normal; their plain versions for CPU tensors).  The fixed
+    arguments are checked once, into a _kernels.GaussWork that keeps the
+    launches' scratch and gauss_normal's outputs: ``normal(x)``'s
+    tensors are overwritten by its next call."""
 
     def __init__(self, model_code, data, errs, freqs, nu_ref, nbin):
         self.model_code = str(model_code)
@@ -112,16 +129,19 @@ class GaussNormal:
         self.nu_ref = float(nu_ref)
         self.bins = get_bin_centers(nbin, device=data.device)
         self.ndata = data.numel()
+        self.work = _kernels.GaussWork(self.data, self.errs, self.bins,
+                                       self.freqs, self.nu_ref,
+                                       self.model_code)
 
     def _args(self, x):
         return (x.contiguous(), self.data, self.errs, self.bins, self.freqs,
                 self.nu_ref, self.model_code)
 
     def sse(self, x):
-        return _kernels.gauss_sse(*self._args(x))
+        return _kernels.gauss_sse(*self._args(x), work=self.work)
 
     def normal(self, x):
-        return _kernels.gauss_normal(*self._args(x))
+        return _kernels.gauss_normal(*self._args(x), work=self.work)
 
 
 def fit_gaussian_portrait(model_code, data, init_params, scattering_index,
@@ -136,7 +156,9 @@ def fit_gaussian_portrait(model_code, data, init_params, scattering_index,
     it when ``join_params`` = [join_ichans(x), params, flags] is given.
     Without join groups and with tau starting at 0 and frozen, the model
     stays unscattered and lm_solve takes its normal equations from K9
-    (GaussNormal); otherwise it differentiates the residual with jacfwd.
+    (GaussNormal), up to K9's component limit on the card
+    (portrait_route); otherwise it differentiates the residual with
+    jacfwd.
     Returns DataBunch(fitted_params, fit_errs, scattering_index(+err),
     chi2, dof, nfev, return_code) (numpy / numbers).  Equivalent of pplib.py:1924-2052.
     """
@@ -181,11 +203,13 @@ def fit_gaussian_portrait(model_code, data, init_params, scattering_index,
                                       P=P, device=device)
         return ((data - model) / errs).reshape(-1)
 
+    route = portrait_route(njoin, x0[1], xflags[1], (nparam - 2) // 6,
+                           device)
     normal = None
-    if not njoin and x0[1] == 0.0 and xflags[1] == 0.0:
+    if route == "normal":
         normal = GaussNormal(model_code, data, errs, freqs, nu_ref,
                              len(phases))
-    FIT_ROUTES["jacfwd" if normal is None else "normal"] += 1
+    FIT_ROUTES[route] += 1
     r = lm_solve(residual, _dev(x0, device), fit_flags=xflags,
                  bounds=(lo, hi), normal=normal)
     params = r.params.cpu().numpy()

@@ -37,9 +37,10 @@ them), in chunks, never falling back; its scan against the scan's plain
 version (S/N and chi2 within 1e-12 relative, the repeat flags equal);
 cuFFT's rows equal whatever their batch.  The Gaussian portrait fit's
 normal equations (K9 csrc/gauss.cu) against their plain version: f, g
-and J^T J within 1e-12 of their largest magnitude lane by lane at 1, 3
-and 8 components and 1 and 3 lanes, the same bits twice, the NaN of an
-amplitude at its 0 bound; ppgauss on the card against the CPU (model
+and J^T J within 1e-12 of their largest magnitude lane by lane at 1 to
+24 components (both layouts) and 1 to 3 lanes, the same bits twice and
+under CUDA-graph replay, the NaN of an amplitude at its 0 bound, 757
+components and a fit there; ppgauss on the card against the CPU (model
 parameters within max(1e-6, 4 sqrt(eps chi2)) of their errors: float64
 chi2's floor, where K9's and its plain version's LM runs stop apart).
 
@@ -1311,15 +1312,21 @@ def test_cufft_rows_batch_invariant(card):
 # K9 (csrc/gauss.cu): (components, lanes, model code); the kernel against
 # its plain version within GAUSS_TOL of each output's largest magnitude per
 # lane (sums of ~130,000 terms in another order: the Gram per channel, then
-# the chain rule over channels; an H100 reads <= 1.1e-13 at [512, 2048])
-GAUSS_CASES = [(1, 1, "000"), (3, 1, "111"), (8, 1, "101"), (1, 3, "000"),
-               (3, 3, "011"), (8, 3, "000"), (19, 1, "000"), (24, 2, "101")]
+# the chain rule and the channel tree; an H100 read <= 1.1e-13 at [512,
+# 2048]).  1-2 components take the warp layout, 3 and more the FP64 tensor
+# cores (4: k-steps split over warps; 21 and 24: two row blocks, three
+# panels)
+GAUSS_CASES = [(1, 1, "000"), (2, 2, "010"), (3, 1, "111"), (4, 1, "100"),
+               (8, 1, "101"), (1, 3, "000"), (3, 3, "011"), (8, 3, "000"),
+               (19, 1, "000"), (21, 1, "110"), (24, 2, "101")]
 GAUSS_TOL = 1e-12
 
 
-def _gauss_inputs(ngauss, lanes, code, nchan=128, nbin=1024, seed=11):
+def _gauss_inputs(ngauss, lanes, code, nchan=128, nbin=1024, seed=11,
+                  per_channel=False):
     """K9's arguments on the card: lanes of ngauss components (slopes
-    sized to the code's laws), data a noisy model, per-bin errors."""
+    sized to the code's laws), data a noisy model, per-bin errors (or
+    per-channel ones broadcast over the bins, as ppgauss gives them)."""
     from pulseportraiture_tpu_torch.ops.fourier import get_bin_centers
     from pulseportraiture_tpu_torch.ops.profiles import gen_gaussian_portrait
 
@@ -1340,7 +1347,10 @@ def _gauss_inputs(ngauss, lanes, code, nchan=128, nbin=1024, seed=11):
     errs = 0.05 * rng.uniform(0.5, 1.5, (nchan, nbin))
     data = model + rng.normal(0.0, 1.0, (nchan, nbin)) * errs
     t = lambda a: torch.as_tensor(a, device=DEVICE)  # noqa: E731
-    return (t(x), t(data), t(errs), get_bin_centers(nbin, device=DEVICE),
+    errs = t(errs)
+    if per_channel:
+        errs = errs[:, :1].contiguous().expand(nchan, nbin)
+    return (t(x), t(data), errs, get_bin_centers(nbin, device=DEVICE),
             t(freqs), 1500.0, code)
 
 
@@ -1358,9 +1368,12 @@ def _lane_gap(got, want):
 def test_gauss_kernels_match_plain_on_the_card(card, case):
     """K9's two epilogues against their plain versions on the card (f, g
     and J^T J within GAUSS_TOL of their largest magnitude, lane by lane),
-    one counted launch a call, and two calls the same bits (no atomics)."""
+    one counted launch a call, and two calls the same bits (no atomics on
+    the sums; the tree's counters set back to 0), with and without a
+    GaussWork."""
     K = card
     args = _gauss_inputs(*case)
+    work = K.GaussWork(*args[1:])
     n0 = dict(K.LAUNCHES)
     got = K.gauss_normal(*args)
     again = K.gauss_normal(*args)
@@ -1375,37 +1388,134 @@ def test_gauss_kernels_match_plain_on_the_card(card, case):
         assert _lane_gap(a[:, None], b[:, None]) <= GAUSS_TOL
     assert _lane_gap(sse[:, None], want[0][:, None]) <= GAUSS_TOL
     assert torch.equal(sse, K.gauss_sse(*args))
+    for _ in range(2):
+        for a, b in zip(K.gauss_normal(*args, work=work), got):
+            assert torch.equal(a, b)
+        assert torch.equal(K.gauss_sse(*args, work=work), sse)
 
 
-@pytest.mark.parametrize("ngauss,rows", [(3, 4), (3, 7), (19, 20), (19, 13)])
-def test_gauss_normal_tiles_give_the_same_bits(card, monkeypatch, ngauss,
-                                               rows):
-    """Pass 1 in tiles of ``rows`` Gram rows (forced) gives the bits of
-    its own tiling (one tile up to 18 components, 32 rows beyond): every
-    entry is summed in the same order whatever the tile."""
+@pytest.mark.parametrize("ngauss", [1, 4, 19])
+def test_gauss_kernels_graph_replay_same_bits(card, ngauss):
+    """A call of each epilogue captured in a CUDA graph and replayed three
+    times gives the eager call's bits every time: the channel tree's
+    counters start each replay at 0."""
     K = card
-    args = _gauss_inputs(ngauss, 2, "000", nchan=64, nbin=700)
-    want = K.gauss_normal(*args)
-    assert K.gauss_tile_rows(ngauss) == (3 * ngauss + 2 if ngauss <= 18
-                                         else 32)
-    monkeypatch.setattr(K, "gauss_tile_rows", lambda ng: rows)
-    got = K.gauss_normal(*args)
-    for a, b in zip(got, want):
-        assert torch.equal(a, b)
+    args = _gauss_inputs(ngauss, 2, "000", per_channel=True)
+    work = K.GaussWork(*args[1:])
+    want = [t.clone() for t in K.gauss_normal(*args, work=work)]
+    want_f = K.gauss_sse(*args, work=work)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        outs = K.gauss_normal(*args, work=work)
+        f = K.gauss_sse(*args, work=work)
+    for _ in range(3):
+        for t in outs:
+            t.zero_()
+        f.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        for a, b in zip(outs, want):
+            assert torch.equal(a, b)
+        assert torch.equal(f, want_f)
 
 
-def test_gauss_per_channel_errs_on_the_card(card):
+@pytest.mark.parametrize("ngauss,lanes", [(8, 1), (19, 1), (19, 2),
+                                          (24, 1), (24, 2)])
+def test_gauss_normal_tiles_give_the_same_bits(card, ngauss, lanes):
+    """The mma layout in one 64-row panel (8, 19 components) and in three
+    (24: two row blocks) over 700 bins (a last round of 28): two calls,
+    each with buffers of its own, and two through one GaussWork give the
+    same bits (no atomics on the sums; the tree's counters set back to
+    0)."""
+    K = card
+    args = _gauss_inputs(ngauss, lanes, "000", nchan=64, nbin=700)
+    assert K.gauss_layout(ngauss) == "mma"
+    want = [t.clone() for t in K.gauss_normal(*args)]
+    work = K.GaussWork(*args[1:])
+    for got in (K.gauss_normal(*args), K.gauss_normal(*args, work=work),
+                K.gauss_normal(*args, work=work)):
+        for a, b in zip(got, want):
+            assert torch.equal(a, b)
+
+
+def _sizes_one_panel(K):
+    # up to 20 components the Gram's 62 rows fill one 64-row panel: every
+    # row staged, under the 48 KB a block takes without opting in; two
+    # 64-row blocks' staged rows beyond
+    one, two = K.gauss_sizes(20, 512)["smem"], K.gauss_sizes(21, 512)["smem"]
+    assert one <= 48 * 1024 < two and two - one > 30000
+    assert K.gauss_sizes(2, 512)["smem"] == 0  # the warp layout's is static
+
+
+def _sizes_max(K):
+    # the mma layout's limit: 84 bytes a component once the panels are two
+    # full row blocks, within the H100's 232,448 bytes a block; epilogue
+    # A's 36; each refused one component past its limit
+    n, m = K.GAUSS_MAX_NGAUSS, K.GAUSS_SSE_MAX_NGAUSS
+    top = K.gauss_sizes(n, 4)["smem"]
+    assert top <= 232448 < top + 84
+    assert top - K.gauss_sizes(n - 1, 4)["smem"] == 84
+    assert K.gauss_sizes(m, 4, normal=False)["smem"] == 36 * m <= 232448
+    with pytest.raises(ValueError, match="no launch"):
+        K.gauss_sizes(n + 1, 4)
+    with pytest.raises(ValueError, match="no launch"):
+        K.gauss_sizes(m + 1, 4, normal=False)
+
+
+def _sizes_rows(K):
+    # a row of per-lane sums: J^T J's upper triangle over 6 ngauss + 1
+    # live parameters, g, f and the poison; channels grouped a block only
+    # where a lane's rows would pass 2^28 bytes
+    width = {ng: K.gauss_sizes(ng, 512)["width"] for ng in (1, 19)}
+    assert width == {1: 28 + 7 + 2, 19: 115 * 116 // 2 + 115 + 2}
+    cpb = [K.gauss_sizes(ng, 512)["chans_per_block"]
+           for ng in (1, 19, 100, K.GAUSS_MAX_NGAUSS)]
+    assert cpb == [1, 1, 3, 980]
+
+
+def _sizes_tree(K):
+    # (fan-in, scratch rows, counters) a lane: one level where a node may
+    # read every row (epilogue A), fan-in 8 for long rows; rows are the
+    # leaves' and the inner levels', counters every level's nodes
+    def tree(ng, nchan, normal=True):
+        sz = K.gauss_sizes(ng, nchan, normal)
+        return sz["fan"], sz["rows"], sz["counters"]
+
+    assert tree(1, 512, False) == (512, 512, 1)
+    assert tree(1, 512) == (27, 512 + 19, 19 + 1)
+    assert tree(19, 512) == (8, 512 + 64 + 8, 64 + 8 + 1)
+    assert tree(19, 1) == (8, 1, 1)
+    assert tree(100, 512) == (8, 171 + 22 + 3, 22 + 3 + 1)
+
+
+@pytest.mark.parametrize("case", ["one_panel", "max", "rows", "tree"])
+def test_gauss_sizes_on_the_card(card, case):
+    """csrc/gauss.cu's launch geometry as pp_gauss_sizes gives it to the
+    wrappers: the mma layout's shared memory and limit, epilogue A's, the
+    rows of sums and the channel tree."""
+    globals()["_sizes_" + case](card)
+
+
+@pytest.mark.parametrize("ngauss", [1, 3, 19])
+def test_gauss_per_channel_errs_on_the_card(card, ngauss):
     """Per-channel errors broadcast over the bins (stride 0, as ppgauss
-    gives them) give the bits of the same errors materialised."""
+    gives them: each channel's 1 / err^2 applied once to its Gram) against
+    the plain version and against the same errors materialised (1 / err
+    in every bin), each within GAUSS_TOL."""
     K = card
-    args = list(_gauss_inputs(3, 2, "111"))
-    noise = args[2][:, 0].contiguous()
-    view = list(args)
-    view[2] = noise[:, None].expand_as(args[2])
-    args[2] = view[2].contiguous()
-    for a, b in zip(K.gauss_normal(*view), K.gauss_normal(*args)):
-        assert torch.equal(a, b)
-    assert torch.equal(K.gauss_sse(*view), K.gauss_sse(*args))
+    view = _gauss_inputs(ngauss, 2, "111", per_channel=True)
+    assert view[2].stride(1) == 0
+    full = list(view)
+    full[2] = view[2].contiguous()
+    got, per_bin = K.gauss_normal(*view), K.gauss_normal(*full)
+    want = K.gauss_normal_plain(*full)
+    for a, b, c in zip(got, per_bin, want):
+        assert _lane_gap(a[:, None], c[:, None]) <= GAUSS_TOL
+        assert _lane_gap(a[:, None], b[:, None]) <= GAUSS_TOL
+    sse = K.gauss_sse(*view)
+    assert _lane_gap(sse[:, None], want[0][:, None]) <= GAUSS_TOL
+    assert _lane_gap(sse[:, None], K.gauss_sse(*full)[:, None]) <= GAUSS_TOL
 
 
 def _z_floor(chi2):
@@ -1417,8 +1527,8 @@ def _z_floor(chi2):
 
 
 def test_gaussian_portrait_fit_19_components_card_matches_cpu(card):
-    """fit_gaussian_portrait with 19 components (pass 1 in tiles of 32
-    rows on the card) through K9 on the card and its plain version on the
+    """fit_gaussian_portrait with 19 components (the mma layout's one
+    panel on the card) through K9 on the card and its plain version on the
     CPU: params and errors within _z_floor of the errors, rc equal."""
     from pulseportraiture_tpu_torch.fit import gauss as fg
     from pulseportraiture_tpu_torch.ops.profiles import gen_gaussian_portrait
@@ -1462,8 +1572,10 @@ def test_gaussian_portrait_fit_19_components_card_matches_cpu(card):
 def test_gauss_kernels_nan_and_limits_on_the_card(card):
     """An amplitude's power law at its 0 bound gives NaN in every g and
     J^T J entry, as the plain version (and forward-mode) does, f finite;
-    more components than pass 1's tiles hold (757), float32 parameters
-    and a CPU mix raise."""
+    757 components (above the tiled design's former limit of 756) against the plain version
+    on the card, channels grouped two a block; more components than the
+    mma layout's shared memory holds, float32 parameters and a CPU mix
+    raise."""
     K = card
     args = list(_gauss_inputs(1, 2, "000"))
     x = args[0].clone()
@@ -1474,14 +1586,60 @@ def test_gauss_kernels_nan_and_limits_on_the_card(card):
     assert torch.isfinite(got[1][1]).all() and torch.isfinite(got[0]).all()
     for a, b in zip(got, want):
         assert _lane_gap(a[:, None], b[:, None]) <= GAUSS_TOL
-    big = _gauss_inputs(757, 1, "000", nchan=4, nbin=64)
-    with pytest.raises(ValueError, match="at most 756"):
+    wide = _gauss_inputs(757, 1, "000", nchan=4, nbin=64)
+    assert K.gauss_sizes(757, 4)["chans_per_block"] == 2
+    for a, b in zip(K.gauss_normal(*wide), K.gauss_normal_plain(*wide)):
+        assert _lane_gap(a[:, None], b[:, None]) <= GAUSS_TOL
+    big = _gauss_inputs(K.GAUSS_MAX_NGAUSS + 1, 1, "000", nchan=4, nbin=64)
+    with pytest.raises(ValueError, match="at most %d" % K.GAUSS_MAX_NGAUSS):
         K.gauss_normal(*big)
     assert torch.isfinite(K.gauss_sse(*big)).all()
     with pytest.raises(TypeError, match="float64"):
         K.gauss_normal(args[0].float(), *args[1:])
     with pytest.raises(ValueError, match="must be on"):
         K.gauss_sse(args[0].cpu(), *args[1:])
+
+
+def test_gaussian_portrait_fit_757_components_takes_k9(card):
+    """A fit of 757 components (the tiled design took at most 756; the mma
+    layout takes GAUSS_MAX_NGAUSS) goes through K9 on the card, counted
+    in FIT_ROUTES["normal"], and its dc (the one parameter fitted) and
+    chi2 agree with the CPU's within _z_floor and 1e-9."""
+    from pulseportraiture_tpu_torch.fit import gauss as fg
+    from pulseportraiture_tpu_torch.ops.profiles import gen_gaussian_portrait
+
+    ng, nchan, nbin = 757, 4, 64
+    K = card
+    assert fg.portrait_route(0, 0.0, 0.0, ng, "cuda") == "normal"
+    assert fg.portrait_route(0, 0.0, 0.0, K.GAUSS_MAX_NGAUSS + 1,
+                             "cuda") == "jacfwd"
+    comps = [[(c + 0.5) / ng, 0.0, 0.004, 0.0, 0.2, 0.0] for c in range(ng)]
+    params = np.concatenate([[0.02, 0.0], np.ravel(comps)])
+    freqs = np.linspace(1100.0, 1900.0, nchan)
+    rng = np.random.default_rng(6)
+    model = gen_gaussian_portrait("111", params, -4.0,
+                                  np.arange(nbin) / nbin, freqs,
+                                  1500.0).numpy()
+    data = model + rng.normal(0.0, 0.01, model.shape)
+    flags = np.zeros(len(params))
+    flags[0] = 1.0
+    init = params.copy()
+    init[0] = 0.03
+    args = ("111", data, init, -4.0, np.full(data.shape, 0.01), flags,
+            False, np.arange(nbin) / nbin, freqs, 1500.0)
+    K.reset_launches()
+    routes = dict(fg.FIT_ROUTES)
+    card_fit = fg.fit_gaussian_portrait(*args, device="cuda")
+    assert K.LAUNCHES["gauss_normal"] > 0 and K.LAUNCHES["gauss_sse"] > 0
+    assert fg.FIT_ROUTES["normal"] == routes["normal"] + 1
+    cpu_fit = fg.fit_gaussian_portrait(*args, device="cpu")
+    assert fg.FIT_ROUTES["jacfwd"] == routes["jacfwd"]
+    err = cpu_fit.fit_errs[0]
+    assert np.isfinite(err) and err > 0
+    assert abs(card_fit.fitted_params[0] - cpu_fit.fitted_params[0]) \
+        <= _z_floor(cpu_fit.chi2) * err
+    assert abs(card_fit.chi2 - cpu_fit.chi2) <= 1e-9 * cpu_fit.chi2
+    assert card_fit.return_code == cpu_fit.return_code
 
 
 # ppgauss card-vs-CPU fixtures: (seed, channels, bins, noise)

@@ -16,9 +16,10 @@ at an amplitude's 0 bound given as NaN.  Then lm_solve through the normal
 equations against lm_solve through the residual's Jacobian, and the
 port's fit_gaussian_portrait on its K9 route against the JAX package's
 (parameters within 1e-6 of their errors, rc equal, chi2 1e-10
-relative), also at 19 components, and the route each kind of fit takes;
-per-channel errors as a broadcast view, and pass 1's shared-memory
-tiles.
+relative), also at 19 components, and the route each kind of fit takes
+(K9 up to its component limit on the card); per-channel errors as a
+broadcast view, GaussWork's one check, and the layouts' choice and
+limits.
 """
 
 import re
@@ -349,25 +350,109 @@ def test_gauss_wrappers_refuse_bad_arguments():
                  for a in args))
 
 
-def test_gauss_normal_shared_memory_limit():
-    """Pass 1's shared memory (the staged basis rows and the warps' Gram
-    sums) holds the whole Gram matrix in one tile up to 18 components
-    within the H100's 232,448 bytes a block; beyond, tiles of 32 rows
-    (two blocks' staged rows, a block's square of sums) hold up to 756
-    components, and more raise."""
+def _limit_layout():
     K = _kernels
-    assert K.GAUSS_ONE_TILE_NGAUSS == 18
-    assert K.gauss_normal_smem(18) <= K.GAUSS_SMEM_MAX < K.gauss_normal_smem(19)
-    assert K.gauss_tile_rows(1) == 5 and K.gauss_tile_rows(18) == 56
-    assert K.gauss_tile_rows(19) == K.GAUSS_TILE_ROWS == 32
-    assert K.GAUSS_MAX_NGAUSS == 756 and K.gauss_tile_rows(756) == 32
-    assert K.gauss_normal_smem(756, 32) <= K.GAUSS_SMEM_MAX \
-        < K.gauss_normal_smem(757, 32)
-    # a tile of rows no fewer than the matrix's is the one tile
-    assert K.gauss_normal_smem(3, 32) == K.gauss_normal_smem(3)
-    with pytest.raises(ValueError, match="at most 756"):
-        K.gauss_tile_rows(757)
-    assert K.gauss_ngauss(9) == 1 and K.gauss_ngauss(111) == 18
+    assert K.GAUSS_WARP_NGAUSS == 2
+    assert [K.gauss_layout(n) for n in (1, 2, 3, 19, K.GAUSS_MAX_NGAUSS)] \
+        == ["warp", "warp", "mma", "mma", "mma"]
+
+
+def _limit_max():
+    # the mma layout's limit, well past the tiled design's former 756
+    # (csrc/gauss.cu's static_assert holds it to a block's shared memory;
+    # tests/test_torch_cuda_paths.py reads the geometry on the card)
+    K = _kernels
+    assert K.GAUSS_MAX_NGAUSS == 1888 > 756
+
+
+def _limit_sse():
+    K = _kernels
+    assert K.GAUSS_SSE_MAX_NGAUSS == 6456 >= K.GAUSS_MAX_NGAUSS
+
+
+@pytest.mark.parametrize("case", ["layout", "max", "sse"])
+def test_gauss_normal_shared_memory_limit(case):
+    """The layouts' choice and limits: the warp layout at 1-2 components,
+    the FP64 tensor cores beyond; the most components epilogue B's mma
+    layout and epilogue A take within the H100's 232,448 bytes of shared
+    memory a block."""
+    globals()["_limit_" + case]()
+
+
+@pytest.mark.parametrize("ngauss,device,route", [
+    ("max-1", "cuda", "normal"), ("max", "cuda", "normal"),
+    ("max+1", "cuda", "jacfwd"), ("max+1", "cpu", "normal"),
+    (1, "cuda", "normal"), (1, "cpu", "normal")])
+def test_portrait_route_reads_the_kernel_limit(ngauss, device, route):
+    """fit.gauss.portrait_route: an unscattered, unjoined fit takes K9 on a
+    CUDA device up to _kernels.GAUSS_MAX_NGAUSS components and jacfwd
+    beyond; the CPU's plain version has no limit.  Decided from the
+    problem and its device (no card needed)."""
+    n = _kernels.GAUSS_MAX_NGAUSS
+    ng = {"max-1": n - 1, "max": n, "max+1": n + 1}.get(ngauss, ngauss)
+    assert tg.portrait_route(0, 0.0, 0.0, ng, device) == route
+    assert tg.portrait_route(0, 0.0, 0.0, ng, torch.device(device)) == route
+    for other in ((1, 0.0, 0.0), (0, 2.0, 0.0), (0, 0.0, 1.0)):
+        assert tg.portrait_route(*other, ng, device) == "jacfwd"
+
+
+@pytest.mark.parametrize("ngauss,route", [(1, "normal"), (2, "jacfwd")])
+def test_fit_routes_count_both_sides_of_the_limit(monkeypatch, ngauss,
+                                                  route):
+    """fit_gaussian_portrait counts its route in FIT_ROUTES, and the route
+    follows the limit constant: with GAUSS_MAX_NGAUSS set to 1 and the
+    route decided as for a CUDA device, a one-component fit takes K9 and a
+    two-component fit jacfwd (the fits themselves run on the CPU)."""
+    real = tg.portrait_route
+    monkeypatch.setattr(_kernels, "GAUSS_MAX_NGAUSS", 1)
+    monkeypatch.setattr(tg, "portrait_route",
+                        lambda nj, t0, tf, ng, dev: real(nj, t0, tf, ng,
+                                                         "cuda"))
+    comps = [[0.35, -0.05, 0.05, 0.1, 1.0, -1.2],
+             [0.6, 0.02, 0.03, -0.2, 0.5, 0.4]][:ngauss]
+    true, data, errs, freqs = _problem("000", comps, 1, 12, 64, seed=2)
+    params = true[0, :-1]
+    flags = np.ones(len(params))
+    flags[1] = 0.0
+    before = dict(tg.FIT_ROUTES)
+    fit = tg.fit_gaussian_portrait("000", data, params * 1.01, -4.0, errs,
+                                   flags, False, np.arange(64) / 64, freqs,
+                                   NU_REF, device="cpu")
+    other = "jacfwd" if route == "normal" else "normal"
+    assert tg.FIT_ROUTES[route] == before[route] + 1
+    assert tg.FIT_ROUTES[other] == before[other]
+    assert np.isfinite(fit.fitted_params).all() and fit.return_code in (1, 2)
+
+
+def test_gauss_work_checks_the_fixed_arguments_once():
+    """A GaussWork checks data, errs, bins and freqs when it is made; a call
+    with it checks params, that the fixed arguments are laid out as the
+    work's (shape, strides, dtype, device) and that its model code is the
+    work's, and gives the bits of a call without it (on the CPU, the plain
+    version's)."""
+    code, comps, _, nchan, nbin = CASES["000-3-lanes"]
+    x, data, errs, freqs = _problem(code, comps, 3, nchan, nbin)
+    args = _args(x, data, errs, freqs, code)
+    work = _kernels.GaussWork(*args[1:])
+    for fn in (_kernels.gauss_normal, _kernels.gauss_sse):
+        got, want = fn(*args, work=work), fn(*args)
+        for a, b in zip(got if isinstance(got, tuple) else (got,),
+                        want if isinstance(want, tuple) else (want,)):
+            assert torch.equal(a, b)
+        with pytest.raises(TypeError, match="float64"):
+            fn(args[0].float(), *args[1:], work=work)
+        with pytest.raises(ValueError, match="laid out"):
+            fn(args[0], args[1][:, :-1].contiguous(), *args[2:], work=work)
+        with pytest.raises(ValueError, match="laid out"):
+            fn(*args[:2], args[2][:, :1].expand(nchan, nbin), *args[3:],
+               work=work)
+        with pytest.raises(ValueError, match="not the work's"):
+            fn(*args[:-1], "111", work=work)
+    with pytest.raises(ValueError, match="disagree"):
+        _kernels.GaussWork(args[1], args[2][:, :-1].contiguous(),
+                           *args[3:])
+    with pytest.raises(ValueError, match="model_code"):
+        _kernels.GaussWork(*args[1:-1], "012")
 
 
 def test_per_channel_errs_are_read_as_a_value_a_channel():
@@ -445,13 +530,30 @@ _CTYPE = {"const void*": _kernels._VP, "void*": _kernels._VP,
           "double": _kernels._DBL}
 
 
-@pytest.mark.parametrize("name", ["gauss_normal", "gauss_sse"])
+@pytest.mark.parametrize("name", ["gauss_normal", "gauss_sse",
+                                  "gauss_sizes"])
 def test_gauss_bindings_match_the_source(name):
-    """Each C entry point of csrc/gauss.cu takes, in order, the argument
-    types its ctypes binding declares (the stream last)."""
+    """Each C entry point pp_<name> of csrc/gauss.cu takes, in order, the
+    argument types its ctypes bindings declare (the launches' stream
+    last)."""
     text = open(_kernels.CSRC_DIR + "/gauss.cu").read()
-    (symbol, argtypes), = _kernels._SYMBOLS[name].items()
+    symbol = "pp_" + name
+    bound = [syms[symbol] for syms in _kernels._SYMBOLS.values()
+             if symbol in syms]
+    assert bound
     m = re.search(r'extern "C" int %s\(([^)]*)\)' % symbol, text)
     assert m is not None
     params = [re.sub(r"\s+\w+$", "", p.strip()) for p in m.group(1).split(",")]
-    assert [_CTYPE[p] for p in params] == argtypes
+    for argtypes in bound:
+        assert [_CTYPE[p] for p in params] == argtypes
+
+
+@pytest.mark.parametrize("python,source", [
+    ("GAUSS_WARP_NGAUSS", "kWarpNgauss"), ("GAUSS_MAX_NGAUSS", "kMaxNgauss"),
+    ("GAUSS_SSE_MAX_NGAUSS", "kSseMaxNgauss")])
+def test_gauss_constants_match_the_source(python, source):
+    """The wrappers' layout choice and limits are csrc/gauss.cu's."""
+    text = open(_kernels.CSRC_DIR + "/gauss.cu").read()
+    m = re.search(r"constexpr int %s = (\d+);" % source, text)
+    assert m is not None
+    assert int(m.group(1)) == getattr(_kernels, python)
