@@ -37,7 +37,15 @@ the profiler's clock conversion is fresh):
               epilogue B its layout, the torch route it replaces
               (vmap(jacfwd) of the residual and its two einsums) and, at
               4 and 19 components, cuBLAS's Gram alone (bmm of a
-              materialised basis).  Kernel
+              materialised basis); K10's two epilogues (the scattered and
+              joined portrait fit's f, g and J^T J; its f alone) at [512,
+              2048] with 1, 4 and 19 components in one lane, each at tau
+              > 0, tau = 0 with tau fitted (its and the scattering
+              index's rows and columns exactly 0), two join groups, and
+              joined with tau > 0, beside epilogue B the bytes it stages,
+              the library's rfft of the basis and Gram of the packed rows
+              (torch.fft.rfft + torch.bmm) and, up to four components,
+              the torch jacfwd route it replaces.  Kernel
               and library times are device times from CUDA-graph replay;
               ``call_ms`` is the wrapper's time per call, host included
               (back-to-back CUDA events); a K4 case whose inputs fit in
@@ -166,13 +174,21 @@ the profiler's clock conversion is fresh):
               template's phase zero and DM reference (the model's own
               offsets against the template, a fit of one noiseless
               portrait to the other, are added to each TOA)
-  ppgauss_scat the portrait fits K9 does not take, on the same archive:
-              ppgauss --autogauss 0.05 --niter 2 --fitscat (tau fitted:
-              every portrait fit on jacfwd, K9 never launched) and a
-              joined fit of its portrait in two join groups of channels
-              through fit.gauss.fit_gaussian_portrait; each fit's wall,
-              nfev, rc, routes and the device ms of one jacfwd pass at
-              its solution (with its einsums) beside its bound
+  ppgauss_scat the portrait fits K9 does not take, each through K10:
+              ppgauss --autogauss 0.05 --niter 2 --fitscat on the same
+              archive (tau fitted from 0, where it stays), a joined fit of
+              its portrait in two join groups of channels through
+              fit.gauss.fit_gaussian_portrait, ppgauss --fitscat
+              --fitalpha --tau on a scattered archive (make_fake_pulsar's
+              t_scat, 40 us; tau > 0 at the solution) and a joined fit
+              with tau > 0 of that portrait: K10's two epilogues launched
+              and no fit on jacfwd or K9 (FIT_ROUTES), K10 held against
+              its plain version on each run's first inputs and timed
+              there, each run again with the plain versions (parameters
+              within 1e-6 of their errors); each fit's wall, nfev, rc,
+              routes and the device ms of one jacfwd pass at its
+              solution (the route K10 replaces; with its einsums) beside
+              its bound
   walkthrough examples/example.py through the port at full width: 5
               scintillated, dispersed epochs of 10 x 512 x 2048 (noise
               1.5, own seeds, dDM ~ N(3e-4, 2e-4), the spin perturbation
@@ -319,13 +335,15 @@ throughput_scat fits included, K5-K7 (``unpack``, ``baseline``,
 archive, the load phase's own run first, K8 (``smooth_search``, counted
 once a chunk decided, its ``symbols`` and ``rows_by_path``: rows by
 tier) on ppspline, ppalign_s and the walkthrough, K9 (``gauss_normal``,
-``gauss_sse``) on ppgauss, with
+``gauss_sse``) on ppgauss, K10 (``gauss_ft_normal``, ``gauss_ft_sse``)
+on ppgauss_scat, with
 ``launches_by_path`` —
 errors and times; K2 with
 its [1000, 1025] numbers, K1 and K3 with their [1000, 512, 128] ones and
 K4 with its [64, 512, 2048] ones,
 K5-K7 with the load phase's, K8 with ppalign_s's [512, 2048] ones, K9
-with its one-lane, one-component [512, 2048] ones,
+with its one-lane, one-component [512, 2048] ones, K10 with its
+one-lane, one-component, tau > 0 [512, 2048] ones,
 each with a ``shapes`` list of all its cases), the card's name and power
 limit, and
 last ``{"ok": true, "device": {...}}``.  Exits non-zero without a result
@@ -469,6 +487,25 @@ K9_MAIN = 0
 K9_ROUTE_MAX_NGAUSS = 4
 # the components at which the kernels phase times cuBLAS's Gram alone
 K9_GRAM_NGAUSS = (4, 19)
+# K10, the scattered and joined Gaussian portrait fit's normal equations
+# (ppgauss --fitscat / --fitalpha / --tau and joined fits): epilogue B the
+# fit's f, g and J^T J, epilogue A its f alone
+K10_NAMES = ("gauss_ft_normal", "gauss_ft_sse")
+# K10 against its plain version: f, g and J^T J within this of each
+# output's largest magnitude, lane by lane, as K9_TOL
+# (tests/test_torch_cuda_paths.py GAUSS_FT_TOL), and the same NaNs
+K10_TOL = 1e-12
+# K10 cases at ppgauss's aligned portrait, [512, 2048], one lane:
+# (components, kind): tau 2 bins ("tau"), tau 0 with tau fitted ("tau0":
+# its rows and columns exactly 0), two join groups ("joined"), both
+# ("joined_tau")
+K10_KINDS = ("tau", "tau0", "joined", "joined_tau")
+K10_CASES = [(ng, kind) for ng in (1, 4, 19) for kind in K10_KINDS]
+K10_MAIN = 0
+# the scattered archive of ppgauss_scat's --fitscat --fitalpha --tau run:
+# its scattering time at nu0 [s] (the fit starts at 3/4 of it), index
+# and noise
+K10_T_SCAT, K10_ALPHA, K10_NOISE = 4e-5, -4.0, 0.05
 
 
 def emit(phase, **kw):
@@ -776,6 +813,9 @@ def phase_kernels(dev, kern):
     k9 = [phase_k9(dev, kern, *case) for case in K9_CASES]
     for j, name in enumerate(K9_NAMES):
         rows[name] = [pair[j] for pair in k9]
+    k10 = [phase_k10(dev, kern, *case) for case in K10_CASES]
+    for j, name in enumerate(K10_NAMES):
+        rows[name] = [pair[j] for pair in k10]
     return rows
 
 
@@ -783,29 +823,9 @@ def k9_inputs(dev, ngauss, B, nchan=512, nbin=2048, seed=9):
     """K9's arguments at [nchan, nbin]: B lanes of ngauss power-law
     components (model code "000", tau 0), data the first lane's model
     plus noise (numpy, seeded), per-channel errors broadcast over the bins
-    as ppgauss gives them, the band of the smoke's archives."""
-    import numpy as np
-    import torch
-
-    from pulseportraiture_tpu_torch.ops.fourier import get_bin_centers
-    from pulseportraiture_tpu_torch.ops.profiles import gen_gaussian_portrait
-
-    rng = np.random.default_rng(seed)
-    freqs = np.linspace(NU0 - 400.0, NU0 + 400.0, nchan)
-    comps = []
-    for c in range(ngauss):
-        comps += [0.2 + 0.6 * c / ngauss, -0.05, 0.03 + 0.01 * c, 0.1,
-                  1.0 / (c + 1), -1.2]
-    base = np.concatenate([[0.02, 0.0], comps, [-4.0]])
-    x = np.stack([base * (1.0 + 0.002 * k) for k in range(B)])
-    x[:, 1] = 0.0
-    model = gen_gaussian_portrait("000", base[:-1], base[-1],
-                                  np.arange(nbin) / nbin, freqs, NU0).numpy()
-    noise = rng.uniform(0.02, 0.08, nchan)
-    data = model + rng.normal(0.0, 1.0, (nchan, nbin)) * noise[:, None]
-    t = lambda a: torch.as_tensor(a, device=dev)  # noqa: E731
-    return (t(x), t(data), t(noise[:, None]).expand(nchan, nbin),
-            get_bin_centers(nbin, device=dev), t(freqs), NU0, "000")
+    as ppgauss gives them, the band of the smoke's archives (k10_inputs
+    with neither scattering nor join groups)."""
+    return k10_inputs(dev, ngauss, "tau0", B, nchan, nbin, seed)[0][:7]
 
 
 def jacfwd_pass_ms(residual, x, reps=3):
@@ -933,6 +953,217 @@ def phase_k9(dev, kern, ngauss, B, nchan=512, nbin=2048):
             raise AssertionError("%s kernel disagrees at %s: %s"
                                  % (name, row["shape"], row))
         out.append(row)
+    torch.cuda.empty_cache()
+    return out
+
+
+def k10_inputs(dev, ngauss, kind, B=1, nchan=512, nbin=2048, seed=10):
+    """K10's arguments at [nchan, nbin] and its join groups: B lanes of
+    ngauss power-law components (model code "000"), tau 2 bins where
+    ``kind`` (K10_KINDS) scatters (else 0) and two join groups splitting
+    the band where it joins (the second's phase and DM off the first's),
+    data the first lane's model plus noise (numpy, seeded), per-channel
+    errors broadcast over the bins as ppgauss gives them, the band of the
+    smoke's archives, each channel's group and the period."""
+    import numpy as np
+    import torch
+
+    from pulseportraiture_tpu_torch.ops.fourier import get_bin_centers
+    from pulseportraiture_tpu_torch.ops.profiles import gen_gaussian_portrait
+
+    rng = np.random.default_rng(seed)
+    freqs = np.linspace(NU0 - 400.0, NU0 + 400.0, nchan)
+    comps = []
+    for c in range(ngauss):
+        comps += [0.2 + 0.6 * c / ngauss, -0.05, 0.03 + 0.01 * c, 0.1,
+                  1.0 / (c + 1), -1.2]
+    joined = kind.startswith("joined")
+    tau = 2.0 if kind in ("tau", "joined_tau") else 0.0
+    jp = [0.0, 0.0, 0.013, -1e-3] if joined else []
+    joins = [np.arange(0, nchan // 2), np.arange(nchan // 2, nchan)] \
+        if joined else []
+    base = np.concatenate([[0.02, tau], comps, [-4.0], jp])
+    x = np.stack([base * (1.0 + 0.002 * k) for k in range(B)])
+    x[:, 1] = tau
+    npar = 2 + 6 * ngauss
+    P = 0.005
+    model = gen_gaussian_portrait(
+        "000", np.concatenate([base[:npar], jp]), -4.0,
+        np.arange(nbin) / nbin, freqs, NU0, join_ichans=joins, P=P).numpy()
+    noise = rng.uniform(0.02, 0.08, nchan)
+    data = model + rng.normal(0.0, 1.0, (nchan, nbin)) * noise[:, None]
+    groups = np.full(nchan, -1, dtype=np.int32)
+    for j, ichans in enumerate(joins):
+        groups[ichans] = j
+    t = lambda a: torch.as_tensor(a, device=dev)  # noqa: E731
+    return (t(x), t(data), t(noise[:, None]).expand(nchan, nbin),
+            get_bin_centers(nbin, device=dev), t(freqs), NU0, "000",
+            t(groups), len(joins), P), joins
+
+
+def real_fft_ops(nbin):
+    """FP64 operations of one real FFT of nbin points as K10 takes it: a
+    complex FFT of nbin / 2 points (5 n log2 n) and the split (~12 an
+    output harmonic)."""
+    n = nbin // 2
+    return 5 * n * math.log2(n) + 12 * (n + 1)
+
+
+def gauss_ft_bound_ms(B, nchan, nbin, ngauss, njoin, normal):
+    """K10's least time for B lanes of [nchan, nbin] at ``ngauss``
+    components and ``njoin`` join groups: the params, the data's packed
+    spectrum, the channels' errors, bins, freqs and groups read once, f
+    (and g and J^T J) written once (the staged rows are the design's, not
+    the function's: gauss_ft_staged_bytes); per lane and channel the
+    component basis at K9's count (gauss_ops_per_bin), its 3 ngauss + 1
+    real FFTs (real_fft_ops; 1 in epilogue A), ~10 operations a harmonic
+    and row for the scattering and join factors and the packing (the
+    residual's ~6 a harmonic in A), at the FP64 peak; in B the Gram of the
+    q1 = 3 ngauss + 4 packed rows, (q1 + 1) q1 multiply-adds counted 2
+    each a packed real, at the FP64 tensor cores' peak, and the chain rule
+    (4 operations a channel for each of J^T J's upper triangle and g)."""
+    P = 6 * ngauss + 3 + 2 * njoin
+    N = nchan * nbin
+    nbytes = B * P * 8 + N * 8 + nchan * (8 + 8 + 4) + nbin * 8 + \
+        B * 8 * ((1 + P + P * P) if normal else 1)
+    vector, _ = gauss_ops_per_bin(ngauss, normal)
+    K = nbin // 2 + 1
+    if normal:
+        rows = 3 * ngauss + 1
+        ops = B * (N * vector + nchan * rows * (real_fft_ops(nbin) + 10 * K)
+                   + nchan * 4 * (P * (P + 1) // 2 + P))
+        q1 = 3 * ngauss + 4
+        gram = B * N * q1 * (q1 + 1)
+    else:
+        ops = B * (N * vector + nchan * (real_fft_ops(nbin) + 16 * K))
+        gram = 0
+    return bound_ms(nbytes, (ops, PEAK_FP64_PER_S),
+                    (gram, PEAK_FP64_TENSOR_PER_S))
+
+
+def gauss_ft_staged_bytes(B, nchan, nbin, ngauss):
+    """The bytes K10's epilogue B stages in device memory, written once
+    and read once by the Gram (read once a panel pair beyond 20
+    components): [B, nchan, 3 ngauss + 3, nbin] float64, twice over."""
+    return 2 * B * nchan * (3 * ngauss + 3) * nbin * 8
+
+
+def rfft_bmm_ms(dev, ngauss, B, nchan, nbin):
+    """The library's time for K10's two halves: torch.fft.rfft of a
+    materialised basis [B nchan, 3 ngauss + 1, nbin] (the rows K10
+    transforms) and torch.bmm of packed rows [B nchan, 3 ngauss + 4,
+    nbin] by their transpose (its Gram), by graph replay (values drawn at
+    random: the times do not depend on them).  No PyTorch call computes
+    K10's whole function."""
+    import torch
+
+    V = torch.randn((B * nchan, 3 * ngauss + 1, nbin), dtype=torch.float64,
+                    device=dev)
+    W = torch.randn((B * nchan, 3 * ngauss + 4, nbin), dtype=torch.float64,
+                    device=dev)
+    ms = graph_ms(lambda: (torch.fft.rfft(V), torch.bmm(W, W.mT)))
+    del V, W
+    torch.cuda.empty_cache()
+    return ms
+
+
+def k10_split_ms(fn, reps=5):
+    """Epilogue B's device ms a call split by launch, from torch.profiler
+    over ``reps`` calls: {"rows": gauss_ft_rows_kernel, "gram":
+    gauss_ft_gram_kernel}, None where the trace holds no device rows."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for ev in prof.key_averages():
+        for part in ("rows", "gram"):
+            if "gauss_ft_%s_kernel" % part in ev.key:
+                us = getattr(ev, "device_time_total", None)
+                if us is None:
+                    us = ev.cuda_time_total
+                out[part] = us / 1e3 / reps
+    return out or None
+
+
+def phase_k10(dev, kern, ngauss, kind, B=1, nchan=512, nbin=2048):
+    """K10's two epilogues against their plain versions at [nchan, nbin]
+    with ``ngauss`` components of ``kind`` (K10_KINDS) and B lanes: f, g
+    and J^T J within K10_TOL, the same NaNs, two calls the same bits, the
+    tau and scattering-index rows and columns exactly 0 at tau = 0;
+    device times by graph replay through a GaussFtWork, the wrapper's per
+    call with and without one, the plain version's, the bound, the staged
+    rows' bytes, epilogue B's split by launch (k10_split_ms); the work's
+    outputs of the timed replay and of a later call the first call's
+    bits; beside epilogue B the
+    library's rfft and Gram (rfft_bmm_ms) and, up to K9_ROUTE_MAX_NGAUSS
+    components, the torch jacfwd route K10 replaces.  Returns the two
+    rows."""
+    import torch
+
+    args, joins = k10_inputs(dev, ngauss, kind, B, nchan, nbin)
+    work = kern.GaussFtWork(*args[1:])
+    route = (None, None)
+    if ngauss <= K9_ROUTE_MAX_NGAUSS:
+        x, data, errs, bins, freqs, nu_ref, code = args[:7]
+        route = jacfwd_pass_ms(portrait_residual(
+            code, data, errs, bins, freqs, nu_ref, joins,
+            args[9] if joins else None), x)
+    out = []
+    for name in K10_NAMES:
+        fn, plain = getattr(kern, name), getattr(kern, name + "_plain")
+        got, again, want = fn(*args), fn(*args), plain(*args)
+        torch.cuda.synchronize()
+        errs, abs_err, same_nan = k9_errors(got, want)
+        repeat = all(torch.equal(a, b) for a, b in zip(
+            *(v if isinstance(v, tuple) else (v,) for v in (got, again))))
+        normal = name == "gauss_ft_normal"
+        bms, by = gauss_ft_bound_ms(B, nchan, nbin, ngauss, len(joins),
+                                    normal)
+        replayed = []
+        row = dict(shape=[B, nchan, nbin], ngauss=ngauss, kind=kind,
+                   njoin=len(joins), max_rel_err=max(errs.values()),
+                   errors=errs, tol=K10_TOL,
+                   same_nan=same_nan, repeat_bit_equal=repeat,
+                   max_abs_err=abs_err,
+                   ms=graph_ms(lambda: fn(*args, work=work), keep=replayed),
+                   call_ms=cuda_ms(lambda: fn(*args)),
+                   work_call_ms=cuda_ms(lambda: fn(*args, work=work)),
+                   plain_ms=cuda_ms(lambda: plain(*args), reps=3, warm=1),
+                   bound_ms=bms, bound_by=by, library_ms=None)
+        row["share_of_bound"] = bms / row["ms"]
+        later = fn(*args, work=work)
+        torch.cuda.synchronize()
+        tup = lambda v: v if isinstance(v, tuple) else (v,)  # noqa: E731
+        work_same = all(torch.equal(a, b) for v in (replayed[0], later)
+                        for a, b in zip(tup(v), tup(got)))
+        zeros = True
+        if normal:
+            row["staged_bytes"] = gauss_ft_staged_bytes(B, nchan, nbin,
+                                                        ngauss)
+            row["staged_ms_at_hbm"] = row["staged_bytes"] / \
+                PEAK_BYTES_PER_S * 1e3
+            row["rfft_bmm_ms"] = rfft_bmm_ms(dev, ngauss, B, nchan, nbin)
+            row["split_ms"] = k10_split_ms(lambda: fn(*args, work=work))
+            row["torch_route_jac_ms"], row["torch_route_ms"] = route
+            if kind == "tau0":
+                ia = args[0].shape[1] - 1 - 2 * len(joins)
+                zeros = not any(bool(t.any()) for i in (1, ia) for t in (
+                    got[1][:, i], got[2][:, i, :], got[2][:, :, i]))
+                row["tau_alpha_exactly_zero"] = zeros
+        row["work_bit_equal"] = work_same
+        emit("kernels", kernel=name, **row)
+        if not (row["max_rel_err"] <= K10_TOL and same_nan and repeat
+                and work_same and zeros):
+            raise AssertionError("%s kernel disagrees at %s %s: %s"
+                                 % (name, row["shape"], kind, row))
+        out.append(row)
+    del work
     torch.cuda.empty_cache()
     return out
 
@@ -2446,7 +2677,8 @@ def path_kernels_vs_plain(K, seen, required=PHASE_DM_KERNELS):
     "name@shape".  Raises when a ``required`` kernel was never called, or
     beyond 1e-12 of each sum's largest magnitude (K2's phase: 1e-9
     rot; K1's and K3's f, g and H terms: K1_GH_TOL, K3_GH_TOL; K5-K7 at
-    LOAD_TOL, load_errors; K9's f, g and J^T J at K9_TOL, k9_errors)."""
+    LOAD_TOL, load_errors; K9's and K10's f, g and J^T J at K9_TOL and
+    K10_TOL, k9_errors)."""
     import torch
 
     plains = {name: getattr(K, name + "_plain") for name in K.KERNELS}
@@ -2497,10 +2729,11 @@ def path_kernels_vs_plain(K, seen, required=PHASE_DM_KERNELS):
         elif name == "smooth_search":
             abs_err, err, mismatches = smooth_errors(got, want)
             ok = mismatches == 0 and err <= SMOOTH_TOL
-        elif name in K9_NAMES:
+        elif name in K9_NAMES + K10_NAMES:
             errs, abs_err, same_nan = k9_errors(got, want)
             err = max(errs.values())
-            ok = err <= K9_TOL and same_nan
+            ok = err <= (K9_TOL if name in K9_NAMES else K10_TOL) \
+                and same_nan
             shape = [a[0].shape[0]] + list(a[1].shape)   # lanes, data
         else:
             err = max(rel_err(got[..., i], want[..., i])
@@ -3245,93 +3478,191 @@ def phase_ppgauss(root, work, K, dev, avg, small):
             for name in launches}
 
 
-def phase_ppgauss_scat(root, work, K, dev, avg):
-    """The Gaussian portrait fits K9 does not take, on the aligned archive:
-    ppgauss --autogauss 0.05 --niter 2 --fitscat (tau fitted: every
-    portrait fit on torch.func's jacfwd, FIT_ROUTES["jacfwd"], K9 never
-    launched), and a joined fit of its portrait in two join groups of
-    channels (the second group's phase and DM fitted) through
-    fit.gauss.fit_gaussian_portrait (the smoke's archives share one band,
-    so no metafile of bands is made for ppgauss -j).  Each: wall, nfev,
-    rc, the routes, and the device time of one jacfwd pass at its
-    solution, with its einsums, beside its bound.  Returns the launches
-    of the ppgauss run."""
-    import numpy as np
-    import torch
+def k10_path_rows(K, seen):
+    """K10 on the inputs a path first gave it: against its plain version
+    (path_kernels_vs_plain at K10_TOL) and timed there
+    (path_kernel_times)."""
+    return (path_kernels_vs_plain(K, seen, required=K10_NAMES),
+            path_kernel_times(K, {(k, None): v for k, v in seen.items()}))
 
+
+def params_gap(a, b, errs):
+    """max |a - b| / errs over the parameters with a finite, nonzero
+    error."""
+    import numpy as np
+
+    fin = np.isfinite(errs) & (errs > 0)
+    return float(np.max(np.abs(np.asarray(a) - np.asarray(b))[fin]
+                        / errs[fin]))
+
+
+def ppgauss_scat_cli(K, dev, work, tag, argv):
+    """One scattered ppgauss run through K10 (its first inputs held against
+    the plain version and timed), then the same run with the plain
+    versions: (its row, its launches, its last GaussianModelPortrait)."""
     from pulseportraiture_tpu_torch.cli import ppgauss
     from pulseportraiture_tpu_torch.fit import gauss as fit_gauss
+    from pulseportraiture_tpu_torch.io.gmodel import read_model
     from pulseportraiture_tpu_torch.models import gauss
 
-    out = os.path.join(work, "aligned_scat.gmodel")
-    argv = ["-d", avg, "--autogauss", "0.05", "--niter", "2", "--fitscat",
-            "--device", str(dev), "-o", out]
+    out = os.path.join(work, tag + ".gmodel")
     routes = dict(fit_gauss.FIT_ROUTES)
     with clocked(gauss, ("fit_gaussian_portrait",),
                  keep_out=("fit_gaussian_portrait",)) as clock, \
             clocked(gauss.GaussianModelPortrait,
-                    ("check_convergence",)) as conv:
-        wall, launches = run_tool(K, ppgauss, argv)
+                    ("check_convergence",)) as conv, \
+            first_kernel_inputs(K, K10_NAMES) as seen:
+        wall, launches = run_tool(K, ppgauss, argv + ["-o", out])
     routes = {k: fit_gauss.FIT_ROUTES[k] - routes[k] for k in routes}
+    vs_plain, times = k10_path_rows(K, seen)
     fits = clock["fit_gaussian_portrait_out"]
     dp = conv["self"][-1]
-    nparam = len(dp.model_params)
-    ngauss = (nparam - 2) // 6
-    nchan = dp.portx.shape[0]
+    params = read_model(out)[4]
+    plain_out = os.path.join(work, tag + "_plain.gmodel")
+    with plain_kernels(K):
+        run_tool(K, ppgauss, argv + ["-o", plain_out])
+    gap = params_gap(read_model(plain_out)[4], params,
+                     read_model(out + "_errs")[4])
     jms, route_ms, jb, jby, jshape = jacobian_pass(dp, dev)
-    scat = dict(cli_s=wall, fit_s=clock["fit_gaussian_portrait"],
-                lm_nfev=[f.nfev for f in fits],
-                lm_rc=[f.return_code for f in fits], fit_routes=routes,
-                tau_bins=float(dp.model_params[1]),
-                jacobian=dict(shape=jshape, ms=jms, torch_route_ms=route_ms,
-                              bound_ms=jb, bound_by=jby))
+    row = dict(cli_s=wall, fit_s=clock["fit_gaussian_portrait"],
+               lm_nfev=[f.nfev for f in fits],
+               lm_rc=[f.return_code for f in fits], fit_routes=routes,
+               tau_bins=float(dp.model_params[1]),
+               scattering_index=float(dp.scattering_index),
+               red_chi2=fits[-1].chi2 / fits[-1].dof,
+               k10_vs_plain=vs_plain, k10_times=times,
+               plain_vs_kernel_params_over_errs=gap,
+               jacobian=dict(shape=jshape, ms=jms, torch_route_ms=route_ms,
+                             bound_ms=jb, bound_by=jby))
+    return row, launches, dp
 
-    # the joined fit: two join groups of channels, unscattered, the
-    # second group's (phase, DM) fitted
+
+def ppgauss_scat_joined(K, dev, dp, tau):
+    """A joined fit of ``dp``'s portrait in two join groups of channels
+    (the second's phase and DM fitted) through fit_gaussian_portrait,
+    tau starting at ``tau`` and fitted where nonzero: through K10 (its
+    first inputs held against the plain version and timed), then with
+    the plain versions; the torch jacfwd pass at its solution: (its row,
+    its launches)."""
+    import numpy as np
+    import torch
+
+    from pulseportraiture_tpu_torch.fit import gauss as fit_gauss
+
+    nparam = len(dp.model_params)
+    nchan = dp.portx.shape[0]
     half = nchan // 2
     joins = [np.arange(0, half), np.arange(half, nchan)]
     init = np.array(dp.model_params, dtype=np.float64)
-    init[1] = 0.0
+    init[1] = tau
     flags = np.ones(nparam)
-    flags[1] = 0.0
+    flags[1] = float(tau != 0.0)
     jargs = (dp.model_code, dp.portx, init, dp.scattering_index,
              dp.portx_noise, flags, False, dp.phases, dp.freqsxs[0],
              dp.nu_ref, [joins, np.zeros(4), np.array([0, 0, 1, 1])],
              dp.Ps[0])
-    jroutes = dict(fit_gauss.FIT_ROUTES)
+    routes = dict(fit_gauss.FIT_ROUTES)
     K.reset_launches()
-    t0 = time.perf_counter()
-    jfit = fit_gauss.fit_gaussian_portrait(*jargs, device=dev)
-    torch.cuda.synchronize()
-    jwall = time.perf_counter() - t0
-    jlaunch = dict(K.LAUNCHES)
-    jroutes = {k: fit_gauss.FIT_ROUTES[k] - jroutes[k] for k in jroutes}
+    with first_kernel_inputs(K, K10_NAMES) as seen:
+        t0 = time.perf_counter()
+        jfit = fit_gauss.fit_gaussian_portrait(*jargs, device=dev)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    launches = dict(K.LAUNCHES)
+    routes = {k: fit_gauss.FIT_ROUTES[k] - routes[k] for k in routes}
+    vs_plain, times = k10_path_rows(K, seen)
+    with plain_kernels(K):
+        pfit = fit_gauss.fit_gaussian_portrait(*jargs, device=dev)
+    gap = params_gap(pfit.fitted_params, jfit.fitted_params, jfit.fit_errs)
     jx = np.concatenate([jfit.fitted_params[:nparam],
                          [jfit.scattering_index],
                          jfit.fitted_params[nparam:]])
-    jjms, jroute_ms, jjb, jjby, jjshape = jacobian_pass(dp, dev, joins, jx)
-    joined = dict(fit_s=jwall, lm_nfev=int(jfit.nfev),
-                  lm_rc=int(jfit.return_code), fit_routes=jroutes,
-                  join_params=[float(v) for v in jfit.fitted_params[nparam:]],
-                  red_chi2=jfit.chi2 / jfit.dof,
-                  jacobian=dict(shape=jjshape, ms=jjms,
-                                torch_route_ms=jroute_ms, bound_ms=jjb,
-                                bound_by=jjby))
-    emit("ppgauss_scat", launches=launches, n_components=ngauss,
-         scattered=scat, joined=joined)
-    if routes["normal"] or not routes["jacfwd"] or any(
-            launches[n] for n in K9_NAMES):
-        raise AssertionError("ppgauss --fitscat: fit routes %s, launches %s"
-                             % (routes, launches))
-    if jroutes != {"normal": 0, "jacfwd": 1} or any(
-            jlaunch[n] for n in K9_NAMES):
-        raise AssertionError("joined fit: fit routes %s, launches %s"
-                             % (jroutes, jlaunch))
-    if not (np.isfinite(dp.model_params).all() and np.isfinite(jx).all()
-            and np.isfinite(jfit.chi2)):
-        raise AssertionError("ppgauss_scat: params %s, joined %s"
-                             % (dp.model_params, jx))
-    return launches
+    jms, route_ms, jb, jby, jshape = jacobian_pass(dp, dev, joins, jx)
+    row = dict(fit_s=wall, lm_nfev=int(jfit.nfev),
+               lm_rc=int(jfit.return_code), fit_routes=routes,
+               tau_bins=float(jfit.fitted_params[1]),
+               join_params=[float(v) for v in jfit.fitted_params[nparam:]],
+               red_chi2=jfit.chi2 / jfit.dof, k10_vs_plain=vs_plain,
+               k10_times=times, plain_vs_kernel_params_over_errs=gap,
+               params_finite=bool(np.isfinite(jx).all()
+                                  and np.isfinite(jfit.chi2)),
+               jacobian=dict(shape=jshape, ms=jms, torch_route_ms=route_ms,
+                             bound_ms=jb, bound_by=jby))
+    return row, launches
+
+
+def phase_ppgauss_scat(root, work, K, dev, avg):
+    """The Gaussian portrait fits K9 does not take, each through K10:
+    ppgauss --autogauss 0.05 --niter 2 --fitscat on the aligned archive
+    (tau fitted from 0, where its column is exactly 0, so it stays there);
+    a joined fit of that portrait in two join groups of channels (the
+    second group's phase and DM fitted) through
+    fit.gauss.fit_gaussian_portrait (the smoke's archives share one band,
+    so no metafile of bands is made for ppgauss -j); ppgauss --autogauss
+    0.05 --niter 2 --fitscat --fitalpha --tau on a scattered archive (the
+    port's make_fake_pulsar with t_scat K10_T_SCAT on a one-component
+    model), tau > 0 at its solution; and a joined fit with tau > 0 on that
+    portrait.  Each: K10's two epilogues launched, no fit on jacfwd or
+    K9 (FIT_ROUTES), K10 held against its plain version on the first
+    inputs the path gave it (K10_TOL) and timed there, the run again with
+    the plain versions (parameters within 1e-6 of their errors), wall,
+    nfev, rc, and the device time of one jacfwd pass (the route K10
+    replaces) at its solution beside its bound.  Returns the launches of
+    the four runs, summed."""
+    import numpy as np
+
+    from pulseportraiture_tpu_torch.io.archive import make_fake_pulsar
+    from pulseportraiture_tpu_torch.io.gmodel import write_model
+
+    base = ["--autogauss", "0.05", "--niter", "2", "--fitscat", "--device",
+            str(dev)]
+    rows, runs = {}, {}
+    rows["scattered"], runs["scattered"], dp = ppgauss_scat_cli(
+        K, dev, work, "aligned_scat", ["-d", avg] + base)
+    rows["joined"], runs["joined"] = ppgauss_scat_joined(K, dev, dp, 0.0)
+    # a one-component model scattered by make_fake_pulsar, fitted from
+    # 3/4 of its tau with the scattering index fitted too
+    gm = os.path.join(work, "unscattered.gmodel")
+    write_model(gm, "k10", "000", NU0, MODEL_PARAMS, np.ones(8, int), -4.0,
+                0, quiet=True)
+    scat = make_fake_pulsar(
+        gm, os.path.join(root, "examples", "example.par"),
+        os.path.join(work, "scat.fits"), nsub=1, nchan=512, nbin=2048,
+        nu0=NU0, bw=800.0, tsub=60.0, noise_stds=K10_NOISE,
+        dedispersed=True, t_scat=K10_T_SCAT, alpha=K10_ALPHA, seed=31)
+    rows["scattered_tau"], runs["scattered_tau"], dps = ppgauss_scat_cli(
+        K, dev, work, "scat",
+        ["-d", scat, "--fitalpha", "--tau", repr(0.75 * K10_T_SCAT)] + base)
+    rows["scattered_tau"]["injected_tau_bins"] = \
+        K10_T_SCAT * dps.nbin / dps.Ps[0]
+    rows["joined_tau"], runs["joined_tau"] = ppgauss_scat_joined(
+        K, dev, dps, float(dps.model_params[1]))
+    emit("ppgauss_scat", launches=runs, **rows)
+    for tag, row in rows.items():
+        launched = runs[tag]
+        r = row["fit_routes"]
+        if r["jacfwd"] or r["normal"] or not r["spectral"] or any(
+                launched[n] == 0 for n in K10_NAMES) or any(
+                launched[n] for n in K9_NAMES):
+            raise AssertionError("ppgauss_scat %s: fit routes %s, launches "
+                                 "%s" % (tag, r, launched))
+        if not row["plain_vs_kernel_params_over_errs"] <= 1e-6:
+            raise AssertionError("ppgauss_scat %s: plain vs kernel "
+                                 "parameters differ by %.3g of their errors"
+                                 % (tag, row["plain_vs_kernel_params_over_"
+                                             "errs"]))
+    if not (np.isfinite(dp.model_params).all() and np.isfinite(
+            dps.model_params).all() and rows["joined"]["params_finite"]
+            and rows["joined_tau"]["params_finite"]):
+        raise AssertionError("ppgauss_scat: params %s, %s" % (
+            dp.model_params, dps.model_params))
+    if not (rows["scattered_tau"]["tau_bins"] > 0.0
+            and rows["joined_tau"]["tau_bins"] > 0.0):
+        raise AssertionError("ppgauss_scat: tau %r, joined %r at the "
+                             "solution" % (rows["scattered_tau"]["tau_bins"],
+                                           rows["joined_tau"]["tau_bins"]))
+    return {name: sum(run[name] for run in runs.values())
+            for name in K.LAUNCHES}
 
 
 # examples/example.py's walkthrough: epochs, their first MJD and spacing,
@@ -4453,10 +4784,10 @@ def phase_obs(root, work, K, dev, small, fit_shape=(1000, 512, 2048)):
         problems += obs_completeness_problems(key, e, counts, reg)
     # the captures are fit regions: every fit kernel shows in one; the
     # load's (K5-K7) run before them, and no captured path smooths (K8)
-    # or fits a Gaussian model (K9)
+    # or fits a Gaussian model (K9, K10)
     seen = {k: sum(r["trace_kernel_rows"][k] for r in rows)
             for k in K.TRACE_NAMES
-            if k not in LOAD_NAMES + SMOOTH_KERNELS + K9_NAMES}
+            if k not in LOAD_NAMES + SMOOTH_KERNELS + K9_NAMES + K10_NAMES}
     if not all(seen.values()):
         problems.append("kernels absent from every trace: %s" % seen)
     all_stages = set().union(*stages.values()) if stages else set()
@@ -5186,6 +5517,11 @@ def path_kernel_times(K, seen):
             bms, by = gauss_bound_ms(*shape, K.gauss_ngauss(a[0].shape[1]),
                                      name == "gauss_normal",
                                      k9_err_values(a[2]))
+        elif name in K10_NAMES:
+            shape = [shape[0]] + list(a[1].shape)
+            bms, by = gauss_ft_bound_ms(
+                *shape, K.gauss_ft_ngauss(a[0].shape[1], a[8]), a[8],
+                name == "gauss_ft_normal")
         elif name in K1_NAMES:
             # the evaluated rows: all, or the lanes given
             bms, by = moments_bound_ms(a[1].shape[0], *shape[1:],
@@ -5466,9 +5802,10 @@ def phase_serve(root, work, K, survey, device="cuda"):
                                  % failed)
         # served archives carry their noise: K4's first epilogue only;
         # their loads decode and remove the baseline in one K5 launch; no
-        # request smooths (K8) or fits a Gaussian model (K9)
+        # request smooths (K8) or fits a Gaussian model (K9, K10)
         served = tuple(n for n in K.KERNELS if n not in (
-            "spectra_noise", "baseline") + SMOOTH_KERNELS + K9_NAMES)
+            "spectra_noise", "baseline") + SMOOTH_KERNELS + K9_NAMES
+            + K10_NAMES)
         if any(launches[n] == 0 for n in served):
             raise AssertionError("serve launches %s" % launches)
         path_rows = path_kernels_vs_plain(K, seen, required=served)
@@ -5960,7 +6297,8 @@ def phase_mesh(root, work, K, survey, shape=(1000, 512, 2048),
                 and c["pp_dm"] <= 1.0005e-7 and c["pp_dme"] <= 1.0005e-7
     path_rows = path_kernels_vs_plain(K, seen, required=tuple(
         n for n in K.KERNELS
-        if n not in ("baseline",) + SMOOTH_KERNELS + K9_NAMES))
+        if n not in ("baseline",) + SMOOTH_KERNELS + K9_NAMES
+        + K10_NAMES))
     times = path_kernel_times(K, seen)
     del seen
     torch.cuda.empty_cache()
@@ -5981,9 +6319,9 @@ def phase_mesh(root, work, K, survey, shape=(1000, 512, 2048),
                              "unsharded one (the mesh line above)")
     # the mesh's loads decode and remove the baseline in one K5 launch:
     # K5's baseline alone follows only a rotation or a state conversion;
-    # nothing on it smooths (K8) or fits a Gaussian model (K9)
+    # nothing on it smooths (K8) or fits a Gaussian model (K9, K10)
     missing = [n for n, c in launches.items() if c == 0 and n not in
-               ("baseline",) + SMOOTH_KERNELS + K9_NAMES]
+               ("baseline",) + SMOOTH_KERNELS + K9_NAMES + K10_NAMES]
     if missing:
         raise AssertionError("kernels never launched on the mesh path: %s"
                              % missing)
@@ -6074,9 +6412,11 @@ def main(argv):
         paths[name] = list(by_path)
     # K8 on every path that smooths
     paths["smooth_search"] = ["ppspline", "ppalign_s", "walkthrough"]
-    # K9 on ppgauss's portrait fits
+    # K9 on ppgauss's portrait fits, K10 on its scattered and joined ones
     for name in K9_NAMES:
         paths[name] = ["ppgauss"]
+    for name in K10_NAMES:
+        paths[name] = ["ppgauss_scat"]
     # no archive of any path failed on a device error
     failed = [f for made in failed_lists for f in made]
     emit("failed_datafiles", gettoas_runs=len(failed_lists), failed=failed)
@@ -6089,7 +6429,8 @@ def main(argv):
     missing += ["%s on %s" % (n, p) for p, names in (
         ("load", LOAD_NAMES), ("pptoas", LOAD_PATH_KERNELS),
         ("ppspline", SMOOTH_KERNELS), ("ppalign_s", SMOOTH_KERNELS),
-        ("walkthrough", SMOOTH_KERNELS), ("ppgauss", K9_NAMES))
+        ("walkthrough", SMOOTH_KERNELS), ("ppgauss", K9_NAMES),
+        ("ppgauss_scat", K10_NAMES))
         for n in names if by_path[p][n] == 0]
     if missing:
         raise AssertionError("kernels never launched on any path: %s"
@@ -6136,6 +6477,15 @@ def main(argv):
                     "scan_vs_plain_max_rel_err", "scan_same_equal",
                     "gap_over_bound", "rows_failing_fft_check")}
                     for c in r])
+        elif name in K10_NAMES:
+            r, extra = r[K10_MAIN], dict(shapes=[
+                {key: c[key] for key in (
+                    "shape", "ngauss", "kind", "njoin", "ms", "call_ms",
+                    "work_call_ms", "bound_ms", "bound_by", "share_of_bound",
+                    "plain_ms", "rfft_bmm_ms", "split_ms", "staged_bytes",
+                    "torch_route_jac_ms", "torch_route_ms", "errors",
+                    "max_abs_err", "repeat_bit_equal") if key in c}
+                for c in r])
         elif name in K9_NAMES:
             r, extra = r[K9_MAIN], dict(shapes=[
                 {key: c[key] for key in (

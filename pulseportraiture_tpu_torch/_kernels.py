@@ -1,6 +1,6 @@
 """The port's hand-written CUDA kernels: build, ctypes binding, wrappers.
 
-Nine kernels, each a CUDA C++ source under ``csrc/`` compiled for
+Ten kernels, each a CUDA C++ source under ``csrc/`` compiled for
 Hopper (``sm_90a``) by ``nvcc`` into a shared library with a plain C
 interface and loaded with ``ctypes``:
 
@@ -81,6 +81,17 @@ interface and loaded with ``ctypes``:
      counters, one launch a call); and ``gauss_sse``, f alone, for the
      loop's trial steps.  One library, two entry points, each with its
      own launch count and trace name.
+  K10 ``gauss_ft_normal`` (csrc/gauss_ft.cu) — the same normal equations
+     for the scattered and the joined Gaussian portrait (tau nonzero or
+     fitted, join groups: ops/profiles.py:190-203), from the spectra of the
+     Jacobian's columns: each channel's basis rows and its unscattered
+     portrait transformed in shared memory (K8's Stockham passes), times
+     the scattering and join factors on the harmonic grid, packed
+     half-complex so that their Gram is the bins' (Parseval), staged in
+     device memory, then K9's Gram on the FP64 tensor cores, chain rule and
+     channel tree (two launches, counted as one); and ``gauss_ft_sse``, f
+     alone (one launch).  One library, two entry points, each with its own
+     launch count and trace name.
 
 Each wrapper dispatches on its input's device: a CPU tensor takes the
 plain PyTorch version beside it (the same name with ``_plain``: e.g.
@@ -120,7 +131,7 @@ import time
 import numpy as np
 import torch
 
-from .config import F0_fact
+from .config import Dconst, F0_fact
 from .obs import monitor
 from .ops.fourier import phasor
 from .ops.noise import SNR_of_noise, noise_PS_of_power
@@ -148,8 +159,12 @@ __all__ = ["KernelLaunchError", "LAUNCHES", "reset_launches", "build",
            "gauss_normal_plain", "gauss_sse", "gauss_sse_plain",
            "gauss_ngauss", "gauss_layout", "gauss_sizes", "GAUSS_SIZES",
            "GaussWork", "GAUSS_MAX_NGAUSS",
-           "GAUSS_SSE_MAX_NGAUSS", "GAUSS_WARP_NGAUSS",
-           "KERNELS"]
+           "GAUSS_SSE_MAX_NGAUSS", "GAUSS_WARP_NGAUSS", "gauss_ft_normal",
+           "gauss_ft_normal_plain", "gauss_ft_sse", "gauss_ft_sse_plain",
+           "gauss_ft_ngauss", "gauss_ft_takes_bins", "gauss_ft_sizes",
+           "pack_spectrum",
+           "GAUSS_FT_SIZES", "GaussFtWork", "GAUSS_FT_MAX_NGAUSS",
+           "GAUSS_FT_MIN_BINS", "GAUSS_FT_MAX_BINS", "KERNELS"]
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC_DIR = os.path.join(_HERE, "csrc")
@@ -187,6 +202,10 @@ KERNELS = {
                      "pulseportraiture_tpu/fit/lm.py:60"),
     "gauss_sse": ("gauss.cu", "pp_gauss_sse",
                   "pulseportraiture_tpu/fit/gauss.py:124"),
+    "gauss_ft_normal": ("gauss_ft.cu", "pp_gauss_ft_normal",
+                        "pulseportraiture_tpu/fit/lm.py:60"),
+    "gauss_ft_sse": ("gauss_ft.cu", "pp_gauss_ft_sse",
+                     "pulseportraiture_tpu/ops/profiles.py:190"),
 }
 # the sources, one nvcc and one library each
 SOURCES = tuple(sorted({src for src, _, _ in KERNELS.values()}))
@@ -245,13 +264,23 @@ _SYMBOLS = {
         _VP, _VP, _VP, _I64, _INT, _VP, _VP, _INT, _INT, _INT, _INT, _DBL,
         _DBL, _INT, _INT, _INT, _VP, _VP, _VP, _VP],
         "pp_gauss_sizes": [_INT, _INT, _INT, _VP]},
+    "gauss_ft_normal": {"pp_gauss_ft_normal": [
+        _VP, _VP, _VP, _I64, _VP, _VP, _VP, _VP, _INT, _INT, _INT, _INT, _INT,
+        _DBL, _DBL, _DBL, _INT, _INT, _INT, _VP, _VP, _VP, _VP, _VP, _VP,
+        _VP],
+        "pp_gauss_ft_sizes": [_INT, _INT, _INT, _INT, _INT, _VP]},
+    "gauss_ft_sse": {"pp_gauss_ft_sse": [
+        _VP, _VP, _VP, _I64, _VP, _VP, _VP, _VP, _INT, _INT, _INT, _INT, _INT,
+        _DBL, _DBL, _DBL, _INT, _INT, _INT, _VP, _VP, _VP, _VP],
+        "pp_gauss_ft_sizes": [_INT, _INT, _INT, _INT, _INT, _VP]},
 }
 
 # kernel name -> the CUDA function that runs once per counted launch, as
 # it is named in a profiler trace (K2's grid stage, its Newton stage
 # runs as often; K8's two selects, the route's and the scan's certifying
 # one, both wavelet_select*; K9's two layouts, gauss_normal_warp_kernel
-# and gauss_normal_mma_kernel)
+# and gauss_normal_mma_kernel; K10's normal equations run their rows kernel
+# before it, once a launch, as gauss_ft_rows_kernel)
 TRACE_NAMES = {"moments": "moments_kernel",
                "moments_grad_hess": "moments_grad_hess_kernel",
                "fftfit": "fftfit_grid_kernel",
@@ -265,7 +294,9 @@ TRACE_NAMES = {"moments": "moments_kernel",
                "rotate": "rotate_kernel",
                "smooth_search": "wavelet_select",
                "gauss_normal": "gauss_normal_",
-               "gauss_sse": "gauss_sse_kernel"}
+               "gauss_sse": "gauss_sse_kernel",
+               "gauss_ft_normal": "gauss_ft_gram_kernel",
+               "gauss_ft_sse": "gauss_ft_sse_kernel"}
 
 LAUNCHES = {name: 0 for name in KERNELS}
 BUILD_LOG = {}  # library (source stem) -> nvcc output (register report)
@@ -2357,6 +2388,51 @@ def _evolve_plain(p0, slope, logf, dfreq, law):
             torch.zeros_like(val))
 
 
+def _gauss_components_plain(params, bins, freqs, nu_ref, laws, ng):
+    """The ``ng`` components of a Gaussian portrait at every channel and
+    bin (ops.profiles.gen_gaussian_portrait's arithmetic), for K9's and
+    K10's plain versions: the evolution laws' values, derivatives and
+    cross tangents (_evolve_plain, [B, nchan, ng] each: ``loc``, ``wid``,
+    ``amp``), ``live`` (wid > 0) [B, nchan, ng, 1], sigma, the clipped z
+    and unclipped ``zr`` and e [B, nchan, ng, nbin], and G = dc + sum amp
+    e [B, nchan, nbin]."""
+    B = params.shape[0]
+    nu = torch.as_tensor(nu_ref, dtype=torch.float64, device=freqs.device)
+    logf = torch.log(freqs) - torch.log(nu)
+    dfreq = freqs - nu_ref
+    comps = params[:, 2:2 + 6 * ng].reshape(B, ng, 6)
+    loc, wid, amp = (_evolve_plain(comps[..., 2 * k], comps[..., 2 * k + 1],
+                                   logf, dfreq, laws[k]) for k in range(3))
+    mean = torch.remainder(loc[0], 1.0)
+    x = bins - mean[..., None]                      # [B, nchan, ng, nbin]
+    x = torch.where(x > 0.5, x - 1.0, x)
+    x = torch.where(x < -0.5, x + 1.0, x)
+    live = (wid[0] > 0.0)[..., None]
+    sigma = torch.where(live, (wid[0] / FWHM_FACT)[..., None],
+                        torch.ones_like(x[..., :1]))
+    zr = x / sigma
+    z = torch.clamp(zr, -20.0, 20.0)
+    e = torch.where(live, torch.exp(-0.5 * (z * z)), torch.zeros_like(z))
+    G = params[:, 0, None, None] + torch.sum(amp[0][..., None] * e, dim=2)
+    return dict(loc=loc, wid=wid, amp=amp, live=live, sigma=sigma, zr=zr,
+                z=z, e=e, G=G)
+
+
+def _gauss_basis_plain(c):
+    """d model / d (loc, wid) of each evolved component [B, nchan, ng,
+    nbin], from _gauss_components_plain's ``c``: 0 where the clip holds z,
+    and where wid <= 0 whatever the chain factor (the reference's where
+    selects a zero there)."""
+    e, z, sigma, live = c["e"], c["z"], c["sigma"], c["live"]
+    zero = torch.zeros_like(e)
+    inner = torch.abs(c["zr"]) < 20.0
+    ae = c["amp"][0][..., None] * e
+    b_loc = torch.where(inner, ae * z / sigma, zero)
+    b_wid = torch.where(inner, ae * z * z / torch.where(
+        live, c["wid"][0][..., None], torch.ones_like(sigma)), zero)
+    return b_loc, b_wid
+
+
 def _gauss_terms_plain(params, data, errs, bins, freqs, nu_ref, laws,
                        columns):
     """The unscattered Gaussian portrait's residual r [B, nchan, nbin]
@@ -2365,36 +2441,15 @@ def _gauss_terms_plain(params, data, errs, bins, freqs, nu_ref, laws,
     analytic derivatives (None without)."""
     B, P = params.shape
     ng = gauss_ngauss(P)
-    nu = torch.as_tensor(nu_ref, dtype=torch.float64, device=freqs.device)
-    logf = torch.log(freqs) - torch.log(nu)
-    dfreq = freqs - nu_ref
-    comps = params[:, 2:P - 1].reshape(B, ng, 6)
-    (locs, dl0, dl1, xl), (wids, dw0, dw1, xw), (amps, da0, da1, xa) = (
-        _evolve_plain(comps[..., 2 * k], comps[..., 2 * k + 1], logf, dfreq,
-                      laws[k]) for k in range(3))
-    mean = torch.remainder(locs, 1.0)
-    x = bins - mean[..., None]                      # [B, nchan, ng, nbin]
-    x = torch.where(x > 0.5, x - 1.0, x)
-    x = torch.where(x < -0.5, x + 1.0, x)
-    live = (wids > 0.0)[..., None]
-    sigma = torch.where(live, (wids / FWHM_FACT)[..., None],
-                        torch.ones_like(x[..., :1]))
-    zr = x / sigma
-    z = torch.clamp(zr, -20.0, 20.0)
-    e = torch.where(live, torch.exp(-0.5 * (z * z)), torch.zeros_like(z))
-    model = params[:, 0, None, None] + torch.sum(amps[..., None] * e, dim=2)
-    r = (data - model) / errs
+    c = _gauss_components_plain(params, bins, freqs, nu_ref, laws, ng)
+    r = (data - c["G"]) / errs
     if not columns:
         return r, None
+    (_, dl0, dl1, xl), (_, dw0, dw1, xw), (_, da0, da1, xa) = \
+        c["loc"], c["wid"], c["amp"]
+    e, live = c["e"], c["live"]
     zero = torch.zeros_like(e)
-    # d model / d (loc, wid) of the evolved component: 0 where the clip
-    # holds z, and where wid <= 0 whatever the chain factor (the
-    # reference's where selects a zero there)
-    inner = torch.abs(zr) < 20.0
-    ae = amps[..., None] * e
-    b_loc = torch.where(inner, ae * z / sigma, zero)
-    b_wid = torch.where(inner, ae * z * z / torch.where(
-        live, wids[..., None], torch.ones_like(sigma)), zero)
+    b_loc, b_wid = _gauss_basis_plain(c)
     cols = [torch.where(live, a[..., None] * b, zero)
             for a, b in ((dl0, b_loc), (dl1, b_loc), (dw0, b_wid),
                          (dw1, b_wid))]
@@ -2535,4 +2590,445 @@ def gauss_normal(params, data, errs, bins, freqs, nu_ref, model_code,
         bufs = _GaussBuffers(B, data.shape[0], ng, True, dev, outs=True)
     _gauss_launch("gauss_normal", params, data, errs, bins, freqs, nu_ref,
                   laws, bufs, *bufs.outs)
+    return bufs.outs
+
+
+# -- K10: the scattered and joined Gaussian portrait fit's normal equations ---
+
+# csrc/gauss_ft.cu's kMaxNgauss (the Gram's shared memory, as K9's), kMinBins
+# and kMaxBins (its transforms take powers of two in that range, in a
+# block's shared memory); the wrappers raise beyond, and fit.gauss keeps
+# jacfwd there.  The launches' geometry is the source's alone
+# (gauss_ft_sizes).
+GAUSS_FT_MAX_NGAUSS = 1888
+GAUSS_FT_MIN_BINS = 64
+GAUSS_FT_MAX_BINS = 8192
+GAUSS_FT_SIZES = ("width", "rows", "counters", "chans_per_block", "fan",
+                  "staged", "smem_rows", "smem_gram", "smem_sse")
+
+
+def gauss_ft_ngauss(nparam, njoin):
+    """The components of a Gaussian portrait fit's parameter vector of
+    ``nparam`` = 2 + 6 ngauss + 1 + 2 njoin entries (dc, tau, six per
+    component, the scattering index, a (phase, DM) pair per join group);
+    raises ValueError for any other length."""
+    return gauss_ngauss(int(nparam) - 2 * int(njoin))
+
+
+def gauss_ft_takes_bins(nbin):
+    """Whether K10's transforms take ``nbin`` bins on the card: a power of
+    two from GAUSS_FT_MIN_BINS to GAUSS_FT_MAX_BINS."""
+    nbin = int(nbin)
+    return GAUSS_FT_MIN_BINS <= nbin <= GAUSS_FT_MAX_BINS and \
+        nbin & (nbin - 1) == 0
+
+
+def gauss_ft_sizes(ngauss, njoin, nchan, nbin, normal=True):
+    """csrc/gauss_ft.cu's geometry of a launch of epilogue B (``normal``) or
+    A, as its pp_gauss_ft_sizes gives it: {GAUSS_FT_SIZES key: int}: the
+    doubles in a row of per-lane sums, a lane's scratch rows and tree
+    counters, the channels a Gram block, the tree's fan-in, the staged
+    packed rows a (lane, channel) and the shared memory of the rows, Gram
+    and sse kernels.  Builds the kernel (nvcc); raises ValueError for a
+    problem the kernel does not take."""
+    name = "gauss_ft_normal" if normal else "gauss_ft_sse"
+    if name not in _LIBS:
+        build([name])
+    out = (ctypes.c_int64 * len(GAUSS_FT_SIZES))()
+    if _LIBS[name]["pp_gauss_ft_sizes"](int(ngauss), int(njoin), int(nchan),
+                                        int(nbin), int(normal), out):
+        raise ValueError("%s: no launch of %d components, %d join groups "
+                         "over [%d, %d]" % (name, ngauss, njoin, nchan, nbin))
+    return dict(zip(GAUSS_FT_SIZES, out))
+
+
+def _packing_weights(nbin, dtype, device):
+    """The half-complex packing's weights of harmonics 0 .. nbin // 2: 1 at
+    harmonic 0 and (even nbin) nbin / 2, sqrt 2 between, all over sqrt
+    nbin."""
+    K = nbin // 2 + 1
+    w = torch.full((K,), math.sqrt(2.0 / nbin), dtype=dtype, device=device)
+    w[0] = math.sqrt(1.0 / nbin)
+    if nbin % 2 == 0:
+        w[-1] = math.sqrt(1.0 / nbin)
+    return w
+
+
+def pack_spectrum(X, nbin):
+    """An rFFT X [..., nbin // 2 + 1] packed half-complex into nbin reals:
+    Re X_k w_k for every k, then Im X_k w_k for 0 < k < nbin / 2 (the
+    _packing_weights), so that the dot product of two packed rows is that
+    of the real rows they transform (Parseval; the imaginary parts at
+    harmonic 0 and nbin / 2 are those irfft drops)."""
+    K = nbin // 2 + 1
+    w = _packing_weights(nbin, X.real.dtype, X.device)
+    top = K - 1 if nbin % 2 == 0 else K
+    return torch.cat([X.real * w, (X.imag * w)[..., 1:top]], dim=-1)
+
+
+def _proj(X, nbin):
+    """X [..., nbin // 2 + 1] with the imaginary parts irfft drops (harmonic
+    0 and, for an even nbin, nbin / 2) set to 0."""
+    keep = torch.ones(X.shape[-1], dtype=X.real.dtype, device=X.device)
+    keep[0] = 0.0
+    if nbin % 2 == 0:
+        keep[-1] = 0.0
+    return torch.complex(X.real, X.imag * keep)
+
+
+def _gauss_ft_terms_plain(params, data, errs, bins, freqs, nu_ref, laws,
+                          groups, njoin, period, columns):
+    """The scattered and joined Gaussian portrait's packed residual r [B,
+    nchan, nbin] (the spectrum of (data - m) / errs, m the arithmetic of
+    ops.profiles.gen_gaussian_portrait with its join groups, packed by
+    pack_spectrum) and, with ``columns``, the packed columns of its
+    Jacobian [B, nchan, P, nbin] from the columns' spectra (see
+    csrc/gauss_ft.cu), with each lane's poison [B] (NaN where forward-mode's
+    tangent of an evolved value is NaN at some channel, else 0)."""
+    B, P = params.shape
+    ng = gauss_ft_ngauss(P, njoin)
+    nchan, nbin = data.shape
+    K = nbin // 2 + 1
+    dev = params.device
+    c = _gauss_components_plain(params, bins, freqs, nu_ref, laws, ng)
+    Gh = torch.fft.rfft(c["G"])                     # [B, nchan, K]
+
+    # the scattering factor where tau != 0 (1 elsewhere) and its tau
+    # derivative, as ops.scattering's scattering_times and
+    # scattering_portrait_FT form them
+    k = torch.arange(K, dtype=torch.float64, device=dev)
+    twopik = 2.0 * math.pi * k
+    tau, alpha = params[:, 1], params[:, 2 + 6 * ng]
+    scat = (tau != 0.0)[:, None]
+    ratio = freqs / nu_ref
+    pw = ratio[None, :] ** alpha[:, None]           # [B, nchan]
+    taus = (tau / nbin)[:, None] * pw
+    xk = twopik * taus[..., None]
+    den = 1.0 + xk * xk
+    S = torch.where(scat[..., None], torch.complex(1.0 / den, -xk / den),
+                    torch.ones_like(den).to(torch.complex128))
+    # the join groups' rotation, as ops.fourier.rotate_data forms it
+    grp = groups.to(device=dev, dtype=torch.long)
+    injoin = grp >= 0
+    g0 = grp.clamp(min=0)
+    jpar = params[:, 3 + 6 * ng:].reshape(B, -1, 2) if njoin else \
+        torch.zeros((B, 1, 2), dtype=torch.float64, device=dev)
+    phi, DM = jpar[:, g0, 0], jpar[:, g0, 1]        # [B, nchan]
+    fterm = freqs ** -2 - nu_ref ** -2
+    shift = phi + (Dconst * DM / period) * fterm
+    R = torch.where(injoin[None, :, None], phasor(shift, K),
+                    torch.ones_like(S))
+    Y = _proj(S * Gh, nbin)
+    M = _proj(R * Y, nbin)
+    ie = 1.0 / errs[:, 0]                           # a value a channel
+    Dh = torch.fft.rfft(data)
+    r = pack_spectrum(Dh - M, nbin) * ie[:, None]
+    if not columns:
+        return r, None, None
+
+    # the component basis rows (gauss.cu's), their spectra through S and R
+    (_, dl0, dl1, xl), (_, dw0, dw1, xw), (_, da0, da1, xa) = \
+        c["loc"], c["wid"], c["amp"]
+    live = c["live"]
+    rows = torch.stack([c["e"], *_gauss_basis_plain(c)], dim=3)
+    Bh = torch.fft.rfft(rows)
+    Zb = _proj(R[:, :, None, None] * _proj(S[:, :, None, None] * Bh, nbin),
+               nbin)
+    dS = -1j * twopik * S * S
+    T = _proj(R * _proj(dS * Gh, nbin), nbin)
+    Jn = _proj(1j * twopik * R * Y, nbin)
+    c0 = torch.zeros_like(S)
+
+    def on(a, row):
+        return a[..., None] * row
+
+    cols = [torch.zeros_like(S)]                    # dc: packed below
+    cols.append(on(torch.where(scat, pw / nbin, 0.0), T))
+    for c in range(ng):
+        lv = live[:, :, c, 0]
+        cols += [on(torch.where(lv, dl0[..., c], 0.0), Zb[:, :, c, 1]),
+                 on(torch.where(lv, dl1[..., c], 0.0), Zb[:, :, c, 1]),
+                 on(torch.where(lv, dw0[..., c], 0.0), Zb[:, :, c, 2]),
+                 on(torch.where(lv, dw1[..., c], 0.0), Zb[:, :, c, 2]),
+                 on(da0[..., c], Zb[:, :, c, 0]),
+                 on(da1[..., c], Zb[:, :, c, 0])]
+    cols.append(on(torch.where(scat, taus * torch.log(ratio), 0.0), T))
+    disp = Dconst / period * fterm
+    for j in range(njoin):
+        mine = (grp == j)[None, :, None]
+        cols += [torch.where(mine, Jn, c0),
+                 torch.where(mine, disp[None, :, None] * Jn, c0)]
+    J = pack_spectrum(torch.stack(cols, dim=2), nbin)   # [B, nchan, P, nbin]
+    J[:, :, 0, 0] = math.sqrt(nbin)                 # N delta_k0, packed
+    J = -J * ie[:, None, None]
+    # a power law's p0 = 0 (see _evolve_plain): NaN through amp always,
+    # through loc and wid where the component is live
+    bad = torch.isnan(xa) | (live[..., 0] & (torch.isnan(xl)
+                                             | torch.isnan(xw)))
+    poison = torch.where(torch.any(bad.reshape(B, -1), dim=-1),
+                         float("nan"), 0.0)
+    return r, J, poison
+
+
+def gauss_ft_sse_plain(params, data, errs, bins, freqs, nu_ref, model_code,
+                       groups, njoin, period, work=None):
+    """Plain PyTorch K10, epilogue A: f [B] = sum r^2 of the scattered and
+    joined Gaussian portrait's residual (see gauss_ft_normal_plain;
+    ``work`` is the kernel's and unused here)."""
+    r, _, _ = _gauss_ft_terms_plain(params, data, errs, bins, freqs, nu_ref,
+                                    _gauss_laws(model_code), groups, njoin,
+                                    period, False)
+    return torch.sum(r * r, dim=(-2, -1))
+
+
+def gauss_ft_normal_plain(params, data, errs, bins, freqs, nu_ref,
+                          model_code, groups, njoin, period, work=None):
+    """Plain PyTorch K10, epilogue B: (f [B], g [B, P], JtJ [B, P, P]) of
+    the residual r = (data - m) / errs of the Gaussian portrait m of
+    ops.profiles.gen_gaussian_portrait, scattered where tau != 0 and
+    rotated in each join group (see gauss_ft_normal), and its Jacobian:
+    the columns' spectra from the basis rows' rFFTs and the scattering and
+    join factors, packed half-complex (pack_spectrum), then f = sum r^2,
+    g = J^T r and J^T J by einsum (``work`` is the kernel's and unused
+    here)."""
+    r, J, poison = _gauss_ft_terms_plain(
+        params, data, errs, bins, freqs, nu_ref, _gauss_laws(model_code),
+        groups, njoin, period, True)
+    p = poison[:, None]
+    return (torch.sum(r * r, dim=(-2, -1)),
+            torch.einsum("bcpn,bcn->bp", J, r) + p,
+            torch.einsum("bcpn,bcqn->bpq", J, J) + p[..., None])
+
+
+def _check_gauss_ft_fixed(data, errs, bins, freqs, groups, njoin, what):
+    """Check K10's arguments other than params (see gauss_ft_sse)."""
+    _check_gauss_fixed(data, errs, bins, freqs, what)
+    if errs.stride(1) != 0:
+        raise ValueError("%s: errs must be a value a channel, broadcast over "
+                         "the bins (stride 0 along them)" % what)
+    _check(groups, "groups", torch.int32, 1)
+    if groups.shape[0] != data.shape[0]:
+        raise ValueError("%s: groups %s for %d channels"
+                         % (what, tuple(groups.shape), data.shape[0]))
+    _same_device(data, groups)
+    njoin = int(njoin)
+    if njoin < 0 or bool(((groups < -1) | (groups >= njoin)).any()):
+        raise ValueError("%s: each channel's group must be -1 or one of the "
+                         "%d join groups" % (what, njoin))
+
+
+def _check_gauss_ft(params, data, errs, bins, freqs, model_code, groups,
+                    njoin, what):
+    """Check K10's arguments; returns (B, P, ngauss, laws)."""
+    _check(params, "params", torch.float64, 2)
+    _check_gauss_ft_fixed(data, errs, bins, freqs, groups, njoin, what)
+    _same_device(params, data)
+    B, P = params.shape
+    return B, P, gauss_ft_ngauss(P, njoin), _gauss_laws(model_code)
+
+
+class _GaussFtBuffers:
+    """A launch's staged rows (epilogue B), scratch rows and tree counters
+    (zero: every launch leaves them zero), sized by gauss_ft_sizes; with
+    ``outs``, gauss_ft_normal's outputs, kept."""
+
+    def __init__(self, B, nchan, nbin, ngauss, njoin, normal, device,
+                 outs=False):
+        sz = gauss_ft_sizes(ngauss, njoin, nchan, nbin, normal)
+        self.staged = torch.empty((B, nchan, sz["staged"], nbin),
+                                  dtype=torch.float64, device=device) \
+            if normal else None
+        self.scratch = torch.empty((B, sz["rows"], sz["width"]),
+                                   dtype=torch.float64, device=device)
+        self.counters = torch.zeros((B, sz["counters"]), dtype=torch.int32,
+                                    device=device)
+        P = 6 * ngauss + 3 + 2 * njoin
+        self.outs = None if not outs else (
+            torch.empty(B, dtype=torch.float64, device=device),
+            torch.empty((B, P), dtype=torch.float64, device=device),
+            torch.empty((B, P, P), dtype=torch.float64, device=device))
+
+
+def _data_spectrum(data):
+    """The data's rFFT, packed (pack_spectrum): K10's residual row is this
+    minus the model's."""
+    return pack_spectrum(torch.fft.rfft(data), data.shape[-1]).contiguous()
+
+
+class GaussFtWork:
+    """K10's arguments that stay fixed over a fit (data, errs, bins, freqs,
+    nu_ref, model_code, groups, njoin, period), checked once; the data's
+    packed spectrum (one rFFT a fit, cuFFT on the card) and the transforms'
+    twiddles; and the buffers its launches reuse per (lanes, components,
+    epilogue): the staged rows, the scratch rows, the tree's counters and
+    gauss_ft_normal's outputs.  Pass it as ``work=`` to gauss_ft_normal /
+    gauss_ft_sse with those same arguments (or tensors of the same shapes,
+    strides, dtype and device): the call then checks only ``params``.
+    gauss_ft_normal's outputs are overwritten by its next call with the
+    same work; one work serves one stream at a time."""
+
+    def __init__(self, data, errs, bins, freqs, nu_ref, model_code, groups,
+                 njoin, period):
+        _check_gauss_ft_fixed(data, errs, bins, freqs, groups, njoin,
+                              "gauss_ft work")
+        self.laws = _gauss_laws(model_code)
+        self.device = data.device
+        self.njoin, self.period = int(njoin), float(period)
+        self._layout = (_layout(data), _layout(errs), tuple(bins.shape),
+                        tuple(freqs.shape), _layout(groups))
+        self.dspec = _data_spectrum(data)
+        self.twiddles = _gauss_ft_twiddles(data.shape[1], data.device)
+        self._bufs = {}
+
+    def check(self, params, data, errs, bins, freqs, model_code, groups,
+              njoin, period):
+        """(B, P, ngauss, laws) of a call with this work; raises where its
+        fixed arguments are not laid out as the work's, or its model code,
+        join groups' count or period is not the work's."""
+        _check(params, "params", torch.float64, 2)
+        if params.device != self.device or self._layout != (
+                _layout(data), _layout(errs), tuple(bins.shape),
+                tuple(freqs.shape), _layout(groups)):
+            raise ValueError("gauss_ft work: the arguments are not laid out "
+                             "as the work's (%s)" % (self._layout,))
+        if _gauss_laws(model_code) != self.laws or int(njoin) != self.njoin \
+                or float(period) != self.period:
+            raise ValueError("gauss_ft work: model_code %r, njoin %d, period "
+                             "%r are not the work's (laws %s, %d, %r)"
+                             % (model_code, njoin, period, self.laws,
+                                self.njoin, self.period))
+        B, P = params.shape
+        return B, P, gauss_ft_ngauss(P, njoin), self.laws
+
+    def buffers(self, B, ngauss, normal):
+        key = (B, ngauss, normal)
+        bufs = self._bufs.get(key)
+        if bufs is None:
+            nchan, nbin = self._layout[0][0]
+            bufs = self._bufs[key] = _GaussFtBuffers(
+                B, nchan, nbin, ngauss, self.njoin, normal, self.device,
+                outs=normal)
+        return bufs
+
+
+def _gauss_ft_twiddles(nbin, device):
+    """K10's twiddles (K8's table, ops.wavelet.scan_twiddles) on a card,
+    None on the CPU (the plain versions take torch.fft)."""
+    if torch.device(device).type != "cuda" or not gauss_ft_takes_bins(nbin):
+        return None
+    from .ops.wavelet import scan_twiddles
+
+    return scan_twiddles(nbin, device)
+
+
+def _gauss_ft_call(name, params, data, errs, bins, freqs, nu_ref, model_code,
+                   groups, njoin, period, work):
+    """Check a K10 call; returns (B, P, ngauss, laws, the data's packed
+    spectrum, twiddles) for the card, or None for the CPU's plain
+    version."""
+    if params.device.type not in ("cpu", "cuda"):
+        raise ValueError("%s: unsupported device %s" % (name, params.device))
+    if work is None:
+        B, P, ng, laws = _check_gauss_ft(params, data, errs, bins, freqs,
+                                         model_code, groups, njoin, name)
+    else:
+        B, P, ng, laws = work.check(params, data, errs, bins, freqs,
+                                    model_code, groups, njoin, period)
+    if params.device.type == "cpu":
+        return None
+    nbin = data.shape[1]
+    if ng > GAUSS_FT_MAX_NGAUSS or not gauss_ft_takes_bins(nbin):
+        raise ValueError("%s: %d components over %d bins; the kernel takes at "
+                         "most %d components and a power of two from %d to "
+                         "%d bins" % (name, ng, nbin, GAUSS_FT_MAX_NGAUSS,
+                                      GAUSS_FT_MIN_BINS, GAUSS_FT_MAX_BINS))
+    if B > 65535:
+        raise ValueError("%s: %d lanes; a launch takes at most 65535"
+                         % (name, B))
+    if work is not None:
+        return B, P, ng, laws, work.dspec, work.twiddles
+    return B, P, ng, laws, _data_spectrum(data), _gauss_ft_twiddles(
+        nbin, data.device)
+
+
+def _gauss_ft_launch(name, params, dspec, errs, bins, freqs, groups, tw,
+                     nu_ref, laws, ng, njoin, period, bufs, *outs):
+    B = params.shape[0]
+    nchan, nbin = dspec.shape
+    staged = () if bufs.staged is None else (bufs.staged.data_ptr(),)
+    _launch(name, params.device, params.data_ptr(), dspec.data_ptr(),
+            errs.data_ptr(), errs.stride(0), bins.data_ptr(),
+            freqs.data_ptr(), groups.data_ptr(), tw.data_ptr(), B, ng,
+            int(njoin), nchan, nbin, float(nu_ref), FWHM_FACT,
+            float(Dconst / period), *laws, *staged, bufs.scratch.data_ptr(),
+            bufs.counters.data_ptr(), *(o.data_ptr() for o in outs))
+
+
+def gauss_ft_sse(params, data, errs, bins, freqs, nu_ref, model_code, groups,
+                 njoin, period, work=None):
+    """K10 wrapper, epilogue A (see csrc/gauss_ft.cu): f [B] = sum over the
+    portrait of r^2, r = (data - m) / errs, m the Gaussian portrait of
+    ops.profiles.gen_gaussian_portrait at each lane's params [B, 2 + 6
+    ngauss + 1 + 2 njoin] float64 (dc, tau [bins], (loc, dloc, wid, dwid,
+    amp, damp) per component, the scattering index, a (phase, DM) pair per
+    join group): scattered where tau != 0, each join group's channels
+    rotated by its pair (Dconst DM / period dispersion about nu_ref).
+    model_code's three digits (loc, wid, amp; 0 power law, 1 linear); data
+    [nchan, nbin], errs per-channel errors broadcast over the bins (stride
+    0 along them), the bin centres bins [nbin] and freqs [nchan], float64;
+    groups [nchan] int32, each channel's join group (-1 outside every
+    group); ``njoin`` join groups, ``period`` the fold period.  One launch.
+    ``work`` (a GaussFtWork of the same fixed arguments) skips their checks
+    and the data's transform and keeps the launch's scratch.  More than
+    GAUSS_FT_MAX_NGAUSS components, or bins other than a power of two from
+    GAUSS_FT_MIN_BINS to GAUSS_FT_MAX_BINS, raise ValueError on the
+    card."""
+    call = _gauss_ft_call("gauss_ft_sse", params, data, errs, bins, freqs,
+                          nu_ref, model_code, groups, njoin, period, work)
+    if call is None:
+        return gauss_ft_sse_plain(params, data, errs, bins, freqs, nu_ref,
+                                  model_code, groups, njoin, period)
+    B, P, ng, laws, dspec, tw = call
+    if not B:
+        return torch.zeros(0, dtype=torch.float64, device=params.device)
+    bufs = work.buffers(B, ng, False) if work is not None else \
+        _GaussFtBuffers(B, data.shape[0], data.shape[1], ng, njoin, False,
+                        params.device)
+    f = torch.empty(B, dtype=torch.float64, device=params.device)
+    _gauss_ft_launch("gauss_ft_sse", params, dspec, errs, bins, freqs, groups,
+                     tw, nu_ref, laws, ng, njoin, period, bufs, f)
+    return f
+
+
+def gauss_ft_normal(params, data, errs, bins, freqs, nu_ref, model_code,
+                    groups, njoin, period, work=None):
+    """K10 wrapper, epilogue B (see csrc/gauss_ft.cu): (f [B], g [B, P], JtJ
+    [B, P, P]) float64 for the residual of gauss_ft_sse's arguments and its
+    Jacobian J = d r / d params: f = sum r^2, g = J^T r, JtJ = J^T J, with
+    no J formed.  Where a lane's tau is 0 its tau and scattering-index rows
+    and columns are exactly 0 (the reference's model is then unscattered);
+    a power law's p0 = 0 gives NaN in every g and JtJ entry.  Two launches
+    (the packed rows, then their Gram), counted as one.  With ``work`` (a
+    GaussFtWork of the same fixed arguments) the fixed arguments are not
+    checked again and the outputs are the work's own, overwritten by its
+    next gauss_ft_normal call."""
+    call = _gauss_ft_call("gauss_ft_normal", params, data, errs, bins, freqs,
+                          nu_ref, model_code, groups, njoin, period, work)
+    if call is None:
+        return gauss_ft_normal_plain(params, data, errs, bins, freqs, nu_ref,
+                                     model_code, groups, njoin, period)
+    B, P, ng, laws, dspec, tw = call
+    dev = params.device
+    if not B:
+        return (torch.zeros(0, dtype=torch.float64, device=dev),
+                torch.zeros((0, P), dtype=torch.float64, device=dev),
+                torch.zeros((0, P, P), dtype=torch.float64, device=dev))
+    if work is not None:
+        bufs = work.buffers(B, ng, True)
+    else:
+        bufs = _GaussFtBuffers(B, data.shape[0], data.shape[1], ng, njoin,
+                               True, dev, outs=True)
+    _gauss_ft_launch("gauss_ft_normal", params, dspec, errs, bins, freqs,
+                     groups, tw, nu_ref, laws, ng, njoin, period, bufs,
+                     *bufs.outs)
     return bufs.outs

@@ -6,13 +6,19 @@ and a non-interactive form of the GaussianSelector GUI's ``auto_gauss``
 seeding, ppgauss.py:442-479).  The minimizer is the port's bounded
 Levenberg-Marquardt (fit.lm) on ``device`` (None = the CUDA device): the
 data are uploaded once per fit and the whole loop runs there.  A portrait
-fit with no join groups and tau frozen at 0 (ppgauss's default) gives
-lm_solve its normal equations from kernel K9 (``GaussNormal``:
-_kernels.gauss_normal and gauss_sse, csrc/gauss.cu); every other fit, and
-the profile fits, take ``torch.func.jacfwd`` Jacobians through the
-vectorized profile and portrait generators.  ``FIT_ROUTES`` counts the
-portrait fits by route.  Seeds and results are host numpy, as in the JAX
-package.
+fit gives lm_solve its normal equations from a kernel (``portrait_route``):
+with no join groups and tau frozen at 0 (ppgauss's default) from K9
+(``GaussNormal``: _kernels.gauss_normal and gauss_sse, csrc/gauss.cu);
+scattered (tau nonzero or fitted: ppgauss --fitscat, --fitalpha, --tau)
+or joined (ppgauss -j) from K10 (``GaussFtNormal``: _kernels.
+gauss_ft_normal and gauss_ft_sse, csrc/gauss_ft.cu), whose packed spectra
+need the errors one value a channel (ppgauss's) and join groups that do
+not overlap.  The fits neither kernel takes (errors that vary along the
+bins, overlapping groups, and on the card more components than a
+kernel's limit or a width K10's transforms do not take), and the profile
+fits, take ``torch.func.jacfwd`` Jacobians through the vectorized profile
+and portrait generators.  ``FIT_ROUTES`` counts the portrait fits by
+route.  Seeds and results are host numpy, as in the JAX package.
 """
 
 import numpy as np
@@ -29,25 +35,37 @@ from .phase_shift import fit_phase_shift
 
 __all__ = ["fit_gaussian_profile", "fit_gaussian_portrait",
            "auto_gauss_seed", "peak_pick_seed", "dc_seed", "GaussNormal",
-           "portrait_route", "FIT_ROUTES"]
+           "GaussFtNormal", "portrait_route", "FIT_ROUTES"]
 
 # fit_gaussian_portrait's calls by route: "normal" (kernel K9's normal
-# equations) or "jacfwd" (torch.func's Jacobian of the residual)
-FIT_ROUTES = {"normal": 0, "jacfwd": 0}
+# equations), "spectral" (kernel K10's) or "jacfwd" (torch.func's Jacobian
+# of the residual)
+FIT_ROUTES = {"normal": 0, "spectral": 0, "jacfwd": 0}
 
 
-def portrait_route(njoin, tau0, tau_flag, ngauss, device):
-    """The route of a Gaussian portrait fit: "normal" (K9) for an
-    unscattered, unjoined fit (no join groups, tau starting at 0 and
-    frozen) of at most _kernels.GAUSS_MAX_NGAUSS components on a CUDA
-    device (any number on the CPU, whose plain version has no limit),
-    else "jacfwd"."""
-    if njoin or tau0 != 0.0 or tau_flag != 0.0:
+def portrait_route(njoin, tau0, tau_flag, ngauss, device, nbin=None,
+                   per_channel=True, disjoint=True):
+    """The route of a Gaussian portrait fit of ``ngauss`` components over
+    ``nbin`` bins on ``device``: "normal" (K9) for an unscattered, unjoined
+    fit (no join groups, tau starting at 0 and frozen) of at most
+    _kernels.GAUSS_MAX_NGAUSS components on a CUDA device; "spectral" (K10)
+    for the other fits, scattered or joined, whose errors are one value a
+    channel (``per_channel``) and whose join groups do not overlap
+    (``disjoint``), of at most _kernels.GAUSS_FT_MAX_NGAUSS components over
+    a width K10's transforms take (_kernels.gauss_ft_takes_bins; None: not
+    known to) on a CUDA device; else "jacfwd".  The CPU's plain versions
+    have no limit of components or width."""
+    cuda = torch.device(device).type == "cuda"
+    if not njoin and tau0 == 0.0 and tau_flag == 0.0:
+        if cuda and ngauss > _kernels.GAUSS_MAX_NGAUSS:
+            return "jacfwd"
+        return "normal"
+    if not (per_channel and disjoint):
         return "jacfwd"
-    if torch.device(device).type == "cuda" and \
-            ngauss > _kernels.GAUSS_MAX_NGAUSS:
+    if cuda and (ngauss > _kernels.GAUSS_FT_MAX_NGAUSS or nbin is None
+                 or not _kernels.gauss_ft_takes_bins(nbin)):
         return "jacfwd"
-    return "normal"
+    return "spectral"
 
 
 def _dev(x, device):
@@ -144,6 +162,60 @@ class GaussNormal:
         return _kernels.gauss_normal(*self._args(x), work=self.work)
 
 
+class GaussFtNormal:
+    """The scattered or joined Gaussian portrait fit's least-squares
+    problem for lm_solve's ``normal=``: GaussNormal's arguments (errs a
+    value a channel, kept as a broadcast view) and the join groups: each
+    channel's group [nchan] (-1 outside every group; the groups may not
+    overlap), their count and the fold period P (None: 1, as
+    ops.fourier.rotate_data takes it).  ``sse(x)`` and ``normal(x)`` at
+    parameters x [B, 2 + 6 ngauss + 1 + 2 njoin] (the scattering index,
+    then each group's (phase, DM)) are kernel K10's two epilogues
+    (_kernels.gauss_ft_sse, gauss_ft_normal; their plain versions for CPU
+    tensors).  The fixed arguments are checked once, into a
+    _kernels.GaussFtWork that keeps the data's packed spectrum, the
+    launches' scratch and gauss_ft_normal's outputs: ``normal(x)``'s
+    tensors are overwritten by its next call."""
+
+    def __init__(self, model_code, data, errs, freqs, nu_ref, nbin, groups,
+                 njoin, P=None):
+        self.model_code = str(model_code)
+        self.data = data.contiguous()
+        self.errs = errs
+        self.freqs = freqs.contiguous()
+        self.nu_ref = float(nu_ref)
+        self.bins = get_bin_centers(nbin, device=data.device)
+        self.groups = torch.as_tensor(np.asarray(groups), dtype=torch.int32,
+                                      device=data.device)
+        self.njoin = int(njoin)
+        self.period = 1.0 if P is None else float(P)
+        self.ndata = data.numel()
+        self.work = _kernels.GaussFtWork(*self._args(None)[1:])
+
+    def _args(self, x):
+        return (None if x is None else x.contiguous(), self.data, self.errs,
+                self.bins, self.freqs, self.nu_ref, self.model_code,
+                self.groups, self.njoin, self.period)
+
+    def sse(self, x):
+        return _kernels.gauss_ft_sse(*self._args(x), work=self.work)
+
+    def normal(self, x):
+        return _kernels.gauss_ft_normal(*self._args(x), work=self.work)
+
+
+def _join_groups(join_ichans, nchan):
+    """Each channel's join group [nchan] (-1 outside every group) and
+    whether the groups are disjoint (no channel in two)."""
+    groups = np.full(nchan, -1, dtype=np.int64)
+    count = np.zeros(nchan, dtype=np.int64)
+    for j, ichans in enumerate(join_ichans):
+        ichans = np.unique(np.asarray(ichans, dtype=np.int64) % nchan)
+        groups[ichans] = j
+        count[ichans] += 1
+    return groups, bool((count <= 1).all())
+
+
 def fit_gaussian_portrait(model_code, data, init_params, scattering_index,
                           errs, fit_flags, fit_scattering_index, phases,
                           freqs, nu_ref, join_params=(), P=None,
@@ -154,11 +226,12 @@ def fit_gaussian_portrait(model_code, data, init_params, scattering_index,
     the scattering index rides as an extra trailing parameter (fit when
     ``fit_scattering_index``), and join (phase, DM) pairs append after
     it when ``join_params`` = [join_ichans(x), params, flags] is given.
-    Without join groups and with tau starting at 0 and frozen, the model
-    stays unscattered and lm_solve takes its normal equations from K9
-    (GaussNormal), up to K9's component limit on the card
-    (portrait_route); otherwise it differentiates the residual with
-    jacfwd.
+    lm_solve takes its normal equations from a kernel where
+    portrait_route allows: without join groups and with tau starting at 0
+    and frozen (the model stays unscattered) from K9 (GaussNormal); a
+    scattered or joined fit from K10 (GaussFtNormal), with errors one
+    value a channel and disjoint groups; otherwise it differentiates the
+    residual with jacfwd.
     Returns DataBunch(fitted_params, fit_errs, scattering_index(+err),
     chi2, dof, nfev, return_code) (numpy / numbers).  Equivalent of pplib.py:1924-2052.
     """
@@ -203,12 +276,19 @@ def fit_gaussian_portrait(model_code, data, init_params, scattering_index,
                                       P=P, device=device)
         return ((data - model) / errs).reshape(-1)
 
-    route = portrait_route(njoin, x0[1], xflags[1], (nparam - 2) // 6,
-                           device)
+    groups, disjoint = _join_groups(join_ichans, data.shape[0])
+    ngauss = (nparam - 2) // 6
+    route = portrait_route(njoin, x0[1], xflags[1], ngauss, device,
+                           nbin=data.shape[1],
+                           per_channel=errs.stride(-1) == 0,
+                           disjoint=disjoint)
     normal = None
     if route == "normal":
         normal = GaussNormal(model_code, data, errs, freqs, nu_ref,
                              len(phases))
+    elif route == "spectral":
+        normal = GaussFtNormal(model_code, data, errs, freqs, nu_ref,
+                               len(phases), groups, njoin, P)
     FIT_ROUTES[route] += 1
     r = lm_solve(residual, _dev(x0, device), fit_flags=xflags,
                  bounds=(lo, hi), normal=normal)

@@ -10,9 +10,11 @@ back, so a batch [B, nparam] steps in lockstep and a finished problem
 stays frozen exactly as under ``vmap`` of the JAX package's
 ``lax.while_loop``.  The ``done`` test syncs the host once per pass.
 A problem can instead be given through its normal equations
-(``normal=``: the sum of squares, J^T r and J^T J from one call, as
-kernel K9 computes them for the Gaussian portrait fit), and then no
-Jacobian is formed.
+(``normal=``: the sum of squares, J^T r and J^T J from one call), and
+then no Jacobian is formed: the Gaussian portrait fit gives them from
+kernel K9 when unscattered and unjoined, from K10 when scattered or
+joined (fit.gauss.portrait_route), and keeps jacfwd for the fits neither
+takes.
 
 Error semantics follow lmfit's defaults: the covariance is
 ``inv(J^T J) * red_chi2`` with J the err-weighted Jacobian at the

@@ -1709,3 +1709,199 @@ def test_ppgauss_cli_card_matches_cpu(card, tmp_path, monkeypatch, case):
                                                       z_tol))
     assert gap <= z_tol
     assert np.abs(fk - fc).max() <= z_tol * ec[fin].max() + 1.01e-8
+
+
+# K10 (csrc/gauss_ft.cu): (components, lanes, model code, kind, channels,
+# bins); kind: tau > 0 ("tau"), tau = 0 with tau fitted ("tau0"), two join
+# groups ("joined"), both ("joined_tau").  The kernel against its plain
+# version within GAUSS_FT_TOL of each output's largest magnitude per lane
+# (an H100 read <= 6.7e-16 for f, 4e-14 for g and 1.9e-14 for J^T J)
+GAUSS_FT_CASES = [(1, 1, "000", "tau", 128, 1024),
+                  (2, 2, "111", "tau0", 64, 512),
+                  (3, 1, "000", "joined", 128, 1024),
+                  (4, 3, "101", "joined_tau", 64, 256),
+                  (19, 1, "000", "tau", 64, 2048),
+                  (21, 1, "011", "joined_tau", 32, 512),
+                  (1, 1, "000", "tau", 16, 64),
+                  (2, 1, "000", "joined_tau", 16, 8192)]
+GAUSS_FT_TOL = 1e-12
+
+
+def _gauss_ft_inputs(ngauss, lanes, code, kind, nchan, nbin, seed=12):
+    """K10's arguments on the card: K9's lanes (_gauss_inputs) with tau
+    (2 bins, or 0) and two join groups splitting the band where ``kind``
+    says, per-channel errors broadcast over the bins, the data a noisy
+    model."""
+    from pulseportraiture_tpu_torch.ops.fourier import get_bin_centers
+    from pulseportraiture_tpu_torch.ops.profiles import gen_gaussian_portrait
+
+    rng = np.random.default_rng(seed)
+    freqs = np.linspace(1100.0, 1900.0, nchan)
+    slope = {"0": (-0.05, 0.1, -1.2), "1": (-1e-5, 1e-5, -4e-4)}
+    comps = []
+    for c in range(ngauss):
+        comps += [0.1 + 0.8 * c / ngauss, slope[code[0]][0],
+                  0.01 + 0.005 * c, slope[code[1]][1], 1.0 / (c + 1),
+                  slope[code[2]][2]]
+    joined = kind.startswith("joined")
+    tau = 2.0 if kind in ("tau", "joined_tau") else 0.0
+    jp = [0.01, 1e-3, -0.02, -2e-3] if joined else []
+    joins = [np.arange(0, nchan // 3), np.arange(nchan // 3, nchan)] \
+        if joined else ()
+    base = np.concatenate([[0.03, tau], comps, [-4.0], jp])
+    x = np.stack([base * (1.0 + 0.002 * k) for k in range(lanes)])
+    x[:, 1] = tau
+    npar = 2 + 6 * ngauss
+    model = gen_gaussian_portrait(
+        code, np.concatenate([base[:npar], jp]), -4.0,
+        np.arange(nbin) / nbin, freqs, 1500.0, join_ichans=joins,
+        P=0.005).numpy()
+    noise = 0.05 * rng.uniform(0.5, 1.5, nchan)
+    data = model + rng.normal(0.0, 1.0, (nchan, nbin)) * noise[:, None]
+    groups = np.full(nchan, -1, dtype=np.int32)
+    for j, ichans in enumerate(joins):
+        groups[ichans] = j
+    t = lambda a: torch.as_tensor(a, device=DEVICE)  # noqa: E731
+    return (t(x), t(data), t(noise[:, None]).expand(nchan, nbin),
+            get_bin_centers(nbin, device=DEVICE), t(freqs), 1500.0, code,
+            t(groups), len(joins), 0.005)
+
+
+def _gauss_ft_gaps(got, want):
+    """(f, g, J^T J) gaps, each _lane_gap."""
+    return [_lane_gap(a[:, None], b[:, None]) for a, b in zip(got, want)]
+
+
+@pytest.mark.parametrize("case", GAUSS_FT_CASES,
+                         ids=lambda c: "%dg-%dl-%s-%s-%dx%d" % c)
+def test_gauss_ft_kernels_match_plain_on_the_card(card, case):
+    """K10's two epilogues against their plain versions on the card (f, g
+    and J^T J within GAUSS_FT_TOL of their largest magnitude, lane by
+    lane; the same NaNs), one counted launch a call, two calls the same
+    bits (no atomics on the sums; the tree's counters set back to 0),
+    with and without a GaussFtWork."""
+    K = card
+    args = _gauss_ft_inputs(*case)
+    work = K.GaussFtWork(*args[1:])
+    n0 = dict(K.LAUNCHES)
+    got = K.gauss_ft_normal(*args)
+    again = K.gauss_ft_normal(*args)
+    sse = K.gauss_ft_sse(*args)
+    torch.cuda.synchronize()
+    assert K.LAUNCHES["gauss_ft_normal"] == n0["gauss_ft_normal"] + 2
+    assert K.LAUNCHES["gauss_ft_sse"] == n0["gauss_ft_sse"] + 1
+    want = K.gauss_ft_normal_plain(*args)
+    for a, b in zip(got, again):
+        assert torch.equal(a, b)
+    gf, gg, gh = _gauss_ft_gaps(got, want)
+    gs = _lane_gap(sse[:, None], want[0][:, None])
+    print("K10 %s: f %.3g g %.3g JtJ %.3g sse %.3g" % (case, gf, gg, gh, gs))
+    assert max(gf, gg, gh, gs) <= GAUSS_FT_TOL
+    assert torch.equal(sse, K.gauss_ft_sse(*args))
+    for _ in range(2):
+        for a, b in zip(K.gauss_ft_normal(*args, work=work), got):
+            assert torch.equal(a, b)
+        assert torch.equal(K.gauss_ft_sse(*args, work=work), sse)
+    if case[3] == "tau0":   # the tau and scattering-index rows: exact zeros
+        ia = args[0].shape[1] - 1 - 2 * args[8]
+        for i in (1, ia):
+            assert not got[1][:, i].any()
+            assert not got[2][:, i].any() and not got[2][:, :, i].any()
+
+
+@pytest.mark.parametrize("ngauss", [1, 19])
+def test_gauss_ft_graph_replay_same_bits(card, ngauss):
+    """A call of each epilogue captured in a CUDA graph and replayed three
+    times gives the eager call's bits every time."""
+    K = card
+    args = _gauss_ft_inputs(ngauss, 2, "000", "joined_tau", 64, 2048)
+    work = K.GaussFtWork(*args[1:])
+    want = [t.clone() for t in K.gauss_ft_normal(*args, work=work)]
+    want_f = K.gauss_ft_sse(*args, work=work)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        outs = K.gauss_ft_normal(*args, work=work)
+        f = K.gauss_ft_sse(*args, work=work)
+    for _ in range(3):
+        for t in outs:
+            t.zero_()
+        f.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        for a, b in zip(outs, want):
+            assert torch.equal(a, b)
+        assert torch.equal(f, want_f)
+
+
+def test_gauss_ft_nan_sizes_and_limits_on_the_card(card):
+    """A power law's amp0 at its 0 bound gives NaN in every g and J^T J
+    entry and a finite f, as the plain version; pp_gauss_ft_sizes gives
+    the staged rows, the shared memory and the tree as the source's
+    geometry says; the wrappers raise past the component limit and at
+    widths the transforms do not take."""
+    K = card
+    args = list(_gauss_ft_inputs(2, 2, "000", "tau", 32, 512))
+    x = args[0].clone()
+    x[1, 6] = 0.0
+    args[0] = x
+    got, want = K.gauss_ft_normal(*args), K.gauss_ft_normal_plain(*args)
+    assert torch.isnan(got[1][1]).all() and torch.isnan(got[2][1]).all()
+    assert torch.isfinite(got[0]).all()
+    assert not torch.isnan(got[1][0]).any()
+    assert max(_gauss_ft_gaps(got, want)) <= GAUSS_FT_TOL
+    sz = K.gauss_ft_sizes(19, 2, 512, 2048)
+    P = 6 * 19 + 3 + 4
+    assert sz["staged"] == 3 * 19 + 3
+    assert sz["width"] == P * (P + 1) // 2 + P + 2
+    assert sz["smem_rows"] == 16 * 2048 + 16 * 1025 + 40
+    assert sz["smem_gram"] == 8 * (10 * 19 + 2 * 64 * 36 + 4) + 4 * (19 + 4)
+    assert K.gauss_ft_sizes(1, 0, 512, 2048, normal=False)["smem_sse"] == \
+        16 * 2048 + 40
+    for bad in ((K.GAUSS_FT_MAX_NGAUSS + 1, 0, 8, 256),
+                (1, 0, 8, 2000), (1, 0, 8, 16384), (1, 0, 8, 32)):
+        with pytest.raises(ValueError, match="no launch"):
+            K.gauss_ft_sizes(*bad)
+    wide = list(_gauss_ft_inputs(1, 1, "000", "tau", 8, 1000))
+    for fn in (K.gauss_ft_normal, K.gauss_ft_sse):
+        with pytest.raises(ValueError, match="power of two"):
+            fn(*wide)
+
+
+def test_gauss_ft_fit_card_matches_cpu(card):
+    """fit_gaussian_portrait of a scattered, joined portrait (tau and the
+    scattering index fitted, two join groups) through K10 on the card
+    (FIT_ROUTES["spectral"], both epilogues launched) against the CPU's
+    plain version: parameters within _z_floor(chi2) of their errors, chi2
+    1e-9 relative, rc equal."""
+    from pulseportraiture_tpu_torch.fit import gauss as fg
+
+    args0 = _gauss_ft_inputs(3, 1, "000", "joined_tau", 64, 1024)
+    nparam = 2 + 6 * 3
+    x, data = args0[0][0].cpu().numpy(), args0[1].cpu().numpy()
+    nbin = data.shape[1]
+    errs = np.outer(args0[2][:, 0].cpu().numpy(), np.ones(nbin))
+    init = x[:nparam] * np.where(np.arange(nparam) % 2, 1.01, 0.99)
+    nchan = data.shape[0]
+    joins = [np.arange(0, nchan // 3), np.arange(nchan // 3, nchan)]
+    jargs = [joins, np.array([x[nparam + 1], 0.0, -0.019, 0.0]),
+             np.array([0, 1, 1, 1])]
+    args = ("000", data, init, -3.8, errs, np.ones(nparam), True,
+            np.arange(nbin) / nbin, args0[4].cpu().numpy(), 1500.0, jargs,
+            0.005)
+    K = card
+    K.reset_launches()
+    routes = dict(fg.FIT_ROUTES)
+    gpu = fg.fit_gaussian_portrait(*args, device="cuda")
+    assert K.LAUNCHES["gauss_ft_normal"] > 0 and K.LAUNCHES["gauss_ft_sse"] > 0
+    assert fg.FIT_ROUTES["spectral"] == routes["spectral"] + 1
+    cpu = fg.fit_gaussian_portrait(*args, device="cpu")
+    assert fg.FIT_ROUTES["jacfwd"] == routes["jacfwd"]
+    fin = np.isfinite(cpu.fit_errs) & (cpu.fit_errs > 0)
+    assert fin.sum() >= len(init) + 2
+    gap = np.abs(gpu.fitted_params - cpu.fitted_params)[fin] \
+        / cpu.fit_errs[fin]
+    print("K10 fit: chi2 %r gap/err %r" % (cpu.chi2, gap.max()))
+    assert gap.max() <= _z_floor(cpu.chi2)
+    assert abs(gpu.chi2 - cpu.chi2) <= 1e-9 * cpu.chi2
+    assert gpu.return_code == cpu.return_code

@@ -289,10 +289,19 @@ def test_fit_gaussian_portrait_k9_route_matches_reference(code, fit_alpha):
     assert got.return_code == int(ref_lm.return_code)
 
 
-@pytest.mark.parametrize("kind", ["joined", "tau_nonzero", "tau_fitted"])
-def test_other_fits_keep_jacfwd(kind):
-    """Join groups, a nonzero starting tau (a scattered model) and a
-    fitted tau keep the jacfwd route; the route counter says which ran."""
+@pytest.mark.parametrize("kind,route", [
+    pytest.param("joined", "spectral", id="joined"),
+    pytest.param("tau_nonzero", "spectral", id="tau_nonzero"),
+    pytest.param("tau_fitted", "spectral", id="tau_fitted"),
+    pytest.param("tau_fitted_per_bin_errs", "jacfwd",
+                 id="tau_fitted_per_bin_errs"),
+    pytest.param("overlapping_joins", "jacfwd", id="overlapping_joins")])
+def test_other_fits_keep_jacfwd(kind, route):
+    """The fits K9 does not take: join groups, a nonzero starting tau (a
+    scattered model) and a fitted tau take K10's route ("spectral") since
+    it exists; those K10 does not take either keep jacfwd: errors that
+    vary along the bins, and join groups that share a channel.  The route
+    counter says which ran, and K9's never does."""
     nbin, nchan, P = 64, 8, 0.005
     freqs = np.linspace(1100.0, 1900.0, nchan)
     params = np.array([0.02, 0.0, 0.35, -0.05, 0.05, 0.1, 1.0, -1.2])
@@ -305,20 +314,24 @@ def test_other_fits_keep_jacfwd(kind):
     flags = np.ones(len(params))
     flags[1] = 0.0
     join = ()
-    if kind == "joined":
-        join = [[np.arange(0, 4), np.arange(4, nchan)],
+    errs = np.full(data.shape, 0.01)
+    if kind in ("joined", "overlapping_joins"):
+        first = 4 if kind == "joined" else 5
+        join = [[np.arange(0, first), np.arange(4, nchan)],
                 np.array([0.0, 0.0, 0.0, 0.0]), np.array([0, 0, 1, 1])]
     elif kind == "tau_nonzero":
         init[1] = 2.0
     else:
         flags[1] = 1.0
+        if kind == "tau_fitted_per_bin_errs":
+            errs = errs * np.linspace(0.9, 1.1, nbin)
     before = dict(tg.FIT_ROUTES)
-    fit = tg.fit_gaussian_portrait("000", data, init, -4.0,
-                                   np.full(data.shape, 0.01), flags, False,
-                                   phases, freqs, NU_REF, join, P,
+    fit = tg.fit_gaussian_portrait("000", data, init, -4.0, errs, flags,
+                                   False, phases, freqs, NU_REF, join, P,
                                    device="cpu")
-    assert tg.FIT_ROUTES["jacfwd"] == before["jacfwd"] + 1
+    assert tg.FIT_ROUTES[route] == before[route] + 1
     assert tg.FIT_ROUTES["normal"] == before["normal"]
+    assert sum(tg.FIT_ROUTES.values()) == sum(before.values()) + 1
     assert np.isfinite(fit.fitted_params).all() and np.isfinite(fit.chi2)
 
 
@@ -386,14 +399,19 @@ def test_gauss_normal_shared_memory_limit(case):
 def test_portrait_route_reads_the_kernel_limit(ngauss, device, route):
     """fit.gauss.portrait_route: an unscattered, unjoined fit takes K9 on a
     CUDA device up to _kernels.GAUSS_MAX_NGAUSS components and jacfwd
-    beyond; the CPU's plain version has no limit.  Decided from the
-    problem and its device (no card needed)."""
+    beyond; the CPU's plain version has no limit.  The other fits (join
+    groups, a nonzero or fitted tau) take K10's route instead, within its
+    own limit on the card (tests/test_torch_gauss_ft_normal.py holds it),
+    and never K9's.  Decided from the problem and its device (no card
+    needed)."""
     n = _kernels.GAUSS_MAX_NGAUSS
     ng = {"max-1": n - 1, "max": n, "max+1": n + 1}.get(ngauss, ngauss)
     assert tg.portrait_route(0, 0.0, 0.0, ng, device) == route
     assert tg.portrait_route(0, 0.0, 0.0, ng, torch.device(device)) == route
+    k10 = "spectral" if device == "cpu" or \
+        ng <= _kernels.GAUSS_FT_MAX_NGAUSS else "jacfwd"
     for other in ((1, 0.0, 0.0), (0, 2.0, 0.0), (0, 0.0, 1.0)):
-        assert tg.portrait_route(*other, ng, device) == "jacfwd"
+        assert tg.portrait_route(*other, ng, device, nbin=2048) == k10
 
 
 @pytest.mark.parametrize("ngauss,route", [(1, "normal"), (2, "jacfwd")])
@@ -406,8 +424,8 @@ def test_fit_routes_count_both_sides_of_the_limit(monkeypatch, ngauss,
     real = tg.portrait_route
     monkeypatch.setattr(_kernels, "GAUSS_MAX_NGAUSS", 1)
     monkeypatch.setattr(tg, "portrait_route",
-                        lambda nj, t0, tf, ng, dev: real(nj, t0, tf, ng,
-                                                         "cuda"))
+                        lambda nj, t0, tf, ng, dev, **kw: real(
+                            nj, t0, tf, ng, "cuda", **kw))
     comps = [[0.35, -0.05, 0.05, 0.1, 1.0, -1.2],
              [0.6, 0.02, 0.03, -0.2, 0.5, 0.4]][:ngauss]
     true, data, errs, freqs = _problem("000", comps, 1, 12, 64, seed=2)
