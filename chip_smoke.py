@@ -498,9 +498,12 @@ K10_TOL = 1e-12
 # K10 cases at ppgauss's aligned portrait, [512, 2048], one lane:
 # (components, kind): tau 2 bins ("tau"), tau 0 with tau fitted ("tau0":
 # its rows and columns exactly 0), two join groups ("joined"), both
-# ("joined_tau")
+# ("joined_tau"); epilogue B on chip at one and four components (clusters
+# of one and two blocks), staged at 19; then 19 components over 8192 bins,
+# staged (lanes, channels, bins after the kind)
 K10_KINDS = ("tau", "tau0", "joined", "joined_tau")
-K10_CASES = [(ng, kind) for ng in (1, 4, 19) for kind in K10_KINDS]
+K10_CASES = [(ng, kind) for ng in (1, 4, 19) for kind in K10_KINDS] + [
+    (19, "tau", 1, 512, 8192)]
 K10_MAIN = 0
 # the scattered archive of ppgauss_scat's --fitscat --fitalpha --tau run:
 # its scattering time at nu0 [s] (the fit starts at 3/4 of it), index
@@ -1041,11 +1044,12 @@ def gauss_ft_bound_ms(B, nchan, nbin, ngauss, njoin, normal):
                     (gram, PEAK_FP64_TENSOR_PER_S))
 
 
-def gauss_ft_staged_bytes(B, nchan, nbin, ngauss):
-    """The bytes K10's epilogue B stages in device memory, written once
-    and read once by the Gram (read once a panel pair beyond 20
-    components): [B, nchan, 3 ngauss + 3, nbin] float64, twice over."""
-    return 2 * B * nchan * (3 * ngauss + 3) * nbin * 8
+def gauss_ft_staged_bytes(B, nchan, nbin, ngauss, staged=True):
+    """The bytes K10's epilogue B stages in device memory on its staged
+    path, written once and read once by the Gram (read once a panel pair
+    beyond 20 components): [B, nchan, 3 ngauss + 3, nbin] float64, twice
+    over; 0 on its on-chip path (``staged`` false)."""
+    return 2 * B * nchan * (3 * ngauss + 3) * nbin * 8 if staged else 0
 
 
 def rfft_bmm_ms(dev, ngauss, B, nchan, nbin):
@@ -1068,9 +1072,12 @@ def rfft_bmm_ms(dev, ngauss, B, nchan, nbin):
 
 
 def k10_split_ms(fn, reps=5):
-    """Epilogue B's device ms a call split by launch, from torch.profiler
-    over ``reps`` calls: {"rows": gauss_ft_rows_kernel, "gram":
-    gauss_ft_gram_kernel}, None where the trace holds no device rows."""
+    """Epilogue B's device ms a call split by kernel, from torch.profiler
+    over ``reps`` calls: {"cluster": gauss_ft_gram_cluster_kernel (the
+    on-chip path's one launch), "rows": gauss_ft_rows_kernel, "gram":
+    gauss_ft_gram_kernel (the staged path's two)} for the kernels the
+    calls ran, with "kernels_per_call", their launches a call; None where
+    the trace holds no device rows."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1080,15 +1087,21 @@ def k10_split_ms(fn, reps=5):
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    out = {}
+    out, count = {}, 0
     for ev in prof.key_averages():
-        for part in ("rows", "gram"):
-            if "gauss_ft_%s_kernel" % part in ev.key:
+        for part in ("cluster", "rows", "gram"):
+            name = "gauss_ft_gram_cluster_kernel" if part == "cluster" else \
+                "gauss_ft_%s_kernel" % part
+            if name in ev.key:
                 us = getattr(ev, "device_time_total", None)
                 if us is None:
                     us = ev.cuda_time_total
                 out[part] = us / 1e3 / reps
-    return out or None
+                count += ev.count
+    if not out:
+        return None
+    out["kernels_per_call"] = count / reps
+    return out
 
 
 def phase_k10(dev, kern, ngauss, kind, B=1, nchan=512, nbin=2048):
@@ -1097,8 +1110,11 @@ def phase_k10(dev, kern, ngauss, kind, B=1, nchan=512, nbin=2048):
     and J^T J within K10_TOL, the same NaNs, two calls the same bits, the
     tau and scattering-index rows and columns exactly 0 at tau = 0;
     device times by graph replay through a GaussFtWork, the wrapper's per
-    call with and without one, the plain version's, the bound, the staged
-    rows' bytes, epilogue B's split by launch (k10_split_ms); the work's
+    call with and without one, the plain version's, the bound, epilogue
+    B's path (on chip: its cluster size, rows a transform batch and the
+    clusters the card holds at once; staged) and staged rows' bytes (0 and
+    no staged tensor on chip), its split by kernel (k10_split_ms: one
+    launch a call on chip); the work's
     outputs of the timed replay and of a later call the first call's
     bits; beside epilogue B the
     library's rfft and Gram (rfft_bmm_ms) and, up to K9_ROUTE_MAX_NGAUSS
@@ -1144,12 +1160,25 @@ def phase_k10(dev, kern, ngauss, kind, B=1, nchan=512, nbin=2048):
                         for a, b in zip(tup(v), tup(got)))
         zeros = True
         if normal:
-            row["staged_bytes"] = gauss_ft_staged_bytes(B, nchan, nbin,
-                                                        ngauss)
+            sz = kern.gauss_ft_sizes(ngauss, len(joins), nchan, nbin)
+            row["path"] = "onchip" if sz["cluster"] else "staged"
+            row["cluster"], row["batch"] = sz["cluster"], sz["batch"]
+            row["active_clusters"] = kern.gauss_ft_active_clusters(
+                ngauss, len(joins), nchan, nbin)
+            staged = work.buffers(B, ngauss, True).staged is not None
+            row["staged_bytes"] = gauss_ft_staged_bytes(
+                B, nchan, nbin, ngauss, staged)
             row["staged_ms_at_hbm"] = row["staged_bytes"] / \
                 PEAK_BYTES_PER_S * 1e3
             row["rfft_bmm_ms"] = rfft_bmm_ms(dev, ngauss, B, nchan, nbin)
             row["split_ms"] = k10_split_ms(lambda: fn(*args, work=work))
+            split = row["split_ms"] or {}
+            if staged == bool(sz["cluster"]) or (
+                    split and split["kernels_per_call"] != (
+                        2 if staged else 1)):
+                raise AssertionError(
+                    "gauss_ft_normal at %s: path %s, staged tensor %s, "
+                    "split %s" % (row["shape"], row["path"], staged, split))
             row["torch_route_jac_ms"], row["torch_route_ms"] = route
             if kind == "tau0":
                 ia = args[0].shape[1] - 1 - 2 * len(joins)
@@ -6482,7 +6511,8 @@ def main(argv):
                 {key: c[key] for key in (
                     "shape", "ngauss", "kind", "njoin", "ms", "call_ms",
                     "work_call_ms", "bound_ms", "bound_by", "share_of_bound",
-                    "plain_ms", "rfft_bmm_ms", "split_ms", "staged_bytes",
+                    "plain_ms", "rfft_bmm_ms", "split_ms", "path",
+                    "cluster", "batch", "active_clusters", "staged_bytes",
                     "torch_route_jac_ms", "torch_route_ms", "errors",
                     "max_abs_err", "repeat_bit_equal") if key in c}
                 for c in r])

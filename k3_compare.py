@@ -1,4 +1,4 @@
-"""Compare kernels K3, K1 or K9 and their fits across source trees on one GPU.
+"""Compare kernels K3, K1, K9 or K10 and their fits across source trees on one GPU.
 
 For each tree given (a checkout of this repository, e.g. the parent
 commit unpacked with ``git archive`` into a git-ignored directory), in the
@@ -79,6 +79,17 @@ With ``--k9`` first (the Gaussian portrait fit's normal equations):
   64-row panel up to 20 components, three at 21-41, six at 43, each a
   pass over the bins); nvcc's register report.
 
+With ``--k10`` first (the scattered and joined Gaussian portrait fit's
+normal equations):
+
+* K10's two epilogues (``_kernels.gauss_ft_normal``, ``gauss_ft_sse``) at
+  chip_smoke.py's K10 shapes of this tree's ``k10_inputs`` ([512, 2048],
+  one lane, 1, 4 and 19 components x tau > 0, tau = 0 fitted, two joins,
+  joins with tau) and 19 components over [512, 8192]: device ms by
+  CUDA-graph replay through a GaussFtWork; where the tree has
+  ``_kernels.gauss_ft_path``, epilogue B's path (cluster size, 0 for the
+  staged rows); nvcc's register report.
+
 Each tree prints one JSON line; run the trees alternately (parent,
 change, change, parent) to compare them within one call:
 
@@ -87,6 +98,7 @@ change, change, parent) to compare them within one call:
     python3 k3_compare.py --spectra PARENT_DIR . . PARENT_DIR
     python3 k3_compare.py --ppgauss PARENT_DIR . . PARENT_DIR
     python3 k3_compare.py --k9 PARENT_DIR . . PARENT_DIR
+    python3 k3_compare.py --k10 PARENT_DIR . . PARENT_DIR
 
 Needs a CUDA device and the CUDA toolkit (nvcc, cuobjdump).
 """
@@ -654,6 +666,39 @@ def one_tree_k9(root):
           flush=True)
 
 
+def one_tree_k10(root):
+    root = os.path.abspath(root)
+    sys.path.insert(0, root)
+    os.chdir(root)
+    import torch
+
+    import chip_smoke as cs
+    from pulseportraiture_tpu_torch import _kernels as K
+
+    K.build(["gauss_ft_normal", "gauss_ft_sse"])
+    dev = torch.device("cuda")
+    shapes = [(ng, kind, 2048) for ng in (1, 4, 19)
+              for kind in ("tau", "tau0", "joined", "joined_tau")]
+    rows = []
+    for ngauss, kind, nbin in shapes + [(19, "tau", 8192)]:
+        args, joins = cs.k10_inputs(dev, ngauss, kind, 1, 512, nbin)
+        work = K.GaussFtWork(*args[1:])
+        row = dict(ngauss=ngauss, kind=kind, nbin=nbin)
+        if hasattr(K, "gauss_ft_path"):
+            row["cluster"] = K.gauss_ft_path(ngauss, len(joins), 512,
+                                             nbin)["cluster"]
+        for name in ("gauss_ft_normal", "gauss_ft_sse"):
+            fn = getattr(K, name)
+            row[name] = cs.graph_ms(lambda: fn(*args, work=work))
+        rows.append(row)
+        del work
+        torch.cuda.empty_cache()
+    ptxas = [ln.strip() for ln in K.BUILD_LOG.get("gauss_ft", "").splitlines()
+             if "Used" in ln or "spill" in ln]
+    print(json.dumps(dict(tree=root, gpu=cs.gpu_line(), k10=rows,
+                          ptxas=ptxas)), flush=True)
+
+
 def params_gaps(lines):
     """Each --ppgauss run's largest parameter gap to the first run's,
     over the first run's finite errors."""
@@ -667,8 +712,8 @@ def params_gaps(lines):
 
 
 def main(argv):
-    mode = argv[0] if argv and argv[0] in ("--k1", "--spectra",
-                                           "--ppgauss", "--k9") else None
+    mode = argv[0] if argv and argv[0] in ("--k1", "--spectra", "--ppgauss",
+                                           "--k9", "--k10") else None
     if mode:
         argv = argv[1:]
     if len(argv) >= 2 and argv[0] == "--tree":
@@ -678,6 +723,8 @@ def main(argv):
             one_tree_ppgauss(argv[1], argv[2])
         elif mode == "--k9":
             one_tree_k9(argv[1])
+        elif mode == "--k10":
+            one_tree_k10(argv[1])
         else:
             (one_tree_k1 if mode else one_tree)(argv[1])
         return 0

@@ -87,10 +87,13 @@ interface and loaded with ``ctypes``:
      Jacobian's columns: each channel's basis rows and its unscattered
      portrait transformed in shared memory (K8's Stockham passes), times
      the scattering and join factors on the harmonic grid, packed
-     half-complex so that their Gram is the bins' (Parseval), staged in
-     device memory, then K9's Gram on the FP64 tensor cores, chain rule and
-     channel tree (two launches, counted as one); and ``gauss_ft_sse``, f
-     alone (one launch).  One library, two entry points, each with its own
+     half-complex so that their Gram is the bins' (Parseval), kept in the
+     shared memory of one block or a cluster of two a (channel, lane),
+     their Gram on the FP64 tensor cores over every warp, the chain rule
+     and K9's channel tree, one launch (where they do not fit so
+     (gauss_ft_path), the rows staged in device memory and then K9's
+     Gram: two launches, counted as one; GAUSS_FT_PATHS counts the calls
+     by path); and ``gauss_ft_sse``, f alone (one launch).  One library, two entry points, each with its own
      launch count and trace name.
 
 Each wrapper dispatches on its input's device: a CPU tensor takes the
@@ -162,9 +165,10 @@ __all__ = ["KernelLaunchError", "LAUNCHES", "reset_launches", "build",
            "GAUSS_SSE_MAX_NGAUSS", "GAUSS_WARP_NGAUSS", "gauss_ft_normal",
            "gauss_ft_normal_plain", "gauss_ft_sse", "gauss_ft_sse_plain",
            "gauss_ft_ngauss", "gauss_ft_takes_bins", "gauss_ft_sizes",
-           "pack_spectrum",
-           "GAUSS_FT_SIZES", "GaussFtWork", "GAUSS_FT_MAX_NGAUSS",
-           "GAUSS_FT_MIN_BINS", "GAUSS_FT_MAX_BINS", "KERNELS"]
+           "gauss_ft_path", "gauss_ft_active_clusters", "pack_spectrum",
+           "GAUSS_FT_SIZES", "GAUSS_FT_PATHS", "GaussFtWork",
+           "GAUSS_FT_MAX_NGAUSS", "GAUSS_FT_MIN_BINS", "GAUSS_FT_MAX_BINS",
+           "GAUSS_FT_MAX_CLUSTER", "GAUSS_FT_MAX_BATCHES", "KERNELS"]
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC_DIR = os.path.join(_HERE, "csrc")
@@ -268,7 +272,8 @@ _SYMBOLS = {
         _VP, _VP, _VP, _I64, _VP, _VP, _VP, _VP, _INT, _INT, _INT, _INT, _INT,
         _DBL, _DBL, _DBL, _INT, _INT, _INT, _VP, _VP, _VP, _VP, _VP, _VP,
         _VP],
-        "pp_gauss_ft_sizes": [_INT, _INT, _INT, _INT, _INT, _VP]},
+        "pp_gauss_ft_sizes": [_INT, _INT, _INT, _INT, _INT, _VP],
+        "pp_gauss_ft_clusters": [_INT, _INT, _INT, _INT, _VP]},
     "gauss_ft_sse": {"pp_gauss_ft_sse": [
         _VP, _VP, _VP, _I64, _VP, _VP, _VP, _VP, _INT, _INT, _INT, _INT, _INT,
         _DBL, _DBL, _DBL, _INT, _INT, _INT, _VP, _VP, _VP, _VP],
@@ -279,8 +284,9 @@ _SYMBOLS = {
 # it is named in a profiler trace (K2's grid stage, its Newton stage
 # runs as often; K8's two selects, the route's and the scan's certifying
 # one, both wavelet_select*; K9's two layouts, gauss_normal_warp_kernel
-# and gauss_normal_mma_kernel; K10's normal equations run their rows kernel
-# before it, once a launch, as gauss_ft_rows_kernel)
+# and gauss_normal_mma_kernel; K10's normal equations either
+# gauss_ft_gram_cluster_kernel, on chip, or gauss_ft_gram_kernel after
+# gauss_ft_rows_kernel, staged: one gauss_ft_gram_* a call)
 TRACE_NAMES = {"moments": "moments_kernel",
                "moments_grad_hess": "moments_grad_hess_kernel",
                "fftfit": "fftfit_grid_kernel",
@@ -295,7 +301,7 @@ TRACE_NAMES = {"moments": "moments_kernel",
                "smooth_search": "wavelet_select",
                "gauss_normal": "gauss_normal_",
                "gauss_sse": "gauss_sse_kernel",
-               "gauss_ft_normal": "gauss_ft_gram_kernel",
+               "gauss_ft_normal": "gauss_ft_gram_",
                "gauss_ft_sse": "gauss_ft_sse_kernel"}
 
 LAUNCHES = {name: 0 for name in KERNELS}
@@ -316,11 +322,14 @@ class KernelLaunchError(RuntimeError):
 
 
 def reset_launches():
-    """Set every launch count, and K8's rows by tier (SMOOTH_ROWS), to 0."""
+    """Set every launch count, K8's rows by tier (SMOOTH_ROWS) and K10's
+    calls by path (GAUSS_FT_PATHS) to 0."""
     for name in LAUNCHES:
         LAUNCHES[name] = 0
     for tier in SMOOTH_ROWS:
         SMOOTH_ROWS[tier] = 0
+    for path in GAUSS_FT_PATHS:
+        GAUSS_FT_PATHS[path] = 0
 
 
 def _nvcc():
@@ -2599,12 +2608,23 @@ def gauss_normal(params, data, errs, bins, freqs, nu_ref, model_code,
 # and kMaxBins (its transforms take powers of two in that range, in a
 # block's shared memory); the wrappers raise beyond, and fit.gauss keeps
 # jacfwd there.  The launches' geometry is the source's alone
-# (gauss_ft_sizes).
+# (gauss_ft_sizes); gauss_ft_path mirrors its path rule with the source's
+# kMaxCluster and kMaxBatches and gauss_common.cuh's kSmemMax and
+# kRowBudget.
 GAUSS_FT_MAX_NGAUSS = 1888
 GAUSS_FT_MIN_BINS = 64
 GAUSS_FT_MAX_BINS = 8192
+GAUSS_FT_MAX_CLUSTER = 2
+GAUSS_FT_MAX_BATCHES = 3
+GAUSS_FT_SMEM_MAX = 232448
+GAUSS_FT_ROW_BUDGET = 1 << 28
 GAUSS_FT_SIZES = ("width", "rows", "counters", "chans_per_block", "fan",
-                  "staged", "smem_rows", "smem_gram", "smem_sse")
+                  "staged", "smem_rows", "smem_gram", "smem_sse", "cluster",
+                  "batch", "smem_onchip")
+# gauss_ft_normal's calls on the card by path: "onchip", one launch (a
+# cluster of blocks a (channel, lane), the rows in shared memory), or
+# "staged", two (the rows through device memory); gauss_ft_path says which
+GAUSS_FT_PATHS = {"onchip": 0, "staged": 0}
 
 
 def gauss_ft_ngauss(nparam, njoin):
@@ -2628,8 +2648,10 @@ def gauss_ft_sizes(ngauss, njoin, nchan, nbin, normal=True):
     A, as its pp_gauss_ft_sizes gives it: {GAUSS_FT_SIZES key: int}: the
     doubles in a row of per-lane sums, a lane's scratch rows and tree
     counters, the channels a Gram block, the tree's fan-in, the staged
-    packed rows a (lane, channel) and the shared memory of the rows, Gram
-    and sse kernels.  Builds the kernel (nvcc); raises ValueError for a
+    packed rows a (lane, channel) (0 on the on-chip path), the shared
+    memory of the rows, Gram and sse kernels, and epilogue B's on-chip
+    launch: its cluster size (0: the staged path), rows a transform batch
+    and shared memory.  Builds the kernel (nvcc); raises ValueError for a
     problem the kernel does not take."""
     name = "gauss_ft_normal" if normal else "gauss_ft_sse"
     if name not in _LIBS:
@@ -2640,6 +2662,59 @@ def gauss_ft_sizes(ngauss, njoin, nchan, nbin, normal=True):
         raise ValueError("%s: no launch of %d components, %d join groups "
                          "over [%d, %d]" % (name, ngauss, njoin, nchan, nbin))
     return dict(zip(GAUSS_FT_SIZES, out))
+
+
+def _gauss_ft_onchip_smem(ngauss, nbin, cs, T):
+    """csrc/gauss_ft.cu's onchip_smem: the on-chip kernel's shared memory
+    in bytes at cluster size cs and T rows a transform batch."""
+    nt = (3 * ngauss + 4 + 15) // 16
+    pairs = nt * (nt + 1) // 2
+    splits = 1 if pairs >= 8 else 8 // pairs
+    stride = (nbin // cs + 15) // 16 * 16 + 4
+    return 8 * (max(2 * T * nbin, splits * pairs * 256)
+                + (3 * ngauss + 3) * stride + 6 + 10 * ngauss) + 4 * ngauss
+
+
+def gauss_ft_path(ngauss, njoin, nchan, nbin):
+    """gauss_ft_normal's path on the card, as csrc/gauss_ft.cu's rule
+    (onchip) chooses it: {"cluster": blocks a (channel, lane), "batch":
+    rows a block transforms at once}, or cluster 0 for the staged path.
+    The rule: the smallest of the cluster sizes 1 .. GAUSS_FT_MAX_CLUSTER
+    (at most nbin / 8) at which a block's shared memory (a slice of every
+    stored row, a transform batch's buffers, the Gram's partial sums) fits
+    GAUSS_FT_SMEM_MAX with at most GAUSS_FT_MAX_BATCHES transform batches
+    a block, with the fewest batches there; the staged path where none
+    fits, or where a lane's rows of sums exceed GAUSS_FT_ROW_BUDGET (the
+    Gram's blocks then group channels).  Pure Python: gauss_ft_sizes
+    reports the source's own choice."""
+    ng, nbin = int(ngauss), int(nbin)
+    P = 6 * ng + 3 + 2 * int(njoin)
+    width = P * (P + 1) // 2 + P + 2
+    if int(nchan) * 8 * width <= GAUSS_FT_ROW_BUDGET:
+        cs = 1
+        while cs <= GAUSS_FT_MAX_CLUSTER and cs <= nbin // 8:
+            tb = -(-3 * ng // cs)
+            for nb in range(1, min(tb, GAUSS_FT_MAX_BATCHES) + 1):
+                T = -(-tb // nb)
+                if _gauss_ft_onchip_smem(ng, nbin, cs, T) <= \
+                        GAUSS_FT_SMEM_MAX:
+                    return {"cluster": cs, "batch": T}
+            cs *= 2
+    return {"cluster": 0, "batch": 0}
+
+
+def gauss_ft_active_clusters(ngauss, njoin, nchan, nbin):
+    """The clusters of gauss_ft_normal's on-chip launch the current CUDA
+    device holds at once (cudaOccupancyMaxActiveClusters); 0 on the
+    staged path.  Builds the kernel (nvcc)."""
+    if "gauss_ft_normal" not in _LIBS:
+        build(["gauss_ft_normal"])
+    out = ctypes.c_int(0)
+    err = _LIBS["gauss_ft_normal"]["pp_gauss_ft_clusters"](
+        int(ngauss), int(njoin), int(nchan), int(nbin), ctypes.byref(out))
+    if err:
+        raise KernelLaunchError("gauss_ft_normal", err)
+    return out.value
 
 
 def _packing_weights(nbin, dtype, device):
@@ -2828,16 +2903,18 @@ def _check_gauss_ft(params, data, errs, bins, freqs, model_code, groups,
 
 
 class _GaussFtBuffers:
-    """A launch's staged rows (epilogue B), scratch rows and tree counters
-    (zero: every launch leaves them zero), sized by gauss_ft_sizes; with
-    ``outs``, gauss_ft_normal's outputs, kept."""
+    """A launch's staged rows (epilogue B on the staged path), scratch rows
+    and tree counters (zero: every launch leaves them zero), sized by
+    gauss_ft_sizes, and its path; with ``outs``, gauss_ft_normal's
+    outputs, kept."""
 
     def __init__(self, B, nchan, nbin, ngauss, njoin, normal, device,
                  outs=False):
         sz = gauss_ft_sizes(ngauss, njoin, nchan, nbin, normal)
+        self.path = "onchip" if sz["cluster"] else "staged"
         self.staged = torch.empty((B, nchan, sz["staged"], nbin),
                                   dtype=torch.float64, device=device) \
-            if normal else None
+            if sz["staged"] else None
         self.scratch = torch.empty((B, sz["rows"], sz["width"]),
                                    dtype=torch.float64, device=device)
         self.counters = torch.zeros((B, sz["counters"]), dtype=torch.int32,
@@ -2955,7 +3032,8 @@ def _gauss_ft_launch(name, params, dspec, errs, bins, freqs, groups, tw,
                      nu_ref, laws, ng, njoin, period, bufs, *outs):
     B = params.shape[0]
     nchan, nbin = dspec.shape
-    staged = () if bufs.staged is None else (bufs.staged.data_ptr(),)
+    staged = () if name == "gauss_ft_sse" else (
+        0 if bufs.staged is None else bufs.staged.data_ptr(),)
     _launch(name, params.device, params.data_ptr(), dspec.data_ptr(),
             errs.data_ptr(), errs.stride(0), bins.data_ptr(),
             freqs.data_ptr(), groups.data_ptr(), tw.data_ptr(), B, ng,
@@ -3007,8 +3085,11 @@ def gauss_ft_normal(params, data, errs, bins, freqs, nu_ref, model_code,
     Jacobian J = d r / d params: f = sum r^2, g = J^T r, JtJ = J^T J, with
     no J formed.  Where a lane's tau is 0 its tau and scattering-index rows
     and columns are exactly 0 (the reference's model is then unscattered);
-    a power law's p0 = 0 gives NaN in every g and JtJ entry.  Two launches
-    (the packed rows, then their Gram), counted as one.  With ``work`` (a
+    a power law's p0 = 0 gives NaN in every g and JtJ entry.  One launch
+    where a channel's packed rows fit the shared memory of a cluster of
+    blocks (gauss_ft_path), else two (the rows staged in device memory,
+    then their Gram) counted as one; GAUSS_FT_PATHS counts the calls by
+    path.  With ``work`` (a
     GaussFtWork of the same fixed arguments) the fixed arguments are not
     checked again and the outputs are the work's own, overwritten by its
     next gauss_ft_normal call."""
@@ -3031,4 +3112,6 @@ def gauss_ft_normal(params, data, errs, bins, freqs, nu_ref, model_code,
     _gauss_ft_launch("gauss_ft_normal", params, dspec, errs, bins, freqs,
                      groups, tw, nu_ref, laws, ng, njoin, period, bufs,
                      *bufs.outs)
+    with _STATE_LOCK:
+        GAUSS_FT_PATHS[bufs.path] += 1
     return bufs.outs

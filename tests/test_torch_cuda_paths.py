@@ -1715,7 +1715,9 @@ def test_ppgauss_cli_card_matches_cpu(card, tmp_path, monkeypatch, case):
 # bins); kind: tau > 0 ("tau"), tau = 0 with tau fitted ("tau0"), two join
 # groups ("joined"), both ("joined_tau").  The kernel against its plain
 # version within GAUSS_FT_TOL of each output's largest magnitude per lane
-# (an H100 read <= 6.7e-16 for f, 4e-14 for g and 1.9e-14 for J^T J)
+# (an H100 read <= 6.7e-16 for f, 4e-14 for g and 1.9e-14 for J^T J); the
+# cases take epilogue B's every path (_kernels.gauss_ft_path): on chip in
+# clusters of one and two blocks, and staged
 GAUSS_FT_CASES = [(1, 1, "000", "tau", 128, 1024),
                   (2, 2, "111", "tau0", 64, 512),
                   (3, 1, "000", "joined", 128, 1024),
@@ -1723,7 +1725,12 @@ GAUSS_FT_CASES = [(1, 1, "000", "tau", 128, 1024),
                   (19, 1, "000", "tau", 64, 2048),
                   (21, 1, "011", "joined_tau", 32, 512),
                   (1, 1, "000", "tau", 16, 64),
-                  (2, 1, "000", "joined_tau", 16, 8192)]
+                  (2, 1, "000", "joined_tau", 16, 8192),
+                  (1, 1, "000", "joined_tau", 64, 2048),
+                  (4, 2, "011", "joined_tau", 64, 2048),
+                  (10, 1, "000", "tau", 32, 2048),
+                  (4, 1, "000", "joined", 16, 8192),
+                  (19, 1, "000", "joined_tau", 16, 8192)]
 GAUSS_FT_TOL = 1e-12
 
 
@@ -1777,18 +1784,27 @@ def _gauss_ft_gaps(got, want):
 def test_gauss_ft_kernels_match_plain_on_the_card(card, case):
     """K10's two epilogues against their plain versions on the card (f, g
     and J^T J within GAUSS_FT_TOL of their largest magnitude, lane by
-    lane; the same NaNs), one counted launch a call, two calls the same
-    bits (no atomics on the sums; the tree's counters set back to 0),
-    with and without a GaussFtWork."""
+    lane; the same NaNs), one counted launch a call, each epilogue B call
+    counted on the path gauss_ft_path names (the source's own choice, as
+    gauss_ft_sizes reports it), two calls the same bits (no atomics on the
+    sums; the tree's counters set back to 0), with and without a
+    GaussFtWork."""
     K = card
     args = _gauss_ft_inputs(*case)
+    nchan, nbin = args[1].shape
+    path = K.gauss_ft_path(case[0], args[8], nchan, nbin)
+    sz = K.gauss_ft_sizes(case[0], args[8], nchan, nbin)
+    assert (sz["cluster"], sz["batch"]) == (path["cluster"], path["batch"])
+    onchip = "onchip" if path["cluster"] else "staged"
     work = K.GaussFtWork(*args[1:])
-    n0 = dict(K.LAUNCHES)
+    n0, p0 = dict(K.LAUNCHES), dict(K.GAUSS_FT_PATHS)
     got = K.gauss_ft_normal(*args)
     again = K.gauss_ft_normal(*args)
     sse = K.gauss_ft_sse(*args)
     torch.cuda.synchronize()
     assert K.LAUNCHES["gauss_ft_normal"] == n0["gauss_ft_normal"] + 2
+    assert K.GAUSS_FT_PATHS[onchip] == p0[onchip] + 2
+    assert sum(K.GAUSS_FT_PATHS.values()) == sum(p0.values()) + 2
     assert K.LAUNCHES["gauss_ft_sse"] == n0["gauss_ft_sse"] + 1
     want = K.gauss_ft_normal_plain(*args)
     for a, b in zip(got, again):
@@ -1809,12 +1825,15 @@ def test_gauss_ft_kernels_match_plain_on_the_card(card, case):
             assert not got[2][:, i].any() and not got[2][:, :, i].any()
 
 
-@pytest.mark.parametrize("ngauss", [1, 19])
-def test_gauss_ft_graph_replay_same_bits(card, ngauss):
+@pytest.mark.parametrize("ngauss,nbin,cluster", [(1, 2048, 1), (4, 2048, 2),
+                                                (19, 2048, 0), (19, 8192, 0)])
+def test_gauss_ft_graph_replay_same_bits(card, ngauss, nbin, cluster):
     """A call of each epilogue captured in a CUDA graph and replayed three
-    times gives the eager call's bits every time."""
+    times gives the eager call's bits every time, on both of epilogue B's
+    paths (on chip in clusters of one and two blocks, staged)."""
     K = card
-    args = _gauss_ft_inputs(ngauss, 2, "000", "joined_tau", 64, 2048)
+    args = _gauss_ft_inputs(ngauss, 2, "000", "joined_tau", 64, nbin)
+    assert K.gauss_ft_path(ngauss, 2, 64, nbin)["cluster"] == cluster
     work = K.GaussFtWork(*args[1:])
     want = [t.clone() for t in K.gauss_ft_normal(*args, work=work)]
     want_f = K.gauss_ft_sse(*args, work=work)
@@ -1837,9 +1856,11 @@ def test_gauss_ft_graph_replay_same_bits(card, ngauss):
 def test_gauss_ft_nan_sizes_and_limits_on_the_card(card):
     """A power law's amp0 at its 0 bound gives NaN in every g and J^T J
     entry and a finite f, as the plain version; pp_gauss_ft_sizes gives
-    the staged rows, the shared memory and the tree as the source's
-    geometry says; the wrappers raise past the component limit and at
-    widths the transforms do not take."""
+    the path, the staged rows, the shared memory and the tree as the
+    source's geometry says (four components over [512, 2048] on chip in
+    a two-block cluster, no staged rows; 19 staged); the
+    wrappers raise past the component limit and at widths the transforms
+    do not take."""
     K = card
     args = list(_gauss_ft_inputs(2, 2, "000", "tau", 32, 512))
     x = args[0].clone()
@@ -1850,9 +1871,12 @@ def test_gauss_ft_nan_sizes_and_limits_on_the_card(card):
     assert torch.isfinite(got[0]).all()
     assert not torch.isnan(got[1][0]).any()
     assert max(_gauss_ft_gaps(got, want)) <= GAUSS_FT_TOL
+    sz = K.gauss_ft_sizes(4, 2, 512, 2048)
+    assert (sz["cluster"], sz["batch"], sz["staged"]) == (2, 3, 0)
+    assert sz["smem_onchip"] == K._gauss_ft_onchip_smem(4, 2048, 2, 3)
     sz = K.gauss_ft_sizes(19, 2, 512, 2048)
     P = 6 * 19 + 3 + 4
-    assert sz["staged"] == 3 * 19 + 3
+    assert (sz["cluster"], sz["staged"]) == (0, 3 * 19 + 3)
     assert sz["width"] == P * (P + 1) // 2 + P + 2
     assert sz["smem_rows"] == 16 * 2048 + 16 * 1025 + 40
     assert sz["smem_gram"] == 8 * (10 * 19 + 2 * 64 * 36 + 4) + 4 * (19 + 4)

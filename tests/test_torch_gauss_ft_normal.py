@@ -506,7 +506,7 @@ _CTYPE = {"const void*": _kernels._VP, "void*": _kernels._VP,
 
 
 @pytest.mark.parametrize("name", ["gauss_ft_normal", "gauss_ft_sse",
-                                  "gauss_ft_sizes"])
+                                  "gauss_ft_sizes", "gauss_ft_clusters"])
 def test_gauss_ft_bindings_match_the_source(name):
     """Each C entry point pp_<name> of csrc/gauss_ft.cu takes, in order,
     the argument types its ctypes bindings declare (the launches' stream
@@ -525,13 +525,141 @@ def test_gauss_ft_bindings_match_the_source(name):
 
 @pytest.mark.parametrize("python,source", [
     ("GAUSS_FT_MAX_NGAUSS", "kMaxNgauss"), ("GAUSS_FT_MIN_BINS", "kMinBins"),
-    ("GAUSS_FT_MAX_BINS", "kMaxBins")])
+    ("GAUSS_FT_MAX_BINS", "kMaxBins"), ("GAUSS_FT_MAX_CLUSTER", "kMaxCluster"),
+    ("GAUSS_FT_MAX_BATCHES", "kMaxBatches")])
 def test_gauss_ft_constants_match_the_source(python, source):
-    """The wrappers' and the route's limits are csrc/gauss_ft.cu's."""
+    """The wrappers' and the route's limits, and the path rule's largest
+    cluster and most transform batches a block, are csrc/gauss_ft.cu's."""
     text = open(_kernels.CSRC_DIR + "/gauss_ft.cu").read()
     m = re.search(r"constexpr int %s = (\d+);" % source, text)
     assert m is not None
     assert int(m.group(1)) == getattr(_kernels, python)
+
+
+def test_gauss_ft_path_constants_match_the_source():
+    """gauss_ft_path's shared-memory limit and row budget are
+    csrc/gauss_common.cuh's kSmemMax and kRowBudget, and the eight warps
+    a block its Gram's splits assume the on-chip kernel's kCThreads
+    (csrc/gauss_ft.cu)."""
+    common = open(_kernels.CSRC_DIR + "/gauss_common.cuh").read()
+    m = re.search(r"constexpr int kSmemMax = (\d+);", common)
+    assert m is not None and int(m.group(1)) == _kernels.GAUSS_FT_SMEM_MAX
+    m = re.search(r"constexpr int64_t kRowBudget = int64_t\(1\) << (\d+);",
+                  common)
+    assert m is not None
+    assert 1 << int(m.group(1)) == _kernels.GAUSS_FT_ROW_BUDGET
+    text = open(_kernels.CSRC_DIR + "/gauss_ft.cu").read()
+    assert "constexpr int kCThreads = 256;" in text
+    assert "constexpr int kCWarps = kCThreads / 32;" in text
+
+
+# (ngauss, njoin, nchan, nbin) -> (cluster, batch): the smoke's K10 cases
+# ([512, 2048] at one and four components on chip, in clusters of one and
+# two blocks; 19 there and over 8192 bins staged), the card tests'
+# shapes, and where the staged path stays: past two blocks or three
+# transform batches a block, and past the rows of sums' budget
+PATH_CASES = [((1, 0, 512, 2048), (1, 3)), ((4, 2, 512, 2048), (2, 3)),
+              ((19, 2, 512, 2048), (0, 0)), ((19, 0, 512, 8192), (0, 0)),
+              ((1, 0, 128, 1024), (1, 3)), ((2, 2, 64, 512), (1, 6)),
+              ((3, 0, 128, 1024), (1, 5)), ((3, 0, 64, 2048), (2, 3)),
+              ((21, 2, 32, 512), (2, 11)), ((1, 0, 16, 64), (1, 3)),
+              ((2, 0, 64, 4096), (2, 1)), ((8, 0, 32, 1024), (2, 6)),
+              ((5, 0, 512, 2048), (0, 0)), ((1, 0, 16, 8192), (0, 0)),
+              ((1, 0, 600000, 2048), (0, 0))]
+
+
+@pytest.mark.parametrize("shape,path", PATH_CASES,
+                         ids=lambda v: "x".join(map(str, v)))
+def test_gauss_ft_path_rule(shape, path):
+    """gauss_ft_path (the Python mirror of csrc/gauss_ft.cu's onchip rule,
+    held to the source's own choice on the card) at the smoke's and the
+    card tests' shapes."""
+    got = _kernels.gauss_ft_path(*shape)
+    assert (got["cluster"], got["batch"]) == path
+
+
+@pytest.mark.parametrize("nbin", [64, 512, 2048, 8192])
+def test_gauss_ft_path_rule_takes_the_smallest_cluster(nbin):
+    """Over 1 to 60 components: an on-chip choice fits the shared memory
+    with a cluster of at most GAUSS_FT_MAX_CLUSTER (and nbin / 8) blocks
+    and at most GAUSS_FT_MAX_BATCHES transform batches a block, no smaller
+    cluster does, and no fewer batches fit at its size; a staged choice
+    fits at no cluster size."""
+    K = _kernels
+
+    def batches(ng, cs):   # fewest batches that fit at cs, and their rows
+        tb = -(-3 * ng // cs)
+        for nb in range(1, min(tb, K.GAUSS_FT_MAX_BATCHES) + 1):
+            if K._gauss_ft_onchip_smem(ng, nbin, cs, -(-tb // nb)) <= \
+                    K.GAUSS_FT_SMEM_MAX:
+                return nb, -(-tb // nb)
+        return None
+
+    sizes = [cs for cs in (1, 2, 4, 8, 16)
+             if cs <= min(nbin // 8, K.GAUSS_FT_MAX_CLUSTER)]
+    for ng in range(1, 61):
+        got = K.gauss_ft_path(ng, 2, 64, nbin)
+        fits = {cs: batches(ng, cs) for cs in sizes}
+        if not got["cluster"]:
+            assert all(v is None for v in fits.values()), (ng, fits)
+            continue
+        cs, T = got["cluster"], got["batch"]
+        assert cs in sizes and fits[cs][1] == T
+        assert K._gauss_ft_onchip_smem(ng, nbin, cs, T) <= K.GAUSS_FT_SMEM_MAX
+        assert all(fits[other] is None for other in sizes if other < cs)
+
+
+@pytest.mark.parametrize("ngauss", [1, 4, 19])
+def test_gauss_ft_slices_partition_the_gram(ngauss):
+    """The on-chip kernel's Gram of packed rows: block j of a cluster of cs
+    owns the harmonics [j h, j h + h), h = N / 2 cs, and block 0 also N /
+    2, holding each row's Re and Im of them (Re k at 2 (k - j h), Im k
+    next; the Nyquist Re in block 0's second place); each block sums its
+    slice in its eight warps' splits, the splits added in order and then
+    the blocks in rank order, the dc row's entries from its one nonzero
+    real (sqrt N at harmonic 0, block 0's first).  The slices hold every
+    packed real once (k = 0, N/2, the interior's Re and Im) and the sum
+    equals the full Gram within 1e-13 of its largest entry, at every
+    cluster size."""
+    rng = np.random.default_rng(7)
+    nbin, n = 256, 128
+    q1 = 3 * ngauss + 4
+    x = rng.normal(size=(q1 - 1, nbin))
+    x[0] += 3.0 * np.cos(np.pi * np.arange(nbin))   # the Nyquist harmonic
+    V = np.zeros((q1, nbin))
+    V[0, 0] = np.sqrt(nbin)                          # the dc row
+    V[1:] = _kernels.pack_spectrum(torch.fft.rfft(torch.as_tensor(x)),
+                                   nbin).numpy()
+    full = V @ V.T
+    nt = (q1 + 15) // 16
+    pairs = nt * (nt + 1) // 2
+    S = 1 if pairs >= 8 else 8 // pairs
+    for cs in (1, 2, 4, 8, 16):
+        L, h = nbin // cs, n // cs
+        ks = L // 8
+        seen = np.zeros(nbin, int)
+        tot = None
+        for r in range(cs):
+            where = np.zeros(L, int)                 # packed real at each place
+            for i in range(h):
+                k = r * h + i
+                where[2 * i] = k
+                where[2 * i + 1] = n + k if k else n
+            seen[where] += 1
+            Z = V[:, where].copy()
+            Z[0] = 0.0                               # dc: 0 in the products
+            blk = None
+            for sp in range(S):
+                lo, hi = sp * ks // S * 8, (sp + 1) * ks // S * 8
+                part = Z[:, lo:hi] @ Z[:, lo:hi].T
+                blk = part if blk is None else blk + part
+            tot = blk if tot is None else tot + blk
+        assert (seen == 1).all()
+        tot[0, :] = np.sqrt(nbin) * V[:, 0]
+        tot[:, 0] = tot[0, :]
+        tot[0, 0] = np.sqrt(nbin) * np.sqrt(nbin)
+        np.testing.assert_allclose(tot, full, rtol=0,
+                                   atol=1e-13 * np.abs(full).max())
 
 
 def test_gauss_ft_source_in_the_build():
