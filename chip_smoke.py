@@ -199,8 +199,18 @@ the profiler's clock conversion is fresh):
               their plain versions), the pptoas step rerun with the plain
               versions (1 ns); seconds per step and in
               load_data, the GLS's wrms and reduced chi2
-  synth       make_fake_dataset (B11) making the throughput data on the
-              card: seconds, bound, peak device memory
+  synth       make_fake_dataset making the throughput data on the card
+              through K12 (csrc/synth.cu; the counts zeroed just before:
+              one launch a block, no block on the torch route): seconds,
+              bound, peak device memory; one block [32, 512, 2048], with
+              and without the scattering spectrum, by CUDA-graph replay
+              beside its bound, its plain version's time and
+              torch.randn's for the block's noise, held against its plain
+              version on the same noise from one generator state (every
+              row within 1e-13 of its peak); make_fake_dataset's kernel and
+              torch routes from one seed (the same draws: 1e-13 of each
+              row's peak); 1000 bins through the counted torch route, held
+              to the CPU's make (1e-12 of the peak)
   throughput  fit_portrait_full_batch(init_params=None) at 1000 x 512 x
               2048 (data made on the card by the port's make_fake_dataset
               at phases and dDMs from a seeded torch.Generator; the
@@ -210,13 +220,18 @@ the profiler's clock conversion is fresh):
               subints), K1 and K4 ms per launch, device events and
               device-busy ms per fit (torch.profiler, a separate run),
               peak device memory
-  noise_fit   get_noise_fit (B10) on the first 256 subints of the
-              throughput data (131,072 channels, three zeroed in every
-              subint): ms, bound, extra peak memory; the Wiener and
-              brickwall smoothing of one subint's 512 profiles; that
-              subint against the port on the CPU (k_crit and brickwall
-              cutoffs equal, noise within 1e-12 relative, zeroed
-              channels 0)
+  noise_fit   get_noise_fit through K11 (csrc/noisefit.cu) on the first
+              256 subints of the throughput data (131,072 channels, three
+              zeroed in every subint; the counts zeroed just before): its
+              ms, bound, extra peak memory; K11 alone over every
+              channel's spectrum by CUDA-graph replay (cuFFT's rFFT
+              apart) beside its bound and its plain version's time, and
+              against its plain version on the card (k_crit mismatches,
+              ties within the chi2 rounding bound, none a fault; noise
+              within 1e-12 relative); the Wiener and brickwall smoothing
+              of one subint's 512 profiles; that subint against the port
+              on the CPU (k_crit and brickwall cutoffs equal, noise within
+              1e-12 relative, zeroed channels 0)
   obs         the observability layer (obs/, testing/faults): pptoas on
               the 16-subint archive with PPTPU_OBS_DIR and PPTPU_TRACE_DIR
               (CLI walls with obs on and off, in turns), --fit_scat, ppalign
@@ -336,14 +351,16 @@ archive, the load phase's own run first, K8 (``smooth_search``, counted
 once a chunk decided, its ``symbols`` and ``rows_by_path``: rows by
 tier) on ppspline, ppalign_s and the walkthrough, K9 (``gauss_normal``,
 ``gauss_sse``) on ppgauss, K10 (``gauss_ft_normal``, ``gauss_ft_sse``)
-on ppgauss_scat, with
+on ppgauss_scat, K11 (``noise_fit``) on noise_fit, K12
+(``synth_rows``) on synth, with
 ``launches_by_path`` —
 errors and times; K2 with
 its [1000, 1025] numbers, K1 and K3 with their [1000, 512, 128] ones and
 K4 with its [64, 512, 2048] ones,
 K5-K7 with the load phase's, K8 with ppalign_s's [512, 2048] ones, K9
 with its one-lane, one-component [512, 2048] ones, K10 with its
-one-lane, one-component, tau > 0 [512, 2048] ones,
+one-lane, one-component, tau > 0 [512, 2048] ones, K11 with its
+[131072, 1025] ones, K12 with its unscattered block's,
 each with a ``shapes`` list of all its cases), the card's name and power
 limit, and
 last ``{"ok": true, "device": {...}}``.  Exits non-zero without a result
@@ -509,6 +526,38 @@ K10_MAIN = 0
 # its scattering time at nu0 [s] (the fit starts at 3/4 of it), index
 # and noise
 K10_T_SCAT, K10_ALPHA, K10_NOISE = 4e-5, -4.0, 0.05
+# K11, the "fit" noise estimator (get_noise_fit, find_kc; load_data,
+# normalize_portrait and get_SNR with noise_method="fit"), against its plain
+# version over every channel of the noise_fit cube: the cutoffs equal (a
+# mismatch is a tie only where the plain chi2 at the two cutoffs' best grid
+# points lie within the rounding bound of k11_ties, else a fault), the noise
+# within this relative where the cutoffs agree (sums of ~nbin terms in
+# another order)
+K11_NOISE_TOL = 1e-12
+# K11 off the main path's shape, against its plain version on the card:
+# (rows, nbin, fn, Ns, fact) — an a grid wider than 20 (the second pass run
+# twice), rows whose power does not fit shared memory (re-read from device
+# memory), and both at once
+K11_WIDE_CASES = ((4096, 2048, "half_tri", 27, 2.0),
+                  (96, 65536, "exp_dc", 20, 1.1),
+                  (32, 131072, "half_tri", 23, 1.5))
+# K12, the synthetic-data writer (make_fake_dataset, make_fake_portrait):
+# every row within this of its peak of the plain version's on the same
+# noise (one sincos and two complex products a harmonic, then K8's inverse
+# transform against cuFFT's; tests/test_torch_cuda_paths.py)
+K12_TOL = 1e-13
+# a width K12's onchip path does not take: its cufft path (K12's harmonics
+# kernel, cuFFT's inverse, K12's epilogue), counted in SYNTH_PATHS
+K12_NARROW_BINS = 1000
+# K11 and K12: no TOA path runs them (the paths' noise is "PS"; K12 makes
+# the synthetic data some phases fit), so those paths neither watch nor
+# require them
+K11_K12_NAMES = ("noise_fit", "synth_rows")
+
+
+def toa_path_kernels(K):
+    """The hand kernels a TOA path (survey, serve, mesh) is held to."""
+    return tuple(n for n in K.KERNELS if n not in K11_K12_NAMES)
 
 
 def emit(phase, **kw):
@@ -4145,18 +4194,30 @@ def phase_throughput(dev, K):
         fit_portrait_full_batch, model_kmax)
 
     nsub, nchan, nbin = 1000, 512, 2048
+    # the synth path (K12): the north-star data, counts zeroed just before
+    K.reset_launches()
+    paths0 = dict(K.SYNTH_PATHS)
     data, freqs, nu0, phis, dDMs, model, t_make, make_peak, make_extra = \
         north_star_data(dev, 0, nsub, nchan, nbin)
+    synth_launches = dict(K.LAUNCHES)
+    paths = {r: K.SYNTH_PATHS[r] - paths0[r] for r in paths0}
     kmax = model_kmax(model)
     errs = torch.full((nsub, nchan), NOISE, dtype=torch.float64, device=dev)
     torch.cuda.synchronize()
     b11_bound, b11_by = synth_bound_ms(nsub, nchan, nbin)
+    k12 = phase_synth_rows(dev, K, model, freqs, nu0)
     emit("synth", shape=[nsub, nchan, nbin], make_s=t_make,
          ms=t_make * 1e3, bound_ms=b11_bound, bound_by=b11_by,
          share_of_bound=b11_bound / (t_make * 1e3),
          peak_device_bytes=int(make_peak),
          peak_above_prior_bytes=int(make_extra),
-         output_bytes=int(data.numel() * 8))
+         output_bytes=int(data.numel() * 8), paths=paths,
+         launches={n: synth_launches[n] for n in synth_launches
+                   if synth_launches[n]}, k12=k12)
+    if synth_launches["synth_rows"] == 0 or paths["cufft"] or \
+            paths["onchip"] != synth_launches["synth_rows"]:
+        raise AssertionError("synth: the north-star data did not go "
+                             "through K12's onchip path: %s" % paths)
 
     def run():
         return fit_portrait_full_batch(
@@ -4216,8 +4277,8 @@ def phase_throughput(dev, K):
     if any(launches[n] == 0 for n in PHASE_DM_KERNELS):
         raise AssertionError("throughput fit launched %s" % launches)
     del out, errs
-    phase_noise_fit(data[:256])
-    return res
+    noise_fit = phase_noise_fit(data[:256])
+    return res, dict(synth=(synth_launches, k12), noise_fit=noise_fit)
 
 
 NOISE_ZEROED = (7, 102, 341)   # channels zeroed in the noise_fit cube
@@ -4234,31 +4295,215 @@ def noise_fit_bound_ms(rows, nbin, Ns=20):
     return bound_ms(rows * nbin * 8 + rows * 8, (ops, PEAK_FP64_PER_S))
 
 
+def k11_bound_ms(rows, nharm, nshapes, Ns=20):
+    """K11's least time over ``rows`` spectra of ``nharm`` harmonics: the
+    spectrum read once and the noise and cutoff written once, against per
+    harmonic the power (3), its log (counted as 1), y and its two sums (4),
+    the dot products with the ``nshapes`` distinct shapes (2 each) and the
+    noise sum (1), and per grid point 7 operations."""
+    ops = rows * (nharm * (9 + 2 * nshapes) + 7 * Ns ** 3)
+    return bound_ms(rows * (nharm * 16 + 16), (ops, PEAK_FP64_PER_S))
+
+
+def k11_chi2_bound(spec, nbin, fn, Ns, flat):
+    """The "fit" grid's chi2 at one flat (a, b, dc) index a row (flat [R]
+    int64 >= 0) of spec's rows (noise_fit's spec and nbin), evaluated at
+    that point alone in the order of ops.noise._chi2_grid, and a bound on
+    the gap between any two evaluations of it by that formula whose sums
+    run in other orders and whose log powers differ by a few units in the
+    last place (as K11's and its plain version's do on the card).  Returns
+    (chi2 [R], bound [R]).
+
+    The bound: chi2 = sum_k r_k^2, r_k = y_k - b s_k - d (the mean cancels
+    between y and d), is evaluated from N-term sums and a few products and
+    sums after them, so each evaluation lies within gamma_{N+8} M of the
+    exact value of its inputs (M = Syy + b^2 S2 + 2 |b| sum |y| s + N d^2 +
+    2 |d| sum |y| + 2 |b| |d| S1: every term's magnitude; gamma_n = n u /
+    (1 - n u), u = 2^-53); y and d are rounded (u (|y| + |d|) each), which
+    moves chi2 by at most 2 u (max |y| + |d|) sum |r_k|.  So two
+    evaluations from the same log powers differ by at most twice the sum of
+    those.  Log powers that differ by at most dl = 4 u (1 + max |log p|)
+    move each r_k by at most 4 dl (l_k by dl, lmin and lmax, hence the
+    grid's b and dc, by dl each), chi2 by at most 8 dl sum |r_k|: the
+    bound returned is the sum.  Two grid points whose chi2 differ by less
+    than the sum of their bounds can be ordered either way."""
+    import torch
+
+    from pulseportraiture_tpu_torch.ops import noise
+
+    pows = (spec * torch.conj(spec)).real / nbin if spec.is_complex() \
+        else spec
+    N = pows.shape[-1]
+    grid = noise._kc_grid(N, fn, Ns, pows.device)
+    logp = torch.log10(pows)
+    lmin, lmax = logp.amin(dim=-1), logp.amax(dim=-1)
+    mean = logp.mean(dim=-1)
+    y = logp - mean[:, None]
+    ia, rest = flat // (Ns * Ns), flat % (Ns * Ns)
+    ib, idc = rest // Ns, rest % Ns
+    b = noise._linspace_rows(torch.zeros_like(lmin), lmax - lmin, Ns).gather(
+        1, ib[:, None])[:, 0]
+    d = noise._linspace_rows(lmin, lmax, Ns).gather(1, idc[:, None])[:, 0] \
+        - mean
+    s = grid.uniq[grid.inverse[ia]]
+    S1, S2 = grid.S1[ia], grid.S2[ia]
+    Syy, Sy, Ya = (y * y).sum(dim=-1), y.sum(dim=-1), (y * s).sum(dim=-1)
+    chi2 = ((Syy + (b * b * S2 - 2.0 * b * Ya)) + (N * d * d - 2.0 * d * Sy)) \
+        + 2.0 * b * d * S1
+    u = 2.0 ** -53
+    ay = y.abs()
+    M = Syy + b * b * S2 + 2.0 * b.abs() * (ay * s).sum(dim=-1) \
+        + N * d * d + 2.0 * d.abs() * ay.sum(dim=-1) \
+        + 2.0 * b.abs() * d.abs() * S1
+    gam = (N + 8) * u / (1.0 - (N + 8) * u)
+    dl = 4.0 * u * (1.0 + logp.abs().amax(dim=-1))
+    r = (y - b[:, None] * s - d[:, None]).abs().sum(dim=-1)
+    return chi2, 2.0 * (gam * M + 2.0 * u * (ay.amax(dim=-1) + d.abs()) * r) \
+        + 8.0 * dl * r
+
+
+def k11_ties(spec, nbin, fn, Ns, kc_a, kc_b):
+    """Rows of spec whose cutoffs kc_a and kc_b (two evaluations of
+    noise_fit) differ, split into ties — the row's log power finite, each
+    cutoff some a's, and the chi2 at each cutoff's best grid point (the
+    least of ops.noise._chi2_grid over the points of the a's with that
+    cutoff) within the sum of their k11_chi2_bound bounds, an order
+    rounding may flip — and faults (any other mismatch).  Returns (ties,
+    faults) as counts."""
+    import torch
+
+    from pulseportraiture_tpu_torch.ops import noise
+
+    rows = (kc_a != kc_b).nonzero()[:, 0]
+    if not len(rows):
+        return 0, 0
+    sub = spec[rows]
+    pows = (sub * torch.conj(sub)).real / nbin if sub.is_complex() else sub
+    grid = noise._kc_grid(pows.shape[-1], fn, Ns, pows.device)
+    chi2, finite = noise._chi2_grid(torch.log10(pows), grid, Ns)
+    kc_of = grid.kc.repeat_interleave(Ns * Ns)      # each flat point's cutoff
+    ok, flats = finite, []
+    for kc in (kc_a[rows], kc_b[rows]):
+        on = kc_of[None, :] == kc[:, None]
+        ok = ok & on.any(dim=-1)
+        flats.append(torch.argmin(torch.where(on, chi2, math.inf), dim=-1))
+    (ea, ba), (eb, bb) = (k11_chi2_bound(sub, nbin, fn, Ns, f) for f in flats)
+    tie = ok & ((ea - eb).abs() <= ba + bb)
+    return int(tie.sum()), int((~tie).sum())
+
+
+def k11_wide(dev):
+    """K11 against its plain version on the card at K11_WIDE_CASES: for
+    each, whether a row's power is kept in shared memory (csrc/noisefit.cu
+    geometry), the cutoff mismatches (ties and faults, k11_ties) and the
+    noise's largest relative error where the cutoffs agree."""
+    import torch
+
+    from pulseportraiture_tpu_torch import _kernels as K
+    from pulseportraiture_tpu_torch.ops import noise
+
+    res = []
+    for rows, nbin, fn, Ns, fact in K11_WIDE_CASES:
+        g = torch.Generator(device=dev).manual_seed(rows + nbin)
+        x = torch.randn((rows, nbin), generator=g, dtype=torch.float64,
+                        device=dev)
+        ph = (torch.arange(nbin, dtype=torch.float64, device=dev) + 0.5) \
+            / nbin
+        width = torch.linspace(0.002, 0.05, rows, dtype=torch.float64,
+                               device=dev)[:, None]
+        x[::2] += 30.0 * torch.exp(-0.5 * ((ph - 0.4) / width[::2]) ** 2)
+        x[1] = 0.0                                  # a zeroed channel
+        X = torch.fft.rfft(x, dim=-1)
+        del x
+        N = nbin // 2 + 1
+        nu = int(noise._kc_grid(N, fn, Ns, dev).uniq.shape[0])
+        got = K.noise_fit(X, nbin, fn, fact, Ns,
+                          torch.empty(rows, dtype=torch.float64, device=dev))
+        want = K.noise_fit_plain(X, nbin, fn, fact, Ns, torch.empty(
+            rows, dtype=torch.float64, device=dev))
+        ties, faults = k11_ties(X, nbin, fn, Ns, got[1], want[1])
+        same = (got[1] == want[1]) & (want[0] != 0)
+        rel = float(((got[0] - want[0]).abs()[same] / want[0][same]).max())
+        res.append(dict(rows=rows, nbin=nbin, fn=fn, Ns=Ns, fact=fact,
+                        nshapes=nu, power_in_shared_memory=8 * (
+                            3 * Ns + nu + N) <= 232448,
+                        k_crit_mismatches=ties + faults, ties=ties,
+                        faults=faults, noise_max_rel_err=rel,
+                        zeroed_equal=bool(torch.equal(got[0] == 0,
+                                                      want[0] == 0))))
+        del X
+    return res
+
+
 def phase_noise_fit(cube):
-    """The "fit" noise estimators on the card (B10): get_noise_fit on the
-    channels of ``cube`` [nsub, nchan, nbin] with NOISE_ZEROED zeroed in
-    every subint (time, peak memory, bound), the Wiener and brickwall
-    filters on one subint's profiles; the first subint held against the
-    port on the CPU (k_crit equal, noise within 1e-12 relative, the
-    filters within 1e-12 of their peak, zeroed channels 0)."""
+    """The "fit" noise estimators on the card through K11: get_noise_fit
+    on the channels of ``cube`` [nsub, nchan, nbin] with NOISE_ZEROED
+    zeroed in every subint (the path's run with the counts zeroed just
+    before; its time, peak memory, bound), K11 alone over every channel's
+    spectrum by CUDA-graph replay (cuFFT's rFFT timed apart), beside its
+    bound and the plain version's time; K11 against its plain version on
+    the card over every channel (cutoff mismatches, ties by the chi2
+    rounding bound, the noise's largest relative error), and at
+    K11_WIDE_CASES (k11_wide); the Wiener and
+    brickwall filters on one subint's profiles; the first subint held
+    against the port on the CPU (k_crit equal, noise within 1e-12
+    relative, the filters within 1e-12 of their peak, zeroed channels 0).
+    Returns (the path's launches, K11's kernels-line row)."""
     import torch
 
     from pulseportraiture_tpu_torch import _kernels as K
     from pulseportraiture_tpu_torch.ops import noise
 
     nsub, nchan, nbin = cube.shape
+    nharm = nbin // 2 + 1
+    rows = nsub * nchan
     cube[:, list(NOISE_ZEROED)] = 0.0
     torch.cuda.synchronize()
     base = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
+    K.reset_launches()
     t0 = time.perf_counter()
     sig = noise.get_noise_fit(cube)
     torch.cuda.synchronize()
     first_s = time.perf_counter() - t0
+    launches = dict(K.LAUNCHES)
     peak = torch.cuda.max_memory_allocated() - base
-    ms = cuda_ms(lambda: noise.get_noise_fit(cube), reps=3, warm=0)
-    bound, by = noise_fit_bound_ms(nsub * nchan, nbin)
+    call_ms = cuda_ms(lambda: noise.get_noise_fit(cube), reps=3, warm=0)
+    bound, by = noise_fit_bound_ms(rows, nbin)
     _, profiled = kernel_device_ms(lambda: noise.get_noise_fit(cube), K)
+
+    # K11 alone over every channel's spectrum, and its plain version
+    flat = cube.reshape(rows, nbin)
+    X = torch.fft.rfft(flat, dim=-1)
+    cufft_ms = graph_ms(lambda: torch.fft.rfft(flat, dim=-1), reps=5)
+    grid = noise._kc_grid(nharm, "exp_dc", 20, cube.device)
+
+    def outs():
+        return tuple(torch.empty(rows, dtype=dt, device=cube.device)
+                     for dt in (torch.float64, torch.int64))
+
+    got, want = outs(), outs()
+    ms = graph_ms(lambda: K.noise_fit(X, nbin, "exp_dc", 1.1, 20, *got),
+                  reps=10)
+    K.noise_fit(X, nbin, "exp_dc", 1.1, 20, *got)
+    step = noise.GRID_ROWS_CUDA
+
+    def plain():
+        for i in range(0, rows, step):
+            s = slice(i, i + step)
+            K.noise_fit_plain(X[s], nbin, "exp_dc", 1.1, 20,
+                              *(o[s] for o in want))
+
+    plain_ms = cuda_ms(plain, reps=2, warm=1)
+    k11_bound, k11_by = k11_bound_ms(rows, nharm, grid.uniq.shape[0])
+    ties, faults = k11_ties(X, nbin, "exp_dc", 20, got[1], want[1])
+    same = (got[1] == want[1]) & (want[0] != 0)
+    k11_rel = float(((got[0] - want[0]).abs()[same] / want[0][same]).max())
+    k11_abs = float((got[0] - want[0]).abs()[same].max())
+    zeroed_equal = bool(torch.equal(got[0] == 0, want[0] == 0))
+    path_equal = bool(torch.equal(got[0].reshape(nsub, nchan), sig))
+    del X
+    wide = k11_wide(cube.device)
 
     sub = cube[0]
     host = sub.cpu()
@@ -4280,10 +4525,21 @@ def phase_noise_fit(cube):
     wb_bound, wb_by = bound_ms(2 * sub.numel() * 8, (
         nchan * 5.0 * nbin * math.log2(nbin), PEAK_FP64_PER_S))
     kc_counts = torch.unique(kc_card, return_counts=True)
-    res = dict(shape=[nsub, nchan, nbin], channels=nsub * nchan,
+    row = dict(shape=[rows, nharm], ms=ms, call_ms=call_ms,
+               cufft_ms=cufft_ms, plain_ms=plain_ms, bound_ms=k11_bound,
+               bound_by=k11_by, share_of_bound=k11_bound / ms,
+               library_ms=None, max_abs_err=k11_abs,
+               noise_max_rel_err=k11_rel, k_crit_mismatches=ties + faults,
+               ties=ties, faults=faults, zeroed_equal=zeroed_equal,
+               path_equal=path_equal, nshapes=int(grid.uniq.shape[0]),
+               wide=wide)
+    res = dict(shape=[nsub, nchan, nbin], channels=rows,
                zeroed_channels=list(NOISE_ZEROED), first_call_s=first_s,
-               ms=ms, bound_ms=bound, bound_by=by, share_of_bound=bound / ms,
+               call_ms=call_ms, bound_ms=bound, bound_by=by,
+               share_of_bound=bound / call_ms,
                peak_extra_device_bytes=int(peak),
+               launches={n: launches[n] for n in launches if launches[n]},
+               k11=row,
                k_crit_counts={int(k): int(c) for k, c in zip(*kc_counts)},
                cpu_check=dict(
                    channels=nchan,
@@ -4303,7 +4559,180 @@ def phase_noise_fit(cube):
             not bool(torch.isfinite(sig).all()):
         raise AssertionError("noise_fit: the card disagrees with the CPU: "
                              "%s" % c)
-    return res
+    if faults or not k11_rel <= K11_NOISE_TOL or not zeroed_equal or \
+            not path_equal or launches["noise_fit"] == 0 or any(
+                w["faults"] or not w["noise_max_rel_err"] <= K11_NOISE_TOL
+                or not w["zeroed_equal"] for w in wide):
+        raise AssertionError("noise_fit: K11 disagrees with its plain "
+                             "version or did not launch: %s, launches %s"
+                             % (row, launches["noise_fit"]))
+    return launches, row
+
+
+def k12_bound_ms(B, nchan, nbin, scat):
+    """K12's least time over one block [B, nchan, nbin]: the noise read
+    and the output written once (and the model's and scattering spectra,
+    the shifts and the pattern read once), against per row the inverse
+    real transform (2.5 nbin log2 nbin), the phasor (K7_OPS a harmonic),
+    the scattering product (6 a harmonic) and 5 operations a bin."""
+    nharm = nbin // 2 + 1
+    nbytes = 2 * B * nchan * nbin * 8 + (1 + scat) * nchan * nharm * 16 \
+        + 2 * B * nchan * 8
+    ops = B * nchan * (2.5 * nbin * math.log2(nbin)
+                       + (K7_OPS + 6 * scat) * nharm + 5 * nbin)
+    return bound_ms(nbytes, (ops, PEAK_FP64_PER_S))
+
+
+def k12_block(dev, model, freqs, nu0, gen, B, scat):
+    """One make_fake_dataset block's arguments for K12 at the north star:
+    the model's spectrum, the shifts of B drawn (phase, dDM), the
+    scattering spectrum of TAU_INJ at nu0 (scat), a scintillation pattern
+    of three drawn triplets a subint, scales 1, sigma NOISE, weights none,
+    and out holding the block's noise from ``gen``."""
+    import numpy as np
+    import torch
+
+    from pulseportraiture_tpu_torch.ops.fourier import data_shifts
+    from pulseportraiture_tpu_torch.ops.scattering import (
+        scattering_portrait_FT, scattering_times)
+    from pulseportraiture_tpu_torch.pipelines import synth
+
+    nchan, nbin = model.shape
+    f64 = dict(dtype=torch.float64, device=dev)
+    M = torch.fft.rfft(model, dim=-1)
+    phis = torch.rand(B, generator=gen, **f64) * 0.8 - 0.4
+    dDMs = (torch.rand(B, generator=gen, **f64) - 0.5) * 4e-3
+    shifts = data_shifts((B, nchan), -phis[:, None], -dDMs[:, None], P0,
+                         freqs, nu0, dev).contiguous()
+    T = scattering_portrait_FT(scattering_times(TAU_INJ, -4.0, freqs, nu0),
+                               nbin).contiguous() if scat else None
+    pattern = synth.scintillation_pattern(synth.scintillation_params(
+        np.random.default_rng(B), 3, 1.0, 5.0, (B,)), nchan, dev)
+    out = torch.empty((B, nchan, nbin), **f64).normal_(generator=gen)
+    return [M, shifts, T, pattern, torch.ones(nchan, **f64),
+            torch.full((nchan,), NOISE, **f64), None, out]
+
+
+def phase_synth_rows(dev, K, model, freqs, nu0):
+    """K12 on the card at the north star: one make_fake_dataset block
+    [32, 512, 2048] (BLOCK_BYTES) by CUDA-graph replay, without and with
+    the scattering spectrum, against its bound, its plain version's time
+    and torch.randn's for the block's noise; K12 against its plain version
+    on the same noise from one generator state (every row within K12_TOL of
+    its peak); make_fake_dataset through K12 and through its plain version
+    from one seed (the same noise draws: within K12_TOL of each row's
+    peak); a width the onchip path does not take (K12_NARROW_BINS) through
+    the counted cufft path: the make held to the CPU's (noiseless, 1e-12 of
+    the peak), and one scattered block held to the plain version on the
+    same noise, timed beside it and its bound.  Returns K12's kernels-line
+    row (the unscattered block first in ``shapes``)."""
+    import torch
+
+    from pulseportraiture_tpu_torch.ops.fourier import get_bin_centers
+    from pulseportraiture_tpu_torch.ops.profiles import gen_gaussian_portrait
+    from pulseportraiture_tpu_torch.pipelines import synth
+
+    nchan, nbin = model.shape
+    B = max(1, synth.BLOCK_BYTES // (nchan * nbin * 8))
+    # the whole make again, warm (the first call also builds cuFFT's plan
+    # and the twiddle table): its wall and K12's launches in it
+    torch.cuda.synchronize()
+    n0 = K.LAUNCHES["synth_rows"]
+    t0 = time.perf_counter()
+    ds, _, _ = north_star_draw(dev, 0)
+    torch.cuda.synchronize()
+    make_warm_s = time.perf_counter() - t0
+    make_launches = K.LAUNCHES["synth_rows"] - n0
+    ds.clear()
+    del ds
+    cases = []
+    for scat in (False, True):
+        gen = torch.Generator(device=dev).manual_seed(24)
+        state = gen.get_state()
+        a = k12_block(dev, model, freqs, nu0, gen, B, scat)
+        gen.set_state(state)
+        b = k12_block(dev, model, freqs, nu0, gen, B, scat)
+        draws_equal = bool(torch.equal(a[-1], b[-1]))
+        K.synth_rows(*a)
+        K.synth_rows_plain(*b)
+        peak = b[-1].abs().amax(dim=-1, keepdim=True)
+        gap = float(((a[-1] - b[-1]).abs() / peak).max())
+        max_abs = float((a[-1] - b[-1]).abs().max())
+        ms = graph_ms(lambda: K.synth_rows(*a), reps=10)
+        plain_ms = cuda_ms(lambda: K.synth_rows_plain(*b), reps=3, warm=1)
+        randn_ms = cuda_ms(lambda: a[-1].normal_(generator=gen), reps=10)
+        bound, by = k12_bound_ms(B, nchan, nbin, scat)
+        cases.append(dict(shape=[B, nchan, nbin], scattered=scat, ms=ms,
+                          plain_ms=plain_ms, randn_ms=randn_ms,
+                          bound_ms=bound, bound_by=by,
+                          share_of_bound=bound / ms, library_ms=None,
+                          max_abs_err=max_abs, max_gap_over_peak=gap,
+                          draws_equal=draws_equal))
+        del a, b
+    # make_fake_dataset on its two routes from one seed: the same draws
+    nsub = B + 3
+    kw = dict(nsub=nsub, nchan=64, nbin=nbin, P=P0, t_scat=1e-4,
+              scint=True, noise_std=NOISE, device=dev,
+              phases=[0.6 * i / nsub - 0.3 for i in range(nsub)],
+              dDMs=[2e-3 * i / nsub - 1e-3 for i in range(nsub)])
+
+    def make(**extra):
+        return synth.make_fake_dataset(
+            torch.Generator(device=dev).manual_seed(5), MODEL_PARAMS,
+            **dict(kw, **extra)).subints
+
+    kernel_route = make()
+    with plain_kernels(K, ["synth_rows"]):
+        plain_route = make()
+    peak = plain_route.abs().amax(dim=-1, keepdim=True)
+    route_gap = float(((kernel_route - plain_route).abs() / peak).max())
+    # a width the onchip path does not take: the cufft path, counted, one
+    # block held to the plain version on the same noise (timed beside it)
+    # and the make held to the CPU's
+    nb = K12_NARROW_BINS
+    n0, p0 = K.LAUNCHES["synth_rows"], dict(K.SYNTH_PATHS)
+    narrow = make(nbin=nb, noise_std=0.0)
+    narrow_launches = K.LAUNCHES["synth_rows"] - n0
+    narrow_paths = {r: K.SYNTH_PATHS[r] - p0[r] for r in p0}
+    cpu = synth.make_fake_dataset(
+        torch.Generator().manual_seed(5), MODEL_PARAMS,
+        **dict(kw, nbin=nb, noise_std=0.0, device="cpu")).subints
+    narrow_gap = rel_err(narrow.cpu(), cpu)
+    del narrow, cpu
+    model_nb = gen_gaussian_portrait("000", MODEL_PARAMS, -4.0,
+                                     get_bin_centers(nb), freqs, nu0,
+                                     device=dev)
+    Bn = max(1, synth.BLOCK_BYTES // (nchan * nb * 8))
+    gen = torch.Generator(device=dev).manual_seed(25)
+    state = gen.get_state()
+    a = k12_block(dev, model_nb, freqs, nu0, gen, Bn, True)
+    gen.set_state(state)
+    b = k12_block(dev, model_nb, freqs, nu0, gen, Bn, True)
+    K.synth_rows(*a)
+    K.synth_rows_plain(*b)
+    peak = b[-1].abs().amax(dim=-1, keepdim=True)
+    cufft_gap = float(((a[-1] - b[-1]).abs() / peak).max())
+    cufft_ms = cuda_ms(lambda: K.synth_rows(*a), reps=5, warm=1)
+    cufft_plain_ms = cuda_ms(lambda: K.synth_rows_plain(*b), reps=3, warm=1)
+    cufft_bound, cufft_by = k12_bound_ms(Bn, nchan, nb, True)
+    del a, b
+    row = dict(cases[0], shapes=cases, make_warm_s=make_warm_s,
+               make_launches=make_launches, route_gap_over_peak=route_gap,
+               narrow=dict(nbin=nb, paths=narrow_paths,
+                           launches=narrow_launches, gap_to_cpu=narrow_gap,
+                           block=[Bn, nchan, nb], scattered=True,
+                           ms=cufft_ms, plain_ms=cufft_plain_ms,
+                           bound_ms=cufft_bound, bound_by=cufft_by,
+                           share_of_bound=cufft_bound / cufft_ms,
+                           max_gap_over_peak=cufft_gap))
+    if any(c["max_gap_over_peak"] > K12_TOL or not c["draws_equal"]
+           for c in cases) or not route_gap <= K12_TOL or \
+            narrow_launches != 1 or narrow_paths["cufft"] != 1 or \
+            narrow_paths["onchip"] or not narrow_gap <= 1e-12 or \
+            not cufft_gap <= K12_TOL:
+        raise AssertionError("synth: K12 disagrees with its plain version, "
+                             "or the paths: %s" % row)
+    return row
 
 
 def phase_throughput_scat(dev, K):
@@ -4812,11 +5241,13 @@ def phase_obs(root, work, K, dev, small, fit_shape=(1000, 512, 2048)):
                             % (key, counts, reg["launches"]))
         problems += obs_completeness_problems(key, e, counts, reg)
     # the captures are fit regions: every fit kernel shows in one; the
-    # load's (K5-K7) run before them, and no captured path smooths (K8)
-    # or fits a Gaussian model (K9, K10)
+    # load's (K5-K7) run before them, and no captured path smooths (K8),
+    # fits a Gaussian model (K9, K10), measures the "fit" noise (K11) or
+    # makes synthetic data (K12)
     seen = {k: sum(r["trace_kernel_rows"][k] for r in rows)
             for k in K.TRACE_NAMES
-            if k not in LOAD_NAMES + SMOOTH_KERNELS + K9_NAMES + K10_NAMES}
+            if k not in LOAD_NAMES + SMOOTH_KERNELS + K9_NAMES + K10_NAMES
+            + ("noise_fit", "synth_rows")}
     if not all(seen.values()):
         problems.append("kernels absent from every trace: %s" % seen)
     all_stages = set().union(*stages.values()) if stages else set()
@@ -5270,7 +5701,7 @@ def phase_survey(root, work, K, device="cuda"):
                 str(depth), "--device", device, "--quiet"] + (
                     ["--trace-bucket"] if traced else [])
         if name == "prefetch2":
-            with first_kernel_inputs(K, tuple(K.KERNELS), True) \
+            with first_kernel_inputs(K, toa_path_kernels(K), True) \
                     as seen, survey_toa_objects() as main_objs:
                 wall, launches, res = survey_cli(K, argv)
         else:
@@ -5391,7 +5822,7 @@ def phase_survey(root, work, K, device="cuda"):
     with open(meta_scat, "w") as f:
         f.write("\n".join(scat_files) + "\n")
     plan("scat", meta=meta_scat)
-    with first_kernel_inputs(K, tuple(K.KERNELS), True) \
+    with first_kernel_inputs(K, toa_path_kernels(K), True) \
             as seen_scat, survey_toa_objects() as scat_objs:
         ws, scat_launches, rs = survey_cli(K, [
             "run", "-w", wd("scat"), "--no_bary", "--fit_scat", "--device",
@@ -5760,7 +6191,7 @@ def phase_serve(root, work, K, survey, device="cuda"):
             source[dst] = canon[i % len(canon)]
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        with first_kernel_inputs(K, tuple(K.KERNELS), True) \
+        with first_kernel_inputs(K, toa_path_kernels(K), True) \
                 as seen:
             K.reset_launches()
             results, load_wall = pploadgen.run_load(
@@ -5832,7 +6263,7 @@ def phase_serve(root, work, K, survey, device="cuda"):
         # served archives carry their noise: K4's first epilogue only;
         # their loads decode and remove the baseline in one K5 launch; no
         # request smooths (K8) or fits a Gaussian model (K9, K10)
-        served = tuple(n for n in K.KERNELS if n not in (
+        served = tuple(n for n in toa_path_kernels(K) if n not in (
             "spectra_noise", "baseline") + SMOOTH_KERNELS + K9_NAMES
             + K10_NAMES)
         if any(launches[n] == 0 for n in served):
@@ -6217,7 +6648,7 @@ def phase_mesh(root, work, K, survey, shape=(1000, 512, 2048),
         fit(None, x)
         ref[tag], ref_walls[tag] = timed(lambda: fit(None, x))
     meshes, ok = [], True
-    with first_kernel_inputs(K, tuple(K.KERNELS), True) as seen:
+    with first_kernel_inputs(K, toa_path_kernels(K), True) as seen:
         for shp in MESH_SHAPES:
             torch.cuda.synchronize()
             base = torch.cuda.memory_allocated()
@@ -6325,7 +6756,7 @@ def phase_mesh(root, work, K, survey, shape=(1000, 512, 2048),
                 and row["max_dt_ns"] < 1.0 and c["err_us"] <= 1.0005e-3 \
                 and c["pp_dm"] <= 1.0005e-7 and c["pp_dme"] <= 1.0005e-7
     path_rows = path_kernels_vs_plain(K, seen, required=tuple(
-        n for n in K.KERNELS
+        n for n in toa_path_kernels(K)
         if n not in ("baseline",) + SMOOTH_KERNELS + K9_NAMES
         + K10_NAMES))
     times = path_kernel_times(K, seen)
@@ -6348,9 +6779,11 @@ def phase_mesh(root, work, K, survey, shape=(1000, 512, 2048),
                              "unsharded one (the mesh line above)")
     # the mesh's loads decode and remove the baseline in one K5 launch:
     # K5's baseline alone follows only a rotation or a state conversion;
-    # nothing on it smooths (K8) or fits a Gaussian model (K9, K10)
+    # nothing on it smooths (K8), fits a Gaussian model (K9, K10) or runs
+    # K11 or K12 (its data is made before its counted fits)
     missing = [n for n, c in launches.items() if c == 0 and n not in
-               ("baseline",) + SMOOTH_KERNELS + K9_NAMES + K10_NAMES]
+               ("baseline",) + SMOOTH_KERNELS + K9_NAMES + K10_NAMES
+               + K11_K12_NAMES]
     if missing:
         raise AssertionError("kernels never launched on the mesh path: %s"
                              % missing)
@@ -6388,8 +6821,12 @@ def main(argv):
     # the throughput fits first, while the profiler's clock conversion is
     # fresh (it drifts over a process's life and drops a capture's first
     # rows: PERF.md section 7)
-    by_path = {"throughput": phase_throughput(dev, K)["launches"],
+    throughput, late = phase_throughput(dev, K)
+    by_path = {"throughput": throughput["launches"],
                "throughput_scat": phase_throughput_scat(dev, K)["launches"]}
+    # K12's path (the synth: the north-star data) and K11's (noise_fit)
+    by_path["synth"], rows["synth_rows"] = late["synth"]
+    by_path["noise_fit"], rows["noise_fit"] = late["noise_fit"]
     failed_lists = track_failed_datafiles()
     work = tempfile.mkdtemp(prefix="pp_smoke_")
     try:
@@ -6446,6 +6883,9 @@ def main(argv):
         paths[name] = ["ppgauss"]
     for name in K10_NAMES:
         paths[name] = ["ppgauss_scat"]
+    # K11 on the "fit" noise path, K12 on the synth
+    paths["noise_fit"] = ["noise_fit"]
+    paths["synth_rows"] = ["synth"]
     # no archive of any path failed on a device error
     failed = [f for made in failed_lists for f in made]
     emit("failed_datafiles", gettoas_runs=len(failed_lists), failed=failed)
@@ -6459,7 +6899,8 @@ def main(argv):
         ("load", LOAD_NAMES), ("pptoas", LOAD_PATH_KERNELS),
         ("ppspline", SMOOTH_KERNELS), ("ppalign_s", SMOOTH_KERNELS),
         ("walkthrough", SMOOTH_KERNELS), ("ppgauss", K9_NAMES),
-        ("ppgauss_scat", K10_NAMES))
+        ("ppgauss_scat", K10_NAMES), ("noise_fit", ("noise_fit",)),
+        ("synth", ("synth_rows",)))
         for n in names if by_path[p][n] == 0]
     if missing:
         raise AssertionError("kernels never launched on any path: %s"
@@ -6525,6 +6966,14 @@ def main(argv):
                     "torch_route_ms", "errors", "max_abs_err",
                     "repeat_bit_equal") if key in c}
                 for c in r])
+        elif name == "noise_fit":
+            extra = {key: r[key] for key in (
+                "shape", "call_ms", "cufft_ms", "share_of_bound",
+                "noise_max_rel_err", "k_crit_mismatches", "ties", "faults")}
+        elif name == "synth_rows":
+            extra = {key: r[key] for key in (
+                "shapes", "narrow", "route_gap_over_peak", "make_warm_s",
+                "make_launches")}
         elif name in K4_NAMES:
             r, extra = r[K4_MAIN], dict(shapes=[
                 {key: c[key] for key in (

@@ -1,6 +1,6 @@
 """The port's hand-written CUDA kernels: build, ctypes binding, wrappers.
 
-Ten kernels, each a CUDA C++ source under ``csrc/`` compiled for
+Twelve kernels, each a CUDA C++ source under ``csrc/`` compiled for
 Hopper (``sm_90a``) by ``nvcc`` into a shared library with a plain C
 interface and loaded with ``ctypes``:
 
@@ -95,6 +95,22 @@ interface and loaded with ``ctypes``:
      Gram: two launches, counted as one; GAUSS_FT_PATHS counts the calls
      by path); and ``gauss_ft_sse``, f alone (one launch).  One library, two entry points, each with its own
      launch count and trace name.
+  K11 ``noise_fit`` (csrc/noisefit.cu) — the "fit" noise estimator
+     (pulseportraiture_tpu/ops/noise.py:64 find_kc, :108 get_noise_fit): per
+     row of cuFFT's rFFT (or of a power spectrum), the log power's brute fit
+     over the (a, b, dc) grid, its cutoff harmonic and the mean power at
+     and above it, one warp a row, the row's power in shared memory where
+     it fits (re-read from device memory where it does not).
+  K12 ``synth_rows`` (csrc/synth.cu) — the synthetic-data writer
+     (pulseportraiture_tpu/pipelines/synth.py:50 make_fake_portrait, :102
+     make_fake_dataset): per (subint, channel) row, the model's spectrum
+     times K7's phasor and the scattering spectrum, one inverse real
+     transform in shared memory (K8's passes), then the scintillation,
+     scale, the noise the caller drew into the output and the weight, in
+     place (the "onchip" path: a power of two from SYNTH_MIN_BINS to
+     SYNTH_MAX_BINS bins); other widths take the "cufft" path, K12's
+     harmonics kernel, cuFFT's inverse, then K12's epilogue kernel (counted
+     as one launch; SYNTH_PATHS counts the calls by path).
 
 Each wrapper dispatches on its input's device: a CPU tensor takes the
 plain PyTorch version beside it (the same name with ``_plain``: e.g.
@@ -137,7 +153,7 @@ import torch
 from .config import Dconst, F0_fact
 from .obs import monitor
 from .ops.fourier import phasor
-from .ops.noise import SNR_of_noise, noise_PS_of_power
+from .ops.noise import SNR_of_noise, _argmin_a, _kc_grid, noise_PS_of_power
 from .ops.profiles import FWHM_FACT
 from .ops.scattering import LN10, _nonzero_div
 from .ops.stats import median
@@ -168,7 +184,10 @@ __all__ = ["KernelLaunchError", "LAUNCHES", "reset_launches", "build",
            "gauss_ft_path", "gauss_ft_active_clusters", "pack_spectrum",
            "GAUSS_FT_SIZES", "GAUSS_FT_PATHS", "GaussFtWork",
            "GAUSS_FT_MAX_NGAUSS", "GAUSS_FT_MIN_BINS", "GAUSS_FT_MAX_BINS",
-           "GAUSS_FT_MAX_CLUSTER", "GAUSS_FT_MAX_BATCHES", "KERNELS"]
+           "GAUSS_FT_MAX_CLUSTER", "GAUSS_FT_MAX_BATCHES", "noise_fit",
+           "noise_fit_plain", "NOISE_FIT_MAX_NS", "synth_rows",
+           "synth_rows_plain", "synth_path", "SYNTH_PATHS",
+           "SYNTH_MIN_BINS", "SYNTH_MAX_BINS", "KERNELS"]
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC_DIR = os.path.join(_HERE, "csrc")
@@ -210,6 +229,10 @@ KERNELS = {
                         "pulseportraiture_tpu/fit/lm.py:60"),
     "gauss_ft_sse": ("gauss_ft.cu", "pp_gauss_ft_sse",
                      "pulseportraiture_tpu/ops/profiles.py:190"),
+    "noise_fit": ("noisefit.cu", "pp_noise_fit",
+                  "pulseportraiture_tpu/ops/noise.py:64"),
+    "synth_rows": ("synth.cu", "pp_synth_rows",
+                   "pulseportraiture_tpu/pipelines/synth.py:50"),
 }
 # the sources, one nvcc and one library each
 SOURCES = tuple(sorted({src for src, _, _ in KERNELS.values()}))
@@ -278,6 +301,15 @@ _SYMBOLS = {
         _VP, _VP, _VP, _I64, _VP, _VP, _VP, _VP, _INT, _INT, _INT, _INT, _INT,
         _DBL, _DBL, _DBL, _INT, _INT, _INT, _VP, _VP, _VP, _VP],
         "pp_gauss_ft_sizes": [_INT, _INT, _INT, _INT, _INT, _VP]},
+    "noise_fit": {"pp_noise_fit": [_VP, _INT, _I64, _INT, _INT, _VP, _INT,
+                                   _VP, _VP, _VP, _VP, _INT, _DBL, _INT, _VP,
+                                   _VP, _VP]},
+    "synth_rows": {"pp_synth_rows": [_VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP,
+                                     _I64, _INT, _INT, _DBL, _VP, _VP],
+                   "pp_synth_harmonics": [_VP, _VP, _VP, _I64, _INT, _INT,
+                                          _DBL, _VP, _VP],
+                   "pp_synth_finish": [_VP, _VP, _VP, _VP, _VP, _I64, _INT,
+                                       _INT, _VP, _VP]},
 }
 
 # kernel name -> the CUDA function that runs once per counted launch, as
@@ -286,7 +318,9 @@ _SYMBOLS = {
 # one, both wavelet_select*; K9's two layouts, gauss_normal_warp_kernel
 # and gauss_normal_mma_kernel; K10's normal equations either
 # gauss_ft_gram_cluster_kernel, on chip, or gauss_ft_gram_kernel after
-# gauss_ft_rows_kernel, staged: one gauss_ft_gram_* a call)
+# gauss_ft_rows_kernel, staged: one gauss_ft_gram_* a call; K12's rows
+# either synth_rows_onchip_kernel or synth_rows_staged_kernel after
+# synth_harmonics_kernel and cuFFT: one synth_rows_* a call)
 TRACE_NAMES = {"moments": "moments_kernel",
                "moments_grad_hess": "moments_grad_hess_kernel",
                "fftfit": "fftfit_grid_kernel",
@@ -302,7 +336,9 @@ TRACE_NAMES = {"moments": "moments_kernel",
                "gauss_normal": "gauss_normal_",
                "gauss_sse": "gauss_sse_kernel",
                "gauss_ft_normal": "gauss_ft_gram_",
-               "gauss_ft_sse": "gauss_ft_sse_kernel"}
+               "gauss_ft_sse": "gauss_ft_sse_kernel",
+               "noise_fit": "noise_fit_kernel",
+               "synth_rows": "synth_rows_"}
 
 LAUNCHES = {name: 0 for name in KERNELS}
 BUILD_LOG = {}  # library (source stem) -> nvcc output (register report)
@@ -3115,3 +3151,206 @@ def gauss_ft_normal(params, data, errs, bins, freqs, nu_ref, model_code,
     with _STATE_LOCK:
         GAUSS_FT_PATHS[bufs.path] += 1
     return bufs.outs
+
+
+# -- K11: the "fit" noise estimator ---------------------------------------------
+
+# the largest a grid the kernel takes: its tables (S1, S2 and Ya by a, Ya by
+# shape: 32 Ns bytes at most for one warp) in the 232,448 bytes of a block's
+# shared memory (csrc/noisefit.cu kMaxSmem); rows of any width
+NOISE_FIT_MAX_NS = 232448 // 32
+
+
+def _noise_fit_args(spec, nbin, Ns, noise_out, kc_out):
+    if not isinstance(spec, torch.Tensor) or spec.dtype not in (
+            torch.float64, torch.complex128):
+        raise TypeError("noise_fit: spec must be a float64 (power) or "
+                        "complex128 (rFFT) tensor")
+    _check(spec, "spec", spec.dtype, 2)
+    if spec.is_complex() and (nbin is None or int(nbin) < 1):
+        raise ValueError("noise_fit: an rFFT needs its nbin")
+    if int(Ns) < 1:
+        raise ValueError("noise_fit: Ns must be >= 1, got %d" % Ns)
+    rows = spec.shape[0]
+    for t, what, dtype in ((noise_out, "noise_out", torch.float64),
+                           (kc_out, "kc_out", torch.int64)):
+        if t is not None:
+            _check(t, what, dtype, 1)
+            if t.shape[0] != rows:
+                raise ValueError("noise_fit: %s has %d rows, spec %d"
+                                 % (what, t.shape[0], rows))
+    _same_device(spec, noise_out, kc_out)
+    if kc_out is None:
+        kc_out = torch.empty(rows, dtype=torch.int64, device=spec.device)
+    return kc_out
+
+
+def noise_fit_plain(spec, nbin=None, fn="exp_dc", fact=1.1, Ns=20,
+                    noise_out=None, kc_out=None):
+    """Plain PyTorch K11: for each row of spec [R, N] — an rFFT of rows of
+    nbin bins (complex128; the power is (X conj(X)).real / nbin, as
+    ops.noise._power) or a power spectrum (float64; nbin unused) —
+    find_kc's cutoff harmonic into kc_out [R] int64 (ops.noise._argmin_a
+    over the _kc_grid tables of N, fn and Ns), and get_noise_fit's noise
+    (the harmonics at and above min(fact k_c, int(0.99 N))) into noise_out
+    [R] float64 when given.  Returns (noise_out, kc_out)."""
+    kc_out = _noise_fit_args(spec, nbin, Ns, noise_out, kc_out)
+    pows = (spec * torch.conj(spec)).real / nbin if spec.is_complex() \
+        else spec
+    N = pows.shape[-1]
+    grid = _kc_grid(N, fn, Ns, pows.device)
+    kc = grid.kc[_argmin_a(torch.log10(pows), grid, Ns)]
+    kc_out.copy_(kc)
+    if noise_out is not None:
+        k = torch.arange(N, dtype=torch.float64, device=pows.device)
+        k_crit = torch.clamp(fact * kc.to(torch.float64), max=int(0.99 * N))
+        mask = k[None, :] >= k_crit[:, None]
+        noise_out.copy_(torch.sqrt(torch.where(mask, pows, 0.0).sum(dim=-1)
+                                   / mask.sum(dim=-1)))
+    return noise_out, kc_out
+
+
+def noise_fit(spec, nbin=None, fn="exp_dc", fact=1.1, Ns=20, noise_out=None,
+              kc_out=None):
+    """K11 wrapper (see csrc/noisefit.cu): noise_fit_plain's outputs for
+    the rows of spec [R, N] (complex128 rFFT of rows of nbin bins, or
+    float64 power), one launch.  On the card Ns is at most
+    NOISE_FIT_MAX_NS (ValueError beyond).  Returns (noise_out, kc_out)."""
+    kc_out = _noise_fit_args(spec, nbin, Ns, noise_out, kc_out)
+    if spec.device.type == "cpu":
+        return noise_fit_plain(spec, nbin, fn, fact, Ns, noise_out, kc_out)
+    if spec.device.type != "cuda":
+        raise ValueError("noise_fit: unsupported device %s" % spec.device)
+    rows, N = spec.shape
+    if int(Ns) > NOISE_FIT_MAX_NS:
+        raise ValueError("noise_fit: Ns %d; the kernel takes Ns <= %d"
+                         % (Ns, NOISE_FIT_MAX_NS))
+    grid = _kc_grid(N, fn, Ns, spec.device)
+    if rows:
+        _launch("noise_fit", spec.device, spec.data_ptr(),
+                int(spec.is_complex()), rows, N, int(nbin or 0),
+                grid.uniq.data_ptr(), grid.uniq.shape[0],
+                grid.inverse32.data_ptr(), grid.S1.data_ptr(),
+                grid.S2.data_ptr(), grid.kc.data_ptr(), int(Ns),
+                float(fact), int(0.99 * N),
+                None if noise_out is None else noise_out.data_ptr(),
+                kc_out.data_ptr())
+    return noise_out, kc_out
+
+
+# -- K12: the synthetic-data writer ---------------------------------------------
+
+# the widths K12's onchip path takes: its two shared-memory buffers of
+# nbin / 2 complex doubles (128 KB at 8192 bins) and K8's transforms
+SYNTH_MIN_BINS = 64
+SYNTH_MAX_BINS = 8192
+# K12's calls on the card by path: "onchip" (one launch) or "cufft" (K12's
+# harmonics kernel, cuFFT's inverse, K12's epilogue kernel)
+SYNTH_PATHS = {"onchip": 0, "cufft": 0}
+
+
+def synth_path(nbin):
+    """K12's path for rows of ``nbin`` bins: "onchip" for a power of two
+    from SYNTH_MIN_BINS to SYNTH_MAX_BINS, else "cufft"."""
+    nbin = int(nbin)
+    return "onchip" if SYNTH_MIN_BINS <= nbin <= SYNTH_MAX_BINS and \
+        nbin & (nbin - 1) == 0 else "cufft"
+
+
+def _synth_args(M, shifts, T, pattern, scales, sigma, weights, out):
+    _check(out, "out", torch.float64, 3)
+    B, nchan, nbin = out.shape
+    _check(M, "M", torch.complex128, 2)
+    if tuple(M.shape) != (nchan, nbin // 2 + 1):
+        raise ValueError("synth_rows: M has shape %s, want %s"
+                         % (tuple(M.shape), (nchan, nbin // 2 + 1)))
+    for t, what, shape, dtype in (
+            (shifts, "shifts", (B, nchan), torch.float64),
+            (T, "T", (nchan, nbin // 2 + 1), torch.complex128),
+            (pattern, "pattern", (B, nchan), torch.float64),
+            (scales, "scales", (nchan,), torch.float64),
+            (sigma, "sigma", (nchan,), torch.float64),
+            (weights, "weights", (nchan,), torch.float64)):
+        if t is None:
+            if what in ("shifts", "scales"):
+                raise TypeError("synth_rows: %s is required" % what)
+            continue
+        _check(t, what, dtype, len(shape))
+        if tuple(t.shape) != shape:
+            raise ValueError("synth_rows: %s has shape %s, want %s"
+                             % (what, tuple(t.shape), shape))
+    _same_device(out, M, shifts, T, pattern, scales, sigma, weights)
+
+
+def synth_rows_plain(M, shifts, T, pattern, scales, sigma, weights, out):
+    """Plain PyTorch K12: the rows out [B, nchan, nbin] float64 of the
+    model whose rFFT is M [nchan, nbin // 2 + 1] complex128, rotated by
+    shifts [B, nchan] [rot] (rotate_plain: M times ops.fourier.phasor),
+    where T [nchan, nbin // 2 + 1] complex128 is given its imaginary parts
+    at harmonics 0 and nbin / 2 dropped (as irfft drops them) and times T
+    (the scattering spectrum), one irfft, then times pattern [B, nchan]
+    (the scintillation) where given, times scales [nchan], plus sigma
+    [nchan] times the noise out holds on entry where sigma is given, times
+    weights [nchan] where given.  In place into out; returns out."""
+    _synth_args(M, shifts, T, pattern, scales, sigma, weights, out)
+    nbin = out.shape[-1]
+    H = rotate_plain(M, shifts)
+    if T is not None:
+        H.imag[..., 0] = 0.0
+        if nbin % 2 == 0:
+            H.imag[..., -1] = 0.0
+        H = H * T
+    x = torch.fft.irfft(H, n=nbin, dim=-1)
+    if pattern is not None:
+        x = x * pattern[..., None]
+    x = x * scales[:, None]
+    if sigma is not None:
+        x = x + sigma[:, None] * out
+    if weights is not None:
+        x = x * weights[:, None]
+    return out.copy_(x)
+
+
+def synth_rows(M, shifts, T, pattern, scales, sigma, weights, out):
+    """K12 wrapper (see csrc/synth.cu): synth_rows_plain's rows, in place
+    into out [B, nchan, nbin] (holding the noise where sigma is given),
+    one counted launch, by synth_path: the onchip kernel, or the harmonics
+    kernel, cuFFT's inverse and the epilogue kernel (two rows' worth of
+    transients, H and x).  Returns out."""
+    _synth_args(M, shifts, T, pattern, scales, sigma, weights, out)
+    if out.device.type == "cpu":
+        return synth_rows_plain(M, shifts, T, pattern, scales, sigma,
+                                weights, out)
+    if out.device.type != "cuda":
+        raise ValueError("synth_rows: unsupported device %s" % out.device)
+    B, nchan, nbin = out.shape
+    rows = B * nchan
+    if not rows:
+        return out
+    path = synth_path(nbin)
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
+    if path == "onchip":
+        from .ops.wavelet import scan_twiddles
+
+        tw = scan_twiddles(nbin, out.device)
+        _launch("synth_rows", out.device, M.data_ptr(), shifts.data_ptr(),
+                ptr(T), ptr(pattern), scales.data_ptr(), ptr(sigma),
+                ptr(weights), tw.data_ptr(), rows, nchan, nbin, TWO_PI,
+                out.data_ptr())
+    else:
+        H = torch.empty((rows, nbin // 2 + 1), dtype=torch.complex128,
+                        device=out.device)
+        _launch("synth_rows", out.device, M.data_ptr(), shifts.data_ptr(),
+                ptr(T), rows, nchan, nbin, TWO_PI, H.data_ptr(),
+                symbol="pp_synth_harmonics", count=False)
+        x = torch.fft.irfft(H, n=nbin, dim=-1)
+        del H
+        _launch("synth_rows", out.device, x.data_ptr(), ptr(pattern),
+                scales.data_ptr(), ptr(sigma), ptr(weights), rows, nchan,
+                nbin, out.data_ptr(), symbol="pp_synth_finish")
+    with _STATE_LOCK:
+        SYNTH_PATHS[path] += 1
+    return out

@@ -1,9 +1,11 @@
-// The shared-memory transforms of K8 (wavelet.cu's scan) and K10
-// (gauss_ft.cu): Stockham autosort passes of a complex FFT of n points,
-// radix 4 after one radix-2 pass where log2 n is odd, every product and sum
-// rounded in one order (no fused multiply-add), by a block of kThreads
-// threads; and the split of a real FFT of 2n points from the complex FFT of
-// its (even, odd) pairs.  The twiddles are ops.wavelet.scan_twiddles(2 n).
+// The shared-memory transforms of K8 (wavelet.cu's scan), K10
+// (gauss_ft.cu) and K12 (synth.cu): Stockham autosort passes of a complex
+// FFT of n points, radix 4 after one radix-2 pass where log2 n is odd, every
+// product and sum rounded in one order (no fused multiply-add), by a block
+// of kThreads threads; the split of a real FFT of 2n points from the complex
+// FFT of its (even, odd) pairs; and the inverse real FFT: its merge of the
+// n + 1 harmonics into n points and the inverse passes.  The twiddles are
+// ops.wavelet.scan_twiddles(2 n).
 
 #pragma once
 
@@ -241,6 +243,24 @@ __device__ __forceinline__ double2 split_w(const double2* z, int k, int n, doubl
   const double oi = __dmul_rn(__dadd_rn(pz.y, mz.y), 0.5);
   return make_double2(__dadd_rn(er, __dadd_rn(__dmul_rn(w.x, oi), __dmul_rn(w.y, orr))),
                       __dadd_rn(ei, __dsub_rn(__dmul_rn(w.y, oi), __dmul_rn(w.x, orr))));
+}
+
+// The inverse of split (K8's inverse_block, _kernels._irfft_scan): point k
+// (0..n-1) of the conjugated half-size sequence whose inverse transform's
+// (even, odd) pairs are the 2n real points of the inverse real FFT, from
+// harmonics sa = S_k and sb = S_{n-k} (S_n for k = 0) of n + 1, scaled by
+// inv = 1 / 2n; the imaginary parts of harmonics 0 and n are dropped, as
+// irFFT drops them.  w = tw[k].
+__device__ __forceinline__ double2 merge_w(double2 sa, double2 sb, int k, double inv,
+                                           double2 w) {
+  const double ai = k == 0 ? 0.0 : sa.y, bi = k == 0 ? 0.0 : sb.y;
+  const double er = __dmul_rn(__dadd_rn(sa.x, sb.x), inv);
+  const double ei = __dmul_rn(__dsub_rn(ai, bi), inv);
+  const double o_r = __dmul_rn(__dsub_rn(sa.x, sb.x), inv);
+  const double o_i = __dmul_rn(__dadd_rn(ai, bi), inv);
+  const double wr = __dadd_rn(__dmul_rn(o_r, w.x), __dmul_rn(o_i, w.y));
+  const double wi = __dsub_rn(__dmul_rn(o_i, w.x), __dmul_rn(o_r, w.y));
+  return make_double2(__dsub_rn(er, wi), -__dadd_rn(ei, wr));
 }
 
 }  // namespace

@@ -6,10 +6,11 @@
 // dedispersion of an archive, the load's work copy and the pptoas guess).
 //
 // The phasor of a row with shift s at harmonic k is computed as
-// ops/fourier.py phasor does: f = (s k) floor-mod 1 in float64 (fmod, and
-// 1 added to a negative remainder, as torch.remainder), the angle 2 pi f,
-// then cos and sin; out_rk = X_rk * phasor(s_r, k), the complex product in
-// rounded real operations (no fused multiply-add).
+// ops/fourier.py phasor does (phasor.cuh's rotated, which K12 shares): f =
+// (s k) floor-mod 1 in float64 (fmod, and 1 added to a negative remainder,
+// as torch.remainder), the angle 2 pi f, then cos and sin; out_rk = X_rk *
+// phasor(s_r, k), the complex product in rounded real operations (no fused
+// multiply-add).
 //
 // What bounds it on an H100: bytes.  It reads and writes the spectrum
 // once: 2.15 GB at 65,536 rows of 1025 harmonics, >= 0.64 ms at
@@ -23,19 +24,11 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "phasor.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
-
-// X * exp(i 2 pi sign frac(s k)), each product and sum rounded
-__device__ __forceinline__ double2 rotated(double2 v, double s, int k, double two_pi) {
-  double f = fmod(__dmul_rn(s, (double)k), 1.0);
-  if (f != 0.0 && f < 0.0) f = __dadd_rn(f, 1.0);
-  double sn, cs;
-  sincos(__dmul_rn(two_pi, f), &sn, &cs);
-  return make_double2(__dsub_rn(__dmul_rn(v.x, cs), __dmul_rn(v.y, sn)),
-                      __dadd_rn(__dmul_rn(v.x, sn), __dmul_rn(v.y, cs)));
-}
 
 __global__ void __launch_bounds__(kThreads)
 rotate_kernel(const double2* X, const double* __restrict__ shifts,

@@ -22,7 +22,7 @@ from ..config import Dconst, F0_fact, real_dtype
 __all__ = ["ipow", "nharm_for", "get_bin_centers", "rfft_portrait",
            "irfft_portrait", "phasor", "apply_phasor", "phase_shifts",
            "phase_shifts_deriv", "rotate_portrait_full", "rotate_data",
-           "rotate_profile", "fft_rotate", "add_DM_nu"]
+           "data_shifts", "rotate_profile", "fft_rotate", "add_DM_nu"]
 
 TWO_PI = 2.0 * math.pi
 
@@ -198,26 +198,31 @@ def rotate_data(data, phase=0.0, DM=0.0, Ps=None, freqs=None,
             ipow(torch.as_tensor(freqs, dtype=real_dtype, device=dev), -2)
             - _negpow(nu_ref, 2))
         return rotate_profile(data, shift)
-    if freqs is None:
-        shifts = torch.broadcast_to(
-            torch.as_tensor(phase, dtype=real_dtype, device=dev),
-            data.shape[:-1])
-    else:
-        freqs = torch.as_tensor(freqs, dtype=real_dtype, device=dev)
-        P = 1.0 if Ps is None else torch.as_tensor(Ps, dtype=real_dtype,
-                                                   device=dev)
-        if data.ndim > 2 and isinstance(P, torch.Tensor) and P.ndim > 0:
-            P = P.reshape(P.shape + (1,) * (data.ndim - 1 - P.ndim))
-        D = Dconst * DM / P
-        nu_term = _negpow(nu_ref, 2)
-        if not isinstance(nu_term, (float, int)):
-            nu_term = torch.as_tensor(nu_term, dtype=real_dtype, device=dev)
-        shifts = phase + D * (ipow(freqs, -2) - nu_term)
-        shifts = torch.broadcast_to(torch.as_tensor(shifts, device=dev),
-                                    data.shape[:-1])
+    shifts = data_shifts(data.shape[:-1], phase, DM, Ps, freqs, nu_ref, dev)
     data_FT = torch.fft.rfft(data.to(real_dtype), dim=-1)
     return torch.fft.irfft(_rotate_FT(data_FT, shifts, model),
                            n=data.shape[-1], dim=-1)
+
+
+def data_shifts(lead, phase=0.0, DM=0.0, Ps=None, freqs=None,
+                nu_ref=math.inf, device=None):
+    """rotate_data's rotations [rot] of data [*lead, nbin] (lead ending
+    in nchan, at least 1-D): phase + Dconst DM / P (freqs^-2 - nu_ref^-2),
+    broadcast to ``lead`` (a view), on ``device``."""
+    if freqs is None:
+        return torch.broadcast_to(
+            torch.as_tensor(phase, dtype=real_dtype, device=device), lead)
+    freqs = torch.as_tensor(freqs, dtype=real_dtype, device=device)
+    P = 1.0 if Ps is None else torch.as_tensor(Ps, dtype=real_dtype,
+                                               device=device)
+    if len(lead) > 1 and isinstance(P, torch.Tensor) and P.ndim > 0:
+        P = P.reshape(P.shape + (1,) * (len(lead) - P.ndim))
+    D = Dconst * DM / P
+    nu_term = _negpow(nu_ref, 2)
+    if not isinstance(nu_term, (float, int)):
+        nu_term = torch.as_tensor(nu_term, dtype=real_dtype, device=device)
+    shifts = phase + D * (ipow(freqs, -2) - nu_term)
+    return torch.broadcast_to(torch.as_tensor(shifts, device=device), lead)
 
 
 def rotate_profile(profile, phase=0.0):

@@ -23,7 +23,15 @@ the first flat index, a-major, wins.  A channel with a non-finite log
 power (a zero power, as in an all-zero channel) makes the reference's
 b grid start with 0 * inf = NaN, so its first grid point is NaN and its
 argmin 0: the port sets a = a_0 for such channels directly.
+
+Both estimators of the "fit" method go through kernel K11
+(``_kernels.noise_fit``, csrc/noisefit.cu): on a CUDA tensor the kernel,
+in chunks of rows after cuFFT's rFFT; on a CPU tensor its plain version,
+which is ``_argmin_a`` below.  The a grid's tables (``_kc_grid``) are
+built once per (N, fn, Ns, device).
 """
+
+import collections
 
 import torch
 
@@ -34,16 +42,26 @@ __all__ = ["get_noise", "get_noise_PS", "noise_PS_of_power",
            "find_kc", "half_triangle_function", "wiener_filter",
            "brickwall_filter", "fit_brickwall", "wiener_smooth"]
 
-# channels of the (a, b, dc) grid evaluated at a time: 2048 x 20^3
-# float64 is 131 MB per grid-sized temporary.  On the card a block's ~75
-# small launches cost more than its arithmetic, so its blocks are 8x
-# larger (1 GB per temporary, ~4 GB in all)
+# rows of the (a, b, dc) grid evaluated at a time: on the CPU 2048 x 20^3
+# float64 is 131 MB per grid-sized temporary of the plain version; on the
+# card a chunk is one rFFT and one K11 launch (268 MB of spectrum at nbin
+# 2048; the plain version's temporaries there are 1 GB each), and fewer rows
+# where the chunk's spectrum would pass SPECTRUM_CHUNK_BYTES
 GRID_ROWS = 2048
 GRID_ROWS_CUDA = 16384
+SPECTRUM_CHUNK_BYTES = 1 << 30
+
+# the a grid of find_kc: its distinct shapes [U, N], each a's shape index
+# [Ns] (int64, and int32 for the kernel), each a's sum of its shape and of
+# its square [Ns] and each a's cutoff harmonic [Ns]
+KcGrid = collections.namedtuple("KcGrid", "uniq inverse S1 S2 kc inverse32")
+_GRIDS = {}
 
 
-def _block_rows(device):
-    return GRID_ROWS_CUDA if device.type == "cuda" else GRID_ROWS
+def _block_rows(device, nharm):
+    if device.type != "cuda":
+        return GRID_ROWS
+    return max(1, min(GRID_ROWS_CUDA, SPECTRUM_CHUNK_BYTES // (16 * nharm)))
 
 
 def get_noise(data, method="PS", **kwargs):
@@ -94,11 +112,20 @@ def _linspace_rows(start, stop, num):
 
 
 def _kc_grid(N, fn, Ns, device):
-    """The a grid of find_kc (reference pplib.py:1448-1495): the distinct
-    shapes s_a(k) [U, N], the index of each a's shape [Ns], the sums of
-    each a's shape and of its square [Ns], and the cutoff harmonic of
-    each a [Ns].  Equal shapes (half_tri's floor(a) can repeat) share one
-    row, so they tie bit for bit as in the literal grid."""
+    """The a grid of find_kc (reference pplib.py:1448-1495), a KcGrid: the
+    distinct shapes s_a(k) [U, N], the index of each a's shape [Ns], the
+    sums of each a's shape and of its square [Ns], and the cutoff harmonic
+    of each a [Ns].  Equal shapes (half_tri's floor(a) can repeat) share
+    one row, so they tie bit for bit as in the literal grid.  Built on
+    ``device`` once per (N, fn, Ns, device)."""
+    key = (int(N), fn, int(Ns), str(torch.device(device)))
+    grid = _GRIDS.get(key)
+    if grid is None:
+        grid = _GRIDS[key] = _build_kc_grid(int(N), fn, int(Ns), device)
+    return grid
+
+
+def _build_kc_grid(N, fn, Ns, device):
     k = torch.arange(N, dtype=real_dtype, device=device)
     one = torch.ones(1, dtype=real_dtype, device=device)
     if fn == "exp_dc":
@@ -116,14 +143,16 @@ def _kc_grid(N, fn, Ns, device):
     else:
         raise ValueError(f"Unknown find_kc fn '{fn}'.")
     uniq, inverse = torch.unique(shape, dim=0, return_inverse=True)
-    return (uniq, inverse, uniq.sum(dim=-1)[inverse],
-            (uniq * uniq).sum(dim=-1)[inverse], kc)
+    return KcGrid(uniq.contiguous(), inverse, uniq.sum(dim=-1)[inverse],
+                  (uniq * uniq).sum(dim=-1)[inverse], kc,
+                  inverse.to(torch.int32))
 
 
-def _argmin_a(logp, grid, Ns):
-    """Index of a at the brute-force minimum of chi2(a, b, dc) per row of
-    logp [R, N] (``grid`` from _kc_grid), the first flat (a, b, dc) index
-    on ties (see the module docstring)."""
+def _chi2_grid(logp, grid, Ns):
+    """chi2(a, b, dc) of find_kc's brute fit at every grid point, per row
+    of logp [R, N] (``grid`` from _kc_grid): [R, Ns^3] flat (a-major), and
+    whether each row's log power is finite [R] (see the module docstring;
+    a row that is not finite is evaluated as zeros)."""
     N = logp.shape[-1]
     lmin, lmax = logp.amin(dim=-1), logp.amax(dim=-1)
     b = _linspace_rows(torch.zeros_like(lmin), lmax - lmin, Ns)   # [R, Ns]
@@ -134,8 +163,8 @@ def _argmin_a(logp, grid, Ns):
     mean = logp.mean(dim=-1, keepdim=True)
     y = logp - mean
     d = torch.where(finite[:, None], dc, 0.0) - mean              # [R, Ns]
-    uniq, inverse, S1, S2, _ = grid
-    Ya = (y @ uniq.T)[:, inverse]                                 # [R, Na]
+    S1, S2 = grid.S1, grid.S2
+    Ya = (y @ grid.uniq.T)[:, grid.inverse]                       # [R, Na]
     Sy, Syy = y.sum(dim=-1), (y * y).sum(dim=-1)
     T = b[:, None, :] * b[:, None, :] * S2[None, :, None] \
         - 2.0 * b[:, None, :] * Ya[:, :, None]                    # [R, a, b]
@@ -143,8 +172,15 @@ def _argmin_a(logp, grid, Ns):
     V = 2.0 * b[:, None, :, None] * d[:, None, None, :] \
         * S1[None, :, None, None]                                 # [R,a,b,dc]
     chi2 = (Syy[:, None, None] + T)[..., None] + U[:, None, None, :] + V
-    ia = torch.argmin(chi2.reshape(chi2.shape[0], -1), dim=-1) // (Ns * Ns)
-    return torch.where(finite, ia, 0)
+    return chi2.reshape(chi2.shape[0], -1), finite
+
+
+def _argmin_a(logp, grid, Ns):
+    """Index of a at the brute-force minimum of chi2(a, b, dc) per row of
+    logp [R, N] (``grid`` from _kc_grid), the first flat (a, b, dc) index
+    on ties (see the module docstring)."""
+    chi2, finite = _chi2_grid(logp, grid, Ns)
+    return torch.where(finite, torch.argmin(chi2, dim=-1) // (Ns * Ns), 0)
 
 
 def find_kc(pows, fn="exp_dc", Ns=20):
@@ -156,37 +192,40 @@ def find_kc(pows, fn="exp_dc", Ns=20):
       the first k with exp(-a k) < 0.005, else N - 1;
     * 'half_tri': model half_triangle(a, b, dc), a in [1, N]; the cutoff
       is floor(a).
-    """
+
+    K11 on a CUDA tensor, its plain version on a CPU one, a chunk of rows
+    at a time."""
+    from .. import _kernels
+
     pows = torch.as_tensor(pows).to(real_dtype)
-    rows = pows.reshape(-1, pows.shape[-1])
-    grid = _kc_grid(rows.shape[-1], fn, Ns, rows.device)
+    rows = pows.reshape(-1, pows.shape[-1]).contiguous()
+    _kc_grid(rows.shape[-1], fn, Ns, rows.device)   # an unknown fn raises
     out = torch.empty(rows.shape[0], dtype=torch.int64, device=rows.device)
-    step = _block_rows(rows.device)
+    step = _block_rows(rows.device, rows.shape[-1])
     for i in range(0, rows.shape[0], step):
         s = slice(i, i + step)
-        out[s] = grid[-1][_argmin_a(torch.log10(rows[s]), grid, Ns)]
+        _kernels.noise_fit(rows[s], None, fn, Ns=Ns, kc_out=out[s])
     return out.reshape(pows.shape[:-1])
 
 
 def get_noise_fit(data, fact=1.1, fn="exp_dc"):
     """Noise from the harmonics at and above k_crit = min(fact
     find_kc(pows), int(0.99 npow)), per leading-batch element of
-    ``data`` [..., nbin] (reference pplib.py:2255-2287)."""
+    ``data`` [..., nbin] (reference pplib.py:2255-2287): each chunk of
+    rows' rFFT, then K11 on a CUDA tensor, its plain version on a CPU
+    one."""
+    from .. import _kernels
+
     data = torch.as_tensor(data).to(real_dtype)
-    rows = data.reshape(-1, data.shape[-1])
-    npow = data.shape[-1] // 2 + 1
-    grid = _kc_grid(npow, fn, 20, data.device)
-    k = torch.arange(npow, dtype=real_dtype, device=data.device)
+    nbin = data.shape[-1]
+    rows = data.reshape(-1, nbin)
+    _kc_grid(nbin // 2 + 1, fn, 20, data.device)    # an unknown fn raises
     out = torch.empty(rows.shape[0], dtype=real_dtype, device=data.device)
-    step = _block_rows(data.device)
+    step = _block_rows(data.device, nbin // 2 + 1)
     for i in range(0, rows.shape[0], step):
         s = slice(i, i + step)
-        pows = _power(rows[s])[1]
-        kc = grid[-1][_argmin_a(torch.log10(pows), grid, 20)]
-        k_crit = torch.clamp(fact * kc.to(real_dtype), max=int(0.99 * npow))
-        mask = k[None, :] >= k_crit[:, None]
-        out[s] = torch.sqrt(torch.where(mask, pows, 0.0).sum(dim=-1)
-                            / mask.sum(dim=-1))
+        _kernels.noise_fit(torch.fft.rfft(rows[s], dim=-1), nbin, fn, fact,
+                           noise_out=out[s])
     return out.reshape(data.shape[:-1])
 
 

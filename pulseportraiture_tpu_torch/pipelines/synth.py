@@ -15,6 +15,16 @@ comes from an explicit generator, never a global one:
 The draws therefore differ from the JAX package's ``jax.random`` ones;
 with explicit scintillation triplets and no noise the portraits are the
 same.
+
+A block of portraits is written by kernel K12 (``_kernels.synth_rows``,
+csrc/synth.cu) on a CUDA device: the model's spectrum (one rFFT a call)
+rotated and scattered per row, one inverse transform (in shared memory, or
+cuFFT's at the widths that do not fit it: ``_kernels.synth_path``), then
+the scintillation, scales, noise and weights in place over the noise,
+which ``torch.randn``'s draw with the caller's generator put into the block
+beforehand.  On the CPU the wrapper takes its plain version
+(``_kernels.synth_rows_plain``: the same single inverse in torch).  The
+draws are the same on both.
 """
 
 import math
@@ -22,18 +32,19 @@ import math
 import numpy as np
 import torch
 
+from .. import _kernels
 from ..config import Dconst, real_dtype, resolve_device, scattering_alpha
-from ..ops.fourier import get_bin_centers, rotate_data
+from ..ops.fourier import data_shifts, get_bin_centers
 from ..ops.profiles import gen_gaussian_portrait
 from ..ops.scattering import scattering_portrait_FT, scattering_times
 from ..utils.databunch import DataBunch
 
-__all__ = ["scintillation_params", "add_scintillation", "make_fake_portrait",
-           "make_fake_dataset"]
+__all__ = ["scintillation_params", "scintillation_pattern",
+           "add_scintillation", "make_fake_portrait", "make_fake_dataset"]
 
-# bytes of one block of subints made at a time by make_fake_dataset: the
-# rotation's and the noise's transients are ~5 blocks, so the peak stays
-# near the output's size plus ~1.5 GB
+# bytes of one block of subints made at a time by make_fake_dataset: K12
+# writes in place over the block's noise (its cufft path's transients, and
+# the CPU's, are ~3 blocks)
 BLOCK_BYTES = 1 << 28
 
 
@@ -59,6 +70,18 @@ def scintillation_params(rng, nsin=2, amax=1.0, wmax=3.0, size=()):
     return np.stack([a, w, p], axis=-1).reshape(tuple(size) + (3 * nsin,))
 
 
+def scintillation_pattern(params, nchan, device=None):
+    """The sum-of-sin^2 pattern [..., nchan] of flat triplets ``params``
+    [..., 3 nsin] (amp, freq [cycles], phase [cycles]) across ``nchan``
+    channels (reference pplib.py:1146-1174)."""
+    trip = torch.as_tensor(np.asarray(params), dtype=real_dtype,
+                           device=device)
+    trip = trip.reshape(trip.shape[:-1] + (-1, 3))
+    a, w, p = trip[..., 0, None], trip[..., 1, None], trip[..., 2, None]
+    x = _linspace(0.0, math.pi, nchan, device)
+    return torch.sum(a * torch.sin(w * x + p * math.pi) ** 2, dim=-2)
+
+
 def add_scintillation(port, params=None, rng=None, nsin=2, amax=1.0,
                       wmax=3.0):
     """Multiply the channels of ``port`` [..., nchan, nbin] by a sum of
@@ -73,43 +96,43 @@ def add_scintillation(port, params=None, rng=None, nsin=2, amax=1.0,
         if rng is None:
             return port
         params = scintillation_params(rng, nsin, amax, wmax)
-    trip = torch.as_tensor(np.asarray(params), dtype=real_dtype,
-                           device=port.device)
-    trip = trip.reshape(trip.shape[:-1] + (-1, 3))
-    a, w, p = trip[..., 0, None], trip[..., 1, None], trip[..., 2, None]
-    x = _linspace(0.0, math.pi, port.shape[-2], port.device)
-    pattern = torch.sum(a * torch.sin(w * x + p * math.pi) ** 2, dim=-2)
+    pattern = scintillation_pattern(params, port.shape[-2], port.device)
     return port * pattern[..., :, None]
 
 
-def _synthesize(model, freqs, P, phases, DMs, nu_dm, scat_FT, scint_params,
-                scales, noise_std, generator, weights):
-    """Portraits [B, nchan, nbin] of ``model`` rotated by -phases, -DMs
-    [B] (a delayed, dispersed pulse), scattered by ``scat_FT``,
-    scintillated by ``scint_params`` [B, 3 nsin], scaled, with white noise
-    from ``generator`` and weighted — the reference's per-subint loop."""
-    B = phases.shape[0]
-    nchan, nbin = model.shape
-    port = rotate_data(model.expand(B, nchan, nbin), -phases[:, None],
-                       -DMs[:, None], P, freqs, nu_dm)
-    if scat_FT is not None:
-        port = torch.fft.irfft(scat_FT * torch.fft.rfft(port, dim=-1),
-                               n=nbin, dim=-1)
-    if scint_params is not None:
-        port = add_scintillation(port, params=scint_params)
-    port = port * scales[:, None]
+def _synthesize(M, freqs, P, phases, DMs, nu_dm, scat_FT, scint_params,
+                scales, noise_std, generator, weights, out):
+    """Portraits out [B, nchan, nbin] of the model whose rFFT is M [nchan,
+    nharm], rotated by -phases, -DMs [B] (a delayed, dispersed pulse),
+    scattered by ``scat_FT``, scintillated by ``scint_params`` [B, 3
+    nsin], scaled, with white noise from ``generator`` and weighted — the
+    reference's per-subint loop — in one pass over the block (K12).  The
+    noise is drawn into ``out`` first, [B, nchan, nbin] standard normals
+    from ``generator``."""
+    B, nchan = out.shape[:2]
+    shifts = data_shifts((B, nchan), -phases[:, None], -DMs[:, None], P,
+                         freqs, nu_dm, out.device).contiguous()
+    pattern = None if scint_params is None else scintillation_pattern(
+        scint_params, nchan, out.device)
     if generator is not None:
-        port = port + noise_std[:, None] * torch.randn(
-            port.shape, generator=generator, dtype=real_dtype,
-            device=port.device)
-    if weights is not None:
-        port = port * weights[:, None]
-    return port
+        out.normal_(generator=generator)
+    return _kernels.synth_rows(M, shifts, scat_FT, pattern, scales,
+                               None if generator is None else noise_std,
+                               weights, out)
+
+
+def _model_spectra(model, scat_FT):
+    """The model's rFFT [nchan, nharm] and the scattering spectrum, as K12
+    reads them (contiguous complex128)."""
+    M = torch.fft.rfft(model, dim=-1)
+    return M, None if scat_FT is None else scat_FT.to(
+        torch.complex128).contiguous()
 
 
 def _per_channel(x, nchan, device):
     return torch.broadcast_to(torch.as_tensor(x, dtype=real_dtype,
-                                              device=device), (nchan,))
+                                              device=device),
+                              (nchan,)).contiguous()
 
 
 def make_fake_portrait(model_params, nchan, nbin, freqs, P, *,
@@ -151,12 +174,14 @@ def make_fake_portrait(model_params, nchan, nbin, freqs, P, *,
     elif scint is not False:
         params = np.asarray(scint_params)[None]
     one = torch.ones(1, dtype=real_dtype, device=device)
+    M, scat_FT = _model_spectra(model, scat_FT)
     return _synthesize(
-        model, freqs, P, one * phase, one * DM, nu_dm, scat_FT, params,
+        M, freqs, P, one * phase, one * DM, nu_dm, scat_FT, params,
         _per_channel(scales, nchan, device), _per_channel(noise_std, nchan,
                                                           device),
         generator, None if weights is None else torch.as_tensor(
-            weights, dtype=real_dtype, device=device))[0]
+            weights, dtype=real_dtype, device=device).contiguous(),
+        torch.empty((1, nchan, nbin), dtype=real_dtype, device=device))[0]
 
 
 def make_fake_dataset(generator, model_params, *, nsub=10, nchan=64,
@@ -173,8 +198,8 @@ def make_fake_dataset(generator, model_params, *, nsub=10, nchan=64,
     block's noise.  ``scint=True`` draws three triplets per subint from
     a numpy Generator seeded with the generator's seed.  Channel centres
     span [lofreq, lofreq + bw] (reference examples/example.py:18-28).
-    Subints are made in blocks of about 256 MB, so the peak device memory
-    is the result plus ~1.5 GB.
+    Subints are made in blocks of about 256 MB, each written in place
+    over its noise (K12); K12's cufft path adds ~0.8 GB of transients.
 
     Returns a DataBunch with the JAX package's fields: subints [nsub,
     nchan, nbin], freqs, weights, noise_stds, Ps, nu_ref, nbin,
@@ -214,6 +239,7 @@ def make_fake_dataset(generator, model_params, *, nsub=10, nchan=64,
     if t_scat:
         scat_FT = scattering_portrait_FT(scattering_times(
             t_scat / P, scattering_index, freqs, nu_ref), nbin)
+    M, scat_FT = _model_spectra(model, scat_FT)
     scales = torch.ones(nchan, dtype=real_dtype, device=device)
     noise = torch.full((nchan,), noise_std, dtype=real_dtype, device=device)
     subints = torch.empty((nsub, nchan, nbin), dtype=real_dtype,
@@ -221,10 +247,9 @@ def make_fake_dataset(generator, model_params, *, nsub=10, nchan=64,
     block = max(1, BLOCK_BYTES // (nchan * nbin * 8))
     for i in range(0, nsub, block):
         s = slice(i, i + block)
-        subints[s] = _synthesize(
-            model, freqs, P, phases[s], dDMs[s], nu_ref, scat_FT,
-            None if scint_params is None else scint_params[s], scales,
-            noise, generator, None)
+        _synthesize(M, freqs, P, phases[s], dDMs[s], nu_ref, scat_FT,
+                    None if scint_params is None else scint_params[s],
+                    scales, noise, generator, None, subints[s])
     return DataBunch(
         subints=subints, freqs=freqs,
         weights=torch.ones((nsub, nchan), dtype=real_dtype, device=device),

@@ -53,7 +53,17 @@ narrowband rc and nfeval differ; the zap lists stay equal, so only the
 chi2 bound catches that fault on the zap path.  The archives are written by the port's
 make_fake_pulsar.  The "fit" noise estimators and make_fake_dataset
 are held to the port on the CPU: cutoffs equal, noise within 1e-12
-relative, synthetic portraits within 1e-12 of their peak.  Marked
+relative, synthetic portraits within 1e-12 of their peak.  The "fit" noise
+estimator's kernel (K11 csrc/noisefit.cu) against its plain version on the
+card: cutoffs equal (a mismatch counted as a tie only within the chi2
+rounding bound of chip_smoke.k11_ties, none expected), noise within 1e-12
+relative, at a grid wider than 20 points and at rows wider than shared
+memory too, each estimator and load_data launching it; the
+synthetic-data writer (K12 csrc/synth.cu) against its plain version on the
+same noise: every row within 1e-13 of its peak on both its paths (onchip,
+and cufft at the other widths), make_fake_dataset and make_fake_portrait
+launching it a block and counting its path, the same noise draws as the
+plain version's.  Marked
 ``cuda``: they skip without a card.  This file
 imports no JAX, so it runs on a machine without it:
 
@@ -61,6 +71,7 @@ imports no JAX, so it runs on a machine without it:
 """
 
 import contextlib
+import math
 import os
 
 import numpy as np
@@ -73,6 +84,15 @@ PAR = os.path.join(ROOT, "examples", "example.par")
 
 pytestmark = pytest.mark.cuda
 DEVICE = "cuda"
+
+
+def _chip_smoke():
+    import sys
+
+    sys.path.insert(0, ROOT)
+    import chip_smoke
+
+    return chip_smoke
 
 
 @pytest.fixture(scope="module")
@@ -1929,3 +1949,235 @@ def test_gauss_ft_fit_card_matches_cpu(card):
     assert gap.max() <= _z_floor(cpu.chi2)
     assert abs(gpu.chi2 - cpu.chi2) <= 1e-9 * cpu.chi2
     assert gpu.return_code == cpu.return_code
+
+
+# -- K11 (csrc/noisefit.cu) and K12 (csrc/synth.cu) ----------------------------
+
+def _k11_rows(nbin, n, seed=12):
+    """Pulses on white noise, white noise, two zeroed rows and a unit
+    impulse (a flat power spectrum: every b = 0 point ties)."""
+    rng = np.random.default_rng(seed)
+    ph = (np.arange(nbin) + 0.5) / nbin
+    x = rng.standard_normal((n, nbin))
+    m = (2 * n) // 3
+    x[:m] += rng.uniform(1.0, 50.0, (m, 1)) * np.exp(
+        -0.5 * ((ph - 0.4) / rng.uniform(0.002, 0.05, (m, 1))) ** 2)
+    x[[1, n - 2]] = 0.0
+    x[n - 1] = 0.0
+    x[n - 1, 0] = 1.0
+    return torch.as_tensor(x)
+
+
+K11_CASES = [("exp_dc", 2048, 600, 20), ("half_tri", 2048, 600, 20),
+             ("exp_dc", 64, 300, 20), ("half_tri", 512, 300, 20),
+             ("exp_dc", 8192, 64, 20), ("half_tri", 32768, 12, 20),
+             ("half_tri", 2048, 300, 27), ("exp_dc", 65536, 12, 20),
+             ("half_tri", 131072, 6, 23)]
+
+
+@pytest.mark.parametrize("fn,nbin,n,Ns", K11_CASES)
+def test_noise_fit_kernel_matches_plain_on_the_card(card, fn, nbin, n, Ns):
+    """K11 against its plain version on the card, from the spectrum and
+    from the power: cutoffs equal but for ties (chip_smoke.k11_ties: none
+    expected, a fault never), noise within 1e-12 relative where the
+    cutoffs agree (the zeroed rows' 0, a_0's cutoff there and on the flat
+    power), one launch a call, the same bits twice; a grid of more than 20
+    points, and rows whose power does not fit shared memory (65,536 bins
+    and more), among the cases."""
+    K = card
+    dev = _k11_rows(nbin, n).to(DEVICE)
+    X = torch.fft.rfft(dev, dim=-1)
+
+    def outs():
+        return (torch.empty(n, dtype=torch.float64, device=DEVICE),
+                torch.empty(n, dtype=torch.int64, device=DEVICE))
+
+    got, again, want = outs(), outs(), outs()
+    n0 = K.LAUNCHES["noise_fit"]
+    K.noise_fit(X, nbin, fn, 1.1, Ns, *got)
+    K.noise_fit(X, nbin, fn, 1.1, Ns, *again)
+    assert K.LAUNCHES["noise_fit"] == n0 + 2
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    K.noise_fit_plain(X, nbin, fn, 1.1, Ns, *want)
+    ties, faults = _chip_smoke().k11_ties(X, nbin, fn, Ns, got[1], want[1])
+    assert faults == 0 and ties == 0
+    same = got[1] == want[1]
+    zero = want[0] == 0
+    assert torch.equal(got[0] == 0, zero) and int(zero.sum()) == 2
+    ok = same & ~zero
+    assert float(((got[0] - want[0]).abs()[ok] / want[0][ok]).max()) <= 1e-12
+    from pulseportraiture_tpu_torch.ops import noise
+
+    kc0 = int(noise._kc_grid(nbin // 2 + 1, fn, Ns, DEVICE).kc[0])
+    assert int(got[1][n - 1]) == kc0 and int(got[1][1]) == kc0
+    # the power as input: find_kc's route
+    P = (X * X.conj()).real / nbin
+    kc_k = K.noise_fit(P, None, fn, Ns=Ns)[1]
+    assert torch.equal(kc_k, want[1])
+
+
+def test_noise_fit_estimators_launch_k11(card, archive, monkeypatch):
+    """get_noise_fit, find_kc, get_noise(method="fit"), get_SNR and
+    normalize_portrait with noise_method="fit", and load_data(noise_method=
+    "fit") on the card launch K11 (its plain version made to raise), and
+    agree with the CPU: cutoffs equal, noise within 1e-12 relative."""
+    from pulseportraiture_tpu_torch.io.archive import load_data
+    from pulseportraiture_tpu_torch.ops import noise
+    from pulseportraiture_tpu_torch.ops.normalize import normalize_portrait
+
+    K = card
+    host = _k11_rows(1024, 200)
+    want_n, want_kc = noise.get_noise_fit(host), noise.find_kc(
+        noise._power(host)[1], fn="half_tri")
+    cpu_load = load_data(archive[1], noise_method="fit", device="cpu")
+
+    def refuse(*a, **kw):
+        raise AssertionError("the plain version ran on the card")
+
+    monkeypatch.setattr(K, "noise_fit_plain", refuse)
+    dev = host.to(DEVICE)
+    n0 = K.LAUNCHES["noise_fit"]
+    got_n = noise.get_noise_fit(dev).cpu()
+    got_kc = noise.find_kc(noise._power(dev)[1], fn="half_tri").cpu()
+    noise.get_noise(dev, method="fit")
+    noise.get_SNR(dev, noise_method="fit")
+    normalize_portrait(dev.reshape(4, 50, -1), "rms", noise_method="fit")
+    assert K.LAUNCHES["noise_fit"] == n0 + 5
+    assert torch.equal(got_kc, want_kc)
+    ok = want_n != 0
+    assert torch.equal(got_n == 0, ~ok)
+    assert float(((got_n - want_n).abs()[ok] / want_n[ok]).max()) <= 1e-12
+    n0 = K.LAUNCHES["noise_fit"]
+    card_load = load_data(archive[1], noise_method="fit", device=DEVICE)
+    assert K.LAUNCHES["noise_fit"] > n0
+    a, b = np.asarray(card_load.noise_stds), np.asarray(cpu_load.noise_stds)
+    live = b != 0
+    assert np.array_equal(a == 0, ~live)
+    assert np.abs(a - b)[live].max() <= 1e-12 * b[live].max()
+
+
+def test_noise_fit_limits_on_the_card(card):
+    """Ns beyond NOISE_FIT_MAX_NS raises before a launch; a row of 40,000
+    harmonics (its power re-read from device memory) and a 60-point grid
+    (three passes of shape accumulators) launch, a constant power giving
+    a_0's cutoff as the plain version does."""
+    K = card
+    X = torch.fft.rfft(_k11_rows(256, 8).to(DEVICE), dim=-1)
+    n0 = K.LAUNCHES["noise_fit"]
+    with pytest.raises(ValueError, match="Ns"):
+        K.noise_fit(X, 256, Ns=K.NOISE_FIT_MAX_NS + 1)
+    assert K.LAUNCHES["noise_fit"] == n0
+    P = torch.full((2, 40000), 3.0, dtype=torch.float64, device=DEVICE)
+    assert torch.equal(K.noise_fit(P, None)[1], K.noise_fit_plain(P, None)[1])
+    small = torch.full((1, 200), 3.0, dtype=torch.float64, device=DEVICE)
+    kc = K.noise_fit(small, None, "half_tri", Ns=60)[1]
+    assert K.LAUNCHES["noise_fit"] == n0 + 2
+    assert int(kc[0]) == 1                    # floor(a_0) = 1
+    assert torch.equal(kc, K.noise_fit_plain(small, None, "half_tri",
+                                             Ns=60)[1])
+    torch.cuda.synchronize()
+
+
+def _k12_args(nbin, B, nchan, scat, scint, noisy, weighted, seed=3):
+    """synth_rows' arguments on the card: a random model spectrum, shifts,
+    a scattering spectrum, a scintillation pattern, scales, sigma, weights
+    (each as asked), and out holding standard normals."""
+    g = torch.Generator(device=DEVICE).manual_seed(seed)
+    f64 = dict(dtype=torch.float64, device=DEVICE)
+    nh = nbin // 2 + 1
+    model = torch.randn((nchan, nbin), generator=g, **f64)
+    M = torch.fft.rfft(model, dim=-1)
+    shifts = torch.rand((B, nchan), generator=g, **f64) * 4.0 - 2.0
+    T = None
+    if scat:
+        tau = torch.rand((nchan, 1), generator=g, **f64) * 20.0
+        k = torch.arange(nh, **f64)
+        T = (1.0 / (1.0 + 2j * math.pi * k * tau / nbin)).contiguous()
+    pattern = torch.rand((B, nchan), generator=g, **f64) if scint else None
+    scales = torch.rand(nchan, generator=g, **f64) + 0.5
+    sigma = torch.rand(nchan, generator=g, **f64) if noisy else None
+    w = (torch.rand(nchan, generator=g, **f64) > 0.2).double() \
+        if weighted else None
+    out = torch.randn((B, nchan, nbin), generator=g, **f64)
+    return [M, shifts, T, pattern, scales, sigma, w, out]
+
+
+K12_CASES = [(64, 3, 16, False, False, False, False),
+             (512, 3, 64, True, True, True, True),
+             (2048, 4, 64, True, False, True, False),
+             (2048, 2, 32, False, True, False, True),
+             (8192, 2, 16, True, True, True, True),
+             (1000, 3, 32, True, True, True, True),
+             (999, 2, 16, True, False, True, False),
+             (32, 3, 8, False, True, True, True),
+             (16384, 2, 8, True, True, True, False)]
+
+
+@pytest.mark.parametrize("case", K12_CASES, ids=lambda c: "nbin%d" % c[0])
+def test_synth_rows_kernel_matches_plain_on_the_card(card, case):
+    """K12 against its plain version on the same inputs and the same
+    noise, on its onchip path and (1000, 999, 32 and 16384 bins) its cufft
+    path: every row within 1e-13 of its peak, a zero-weighted row 0, one
+    launch a call counted on its path, the same bits twice."""
+    K = card
+    a, b, c = (_k12_args(*case) for _ in range(3))
+    n0, p0 = K.LAUNCHES["synth_rows"], dict(K.SYNTH_PATHS)
+    K.synth_rows(*a)
+    K.synth_rows(*b)
+    K.synth_rows_plain(*c)
+    assert K.LAUNCHES["synth_rows"] == n0 + 2
+    path = K.synth_path(case[0])
+    assert K.SYNTH_PATHS[path] == p0[path] + 2
+    assert torch.equal(a[-1], b[-1])
+    got, want = a[-1].cpu(), c[-1].cpu()
+    peak = want.abs().amax(dim=-1, keepdim=True)
+    assert bool(((got - want).abs() <= 1e-13 * peak).all()), \
+        float(((got - want).abs() / peak.clamp(min=1e-300)).max())
+    if a[6] is not None:
+        assert bool((got[:, a[6].cpu() == 0] == 0).all())
+
+
+def test_make_fake_routes_on_the_card(card, monkeypatch):
+    """make_fake_dataset and make_fake_portrait on the card: K12 launched a
+    block and counted on its path (onchip at 1024 bins, cufft at 1000);
+    K12 and its plain version from one generator seed within 1e-13 of each
+    row's peak at both widths (so the same noise draws), and bit-equal
+    with a zero model."""
+    from pulseportraiture_tpu_torch.pipelines import synth
+
+    K = card
+    MODEL = [0.0, 0.0, 0.35, -0.05, 0.05, 0.1, 1.0, -1.2]
+    ZERO = MODEL[:6] + [0.0, -1.2]
+    monkeypatch.setattr(synth, "BLOCK_BYTES", 3 * 64 * 1024 * 8)
+    kw = dict(nsub=7, nchan=64, nbin=1024, P=0.004, t_scat=1e-4, scint=True,
+              noise_std=0.2, device=DEVICE)
+
+    def make(params, **extra):
+        return synth.make_fake_dataset(
+            torch.Generator(device=DEVICE).manual_seed(9), params,
+            **dict(kw, **extra)).subints.cpu()
+
+    n0, p0 = K.LAUNCHES["synth_rows"], dict(K.SYNTH_PATHS)
+    kernel, kernel0 = make(MODEL), make(ZERO)
+    assert K.LAUNCHES["synth_rows"] == n0 + 6
+    assert K.SYNTH_PATHS["onchip"] == p0["onchip"] + 6
+    n0, p0 = K.LAUNCHES["synth_rows"], dict(K.SYNTH_PATHS)
+    narrow = make(MODEL, nbin=1000)
+    assert narrow.shape[-1] == 1000
+    assert K.LAUNCHES["synth_rows"] == n0 + 3
+    assert K.SYNTH_PATHS["cufft"] == p0["cufft"] + 3
+    assert K.SYNTH_PATHS["onchip"] == p0["onchip"]
+    with monkeypatch.context() as m:
+        m.setattr(K, "synth_rows", K.synth_rows_plain)
+        plain, plain0 = make(MODEL), make(ZERO)
+        narrow_plain = make(MODEL, nbin=1000)
+    assert torch.equal(kernel0, plain0)
+    for got, want in ((kernel, plain), (narrow, narrow_plain)):
+        peak = want.abs().amax(dim=-1, keepdim=True)
+        assert bool(((got - want).abs() <= 1e-13 * peak).all())
+    n0 = K.LAUNCHES["synth_rows"]
+    synth.make_fake_portrait(MODEL, 64, 2048, np.linspace(1200, 1600, 64),
+                             0.004, phase=0.1, device=DEVICE)
+    synth.make_fake_portrait(MODEL, 64, 1000, np.linspace(1200, 1600, 64),
+                             0.004, phase=0.1, device=DEVICE)
+    assert K.LAUNCHES["synth_rows"] == n0 + 2

@@ -83,7 +83,8 @@ def test_fixture_rows_and_kernel_names(tmp_path):
                       "spectra": 0, "spectra_noise": 0, "unpack": 0,
                       "baseline": 0, "load_stats": 0, "rotate": 0,
                       "smooth_search": 0, "gauss_normal": 0, "gauss_sse": 0,
-                      "gauss_ft_normal": 0, "gauss_ft_sse": 0}
+                      "gauss_ft_normal": 0, "gauss_ft_sse": 0,
+                      "noise_fit": 0, "synth_rows": 0}
     assert devtime.scopes_of(["pp_solve", "x", "pp_scatter", None]) == \
         ["pp_solve", "pp_scatter"]
 
